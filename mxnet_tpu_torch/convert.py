@@ -12,6 +12,11 @@ Two layouts of one `TransformerLM`'s parameters come from the JAX package:
     block was built with dropout (an ``embed_dropout`` child comes first).
     `state_from_npz` reads it and `npz_from_state` writes it.
 
+A ResNet v1's parameters come from the JAX net's ``collect_params()``
+as numpy arrays keyed by gluon auto-names (``resnetv10_conv2d0_weight``,
+``resnetv10_stage1_batchnorm2_running_var``, ``resnetv10_dense0_bias``
+...); `resnet_params_from_jax` maps them onto the port's `ResNetV1`.
+
 Every function returns plain data (a ``state_dict`` of CPU tensors, or a
 dict of numpy arrays); the caller loads it into a module on its device.
 """
@@ -24,7 +29,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["params_from_jax", "state_from_npz", "npz_from_state"]
+__all__ = ["params_from_jax", "state_from_npz", "npz_from_state",
+           "resnet_params_from_jax"]
 
 _DENSE = {"q": "attention.proj_query", "k": "attention.proj_key",
           "v": "attention.proj_value", "o": "attention.proj_out",
@@ -87,3 +93,125 @@ def npz_from_state(state, dropout=0.0):
             key = "%d.%s" % (int(idx) + offset, rest)
         out[key] = arr
     return out
+
+
+# ---------------------------------------------------------------------------
+# ResNet v1
+# ---------------------------------------------------------------------------
+
+_RESNET_KEY = re.compile(
+    r"^(?:stage(\d+)_)?(conv2d|batchnorm|dense)(\d+)_"
+    r"(weight|bias|gamma|beta|running_mean|running_var)$")
+_BN_FIELDS = ("gamma", "beta", "running_mean", "running_var")
+
+
+def _kernel_hw(shape, layout):
+    return tuple(shape[1:3]) if layout == "NHWC" else tuple(shape[2:4])
+
+
+def resnet_params_from_jax(params, layout="NHWC"):
+    """The JAX package's ResNet v1 parameters -> the port's `ResNetV1`
+    state dict.
+
+    ``params``: name -> numpy array, as ``{k: p.data().asnumpy() for k, p
+    in net.collect_params().items()}``, running statistics included, for a
+    net built under ``layout`` ("NHWC" inside `layout_scope`, else
+    "NCHW"). The names are parsed into (stage, layer type, creation index)
+    and placed by the block structure they imply: the block type from the
+    first stage's first conv (1x1: bottleneck, 3 convs a block; 3x3: basic,
+    2), a downsample conv and BN after the first block's body when a stage
+    has one more conv than whole blocks, and a thumbnail stem when there is
+    no stem BatchNorm. Raises `MXNetError` on a name, a count or a shape it
+    cannot place. The port's state-dict keys are the same in the fused and
+    the reference graph."""
+    if layout not in ("NHWC", "NCHW"):
+        raise MXNetError("layout must be NHWC or NCHW, got %r" % (layout,))
+    prefixes = {k.split("_", 1)[0] for k in params}
+    if len(prefixes) != 1:
+        raise MXNetError("not one network's parameters: prefixes %s"
+                         % sorted(prefixes))
+    top = {}      # (kind, index) -> {field: array}
+    stages = {}   # stage -> {(kind, index): {field: array}}
+    for key, value in params.items():
+        m = _RESNET_KEY.match(key.split("_", 1)[1] if "_" in key else key)
+        if m is None:
+            raise MXNetError("cannot place ResNet parameter %r" % key)
+        stage, kind, idx, field = m.groups()
+        where = top if stage is None else stages.setdefault(int(stage), {})
+        where.setdefault((kind, int(idx)), {})[field] = _np.asarray(value)
+
+    state = {}
+
+    def conv(dst, entry, label):
+        w = entry.get("weight") if entry else None
+        if w is None or w.ndim != 4 or set(entry) != {"weight"}:
+            raise MXNetError("%s: expected one 4-D conv weight, got %s"
+                             % (label, {k: v.shape for k, v in
+                                        (entry or {}).items()}))
+        state[dst + ".weight"] = _t(w)
+        return w.shape[0]
+
+    def bn(dst, entry, channels, label):
+        if entry is None or set(entry) != set(_BN_FIELDS):
+            raise MXNetError("%s: expected BatchNorm %s, got %s"
+                             % (label, _BN_FIELDS, sorted(entry or {})))
+        for f in _BN_FIELDS:
+            if entry[f].shape != (channels,):
+                raise MXNetError("%s_%s: shape %s, the conv before it has %d "
+                                 "channels" % (label, f, entry[f].shape,
+                                               channels))
+            state["%s.%s" % (dst, f)] = _t(entry[f])
+
+    if set(top) - {("conv2d", 0), ("batchnorm", 0), ("dense", 0)}:
+        raise MXNetError("unexpected top-level layers %s" % sorted(top))
+    c0 = conv("features.0", top.get(("conv2d", 0)), "conv2d0")
+    offset = 1
+    if ("batchnorm", 0) in top:     # 7x7 stem: conv, BN, max pool
+        bn("features.1", top[("batchnorm", 0)], c0, "batchnorm0")
+        offset = 3
+    if sorted(stages) != list(range(1, len(stages) + 1)) or not stages:
+        raise MXNetError("stages must be 1..n, got %s" % sorted(stages))
+    first = stages[1].get(("conv2d", 0), {}).get("weight")
+    if first is None or first.ndim != 4:
+        raise MXNetError("stage1_conv2d0_weight missing or not 4-D")
+    per = {(1, 1): 3, (3, 3): 2}.get(_kernel_hw(first.shape, layout))
+    if per is None:
+        raise MXNetError("cannot tell the block type from stage1_conv2d0 "
+                         "kernel %s" % (_kernel_hw(first.shape, layout),))
+    for s in sorted(stages):
+        layers = stages[s]
+        n = sum(1 for kind, _ in layers if kind == "conv2d")
+        if sorted(layers) != sorted([("conv2d", k) for k in range(n)]
+                                    + [("batchnorm", k) for k in range(n)]):
+            raise MXNetError("stage%d: conv2d and batchnorm indices must "
+                             "both be 0..%d, got %s"
+                             % (s, n - 1, sorted(layers)))
+        ds = n % per
+        if ds > 1 or n < per:
+            raise MXNetError("stage%d: %d convs do not make %d-conv blocks "
+                             "(+ one downsample)" % (s, n, per))
+        for k in range(n):
+            if k < per:
+                dst = "features.%d.0.body.%d" % (offset + s - 1, 2 * k)
+            elif ds and k == per:
+                dst = "features.%d.0.downsample.0" % (offset + s - 1)
+            else:
+                j = k - per - ds
+                dst = "features.%d.%d.body.%d" % (offset + s - 1,
+                                                  1 + j // per,
+                                                  2 * (j % per))
+            label = "stage%d_conv2d%d" % (s, k)
+            c = conv(dst, layers[("conv2d", k)], label)
+            head, pos = dst.rsplit(".", 1)
+            bn("%s.%d" % (head, int(pos) + 1), layers[("batchnorm", k)], c,
+               "stage%d_batchnorm%d" % (s, k))
+    dense = top.get(("dense", 0))
+    if dense is None or set(dense) != {"weight", "bias"} \
+            or dense["weight"].ndim != 2 \
+            or dense["bias"].shape != dense["weight"].shape[:1]:
+        raise MXNetError("dense0: expected weight (classes, C) and bias "
+                         "(classes,), got %s" % {k: v.shape for k, v in
+                                                 (dense or {}).items()})
+    state["output.weight"] = _t(dense["weight"])
+    state["output.bias"] = _t(dense["bias"])
+    return state

@@ -1,9 +1,10 @@
 """Typed registry of the ``MXTPU_*`` environment variables the port reads.
 
 Counterpart of `mxnet_tpu/env.py`, holding only the variables of the
-generation-serving path, under the same names and defaults, so one
-deployment's settings mean the same thing to both packages. There is no
-kernel gate: a CUDA tensor always goes through the port's kernel.
+paths ported so far (generation serving, ResNet training), under the same
+names and, but for the one noted at its entry, the same defaults, so one
+deployment's settings mean the same thing to both packages. There is no kernel gate: a CUDA tensor always goes through
+the port's kernel.
 
 ``get(name)`` takes registered names only (an unregistered name raises
 ``KeyError``) and returns the value parsed per the registered type, or the
@@ -69,6 +70,18 @@ def get(name):
     except ValueError:
         return var.default
 
+
+# -- training (same name as in mxnet_tpu/env.py) ------------------------------
+# The JAX package's default `auto` picks its op layer's lowering, which the
+# port does not have; the default here is unset, which builds the reference
+# graph in both packages' zoos.
+_var("MXTPU_PALLAS_CONV_EPILOGUE", "str", "",
+     "ResNet zoo graph: set and not `0` builds the fused-epilogue graph "
+     "(every BN->ReLU as one BatchNorm(act_type='relu'), each block tail as "
+     "BN+add+ReLU); unset, empty or `0` builds the reference graph (plain "
+     "BatchNorm and separate Activation layers). It picks the graph only: "
+     "the conv epilogue kernels are never gated, and every training-mode "
+     "BatchNorm on a CUDA tensor runs them in either graph.")
 
 # -- serving (same names and defaults as mxnet_tpu/env.py) -------------------
 _var("MXTPU_SERVE_MAX_BATCH", "int", 32,

@@ -1,2 +1,5 @@
-"""Models of the port (counterpart of `mxnet_tpu.gluon`, generation path
-only)."""
+"""Models, layers and losses of the port (counterpart of
+`mxnet_tpu.gluon`: the generation and ResNet training paths)."""
+from . import loss, nn
+
+__all__ = ["loss", "nn"]

@@ -1,0 +1,225 @@
+"""ResNet v1 (counterpart of `mxnet_tpu/gluon/model_zoo/vision/resnet.py`:
+`ResNetV1`, `BasicBlockV1`, `BottleneckV1`, `get_resnet`,
+`resnet18_v1` ... `resnet152_v1`) as `torch.nn.Module`s.
+
+Build under `gluon.nn.layout_scope()` for the channels-last layout: inputs
+(N, H, W, C), conv weights (O, kh, kw, I). The module tree follows the JAX
+blocks (``features``, each stage's blocks with ``body`` and
+``downsample``, ``output``); `convert.resnet_params_from_jax` maps the JAX
+package's parameter names onto it.
+
+``fuse_epilogue`` (default: ``MXTPU_PALLAS_CONV_EPILOGUE`` set and not
+"0", as in the JAX package) builds every BN -> ReLU as one
+``BatchNorm(act_type="relu")`` and each block's tail as BN + add + ReLU;
+parameter names do not change. Either graph runs training-mode BatchNorm
+through the conv-epilogue kernels on the card. ResNet v2 and the
+space-to-depth stem are not ported yet.
+"""
+from __future__ import annotations
+
+from torch import nn as _tnn
+
+from .... import env as _env
+from .... import initializer as _init
+from ....context import resolve_device
+from ....ops import nn as _ops
+from ... import nn
+
+__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
+           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
+           "resnet152_v1", "resnet_spec"]
+
+
+def _fuse_epilogue_default(flag):
+    """An explicit flag wins; else set-and-not-"0" in
+    MXTPU_PALLAS_CONV_EPILOGUE builds the fused graph."""
+    if flag is not None:
+        return bool(flag)
+    return _env.get("MXTPU_PALLAS_CONV_EPILOGUE") not in ("", "0")
+
+
+def _conv3x3(channels, stride, in_channels, device):
+    return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
+                     use_bias=False, in_channels=in_channels, device=device)
+
+
+def _bn(fused, channels, device, act="relu"):
+    """BatchNorm, carrying the fused ReLU when ``fused`` (see `_run` for
+    the reference graph's separate ReLU)."""
+    return nn.BatchNorm(act_type=act if fused else None, in_channels=channels,
+                        device=device)
+
+
+def _run(layers, x, relu_after_bn):
+    """Apply ``layers`` in order; the reference graph (``relu_after_bn``)
+    puts a ReLU after each BatchNorm. The JAX package holds those ReLUs as
+    paramless Activation children; here they stay out of the module tree,
+    so the parameter paths (`state_dict` keys) are the same in both
+    graphs."""
+    for layer in layers:
+        x = layer(x)
+        if relu_after_bn and isinstance(layer, nn.BatchNorm):
+            x = _ops.activation(x, "relu")
+    return x
+
+
+class _BlockV1(_tnn.Module):
+    """Shared forward of the v1 blocks. The body is conv, BN, conv, BN
+    (, conv, BN). Fused graph: each BN but the last carries the ReLU, and
+    the last takes the residual as its second input (BN + add + ReLU).
+    Reference graph: ReLU after each BN but the last, then
+    ``relu(body(x) + residual)``."""
+
+    def _add_downsample(self, downsample, channels, stride, in_channels,
+                        device):
+        if downsample:
+            self.downsample = nn.HybridSequential()
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels,
+                                          device=device))
+            self.downsample.add(nn.BatchNorm(in_channels=channels,
+                                             device=device))
+        else:
+            self.downsample = None
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        layers = list(self.body)
+        out = _run(layers[:-1], x, not self._fused)
+        if self._fused:
+            return layers[-1](out, residual)
+        return _ops.activation(layers[-1](out) + residual, "relu")
+
+
+class BasicBlockV1(_BlockV1):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 fuse_epilogue=False, device=None):
+        super().__init__()
+        self._fused = fuse_epilogue
+        self.body = nn.HybridSequential()
+        self.body.add(_conv3x3(channels, stride, in_channels, device))
+        self.body.add(_bn(fuse_epilogue, channels, device))
+        self.body.add(_conv3x3(channels, 1, channels, device))
+        self.body.add(_bn(fuse_epilogue, channels, device))  # fused tail
+        self._add_downsample(downsample, channels, stride, in_channels,
+                             device)
+
+
+class BottleneckV1(_BlockV1):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 fuse_epilogue=False, device=None):
+        super().__init__()
+        self._fused = fuse_epilogue
+        mid = channels // 4
+        self.body = nn.HybridSequential()
+        self.body.add(nn.Conv2D(mid, kernel_size=1, strides=stride,
+                                use_bias=False, in_channels=in_channels,
+                                device=device))
+        self.body.add(_bn(fuse_epilogue, mid, device))
+        self.body.add(_conv3x3(mid, 1, mid, device))
+        self.body.add(_bn(fuse_epilogue, mid, device))
+        self.body.add(nn.Conv2D(channels, kernel_size=1, strides=1,
+                                use_bias=False, in_channels=mid,
+                                device=device))
+        self.body.add(_bn(fuse_epilogue, channels, device))  # fused tail
+        self._add_downsample(downsample, channels, stride, in_channels,
+                             device)
+
+
+class ResNetV1(_tnn.Module):
+    """ResNet v1: stem (7x7/2 conv, BN, ReLU, 3x3/2 max pool; a 3x3/1 conv
+    alone when ``thumbnail``), ``len(layers)`` stages, global average pool,
+    dense classifier. ``channels[0]`` is the stem width, ``channels[i+1]``
+    stage i's. ``device``: where the parameters live (default: the card,
+    `context.resolve_device`)."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, fuse_epilogue=None, in_channels=3,
+                 device=None):
+        super().__init__()
+        assert len(layers) == len(channels) - 1
+        device = resolve_device(device)
+        fuse_epilogue = _fuse_epilogue_default(fuse_epilogue)
+        self._fuse_epilogue = fuse_epilogue
+        self.features = nn.HybridSequential()
+        if thumbnail:
+            self.features.add(_conv3x3(channels[0], 1, in_channels, device))
+        else:
+            self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                                        in_channels=in_channels,
+                                        device=device))
+            self.features.add(_bn(fuse_epilogue, channels[0], device))
+            self.features.add(nn.MaxPool2D(3, 2, 1))
+        for i, num_layer in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            self.features.add(self._make_layer(
+                block, num_layer, channels[i + 1], stride, channels[i],
+                fuse_epilogue, device))
+        self.features.add(nn.GlobalAvgPool2D())
+        self.output = nn.Dense(classes, in_units=channels[-1], device=device)
+
+    @staticmethod
+    def _make_layer(block, layers, channels, stride, in_channels,
+                    fuse_epilogue, device):
+        layer = nn.HybridSequential()
+        layer.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, fuse_epilogue=fuse_epilogue,
+                        device=device))
+        for _ in range(layers - 1):
+            layer.add(block(channels, 1, False, in_channels=channels,
+                            fuse_epilogue=fuse_epilogue, device=device))
+        return layer
+
+    def initialize(self, init="xavier", seed=None):
+        """Fill the weights (default Xavier, as the training script), BN
+        gamma 1 / beta 0, running mean 0 / var 1, biases 0; see
+        `initializer.initialize`. Returns self."""
+        return _init.initialize(self, init, seed)
+
+    def forward(self, x):
+        return self.output(_run(self.features, x, not self._fuse_epilogue))
+
+
+resnet_spec = {18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+               34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+               50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+               101: ("bottle_neck", [3, 4, 23, 3],
+                     [64, 256, 512, 1024, 2048]),
+               152: ("bottle_neck", [3, 8, 36, 3],
+                     [64, 256, 512, 1024, 2048])}
+
+_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+
+
+def get_resnet(version, num_layers, **kwargs):
+    """ResNet of ``num_layers`` (18, 34, 50, 101, 152). Only version 1 is
+    ported."""
+    if num_layers not in resnet_spec:
+        raise ValueError("Invalid resnet depth %d; options: %s"
+                         % (num_layers, sorted(resnet_spec)))
+    if version != 1:
+        raise NotImplementedError("ResNet v%d is not ported yet (v1 only)"
+                                  % version)
+    block_type, layers, channels = resnet_spec[num_layers]
+    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+
+
+def resnet18_v1(**kwargs):
+    return get_resnet(1, 18, **kwargs)
+
+
+def resnet34_v1(**kwargs):
+    return get_resnet(1, 34, **kwargs)
+
+
+def resnet50_v1(**kwargs):
+    return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)

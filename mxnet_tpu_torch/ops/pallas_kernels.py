@@ -1,11 +1,21 @@
-"""Paged decode attention: the port's counterpart of the JAX package's
-`ops/pallas_kernels.py` paged-attention functions (:1141-1299).
+"""Hand-written kernels of the port: the counterpart of the JAX package's
+`ops/pallas_kernels.py`.
 
 The module keeps the JAX module's name so a reader finds the counterpart;
-it holds no Pallas. `paged_attention` launches the hand-written CUDA kernel
-``csrc/paged_attention.cu`` (sm_90a) for CUDA tensors and runs
-`paged_attention_reference`, its plain PyTorch version, only for tensors on
-the CPU. Nothing sends a CUDA tensor to the plain version.
+it holds no Pallas. Ported so far:
+
+* paged decode attention (:1141-1299 of the JAX module):
+  `paged_attention` launches ``csrc/paged_attention.cu``;
+* the conv epilogue (:725-1112): `conv_epilogue` (training-mode
+  BatchNorm (+ residual) (+ ReLU) over a channels-last activation, with a
+  kernel backward) runs the four kernels of ``csrc/conv_epilogue.cu``
+  through the wrappers `epi_stats`, `epi_apply`, `epi_bwd_reduce` and
+  `epi_bwd_dx`.
+
+Every wrapper launches its hand-written CUDA kernel (sm_90a) for CUDA
+tensors, and adds one to its ``launches`` count where it does; it runs its
+plain PyTorch version (``*_reference``) only for tensors on the CPU.
+Nothing sends a CUDA tensor to a plain version.
 """
 from __future__ import annotations
 
@@ -17,7 +27,10 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["paged_attention", "paged_attention_reference", "conv_epilogue",
+           "conv_epilogue_reference", "epi_stats", "epi_stats_reference",
+           "epi_apply", "epi_apply_reference", "epi_bwd_reduce",
+           "epi_bwd_reduce_reference", "epi_bwd_dx", "epi_bwd_dx_reference"]
 
 # finite mask value: a fully masked row stays NaN-free
 _NEG_INF = -1e30
@@ -137,3 +150,328 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths,
 
 
 paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Conv epilogue: training-mode BatchNorm (+ residual add) (+ ReLU) over a
+# channels-last activation seen as rows (R = N*H*W, C). Forward: epi_stats
+# (batch moments, then scale and shift) and epi_apply; backward:
+# epi_bwd_reduce (the two per-channel sums, then dgamma, dbeta and the dx
+# coefficients) and epi_bwd_dx. The per-channel finishing math that the JAX
+# package ran between its kernels (`_epi_forward`, `_epi_bwd_impl`) runs
+# inside the kernels' second passes here.
+# ---------------------------------------------------------------------------
+
+_EPI_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# pass-1 row chunks of the two reductions: one per 128 rows, at most 1024
+# (a function of R alone, so a shape always reduces in the same order)
+_EPI_CHUNK_ROWS = 128
+_EPI_MAX_CHUNKS = 1024
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_EPI_ARGTYPES = {
+    "epi_stats": [_P, _I, _L, _I, _P, _P, _I, _F, _I, _P, _I] + [_P] * 6,
+    "epi_apply": [_P, _P, _I, _L, _I, _P, _P, _I, _P, _P],
+    "epi_bwd_reduce": [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _I, _P, _I]
+                      + [_P] * 6,
+    "epi_bwd_dx": [_P, _P, _P, _I, _L, _I] + [_P] * 8,
+}
+
+
+def _epi_chunks(r):
+    return max(1, min(_EPI_MAX_CHUNKS, -(-r // _EPI_CHUNK_ROWS)))
+
+
+def _epi_call(symbol, dev, *args):
+    """Launch one entry of ``csrc/conv_epilogue.cu`` on the current stream
+    of ``dev``; raises when the launch reports a CUDA error."""
+    fn = getattr(_build.load("conv_epilogue"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _EPI_ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise MXNetError("%s kernel launch failed: CUDA error %d"
+                         % (symbol, rc))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _epi_check(name, x2d, rows=(), vecs=(), params=()):
+    """Arguments of a kernel wrapper: ``x2d`` a contiguous (R, C) float32
+    or bfloat16 CUDA tensor with R >= 1; every other row tensor the same
+    shape, dtype and device, contiguous; every per-channel vector f32 (C,);
+    gamma / beta (``params``) f32 or bf16 (C,), of one dtype. Raises
+    `MXNetError`; nothing is copied or converted."""
+    if x2d.device.type != "cuda":
+        raise MXNetError("%s: unsupported device %s" % (name, x2d.device))
+    if x2d.dim() != 2 or x2d.dtype not in _EPI_DTYPES:
+        raise MXNetError("%s: x must be a float32 or bfloat16 (R, C) "
+                         "tensor, got %s %s" % (name, x2d.dtype,
+                                                tuple(x2d.shape)))
+    r, c = x2d.shape
+    if r < 1 or c < 1:
+        raise MXNetError("%s: empty input %s" % (name, tuple(x2d.shape)))
+    named = ([("x", x2d)] + [(n, t) for n, t in rows if t is not None]
+             + list(vecs) + list(params))
+    for label, t in named:
+        if t.device != x2d.device:
+            raise MXNetError("%s: %s is on %s, x on %s"
+                             % (name, label, t.device, x2d.device))
+        if not t.is_contiguous():
+            raise MXNetError("%s: %s must be contiguous (a channels-last "
+                             "activation viewed as (R, C) rows)"
+                             % (name, label))
+    for label, t in rows:
+        if t is not None and (t.shape != x2d.shape or t.dtype != x2d.dtype):
+            raise MXNetError("%s: %s must be %s %s like x, got %s %s"
+                             % (name, label, x2d.dtype, tuple(x2d.shape),
+                                t.dtype, tuple(t.shape)))
+    for label, t in vecs:
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise MXNetError("%s: %s must be float32 (%d,), got %s %s"
+                             % (name, label, c, t.dtype, tuple(t.shape)))
+    if params:
+        dt = params[0][1].dtype
+        for label, t in params:
+            if t.dtype != dt or dt not in _EPI_DTYPES \
+                    or tuple(t.shape) != (c,):
+                raise MXNetError("%s: gamma and beta must both be float32 "
+                                 "or bfloat16 (%d,), got %s %s"
+                                 % (name, c, t.dtype, tuple(t.shape)))
+
+
+def epi_stats_reference(x2d, gamma, beta, eps, fix_gamma):
+    """Plain version of `epi_stats`."""
+    from .nn import _bn_stats
+
+    mean, var = _bn_stats(x2d)
+    inv = torch.rsqrt(var + eps)
+    g1 = torch.ones_like(inv) if fix_gamma else gamma.float()
+    scale = g1 * inv
+    shift = beta.float() - mean * scale
+    return mean, var, inv, scale, shift
+
+
+def epi_stats(x2d, gamma, beta, eps=1e-3, fix_gamma=False):
+    """Batch statistics of rows ``x2d`` (R, C), float32 or bfloat16, and
+    the normalize they give: f32 (C,) ``(mean, var, inv, scale, shift)``
+    with the biased ``var = max(E[d^2] - E[d]^2, 0)`` of ``d = x - proxy``
+    (the proxy: the mean of the first 8 rows), ``inv = 1/sqrt(var + eps)``,
+    ``scale = gamma * inv`` (gamma taken as 1 under ``fix_gamma``) and
+    ``shift = beta - mean * scale``. CUDA: the kernel pair ``epi_stats`` of
+    ``csrc/conv_epilogue.cu`` (deterministic two-pass column sums); CPU:
+    `epi_stats_reference`."""
+    if x2d.device.type == "cpu":
+        return epi_stats_reference(x2d, gamma, beta, eps, fix_gamma)
+    _epi_check("epi_stats", x2d, params=(("gamma", gamma), ("beta", beta)))
+    r, c = x2d.shape
+    n = _epi_chunks(r)
+    part = torch.empty((2, n, c), dtype=torch.float32, device=x2d.device)
+    vecs = torch.empty((5, c), dtype=torch.float32, device=x2d.device)
+    _epi_call("epi_stats", x2d.device, x2d.data_ptr(),
+              _EPI_DTYPES[x2d.dtype], r, c, gamma.data_ptr(),
+              beta.data_ptr(), int(gamma.dtype == torch.bfloat16),
+              float(eps), int(bool(fix_gamma)), part.data_ptr(), n,
+              *(v.data_ptr() for v in vecs))
+    epi_stats.launches += 1
+    return tuple(vecs)
+
+
+epi_stats.launches = 0
+
+
+def epi_apply_reference(x2d, res2d, scale, shift, relu):
+    """Plain version of `epi_apply`."""
+    y = x2d.float() * scale + shift
+    if res2d is not None:
+        y = y + res2d.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(x2d.dtype)
+
+
+def epi_apply(x2d, res2d, scale, shift, relu=True):
+    """``relu?(x * scale + shift (+ res))`` over rows (R, C), computed in
+    f32 and stored in x's dtype; ``res2d`` may be None. CUDA: the
+    ``epi_apply`` kernel; CPU: `epi_apply_reference`."""
+    if x2d.device.type == "cpu":
+        return epi_apply_reference(x2d, res2d, scale, shift, relu)
+    _epi_check("epi_apply", x2d, rows=(("residual", res2d),),
+               vecs=(("scale", scale), ("shift", shift)))
+    r, c = x2d.shape
+    out = torch.empty_like(x2d)
+    _epi_call("epi_apply", x2d.device, x2d.data_ptr(), _ptr(res2d),
+              _EPI_DTYPES[x2d.dtype], r, c, scale.data_ptr(),
+              shift.data_ptr(), int(bool(relu)), out.data_ptr())
+    epi_apply.launches += 1
+    return out
+
+
+epi_apply.launches = 0
+
+
+def _masked_ct(ct, out):
+    g = ct.float()
+    if out is not None:
+        g = torch.where(out.float() > 0, g, torch.zeros_like(g))
+    return g
+
+
+def epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma, fix_gamma):
+    """Plain version of `epi_bwd_reduce`."""
+    g = _masked_ct(ct, out)
+    xhat = (x2d.float() - mean) * inv
+    db = g.sum(dim=0)
+    dg = (g * xhat).sum(dim=0)
+    r = x2d.shape[0]
+    g1 = torch.ones_like(inv) if fix_gamma else gamma.float()
+    dgamma = torch.zeros_like(gamma) if fix_gamma else dg.to(gamma.dtype)
+    return dgamma, db.to(gamma.dtype), g1 * inv, db / r, dg / r
+
+
+def epi_bwd_reduce(ct, x2d, out, mean, inv, gamma, fix_gamma=False):
+    """The backward's per-channel sums over rows (R, C): with ``g = ct``
+    masked by ``out > 0`` (``out`` is the saved forward output when relu
+    was on, else None) and ``xhat = (x - mean) * inv``, returns
+    ``(dgamma, dbeta, coef, cb, cg)``: dgamma = sum(g * xhat) (zeros under
+    ``fix_gamma``) and dbeta = sum(g) in gamma's dtype, and the f32 (C,)
+    dx coefficients coef = gamma * inv, cb = sum(g) / R, cg =
+    sum(g * xhat) / R. CUDA: the kernel pair ``epi_bwd_reduce``
+    (deterministic); CPU: `epi_bwd_reduce_reference`."""
+    if x2d.device.type == "cpu":
+        return epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma,
+                                        fix_gamma)
+    _epi_check("epi_bwd_reduce", x2d, rows=(("ct", ct), ("out", out)),
+               vecs=(("mean", mean), ("inv", inv)),
+               params=(("gamma", gamma),))
+    r, c = x2d.shape
+    n = _epi_chunks(r)
+    part = torch.empty((2, n, c), dtype=torch.float32, device=x2d.device)
+    grads = torch.empty((2, c), dtype=gamma.dtype, device=x2d.device)
+    vecs = torch.empty((3, c), dtype=torch.float32, device=x2d.device)
+    _epi_call("epi_bwd_reduce", x2d.device, ct.data_ptr(), x2d.data_ptr(),
+              _ptr(out), _EPI_DTYPES[x2d.dtype], r, c, mean.data_ptr(),
+              inv.data_ptr(), gamma.data_ptr(),
+              int(gamma.dtype == torch.bfloat16), int(bool(fix_gamma)),
+              part.data_ptr(), n, grads[0].data_ptr(), grads[1].data_ptr(),
+              *(v.data_ptr() for v in vecs))
+    epi_bwd_reduce.launches += 1
+    return (grads[0], grads[1]) + tuple(vecs)
+
+
+epi_bwd_reduce.launches = 0
+
+
+def epi_bwd_dx_reference(ct, x2d, out, mean, inv, coef, cb, cg, has_res):
+    """Plain version of `epi_bwd_dx`."""
+    g = _masked_ct(ct, out)
+    xhat = (x2d.float() - mean) * inv
+    dx = (coef * (g - cb - xhat * cg)).to(x2d.dtype)
+    return dx, (g.to(x2d.dtype) if has_res else None)
+
+
+def epi_bwd_dx(ct, x2d, out, mean, inv, coef, cb, cg, has_res=False):
+    """``dx = coef * (g - cb - xhat * cg)`` over rows (R, C), with g and
+    xhat as in `epi_bwd_reduce`, and ``dres = g`` when ``has_res`` (else
+    None), both in x's dtype. CUDA: the ``epi_bwd_dx`` kernel; CPU:
+    `epi_bwd_dx_reference`."""
+    if x2d.device.type == "cpu":
+        return epi_bwd_dx_reference(ct, x2d, out, mean, inv, coef, cb, cg,
+                                    has_res)
+    _epi_check("epi_bwd_dx", x2d, rows=(("ct", ct), ("out", out)),
+               vecs=(("mean", mean), ("inv", inv), ("coef", coef),
+                     ("cb", cb), ("cg", cg)))
+    r, c = x2d.shape
+    dx = torch.empty_like(x2d)
+    dres = torch.empty_like(x2d) if has_res else None
+    _epi_call("epi_bwd_dx", x2d.device, ct.data_ptr(), x2d.data_ptr(),
+              _ptr(out), _EPI_DTYPES[x2d.dtype], r, c, mean.data_ptr(),
+              inv.data_ptr(), coef.data_ptr(), cb.data_ptr(), cg.data_ptr(),
+              dx.data_ptr(), _ptr(dres))
+    epi_bwd_dx.launches += 1
+    return dx, dres
+
+
+epi_bwd_dx.launches = 0
+
+
+class _ConvEpilogue(torch.autograd.Function):
+    """The JAX package's custom_vjp pair `epi3` / `epi4`: forward through
+    `epi_stats` + `epi_apply`, backward through `epi_bwd_reduce` +
+    `epi_bwd_dx`. The mean / var outputs are not differentiable (their
+    cotangents are ignored, as in the JAX package: they feed the moving
+    statistics). ``out`` is saved only when relu is on (`_epi_save`)."""
+
+    @staticmethod
+    def forward(ctx, x2d, gamma, beta, res2d, eps, fix_gamma, relu):
+        mean, var, inv, scale, shift = epi_stats(x2d, gamma, beta, eps,
+                                                 fix_gamma)
+        out = epi_apply(x2d, res2d, scale, shift, relu)
+        ctx.save_for_backward(x2d, gamma, mean, inv, out if relu else None)
+        ctx.fix_gamma = fix_gamma
+        ctx.has_res = res2d is not None
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, ct, _ct_mean, _ct_var):
+        x2d, gamma, mean, inv, out = ctx.saved_tensors
+        # autograd may hand an expanded cotangent (stride 0 behind a global
+        # average pool); the kernels take dense rows, so it is made dense
+        # here, once, as the JAX package's cotangent is
+        ct = ct.contiguous()
+        dgamma, dbeta, coef, cb, cg = epi_bwd_reduce(ct, x2d, out, mean, inv,
+                                                     gamma, ctx.fix_gamma)
+        dx, dres = epi_bwd_dx(ct, x2d, out, mean, inv, coef, cb, cg,
+                              ctx.has_res)
+        return dx, dgamma, dbeta, dres, None, None, None
+
+
+def _epi_rows(x, c, label):
+    if x.device.type != "cpu" and not x.is_contiguous():
+        raise MXNetError("conv_epilogue: %s must be a contiguous "
+                         "channels-last tensor (..., C); got strides %s"
+                         % (label, tuple(x.stride())))
+    return x.reshape(-1, c)
+
+
+def conv_epilogue(x, gamma, beta, residual=None, eps=1e-3, fix_gamma=False,
+                  relu=True):
+    """Fused training-mode BatchNorm (batch statistics) + normalize
+    (+ residual add) (+ ReLU) over a channels-last activation ``x`` (..., C).
+
+    Returns ``(out, mean, var)``: ``out`` in x's dtype and shape, the batch
+    mean and biased variance f32 (C,) for the moving-statistics update.
+    Differentiable in x, gamma, beta and residual (a kernel backward);
+    mean and var are not differentiable. CUDA tensors go through the four
+    kernels of ``csrc/conv_epilogue.cu``; CPU tensors through their plain
+    versions. On the card x (and residual) must be contiguous: the (R, C)
+    view is then free, and the wrapper raises rather than copy."""
+    shape = x.shape
+    c = shape[-1]
+    x2d = _epi_rows(x, c, "x")
+    res2d = None if residual is None else _epi_rows(residual, c, "residual")
+    out, mean, var = _ConvEpilogue.apply(x2d, gamma, beta, res2d, float(eps),
+                                         bool(fix_gamma), bool(relu))
+    return out.reshape(shape), mean, var
+
+
+def conv_epilogue_reference(x, gamma, beta, residual=None, eps=1e-3,
+                            fix_gamma=False, relu=True):
+    """Plain version of `conv_epilogue`: the same function composed of
+    PyTorch ops, differentiated by autograd (through the batch statistics).
+    Any device."""
+    shape = x.shape
+    c = shape[-1]
+    x2d = x.reshape(-1, c)
+    mean, var, _, scale, shift = epi_stats_reference(x2d, gamma, beta, eps,
+                                                     fix_gamma)
+    out = epi_apply_reference(
+        x2d, None if residual is None else residual.reshape(-1, c), scale,
+        shift, relu)
+    return out.reshape(shape), mean.detach(), var.detach()

@@ -1,6 +1,8 @@
-"""Card-only tests of the PyTorch port: the CUDA paged-attention kernel
-against its plain PyTorch version on the same card tensors, and the
-generation engine on the card against the full-sequence forward.
+"""Card-only tests of the PyTorch port: each CUDA kernel (paged attention,
+the four conv-epilogue kernels) against its plain PyTorch version on the
+same card tensors, the generation engine on the card against the
+full-sequence forward, and a ResNet training step on the card against the
+same step on the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -13,15 +15,20 @@ import numpy as np
 import pytest
 import torch
 
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.gluon import loss as tloss
+from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo.transformer import lm_mini
+from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
 from mxnet_tpu_torch.ops import pallas_kernels as tpk
+from mxnet_tpu_torch.parallel import DistributedTrainer
 from mxnet_tpu_torch.serving import GenerateScheduler, TransformerLMEngine
 
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the paged-attention kernel has no "
-                    "CPU mode")
+        pytest.skip("needs a CUDA card: the port's CUDA kernels have no CPU "
+                    "mode")
 
 
 def _inputs(seed, b, h, d, pages, ps, maxp, lens):
@@ -119,3 +126,201 @@ def test_engine_on_card_greedy_and_kernel_launches(kv_dtype):
         assert sched.allocator.used_pages == 0
     finally:
         sched.close(drain=False, timeout=0)
+
+
+# ---------------------------------------------------------------------------
+# conv epilogue (csrc/conv_epilogue.cu)
+#
+# Tolerances: f32 results rtol 1e-4 with an absolute floor of 1e-4 x the
+# largest magnitude (the kernel and the plain version sum up to 401,408
+# rows in different orders); bf16 tensors 2^-7 the same way (one bf16
+# rounding step is 2^-8, and an f32 value near a tie may round either
+# way after a different summation order).
+# ---------------------------------------------------------------------------
+
+_EPI_NAMES = ("epi_stats", "epi_apply", "epi_bwd_reduce", "epi_bwd_dx")
+
+
+def _close(got, want, tol, what):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape, what
+    floor = tol * max(float(want.abs().max()), 1e-30)
+    err = (got - want).abs() - tol * want.abs()
+    assert float(err.max()) <= floor, (what, float(err.max()), floor)
+
+
+def _epi_case(seed, r, c, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def rows():
+        return torch.randn(r, c, generator=g, device=dev).to(dtype)
+
+    x = (torch.randn(r, c, generator=g, device=dev) * 2 + 3).to(dtype)
+    gamma = torch.rand(c, generator=g, device=dev) + 0.5
+    beta = torch.randn(c, generator=g, device=dev)
+    return x, rows(), gamma, beta, rows()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,c", [(1000, 3), (70, 200), (401408, 64)])
+@pytest.mark.parametrize("relu,has_res", [(True, False), (True, True),
+                                          (False, False)])
+def test_epilogue_kernels_match_plain_on_card(dtype, r, c, relu, has_res):
+    """Each of the four kernels against its plain version on the same card
+    tensors: a small and an odd shape, and the ResNet-50 stage-1 shape at
+    batch 128 (56 x 56 x 64)."""
+    _need_card()
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    x, res, gamma, beta, ct = _epi_case(7, r, c, getattr(torch, dtype))
+    res = res if has_res else None
+    before = {n: getattr(tpk, n).launches for n in _EPI_NAMES}
+    got = tpk.epi_stats(x, gamma, beta, 1e-5, False)
+    want = tpk.epi_stats_reference(x, gamma, beta, 1e-5, False)
+    for name, a, b in zip(("mean", "var", "inv", "scale", "shift"), got,
+                          want):
+        _close(a, b, 1e-4, name)
+    mean, _, inv, scale, shift = want
+    out = tpk.epi_apply(x, res, scale, shift, relu)
+    _close(out, tpk.epi_apply_reference(x, res, scale, shift, relu), tol,
+           "out")
+    saved = out if relu else None
+    got = tpk.epi_bwd_reduce(ct, x, saved, mean, inv, gamma, False)
+    want = tpk.epi_bwd_reduce_reference(ct, x, saved, mean, inv, gamma,
+                                        False)
+    for name, a, b in zip(("dgamma", "dbeta", "coef", "cb", "cg"), got,
+                          want):
+        _close(a, b, 1e-4, name)
+    _, _, coef, cb, cg = want
+    dx, dres = tpk.epi_bwd_dx(ct, x, saved, mean, inv, coef, cb, cg,
+                              has_res)
+    wdx, wdres = tpk.epi_bwd_dx_reference(ct, x, saved, mean, inv, coef, cb,
+                                          cg, has_res)
+    _close(dx, wdx, tol, "dx")
+    if has_res:
+        _close(dres, wdres, tol, "dres")
+    else:
+        assert dres is None
+    torch.cuda.synchronize()
+    assert all(getattr(tpk, n).launches == before[n] + 1 for n in _EPI_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_epilogue_matches_reference_on_card(dtype):
+    """The autograd Function over the kernels against the plain version
+    differentiated by autograd: out, mean, var and the gradients of x,
+    gamma, beta and residual, with bf16 parameters as the trainer casts
+    them."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    x, res, gamma, beta, ct = _epi_case(3, 8 * 28 * 28, 128, tdt)
+    x = x.reshape(8, 28, 28, 128)
+    res = res.reshape(x.shape)
+    # no cotangent where |out| < 1e-3: an f32 rounding apart can put the
+    # two forwards on the two sides of the ReLU's kink there
+    with torch.no_grad():
+        ref_out = tpk.conv_epilogue_reference(x, gamma.to(tdt), beta.to(tdt),
+                                              res, eps=1e-5, relu=True)[0]
+    ct = torch.where(ref_out.float().abs() < 1e-3, torch.zeros_like(ref_out),
+                     ct.reshape(x.shape))
+    results = []
+    for fn in (tpk.conv_epilogue, tpk.conv_epilogue_reference):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, gamma.to(tdt), beta.to(tdt), res)]
+        out, mean, var = fn(*leaves, eps=1e-5, relu=True)
+        (out.float() * ct.float()).sum().backward()
+        results.append([out, mean, var] + [t.grad for t in leaves])
+    names = ("out", "mean", "var", "dx", "dgamma", "dbeta", "dres")
+    for name, a, b in zip(names, *results):
+        _close(a, b, 1e-4 if name in ("mean", "var") else tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_epilogue_reductions_are_deterministic(dtype):
+    _need_card()
+    x, _, gamma, beta, ct = _epi_case(5, 401408, 64, getattr(torch, dtype))
+    a = tpk.epi_stats(x, gamma, beta, 1e-5, False)
+    b = tpk.epi_stats(x, gamma, beta, 1e-5, False)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    out = tpk.epi_apply(x, None, a[3], a[4], True)
+    c = tpk.epi_bwd_reduce(ct, x, out, a[0], a[2], gamma, False)
+    d = tpk.epi_bwd_reduce(ct, x, out, a[0], a[2], gamma, False)
+    assert all(torch.equal(u, v) for u, v in zip(c, d))
+
+
+@pytest.mark.cuda
+def test_epilogue_wrappers_raise_on_bad_inputs():
+    """No silent copy or conversion: a non-contiguous input, a tensor on
+    the wrong device or of another dtype raises."""
+    _need_card()
+    x, res, gamma, beta, _ = _epi_case(1, 64, 16, torch.float32)
+    with pytest.raises(MXNetError, match="contiguous"):
+        tpk.epi_stats(x.t(), gamma, beta)
+    with pytest.raises(MXNetError, match="contiguous"):
+        tpk.conv_epilogue(x.reshape(4, 4, 4, 16).transpose(1, 2), gamma,
+                          beta)
+    with pytest.raises(MXNetError, match="cpu"):
+        tpk.epi_stats(x, gamma.cpu(), beta)
+    with pytest.raises(MXNetError):
+        tpk.epi_apply(x, res.to(torch.bfloat16), gamma, beta)
+    with pytest.raises(MXNetError):
+        tpk.epi_apply(x, None, gamma.double(), beta)
+
+
+@pytest.mark.cuda
+def test_cuda_epilogue_never_takes_plain_version(monkeypatch):
+    _need_card()
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in _EPI_NAMES:
+        monkeypatch.setattr(tpk, name + "_reference", boom)
+    x, res, gamma, beta, _ = _epi_case(2, 96, 8, torch.float32)
+    x.requires_grad_()
+    out, _, _ = tpk.conv_epilogue(x, gamma, beta, res)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad).all()
+
+
+def _small_resnet(device):
+    with tnn.layout_scope():
+        return tresnet.ResNetV1(tresnet.BottleneckV1, [1, 1], [8, 16, 32],
+                                classes=10, thumbnail=True,
+                                fuse_epilogue=True, device=device)
+
+
+@pytest.mark.cuda
+def test_trainer_step_on_card_matches_cpu():
+    """One f32 DistributedTrainer step of the small ResNet on the card
+    (TF32 off) against the same step on the CPU, from the same weights and
+    batch: the loss, every parameter and running statistic. 8 BatchNorms,
+    so each kernel launches 8 times."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (16, 8, 8, 3)).astype(np.float32)
+    y = rng.randint(0, 10, 16)
+    nets = {d: _small_resnet(d) for d in ("cpu", "cuda")}
+    nets["cpu"].initialize(seed=4)
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    losses = {}
+    before = {n: getattr(tpk, n).launches for n in _EPI_NAMES}
+    for d, net in nets.items():
+        tr = DistributedTrainer(net, "sgd", dict(opt),
+                                loss=tloss.SoftmaxCrossEntropyLoss())
+        losses[d] = tr.step(x, y)
+        assert losses[d].device.type == torch.device(d).type
+    torch.cuda.synchronize()
+    assert all(getattr(tpk, n).launches == before[n] + 8 for n in _EPI_NAMES)
+    _close(losses["cuda"].cpu(), losses["cpu"], 1e-4, "loss")
+    want = nets["cpu"].state_dict()
+    for k, v in nets["cuda"].state_dict().items():
+        _close(v.cpu(), want[k], 1e-4, k)

@@ -368,8 +368,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("name", port_env.names())
 def test_env_registry_matches_jax_package(name):
     """Same names and defaults as the JAX package's registry; and no kernel
-    gate that could send a CUDA tensor to the plain version."""
+    gate that could send a CUDA tensor to the plain version. The one
+    exception is the ResNet zoo's graph switch: the JAX default `auto`
+    picks a lowering the port does not have, and the port's default is
+    unset, which builds the reference graph in both zoos (held in
+    `test_torch_port_resnet.py`)."""
     ref = jax_env.registry()[name]
     var = port_env.registry()[name]
-    assert (var.vtype, var.default) == (ref.vtype, ref.default)
+    assert var.vtype == ref.vtype
+    if name == "MXTPU_PALLAS_CONV_EPILOGUE":
+        assert var.default == ""
+    else:
+        assert var.default == ref.default
     assert "MXTPU_PALLAS_DECODE" not in port_env.names()
