@@ -14,15 +14,21 @@ Phases; each raises on failure, and the script then exits non-zero:
    sm_90a, one ``nvcc`` per source, all started together.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    same card tensors, at the main paths' shapes, with the kernel's time
-   (CUDA events, the 50 MB L2 flushed before every launch), the plain
+   (CUDA events, the 50 MB L2 flushed and the card kept busy for about 1 ms
+   before every launch, so the host's enqueue latency stays out), the plain
    version's time, the time of one PyTorch call computing the same
    function where there is one, and the least time the card could take
-   (bytes over 3.35 TB/s, or FLOPs over 67 TFLOP/s f32). The paged
-   attention kernel at the decode step's shapes; the four conv-epilogue
-   kernels at ResNet-50's BatchNorm shapes at batch 128, 224 x 224, in
-   bf16 and f32, with and without ReLU and residual, and two runs of each
-   reduction compared bit for bit. ``--details`` writes every case to a
-   JSON file.
+   (bytes over 3.35 TB/s, or FLOPs over 67 TFLOP/s f32 or 989 TFLOP/s
+   bf16). The paged attention kernel at the decode step's shapes; the
+   four conv-epilogue kernels at ResNet-50's BatchNorm shapes at batch
+   128, 224 x 224, in bf16 and f32, with and without ReLU and residual, and
+   two runs of each reduction compared bit for bit. ``--details`` writes every conv-epilogue
+   case to a JSON file. The three flash-attention kernels at BERT-base's
+   attention at batch 8 ((8 x 12, 512, 64), bf16 and f32), causal and not,
+   and at ragged, other-head-dim and one-row shapes, each run twice and
+   compared bit for bit; `scaled_dot_product_attention` is their
+   yardstick; and the flash autograd Function against autograd through
+   the plain attention.
 3. serve: a TransformerLM at BERT-base width (12 x 768, 12 heads, vocab
    30522; random weights from ``--seed``) written as a generation artifact,
    loaded through `ModelRepository` with the default serving geometry, and
@@ -40,10 +46,20 @@ Phases; each raises on failure, and the script then exits non-zero:
    Prints images/s, MFU against 989 TFLOP/s bf16 and peak allocated
    bytes; ``--profile`` adds the device busy share and device time by
    kernel of two steps.
-5. parity: one f32 step of a small ResNet (2 bottleneck stages) on the
-   card (kernels, TF32 off) against the same step on the CPU (plain
-   versions) from the same weights and batch: loss and every updated
-   parameter and running statistic.
+   Then BERT-base pretraining as bench.py's ``bench_bert`` drives it:
+   `bert_12_768_12` (no dropout) + an MLM Dense(30522) head, 132,953,658
+   parameters, Xavier from ``--seed``, Adam lr 1e-4, bf16 over f32
+   masters, one synthetic batch of 8 x 512 tokens repeated: 3 warm-up
+   steps, then the flash launch counts set to 0 and 10 timed steps. The
+   loss must be finite and fall, and each flash kernel launch 12 x steps
+   times. Prints tokens/s, ms a step, MFU by bench.py's FLOP count and
+   peak allocated bytes; ``--profile`` adds the device busy share and
+   device time by group (flash, GEMM, LayerNorm, optimizer, rest).
+5. parity: one f32 step of a small ResNet (2 bottleneck stages), and one
+   f32 Adam step of bert_mini + an MLM head, on the card (kernels, TF32
+   off) against the same step on the CPU (plain versions) from the same
+   weights and batch: loss and every updated parameter and running
+   statistic, after the step and as the change the step made.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -72,6 +88,7 @@ BF16_FLOPS_PER_S = 989e12
 
 # every kernel of the port: wrapper, source, the TPU kernel it replaces
 _EPI_SRC = "mxnet_tpu_torch/csrc/conv_epilogue.cu"
+_FLASH_SRC = "mxnet_tpu_torch/csrc/flash_attention.cu"
 KERNELS = [
     {"name": "paged_attention", "route": "cuda",
      "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -84,9 +101,16 @@ KERNELS = [
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:807"},
     {"name": "epi_bwd_dx", "route": "cuda", "source": _EPI_SRC,
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:840"},
+    {"name": "flash_fwd", "route": "cuda", "source": _FLASH_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:57"},
+    {"name": "flash_bwd_dq", "route": "cuda", "source": _FLASH_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:163"},
+    {"name": "flash_bwd_dkv", "route": "cuda", "source": _FLASH_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:201"},
 ]
 SERVE_KERNELS = ["paged_attention"]
 EPI_KERNELS = ["epi_stats", "epi_apply", "epi_bwd_reduce", "epi_bwd_dx"]
+FLASH_KERNELS = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 # serving-path geometry of the paged-attention kernel: heads, head dim,
 # tokens a page, pages in the pool, pages a sequence (64 + 128 tokens)
@@ -105,15 +129,23 @@ def smi_line():
     return out.strip().splitlines()[0].strip()
 
 
+# cycles of the card's sleep before each timed call (about 1 ms): the card
+# is still busy when the start event is enqueued, and the host enqueues the
+# call meanwhile, so the time is the device's and not the host's latency
+TIMING_SLEEP_CYCLES = 2_000_000
+
+
 def time_ms(torch, fn, flush, reps=100):
     """Median ms of ``fn`` on the card, CUDA events around each call, the
-    L2 cache overwritten before each one."""
+    L2 cache overwritten and the card kept busy (`TIMING_SLEEP_CYCLES`)
+    before each one."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(TIMING_SLEEP_CYCLES)
         s.record()
         fn()
         e.record()
@@ -423,15 +455,15 @@ EPI_FLOPS = {"epi_stats": 3, "epi_apply": 4, "epi_bwd_reduce": 6,
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 128, 3, 10
 
 
-def epi_err(torch, got, want, tol, what):
+def max_err(torch, got, want, tol, what, scale=0.0):
     """Largest |got - want|; raises unless every element is finite and
-    within tol * |want| + tol * max|want|."""
+    within tol * |want| + tol * max(max|want|, scale)."""
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("%s: non-finite kernel output" % what)
     diff = (got - want).abs()
     excess = float((diff - tol * want.abs()).max())
-    floor = tol * float(want.abs().max())
+    floor = tol * max(float(want.abs().max()), scale)
     if excess > floor:
         raise AssertionError("%s: error beyond tolerance %g (excess %g > "
                              "floor %g)" % (what, tol, excess, floor))
@@ -490,7 +522,7 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
     want = pk.epi_stats_reference(x, gamma, beta, EPI_EPS, False)
     for name, a, b in zip(("mean", "var", "inv", "scale", "shift"), got,
                           want):
-        worst["epi_stats"] = max(worst["epi_stats"], epi_err(
+        worst["epi_stats"] = max(worst["epi_stats"], max_err(
             torch, a, b, 1e-4, "epi_stats %s %s" % (name, tag)))
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("epi_stats %s: two runs differ" % tag)
@@ -503,7 +535,7 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
     for relu, has_res in ((False, False), (True, False), (True, True)):
         rr = res if has_res else None
         out = pk.epi_apply(x, rr, scale, shift, relu)
-        worst["epi_apply"] = max(worst["epi_apply"], epi_err(
+        worst["epi_apply"] = max(worst["epi_apply"], max_err(
             torch, out, pk.epi_apply_reference(x, rr, scale, shift, relu),
             tol, "epi_apply relu=%s res=%s %s" % (relu, has_res, tag)))
         outs[(relu, has_res)] = out
@@ -525,7 +557,7 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
                                            False)
         for name, a, b in zip(("dgamma", "dbeta", "coef", "cb", "cg"), got,
                               want):
-            worst["epi_bwd_reduce"] = max(worst["epi_bwd_reduce"], epi_err(
+            worst["epi_bwd_reduce"] = max(worst["epi_bwd_reduce"], max_err(
                 torch, a, b, 1e-4,
                 "epi_bwd_reduce relu=%s %s %s" % (relu, name, tag)))
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -556,9 +588,9 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
                                              cg, has_res)
         what = "epi_bwd_dx relu=%s res=%s %s" % (relu, has_res, tag)
         worst["epi_bwd_dx"] = max(worst["epi_bwd_dx"],
-                                  epi_err(torch, dx, wdx, tol, what))
+                                  max_err(torch, dx, wdx, tol, what))
         if has_res:
-            worst["epi_bwd_dx"] = max(worst["epi_bwd_dx"], epi_err(
+            worst["epi_bwd_dx"] = max(worst["epi_bwd_dx"], max_err(
                 torch, dres, wdres, tol, what + " dres"))
     coef, cb, cg = coefs[False]
     row("epi_bwd_dx", "bn",
@@ -609,7 +641,7 @@ def check_conv_epilogue_grad(torch, pk, seed):
         names = ("out", "mean", "var", "dx", "dgamma", "dbeta", "dres")
         for name, a, b in zip(names, *results):
             tol = 1e-4 if name in ("mean", "var") else EPI_TOL[dtype]
-            err = epi_err(torch, a, b, tol, "conv_epilogue %s %s"
+            err = max_err(torch, a, b, tol, "conv_epilogue %s %s"
                           % (name, dtype))
             worst = max(worst, err / float(b.float().abs().max()))
         del results
@@ -655,6 +687,204 @@ def check_epilogue(torch, pk, seed, flush, details):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# BERT-base's attention at batch 8: (BH = 8 x 12 heads, Lq, Lk, D); the
+# path runs it non-causal. The other cases: causal, ragged cross-attention
+# at the other head dims, and one query row.
+FLASH_PATH = (96, 512, 512, 64)
+FLASH_CASES = [("path", FLASH_PATH, False), ("path", FLASH_PATH, True),
+               ("ragged", (2, 200, 260, 16), False),
+               ("ragged", (2, 200, 260, 16), True),
+               ("ragged", (2, 200, 260, 80), True),
+               ("ragged", (2, 200, 260, 128), False),
+               ("ragged", (2, 200, 260, 128), True),
+               ("one row", (96, 1, 512, 64), False),
+               ("one row", (96, 1, 512, 64), True)]
+# f32 results rtol 1e-4 with a floor of 1e-4 x max|plain|, bf16 tensors
+# 2^-7 the same way (sums in other orders; one bf16 step is 2^-8); the
+# three gradients share one floor, from the largest of them (one query row
+# under the causal mask has dS = 0, so dQ and dK are rounding noise)
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# FLOPs per (BH, visible (query, key) pair, D): 2 per multiply-add of each
+# product (forward: q.k and p.v; dQ: q.k, dO.v, dS.k; dK/dV: those and
+# p.dO)
+FLASH_FLOPS = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+# (BH, L, D) tensors each kernel reads or writes once, as (rows of Lq, rows
+# of Lk), and the f32 (BH, Lq) vectors (lse; lse and delta)
+FLASH_TENSORS = {"flash_fwd": (2, 2, 1), "flash_bwd_dq": (3, 2, 2),
+                 "flash_bwd_dkv": (2, 4, 2)}
+
+
+def flash_bound(kernel, shape, causal, dtype):
+    """Least time of one call: its tensors read or written once over the
+    HBM rate, or its FLOPs over the dtype's peak (bf16 tensor cores, or f32
+    outside them); a causal call counts only the visible pairs."""
+    bh, lq, lk, d = shape
+    pairs = sum(min(r + 1, lk) for r in range(lq)) if causal else lq * lk
+    elem = 2 if dtype == "bfloat16" else 4
+    n_q, n_k, n_vec = FLASH_TENSORS[kernel]
+    t_bytes = ((n_q * lq + n_k * lk) * bh * d * elem + 4 * n_vec * bh * lq) \
+        / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_ops = FLASH_FLOPS[kernel] * bh * pairs * d / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def flash_inputs(torch, seed, shape, tdt):
+    bh, lq, lk, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(bh, n, d, generator=g, device="cuda").to(tdt)
+            for n in (lq, lk, lk, lq)]
+
+
+def time_flash(torch, pk, q, k, v, dout, want_lse, delta, dtype, flush):
+    """Kernel, plain and library times and the bound of the three kernels
+    at the path's shape. The library yardstick is
+    `scaled_dot_product_attention` on the (B, H, L, D) views: its forward
+    for the forward, and its backward (dQ, dK and dV in one call) for each
+    of the two backward kernels."""
+    import torch.nn.functional as F
+
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    heads = (8, 12) + tuple(q.shape[1:])
+    q4, k4, v4 = (t.view(heads) for t in (q, k, v))
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    g4 = dout.view(heads)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4), flush, reps=50)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, g4, retain_graph=True), flush, reps=50)
+    calls = {
+        "flash_fwd": (lambda: pk.flash_fwd(q, k, v, False, scale),
+                      lambda: pk.flash_fwd_reference(q, k, v, False, scale),
+                      lib_fwd),
+        "flash_bwd_dq": (
+            lambda: pk.flash_bwd_dq(q, k, v, dout, want_lse, delta, False,
+                                    scale),
+            lambda: pk.flash_bwd_dq_reference(q, k, v, dout, want_lse,
+                                              delta, False, scale), lib_bwd),
+        "flash_bwd_dkv": (
+            lambda: pk.flash_bwd_dkv(q, k, v, dout, want_lse, delta, False,
+                                     scale),
+            lambda: pk.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
+                                               delta, False, scale),
+            lib_bwd)}
+    rows = {}
+    for name, (fn, plain, lib_ms) in calls.items():
+        ms = time_ms(torch, fn, flush, reps=50)
+        plain_ms = time_ms(torch, plain, flush, reps=50)
+        bound_ms, bound_by = flash_bound(name, FLASH_PATH, False, dtype)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms}
+        log("  %-13s %s %s: kernel %.4f ms plain %.4f ms library (sdpa %s) "
+            "%.4f ms bound %.4f ms (%s)"
+            % (name, FLASH_PATH, dtype, ms, plain_ms,
+               "forward" if name == "flash_fwd" else "backward", lib_ms,
+               bound_ms, bound_by))
+    return rows
+
+
+def check_flash_grad(torch, pk, seed):
+    """`flash_attention` (the autograd Function over the kernels) against
+    autograd through `flash_attention_reference`, on the (B, H, L, Dh)
+    head split of BERT-base at batch 8 (strided views, as the attention
+    layer hands them), f32 and bf16, causal and not: the output and the
+    gradient of the packed q, k, v."""
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        for causal in (False, True):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            qkv = torch.randn(8, 512, 3, 12, 64, generator=g,
+                              device="cuda").to(tdt)
+            ct = torch.randn(8, 12, 512, 64, generator=g,
+                             device="cuda").to(tdt)
+            results = []
+            for fn in (pk.flash_attention, pk.flash_attention_reference):
+                leaf = qkv.clone().requires_grad_()
+                q, k, v = (leaf[:, :, i].transpose(1, 2) for i in range(3))
+                out = fn(q, k, v, causal=causal)
+                (out.float() * ct.float()).sum().backward()
+                results.append((out.detach(), leaf.grad))
+            for name, a, b in zip(("out", "dqkv"), *results):
+                err = max_err(torch, a, b, FLASH_TOL[dtype],
+                              "flash_attention %s %s causal=%s"
+                              % (name, dtype, causal))
+                worst = max(worst, err / float(b.float().abs().max()))
+    log("flash_attention (8, 12, 512, 64) head-split views, f32 and bf16, "
+        "causal and not: the output and the q, k, v gradients agree with "
+        "autograd through the plain attention (largest error %.3g of the "
+        "compared tensor's largest magnitude)" % worst)
+
+
+def check_flash(torch, pk, seed, flush):
+    """Each flash kernel against its plain version on the same card
+    tensors at every case of FLASH_CASES in bf16 and f32, each run twice
+    and compared bit for bit; the timings at the path's shape. Returns the
+    `kernels` rows (bf16, the path's dtype) with the largest errors."""
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        tol = FLASH_TOL[dtype]
+        for i, (label, shape, causal) in enumerate(FLASH_CASES):
+            q, k, v, dout = flash_inputs(torch, seed + i, shape, tdt)
+            scale = 1.0 / np.sqrt(shape[-1])
+            want_out, want_lse = pk.flash_fwd_reference(q, k, v, causal,
+                                                        scale)
+            delta = (dout.float() * want_out.float()).sum(-1)
+            runs = []
+            for _ in range(2):
+                runs.append(pk.flash_fwd(q, k, v, causal, scale)
+                            + (pk.flash_bwd_dq(q, k, v, dout, want_lse,
+                                               delta, causal, scale),)
+                            + pk.flash_bwd_dkv(q, k, v, dout, want_lse,
+                                               delta, causal, scale))
+            torch.cuda.synchronize()
+            tag = "%s %s %s causal=%s" % (label, shape, dtype, causal)
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError("flash kernels %s: two runs differ"
+                                     % tag)
+            out, lse, dq, dk, dv = runs[0]
+            want = ((want_out, "flash_fwd", tol, 0.0),
+                    (want_lse, "flash_fwd", 1e-4, 0.0))
+            grads = (pk.flash_bwd_dq_reference(q, k, v, dout, want_lse,
+                                               delta, causal, scale),)
+            grads += pk.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
+                                                delta, causal, scale)
+            big = max(float(t.float().abs().max()) for t in grads)
+            want += tuple((t, kern, tol, big) for t, kern in
+                          zip(grads, FLASH_KERNELS[1:] + FLASH_KERNELS[2:]))
+            for name, got, (ref, kern, t_tol, floor) in zip(
+                    ("out", "lse", "dq", "dk", "dv"),
+                    (out, lse, dq, dk, dv), want):
+                worst[kern] = max(worst[kern], max_err(
+                    torch, got, ref, t_tol, "%s %s" % (name, tag),
+                    scale=floor))
+            if (label, causal) == ("path", False):
+                case_rows = time_flash(torch, pk, q, k, v, dout, want_lse,
+                                       delta, dtype, flush)
+                if dtype == "bfloat16":
+                    rows = case_rows
+            del q, k, v, dout, runs, grads, want
+            torch.cuda.empty_cache()
+    log("flash attention: the three kernels agree with their plain versions "
+        "at %d cases x 2 dtypes (|kernel - plain| <= tol x |plain| + tol x "
+        "max|plain|, tol 1e-4 for f32 results and lse, 2^-7 for bf16 "
+        "tensors, the gradients' floor from the largest of the three); two "
+        "runs give the same bits; largest absolute errors %s"
+        % (len(FLASH_CASES), json.dumps(worst)))
+    check_flash_grad(torch, pk, seed)
+    for k in FLASH_KERNELS:
+        rows[k]["max_abs_err"] = worst[k]
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: train ResNet-50 through DistributedTrainer
 # ---------------------------------------------------------------------------
 
@@ -692,6 +922,14 @@ EPI_FUNCS = ("stats_partial", "stats_finish", "apply_kernel",
              "bwd_reduce_partial", "bwd_reduce_finish", "bwd_dx_kernel")
 
 
+def is_annotation(ev):
+    """A `record_function` range (the trainer's ``trainer.optimizer``),
+    which the profiler also lists on the device's timeline: a span, not a
+    kernel."""
+    return getattr(ev, "is_user_annotation", False) or \
+        getattr(ev, "key", getattr(ev, "name", "")) == "trainer.optimizer"
+
+
 def profile_train(torch, trainer, x, y, step_ms, steps=3):
     """`torch.profiler` over ``steps`` training steps: device time by
     kernel, and the device busy share against ``step_ms``, the step time
@@ -707,6 +945,8 @@ def profile_train(torch, trainer, x, y, step_ms, steps=3):
         torch.cuda.synchronize()
     rows, host = [], []
     for ev in prof.key_averages():
+        if is_annotation(ev):
+            continue
         if not str(ev.device_type).endswith("CUDA"):
             host.append((ev.self_cpu_time_total / steps / 1e3,
                          ev.count // steps, ev.key))
@@ -811,6 +1051,177 @@ def train(torch, pk, args):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: BERT-base pretraining through DistributedTrainer
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_bert: batch 8 x 512 tokens, vocab 30522, Adam lr 1e-4,
+# bf16 over f32 masters; warm-up steps, then timed steps
+BERT_BATCH, BERT_SEQ, BERT_VOCAB = 8, 512, 30522
+BERT_WARMUP, BERT_STEPS = 3, 10
+BERT_PARAMS = 132953658   # 109,482,240 BERT + 23,471,418 MLM head
+
+
+def bert_pretrain(torch, device, vocab=BERT_VOCAB, mini=False):
+    """bench.py's pretraining block: a BERT (`bert_12_768_12`, or
+    `bert_mini`) without dropout and an MLM Dense(vocab, flatten=False) on
+    its sequence output; children ``bert`` and ``mlm``."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as zoo
+
+    class BERTPretrain(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            make = zoo.bert_mini if mini else zoo.bert_12_768_12
+            self.bert = make(vocab_size=vocab, dropout=0.0, device=device)
+            units = self.bert.pooler.weight.shape[0]
+            self.mlm = gnn.Dense(vocab, flatten=False, in_units=units,
+                                 device=device)
+
+        def forward(self, tokens):
+            return self.mlm(self.bert(tokens)[0])
+
+    return BERTPretrain()
+
+
+def profile_bert(torch, trainer, x, y, step_ms, steps=3):
+    """`torch.profiler` over ``steps`` BERT steps: the device busy share
+    against ``step_ms`` (timed without the profiler) and device time by
+    group: the flash kernels and the GEMMs by kernel name, LayerNorm by the
+    `_LayerNorm` Function that launched it, the optimizer by the trainer's
+    ``trainer.optimizer`` range, the copies that reshapes and
+    ``contiguous`` make (chiefly the attention heads' (B, L, H, Dh) <->
+    (B*H, L, Dh) layout, in both directions), and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+    kernels = {}
+    by_range = {"LayerNorm": 0.0, "optimizer": 0.0, "layout copies": 0.0}
+    for ev in prof.events():
+        if is_annotation(ev):
+            continue
+        if str(ev.device_type).endswith("CUDA"):
+            row = kernels.setdefault(ev.name, [0.0, 0])
+            row[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+            row[1] += 1
+            continue
+        launched = sum(k.duration for k in getattr(ev, "kernels", ()))
+        if not launched:
+            continue
+        names, up = [], ev
+        while up is not None:
+            names.append(up.name)
+            up = up.cpu_parent
+        if any("_LayerNorm" in n for n in names):
+            by_range["LayerNorm"] += launched / 1e3
+        elif "trainer.optimizer" in names:
+            by_range["optimizer"] += launched / 1e3
+        elif ev.name == "aten::copy_" and {"aten::reshape",
+                                           "aten::contiguous"} & set(names):
+            by_range["layout copies"] += launched / 1e3
+    busy = sum(r[0] for r in kernels.values()) / steps
+    groups = {"flash (this port's kernels)": lambda k: "::flash_" in k,
+              "GEMM (cuBLAS)": lambda k: any(
+                  t in k.lower() for t in ("gemm", "cutlass", "xmma",
+                                           "nvjet", "cublas"))}
+    shares = dict.fromkeys(groups, 0.0)
+    for key, (ms, _) in kernels.items():
+        for name, test in groups.items():
+            if test(key):
+                shares[name] += ms / steps
+                break
+    shares.update({k: v / steps for k, v in by_range.items()})
+    shares["rest"] = busy - sum(shares.values())
+    log("profile BERT step (bf16, %d x %d tokens, %d steps): device busy "
+        "%.3f ms a step = %.1f%% of the %.2f ms step timed without the "
+        "profiler; %s" % (x.shape[0], x.shape[1], steps, busy,
+                          100.0 * busy / step_ms, step_ms,
+                          "; ".join("%s %.3f ms" % kv
+                                    for kv in shares.items())))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for key, (ms, count) in top:
+        log("  %8.3f ms  x%-4d %s" % (ms / steps, count // steps, key[:100]))
+    host = sorted(((ev.self_cpu_time_total / steps / 1e3, ev.count // steps,
+                    ev.key) for ev in prof.key_averages()
+                   if not str(ev.device_type).endswith("CUDA")),
+                  reverse=True)
+    log("  host, by own CPU time a step (profiled):")
+    for ms, count, key in host[:12]:
+        log("  %8.3f ms  x%-4d %s" % (ms, count, key[:100]))
+
+
+def train_bert(torch, pk, args):
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.parallel import DistributedTrainer
+
+    t0 = time.monotonic()
+    net = initializer.initialize(bert_pretrain(torch, "cuda"),
+                                 seed=args.seed)
+    n_params = sum(p.numel() for p in net.parameters())
+    if n_params != BERT_PARAMS:
+        raise AssertionError("BERT-base + MLM head has %d parameters, not %d"
+                             % (n_params, BERT_PARAMS))
+    # bench.py's count: 6 x the parameters less the word, segment and
+    # position tables, plus 12 x layers x units x seq for the scores
+    embed = sum(t.weight.numel() for t in (
+        net.bert.word_embed, net.bert.token_type_embed,
+        net.bert.position_embed))
+    layers = len(net.bert.encoder.cells)
+    flops_token = 6 * (n_params - embed) + 12 * layers * 768 * BERT_SEQ
+    rng = np.random.RandomState(args.seed + 4)
+    x = torch.from_numpy(rng.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ))
+                         .astype(np.float32)).cuda()
+    trainer = DistributedTrainer(
+        net, "adam", {"learning_rate": 1e-4},
+        loss=gloss.SoftmaxCrossEntropyLoss(), amp_dtype="bfloat16")
+    log("train: BERT-base (12 x 768, 12 heads) + MLM head (vocab %d), %d "
+        "parameters, built in %.1f s; %d FLOPs a token (bench.py's count)"
+        % (BERT_VOCAB, n_params, time.monotonic() - t0, flops_token))
+    t0 = time.monotonic()
+    warm = [float(trainer.step(x, y)) for _ in range(BERT_WARMUP)]
+    torch.cuda.synchronize()
+    log("  %d warm-up steps in %.2f s, losses %s"
+        % (BERT_WARMUP, time.monotonic() - t0, ["%.4f" % v for v in warm]))
+    torch.cuda.reset_peak_memory_stats()
+    for k in FLASH_KERNELS:   # the BERT path's counts start here
+        getattr(pk, k).launches = 0
+    t0 = time.monotonic()
+    losses = [trainer.step(x, y) for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(pk, k).launches for k in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite BERT loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("BERT loss did not fall over the timed steps: "
+                             "%s" % losses)
+    for k, n in launches.items():
+        if n != layers * BERT_STEPS:
+            raise AssertionError("%s launched %d times in %d steps, not %d"
+                                 % (k, n, BERT_STEPS, layers * BERT_STEPS))
+    tps = BERT_BATCH * BERT_SEQ * BERT_STEPS / wall
+    log("  %d timed steps in %.3f s: %.1f tokens/s, %.2f ms a step; MFU "
+        "%.4f (%d FLOPs a token at 989 TFLOP/s bf16); peak allocated %d "
+        "bytes; losses %s; launches %s (= %d x %d each)"
+        % (BERT_STEPS, wall, tps, wall / BERT_STEPS * 1e3,
+           tps * flops_token / BF16_FLOPS_PER_S, flops_token, peak,
+           ["%.4f" % v for v in losses], json.dumps(launches), layers,
+           BERT_STEPS))
+    if args.profile:
+        profile_bert(torch, trainer, x, y, wall / BERT_STEPS * 1e3)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: a small ResNet's step on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -845,22 +1256,70 @@ def insitu_parity(torch, args):
                                              "momentum": 0.9, "wd": 1e-4},
                                 loss=gloss.SoftmaxCrossEntropyLoss())
         losses[dev] = float(tr.step(x, y))
-    worst = epi_err(torch, torch.tensor(losses["cuda"]),
+    worst = max_err(torch, torch.tensor(losses["cuda"]),
                     torch.tensor(losses["cpu"]), 1e-4, "small ResNet loss")
     want = nets["cpu"].state_dict()
     worst_delta = 0.0
     for k, v in nets["cuda"].state_dict().items():
         v = v.cpu()
-        worst = max(worst, epi_err(torch, v, want[k], 1e-4,
+        worst = max(worst, max_err(torch, v, want[k], 1e-4,
                                    "small ResNet step: " + k))
         if v.is_floating_point():
-            worst_delta = max(worst_delta, epi_err(
+            worst_delta = max(worst_delta, max_err(
                 torch, v - before[k], want[k] - before[k], 1e-4,
                 "small ResNet step, change of " + k))
     log("parity: one f32 step of the small ResNet on the card equals the "
         "CPU step (loss %.6f vs %.6f; %d tensors, max abs err %.3g after "
         "the step, %.3g in the change it made)"
         % (losses["cuda"], losses["cpu"], len(want), worst, worst_delta))
+
+
+def bert_parity(torch, args):
+    """One f32 DistributedTrainer Adam step of bert_mini + an MLM head
+    (vocab 1000) on 4 x 128 tokens, on the card (the flash kernels; TF32
+    off) and on the CPU (the plain versions), from the same weights and
+    batch: the loss, and every parameter after the step and as the change
+    the step made. Tolerance: rtol 1e-4 with a floor of 1e-4 x max|CPU
+    value| of the compared tensor, and at least 1e-4 x the step's largest
+    change (the key bias's gradient is zero in exact arithmetic, so both
+    sides move it by rounding noise). Adam's epsilon is 1e-2 and its lr
+    0.1: at the default epsilon a first step moves each weight by lr x the
+    sign of its gradient, which hides the gradient's value."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.parallel import DistributedTrainer
+
+    rng = np.random.RandomState(args.seed + 5)
+    x = rng.randint(0, 1000, (4, 128)).astype(np.int64)
+    y = rng.randint(0, 1000, (4, 128)).astype(np.float32)
+    nets = {dev: bert_pretrain(torch, dev, vocab=1000, mini=True)
+            for dev in ("cpu", "cuda")}
+    initializer.initialize(nets["cpu"], seed=args.seed)
+    before = {k: v.clone() for k, v in nets["cpu"].state_dict().items()}
+    nets["cuda"].load_state_dict(before)
+    losses = {}
+    for dev, net in nets.items():
+        tr = DistributedTrainer(net, "adam", {"learning_rate": 0.1,
+                                              "epsilon": 1e-2},
+                                loss=gloss.SoftmaxCrossEntropyLoss())
+        losses[dev] = float(tr.step(x, y))
+    want = nets["cpu"].state_dict()
+    big = max(float((want[k] - before[k]).abs().max()) for k in want)
+    worst = max_err(torch, torch.tensor(losses["cuda"]),
+                    torch.tensor(losses["cpu"]), 1e-4, "bert_mini loss")
+    worst_delta = 0.0
+    for k, v in nets["cuda"].state_dict().items():
+        v = v.cpu()
+        worst = max(worst, max_err(torch, v, want[k], 1e-4,
+                                   "bert_mini step: " + k, scale=big))
+        worst_delta = max(worst_delta, max_err(
+            torch, v - before[k], want[k] - before[k], 1e-4,
+            "bert_mini step, change of " + k, scale=big))
+    log("parity: one f32 Adam step of bert_mini + MLM head on the card "
+        "equals the CPU step (loss %.6f vs %.6f; %d tensors, max abs err "
+        "%.3g after the step, %.3g in the change it made; largest change "
+        "%.3g)" % (losses["cuda"], losses["cpu"], len(want), worst,
+                   worst_delta, big))
 
 
 def main(argv=None):
@@ -916,15 +1375,19 @@ def main(argv=None):
     rows = {"paged_attention": check_paged_attention(torch, pk, args.seed,
                                                      flush)}
     rows.update(check_epilogue(torch, pk, args.seed, flush, args.details))
+    rows.update(check_flash(torch, pk, args.seed, flush))
     del flush
     torch.cuda.empty_cache()
     launches = serve(torch, pk, args)
     launches.update(train(torch, pk, args))
+    torch.cuda.empty_cache()
+    launches.update(train_bert(torch, pk, args))
     for k in KERNELS:
         if launches[k["name"]] < 1:
             raise AssertionError("%s never launched on its main path"
                                  % k["name"])
     insitu_parity(torch, args)
+    bert_parity(torch, args)
 
     kernels = []
     for k in KERNELS:

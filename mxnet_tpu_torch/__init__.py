@@ -7,7 +7,10 @@ Module paths mirror the JAX package (``mxnet_tpu/serving/generate.py`` ->
 
 Ported so far: generation serving of a `TransformerLM` (paged-KV
 continuous batching over HTTP), with decode attention as the CUDA kernel
-``csrc/paged_attention.cu``. Entry points run on the CUDA card unless the
+``csrc/paged_attention.cu``; ResNet v1 training, whose BatchNorms run the
+conv-epilogue kernels of ``csrc/conv_epilogue.cu``; and BERT pretraining,
+whose attention runs the flash-attention kernels of
+``csrc/flash_attention.cu``. Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
 """
 from . import context, env, random, telemetry

@@ -15,7 +15,9 @@ Two layouts of one `TransformerLM`'s parameters come from the JAX package:
 A ResNet v1's parameters come from the JAX net's ``collect_params()``
 as numpy arrays keyed by gluon auto-names (``resnetv10_conv2d0_weight``,
 ``resnetv10_stage1_batchnorm2_running_var``, ``resnetv10_dense0_bias``
-...); `resnet_params_from_jax` maps them onto the port's `ResNetV1`.
+...); `resnet_params_from_jax` maps them onto the port's `ResNetV1`, and
+`bert_params_from_jax` maps a `BERTModel`'s (with or without an output
+head) onto the port's `BERTModel`.
 
 Every function returns plain data (a ``state_dict`` of CPU tensors, or a
 dict of numpy arrays); the caller loads it into a module on its device.
@@ -30,7 +32,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["params_from_jax", "state_from_npz", "npz_from_state",
-           "resnet_params_from_jax"]
+           "resnet_params_from_jax", "bert_params_from_jax"]
 
 _DENSE = {"q": "attention.proj_query", "k": "attention.proj_key",
           "v": "attention.proj_value", "o": "attention.proj_out",
@@ -215,3 +217,90 @@ def resnet_params_from_jax(params, layout="NHWC"):
     state["output.weight"] = _t(dense["weight"])
     state["output.bias"] = _t(dense["bias"])
     return state
+
+
+# ---------------------------------------------------------------------------
+# BERT
+# ---------------------------------------------------------------------------
+
+_BERT_KEY = re.compile(r"^(.*?)bertmodel\d+_(.+)$")
+_BERT_TOP = {"word_weight": "word_embed.weight",
+             "segment_weight": "token_type_embed.weight",
+             "pos_weight": "position_embed.weight",
+             "layernorm0_gamma": "embed_norm.gamma",
+             "layernorm0_beta": "embed_norm.beta",
+             "pooler_weight": "pooler.weight", "pooler_bias": "pooler.bias"}
+_BERT_CELL = re.compile(
+    r"^transformerencoder\d+_layer(\d+)_(?:multiheadattention\d+_"
+    r"(query|key|value|out)|positionwiseffn\d+_(ffn1|ffn2)|"
+    r"layernorm([01]))_(weight|bias|gamma|beta)$")
+_BERT_ATT = {"query": "proj_query", "key": "proj_key", "value": "proj_value",
+             "out": "proj_out"}
+_BERT_NORM = {"0": "attention_norm", "1": "ffn_norm"}
+
+
+def bert_params_from_jax(params):
+    """The JAX package's `BERTModel` parameters -> the port's state dict.
+
+    ``params``: name -> numpy array, as ``{k: p.data().asnumpy() for k, p
+    in net.collect_params().items()}`` of a `BERTModel`, or of a block that
+    holds one and one output Dense (as bench.py's pretraining block: the
+    BERT and an MLM head). The names are parsed by structure (embeddings,
+    the embedding norm, ``layer<i>``'s attention projections, norms and
+    FFN, the pooler); the layers must be 0..n-1, each complete. Without a
+    head the keys are those of the port's `BERTModel`; with one they are
+    prefixed ``bert.`` and the head's are ``mlm.weight`` and ``mlm.bias``:
+    the state dict of a module whose children are ``bert`` and ``mlm``, as
+    bench.py's pretraining block. Raises `MXNetError` on a name it cannot
+    place."""
+    state, rest, prefixes, layers = {}, {}, set(), {}
+    for key, value in params.items():
+        m = _BERT_KEY.match(key)
+        if m is None:
+            rest[key] = value
+            continue
+        prefixes.add(m.group(1))
+        name = m.group(2)
+        if name in _BERT_TOP:
+            state[_BERT_TOP[name]] = _t(value)
+            continue
+        c = _BERT_CELL.match(name)
+        if c is None:
+            raise MXNetError("cannot place BERT parameter %r" % key)
+        layer, att, ffn, norm, field = c.groups()
+        if att:
+            path = "attention.%s" % _BERT_ATT[att]
+        elif ffn:
+            path = "ffn.ffn_%s" % ffn[-1]
+        else:
+            path = _BERT_NORM[norm]
+        layers.setdefault(int(layer), set()).add("%s.%s" % (path, field))
+        state["encoder.cells.%s.%s.%s" % (layer, path, field)] = _t(value)
+    if len(prefixes) != 1:
+        raise MXNetError("not one BERT model's parameters: prefixes %s"
+                         % sorted(prefixes))
+    missing = sorted(set(_BERT_TOP.values()) - set(state))
+    if missing:
+        raise MXNetError("BERT parameters missing: %s" % missing)
+    full = set(layers.get(0, ()))
+    if sorted(layers) != list(range(len(layers))) or len(full) != 16 \
+            or any(fields != full for fields in layers.values()):
+        raise MXNetError("BERT layers must be 0..n-1 with 16 parameters "
+                         "each, got %s" % {i: len(f) for i, f in
+                                           sorted(layers.items())})
+    if not rest:
+        return state
+    dense = {}
+    for key, value in rest.items():
+        m = re.match(r"^(.*)_(weight|bias)$", key)
+        if m is None:
+            raise MXNetError("cannot place parameter %r" % key)
+        dense.setdefault(m.group(1), {})[m.group(2)] = value
+    if len(dense) != 1 or set(next(iter(dense.values()))) != {"weight",
+                                                             "bias"}:
+        raise MXNetError("expected one head Dense (weight and bias) beside "
+                         "the BERT model, got %s" % sorted(rest))
+    out = {"bert." + k: v for k, v in state.items()}
+    for field, value in next(iter(dense.values())).items():
+        out["mlm." + field] = _t(value)
+    return out

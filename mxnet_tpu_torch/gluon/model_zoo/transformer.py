@@ -1,12 +1,14 @@
-"""Transformer encoder cells and the decoder-only Transformer LM.
+"""Transformer encoder cells, the BERT model family and the decoder-only
+Transformer LM.
 
 Counterpart of `mxnet_tpu/gluon/model_zoo/transformer.py` as `nn.Module`s.
 Submodule and parameter names follow the JAX blocks (``proj_query``,
 ``attention_norm.gamma``, ``ffn.ffn_1`` ...) so `convert.py` maps the JAX
-package's ``.params`` keys one to one. Attention is the JAX package's
-masked dense path (scores, finite -1e30 mask, softmax); the unmasked call
-computes the same function without a mask (the flash-attention kernel of
-the JAX package is not ported yet).
+package's parameters one to one. Attention without a mask (BERT without
+``valid_length``) runs `ops.contrib.flash_attention`, whose three CUDA
+kernels carry the forward and the backward on the card; with a mask (the
+LM's causal mask, BERT's padding mask) it is the JAX package's masked
+dense path (scores, finite -1e30 mask, softmax).
 """
 from __future__ import annotations
 
@@ -15,32 +17,28 @@ import math
 import torch
 from torch import nn
 
+from ... import initializer as _init
 from ...base import MXNetError
-from ...ops import nn as _ops
+from ...context import resolve_device
+from ...ops import contrib as _contrib
+from ..nn import Dense, Dropout, Embedding, GELU, LayerNorm
 
 __all__ = ["LayerNorm", "MultiHeadAttention", "PositionwiseFFN",
-           "TransformerEncoderCell", "TransformerLM", "lm_mini",
+           "TransformerEncoderCell", "TransformerEncoder", "BERTModel",
+           "bert_12_768_12", "bert_mini", "TransformerLM", "lm_mini",
            "bert_base_lm"]
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, ``gamma``/``beta`` as in the JAX
-    block, computed by `ops.nn.layer_norm`."""
-
-    def __init__(self, units, eps=1e-5, device=None):
-        super().__init__()
-        self.eps = float(eps)
-        self.gamma = nn.Parameter(torch.ones(units, device=device))
-        self.beta = nn.Parameter(torch.zeros(units, device=device))
-
-    def forward(self, x):
-        return _ops.layer_norm(x, self.gamma, self.beta, self.eps)
+def _dropout(rate):
+    return Dropout(rate) if rate else None
 
 
 class MultiHeadAttention(nn.Module):
-    """Multi-head self/cross attention (masked dense path)."""
+    """Multi-head self/cross attention: flash attention without a mask,
+    the masked dense path with one; ``dropout`` on the output
+    projection."""
 
-    def __init__(self, units, num_heads, device=None):
+    def __init__(self, units, num_heads, dropout=0.0, device=None):
         super().__init__()
         if units % num_heads != 0:
             raise MXNetError("num_heads (%d) must evenly divide units (%d)"
@@ -51,6 +49,7 @@ class MultiHeadAttention(nn.Module):
         self.proj_key = nn.Linear(units, units, device=device)
         self.proj_value = nn.Linear(units, units, device=device)
         self.proj_out = nn.Linear(units, units, device=device)
+        self.dropout = _dropout(dropout)
 
     def _split(self, x):
         # (B, L, C) -> (B, H, L, Dh)
@@ -67,40 +66,123 @@ class MultiHeadAttention(nn.Module):
         k = self._split(self.proj_key(key))
         v = self._split(self.proj_value(value))
         dh = self.units // self.num_heads
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
-        if mask is not None:
+        if mask is None:
+            out = _contrib.flash_attention(q, k, v, causal=False,
+                                           sm_scale=1.0 / math.sqrt(dh))
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
             scores = torch.where(mask.unsqueeze(1) > 0, scores,
                                  torch.full_like(scores, -1e30))
-        out = torch.matmul(torch.softmax(scores, dim=-1), v)
-        out = out.transpose(1, 2).reshape(b, lq, self.units)
-        return self.proj_out(out)
+            out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        out = self.proj_out(out.transpose(1, 2).reshape(b, lq, self.units))
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return out
 
 
 class PositionwiseFFN(nn.Module):
-    """FFN sublayer with erf GELU."""
+    """FFN sublayer with erf GELU; ``dropout`` on its output."""
 
-    def __init__(self, units, hidden_size, device=None):
+    def __init__(self, units, hidden_size, dropout=0.0, device=None):
         super().__init__()
         self.ffn_1 = nn.Linear(units, hidden_size, device=device)
+        self.activation = GELU()
         self.ffn_2 = nn.Linear(hidden_size, units, device=device)
+        self.dropout = _dropout(dropout)
 
     def forward(self, x):
-        return self.ffn_2(_ops.gelu(self.ffn_1(x)))
+        out = self.ffn_2(self.activation(self.ffn_1(x)))
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return out
 
 
 class TransformerEncoderCell(nn.Module):
     """Post-LN (BERT-style) encoder layer."""
 
-    def __init__(self, units, hidden_size, num_heads, device=None):
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 device=None):
         super().__init__()
-        self.attention = MultiHeadAttention(units, num_heads, device=device)
+        self.attention = MultiHeadAttention(units, num_heads, dropout,
+                                            device=device)
         self.attention_norm = LayerNorm(units, device=device)
-        self.ffn = PositionwiseFFN(units, hidden_size, device=device)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout, device=device)
         self.ffn_norm = LayerNorm(units, device=device)
 
     def forward(self, x, mask=None):
         out = self.attention_norm(x + self.attention(x, x, x, mask))
         return self.ffn_norm(out + self.ffn(out))
+
+
+class TransformerEncoder(nn.Module):
+    """``num_layers`` encoder cells (``cells.<i>``) applied in order."""
+
+    def __init__(self, units=512, hidden_size=2048, num_layers=6, num_heads=8,
+                 dropout=0.0, device=None):
+        super().__init__()
+        self.cells = nn.ModuleList(
+            TransformerEncoderCell(units, hidden_size, num_heads, dropout,
+                                   device=device)
+            for _ in range(num_layers))
+
+    def forward(self, x, mask=None):
+        for cell in self.cells:
+            x = cell(x, mask)
+        return x
+
+
+class BERTModel(nn.Module):
+    """BERT encoder: token, segment and position embeddings, LayerNorm,
+    dropout, the encoder, and the CLS-token pooler (Dense + tanh).
+    ``device``: where the parameters live (default: the card,
+    `context.resolve_device`)."""
+
+    def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
+                 num_layers=12, num_heads=12, max_length=512, token_types=2,
+                 dropout=0.1, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.word_embed = Embedding(vocab_size, units, device=device)
+        self.token_type_embed = Embedding(token_types, units, device=device)
+        self.position_embed = Embedding(max_length, units, device=device)
+        self.embed_norm = LayerNorm(units, device=device)
+        self.embed_dropout = _dropout(dropout)
+        self.encoder = TransformerEncoder(units, hidden_size, num_layers,
+                                          num_heads, dropout, device=device)
+        self.pooler = Dense(units, activation="tanh", in_units=units,
+                            device=device)
+
+    def initialize(self, init="xavier", seed=None):
+        """Fill the weights (default Xavier, embeddings included), LayerNorm
+        gamma 1 / beta 0, biases 0; see `initializer.initialize`. Returns
+        self."""
+        return _init.initialize(self, init, seed)
+
+    def _embed_prelude(self, inputs, token_types=None, valid_length=None):
+        """Token + segment + position embeddings, norm and dropout; and the
+        (B, Lq, Lk) attention mask from per-sample valid lengths (None
+        without them, so attention takes the flash path)."""
+        b, length = inputs.shape[0], inputs.shape[1]
+        x = self.word_embed(inputs)
+        if token_types is not None:
+            x = x + self.token_type_embed(token_types)
+        steps = torch.arange(length, device=inputs.device)
+        x = x + self.position_embed(steps)[None]
+        x = self.embed_norm(x)
+        if self.embed_dropout is not None:
+            x = self.embed_dropout(x)
+        mask = None
+        if valid_length is not None:
+            keep = steps[None, :] < valid_length.float()[:, None]
+            mask = keep[:, None, :].expand(b, length, length)
+        return x, mask
+
+    def forward(self, inputs, token_types=None, valid_length=None):
+        """inputs: (B, L) int token ids. Returns (sequence_out (B, L, C),
+        pooled_out (B, C))."""
+        x, mask = self._embed_prelude(inputs, token_types, valid_length)
+        seq = self.encoder(x, mask)
+        return seq, self.pooler(seq[:, 0])
 
 
 class TransformerLM(nn.Module):
@@ -217,3 +299,17 @@ def bert_base_lm(vocab_size=30522, **kwargs):
     kwargs.setdefault("num_layers", 12)
     return TransformerLM(vocab_size=vocab_size, units=768, hidden_size=3072,
                          num_heads=12, max_length=512, **kwargs)
+
+
+def bert_12_768_12(vocab_size=30522, **kwargs):
+    """BERT-base geometry: 12 layers, 768 units, 3072 hidden, 12 heads, 512
+    positions."""
+    return BERTModel(vocab_size=vocab_size, units=768, hidden_size=3072,
+                     num_layers=12, num_heads=12, **kwargs)
+
+
+def bert_mini(vocab_size=1000, **kwargs):
+    """Tiny geometry for tests (2 layers, 64 units, 4 heads), as in the JAX
+    package."""
+    return BERTModel(vocab_size=vocab_size, units=64, hidden_size=128,
+                     num_layers=2, num_heads=4, max_length=128, **kwargs)

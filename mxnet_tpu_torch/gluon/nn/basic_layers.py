@@ -1,23 +1,26 @@
 """Basic layers.
 
 Counterpart of `mxnet_tpu/gluon/nn/basic_layers.py` (HybridSequential,
-Dense, Activation, Flatten, BatchNorm) as `torch.nn.Module`s over
-`ops.nn`. Parameter names and shapes are the JAX package's (``weight``,
-``bias``, ``gamma``, ``beta``; BatchNorm's ``running_mean`` and
-``running_var`` are buffers). A layer is in training mode when its
-module's ``training`` flag is set (``train()`` / ``eval()``), the
-counterpart of the JAX package's autograd training scope.
+Dense, Activation, Flatten, BatchNorm, Embedding, LayerNorm, GELU,
+Dropout) as `torch.nn.Module`s over `ops.nn`. Parameter names and shapes
+are the JAX package's (``weight``, ``bias``, ``gamma``, ``beta``;
+BatchNorm's ``running_mean`` and ``running_var`` are buffers). A layer is
+in training mode when its module's ``training`` flag is set (``train()`` /
+``eval()``), the counterpart of the JAX package's autograd training
+scope.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ... import random as _random
 from ...base import MXNetError
 from ...ops import nn as _ops
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "Flatten", "BatchNorm"]
+           "Flatten", "BatchNorm", "Embedding", "LayerNorm", "GELU",
+           "Dropout"]
 
 
 class Sequential(nn.Sequential):
@@ -33,14 +36,16 @@ HybridSequential = Sequential
 
 class Dense(nn.Module):
     """Fully-connected layer: weight (units, in_units), bias (units,);
-    ``flatten`` reshapes the input to (N, -1) first."""
+    ``flatten`` reshapes the input to (N, -1) first; ``activation`` (an
+    `ops.nn.activation` type) is applied to the output."""
 
-    def __init__(self, units, use_bias=True, flatten=True, in_units=0,
-                 device=None):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 in_units=0, device=None):
         super().__init__()
         if not in_units:
             raise MXNetError("Dense: in_units must be given (the port does "
                              "not infer shapes at the first forward)")
+        self._act_type = activation
         self._flatten = flatten
         self.weight = nn.Parameter(torch.zeros((units, in_units),
                                                device=device))
@@ -50,8 +55,11 @@ class Dense(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x):
-        return _ops.fully_connected(x, self.weight, self.bias,
-                                    flatten=self._flatten)
+        out = _ops.fully_connected(x, self.weight, self.bias,
+                                   flatten=self._flatten)
+        if self._act_type is not None:
+            out = _ops.activation(out, act_type=self._act_type)
+        return out
 
 
 class Activation(nn.Module):
@@ -122,3 +130,53 @@ class BatchNorm(nn.Module):
         return _ops.batch_norm(x, self.gamma, self.beta, self.running_mean,
                                self.running_var, is_train=self.training,
                                **self._kwargs)[0]
+
+
+class Embedding(nn.Module):
+    """Lookup table: weight (input_dim, output_dim); indices are clipped to
+    [0, input_dim - 1]."""
+
+    def __init__(self, input_dim, output_dim, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros((input_dim, output_dim),
+                                               device=device))
+
+    def forward(self, x):
+        return _ops.embedding(x, self.weight)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis (``in_channels`` units), ``gamma`` 1
+    and ``beta`` 0 at construction, computed by `ops.nn.layer_norm`."""
+
+    def __init__(self, in_channels, epsilon=1e-5, device=None):
+        super().__init__()
+        self.eps = float(epsilon)
+        self.gamma = nn.Parameter(torch.ones(in_channels, device=device))
+        self.beta = nn.Parameter(torch.zeros(in_channels, device=device))
+
+    def forward(self, x):
+        return _ops.layer_norm(x, self.gamma, self.beta, self.eps)
+
+
+class GELU(nn.Module):
+    """Exact (erf) GELU."""
+
+    def forward(self, x):
+        return _ops.gelu(x)
+
+
+class Dropout(nn.Module):
+    """Dropout of ``rate`` in training mode (keep mask from this thread's
+    generator for the input's device, `mxnet_tpu_torch.random`); the
+    identity otherwise."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self._rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self._rate <= 0.0:
+            return x
+        return _ops.dropout(x, self._rate, is_train=True,
+                            generator=_random.generator(x.device))

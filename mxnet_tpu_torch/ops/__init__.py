@@ -1,1 +1,2 @@
-"""Ops of the port (counterpart of `mxnet_tpu.ops`, generation path only)."""
+"""Ops of the port (counterpart of `mxnet_tpu.ops`: what the generation,
+ResNet and BERT paths use)."""

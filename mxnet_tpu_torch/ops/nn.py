@@ -5,6 +5,8 @@ use:
 
 * the generation path: LayerNorm with the JAX package's one-pass,
   proxy-shifted moments (`_ln_core_fwd`), the dense projection, erf GELU;
+* the BERT training path: LayerNorm's hand-written backward
+  (`_ln_core_bwd`), the clipped embedding gather, dropout;
 * the ResNet training path: convolution, pooling, the fully-connected
   layer, activations, BatchNorm / BatchNormRelu / BatchNormAddRelu
   (`_bn_act`), log-softmax and softmax cross-entropy.
@@ -24,9 +26,50 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 
-__all__ = ["layer_norm", "dense", "gelu", "convolution", "pooling",
+__all__ = ["layer_norm", "embedding", "dropout", "dense", "gelu",
+           "convolution", "pooling",
            "fully_connected", "activation", "batch_norm", "batch_norm_relu",
            "batch_norm_add_relu", "log_softmax", "softmax_cross_entropy"]
+
+
+def _ln_fwd(data, gamma, beta, eps):
+    """`_ln_core_fwd`: the output and the f32 row mean and inverse std."""
+    proxy = data[..., 0:1].float()
+    d = data.float() - proxy
+    s1 = d.mean(dim=-1, keepdim=True)
+    s2 = d.square().mean(dim=-1, keepdim=True)
+    mean = proxy + s1
+    inv = torch.rsqrt(torch.clamp(s2 - s1.square(), min=0.0) + eps)
+    dt = data.dtype
+    xhat = (data - mean.to(dt)) * inv.to(dt)
+    return xhat * gamma.to(dt) + beta.to(dt), mean, inv
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The JAX package's custom_vjp `_ln_core`: the backward is
+    `_ln_core_bwd`, with dgamma and dbeta summed in f32, the row
+    corrections m1 and m2 in f32, and dx in the input dtype."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, eps):
+        out, mean, inv = _ln_fwd(data, gamma, beta, eps)
+        ctx.save_for_backward(data, gamma, mean, inv)
+        ctx.beta_dtype = beta.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        data, gamma, mean, inv = ctx.saved_tensors
+        dt = data.dtype
+        red = tuple(range(data.dim() - 1))
+        xhat = (data - mean.to(dt)) * inv.to(dt)
+        dgamma = (ct * xhat).float().sum(dim=red)
+        dbeta = ct.float().sum(dim=red)
+        g = ct * gamma.to(dt)
+        m1 = g.float().mean(dim=-1, keepdim=True)
+        m2 = (g * xhat).float().mean(dim=-1, keepdim=True)
+        dx = inv.to(dt) * (g - m1.to(dt) - xhat * m2.to(dt))
+        return dx, dgamma.to(gamma.dtype), dbeta.to(ctx.beta_dtype), None
 
 
 def layer_norm(data, gamma, beta, eps=1e-5):
@@ -34,17 +77,28 @@ def layer_norm(data, gamma, beta, eps=1e-5):
     ``d = x - proxy``, where the proxy is the row's first element, so the
     ``E[d^2] - E[d]^2`` form cannot cancel catastrophically for
     large-mean/small-spread rows. Moments are f32; the normalize runs in
-    the input dtype."""
-    proxy = data[..., 0:1].float()
-    d = data.float() - proxy
-    s1 = d.mean(dim=-1, keepdim=True)
-    s2 = d.square().mean(dim=-1, keepdim=True)
-    mean = proxy + s1
-    var = torch.clamp(s2 - s1.square(), min=0.0)
-    inv = torch.rsqrt(var + eps)
-    dt = data.dtype
-    xhat = (data - mean.to(dt)) * inv.to(dt)
-    return xhat * gamma.to(dt) + beta.to(dt)
+    the input dtype. The gradient is the JAX package's hand-written one
+    (`_LayerNorm`), not autograd through the forward."""
+    return _LayerNorm.apply(data, gamma, beta, float(eps))
+
+
+def embedding(data, weight):
+    """Rows of ``weight`` (V, C) at the integer indices ``data``, clipped to
+    [0, V-1] (the JAX package's ``mode="clip"``)."""
+    return F.embedding(data.long().clamp(0, weight.shape[0] - 1), weight)
+
+
+def dropout(data, p=0.5, is_train=False, generator=None):
+    """Inverted dropout: each element kept with probability ``1 - p`` and
+    scaled by ``1 / (1 - p)``, in the input dtype; the identity when
+    ``p <= 0`` or not training. The keep mask is drawn from ``generator``
+    (on data's device); it cannot reproduce the JAX package's threefry
+    bits."""
+    if not is_train or p <= 0.0:
+        return data
+    keep = 1.0 - p
+    mask = torch.rand(data.shape, generator=generator, device=data.device)
+    return data * (mask < keep).to(data.dtype) / keep
 
 
 def dense(x, weight, bias=None):

@@ -10,7 +10,10 @@ it holds no Pallas. Ported so far:
   BatchNorm (+ residual) (+ ReLU) over a channels-last activation, with a
   kernel backward) runs the four kernels of ``csrc/conv_epilogue.cu``
   through the wrappers `epi_stats`, `epi_apply`, `epi_bwd_reduce` and
-  `epi_bwd_dx`.
+  `epi_bwd_dx`;
+* flash attention (:40-373): `flash_attention` (differentiable, over
+  (..., L, D)) runs the three kernels of ``csrc/flash_attention.cu``
+  through the wrappers `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv`.
 
 Every wrapper launches its hand-written CUDA kernel (sm_90a) for CUDA
 tensors, and adds one to its ``launches`` count where it does; it runs its
@@ -30,13 +33,37 @@ from . import _build
 __all__ = ["paged_attention", "paged_attention_reference", "conv_epilogue",
            "conv_epilogue_reference", "epi_stats", "epi_stats_reference",
            "epi_apply", "epi_apply_reference", "epi_bwd_reduce",
-           "epi_bwd_reduce_reference", "epi_bwd_dx", "epi_bwd_dx_reference"]
+           "epi_bwd_reduce_reference", "epi_bwd_dx", "epi_bwd_dx_reference",
+           "flash_attention", "flash_attention_reference", "flash_fwd",
+           "flash_fwd_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
+           "flash_bwd_dkv", "flash_bwd_dkv_reference"]
 
 # finite mask value: a fully masked row stays NaN-free
 _NEG_INF = -1e30
 
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+
+
+def _call(source, argtypes, symbol, dev, *args):
+    """Launch entry ``symbol`` of ``csrc/<source>.cu`` (C argument types
+    ``argtypes[symbol]``, then the stream) on the current stream of
+    ``dev``; raises when the launch reports a CUDA error."""
+    fn = getattr(_build.load(source), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes[symbol] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise MXNetError("%s kernel launch failed: CUDA error %d"
+                         % (symbol, rc))
+
+
 _KERNEL_DTYPES = {torch.float32: "paged_attention_f32",
                   torch.bfloat16: "paged_attention_bf16"}
+_PAGED_ARGTYPES = dict.fromkeys(_KERNEL_DTYPES.values(),
+                                [_P] * 6 + [_I] * 6 + [_F])
 _KERNEL_MAX_HEAD_DIM = 128
 
 
@@ -98,15 +125,6 @@ def _check_kernel_args(q, k_pages, v_pages, page_tables, lengths):
         raise MXNetError("paged_attention: lengths must be int32 (%d,)" % b)
 
 
-def _bind(lib, symbol):
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def paged_attention(q, k_pages, v_pages, page_tables, lengths,
                     sm_scale=None):
     """Decode attention: one query token per sequence against a paged KV
@@ -135,16 +153,11 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    fn = _bind(_build.load("paged_attention"), _KERNEL_DTYPES[k_pages.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                b, h, d, k_pages.shape[0], k_pages.shape[2],
-                page_tables.shape[1], sm_scale, stream)
-    if rc != 0:
-        raise MXNetError("paged_attention kernel launch failed: CUDA error "
-                         "%d" % rc)
+    _call("paged_attention", _PAGED_ARGTYPES, _KERNEL_DTYPES[k_pages.dtype],
+          q.device, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+          page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
+          d, k_pages.shape[0], k_pages.shape[2], page_tables.shape[1],
+          sm_scale)
     paged_attention.launches += 1
     return out
 
@@ -168,14 +181,12 @@ _EPI_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EPI_CHUNK_ROWS = 128
 _EPI_MAX_CHUNKS = 1024
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
 _EPI_ARGTYPES = {
-    "epi_stats": [_P, _I, _L, _I, _P, _P, _I, _F, _I, _P, _I] + [_P] * 6,
-    "epi_apply": [_P, _P, _I, _L, _I, _P, _P, _I, _P, _P],
+    "epi_stats": [_P, _I, _L, _I, _P, _P, _I, _F, _I, _P, _I] + [_P] * 5,
+    "epi_apply": [_P, _P, _I, _L, _I, _P, _P, _I, _P],
     "epi_bwd_reduce": [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _I, _P, _I]
-                      + [_P] * 6,
-    "epi_bwd_dx": [_P, _P, _P, _I, _L, _I] + [_P] * 8,
+                      + [_P] * 5,
+    "epi_bwd_dx": [_P, _P, _P, _I, _L, _I] + [_P] * 7,
 }
 
 
@@ -184,17 +195,7 @@ def _epi_chunks(r):
 
 
 def _epi_call(symbol, dev, *args):
-    """Launch one entry of ``csrc/conv_epilogue.cu`` on the current stream
-    of ``dev``; raises when the launch reports a CUDA error."""
-    fn = getattr(_build.load("conv_epilogue"), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = _EPI_ARGTYPES[symbol]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise MXNetError("%s kernel launch failed: CUDA error %d"
-                         % (symbol, rc))
+    _call("conv_epilogue", _EPI_ARGTYPES, symbol, dev, *args)
 
 
 def _ptr(t):
@@ -475,3 +476,247 @@ def conv_epilogue_reference(x, gamma, beta, residual=None, eps=1e-3,
         x2d, None if residual is None else residual.reshape(-1, c), scale,
         shift, relu)
     return out.reshape(shape), mean.detach(), var.detach()
+
+
+# ---------------------------------------------------------------------------
+# Flash attention over (BH, L, D): forward (O and the per-row logsumexp),
+# and the backward as the JAX package splits it: delta = sum(dO * O) in
+# plain torch, then dQ over k tiles and dK/dV over q tiles, each recomputing
+# P from lse. Causal keeps the top-left diagonal (key col <= query row).
+# ---------------------------------------------------------------------------
+
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_MAX_HEAD_DIM = 128
+_FLASH_ARGTYPES = {
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I],
+    "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I],
+}
+
+
+def _flash_check(name, q, k, v, dout=None, lse=None, delta=None):
+    """Arguments of a flash kernel wrapper: q (BH, Lq, D) and k, v
+    (BH, Lk, D), float32 or bfloat16 of one dtype, with BH, Lq, Lk >= 1 and
+    D <= 128; dout like q; lse and delta f32 (BH, Lq); all contiguous on one
+    CUDA device. Raises `MXNetError`; nothing is copied or converted."""
+    if q.device.type != "cuda":
+        raise MXNetError("%s: unsupported device %s" % (name, q.device))
+    if q.dim() != 3 or q.dtype not in _FLASH_DTYPES:
+        raise MXNetError("%s: q must be a float32 or bfloat16 (BH, Lq, D) "
+                         "tensor, got %s %s" % (name, q.dtype,
+                                                tuple(q.shape)))
+    bh, lq, d = q.shape
+    if bh < 1 or lq < 1 or not 1 <= d <= _FLASH_MAX_HEAD_DIM:
+        raise MXNetError("%s: q shape %s: BH and Lq must be >= 1 and D in "
+                         "1..%d" % (name, tuple(q.shape),
+                                    _FLASH_MAX_HEAD_DIM))
+    named = [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
+             ("delta", delta)]
+    for label, t in named:
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise MXNetError("%s: %s is on %s, q on %s"
+                             % (name, label, t.device, q.device))
+        if not t.is_contiguous():
+            raise MXNetError("%s: %s must be contiguous (BH, L, D)"
+                             % (name, label))
+    if k.dim() != 3 or k.shape[0] != bh or k.shape[2] != d or k.shape[1] < 1 \
+            or v.shape != k.shape:
+        raise MXNetError("%s: k and v must both be (%d, Lk >= 1, %d), got %s "
+                         "/ %s" % (name, bh, d, tuple(k.shape),
+                                   tuple(v.shape)))
+    for label, t in (("k", k), ("v", v), ("dout", dout)):
+        if t is not None and t.dtype != q.dtype:
+            raise MXNetError("%s: %s is %s, q %s" % (name, label, t.dtype,
+                                                     q.dtype))
+    if dout is not None and dout.shape != q.shape:
+        raise MXNetError("%s: dout must be %s like q, got %s"
+                         % (name, tuple(q.shape), tuple(dout.shape)))
+    for label, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != (bh, lq)):
+            raise MXNetError("%s: %s must be float32 (%d, %d), got %s %s"
+                             % (name, label, bh, lq, t.dtype,
+                                tuple(t.shape)))
+
+
+def _flash_call(symbol, q, k, tensors, sm_scale, causal):
+    """Launch ``symbol`` on the pointers of ``tensors`` (its C argument
+    order), then dtype, BH, Lq, Lk, D, scale and causal."""
+    bh, lq, d = q.shape
+    _call("flash_attention", _FLASH_ARGTYPES, symbol, q.device,
+          *(t.data_ptr() for t in tensors), _FLASH_DTYPES[q.dtype], bh, lq,
+          k.shape[1], d, sm_scale, int(bool(causal)))
+
+
+def _flash_scores(q, k, causal, sm_scale):
+    """f32 scores ``q k^T * sm_scale`` (BH, Lq, Lk), the entries above a
+    causal diagonal set to the finite mask value."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    if causal:
+        lq, lk = s.shape[-2:]
+        row = torch.arange(lq, device=s.device)[:, None]
+        col = torch.arange(lk, device=s.device)[None, :]
+        s = torch.where(col <= row, s, torch.full_like(s, _NEG_INF))
+    return s
+
+
+def flash_fwd_reference(q, k, v, causal, sm_scale):
+    """Plain version of `flash_fwd`."""
+    s = _flash_scores(q, k, causal, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bqk,bkd->bqd", p, v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_fwd(q, k, v, causal=False, sm_scale=None):
+    """Attention of q (BH, Lq, D) over k, v (BH, Lk, D): ``softmax(q k^T *
+    sm_scale) v`` (sm_scale defaults to 1/sqrt(D)), computed in f32 with an
+    online softmax. Returns O (BH, Lq, D) in q's dtype and the f32
+    logsumexp of each score row, lse (BH, Lq). CUDA: the ``flash_fwd``
+    kernel of ``csrc/flash_attention.cu``; CPU: `flash_fwd_reference`."""
+    sm_scale = float(1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
+                     else sm_scale)
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, causal, sm_scale)
+    _flash_check("flash_fwd", q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _flash_call("flash_fwd", q, k, (q, k, v, out, lse), sm_scale, causal)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _flash_grad_terms(q, k, v, dout, lse, delta, causal, sm_scale):
+    """P recomputed from lse, and dS = P * (dO v^T - delta) * sm_scale, both
+    f32 (BH, Lq, Lk)."""
+    p = torch.exp(_flash_scores(q, k, causal, sm_scale) - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", dout.float(), v.float())
+    return p, p * (dp - delta[..., None]) * sm_scale
+
+
+def flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, sm_scale):
+    """Plain version of `flash_bwd_dq`."""
+    _, ds = _flash_grad_terms(q, k, v, dout, lse, delta, causal, sm_scale)
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
+    """dQ of flash attention: ``dS k`` with ``P = exp(q k^T * sm_scale -
+    lse)`` and ``dS = P * (dout v^T - delta) * sm_scale``; ``lse`` is
+    `flash_fwd`'s and ``delta`` = sum(dout * O) over D, both f32 (BH, Lq).
+    Returns dQ (BH, Lq, D) in q's dtype. CUDA: the ``flash_bwd_dq`` kernel;
+    CPU: `flash_bwd_dq_reference`."""
+    sm_scale = float(1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
+                     else sm_scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal,
+                                      sm_scale)
+    _flash_check("flash_bwd_dq", q, k, v, dout, lse, delta)
+    dq = torch.empty_like(q)
+    _flash_call("flash_bwd_dq", q, k, (q, k, v, dout, lse, delta, dq),
+                sm_scale, causal)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, sm_scale):
+    """Plain version of `flash_bwd_dkv`."""
+    p, ds = _flash_grad_terms(q, k, v, dout, lse, delta, causal, sm_scale)
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
+    """dK and dV of flash attention: ``dS^T q`` and ``P^T dout``, with P
+    and dS as in `flash_bwd_dq`. Returns (dK, dV), each (BH, Lk, D) in k's
+    dtype. CUDA: the ``flash_bwd_dkv`` kernel; CPU:
+    `flash_bwd_dkv_reference`."""
+    sm_scale = float(1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
+                     else sm_scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal,
+                                       sm_scale)
+    _flash_check("flash_bwd_dkv", q, k, v, dout, lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _flash_call("flash_bwd_dkv", q, k, (q, k, v, dout, lse, delta, dk, dv),
+                sm_scale, causal)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's custom_vjp around `_flash_fwd`: the forward saves
+    q, k, v, O and lse; the backward takes delta = sum(dO * O) in f32 and
+    runs `flash_bwd_dq`, then `flash_bwd_dkv`. The same Function on both
+    devices: only the leaf wrappers choose kernel or plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = flash_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        # the cotangent in the input dtype (the JAX package's g.astype),
+        # dense: autograd may hand a strided view
+        dout = g.to(q.dtype).contiguous()
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal,
+                          ctx.sm_scale)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
+                               ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None):
+    """Flash attention over (..., L, D) tensors, leading dims batched:
+    ``softmax(q k^T * sm_scale) v`` (sm_scale defaults to 1/sqrt(D)),
+    causal keeping key col <= query row. Differentiable (the kernels'
+    backward). The leading dims are flattened to BH as in the JAX package;
+    a view that cannot be flattened in place (as the (B, H, L, D) split of
+    attention heads) is copied. CUDA tensors go through the three kernels of
+    ``csrc/flash_attention.cu`` (which raise on a non-contiguous input);
+    CPU tensors through their plain versions."""
+    sm_scale = float(1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
+                     else sm_scale)
+    lead = q.shape[:-2]
+    lq, d = q.shape[-2:]
+    lk = k.shape[-2]
+    out = _FlashAttention.apply(q.reshape(-1, lq, d), k.reshape(-1, lk, d),
+                                v.reshape(-1, lk, d), bool(causal), sm_scale)
+    return out.reshape(lead + (lq, d))
+
+
+def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
+    """Plain attention over (..., L, D) (the JAX package's
+    `_attention_reference`): f32 scores and softmax, the result in q's
+    dtype. Differentiable by autograd; any device."""
+    sm_scale = float(1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
+                     else sm_scale)
+    lead = q.shape[:-2]
+    lq, d = q.shape[-2:]
+    lk = k.shape[-2]
+    s = _flash_scores(q.reshape(-1, lq, d), k.reshape(-1, lk, d), causal,
+                      sm_scale)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqk,bkd->bqd", p, v.reshape(-1, lk, d).float())
+    return o.to(q.dtype).reshape(lead + (lq, d))

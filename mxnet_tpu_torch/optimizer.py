@@ -1,5 +1,6 @@
 """Optimizers (counterpart of `mxnet_tpu/optimizer.py`: the `Optimizer`
-base with per-parameter lr/wd multipliers, `SGD`, and `create`).
+base with per-parameter lr/wd multipliers, `SGD`, `Adam`, and
+`create`).
 
 The JAX package traces `update` into its fused step; here `update` runs
 eagerly and changes the weight and its state in place (see
@@ -12,7 +13,7 @@ import torch
 from .base import MXNetError
 from .ops import optimizer_ops as _ops
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]
 
 _REGISTRY = {}
 
@@ -108,3 +109,36 @@ class SGD(Optimizer):
         else:
             _ops.sgd_mom_update(weight, grad, state, momentum=self.momentum,
                                 **kw)
+
+
+@register
+class Adam(Optimizer):
+    """Adam with f32 first and second moments a parameter. The bias
+    correction is folded into the step's learning rate, ``lr * sqrt(1 -
+    beta2^t) / (1 - beta1^t)`` with ``t`` the parameter's own update
+    count, as in the JAX package. Gradients are dense: a sparse gradient
+    raises, and so does ``lazy_update`` (the JAX package's lazy row-sparse
+    update is not ported)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return tuple(torch.zeros(weight.shape, dtype=torch.float32,
+                                 device=weight.device) for _ in range(2))
+
+    def update(self, index, weight, grad, state):
+        if grad.layout != torch.strided:
+            raise MXNetError("Adam: sparse gradients (%s) are not ported; "
+                             "the update takes a dense gradient"
+                             % grad.layout)
+        kw = self._common(index)
+        t = self._index_update_count[index]
+        coef1 = 1.0 - self.beta1 ** t
+        coef2 = 1.0 - self.beta2 ** t
+        kw["lr"] = kw["lr"] * coef2 ** 0.5 / coef1
+        mean, var = state
+        _ops.adam_update(weight, grad, mean, var, beta1=self.beta1,
+                         beta2=self.beta2, epsilon=self.epsilon, **kw)

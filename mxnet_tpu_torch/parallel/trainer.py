@@ -123,10 +123,15 @@ class DistributedTrainer:
             pred = out[0] if isinstance(out, (list, tuple)) else out
             per_sample = pred if self._loss is None else self._loss(pred, y)
             loss = per_sample.float().mean()
-            grads = torch.autograd.grad(loss, self._params)
-        for i, (p, g, s) in enumerate(zip(self._params, grads,
-                                          self._states)):
-            o.update(i, p, g, s)
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=True)
+        # the range names the update's kernels in a torch.profiler trace
+        with torch.profiler.record_function("trainer.optimizer"):
+            for i, (p, g, s) in enumerate(zip(self._params, grads,
+                                              self._states)):
+                # a parameter the loss does not reach (BERT's pooler under
+                # an MLM head) gets a zero gradient, as from jax.grad
+                o.update(i, p, torch.zeros_like(p) if g is None else g, s)
         telemetry.observe_step(time.perf_counter() - t0,
                                examples=int(x.shape[0]),
                                step=self._step_count, kind="dist")

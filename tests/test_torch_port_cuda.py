@@ -1,8 +1,8 @@
 """Card-only tests of the PyTorch port: each CUDA kernel (paged attention,
-the four conv-epilogue kernels) against its plain PyTorch version on the
-same card tensors, the generation engine on the card against the
-full-sequence forward, and a ResNet training step on the card against the
-same step on the CPU.
+the four conv-epilogue kernels, the three flash-attention kernels) against
+its plain PyTorch version on the same card tensors, the generation engine
+on the card against the full-sequence forward, and a ResNet and a BERT
+training step on the card against the same step on the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from mxnet_tpu_torch import initializer
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon import nn as tnn
-from mxnet_tpu_torch.gluon.model_zoo.transformer import lm_mini
+from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_mini, lm_mini
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
 from mxnet_tpu_torch.ops import pallas_kernels as tpk
 from mxnet_tpu_torch.parallel import DistributedTrainer
@@ -141,10 +142,11 @@ def test_engine_on_card_greedy_and_kernel_launches(kv_dtype):
 _EPI_NAMES = ("epi_stats", "epi_apply", "epi_bwd_reduce", "epi_bwd_dx")
 
 
-def _close(got, want, tol, what):
+def _close(got, want, tol, what, scale=0.0):
+    """|got - want| <= tol * |want| + tol * max(max|want|, scale)."""
     got, want = got.float(), want.float()
     assert got.shape == want.shape, what
-    floor = tol * max(float(want.abs().max()), 1e-30)
+    floor = tol * max(float(want.abs().max()), scale, 1e-30)
     err = (got - want).abs() - tol * want.abs()
     assert float(err.max()) <= floor, (what, float(err.max()), floor)
 
@@ -324,3 +326,185 @@ def test_trainer_step_on_card_matches_cpu():
     want = nets["cpu"].state_dict()
     for k, v in nets["cuda"].state_dict().items():
         _close(v.cpu(), want[k], 1e-4, k)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu)
+#
+# Tolerances: the kernels and the plain versions compute in f32 from the
+# same inputs and sum in other orders. f32 results rtol 1e-4 with a floor
+# of 1e-4 x the largest magnitude; bf16 tensors 2^-7 the same way (one
+# bf16 rounding step is 2^-8). lse is f32 in both dtypes. The three
+# gradients share one floor, from the largest of them: one can cancel to
+# rounding noise (one query row under the causal mask sees one key, so
+# dS = P * (dO.v - delta) = 0 and dQ = dK = 0 while dV = dO).
+# ---------------------------------------------------------------------------
+
+_FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# (BH, Lq, Lk, D): BERT-base's (batch 8 x 12 heads, 512, 64), ragged
+# cross-attention, the other head dims, a single query row
+_FLASH_SHAPES = [(96, 512, 512, 64), (2, 200, 260, 16), (2, 200, 260, 80),
+                 (2, 130, 70, 128), (3, 1, 77, 64)]
+
+
+def _flash_case(seed, bh, lq, lk, d, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(rows):
+        return torch.randn(bh, rows, d, generator=g, device="cuda").to(dtype)
+
+    return t(lq), t(lk), t(lk), t(lq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _FLASH_SHAPES)
+def test_flash_kernels_match_plain_on_card(dtype, causal, shape):
+    _need_card()
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    q, k, v, dout = _flash_case(11, *shape, getattr(torch, dtype))
+    scale = 1.0 / np.sqrt(shape[-1])
+    before = {n: getattr(tpk, n).launches for n in _FLASH_NAMES}
+    out, lse = tpk.flash_fwd(q, k, v, causal, scale)
+    want_out, want_lse = tpk.flash_fwd_reference(q, k, v, causal, scale)
+    _close(out, want_out, tol, "out")
+    _close(lse, want_lse, 1e-4, "lse")
+    delta = (dout.float() * want_out.float()).sum(-1)
+    got = (tpk.flash_bwd_dq(q, k, v, dout, want_lse, delta, causal, scale),)
+    got += tpk.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal, scale)
+    want = (tpk.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta,
+                                       causal, scale),)
+    want += tpk.flash_bwd_dkv_reference(q, k, v, dout, want_lse, delta,
+                                        causal, scale)
+    big = max(float(w.float().abs().max()) for w in want)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, b, tol, name, scale=big)
+    torch.cuda.synchronize()
+    assert all(getattr(tpk, n).launches == before[n] + 1
+               for n in _FLASH_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_are_deterministic(dtype):
+    """No atomics and no cross-block sums: two runs give the same bits."""
+    _need_card()
+    q, k, v, dout = _flash_case(3, 96, 512, 512, 64, getattr(torch, dtype))
+    runs = []
+    for _ in range(2):
+        out, lse = tpk.flash_fwd(q, k, v)
+        delta = (dout.float() * out.float()).sum(-1)
+        runs.append((out, lse, tpk.flash_bwd_dq(q, k, v, dout, lse, delta))
+                    + tpk.flash_bwd_dkv(q, k, v, dout, lse, delta))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_grad_matches_reference_on_card(dtype, causal):
+    """The autograd Function over the kernels against autograd through the
+    plain attention, on the (B, H, L, Dh) head split of BERT-base at batch
+    2 (strided views, as the attention layer hands them)."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    g = torch.Generator(device="cuda").manual_seed(8)
+    qkv = torch.randn(2, 512, 3, 12, 64, generator=g, device="cuda").to(tdt)
+    ct = torch.randn(2, 12, 512, 64, generator=g, device="cuda").to(tdt)
+    results = []
+    for fn in (tpk.flash_attention, tpk.flash_attention_reference):
+        leaf = qkv.clone().requires_grad_()
+        q, k, v = (leaf[:, :, i].transpose(1, 2) for i in range(3))
+        out = fn(q, k, v, causal=causal)
+        (out.float() * ct.float()).sum().backward()
+        results.append((out.detach(), leaf.grad))
+    for name, a, b in zip(("out", "dqkv"), *results):
+        _close(a, b, tol, name)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_on_bad_inputs():
+    _need_card()
+    q, k, v, dout = _flash_case(1, 2, 16, 24, 32, torch.float32)
+    with pytest.raises(MXNetError, match="contiguous"):
+        tpk.flash_fwd(q.transpose(0, 1), k, v)
+    with pytest.raises(MXNetError, match="cpu"):
+        tpk.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(MXNetError):
+        tpk.flash_fwd(q, k.to(torch.bfloat16), v)
+    with pytest.raises(MXNetError):
+        tpk.flash_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(MXNetError, match="1..128"):
+        big = torch.zeros(1, 4, 136, device="cuda")
+        tpk.flash_fwd(big, big, big)
+    lse = torch.zeros(2, 16, device="cuda")
+    with pytest.raises(MXNetError, match="lse"):
+        tpk.flash_bwd_dq(q, k, v, dout, lse[:, :8], lse)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_never_takes_plain_version(monkeypatch):
+    _need_card()
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in _FLASH_NAMES:
+        monkeypatch.setattr(tpk, name + "_reference", boom)
+    q, k, v, _ = _flash_case(2, 2, 40, 40, 64, torch.float32)
+    q.requires_grad_()
+    tpk.flash_attention(q, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(q.grad).all()
+
+
+class _BertPretrain(torch.nn.Module):
+    """BERT mini with an MLM head (vocab 64), children ``bert`` and
+    ``mlm``."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.bert = bert_mini(vocab_size=64, dropout=0.0, device=device)
+        self.mlm = tnn.Dense(64, flatten=False, in_units=64, device=device)
+
+    def forward(self, tokens):
+        return self.mlm(self.bert(tokens)[0])
+
+
+@pytest.mark.cuda
+def test_bert_mini_step_on_card_matches_cpu():
+    """One f32 Adam step of BERT mini + MLM head on the card (the flash
+    kernels, TF32 off) against the same step on the CPU, from the same
+    weights and batch: the loss, every parameter after the step and the
+    change the step made (held to tol x the step's largest change as
+    well: the key bias's gradient is zero in exact arithmetic). Adam's
+    epsilon 1e-2 keeps the step linear in the gradient. 2 layers, so each
+    flash kernel launches twice."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, 64, (4, 100)).astype(np.int64)
+    y = rng.randint(0, 64, (4, 100)).astype(np.float32)
+    nets = {d: _BertPretrain(d) for d in ("cpu", "cuda")}
+    initializer.initialize(nets["cpu"], seed=5)
+    before = {k: v.clone() for k, v in nets["cpu"].state_dict().items()}
+    nets["cuda"].load_state_dict(before)
+    launches = {n: getattr(tpk, n).launches for n in _FLASH_NAMES}
+    losses = {}
+    for d, net in nets.items():
+        tr = DistributedTrainer(net, "adam", {"learning_rate": 0.1,
+                                              "epsilon": 1e-2},
+                                loss=tloss.SoftmaxCrossEntropyLoss())
+        losses[d] = tr.step(x, y)
+    torch.cuda.synchronize()
+    assert all(getattr(tpk, n).launches == launches[n] + 2
+               for n in _FLASH_NAMES)
+    _close(losses["cuda"].cpu(), losses["cpu"], 1e-4, "loss")
+    want = nets["cpu"].state_dict()
+    big = max(float((want[k] - before[k]).abs().max()) for k in want)
+    for k, v in nets["cuda"].state_dict().items():
+        _close(v.cpu(), want[k], 1e-4, k, scale=big)
+        _close(v.cpu() - before[k], want[k] - before[k], 1e-4,
+               "change of " + k, scale=big)

@@ -565,6 +565,8 @@ def test_training_modules_import_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             "import mxnet_tpu_torch.train_imagenet, mxnet_tpu_torch.metric\n"
             "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
+            "import mxnet_tpu_torch.gluon.model_zoo.transformer\n"
+            "import mxnet_tpu_torch.ops.contrib, mxnet_tpu_torch.optimizer\n"
             "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.convert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
