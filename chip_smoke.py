@@ -28,7 +28,13 @@ Phases; each raises on failure, and the script then exits non-zero:
    and at ragged, other-head-dim and one-row shapes, each run twice and
    compared bit for bit; `scaled_dot_product_attention` is their
    yardstick; and the flash autograd Function against autograd through
-   the plain attention.
+   the plain attention. The three LSTM kernels (infer, forward, backward)
+   at the word LM's layer (T 35, B 32, H 650, nonzero h0 and c0) and at
+   ragged, one-step and width-200 shapes, bf16 and f32, each run twice
+   and compared bit for bit; cuDNN's LSTM layer is their yardstick, and
+   one grid barrier (``lstm_barrier_probe``) times T gives each its
+   sequential floor; and `lstm_layer` (the autograd Function) against
+   autograd through the plain step loop.
 3. serve: a TransformerLM at BERT-base width (12 x 768, 12 heads, vocab
    30522; random weights from ``--seed``) written as a generation artifact,
    loaded through `ModelRepository` with the default serving geometry, and
@@ -55,11 +61,25 @@ Phases; each raises on failure, and the script then exits non-zero:
    times. Prints tokens/s, ms a step, MFU by bench.py's FLOP count and
    peak allocated bytes; ``--profile`` adds the device busy share and
    device time by group (flash, GEMM, LayerNorm, optimizer, rest).
-5. parity: one f32 step of a small ResNet (2 bottleneck stages), and one
-   f32 Adam step of bert_mini + an MLM head, on the card (kernels, TF32
-   off) against the same step on the CPU (plain versions) from the same
-   weights and batch: loss and every updated parameter and running
-   statistic, after the step and as the change the step made.
+   Then the word LM as bench.py's ``bench_lstm`` drives it:
+   RNNModel(10000, 650, 650, 2 layers, dropout 0), 19,780,400
+   parameters, Xavier from ``--seed``, SGD lr 1.0, bf16 over f32 masters,
+   one synthetic batch of 35 x 32 tokens repeated: 3 warm-up steps, then
+   the LSTM launch counts set to 0 and 10 timed steps. The loss must be
+   finite and fall, lstm_fwd and lstm_bwd launch 2 x steps times and
+   lstm_infer never. Prints tokens/s, ms a step, MFU by bench.py's FLOP
+   count and peak allocated bytes; ``--profile`` adds the device busy
+   share and device time by group (LSTM, GEMM, loss, optimizer, rest).
+   Then its evaluation: the trained model under no_grad over 4
+   consecutive windows with the state carried; lstm_infer launches 2 x 4
+   times and nothing else; the perplexity is finite, and the logits and
+   final state equal a CPU run's of the same model and windows.
+5. parity: one f32 step of a small ResNet (2 bottleneck stages), one f32
+   Adam step of bert_mini + an MLM head, and one f32 SGD step of a small
+   word LM (vocab 1000, 2 x 650 units, 12 x 8 tokens), on the card
+   (kernels, TF32 off) against the same step on the CPU (plain versions)
+   from the same weights and batch: loss and every updated parameter and
+   running statistic, after the step and as the change the step made.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -89,6 +109,7 @@ BF16_FLOPS_PER_S = 989e12
 # every kernel of the port: wrapper, source, the TPU kernel it replaces
 _EPI_SRC = "mxnet_tpu_torch/csrc/conv_epilogue.cu"
 _FLASH_SRC = "mxnet_tpu_torch/csrc/flash_attention.cu"
+_LSTM_SRC = "mxnet_tpu_torch/csrc/lstm.cu"
 KERNELS = [
     {"name": "paged_attention", "route": "cuda",
      "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -107,10 +128,17 @@ KERNELS = [
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:163"},
     {"name": "flash_bwd_dkv", "route": "cuda", "source": _FLASH_SRC,
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:201"},
+    {"name": "lstm_infer", "route": "cuda", "source": _LSTM_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:506"},
+    {"name": "lstm_fwd", "route": "cuda", "source": _LSTM_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:429"},
+    {"name": "lstm_bwd", "route": "cuda", "source": _LSTM_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:463"},
 ]
 SERVE_KERNELS = ["paged_attention"]
 EPI_KERNELS = ["epi_stats", "epi_apply", "epi_bwd_reduce", "epi_bwd_dx"]
 FLASH_KERNELS = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+LSTM_KERNELS = ["lstm_infer", "lstm_fwd", "lstm_bwd"]
 
 # serving-path geometry of the paged-attention kernel: heads, head dim,
 # tokens a page, pages in the pool, pages a sequence (64 + 128 tokens)
@@ -885,6 +913,249 @@ def check_flash(torch, pk, seed, flush):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the LSTM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# bench_lstm's layer: (T = bptt, B = batch, H = hidden); the other cases:
+# ragged (neither B nor H a multiple of anything), one step, and the
+# RNNModel default width at batch 1
+LSTM_PATH = (35, 32, 650)
+LSTM_CASES = [("path", LSTM_PATH), ("ragged", (7, 5, 9)),
+              ("one step", (1, 3, 5)), ("width 200", (35, 1, 200))]
+# f32 results rtol 1e-4 with a floor of 1e-4 x max|plain|; bf16 tensors
+# 2^-7 the same way (the products' f32 sums in other orders can round a
+# bf16 h, gate or dgates to the neighbouring value, one step 2^-8, and the
+# recurrence carries it on)
+LSTM_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+
+
+def lstm_inputs(torch, seed, shape, tdt):
+    """gx, wh (scaled as Xavier on (4H, H) would), nonzero h0 and c0, and
+    the cotangents dy and dcT, on the card."""
+    t, b, h = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*size, scale=1.0):
+        return (torch.randn(size, generator=g, device="cuda")
+                * scale).to(tdt)
+
+    return (rnd(t, b, 4 * h), rnd(4 * h, h, scale=(2.0 / (5 * h)) ** 0.5),
+            rnd(b, h, scale=0.5), rnd(b, h, scale=0.5), rnd(t, b, h),
+            rnd(b, h))
+
+
+def lstm_bound(kernel, shape, dtype):
+    """Least time of one call at (T, B, H): its tensors read or written
+    once over the HBM rate, or the recurrent products' FLOPs (2 T B 4H H)
+    over the dtype's peak (bf16 tensor cores, or f32 outside them)."""
+    t, b, h = shape
+    e = 2 if dtype == "bfloat16" else 4
+    gx, w, bh, ys, c_all = t * b * 4 * h * e, 4 * h * h * e, b * h * e, \
+        t * b * h * e, t * b * h * 4
+    nbytes = {"lstm_infer": gx + w + 2 * bh + ys + bh,
+              "lstm_fwd": gx + w + 2 * bh + ys + c_all + gx,
+              "lstm_bwd": ys + gx + c_all + 2 * bh + w + gx + 2 * bh}[kernel]
+    peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * t * b * 4 * h * h / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def lstm_runs(pk, args):
+    """Each kernel once: infer, fwd, and bwd on the fwd's residuals."""
+    gx, wh, h0, c0, dy, dct = args
+    ys, ct = pk.lstm_infer(gx, wh, h0, c0)
+    ys2, c_all, gates = pk.lstm_fwd(gx, wh, h0, c0)
+    return (ys, ct, ys2, c_all, gates) + pk.lstm_bwd(dy, gates, c_all, c0,
+                                                     dct, wh)
+
+
+def barrier_ms(torch, h, iters=2000):
+    """One grid barrier of a cooperative launch as wide as the LSTM
+    kernels' at hidden size h (one block an SM, 512 threads), by CUDA
+    events around `iters` of them (``lstm_barrier_probe``). Returns (ms,
+    blocks)."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-h // -(-h // sms))
+    fn = _build.load("lstm").lstm_barrier_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(n):
+        rc = fn(blocks, n, stream)
+        if rc != 0:
+            raise AssertionError("lstm_barrier_probe: CUDA error %d" % rc)
+
+    run(10)
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    run(iters)
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters, blocks
+
+
+def time_lstm(torch, pk, args, dtype, flush, barrier):
+    """Kernel, plain and library times, bound and sequential floor of the
+    three kernels at the path's shape. The library yardstick is cuDNN's
+    LSTM layer (`torch.nn.LSTM`, one layer, input size H, the same T, B, H
+    and dtype): its forward under no_grad for the infer kernel, its
+    training forward for the forward kernel, its backward for the backward
+    kernel. cuDNN's time includes the input projection, which the kernels'
+    does not: that GEMM's time ((T B, H) x (H, 4H)) goes beside it."""
+    t, b, h = LSTM_PATH
+    tdt = getattr(torch, dtype)
+    gx, wh, h0, c0, dy, dct = args
+    _, c_all, gates = pk.lstm_fwd_reference(gx, wh, h0, c0)
+    lib = torch.nn.LSTM(h, h, 1).to("cuda", tdt)
+    lib.flatten_parameters()   # one weight buffer, as cuDNN wants it
+    x = torch.randn(t, b, h, device="cuda").to(tdt)
+    state = (h0[None].contiguous(), c0[None].contiguous())
+    leaves = [x.clone().requires_grad_()] + list(lib.parameters())
+    lib_out, _ = lib(leaves[0], state)
+
+    def lib_infer():
+        with torch.no_grad():
+            return lib(x, state)
+
+    lib_ms = {
+        "lstm_infer": time_ms(torch, lib_infer, flush, reps=50),
+        "lstm_fwd": time_ms(torch, lambda: lib(leaves[0], state), flush,
+                            reps=50),
+        "lstm_bwd": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, dy, retain_graph=True), flush, reps=50)}
+    w_ih = lib.weight_ih_l0.detach()
+    proj_ms = time_ms(torch, lambda: torch.matmul(x.reshape(-1, h),
+                                                  w_ih.t()), flush, reps=50)
+    calls = {
+        "lstm_infer": (lambda: pk.lstm_infer(gx, wh, h0, c0),
+                       lambda: pk.lstm_infer_reference(gx, wh, h0, c0)),
+        "lstm_fwd": (lambda: pk.lstm_fwd(gx, wh, h0, c0),
+                     lambda: pk.lstm_fwd_reference(gx, wh, h0, c0)),
+        "lstm_bwd": (lambda: pk.lstm_bwd(dy, gates, c_all, c0, dct, wh),
+                     lambda: pk.lstm_bwd_reference(dy, gates, c_all, c0, dct,
+                                                   wh))}
+    rows = {}
+    for name, (fn, plain) in calls.items():
+        ms = time_ms(torch, fn, flush, reps=50)
+        plain_ms = time_ms(torch, plain, flush, reps=10)
+        bound_ms, bound_by = lstm_bound(name, LSTM_PATH, dtype)
+        # the recurrence's sequential floor: one grid barrier a step (the
+        # forward kernels skip the one after the last step)
+        floor_ms = barrier * (t if name == "lstm_bwd" else t - 1)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms[name],
+                      "floor_ms": floor_ms, "projection_ms": proj_ms}
+        log("  %-10s %s %s: kernel %.4f ms plain %.4f ms library (cuDNN "
+            "LSTM %s, with its input projection) %.4f ms [projection GEMM "
+            "%.4f ms] bound %.4f ms (%s) sequential floor %.4f ms (%d "
+            "barriers)" % (name, LSTM_PATH, dtype, ms, plain_ms,
+                           {"lstm_infer": "forward, no_grad",
+                            "lstm_fwd": "training forward",
+                            "lstm_bwd": "backward"}[name], lib_ms[name],
+                           proj_ms, bound_ms, bound_by, floor_ms,
+                           t if name == "lstm_bwd" else t - 1))
+    return rows
+
+
+def check_lstm_grad(torch, pk, seed):
+    """`lstm_layer` (the `_LSTMLayer` route: forward and backward kernels,
+    dW_hh as one product) against autograd through
+    `lstm_layer_reference` (the plain step loop), at the path's shape in
+    f32 and bf16: ys, hT, cT and the gradients of gx, wh, h0 and c0 under
+    cotangents on all three outputs."""
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        gx, wh, h0, c0, dy, dct = lstm_inputs(torch, seed, LSTM_PATH, tdt)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        dht = torch.randn(h0.shape, generator=g, device="cuda").to(tdt)
+        results = []
+        for fn in (pk.lstm_layer, pk.lstm_layer_reference):
+            leaves = [t.clone().requires_grad_() for t in (gx, wh, h0, c0)]
+            outs = fn(*leaves)
+            grads = torch.autograd.grad(outs, leaves, (dy, dht, dct))
+            results.append([o.detach() for o in outs] + list(grads))
+        names = ("ys", "hT", "cT", "dgx", "dwh", "dh0", "dc0")
+        for name, a, b in zip(names, *results):
+            err = max_err(torch, a, b, LSTM_TOL[dtype], "lstm_layer %s %s"
+                          % (name, dtype))
+            worst = max(worst, err / float(b.float().abs().max()))
+    log("lstm_layer %s, f32 and bf16: ys, hT, cT and the gradients of gx, "
+        "wh, h0, c0 agree with autograd through the plain step loop "
+        "(largest error %.3g of the compared tensor's largest magnitude)"
+        % (LSTM_PATH, worst))
+
+
+def check_lstm(torch, pk, seed, flush):
+    """Each LSTM kernel against its plain version on the same card tensors
+    at every case of LSTM_CASES in bf16 and f32 (the backward on the plain
+    forward's residuals, so each kernel is held alone), each run twice and
+    compared bit for bit; the autograd Function; the timings at the
+    path's shape. Returns the `kernels` rows (bf16, the path's dtype, with
+    the f32 numbers beside) with the largest errors."""
+    for dtype in (torch.float32, torch.bfloat16):
+        if not pk.lstm_layer_fits(LSTM_PATH[1], LSTM_PATH[2], dtype):
+            raise AssertionError("lstm_layer_fits(%d, %d, %s) is false"
+                                 % (LSTM_PATH[1], LSTM_PATH[2], dtype))
+    barrier, blocks = barrier_ms(torch, LSTM_PATH[2])
+    log("lstm: one grid barrier of %d blocks takes %.3f us (lstm_barrier_"
+        "probe); lstm_layer_fits(32, 650) holds in f32 and bf16"
+        % (blocks, barrier * 1e3))
+    worst = dict.fromkeys(LSTM_KERNELS, 0.0)
+    rows, f32_rows = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        tol = LSTM_TOL[dtype]
+        for i, (label, shape) in enumerate(LSTM_CASES):
+            args = lstm_inputs(torch, seed + i, shape, tdt)
+            gx, wh, h0, c0, dy, dct = args
+            runs = [lstm_runs(pk, args) for _ in range(2)]
+            torch.cuda.synchronize()
+            tag = "%s %s %s" % (label, shape, dtype)
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError("lstm kernels %s: two runs differ" % tag)
+            ys, ct, ys2, c_all, gates = runs[0][:5]
+            want_ys, want_ct = pk.lstm_infer_reference(gx, wh, h0, c0)
+            want_ys2, want_c, want_g = pk.lstm_fwd_reference(gx, wh, h0, c0)
+            dgx, dh0, dc0 = pk.lstm_bwd(dy, want_g, want_c, c0, dct, wh)
+            want_b = pk.lstm_bwd_reference(dy, want_g, want_c, c0, dct, wh)
+            checks = [("lstm_infer", "ys", ys, want_ys, tol),
+                      ("lstm_infer", "cT", ct, want_ct, tol),
+                      ("lstm_fwd", "ys", ys2, want_ys2, tol),
+                      ("lstm_fwd", "c_all", c_all, want_c, LSTM_TOL[
+                          "float32"] if dtype == "float32" else tol),
+                      ("lstm_fwd", "gates", gates, want_g, tol)]
+            checks += [("lstm_bwd", n, a, b, tol) for n, a, b in zip(
+                ("dgx", "dh0", "dc0"), (dgx, dh0, dc0), want_b)]
+            for kern, name, got, want, t_tol in checks:
+                worst[kern] = max(worst[kern], max_err(
+                    torch, got, want, t_tol, "%s %s %s" % (kern, name, tag)))
+            if label == "path":
+                case_rows = time_lstm(torch, pk, args, dtype, flush, barrier)
+                (rows if dtype == "bfloat16" else f32_rows).update(case_rows)
+            del args, runs
+            torch.cuda.empty_cache()
+    log("lstm: the three kernels agree with their plain versions at %d "
+        "cases x 2 dtypes (|kernel - plain| <= tol x |plain| + tol x "
+        "max|plain|, tol 1e-4 for f32 results and c_all, 2^-7 for bf16 "
+        "tensors); two runs give the same bits; largest absolute errors %s"
+        % (len(LSTM_CASES), json.dumps(worst)))
+    check_lstm_grad(torch, pk, seed)
+    for k in LSTM_KERNELS:
+        rows[k]["max_abs_err"] = worst[k]
+        rows[k]["f32"] = {key: f32_rows[k][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "floor_ms")}
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: train ResNet-50 through DistributedTrainer
 # ---------------------------------------------------------------------------
 
@@ -1222,6 +1493,235 @@ def train_bert(torch, pk, args):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: word-LM training and evaluation
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_lstm: RNNModel(10000, 650, 650, 2, dropout 0), bptt 35,
+# batch 32, SGD lr 1.0, bf16 over f32 masters; warm-up steps, then timed
+# steps; the evaluation's windows
+LM_VOCAB, LM_UNITS, LM_LAYERS, LM_BPTT, LM_BATCH = 10000, 650, 2, 35, 32
+LM_WARMUP, LM_STEPS, LM_EVAL_WINDOWS = 3, 10, 4
+LM_PARAMS = 19780400
+# bench.py:1176-1179: 4 gates x (h x in + h x h) multiply-adds x 2 a layer,
+# the decoder's h x vocab x 2, all x 3 for training
+LM_FLOPS_TOKEN = 3 * (sum(2 * 4 * (LM_UNITS * LM_UNITS + LM_UNITS * LM_UNITS)
+                          for _ in range(LM_LAYERS))
+                      + 2 * LM_UNITS * LM_VOCAB)
+# the card's evaluation against the CPU's, f32 over 4 x 35 steps: rtol 1e-4
+# with a floor of 1e-4 x max|CPU| (f32 sums in other orders, carried
+# through the recurrence)
+LM_EVAL_TOL = 1e-4
+
+
+def seq_ce(gloss):
+    """bench_lstm's SeqCE, softmax cross-entropy over (-1, vocab), taken on
+    the logits cast to f32. From Xavier weights the logits are about 4e-3,
+    so every token's loss is ln(10000) = 9.2103 to within 1e-2, and in bf16
+    each one rounds to 9.1875 (bf16 steps are 0.0625 there): a bf16 loss
+    stays flat for hundreds of SGD steps at lr 1.0 and cannot show the fall
+    this phase checks. The model's forward and backward stay bf16."""
+    ce = gloss.SoftmaxCrossEntropyLoss()
+
+    def loss(pred, label):
+        return ce(pred.float().reshape(-1, pred.shape[-1]),
+                  label.reshape(-1))
+
+    return loss
+
+
+def profile_word_lm(torch, trainer, x, y, step_ms, steps=3):
+    """`torch.profiler` over ``steps`` word-LM steps: the device busy share
+    against ``step_ms`` (timed without the profiler) and device time by
+    group: the LSTM kernels and the GEMMs by kernel name, the loss
+    (log-softmax and its gather, both ways) by kernel name, the optimizer
+    by the trainer's ``trainer.optimizer`` range, and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+    kernels, optimizer = {}, 0.0
+    for ev in prof.events():
+        if is_annotation(ev):
+            continue
+        if str(ev.device_type).endswith("CUDA"):
+            row = kernels.setdefault(ev.name, [0.0, 0])
+            row[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+            row[1] += 1
+            continue
+        launched = sum(k.duration for k in getattr(ev, "kernels", ()))
+        if not launched:
+            continue
+        names, up = [], ev
+        while up is not None:
+            names.append(up.name)
+            up = up.cpu_parent
+        if "trainer.optimizer" in names:
+            optimizer += launched / 1e3
+    busy = sum(r[0] for r in kernels.values()) / steps
+    groups = {"LSTM (this port's kernels)": lambda k: "lstm_" in k,
+              "GEMM (cuBLAS)": lambda k: any(
+                  t in k.lower() for t in ("gemm", "cutlass", "xmma",
+                                           "nvjet", "cublas")),
+              "loss (log-softmax, gather)": lambda k: any(
+                  t in k.lower() for t in ("softmax", "gather", "scatter"))}
+    shares = dict.fromkeys(groups, 0.0)
+    for key, (ms, _) in kernels.items():
+        for name, test in groups.items():
+            if test(key):
+                shares[name] += ms / steps
+                break
+    shares["optimizer"] = optimizer / steps
+    shares["rest"] = busy - sum(shares.values())
+    log("profile word-LM step (bf16, %d x %d tokens, %d steps): device busy "
+        "%.3f ms a step = %.1f%% of the %.2f ms step timed without the "
+        "profiler; %s" % (x.shape[0], x.shape[1], steps, busy,
+                          100.0 * busy / step_ms, step_ms,
+                          "; ".join("%s %.3f ms" % kv
+                                    for kv in shares.items())))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    for key, (ms, count) in top:
+        log("  %8.3f ms  x%-4d %s" % (ms / steps, count // steps, key[:100]))
+    host = sorted(((ev.self_cpu_time_total / steps / 1e3, ev.count // steps,
+                    ev.key) for ev in prof.key_averages()
+                   if not str(ev.device_type).endswith("CUDA")),
+                  reverse=True)
+    log("  host, by own CPU time a step (profiled):")
+    for ms, count, key in host[:10]:
+        log("  %8.3f ms  x%-4d %s" % (ms, count, key[:100]))
+
+
+def train_word_lm(torch, pk, args):
+    """bench_lstm's training on the card. Returns the launch counts of the
+    timed steps and the trained model."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+    from mxnet_tpu_torch.parallel import DistributedTrainer
+
+    t0 = time.monotonic()
+    net = RNNModel(LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, dropout=0.0,
+                   device="cuda").initialize(seed=args.seed)
+    n_params = sum(p.numel() for p in net.parameters())
+    if n_params != LM_PARAMS:
+        raise AssertionError("RNNModel(10000, 650, 650, 2) has %d "
+                             "parameters, not %d" % (n_params, LM_PARAMS))
+    rng = np.random.RandomState(args.seed + 6)
+    x = torch.from_numpy(rng.randint(0, LM_VOCAB, (LM_BPTT, LM_BATCH))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.randint(0, LM_VOCAB, (LM_BPTT, LM_BATCH))
+                         .astype(np.float32)).cuda()
+    trainer = DistributedTrainer(net, "sgd", {"learning_rate": 1.0},
+                                 loss=seq_ce(gloss), amp_dtype="bfloat16")
+    log("train: word LM RNNModel(%d, %d, %d, %d layers), %d parameters, "
+        "built in %.1f s; %d FLOPs a token (bench.py's count)"
+        % (LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, n_params,
+           time.monotonic() - t0, LM_FLOPS_TOKEN))
+    t0 = time.monotonic()
+    warm = [float(trainer.step(x, y)) for _ in range(LM_WARMUP)]
+    torch.cuda.synchronize()
+    log("  %d warm-up steps in %.2f s, losses %s"
+        % (LM_WARMUP, time.monotonic() - t0, ["%.4f" % v for v in warm]))
+    torch.cuda.reset_peak_memory_stats()
+    for k in LSTM_KERNELS:   # the word-LM training path's counts start here
+        getattr(pk, k).launches = 0
+    t0 = time.monotonic()
+    losses = [trainer.step(x, y) for _ in range(LM_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite word-LM loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("word-LM loss did not fall over the timed "
+                             "steps: %s" % losses)
+    want = {"lstm_infer": 0, "lstm_fwd": LM_LAYERS * LM_STEPS,
+            "lstm_bwd": LM_LAYERS * LM_STEPS}
+    if launches != want:
+        raise AssertionError("word-LM training launches %s, not %s"
+                             % (launches, want))
+    tps = LM_BPTT * LM_BATCH * LM_STEPS / wall
+    log("  %d timed steps in %.3f s: %.1f tokens/s, %.2f ms a step; MFU "
+        "%.4f (%d FLOPs a token at 989 TFLOP/s bf16); peak allocated %d "
+        "bytes; losses %s; launches %s"
+        % (LM_STEPS, wall, tps, wall / LM_STEPS * 1e3,
+           tps * LM_FLOPS_TOKEN / BF16_FLOPS_PER_S, LM_FLOPS_TOKEN, peak,
+           ["%.4f" % v for v in losses], json.dumps(launches)))
+    if args.profile:
+        profile_word_lm(torch, trainer, x, y, wall / LM_STEPS * 1e3)
+    return {k: launches[k] for k in ("lstm_fwd", "lstm_bwd")}, net
+
+
+def eval_word_lm(torch, pk, args, net):
+    """Truncated-BPTT evaluation of the trained model (its f32 master
+    weights) under no_grad: LM_EVAL_WINDOWS consecutive (35, 32) windows,
+    the state carried from one to the next (`begin_state`, then the
+    returned state); perplexity of the next-token labels. Then the same
+    windows through a CPU copy of the model (the plain versions): the
+    logits of every window and the final state must agree."""
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+
+    rng = np.random.RandomState(args.seed + 7)
+    stream = rng.randint(0, LM_VOCAB, (LM_EVAL_WINDOWS * LM_BPTT + 1,
+                                       LM_BATCH)).astype(np.int64)
+    windows = [torch.from_numpy(stream[i * LM_BPTT:(i + 1) * LM_BPTT])
+               for i in range(LM_EVAL_WINDOWS)]
+    labels = [torch.from_numpy(stream[i * LM_BPTT + 1:(i + 1) * LM_BPTT + 1])
+              for i in range(LM_EVAL_WINDOWS)]
+    cpu = RNNModel(LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, dropout=0.0,
+                   device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+
+    def run(model, device):
+        model.eval()
+        state = model.begin_state(LM_BATCH)
+        outs, nll = [], 0.0
+        with torch.no_grad():
+            for w, lab in zip(windows, labels):
+                logits, state = model(w.to(device), state)
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                nll += float(-logp.gather(-1, lab.to(device)[..., None])
+                             .mean())
+                outs.append(logits)
+        return outs, state, float(np.exp(nll / len(windows)))
+
+    for k in LSTM_KERNELS:   # the evaluation path's counts start here
+        getattr(pk, k).launches = 0
+    t0 = time.monotonic()
+    outs, state, ppl = run(net, "cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+    want = {"lstm_infer": LM_LAYERS * LM_EVAL_WINDOWS, "lstm_fwd": 0,
+            "lstm_bwd": 0}
+    if launches != want:
+        raise AssertionError("word-LM evaluation launches %s, not %s"
+                             % (launches, want))
+    if not np.isfinite(ppl):
+        raise AssertionError("word-LM evaluation perplexity %s" % ppl)
+    cpu_outs, cpu_state, cpu_ppl = run(cpu, "cpu")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(outs, cpu_outs)):
+        worst = max(worst, max_err(torch, a.cpu(), b, LM_EVAL_TOL,
+                                   "word-LM evaluation logits, window %d"
+                                   % i))
+    for name, a, b in zip(("h", "c"), state, cpu_state):
+        worst = max(worst, max_err(torch, a.cpu(), b, LM_EVAL_TOL,
+                                   "word-LM evaluation final " + name))
+    log("eval: word LM, %d windows of %d x %d tokens with the state carried, "
+        "f32, in %.3f s: perplexity %.3f (CPU %.3f); the logits of every "
+        "window and the final state equal the CPU run's (max abs err %.3g, "
+        "tol %g x |CPU| + %g x max|CPU|); launches %s"
+        % (LM_EVAL_WINDOWS, LM_BPTT, LM_BATCH, wall, ppl, cpu_ppl, worst,
+           LM_EVAL_TOL, LM_EVAL_TOL, json.dumps(launches)))
+    return {"lstm_infer": launches["lstm_infer"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: a small ResNet's step on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1322,6 +1822,51 @@ def bert_parity(torch, args):
                    worst_delta, big))
 
 
+def word_lm_parity(torch, args):
+    """One f32 DistributedTrainer SGD step (lr 1.0) of a small word LM
+    (vocab 1000, 650 units, so the LSTM kernels cut w_hh across the
+    card's SMs as at full width; 2 layers) on 12 x 8 tokens, on the card
+    (the LSTM kernels; TF32 off) and on the CPU (the plain versions), from
+    the same weights and batch: the loss, and every parameter after the
+    step and as the change the step made. Tolerance: rtol 1e-4 with a floor
+    of 1e-4 x max|CPU value| of the compared tensor, and at least 1e-4 x
+    the step's largest change."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+    from mxnet_tpu_torch.parallel import DistributedTrainer
+
+    rng = np.random.RandomState(args.seed + 8)
+    x = rng.randint(0, 1000, (12, 8)).astype(np.int64)
+    y = rng.randint(0, 1000, (12, 8)).astype(np.float32)
+    nets = {dev: RNNModel(1000, LM_UNITS, LM_UNITS, LM_LAYERS, dropout=0.0,
+                          device=dev) for dev in ("cpu", "cuda")}
+    nets["cpu"].initialize(seed=args.seed)
+    before = {k: v.clone() for k, v in nets["cpu"].state_dict().items()}
+    nets["cuda"].load_state_dict(before)
+    losses = {}
+    for dev, net in nets.items():
+        tr = DistributedTrainer(net, "sgd", {"learning_rate": 1.0},
+                                loss=seq_ce(gloss))
+        losses[dev] = float(tr.step(x, y))
+    want = nets["cpu"].state_dict()
+    big = max(float((want[k] - before[k]).abs().max()) for k in want)
+    worst = max_err(torch, torch.tensor(losses["cuda"]),
+                    torch.tensor(losses["cpu"]), 1e-4, "word LM loss")
+    worst_delta = 0.0
+    for k, v in nets["cuda"].state_dict().items():
+        v = v.cpu()
+        worst = max(worst, max_err(torch, v, want[k], 1e-4,
+                                   "word LM step: " + k, scale=big))
+        worst_delta = max(worst_delta, max_err(
+            torch, v - before[k], want[k] - before[k], 1e-4,
+            "word LM step, change of " + k, scale=big))
+    log("parity: one f32 SGD step of the small word LM (vocab 1000, 2 x 650) "
+        "on the card equals the CPU step (loss %.6f vs %.6f; %d tensors, max "
+        "abs err %.3g after the step, %.3g in the change it made; largest "
+        "change %.3g)" % (losses["cuda"], losses["cpu"], len(want), worst,
+                          worst_delta, big))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1376,18 +1921,25 @@ def main(argv=None):
                                                      flush)}
     rows.update(check_epilogue(torch, pk, args.seed, flush, args.details))
     rows.update(check_flash(torch, pk, args.seed, flush))
+    rows.update(check_lstm(torch, pk, args.seed, flush))
     del flush
     torch.cuda.empty_cache()
     launches = serve(torch, pk, args)
     launches.update(train(torch, pk, args))
     torch.cuda.empty_cache()
     launches.update(train_bert(torch, pk, args))
+    torch.cuda.empty_cache()
+    lm_launches, lm = train_word_lm(torch, pk, args)
+    launches.update(lm_launches)
+    launches.update(eval_word_lm(torch, pk, args, lm))
+    del lm
     for k in KERNELS:
         if launches[k["name"]] < 1:
             raise AssertionError("%s never launched on its main path"
                                  % k["name"])
     insitu_parity(torch, args)
     bert_parity(torch, args)
+    word_lm_parity(torch, args)
 
     kernels = []
     for k in KERNELS:

@@ -17,7 +17,8 @@ as numpy arrays keyed by gluon auto-names (``resnetv10_conv2d0_weight``,
 ``resnetv10_stage1_batchnorm2_running_var``, ``resnetv10_dense0_bias``
 ...); `resnet_params_from_jax` maps them onto the port's `ResNetV1`, and
 `bert_params_from_jax` maps a `BERTModel`'s (with or without an output
-head) onto the port's `BERTModel`.
+head) onto the port's `BERTModel`, and `word_lm_params_from_jax` a word-LM
+`RNNModel`'s onto the port's `RNNModel`.
 
 Every function returns plain data (a ``state_dict`` of CPU tensors, or a
 dict of numpy arrays); the caller loads it into a module on its device.
@@ -32,7 +33,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["params_from_jax", "state_from_npz", "npz_from_state",
-           "resnet_params_from_jax", "bert_params_from_jax"]
+           "resnet_params_from_jax", "bert_params_from_jax",
+           "word_lm_params_from_jax"]
 
 _DENSE = {"q": "attention.proj_query", "k": "attention.proj_key",
           "v": "attention.proj_value", "o": "attention.proj_out",
@@ -304,3 +306,55 @@ def bert_params_from_jax(params):
     for field, value in next(iter(dense.values())).items():
         out["mlm." + field] = _t(value)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Word LM
+# ---------------------------------------------------------------------------
+
+_WORD_LM_KEY = re.compile(
+    r"^(.*?)(embed_weight|embed_bias|decoder_weight|decoder_bias|"
+    r"lstm_([lr]\d+_(?:i2h|h2h)_(?:weight|bias)))$")
+
+
+def word_lm_params_from_jax(params):
+    """The JAX package's word-LM `RNNModel` parameters -> the port's
+    `RNNModel` state dict.
+
+    ``params``: name -> numpy array, as ``{k: p.data().asnumpy() for k, p
+    in net.collect_params().items()}`` (``rnnmodel0_embed_weight``,
+    ``rnnmodel0_lstm_l0_i2h_weight``, ..., ``rnnmodel0_decoder_weight``).
+    A model built with ``tie_weights`` has no decoder weight: its decoder
+    shares ``embed_weight`` and its bias is ``embed_bias``. The shared
+    weight is one name there and fills both of the port's keys
+    (``embedding.weight`` and ``decoder.weight``, one `Parameter`). Raises
+    `MXNetError` on a name it cannot place, or on a missing one."""
+    state, prefixes = {}, set()
+    for key, value in params.items():
+        m = _WORD_LM_KEY.match(key)
+        if m is None:
+            raise MXNetError("cannot place word-LM parameter %r" % key)
+        prefixes.add(m.group(1))
+        name, lstm = m.group(2), m.group(3)
+        if lstm is not None:
+            state["rnn." + lstm] = _t(value)
+        elif name == "embed_weight":
+            state["embedding.weight"] = _t(value)
+        else:   # embed_bias is the tied decoder's bias
+            state["decoder." + name.split("_")[1]] = _t(value)
+    if len(prefixes) != 1:
+        raise MXNetError("not one word-LM model's parameters: prefixes %s"
+                         % sorted(prefixes))
+    tied = not any(k.endswith("decoder_weight") for k in params)
+    if tied:
+        if "embedding.weight" in state:
+            state["decoder.weight"] = state["embedding.weight"]
+    elif any(k.endswith("embed_bias") for k in params):
+        raise MXNetError("embed_bias beside a decoder weight: not one word-LM "
+                         "model's parameters")
+    missing = sorted({"embedding.weight", "decoder.weight", "decoder.bias"}
+                     - set(state))
+    if missing or not any(k.startswith("rnn.") for k in state):
+        raise MXNetError("word-LM parameters missing: %s"
+                         % (missing or ["rnn.*"]))
+    return state

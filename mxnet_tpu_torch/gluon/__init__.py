@@ -1,5 +1,5 @@
 """Models, layers and losses of the port (counterpart of
-`mxnet_tpu.gluon`: the generation, ResNet and BERT training paths)."""
-from . import loss, nn
+`mxnet_tpu.gluon`: the generation, ResNet, BERT and word-LM paths)."""
+from . import loss, nn, rnn
 
-__all__ = ["loss", "nn"]
+__all__ = ["loss", "nn", "rnn"]

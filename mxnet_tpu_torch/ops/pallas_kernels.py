@@ -13,7 +13,11 @@ it holds no Pallas. Ported so far:
   `epi_bwd_dx`;
 * flash attention (:40-373): `flash_attention` (differentiable, over
   (..., L, D)) runs the three kernels of ``csrc/flash_attention.cu``
-  through the wrappers `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv`.
+  through the wrappers `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv`;
+* the fused LSTM layer (:376-718): `lstm_layer` (differentiable) runs the
+  three kernels of ``csrc/lstm.cu`` through the wrappers `lstm_infer`
+  (no gradient taken), `lstm_fwd` and `lstm_bwd`; `lstm_layer_fits` is
+  the card's resource check that routes a shape to them.
 
 Every wrapper launches its hand-written CUDA kernel (sm_90a) for CUDA
 tensors, and adds one to its ``launches`` count where it does; it runs its
@@ -36,7 +40,10 @@ __all__ = ["paged_attention", "paged_attention_reference", "conv_epilogue",
            "epi_bwd_reduce_reference", "epi_bwd_dx", "epi_bwd_dx_reference",
            "flash_attention", "flash_attention_reference", "flash_fwd",
            "flash_fwd_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
-           "flash_bwd_dkv", "flash_bwd_dkv_reference"]
+           "flash_bwd_dkv", "flash_bwd_dkv_reference", "lstm_layer",
+           "lstm_layer_reference", "lstm_layer_fits", "lstm_infer",
+           "lstm_infer_reference", "lstm_fwd", "lstm_fwd_reference",
+           "lstm_bwd", "lstm_bwd_reference"]
 
 # finite mask value: a fully masked row stays NaN-free
 _NEG_INF = -1e30
@@ -720,3 +727,283 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqk,bkd->bqd", p, v.reshape(-1, lk, d).float())
     return o.to(q.dtype).reshape(lead + (lq, d))
+
+
+# ---------------------------------------------------------------------------
+# Fused LSTM layer over a precomputed input projection gx (T, B, 4H), gate
+# order i, f, g, o. Inference: lstm_infer (ys and cT, no residuals).
+# Training: lstm_fwd (ys, the f32 c_t of every step and the post-activation
+# gates) and lstm_bwd (the pre-activation gate gradients dgx, dh0, dc0);
+# dW_hh is one matrix product outside the kernels, as in the JAX package.
+# ---------------------------------------------------------------------------
+
+_LSTM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LSTM_ARGTYPES = {"lstm_infer": [_P] * 6 + [_I] * 4,
+                  "lstm_fwd": [_P] * 7 + [_I] * 4,
+                  "lstm_bwd": [_P] * 9 + [_I] * 4}
+# the card the resource check is made for (H100 SXM): SMs, and the shared
+# memory one block may take (227 KB); and csrc/lstm.cu's chunk budget
+_H100_SMS = 132
+_SMEM_MAX_BYTES = 232448
+_LSTM_CHUNK_BYTES = 64 * 1024
+
+
+def _lstm_chunk_cols(b, k, elem):
+    kc = max(32, _LSTM_CHUNK_BYTES // (b * elem) // 32 * 32)
+    return min(kc, k)
+
+
+def _lstm_smem(b, h, elem, sms=_H100_SMS):
+    """Shared memory of one block of the forward and of the backward
+    kernel (csrc/lstm.cu's ``fwd_smem`` / ``bwd_smem``): with U = ceil(H /
+    SMs) units a block, the f32 carries and products (5 B U floats forward,
+    2 B U backward), the block's 4 U H slice of w_hh and one streamed chunk
+    of the product's left operand, in the dtype."""
+    u = -(-h // sms)
+    fwd = 4 * 5 * b * u + elem * (4 * u * h + b * _lstm_chunk_cols(b, h, elem))
+    bwd = 4 * 2 * b * u + elem * (4 * u * h
+                                  + b * _lstm_chunk_cols(b, 4 * h, elem))
+    return fwd, bwd
+
+
+def lstm_layer_fits(b, h, dtype):
+    """Whether the LSTM kernels take batch ``b``, hidden size ``h`` and
+    ``dtype`` on the card: f32 or bf16, and one block's shared memory (its
+    slice of w_hh plus its working set, at one block an SM of an H100) within
+    227 KB, so the grid is co-resident. Decided from the shape alone, where
+    the JAX package checks its VMEM budget (`ops/rnn.py:_run_layer`); a
+    shape that does not fit takes the step loop."""
+    if dtype not in _LSTM_DTYPES:
+        return False
+    elem = torch.empty((), dtype=dtype).element_size()
+    return max(_lstm_smem(int(b), int(h), elem)) <= _SMEM_MAX_BYTES
+
+
+def _lstm_check(name, t3, wh, same, f32=lambda t, b, h: ()):
+    """Arguments of an LSTM kernel wrapper: ``t3`` (T, B, *) float32 or
+    bfloat16 with T, B >= 1 on a CUDA device; ``wh`` (4H, H) with H >= 1;
+    then, for (T, B, H), each (label, tensor, shape) of ``same(T, B, H)`` in
+    t3's dtype and of ``f32(T, B, H)`` in float32, all contiguous on t3's
+    device. Raises `MXNetError`; nothing is copied or converted. Returns
+    (T, B, H)."""
+    if t3.device.type != "cuda":
+        raise MXNetError("%s: unsupported device %s" % (name, t3.device))
+    if t3.dim() != 3 or t3.dtype not in _LSTM_DTYPES:
+        raise MXNetError("%s: expected a float32 or bfloat16 (T, B, *) "
+                         "tensor, got %s %s" % (name, t3.dtype,
+                                                tuple(t3.shape)))
+    h = wh.shape[-1] if wh.dim() == 2 else 0
+    if h < 1 or tuple(wh.shape) != (4 * h, h) or t3.shape[0] < 1 \
+            or t3.shape[1] < 1:
+        raise MXNetError("%s: wh must be (4H, H) with H >= 1 and T, B >= 1; "
+                         "got wh %s and %s" % (name, tuple(wh.shape),
+                                               tuple(t3.shape)))
+    t, b = t3.shape[:2]
+    checks = [(label, x, shape, t3.dtype)
+              for label, x, shape in [("wh", wh, wh.shape)] + list(
+                  same(t, b, h))]
+    checks += [(label, x, shape, torch.float32)
+               for label, x, shape in f32(t, b, h)]
+    for label, x, shape, dt in checks:
+        if x.device != t3.device:
+            raise MXNetError("%s: %s is on %s, not %s"
+                             % (name, label, x.device, t3.device))
+        if tuple(x.shape) != tuple(shape) or x.dtype != dt:
+            raise MXNetError("%s: %s must be %s %s, got %s %s"
+                             % (name, label, dt, tuple(shape), x.dtype,
+                                tuple(x.shape)))
+        if not x.is_contiguous():
+            raise MXNetError("%s: %s must be contiguous" % (name, label))
+    return t, b, h
+
+
+def _lstm_fwd_args(name, gx, wh, h0, c0):
+    return _lstm_check(name, gx, wh, lambda t, b, h: [
+        ("gx", gx, (t, b, 4 * h)), ("h0", h0, (b, h)), ("c0", c0, (b, h))])
+
+
+def _lstm_forward_reference(gx, wh, h0, c0, save):
+    """The step loop both forward kernels run, in torch: the product takes
+    h in the dtype with f32 sums, the carries are f32, ys (and the gates)
+    are rounded to the dtype, c_t stays f32. Differentiable by autograd."""
+    nt, _, g4 = gx.shape
+    h_units, dt = g4 // 4, gx.dtype
+    w_t = wh.float().t()
+    h, c = h0, c0.float()
+    ys, cs, gates = [], [], []
+    for t in range(nt):
+        g = gx[t].float() + torch.matmul(h.float(), w_t)
+        i, f, gg, o = g.split(h_units, dim=-1)
+        i, f, gg, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), \
+            torch.sigmoid(o)
+        c = f * c + i * gg
+        h = (o * torch.tanh(c)).to(dt)
+        ys.append(h)
+        if save:
+            cs.append(c)
+            gates.append(torch.cat([i, f, gg, o], dim=-1).to(dt))
+    ys = torch.stack(ys)
+    if save:
+        return ys, torch.stack(cs), torch.stack(gates)
+    return ys, c.to(dt)
+
+
+def lstm_infer_reference(gx, wh, h0, c0):
+    """Plain version of `lstm_infer`."""
+    return _lstm_forward_reference(gx, wh, h0, c0, save=False)
+
+
+def lstm_infer(gx, wh, h0, c0):
+    """The LSTM recurrence without training residuals: gx (T, B, 4H) the
+    input projection with both biases, wh (4H, H), h0 and c0 (B, H), all
+    float32 or all bfloat16. Returns ys (T, B, H) and cT (B, H) in the
+    dtype. CUDA: the ``lstm_infer`` kernel of ``csrc/lstm.cu``; CPU:
+    `lstm_infer_reference`."""
+    if gx.device.type == "cpu":
+        return lstm_infer_reference(gx, wh, h0, c0)
+    t, b, h = _lstm_fwd_args("lstm_infer", gx, wh, h0, c0)
+    ys = torch.empty((t, b, h), dtype=gx.dtype, device=gx.device)
+    ct = torch.empty((b, h), dtype=gx.dtype, device=gx.device)
+    _call("lstm", _LSTM_ARGTYPES, "lstm_infer", gx.device, gx.data_ptr(),
+          wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
+          ct.data_ptr(), _LSTM_DTYPES[gx.dtype], t, b, h)
+    lstm_infer.launches += 1
+    return ys, ct
+
+
+lstm_infer.launches = 0
+
+
+def lstm_fwd_reference(gx, wh, h0, c0):
+    """Plain version of `lstm_fwd`."""
+    return _lstm_forward_reference(gx, wh, h0, c0, save=True)
+
+
+def lstm_fwd(gx, wh, h0, c0):
+    """The LSTM recurrence for training: as `lstm_infer`, but returns ys
+    (T, B, H) in the dtype, c_all (T, B, H) f32 (c_t of every step; cT is
+    ``c_all[-1]``) and the post-activation gates (T, B, 4H), i, f, g, o, in
+    the dtype. CUDA: the ``lstm_fwd`` kernel; CPU: `lstm_fwd_reference`."""
+    if gx.device.type == "cpu":
+        return lstm_fwd_reference(gx, wh, h0, c0)
+    t, b, h = _lstm_fwd_args("lstm_fwd", gx, wh, h0, c0)
+    ys = torch.empty((t, b, h), dtype=gx.dtype, device=gx.device)
+    c_all = torch.empty((t, b, h), dtype=torch.float32, device=gx.device)
+    gates = torch.empty_like(gx)
+    _call("lstm", _LSTM_ARGTYPES, "lstm_fwd", gx.device, gx.data_ptr(),
+          wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
+          c_all.data_ptr(), gates.data_ptr(), _LSTM_DTYPES[gx.dtype], t, b, h)
+    lstm_fwd.launches += 1
+    return ys, c_all, gates
+
+
+lstm_fwd.launches = 0
+
+
+def lstm_bwd_reference(dy, gates, c_all, c0, dct, wh):
+    """Plain version of `lstm_bwd`."""
+    nt, _, h_units = dy.shape
+    dt = dy.dtype
+    w = wh.float()
+    dh = torch.zeros_like(c_all[0])
+    dc = dct.float()
+    dgx = torch.empty_like(gates)
+    for t in range(nt - 1, -1, -1):
+        i, f, gg, o = gates[t].float().split(h_units, dim=-1)
+        c_prev = c_all[t - 1] if t > 0 else c0.float()
+        dh = dy[t].float() + dh
+        tc = torch.tanh(c_all[t])
+        do = dh * tc
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dgx[t] = torch.cat([(dc * gg) * i * (1.0 - i),
+                            (dc * c_prev) * f * (1.0 - f),
+                            (dc * i) * (1.0 - gg * gg),
+                            do * o * (1.0 - o)], dim=-1).to(dt)
+        dh = torch.matmul(dgx[t].float(), w)
+        dc = dc * f
+    return dgx, dh.to(dt), dc.to(dt)
+
+
+def lstm_bwd(dy, gates, c_all, c0, dct, wh):
+    """The reverse recurrence: from dy (T, B, H) and dcT (B, H), both in
+    the dtype, the forward's gates and c_all, c0 and wh, returns the
+    pre-activation gate gradients dgx (T, B, 4H) and dh0, dc0 (B, H), all in
+    the dtype. dy carries the cotangent of hT in its last step. CUDA: the
+    ``lstm_bwd`` kernel; CPU: `lstm_bwd_reference`."""
+    if dy.device.type == "cpu":
+        return lstm_bwd_reference(dy, gates, c_all, c0, dct, wh)
+    t, b, h = _lstm_check(
+        "lstm_bwd", dy, wh,
+        lambda t, b, h: [("dy", dy, (t, b, h)),
+                         ("gates", gates, (t, b, 4 * h)),
+                         ("c0", c0, (b, h)), ("dcT", dct, (b, h))],
+        f32=lambda t, b, h: [("c_all", c_all, (t, b, h))])
+    dgx = torch.empty_like(gates)
+    dh0 = torch.empty_like(c0)
+    dc0 = torch.empty_like(c0)
+    _call("lstm", _LSTM_ARGTYPES, "lstm_bwd", dy.device, dy.data_ptr(),
+          gates.data_ptr(), c_all.data_ptr(), c0.data_ptr(), dct.data_ptr(),
+          wh.data_ptr(), dgx.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+          _LSTM_DTYPES[dy.dtype], t, b, h)
+    lstm_bwd.launches += 1
+    return dgx, dh0, dc0
+
+
+lstm_bwd.launches = 0
+
+
+class _LSTMLayer(torch.autograd.Function):
+    """The JAX package's custom_vjp of `lstm_layer` under differentiation:
+    the forward runs `lstm_fwd` and saves its residuals; the backward casts
+    the cotangents of ys and cT to the dtype, runs `lstm_bwd`, and forms
+    dW_hh = dgx^T . h_prev (h_prev = [h0, ys[:-1]]) as one matrix product
+    in the dtype (f32 sums), as the JAX package did outside its kernel. The
+    same Function on both devices: only the leaf wrappers choose kernel or
+    plain version."""
+
+    @staticmethod
+    def forward(ctx, gx, wh, h0, c0):
+        ys, c_all, gates = lstm_fwd(gx, wh, h0, c0)
+        ctx.save_for_backward(wh, gates, c_all, h0, c0, ys)
+        return ys, c_all[-1].to(gx.dtype, copy=True)
+
+    @staticmethod
+    def backward(ctx, dys, dct):
+        wh, gates, c_all, h0, c0, ys = ctx.saved_tensors
+        dt = ys.dtype
+        dgx, dh0, dc0 = lstm_bwd(dys.to(dt).contiguous(), gates, c_all, c0,
+                                 dct.to(dt).contiguous(), wh)
+        h_units = ys.shape[-1]
+        h_prev = torch.cat([h0[None], ys[:-1]], dim=0).reshape(-1, h_units)
+        dwh = torch.matmul(dgx.reshape(-1, 4 * h_units).t(), h_prev)
+        return dgx, dwh.to(wh.dtype), dh0, dc0
+
+
+def lstm_layer(gx, wh, h0, c0):
+    """One LSTM layer over a precomputed input projection (the JAX
+    package's `lstm_layer`): gx (T, B, 4H) = x . w_ih^T + b_ih + b_hh, gate
+    order i, f, g, o; wh (4H, H); h0, c0 (B, H), cast to gx's dtype. Returns
+    (ys (T, B, H), hT = ys[-1], cT (B, H)), all in gx's dtype.
+
+    When a gradient is being taken (grad mode on and an input requiring
+    one) it runs `lstm_fwd` and, in the backward, `lstm_bwd`; otherwise the
+    residual-free `lstm_infer`, as the JAX primal does. CUDA tensors go
+    through the kernels of ``csrc/lstm.cu`` (f32 or bf16, contiguous; the
+    caller routes by `lstm_layer_fits`), CPU tensors through their plain
+    versions."""
+    h0 = h0.to(gx.dtype)
+    c0 = c0.to(gx.dtype)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (gx, wh, h0, c0)):
+        ys, ct = _LSTMLayer.apply(gx, wh, h0, c0)
+    else:
+        ys, ct = lstm_infer(gx, wh, h0, c0)
+    return ys, ys[-1], ct
+
+
+def lstm_layer_reference(gx, wh, h0, c0):
+    """Plain version of `lstm_layer`: the step loop in torch, differentiated
+    by autograd. Any device."""
+    h0 = h0.to(gx.dtype)
+    ys, c_all, _ = lstm_fwd_reference(gx, wh, h0, c0.to(gx.dtype))
+    return ys, ys[-1], c_all[-1].to(gx.dtype)

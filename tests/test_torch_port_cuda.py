@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: each CUDA kernel (paged attention,
-the four conv-epilogue kernels, the three flash-attention kernels) against
-its plain PyTorch version on the same card tensors, the generation engine
-on the card against the full-sequence forward, and a ResNet and a BERT
-training step on the card against the same step on the CPU.
+the four conv-epilogue kernels, the three flash-attention kernels, the
+three LSTM kernels) against its plain PyTorch version on the same card
+tensors, the generation engine on the card against the full-sequence
+forward, and a ResNet, a BERT and a word-LM training step on the card
+against the same step on the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -501,6 +502,184 @@ def test_bert_mini_step_on_card_matches_cpu():
     torch.cuda.synchronize()
     assert all(getattr(tpk, n).launches == launches[n] + 2
                for n in _FLASH_NAMES)
+    _close(losses["cuda"].cpu(), losses["cpu"], 1e-4, "loss")
+    want = nets["cpu"].state_dict()
+    big = max(float((want[k] - before[k]).abs().max()) for k in want)
+    for k, v in nets["cuda"].state_dict().items():
+        _close(v.cpu(), want[k], 1e-4, k, scale=big)
+        _close(v.cpu() - before[k], want[k] - before[k], 1e-4,
+               "change of " + k, scale=big)
+
+
+# ---------------------------------------------------------------------------
+# the fused LSTM layer (csrc/lstm.cu)
+#
+# Tolerances: f32 results rtol 1e-4 with a floor of 1e-4 x the largest
+# magnitude (the kernels and the plain versions sum the recurrent products
+# in other orders); bf16 tensors 2^-7 the same way (one bf16 rounding step
+# is 2^-8, and the recurrence carries a rounding apart into later steps).
+# ---------------------------------------------------------------------------
+
+_LSTM_NAMES = ("lstm_infer", "lstm_fwd", "lstm_bwd")
+# (T, B, H): the word LM's layer, ragged, one step, the RNNModel default
+# width at batch 1
+_LSTM_SHAPES = [(35, 32, 650), (7, 5, 9), (1, 3, 5), (35, 1, 200)]
+
+
+def _lstm_case(seed, t, b, h, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*size, scale=1.0):
+        return (torch.randn(size, generator=g, device="cuda") * scale).to(
+            dtype)
+
+    return (rnd(t, b, 4 * h), rnd(4 * h, h, scale=(2.0 / (5 * h)) ** 0.5),
+            rnd(b, h, scale=0.5), rnd(b, h, scale=0.5), rnd(t, b, h),
+            rnd(b, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _LSTM_SHAPES)
+def test_lstm_kernels_match_plain_on_card(dtype, shape):
+    """Each kernel against its plain version on the same card tensors, with
+    nonzero h0 and c0; the backward on the plain forward's residuals."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    gx, wh, h0, c0, dy, dct = _lstm_case(9, *shape, tdt)
+    before = {n: getattr(tpk, n).launches for n in _LSTM_NAMES}
+    ys, ct = tpk.lstm_infer(gx, wh, h0, c0)
+    want_ys, want_ct = tpk.lstm_infer_reference(gx, wh, h0, c0)
+    _close(ys, want_ys, tol, "infer ys")
+    _close(ct, want_ct, tol, "infer cT")
+    ys2, c_all, gates = tpk.lstm_fwd(gx, wh, h0, c0)
+    want = tpk.lstm_fwd_reference(gx, wh, h0, c0)
+    assert c_all.dtype == torch.float32 and gates.dtype == tdt
+    for name, a, b in zip(("ys", "c_all", "gates"), (ys2, c_all, gates),
+                          want):
+        _close(a, b, tol, "fwd " + name)
+    got = tpk.lstm_bwd(dy, want[2], want[1], c0, dct, wh)
+    for name, a, b in zip(("dgx", "dh0", "dc0"), got,
+                          tpk.lstm_bwd_reference(dy, want[2], want[1], c0,
+                                                 dct, wh)):
+        assert a.dtype == tdt
+        _close(a, b, tol, "bwd " + name)
+    torch.cuda.synchronize()
+    assert all(getattr(tpk, n).launches == before[n] + 1
+               for n in _LSTM_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_kernels_are_deterministic(dtype):
+    """One writer for every output element, no atomics: two runs give the
+    same bits."""
+    _need_card()
+    gx, wh, h0, c0, dy, dct = _lstm_case(4, 35, 32, 650, getattr(torch,
+                                                                 dtype))
+    runs = []
+    for _ in range(2):
+        ys, c_all, gates = tpk.lstm_fwd(gx, wh, h0, c0)
+        runs.append(tpk.lstm_infer(gx, wh, h0, c0) + (ys, c_all, gates)
+                    + tpk.lstm_bwd(dy, gates, c_all, c0, dct, wh))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_layer_grad_matches_reference_on_card(dtype):
+    """The `_LSTMLayer` route (forward and backward kernels, dW_hh as one
+    product) against autograd through the plain step loop: ys, hT, cT and
+    the gradients of gx, wh, h0 and c0."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    gx, wh, h0, c0, dy, dct = _lstm_case(5, 35, 32, 650, tdt)
+    dht = torch.randn_like(h0.float()).to(tdt)
+    results = []
+    before = tpk.lstm_bwd.launches
+    for fn in (tpk.lstm_layer, tpk.lstm_layer_reference):
+        leaves = [t.clone().requires_grad_() for t in (gx, wh, h0, c0)]
+        outs = fn(*leaves)
+        grads = torch.autograd.grad(outs, leaves, (dy, dht, dct))
+        results.append([o.detach() for o in outs] + list(grads))
+    assert tpk.lstm_bwd.launches == before + 1
+    for name, a, b in zip(("ys", "hT", "cT", "dgx", "dwh", "dh0", "dc0"),
+                          *results):
+        _close(a, b, tol, name)
+
+
+@pytest.mark.cuda
+def test_lstm_wrappers_raise_on_bad_inputs():
+    _need_card()
+    gx, wh, h0, c0, dy, dct = _lstm_case(1, 3, 2, 8, torch.float32)
+    with pytest.raises(MXNetError, match="contiguous"):
+        tpk.lstm_infer(gx, wh, h0.t().contiguous().t(), c0)
+    with pytest.raises(MXNetError, match="cpu"):
+        tpk.lstm_infer(gx, wh.cpu(), h0, c0)
+    with pytest.raises(MXNetError):
+        tpk.lstm_fwd(gx, wh.to(torch.bfloat16), h0, c0)
+    with pytest.raises(MXNetError):
+        tpk.lstm_infer(gx.double(), wh.double(), h0.double(), c0.double())
+    with pytest.raises(MXNetError, match=r"\(4H, H\)"):
+        tpk.lstm_infer(gx, wh[:, :4], h0, c0)
+    ys, c_all, gates = tpk.lstm_fwd(gx, wh, h0, c0)
+    with pytest.raises(MXNetError, match="c_all"):
+        tpk.lstm_bwd(dy, gates, c_all[:2], c0, dct, wh)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_never_takes_plain_version(monkeypatch):
+    _need_card()
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in _LSTM_NAMES:
+        monkeypatch.setattr(tpk, name + "_reference", boom)
+    monkeypatch.setattr(tpk, "_lstm_forward_reference", boom)
+    gx, wh, h0, c0, _, _ = _lstm_case(2, 6, 4, 40, torch.float32)
+    wh.requires_grad_()
+    ys, h_t, c_t = tpk.lstm_layer(gx, wh, h0, c0)
+    (ys.sum() + c_t.sum()).backward()
+    with torch.no_grad():
+        tpk.lstm_layer(gx, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(wh.grad).all()
+
+
+@pytest.mark.cuda
+def test_word_lm_step_on_card_matches_cpu():
+    """One f32 SGD step (lr 1.0) of a small word LM (vocab 1000, 2 x 650
+    units, so the kernels cut w_hh across the SMs as at full width) on the
+    card (TF32 off) against the same step on the CPU, from the same
+    weights and batch: the loss, every parameter after the step and the
+    change the step made. 2 layers: each training kernel launches twice."""
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    x = rng.randint(0, 1000, (12, 8)).astype(np.int64)
+    y = rng.randint(0, 1000, (12, 8)).astype(np.float32)
+    nets = {d: RNNModel(1000, 650, 650, 2, dropout=0.0, device=d)
+            for d in ("cpu", "cuda")}
+    nets["cpu"].initialize(seed=3)
+    before = {k: v.clone() for k, v in nets["cpu"].state_dict().items()}
+    nets["cuda"].load_state_dict(before)
+    launches = {n: getattr(tpk, n).launches for n in _LSTM_NAMES}
+    losses = {}
+    for d, net in nets.items():
+        ce = tloss.SoftmaxCrossEntropyLoss()
+        tr = DistributedTrainer(
+            net, "sgd", {"learning_rate": 1.0},
+            loss=lambda p, y: ce(p.reshape(-1, 1000), y.reshape(-1)))
+        losses[d] = tr.step(x, y)
+    torch.cuda.synchronize()
+    assert {n: getattr(tpk, n).launches - launches[n]
+            for n in _LSTM_NAMES} == {"lstm_infer": 0, "lstm_fwd": 2,
+                                      "lstm_bwd": 2}
     _close(losses["cuda"].cpu(), losses["cpu"], 1e-4, "loss")
     want = nets["cpu"].state_dict()
     big = max(float((want[k] - before[k]).abs().max()) for k in want)
