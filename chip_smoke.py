@@ -35,6 +35,19 @@ Phases; each raises on failure, and the script then exits non-zero:
    one grid barrier (``lstm_barrier_probe``) times T gives each its
    sequential floor; and `lstm_layer` (the autograd Function) against
    autograd through the plain step loop.
+   Then ``mx.rtc`` on ``mx.nd`` arrays: every module compiled by NVRTC
+   for sm_90a (seconds each); with the RTC launch count set to 0, the
+   JAX package's RTC test kernels in CUDA form (axpy, scale, inc launched
+   three times with one compile, addk in int32) with their values and
+   outputs written in place, the reference's templated axpy fetched by
+   its exported names, and a row softmax forward and backward over BERT-
+   base's MLM logits (8 x 512 tokens x 30,522 words, one block a row, the
+   row in 122,088 bytes of dynamic shared memory) in f32 and bf16, each
+   case synchronised and checked; then those kernels against their plain
+   versions (f32 within 1e-6, bf16 within one rounding step beyond that,
+   two runs bit for bit) with kernel, plain and library (`torch.softmax`
+   and its backward) times, and the host time of one launch beside
+   `add_`'s.
 3. serve: a TransformerLM at BERT-base width (12 x 768, 12 heads, vocab
    30522; random weights from ``--seed``) written as a generation artifact,
    loaded through `ModelRepository` with the default serving geometry, and
@@ -134,6 +147,8 @@ KERNELS = [
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:429"},
     {"name": "lstm_bwd", "route": "cuda", "source": _LSTM_SRC,
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:463"},
+    {"name": "rtc", "route": "nvrtc", "source": "mxnet_tpu_torch/rtc.py",
+     "replaces": "mxnet_tpu/rtc.py:198"},
 ]
 SERVE_KERNELS = ["paged_attention"]
 EPI_KERNELS = ["epi_stats", "epi_apply", "epi_bwd_reduce", "epi_bwd_dx"]
@@ -1156,6 +1171,437 @@ def check_lstm(torch, pk, seed, flush):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: mx.rtc — CUDA C++ compiled at run time by NVRTC, launched on
+# mx.nd arrays on the card
+# ---------------------------------------------------------------------------
+
+# The JAX package's RTC test kernels (tests/test_rtc.py) in CUDA form, each
+# with its plain version: ``plain(*inputs)`` is the output array's value
+# after ``launches`` launches, at the JAX tests' sizes and values.
+RTC_CASES = {
+    "axpy": dict(
+        source=r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}""",
+        signature="const float *x, float *y, float alpha",
+        inputs=lambda: [np.ones(10, np.float32), np.zeros(10, np.float32),
+                        3.0],
+        grid=(1, 1, 1), block=(10, 1, 1), launches=1,
+        plain=lambda x, y, alpha: y + alpha * x),
+    "scale": dict(
+        source=r"""
+extern "C" __global__ void scale(const float *a, float *o, float s) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    o[i] = a[i] * s;
+}""",
+        signature="const float *a, float *o, float s",
+        inputs=lambda: [np.arange(128, dtype=np.float32).reshape(8, 16),
+                        np.zeros((8, 16), np.float32), 0.5],
+        grid=(4,), block=(32,), launches=1,
+        plain=lambda a, o, s: a * s),
+    "inc": dict(
+        source=r"""
+extern "C" __global__ void inc(float *y) {
+    y[threadIdx.x] += 1.0f;
+}""",
+        signature="float *y",
+        inputs=lambda: [np.zeros(4, np.float32)],
+        grid=(1,), block=(4,), launches=3,
+        plain=lambda y: y + 3.0),
+    "addk": dict(
+        source=r"""
+extern "C" __global__ void addk(const int *x, int *y, int k) {
+    y[threadIdx.x] = x[threadIdx.x] + k;
+}""",
+        signature="const int32_t *x, int32_t *y, int32_t k",
+        inputs=lambda: [np.arange(6, dtype=np.int32),
+                        np.zeros(6, np.int32), 7],
+        grid=(1,), block=(6,), launches=1,
+        plain=lambda x, y, k: x + k),
+}
+
+RTC_TEMPLATED_AXPY = r"""
+template <typename T>
+__global__ void axpy(const T *x, T *y, T alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}"""
+
+# row softmax forward and backward: one block of 1024 threads a row, the
+# row staged in dynamic shared memory as f32 (f32 math for bf16 rows),
+# reductions in a fixed order so the bits repeat
+RTC_SOFTMAX = r"""
+#include <cuda_bf16.h>
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float *p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16 *p, float v) {
+    *p = __float2bfloat16(v);
+}
+
+// every thread gets the block's max (MAX) or sum; red holds 32 floats
+template <bool MAX>
+__device__ float block_reduce(float v, float *red) {
+    for (int o = 16; o > 0; o >>= 1) {
+        float w = __shfl_xor_sync(0xffffffffu, v, o);
+        v = MAX ? fmaxf(v, w) : v + w;
+    }
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float id = MAX ? __int_as_float(0xff800000) : 0.0f;
+    v = (threadIdx.x & 31) < (blockDim.x >> 5) ? red[threadIdx.x & 31] : id;
+    for (int o = 16; o > 0; o >>= 1) {
+        float w = __shfl_xor_sync(0xffffffffu, v, o);
+        v = MAX ? fmaxf(v, w) : v + w;
+    }
+    return v;
+}
+
+template <typename T>
+__global__ void softmax_fwd(const T *x, T *y, int n) {
+    extern __shared__ float row[];
+    __shared__ float red[32];
+    const T *xr = x + (size_t)blockIdx.x * n;
+    T *yr = y + (size_t)blockIdx.x * n;
+    float m = __int_as_float(0xff800000);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        float v = to_f(xr[i]);
+        row[i] = v;
+        m = fmaxf(m, v);
+    }
+    m = block_reduce<true>(m, red);
+    float s = 0.0f;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        float e = expf(row[i] - m);
+        row[i] = e;
+        s += e;
+    }
+    float inv = 1.0f / block_reduce<false>(s, red);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += blockDim.x) put(yr + i, row[i] * inv);
+}
+
+template <typename T>
+__global__ void softmax_bwd(const T *y, const T *dy, T *dx, int n) {
+    extern __shared__ float row[];
+    __shared__ float red[32];
+    size_t off = (size_t)blockIdx.x * n;
+    float s = 0.0f;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        float v = to_f(y[off + i]);
+        row[i] = v;
+        s += v * to_f(dy[off + i]);
+    }
+    s = block_reduce<false>(s, red);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+        put(dx + off + i, row[i] * (to_f(dy[off + i]) - s));
+}
+"""
+RTC_SOFTMAX_EXPORTS = ["softmax_fwd<float>", "softmax_fwd<__nv_bfloat16>",
+                       "softmax_bwd<float>", "softmax_bwd<__nv_bfloat16>"]
+
+# bench_bert's MLM head logits: 8 x 512 tokens over the 30,522-word vocab
+RTC_ROWS, RTC_VOCAB = 8 * 512, 30522
+RTC_BLOCK = 1024
+RTC_LAUNCH_REPS = 1000
+# flops an element: forward max, subtract, exp, sum, scale; backward
+# product, sum, subtract, product
+RTC_FLOPS = {"fwd": 5, "bwd": 4}
+
+
+def softmax_plain(torch, x):
+    """The forward kernel's plain version, f32 math."""
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(x.dtype)
+
+
+def softmax_bwd_plain(y, dy):
+    """The backward kernel's plain version, f32 math."""
+    yf, dyf = y.float(), dy.float()
+    return (yf * (dyf - (yf * dyf).sum(-1, keepdim=True))).to(y.dtype)
+
+
+def rtc_bound(kind, rows, n, elem):
+    """Least time: each input read and each output written once over the
+    HBM rate (forward x, y; backward y, dy, dx), or the FLOPs over the f32
+    peak."""
+    tensors = 2 if kind == "fwd" else 3
+    t_bytes = tensors * rows * n * elem / HBM_BYTES_PER_S * 1e3
+    t_ops = RTC_FLOPS[kind] * rows * n / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+# the full-width kernels against their plain versions: an element may
+# differ by RTC_RTOL of its own scale (`rtc_scale`), and in bf16 by one
+# rounding step of the larger of the two values beyond that
+RTC_RTOL = 1e-5
+
+
+def rtc_scale(which, want, y=None, dy=None):
+    """Each element's scale: |y| forward; y (|dy| + sum|y dy|) backward,
+    the size of the terms of dx = y (dy - sum(y dy)) whose rounding and
+    summation order the two versions do differently (where dy - sum(y dy)
+    cancels, dx is far smaller than its scale)."""
+    if which == "fwd":
+        return want.float().abs()
+    yf, dyf = y.float(), dy.float()
+    return yf * (dyf.abs() + (yf * dyf).abs().sum(-1, keepdim=True))
+
+
+def rtc_close(torch, got, want, scale, dtype, what):
+    """Largest |got - want| and largest |got - want| / scale. Raises where
+    an element differs by more than RTC_RTOL x scale (f32: the two
+    versions round each step and sum a row in different orders, a few
+    f32 steps of a 30,522-term sum), plus, in bf16, 2^-7 of the larger of
+    |got| and |want| (each version rounds its own f32 result once)."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("%s: non-finite kernel output" % what)
+    diff = (got - want).abs()
+    tol = scale * RTC_RTOL
+    if dtype != "float32":
+        tol = tol + torch.maximum(got.abs(), want.abs()) * 2.0 ** -7
+    bad = int((diff > tol).sum())
+    if bad:
+        raise AssertionError("%s: %d elements beyond tolerance (largest "
+                             "error %g)" % (what, bad, float(diff.max())))
+    return float(diff.max()), float((diff / scale).max())
+
+
+def rtc_planted_faults(torch, got, want, scale, dtype, what):
+    """`rtc_close` must refuse a kernel that writes 0 for every output below
+    1e-6 in magnitude, and one that rounds coarser than its type: an f32
+    result through bf16, a bf16 result two steps off."""
+    faults = {"zeroed below 1e-6": torch.where(got.abs() < 1e-6,
+                                               torch.zeros_like(got), got)}
+    if dtype == "float32":
+        faults["rounded to bf16"] = got.to(torch.bfloat16).float()
+    else:
+        faults["two bf16 steps off"] = (got.float()
+                                        * (1 + 2.0 ** -6)).to(got.dtype)
+    for name, bad in faults.items():
+        try:
+            rtc_close(torch, bad, want, scale, dtype, what)
+        except AssertionError:
+            continue
+        raise AssertionError("%s: the check passes a planted fault (%s)"
+                             % (what, name))
+
+
+def rtc_kernels(module, ct):
+    """The forward and backward softmax kernels of `RTC_SOFTMAX` for the C
+    type ``ct``."""
+    sig = {"fwd": "const %s *x, %s *y, int n" % (ct, ct),
+           "bwd": "const %s *y, const %s *dy, %s *dx, int n" % (ct, ct, ct)}
+    return {k: module.get_kernel("softmax_%s<%s>" % (k, ct), sig[k])
+            for k in ("fwd", "bwd")}
+
+
+def rtc_softmax(kern, which, x, dy, y, dx):
+    """Launch the forward (x -> y) or the backward (y, dy -> dx) kernel of
+    `rtc_kernels` on (rows, n) NDArrays: one block a row, the row in
+    dynamic shared memory (4 n bytes)."""
+    rows, n = x.shape
+    if which == "fwd":
+        return kern["fwd"].launch([x, y, n], x.context, (rows,),
+                                  (RTC_BLOCK,), 4 * n)
+    return kern["bwd"].launch([y, dy, dx, n], x.context, (rows,),
+                              (RTC_BLOCK,), 4 * n)
+
+
+def rtc_phase(torch, seed, flush):
+    """mx.rtc on mx.nd arrays on the card. Compiles every module with
+    NVRTC; then, with the RTC launch count set to 0, drives the slice's
+    main path once: the JAX RTC tests' kernels (values, in-place outputs,
+    one compile for repeated launches), the templated axpy through its
+    exported names, and the full-width softmax forward and backward in f32
+    and bf16, each case synchronised and checked. Then holds the
+    full-width kernels against their plain versions (two runs bit for
+    bit; planted faults must fail the same check), times kernel, plain and library (`torch.softmax`,
+    `torch._softmax_backward_data`), and the host cost of a launch beside
+    `add_`. Returns the `kernels` row and the main path's launch count."""
+    from mxnet_tpu_torch import nd, rtc
+
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    compile_s = {}
+    cases = []
+    for name, case in RTC_CASES.items():
+        module = rtc.CudaModule(case["source"])
+        compile_s[name] = module.compile_seconds
+        cases.append((name, module.get_kernel(name, case["signature"]),
+                      case))
+    templ = rtc.CudaModule(RTC_TEMPLATED_AXPY,
+                           exports=["axpy<float>", "axpy<double>"])
+    compile_s["axpy<T>"] = templ.compile_seconds
+    soft = rtc.CudaModule(RTC_SOFTMAX, exports=RTC_SOFTMAX_EXPORTS)
+    compile_s["softmax"] = soft.compile_seconds
+    kern = {"float32": rtc_kernels(soft, "float"),
+            "bfloat16": rtc_kernels(soft, "__nv_bfloat16")}
+    log("rtc: NVRTC compiles (s) %s; modules ready in %.2f s"
+        % (json.dumps({k: round(v, 3) for k, v in compile_s.items()}),
+           time.monotonic() - t0))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (RTC_ROWS, RTC_VOCAB)
+    data = {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        x = torch.randn(shape, generator=gen, device=dev) * 3
+        dy = torch.randn(shape, generator=gen, device=dev)
+        data[dtype] = [nd.from_dlpack(x.to(tdt)), nd.from_dlpack(dy.to(tdt)),
+                       nd.zeros(shape, ctx=dev, dtype=dtype),
+                       nd.zeros(shape, ctx=dev, dtype=dtype)]
+        del x, dy
+
+    # the main path, counted
+    rtc.CudaKernel.launches = 0
+    compiles = rtc._driver().compiles
+    for name, func, case in cases:
+        vals = case["inputs"]()
+        args = [nd.array(v, ctx=dev, dtype=v.dtype)
+                if isinstance(v, np.ndarray) else v for v in vals]
+        out = [a for a in args if isinstance(a, nd.NDArray)][-1]
+        for _ in range(case["launches"]):
+            outs = func.launch(args, dev, case["grid"], case["block"])
+        if len(outs) != 1 or outs[0] is not out:
+            raise AssertionError("rtc %s: the output is not the same "
+                                 "NDArray" % name)
+        want = case["plain"](*[torch.from_numpy(v)
+                               if isinstance(v, np.ndarray) else v
+                               for v in vals]).numpy()
+        if not np.array_equal(out.wait_to_read().asnumpy(), want):
+            raise AssertionError("rtc %s: %s, want %s"
+                                 % (name, out.asnumpy(), want))
+    for ct, dt in (("float", "float32"), ("double", "float64")):
+        f = templ.get_kernel("axpy<%s>" % ct,
+                             "const %s *x, %s *y, %s alpha" % (ct, ct, ct))
+        x = nd.array(np.arange(8), ctx=dev, dtype=dt)
+        y = nd.ones((8,), ctx=dev, dtype=dt)
+        f.launch([x, y, 0.5], dev, (2,), (4,))
+        if not np.array_equal(y.wait_to_read().asnumpy(),
+                              1 + 0.5 * np.arange(8)):
+            raise AssertionError("rtc axpy<%s>: %s" % (ct, y.asnumpy()))
+    for dtype in ("float32", "bfloat16"):
+        for which in ("fwd", "bwd"):
+            rtc_softmax(kern[dtype], which, *data[dtype])
+        data[dtype][3].wait_to_read()
+    launches = rtc.CudaKernel.launches
+    if rtc._driver().compiles != compiles:
+        raise AssertionError("rtc: a launch compiled")
+    log("rtc: the JAX RTC tests' kernels give their values in place "
+        "(axpy, scale, inc x 3, addk), axpy<float> / axpy<double> through "
+        "their exported names, and the (%d, %d) softmax forward and "
+        "backward ran in f32 and bf16: %d launches, no compile among them"
+        % (RTC_ROWS, RTC_VOCAB, launches))
+
+    # the full-width kernels against their plain versions, and timed
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        x, dy, y, dx = data[dtype]
+        runs = []
+        for _ in range(2):
+            y2 = nd.zeros(shape, ctx=dev, dtype=dtype)
+            dx2 = nd.zeros(shape, ctx=dev, dtype=dtype)
+            for which in ("fwd", "bwd"):
+                rtc_softmax(kern[dtype], which, x, dy, y2, dx2)
+            runs.append((y2, dx2))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            if not torch.equal(a._data, b._data):
+                raise AssertionError("rtc softmax %s: two runs differ"
+                                     % dtype)
+        if not (torch.equal(runs[0][0]._data, y._data)
+                and torch.equal(runs[0][1]._data, dx._data)):
+            raise AssertionError("rtc softmax %s: the main path's run "
+                                 "differs" % dtype)
+        del runs
+        xt, dyt, yt = x._data, dy._data, y._data
+        err = {}
+        for which, got, want in (
+                ("fwd", yt, softmax_plain(torch, xt)),
+                ("bwd", dx._data, softmax_bwd_plain(yt, dyt))):
+            what = "rtc softmax_%s %s" % (which, dtype)
+            scale = rtc_scale(which, want, yt, dyt)
+            err[which] = rtc_close(torch, got, want, scale, dtype, what)
+            rtc_planted_faults(torch, got, want, scale, dtype, what)
+            del want, scale
+        elem = 4 if dtype == "float32" else 2
+        timing = {
+            "fwd": (lambda: rtc_softmax(kern[dtype], "fwd", x, dy, y, dx),
+                    lambda: softmax_plain(torch, xt),
+                    lambda: torch.softmax(xt, -1)),
+            "bwd": (lambda: rtc_softmax(kern[dtype], "bwd", x, dy, y, dx),
+                    lambda: softmax_bwd_plain(yt, dyt),
+                    lambda: torch._softmax_backward_data(dyt, yt, -1,
+                                                         yt.dtype))}
+        for which, (fn, plain, lib) in timing.items():
+            bound, by = rtc_bound(which, RTC_ROWS, RTC_VOCAB, elem)
+            res[(dtype, which)] = {
+                "max_abs_err": err[which][0],
+                "max_scaled_err": err[which][1],
+                "ms": time_ms(torch, fn, flush),
+                "plain_ms": time_ms(torch, plain, flush),
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": time_ms(torch, lib, flush)}
+            torch.cuda.empty_cache()
+    log("rtc: full-width softmax (%d, %d) against the plain version (an "
+        "element within %g of its scale, |y| forward, y (|dy| + sum|y dy|) "
+        "backward, and in bf16 one rounding step beyond that; the check "
+        "refuses planted faults), two runs bit for bit: %s"
+        % (RTC_ROWS, RTC_VOCAB, RTC_RTOL, json.dumps(
+            {"%s %s" % k: v for k, v in res.items()})))
+    del data
+    torch.cuda.empty_cache()
+
+    # the surface's own cost: host time of one launch beside add_
+    case = RTC_CASES["axpy"]
+    grid, block = case["grid"], case["block"]
+    func = rtc.CudaModule(case["source"]).get_kernel("axpy",
+                                                     case["signature"])
+    x, y = nd.ones((10,), ctx=dev), nd.zeros((10,), ctx=dev)
+
+    def host_us(fn):
+        for _ in range(50):
+            fn()
+        times = []
+        for _ in range(RTC_LAUNCH_REPS):
+            t = time.perf_counter_ns()
+            fn()
+            times.append(time.perf_counter_ns() - t)
+        torch.cuda.synchronize()
+        return float(np.median(times)) / 1e3
+
+    launch_us = host_us(lambda: func.launch([x, y, 3.0], dev, grid, block))
+    add_us = host_us(lambda: y._data.add_(x._data, alpha=3.0))
+    log("rtc: host time a launch of axpy %.2f us, of Tensor.add_ on the "
+        "same arrays %.2f us (median of %d); the phase took %.1f s"
+        % (launch_us, add_us, RTC_LAUNCH_REPS, time.monotonic() - t0))
+
+    row = dict(res[("float32", "fwd")])
+    row.update({
+        "kernel": "softmax_fwd<float> over (%d, %d), one block a row"
+                  % (RTC_ROWS, RTC_VOCAB),
+        "bwd": res[("float32", "bwd")],
+        "bf16": {"fwd": res[("bfloat16", "fwd")],
+                 "bwd": res[("bfloat16", "bwd")]},
+        "launch_host_us": launch_us, "add_host_us": add_us,
+        "compile_s": compile_s})
+    return row, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: train ResNet-50 through DistributedTrainer
 # ---------------------------------------------------------------------------
 
@@ -1900,7 +2346,7 @@ def main(argv=None):
            torch.cuda.device_count()))
     t0 = time.monotonic()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
-                      for k in KERNELS})
+                      for k in KERNELS if k["route"] == "cuda"})
     built = _build.build_all(sources)
     log("kernels built in %.1f s" % (time.monotonic() - t0))
     for name, info in built.items():
@@ -1922,9 +2368,11 @@ def main(argv=None):
     rows.update(check_epilogue(torch, pk, args.seed, flush, args.details))
     rows.update(check_flash(torch, pk, args.seed, flush))
     rows.update(check_lstm(torch, pk, args.seed, flush))
+    rows["rtc"], rtc_launches = rtc_phase(torch, args.seed, flush)
     del flush
     torch.cuda.empty_cache()
     launches = serve(torch, pk, args)
+    launches["rtc"] = rtc_launches
     launches.update(train(torch, pk, args))
     torch.cuda.empty_cache()
     launches.update(train_bert(torch, pk, args))

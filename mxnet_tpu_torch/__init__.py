@@ -8,14 +8,22 @@ Module paths mirror the JAX package (``mxnet_tpu/serving/generate.py`` ->
 Ported so far: generation serving of a `TransformerLM` (paged-KV
 continuous batching over HTTP), with decode attention as the CUDA kernel
 ``csrc/paged_attention.cu``; ResNet v1 training, whose BatchNorms run the
-conv-epilogue kernels of ``csrc/conv_epilogue.cu``; and BERT pretraining,
+conv-epilogue kernels of ``csrc/conv_epilogue.cu``; BERT pretraining,
 whose attention runs the flash-attention kernels of
-``csrc/flash_attention.cu``. Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``; without a card they raise.
+``csrc/flash_attention.cu``; word-LM training and evaluation, whose LSTM
+layers run the kernels of ``csrc/lstm.cu``; and the array core: ``nd``
+(`NDArray` over a torch tensor, written in place, and every op of the JAX
+package's ``ops/tensor.py`` plus ``softmax`` / ``log_softmax``) with
+``rtc`` (CUDA C++ compiled at run time by NVRTC and launched on NDArrays).
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``); without a card they raise.
 """
 from . import context, env, random, telemetry
+from . import ndarray
+from . import ndarray as nd
+from . import rtc
 from .base import MXNetError
-from .context import cpu, gpu
+from .context import cpu, current_context, gpu
 
-__all__ = ["MXNetError", "cpu", "gpu", "context", "env", "random",
-           "telemetry"]
+__all__ = ["MXNetError", "cpu", "gpu", "current_context", "context", "env",
+           "random", "telemetry", "ndarray", "nd", "rtc"]

@@ -1,4 +1,5 @@
-"""Base utilities: the framework error type and crash-consistent writes.
+"""Base utilities: the framework error type, dtype names and crash-consistent
+writes.
 
 Counterpart of `mxnet_tpu/base.py`, reduced to what the port uses. The port
 keeps its own copy instead of importing the JAX package.
@@ -8,11 +9,57 @@ from __future__ import annotations
 import os
 import tempfile
 
-__all__ = ["MXNetError", "atomic_writer"]
+import numpy as _np
+import torch
+
+__all__ = ["MXNetError", "atomic_writer", "numeric_types", "np_dtype",
+           "torch_dtype"]
+
+numeric_types = (float, int, _np.generic)
+
+# dtype name <-> torch dtype. numpy has no bfloat16 (the JAX package borrows
+# ml_dtypes'), so on the numpy side the port names it by the string
+# "bfloat16", which compares equal to the dtype's name as numpy dtypes do.
+_TORCH_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8,
+    "int8": torch.int8,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "bool": torch.bool,
+}
+_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (reference: python/mxnet/base.py:49)."""
+
+
+def np_dtype(dtype):
+    """Normalize a user dtype (name, numpy dtype or torch dtype) to a numpy
+    dtype; bfloat16 stays the name ``"bfloat16"``. None means float32."""
+    if dtype is None:
+        return _np.dtype(_np.float32)
+    if isinstance(dtype, torch.dtype):
+        dtype = _DTYPE_NAMES.get(dtype, str(dtype))
+    if str(dtype) == "bfloat16":
+        return "bfloat16"
+    return _np.dtype(dtype)
+
+
+def torch_dtype(dtype):
+    """The torch dtype of a user dtype (see `np_dtype`)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = np_dtype(dtype)
+    name = name if name == "bfloat16" else name.name
+    try:
+        return _TORCH_DTYPES[name]
+    except KeyError:
+        raise MXNetError("unsupported dtype %s" % (dtype,)) from None
 
 
 class atomic_writer:

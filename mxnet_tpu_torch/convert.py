@@ -22,6 +22,8 @@ head) onto the port's `BERTModel`, and `word_lm_params_from_jax` a word-LM
 
 Every function returns plain data (a ``state_dict`` of CPU tensors, or a
 dict of numpy arrays); the caller loads it into a module on its device.
+NDArrays themselves cross as files: `ndarray.save` / `ndarray.load` use
+the JAX package's ``nd.save`` container, both ways.
 """
 from __future__ import annotations
 

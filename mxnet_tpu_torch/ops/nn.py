@@ -9,7 +9,10 @@ use:
   (`_ln_core_bwd`), the clipped embedding gather, dropout;
 * the ResNet training path: convolution, pooling, the fully-connected
   layer, activations, BatchNorm / BatchNormRelu / BatchNormAddRelu
-  (`_bn_act`), log-softmax and softmax cross-entropy.
+  (`_bn_act`), log-softmax and softmax cross-entropy;
+* ``mx.nd``: ``softmax`` (with ``temperature`` and ``length``) and
+  ``log_softmax``, registered as ops (`mxnet_tpu/ops/nn.py` ``softmax``,
+  ``log_softmax``).
 
 Layouts are the JAX package's: a channels-last activation is a logical
 (N, *spatial, C) tensor and its conv weight is (O, *k, I). Convolution and
@@ -25,11 +28,13 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from . import register
 
 __all__ = ["layer_norm", "embedding", "dropout", "dense", "gelu",
            "convolution", "pooling",
            "fully_connected", "activation", "batch_norm", "batch_norm_relu",
-           "batch_norm_add_relu", "log_softmax", "softmax_cross_entropy"]
+           "batch_norm_add_relu", "softmax", "log_softmax",
+           "softmax_cross_entropy"]
 
 
 def _ln_fwd(data, gamma, beta, eps):
@@ -334,6 +339,21 @@ def batch_norm_add_relu(data, addend, gamma, beta, moving_mean, moving_var,
 # softmax family
 # --------------------------------------------------------------------------
 
+@register("softmax")
+def softmax(data, axis=-1, temperature=None, length=None):
+    x = data if temperature in (None, 1.0) else data / temperature
+    if length is not None:
+        steps = torch.arange(data.shape[axis], device=data.device)
+        bshape = [1] * data.ndim
+        bshape[axis] = data.shape[axis]
+        mask = steps.reshape(bshape) < length.reshape(
+            (-1,) + (1,) * (data.ndim - 1))
+        x = torch.where(mask, x, torch.full((), float("-inf"),
+                                            dtype=x.dtype, device=x.device))
+    return torch.softmax(x, dim=axis)
+
+
+@register("log_softmax")
 def log_softmax(data, axis=-1, temperature=None):
     x = data if temperature in (None, 1.0) else data / temperature
     return torch.log_softmax(x, dim=axis)

@@ -2,8 +2,9 @@
 the four conv-epilogue kernels, the three flash-attention kernels, the
 three LSTM kernels) against its plain PyTorch version on the same card
 tensors, the generation engine on the card against the full-sequence
-forward, and a ResNet, a BERT and a word-LM training step on the card
-against the same step on the CPU.
+forward, a ResNet, a BERT and a word-LM training step on the card
+against the same step on the CPU, and ``mx.rtc`` (NVRTC-compiled CUDA C++
+launched on ``mx.nd`` arrays) with ``mx.nd`` on the card against the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -16,7 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+import threading
+
+from chip_smoke import (RTC_CASES, RTC_SOFTMAX, RTC_SOFTMAX_EXPORTS,
+                        RTC_TEMPLATED_AXPY, rtc_close, rtc_kernels,
+                        rtc_planted_faults, rtc_scale, rtc_softmax,
+                        softmax_bwd_plain, softmax_plain)
 from mxnet_tpu_torch import initializer
+from mxnet_tpu_torch import nd, rtc
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon import nn as tnn
@@ -687,3 +695,218 @@ def test_word_lm_step_on_card_matches_cpu():
         _close(v.cpu(), want[k], 1e-4, k, scale=big)
         _close(v.cpu() - before[k], want[k] - before[k], 1e-4,
                "change of " + k, scale=big)
+
+
+# ---------------------------------------------------------------------------
+# mx.rtc: CUDA C++ compiled at run time by NVRTC, launched on mx.nd arrays.
+# The kernels, their plain versions and the softmax tolerance are the
+# smoke's (`chip_smoke.py`), so the two cannot drift apart.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RTC_CASES))
+def test_rtc_jax_test_kernels_on_card(name):
+    """The JAX RTC tests' kernels, as CUDA C++: the same values, the
+    outputs written in place and returned as the same objects, and one
+    NVRTC compile however often the kernel launches."""
+    _need_card()
+    case = RTC_CASES[name]
+    dev = torch.device("cuda", 0)
+    args = [nd.array(v, ctx=dev, dtype=v.dtype) if isinstance(v, np.ndarray)
+            else v for v in case["inputs"]()]
+    want = case["plain"](*[torch.from_numpy(v) if isinstance(v, np.ndarray)
+                           else v for v in case["inputs"]()])
+    compiles = rtc._driver().compiles
+    module = rtc.CudaModule(case["source"])
+    assert rtc._driver().compiles == compiles + 1
+    func = module.get_kernel(name, case["signature"])
+    before = rtc.CudaKernel.launches
+    for _ in range(case["launches"]):
+        outs = func.launch(args, dev, case["grid"], case["block"])
+    assert rtc._driver().compiles == compiles + 1
+    assert rtc.CudaKernel.launches == before + case["launches"]
+    out = [a for a in args if isinstance(a, nd.NDArray)][-1]
+    assert len(outs) == 1 and outs[0] is out
+    np.testing.assert_array_equal(out.wait_to_read().asnumpy(),
+                                  want.numpy())
+
+
+@pytest.mark.cuda
+def test_rtc_templated_exports_on_card():
+    """The reference's templated example: one source, two instantiations
+    fetched by their C++ names (NVRTC's lowered names)."""
+    _need_card()
+    module = rtc.CudaModule(RTC_TEMPLATED_AXPY,
+                            exports=["axpy<float>", "axpy<double>"])
+    dev = torch.device("cuda", 0)
+    for ct, dt in (("float", "float32"), ("double", "float64")):
+        f = module.get_kernel("axpy<%s>" % ct,
+                              "const %s *x, %s *y, %s alpha" % (ct, ct, ct))
+        x = nd.array(np.arange(8), ctx=dev, dtype=dt)
+        y = nd.ones((8,), ctx=dev, dtype=dt)
+        f.launch([x, y, 0.5], dev, (2,), (4,))
+        assert y.dtype == dt
+        np.testing.assert_array_equal(y.asnumpy(), 1 + 0.5 * np.arange(8))
+    with pytest.raises(MXNetError, match="not exported"):
+        module.get_kernel("axpy<int>", "const int *x, int *y, int alpha")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,n", [(5, 3000), (4, 30522)])
+def test_rtc_softmax_matches_plain_on_card(dtype, rows, n):
+    """Row softmax forward and backward over (rows, n) against the plain
+    versions within the smoke's tolerance (`chip_smoke.rtc_close`); a
+    30522-wide f32 row stages 122,088 bytes of dynamic shared memory
+    (above 48 KB: the function's limit is raised first). Two runs give the
+    same bits."""
+    _need_card()
+    module = rtc.CudaModule(RTC_SOFTMAX, exports=RTC_SOFTMAX_EXPORTS)
+    kern = rtc_kernels(module, "float" if dtype == "float32"
+                       else "__nv_bfloat16")
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(rows)
+    x = nd.array(rng.randn(rows, n) * 3, ctx=dev, dtype=dtype)
+    dy = nd.array(rng.randn(rows, n), ctx=dev, dtype=dtype)
+    runs = []
+    for _ in range(2):
+        y, dx = nd.zeros((rows, n), dev, dtype), nd.zeros((rows, n), dev,
+                                                          dtype)
+        for which in ("fwd", "bwd"):
+            rtc_softmax(kern, which, x, dy, y, dx)
+        runs.append((y._data.clone(), dx._data.clone()))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    y, dx = runs[0]
+    for which, got, want in (("fwd", y, softmax_plain(torch, x._data)),
+                             ("bwd", dx, softmax_bwd_plain(y, dy._data))):
+        scale = rtc_scale(which, want, y, dy._data)
+        rtc_close(torch, got, want, scale, dtype, which)
+        rtc_planted_faults(torch, got, want, scale, dtype, which)
+
+
+@pytest.mark.cuda
+def test_rtc_half_and_bfloat16_kernels_on_card():
+    """``cuda_fp16.h`` and ``cuda_bf16.h`` resolve under NVRTC, and 16-bit
+    scalars pass as their bits."""
+    _need_card()
+    module = rtc.CudaModule(r"""
+#include <cuda_fp16.h>
+#include <cuda_bf16.h>
+extern "C" __global__ void hscale(const __half *x, __half *y, __half s) {
+    y[threadIdx.x] = __hmul(x[threadIdx.x], s);
+}
+extern "C" __global__ void bscale(const __nv_bfloat16 *x, __nv_bfloat16 *y,
+                                  __nv_bfloat16 s) {
+    y[threadIdx.x] = __float2bfloat16(__bfloat162float(x[threadIdx.x])
+                                      * __bfloat162float(s));
+}""")
+    dev = torch.device("cuda", 0)
+    for name, ct, dt in (("hscale", "__half", "float16"),
+                         ("bscale", "__nv_bfloat16", "bfloat16")):
+        f = module.get_kernel(name, "const %s *x, %s *y, %s s" % (ct, ct, ct))
+        x = nd.array(np.linspace(-2, 2, 16), ctx=dev, dtype=dt)
+        y = nd.zeros((16,), ctx=dev, dtype=dt)
+        f.launch([x, y, -1.5], dev, (1,), (16,))
+        want = (x._data.float() * -1.5).to(y._data.dtype)
+        assert torch.equal(y._data, want), name
+
+
+@pytest.mark.cuda
+def test_rtc_errors_on_card():
+    """A syntax error raises with NVRTC's log; an unknown kernel, a CPU
+    ctx, an array off the ctx, a numpy array for a pointer and a refused
+    launch raise too."""
+    _need_card()
+    with pytest.raises(MXNetError, match="failed to compile(.|\n)*error"):
+        rtc.CudaModule('extern "C" __global__ void broken(float *y) {')
+    module = rtc.CudaModule(RTC_CASES["inc"]["source"])
+    with pytest.raises(MXNetError, match="not defined"):
+        module.get_kernel("missing", "float *y")
+    f = module.get_kernel("inc", "float *y")
+    dev = torch.device("cuda", 0)
+    with pytest.raises(MXNetError, match="no CPU path"):
+        f.launch([nd.zeros((4,), ctx="cpu")], "cpu", (1,), (4,))
+    with pytest.raises(MXNetError, match="not on the launch's ctx"):
+        f.launch([nd.zeros((4,), ctx="cpu")], dev, (1,), (4,))
+    with pytest.raises(MXNetError, match="takes an NDArray"):
+        f.launch([np.zeros(4, np.float32)], dev, (1,), (4,))
+    with pytest.raises(MXNetError, match="cuLaunchKernel"):
+        f.launch([nd.zeros((4,), ctx=dev)], dev, (1,), (2048,))
+
+
+@pytest.mark.cuda
+def test_rtc_launch_from_a_fresh_thread():
+    """A thread that never touched the card launches: the driver context
+    is made current there."""
+    _need_card()
+    case = RTC_CASES["axpy"]
+    func = rtc.CudaModule(case["source"]).get_kernel("axpy",
+                                                     case["signature"])
+    dev = torch.device("cuda", 0)
+    x, y = nd.ones((10,), ctx=dev), nd.zeros((10,), ctx=dev)
+    errors = []
+
+    def run():
+        try:
+            func.launch([x, y, 3.0], dev, (1,), (10,))
+            y.wait_to_read()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(60)
+    assert not t.is_alive() and not errors, errors
+    np.testing.assert_array_equal(y.asnumpy(), np.full(10, 3.0))
+
+
+@pytest.mark.cuda
+def test_rtc_launches_on_the_current_torch_stream():
+    """A torch op queued after a launch reads its output without a sync:
+    the kernel (which spins about 10 ms before it writes) runs on the
+    current stream, here a side stream."""
+    _need_card()
+    func = rtc.CudaModule(r"""
+extern "C" __global__ void slow_fill(float *y, float v, long long cycles) {
+    long long t0 = clock64();
+    while (clock64() - t0 < cycles) {}
+    y[threadIdx.x] = v;
+}""").get_kernel("slow_fill", "float *y, float v, int64_t cycles")
+    dev = torch.device("cuda", 0)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        y = nd.zeros((32,), ctx=dev)
+        func.launch([y, 2.0, 20_000_000], dev, (1,), (32,))
+        total = y._data.sum()
+    side.synchronize()
+    assert total.item() == 64.0
+
+
+@pytest.mark.cuda
+def test_nd_on_card_matches_cpu(tmp_path):
+    """mx.nd creation, arithmetic, indexing, reductions and save/load on
+    the card give the CPU's values; a file saved from the card loads on
+    the CPU."""
+    _need_card()
+    rng = np.random.RandomState(0)
+    a, b = rng.randn(4, 5).astype(np.float32), rng.randn(4, 5)
+    res = {}
+    for ctx in ("cpu", "cuda"):
+        x, y = nd.array(a, ctx=ctx), nd.array(b, ctx=ctx)
+        z = (x * 2 + y) / 3 - 1
+        z += nd.ones((4, 5), ctx=ctx)
+        z[1] = 0.5
+        res[ctx] = [z, nd.dot(x, y.T), nd.softmax(x), x.argmax(axis=1),
+                    nd.arange(0, 6, ctx=ctx).reshape((2, 3)), x.sum(axis=0),
+                    nd.array(np.arange(6), ctx=ctx, dtype="int32") + 0.7]
+        assert res[ctx][0].context.type == ctx
+    for c, g in zip(res["cpu"], res["cuda"]):
+        assert c.dtype == g.dtype and c.shape == g.shape
+        np.testing.assert_allclose(g.asnumpy(), c.asnumpy(), rtol=1e-5,
+                                   atol=1e-6)
+    path = str(tmp_path / "card.params")
+    nd.save(path, {"z": res["cuda"][0], "i": res["cuda"][-1]})
+    back = nd.load(path, ctx="cpu")
+    np.testing.assert_array_equal(back["z"].asnumpy(),
+                                  res["cuda"][0].asnumpy())
+    assert back["i"].dtype == np.int32

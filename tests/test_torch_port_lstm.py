@@ -202,6 +202,8 @@ def test_lstm_modules_import_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.gluon.rnn\n"
             "import mxnet_tpu_torch.gluon.model_zoo.word_lm\n"
             "import mxnet_tpu_torch.convert\n"
+            "import mxnet_tpu_torch, mxnet_tpu_torch.ndarray\n"
+            "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops.tensor\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "assert not bad, bad\n")

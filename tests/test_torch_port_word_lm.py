@@ -29,7 +29,7 @@ import mxnet_tpu as mx
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu.gluon.model_zoo.word_lm import RNNModel as JRNNModel
 
-from mxnet_tpu_torch import convert
+from mxnet_tpu_torch import convert, nd, rtc
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon import rnn as trnn
@@ -323,3 +323,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
         RNNModel(VOCAB, EMBED, HIDDEN, LAYERS)
     with pytest.raises(MXNetError, match="device='cpu'"):
         trnn.LSTM(HIDDEN, input_size=EMBED)
+    for make in (lambda: nd.zeros((2,)), lambda: nd.array([1.0])):
+        with pytest.raises(MXNetError, match="device='cpu'"):
+            make()
+    with pytest.raises(MXNetError, match="needs a CUDA card"):
+        rtc.CudaModule('extern "C" __global__ void k(float *y) {}')
