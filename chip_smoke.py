@@ -735,7 +735,9 @@ def check_epilogue(torch, pk, seed, flush, details):
 
 # BERT-base's attention at batch 8: (BH = 8 x 12 heads, Lq, Lk, D); the
 # path runs it non-causal. The other cases: causal, ragged cross-attention
-# at the other head dims, and one query row.
+# at the other head dims (40: D not a multiple of 16, padded with zero
+# columns; 20: rows not 16-byte aligned, staged with element loads in the
+# tensor-core kernels), and one query row.
 FLASH_PATH = (96, 512, 512, 64)
 FLASH_CASES = [("path", FLASH_PATH, False), ("path", FLASH_PATH, True),
                ("ragged", (2, 200, 260, 16), False),
@@ -743,6 +745,10 @@ FLASH_CASES = [("path", FLASH_PATH, False), ("path", FLASH_PATH, True),
                ("ragged", (2, 200, 260, 80), True),
                ("ragged", (2, 200, 260, 128), False),
                ("ragged", (2, 200, 260, 128), True),
+               ("ragged", (2, 200, 260, 40), False),
+               ("ragged", (2, 200, 260, 40), True),
+               ("ragged", (2, 200, 260, 20), False),
+               ("ragged", (2, 200, 260, 20), True),
                ("one row", (96, 1, 512, 64), False),
                ("one row", (96, 1, 512, 64), True)]
 # f32 results rtol 1e-4 with a floor of 1e-4 x max|plain|, bf16 tensors
@@ -774,6 +780,58 @@ def flash_bound(kernel, shape, causal, dtype):
     t_ops = FLASH_FLOPS[kernel] * bh * pairs * d / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
+
+
+# the flash kernels on the tensor cores (bf16), by the name in their symbol
+FLASH_MMA = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+
+
+def sass_hmma(path, names):
+    """HMMA (tensor-core) instruction count of every kernel in the library
+    at ``path`` whose symbol holds one of ``names``, from ``cuobjdump
+    -sass`` (the toolkit's, beside nvcc): {(name, template argument):
+    count}."""
+    from mxnet_tpu_torch.ops import _build
+
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((n for n in names if n in m.group(1)), None)
+            arg = re.search(r"Li(\d+)E", m.group(1))
+            key = None if name is None else (name,
+                                             int(arg.group(1)) if arg else 0)
+            if key is not None:
+                counts.setdefault(key, 0)
+        elif key is not None and "HMMA" in line:
+            counts[key] += 1
+    return counts
+
+
+def check_flash_sass():
+    """The bf16 forward and dK/dV kernels at every padded head dim (16 ..
+    128) hold HMMA instructions; the FMA dQ kernel none. Logs the counts."""
+    from mxnet_tpu_torch.ops import _build
+
+    counts = sass_hmma(_build.build("flash_attention")["path"],
+                       FLASH_MMA + ("flash_bwd_dq_kernel",))
+    log("flash SASS, HMMA instructions by kernel and template argument "
+        "(padded D for the tensor-core kernels; output columns a thread, "
+        "both dtypes, for dQ): %s" % ", ".join("%s<%d> %d" % (n, a, c) for (n, a), c in
+                                  sorted(counts.items())))
+    for name in FLASH_MMA:
+        dims = sorted(a for (n, a) in counts if n == name)
+        if dims != list(range(16, 129, 16)):
+            raise AssertionError("%s: instantiations %s in the SASS, not "
+                                 "D = 16 .. 128" % (name, dims))
+        if min(counts[(name, a)] for a in dims) < 1:
+            raise AssertionError("%s: an instantiation without HMMA: the "
+                                 "products are not on the tensor cores"
+                                 % name)
+    return counts
 
 
 def flash_inputs(torch, seed, shape, tdt):
@@ -869,6 +927,7 @@ def check_flash(torch, pk, seed, flush):
     tensors at every case of FLASH_CASES in bf16 and f32, each run twice
     and compared bit for bit; the timings at the path's shape. Returns the
     `kernels` rows (bf16, the path's dtype) with the largest errors."""
+    check_flash_sass()
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
     rows = {}
     for dtype in ("bfloat16", "float32"):
@@ -2353,9 +2412,14 @@ def main(argv=None):
         lines = info["log"].splitlines()
         regs = [int(m.group(1)) for m in
                 (re.search(r"Used (\d+) registers", ln) for ln in lines) if m]
-        spills = [ln.strip() for ln in lines
-                  if "spill" in ln and not re.search(r" 0 bytes spill stores",
-                                                      ln)]
+        spills, entry = [], "?"
+        for ln in lines:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1)
+            elif "spill" in ln and not re.search(r" 0 bytes spill stores",
+                                                 ln):
+                spills.append("%s: %s" % (entry, ln.strip()))
         log("  %s: %s s, %s; %d kernel instantiations, %s registers at "
             "most; %s" % (name, info["seconds"], info["path"], len(regs),
                           max(regs) if regs else "?",

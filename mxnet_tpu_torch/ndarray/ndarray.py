@@ -481,18 +481,19 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     input's device, else to `current_context`; each is a contiguous tensor
     of its own, never a view of an input."""
     opdef = _ops.get(op_name)
-    attrs = {k: v for k, v in attrs.items() if v is not None or k in ("axis",)}
+    attrs = {k: v._data if isinstance(v, NDArray) else v
+             for k, v in attrs.items() if v is not None or k in ("axis",)}
     attrs.pop("name", None)
     tensors = tuple(i._data if isinstance(i, NDArray) else i for i in inputs)
+    arrays = [t for t in tensors + tuple(attrs.values()) if torch.is_tensor(t)]
     if ctx is not None:
         dev = resolve_device(ctx)
     else:
-        dev = next((t.device for t in tensors if torch.is_tensor(t)), None)
-        dev = dev if dev is not None else current_context()
+        dev = arrays[0].device if arrays else current_context()
     results = _ops.invoke_torch(opdef.name, tensors, attrs)
     results = tuple(results) if isinstance(results, (tuple, list)) \
         else (results,)
-    shared = {_storage(t) for t in tensors if torch.is_tensor(t)}
+    shared = {_storage(t) for t in arrays}
     out_nd = []
     for r in results:
         r = r.to(dev)

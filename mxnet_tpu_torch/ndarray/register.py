@@ -26,12 +26,6 @@ def _make_function(opdef):
                   if p.kind in (inspect.Parameter.POSITIONAL_ONLY,
                                 inspect.Parameter.POSITIONAL_OR_KEYWORD)]
     pos_names = [p.name for p in pos_params]
-    # arrays-first convention: a param is an array slot iff it has no
-    # default or its default is None (optional array); a non-None default
-    # marks an attr. Used to avoid injecting placeholder Nones for
-    # unsupplied attrs that happen to precede the last supplied array.
-    arrayish = {p.name: (p.default is inspect.Parameter.empty
-                         or p.default is None) for p in pos_params}
 
     def generated(*args, out=None, name=None, **kwargs):
         inputs = []
@@ -46,45 +40,27 @@ def _make_function(opdef):
             kwargs.pop("num_args", None)
             attrs.update(kwargs)
         else:
-            # bind arguments to their declared parameter slot: a None in an
-            # optional array slot rides as a positional placeholder, so a
-            # later array keeps its declared position
-            slot = {}
-            extras = []  # NDArray positionals past the declared signature
-            consumed = set()
+            # arrays-first convention: leading NDArray (or None, an optional
+            # array left out) positionals bind by position; from the first
+            # attr on, every argument binds by name, as do keyword
+            # arguments (NDArrays included), so none shifts into another
+            # parameter's slot
+            by_name = False
             for i, a in enumerate(args):
-                pname = pos_names[i] if i < len(pos_names) else None
-                if pname is None:
-                    if isinstance(a, NDArray):
-                        extras.append(a)
+                if i >= len(pos_names):
+                    if isinstance(a, NDArray) and not by_name:
+                        inputs.append(a)
                     elif a is not None:
-                        raise TypeError(
-                            "%s: unexpected extra positional %r"
-                            % (opdef.name, a))
-                elif isinstance(a, NDArray) or a is None:
-                    slot[pname] = a
-                    consumed.add(pname)
+                        raise TypeError("%s: unexpected extra positional %r"
+                                        % (opdef.name, a))
+                elif not by_name and (isinstance(a, NDArray) or a is None):
+                    inputs.append(a)
                 else:
-                    attrs[pname] = a
-                    consumed.add(pname)
-            # NDArray kwargs bind to their own declared slot too
-            for pname in pos_names:
-                if pname not in consumed and pname in kwargs \
-                        and isinstance(kwargs[pname], NDArray):
-                    slot[pname] = kwargs.pop(pname)
-            attrs.update({k: v for k, v in kwargs.items()
-                          if not isinstance(v, NDArray)})
-            order = {p: i for i, p in enumerate(pos_names)}
-            arr_idx = [order[p] for p, v in slot.items()
-                       if v is not None and p in order]
-            if arr_idx:
-                last = max(arr_idx)
-                # interior gaps (optional arrays not provided) ride as
-                # None; trailing Nones are dropped (defaults apply), and
-                # unsupplied attr params are skipped
-                inputs = [slot.get(p) for p in pos_names[:last + 1]
-                          if p in slot or (p not in attrs and arrayish[p])]
-            inputs.extend(extras)
+                    by_name = True
+                    attrs[pos_names[i]] = a
+            while inputs and inputs[-1] is None:
+                inputs.pop()  # trailing optional arrays take their default
+            attrs.update(kwargs)
         return invoke(opdef.name, tuple(inputs), attrs, out=out, ctx=ctx)
 
     generated.__name__ = opdef.name

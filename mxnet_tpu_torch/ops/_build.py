@@ -20,7 +20,8 @@ import time
 
 from ..base import MXNetError
 
-__all__ = ["NVCC_FLAGS", "build", "build_all", "load", "source_path"]
+__all__ = ["NVCC_FLAGS", "build", "build_all", "cuda_tool", "load",
+           "source_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
@@ -38,13 +39,15 @@ def source_path(name):
     return os.path.join(_SRC_DIR, name + ".cu")
 
 
-def _nvcc():
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
+def cuda_tool(name):
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on the
+    ``PATH``, or in ``/usr/local/cuda/bin``."""
+    path = shutil.which(name)
+    if path is None and os.path.exists("/usr/local/cuda/bin/" + name):
+        path = "/usr/local/cuda/bin/" + name
     if path is None:
-        raise MXNetError("nvcc not found: the CUDA kernels build only on a "
-                         "machine with the CUDA toolkit")
+        raise MXNetError("%s not found: the CUDA kernels build only on a "
+                         "machine with the CUDA toolkit" % name)
     return path
 
 
@@ -74,7 +77,7 @@ def build_all(names):
                     name, {"seconds": None, "log": "", "path": out})
                 continue
             tmp = "%s.tmp-%d" % (out, os.getpid())
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, src]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out, time.monotonic())

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from . import register
+from .tensor import _inexact
 
 __all__ = ["layer_norm", "embedding", "dropout", "dense", "gelu",
            "convolution", "pooling",
@@ -179,8 +180,11 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
     """2-D max pooling (padded with -inf), or the global average pool
     (``global_pool``, pool_type "avg": the mean over the spatial extent,
     taken in f32 and kept as 1 x 1), of (N, C, H, W), or (N, H, W, C)
-    under the channels-last layout. ``pooling_convention="full"`` is
-    PyTorch's ``ceil_mode``. The other pool types are not ported yet."""
+    under the channels-last layout. ``pooling_convention="full"`` gives
+    MXNet's ceil((H + 2 p - k) / s) + 1 windows a side: the bottom and right
+    are padded with -inf up to that size, so a last window that starts in
+    the padding is kept (PyTorch's ``ceil_mode`` drops it). The other pool
+    types are not ported yet."""
     if data.dim() != 4:
         raise MXNetError("Pooling: 2-D pooling only in the port, got shape "
                          "%s" % (tuple(data.shape),))
@@ -192,9 +196,15 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
         raise MXNetError("Pooling: %s%s pooling is not ported yet"
                          % ("global " if global_pool else "", pool_type))
     x = data.permute(0, 3, 1, 2) if ch_last else data
-    out = F.max_pool2d(x, _tup(kernel, 2, 1), _tup(stride, 2, 1),
-                       _tup(pad, 2, 0),
-                       ceil_mode=pooling_convention == "full")
+    kernel, stride = _tup(kernel, 2, 1), _tup(stride, 2, 1)
+    pad = _tup(pad, 2, 0)
+    if pooling_convention == "full":
+        extra = []
+        for size, k, s, p in zip(x.shape[2:], kernel, stride, pad):
+            out_d = -(-(size + 2 * p - k) // s) + 1
+            extra.append(max((out_d - 1) * s + k - (size + 2 * p), 0))
+        x = F.pad(x, (0, extra[1], 0, extra[0]), value=float("-inf"))
+    out = F.max_pool2d(x, kernel, stride, pad)
     return out.permute(0, 2, 3, 1) if ch_last else out
 
 
@@ -341,6 +351,9 @@ def batch_norm_add_relu(data, addend, gamma, beta, moving_mean, moving_var,
 
 @register("softmax")
 def softmax(data, axis=-1, temperature=None, length=None):
+    """Softmax along ``axis``; integer input is promoted to float32 first,
+    as jax.nn.softmax does."""
+    data = _inexact(data)
     x = data if temperature in (None, 1.0) else data / temperature
     if length is not None:
         steps = torch.arange(data.shape[axis], device=data.device)
@@ -355,6 +368,9 @@ def softmax(data, axis=-1, temperature=None, length=None):
 
 @register("log_softmax")
 def log_softmax(data, axis=-1, temperature=None):
+    """Log-softmax along ``axis``; integer input is promoted to float32
+    first, as jax.nn.log_softmax does."""
+    data = _inexact(data)
     x = data if temperature in (None, 1.0) else data / temperature
     return torch.log_softmax(x, dim=axis)
 

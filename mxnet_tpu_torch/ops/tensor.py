@@ -121,6 +121,16 @@ def _int_acc(x):
     return torch.int64 if x.dtype == torch.int64 else torch.int32
 
 
+def _mod(a, b):
+    """``a mod b`` with the divisor's sign (jnp.mod); an integer divisor of
+    0 gives 0, as jnp.mod does, where torch.remainder raises."""
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.remainder(a, b)
+    zero = b == 0
+    return torch.where(zero, torch.zeros((), dtype=torch.result_type(a, b)),
+                       torch.remainder(a, torch.where(zero, 1, b)))
+
+
 def _same_type(fn):
     return lambda a, b: fn(a, b).to(torch.result_type(a, b))
 
@@ -135,7 +145,7 @@ _BINARY_FNS = {
     "sub": torch.sub,
     "mul": torch.mul,
     "div": torch.true_divide,
-    "mod": torch.remainder,
+    "mod": _mod,
     "power": torch.pow,
     "maximum": torch.maximum,
     "minimum": torch.minimum,
@@ -170,8 +180,8 @@ register("_div_scalar")(lambda data, scalar=1.0: data / _scalar(data, scalar))
 register("_rdiv_scalar")(lambda data, scalar=1.0: _scalar(data, scalar) / data)
 register("_power_scalar")(lambda data, scalar=1.0: torch.pow(data, _scalar(data, scalar)))
 register("_rpower_scalar")(lambda data, scalar=1.0: torch.pow(_scalar(data, scalar), data))
-register("_mod_scalar")(lambda data, scalar=1.0: torch.remainder(data, _scalar(data, scalar)))
-register("_rmod_scalar")(lambda data, scalar=1.0: torch.remainder(_scalar(data, scalar), data))
+register("_mod_scalar")(lambda data, scalar=1.0: _mod(data, _scalar(data, scalar)))
+register("_rmod_scalar")(lambda data, scalar=1.0: _mod(_scalar(data, scalar), data))
 
 
 @register("add_n", aliases=("ElementWiseSum", "_sum"))

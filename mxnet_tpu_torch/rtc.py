@@ -157,7 +157,7 @@ def _toolkit_root():
         return root
     try:
         return os.path.dirname(os.path.dirname(os.path.realpath(
-            _build._nvcc())))
+            _build.cuda_tool("nvcc"))))
     except MXNetError:
         return None
 

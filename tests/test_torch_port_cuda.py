@@ -351,9 +351,12 @@ def test_trainer_step_on_card_matches_cpu():
 
 _FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # (BH, Lq, Lk, D): BERT-base's (batch 8 x 12 heads, 512, 64), ragged
-# cross-attention, the other head dims, a single query row
+# cross-attention, the other head dims (40: rows of 16-byte multiples but D
+# not a multiple of 16; 20: rows not 16-byte aligned, the element-load
+# path of the tensor-core kernels), a single query row
 _FLASH_SHAPES = [(96, 512, 512, 64), (2, 200, 260, 16), (2, 200, 260, 80),
-                 (2, 130, 70, 128), (3, 1, 77, 64)]
+                 (2, 130, 70, 128), (2, 200, 260, 40), (2, 200, 260, 20),
+                 (3, 1, 77, 64)]
 
 
 def _flash_case(seed, bh, lq, lk, d, dtype):
@@ -392,6 +395,16 @@ def test_flash_kernels_match_plain_on_card(dtype, causal, shape):
     torch.cuda.synchronize()
     assert all(getattr(tpk, n).launches == before[n] + 1
                for n in _FLASH_NAMES)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernels_run_on_tensor_cores():
+    """The bf16 forward and dK/dV kernels hold HMMA instructions at every
+    padded head dim (chip_smoke's SASS check, through cuobjdump)."""
+    _need_card()
+    from chip_smoke import check_flash_sass
+
+    check_flash_sass()
 
 
 @pytest.mark.cuda

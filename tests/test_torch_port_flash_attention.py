@@ -142,3 +142,56 @@ def test_flash_wrappers_cpu_take_plain_versions_and_reject_other_devices():
     meta = q.to("meta")
     with pytest.raises(MXNetError, match="device"):
         tpk.flash_fwd(meta, meta, meta)
+
+
+def _mma_fwd(q, k, v, causal, scale):
+    """The plain forward with the bf16 tensor-core kernel's rounding point:
+    P rounded to bf16 before P v (the row sum l stays the unrounded f32
+    sum)."""
+    s = tpk._flash_scores(q, k, causal, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bqk,bkd->bqd", p.bfloat16().float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _mma_dkv(q, k, v, dout, lse, delta, causal, scale):
+    """The plain dK/dV with the bf16 tensor-core kernel's rounding points:
+    P rounded to bf16 before P^T dO, and dS = P (dO v^T - delta) before
+    dS^T q (sm_scale applied to the f32 sum)."""
+    p = torch.exp(tpk._flash_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", dout.float(), v.float())
+    ds = (p * (dp - delta[..., None])).bfloat16().float()
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p.bfloat16().float(), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 32), (1, 200, 260, 16),
+                                   (2, 300, 300, 64), (1, 130, 70, 40),
+                                   (1, 130, 70, 20)])
+def test_flash_bf16_rounding_points_match_jax_kernels(causal, shape):
+    """CPU rehearsal of the bf16 tensor-core kernels' numerics: the plain
+    forward and dK/dV with P (and dS) rounded to bf16 where the kernels
+    round them hold the JAX package's Pallas kernels at the unchanged bf16
+    tolerance, causal and not, at the head dims the kernels pad (40, 20)
+    too."""
+    tol = TOL["bfloat16"]
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, "bfloat16")
+    b, lq, lk, d = shape
+    scale = 1.0 / np.sqrt(d)
+    j_out, j_lse = jpk._flash_fwd(jq, jk, jv, causal, scale)
+    run = jpk._bwd_compiled((b, lq, lk, d, str(jq.dtype), causal, scale,
+                             jpk._use_interpret()))
+    _, j_dk, j_dv = run(jq, jk, jv, j_out, j_lse, jg)
+
+    out, lse = _mma_fwd(tq, tk, tv, causal, scale)
+    _close(out, j_out, tol, "out")
+    _close(lse, j_lse, TOL["float32"], "lse")
+    t_lse = torch.from_numpy(np.asarray(j_lse))
+    delta = (tg.float() * out.float()).sum(-1)
+    dk, dv = _mma_dkv(tq, tk, tv, tg, t_lse, delta, causal, scale)
+    _close(dk, j_dk, tol, "dk")
+    _close(dv, j_dv, tol, "dv")
