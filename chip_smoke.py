@@ -19,7 +19,11 @@ Phases; each raises on failure, and the script then exits non-zero:
    version's time, the time of one PyTorch call computing the same
    function where there is one, and the least time the card could take
    (bytes over 3.35 TB/s, or FLOPs over 67 TFLOP/s f32 or 989 TFLOP/s
-   bf16). The paged attention kernel at the decode step's shapes; the
+   bf16); first the timing floor, a zero_ of 16 floats timed the same way,
+   which every kernel time includes. The paged attention kernel at the decode step's shapes (f32 and
+   bf16 pages; B = 32 ragged, B = 1 and 4 full-length, which it splits
+   over a thread-block cluster; bf16 at head dims 20 and 40), each run
+   twice and compared bit for bit; the
    four conv-epilogue kernels at ResNet-50's BatchNorm shapes at batch
    128, 224 x 224, in bf16 and f32, with and without ReLU and residual, and
    two runs of each reduction compared bit for bit. ``--details`` writes every conv-epilogue
@@ -200,16 +204,30 @@ def time_ms(torch, fn, flush, reps=100):
 # phase 2: paged attention against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_inputs(torch, seed, b, kv_dtype):
+# (page dtype, B, head dim, lengths): the serving path's f32 pages at the
+# largest decode bucket, ragged (inert, one token, page-straddling, full,
+# then random); one and four full-length sequences, which the kernel splits
+# over the blocks of a cluster; the same in bf16; and bf16 at head dims
+# whose rows are not whole 16-byte vectors (20: element loads) or are (40)
+PAGED_CASES = [("float32", 32, DH, "ragged"), ("float32", 1, DH, "full"),
+               ("float32", 4, DH, "full"), ("bfloat16", 32, DH, "ragged"),
+               ("bfloat16", 1, DH, "full"), ("bfloat16", 4, DH, "full"),
+               ("bfloat16", 32, 20, "ragged"), ("bfloat16", 32, 40, "ragged")]
+# the f32 sums in another order; bf16 pages against the plain version's
+# f32 arithmetic on the same bf16 values
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 4e-2}
+
+
+def paged_inputs(torch, seed, b, d, kv_dtype, lengths):
     rng = np.random.RandomState(seed)
-    if b == 1:
-        lens = np.asarray([MAXP * PS])
+    if lengths == "full":
+        lens = np.full(b, MAXP * PS)
     else:   # ragged: inert, one token, page-straddling, full, then random
         lens = rng.randint(1, MAXP * PS + 1, b)
         lens[:4] = [0, 1, PS + 1, MAXP * PS]
     dev = torch.device("cuda")
-    q = torch.from_numpy(rng.randn(b, H, DH).astype(np.float32)).to(dev)
-    kv = [torch.from_numpy(rng.randn(POOL, H, PS, DH).astype(np.float32))
+    q = torch.from_numpy(rng.randn(b, H, d).astype(np.float32)).to(dev)
+    kv = [torch.from_numpy(rng.randn(POOL, H, PS, d).astype(np.float32))
           .to(dev, kv_dtype) for _ in range(2)]
     tbl = torch.from_numpy(rng.randint(0, POOL, (b, MAXP))
                            .astype(np.int32)).to(dev)
@@ -222,52 +240,57 @@ def paged_bound(q, k, lengths):
     the live page-table entries and the lengths; or its FLOPs (q.k and
     p.v, 2 each per K/V element) at the f32 peak."""
     lens = lengths.cpu().numpy().astype(np.int64)
-    b = len(lens)
-    live = int(lens.sum())
-    kv_bytes = 2 * live * H * DH * k.element_size()
-    other = 2 * q.numel() * 4 + 4 * int(np.ceil(lens / PS).sum()) + 4 * b
-    flops = 4 * live * H * DH
+    b, h, d = q.shape
+    live = int(lens.clip(min=0).sum())
+    kv_bytes = 2 * live * h * d * k.element_size()
+    other = 2 * q.numel() * 4 + 4 * int(np.ceil(lens.clip(min=0) / PS).sum()) \
+        + 4 * b
+    flops = 4 * live * h * d
     t_bytes = (kv_bytes + other) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check_paged_attention(torch, pk, seed, flush):
-    """Kernel vs plain on the card: f32 and bf16 pages, B = 1 and 32.
-    Returns the numbers of the f32, B = 32 case (the engine's default page
-    type at the largest decode bucket) and the largest error of all."""
-    tols = {torch.float32: 1e-5, torch.bfloat16: 4e-2}
+    """Kernel vs plain on the card at every case of PAGED_CASES, each run
+    twice and compared bit for bit, inert rows exactly zero, with kernel,
+    plain and bound times. Returns the numbers of the f32, B = 32 case (the
+    engine's default page type at the largest decode bucket) and the
+    largest error of all."""
     worst, row = 0.0, None
-    for kv_dtype, tol in tols.items():
-        for b in (1, 32):
-            args = paged_inputs(torch, seed, b, kv_dtype)
-            scale = 1.0 / np.sqrt(DH)
-            out = pk.paged_attention(*args, sm_scale=scale)
-            torch.cuda.synchronize()
-            ref = pk.paged_attention_reference(*args, scale)
-            live = args[4] > 0
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError("paged_attention: non-finite output")
-            if not bool((out[~live] == 0).all()):
-                raise AssertionError("paged_attention: inert row not zero")
-            err = float((out[live] - ref[live]).abs().max())
-            if not err <= tol:
-                raise AssertionError("paged_attention %s B=%d: max err %g > "
-                                     "%g" % (kv_dtype, b, err, tol))
-            worst = max(worst, err)
-            ms = time_ms(torch, lambda: pk.paged_attention(
-                *args, sm_scale=scale), flush)
-            plain_ms = time_ms(torch, lambda: pk.paged_attention_reference(
-                *args, scale), flush)
-            bound_ms, bound_by = paged_bound(args[0], args[1], args[4])
-            log("paged_attention %s B=%d live_tokens=%d: max_abs_err %.3g "
-                "(tol %g) kernel %.4f ms plain %.4f ms bound %.4f ms (%s) "
-                "library none" % (str(kv_dtype).split(".")[-1], b,
-                                  int(args[4].sum()), err, tol, ms, plain_ms,
-                                  bound_ms, bound_by))
-            if kv_dtype == torch.float32 and b == 32:
-                row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": None}
+    for dtype, b, d, lengths in PAGED_CASES:
+        tol = PAGED_TOL[dtype]
+        args = paged_inputs(torch, seed, b, d, getattr(torch, dtype), lengths)
+        scale = 1.0 / np.sqrt(d)
+        tag = "paged_attention %s B=%d D=%d %s" % (dtype, b, d, lengths)
+        out = pk.paged_attention(*args, sm_scale=scale)
+        again = pk.paged_attention(*args, sm_scale=scale)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError("%s: two runs differ" % tag)
+        ref = pk.paged_attention_reference(*args, scale)
+        live = args[4] > 0
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("%s: non-finite output" % tag)
+        if not bool((out[~live] == 0).all()):
+            raise AssertionError("%s: inert row not zero" % tag)
+        err = float((out[live] - ref[live]).abs().max())
+        if not err <= tol:
+            raise AssertionError("%s: max err %g > %g" % (tag, err, tol))
+        worst = max(worst, err)
+        ms = time_ms(torch, lambda: pk.paged_attention(
+            *args, sm_scale=scale), flush)
+        plain_ms = time_ms(torch, lambda: pk.paged_attention_reference(
+            *args, scale), flush)
+        bound_ms, bound_by = paged_bound(args[0], args[1], args[4])
+        log("%s live_tokens=%d: max_abs_err %.3g (tol %g), two runs "
+            "bit-identical; kernel %.4f ms plain %.4f ms bound %.4f ms (%s, "
+            "%.2fx) library none" % (tag, int(args[4].sum()), err, tol, ms,
+                                     plain_ms, bound_ms, bound_by,
+                                     ms / bound_ms))
+        if (dtype, b, d) == ("float32", 32, DH):
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
     row["max_abs_err"] = worst
     return row
 
@@ -783,7 +806,8 @@ def flash_bound(kernel, shape, causal, dtype):
 
 
 # the flash kernels on the tensor cores (bf16), by the name in their symbol
-FLASH_MMA = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+FLASH_MMA = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+             "flash_bwd_dkv_mma_kernel")
 
 
 def sass_hmma(path, names):
@@ -812,16 +836,18 @@ def sass_hmma(path, names):
 
 
 def check_flash_sass():
-    """The bf16 forward and dK/dV kernels at every padded head dim (16 ..
-    128) hold HMMA instructions; the FMA dQ kernel none. Logs the counts."""
+    """The bf16 forward, dQ and dK/dV kernels at every padded head dim (16
+    .. 128) hold HMMA instructions; the f32 FMA dQ kernel none. Logs the
+    counts."""
     from mxnet_tpu_torch.ops import _build
 
     counts = sass_hmma(_build.build("flash_attention")["path"],
                        FLASH_MMA + ("flash_bwd_dq_kernel",))
     log("flash SASS, HMMA instructions by kernel and template argument "
-        "(padded D for the tensor-core kernels; output columns a thread, "
-        "both dtypes, for dQ): %s" % ", ".join("%s<%d> %d" % (n, a, c) for (n, a), c in
-                                  sorted(counts.items())))
+        "(padded D for the tensor-core kernels; output columns a thread for "
+        "the f32 FMA dQ kernel): %s"
+        % ", ".join("%s<%d> %d" % (n, a, c)
+                    for (n, a), c in sorted(counts.items())))
     for name in FLASH_MMA:
         dims = sorted(a for (n, a) in counts if n == name)
         if dims != list(range(16, 129, 16)):
@@ -2427,6 +2453,11 @@ def main(argv=None):
                           else "no spills"))
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    tiny = torch.zeros(16, device="cuda")
+    log("timing floor: a zero_ of 16 floats, timed as every kernel below "
+        "(CUDA events, L2 flushed, card kept busy), reads %.4f ms: launch "
+        "and event overhead that each kernel time below includes"
+        % time_ms(torch, tiny.zero_, flush))
     rows = {"paged_attention": check_paged_attention(torch, pk, args.seed,
                                                      flush)}
     rows.update(check_epilogue(torch, pk, args.seed, flush, args.details))

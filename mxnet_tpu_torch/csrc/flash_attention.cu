@@ -23,9 +23,10 @@
 // Which kernel serves which call:
 //   flash_fwd      bf16: flash_fwd_mma_kernel (tensor cores)
 //                  f32:  flash_fwd_kernel (f32 FMA units)
+//   flash_bwd_dq   bf16: flash_bwd_dq_mma_kernel (tensor cores)
+//                  f32:  flash_bwd_dq_kernel (f32 FMA units)
 //   flash_bwd_dkv  bf16: flash_bwd_dkv_mma_kernel (tensor cores)
 //                  f32:  flash_bwd_dkv_kernel (f32 FMA units)
-//   flash_bwd_dq   both: flash_bwd_dq_kernel (f32 FMA units)
 //
 // Bound on the card. At BERT-base's shape (BH = 96, L = 512, D = 64, bf16)
 // the forward is bound by its bytes (q, k, v and out read or written once,
@@ -36,22 +37,23 @@
 // cores bring the kernels near their bounds.
 //
 // The tensor-core kernels (bf16). Each block owns one 64-row tile (q rows in
-// the forward, keys in dK/dV) and loops over the other side's 64-row tiles;
-// 4 warps, each owning 16 rows of the tile.
+// the forward and dQ, keys in dK/dV) and loops over the other side's
+// 64-row tiles; 4 warps, each owning 16 rows of the tile.
 //   * Tiles stay bf16 in shared memory, row pitch DP + 8 elements (DP = D
 //     rounded up to 16, the padded columns zero, so the k-dimension of
 //     every product is whole k16 steps). The +8-element pad makes the row
 //     pitch an odd number of 16-byte units, so the 8 row addresses of one
 //     ldmatrix phase fall in 8 different bank groups: no conflicts, and no
 //     swizzle to compute.
-//   * The streamed tiles (K and V in the forward; q, dO, lse and delta in
-//     dK/dV) go through a two-stage ring: the next tile's loads are issued
-//     as 16-byte cp.async copies right after the barrier that opens this
-//     tile, so they run under this tile's products; one __syncthreads a
-//     tile. Rows past Lq or Lk are zero-filled (src-size 0, address
-//     clamped to the tile's first row). When D * 2 bytes is not a multiple
-//     of 16 (or a pointer is not 16-byte aligned) the rows are not 16-byte
-//     aligned, and the same tiles are staged with element loads instead.
+//   * The streamed tiles (K and V in the forward and dQ; q, dO, lse and
+//     delta in dK/dV) go through a two-stage ring: the next tile's loads
+//     are issued as 16-byte cp.async copies right after the barrier that
+//     opens this tile, so they run under this tile's products; one
+//     __syncthreads a tile. Rows past Lq or Lk are zero-filled (src-size
+//     0, address clamped to the tile's first row). When D * 2 bytes is not
+//     a multiple of 16 (or a pointer is not 16-byte aligned) the rows are
+//     not 16-byte aligned, and the same tiles are staged with element
+//     loads instead.
 //   * Both products of a tile are mma.sync.aligned.m16n8k16 (bf16 in, f32
 //     accumulate). q k^T reads B from k's rows with ldmatrix (no transpose);
 //     P v reads v with ldmatrix.trans. The score tile stays in registers as
@@ -60,6 +62,14 @@
 //     registers, since the C layout of two adjacent n8 tiles is the A layout
 //     of one k16 step. Nothing goes through shared memory between the two
 //     products.
+//   * dQ computes S = q k^T and dP = dO v^T (k and v rows as B, no
+//     transpose), forms P = exp2(S scale log2e - lse log2e) and
+//     dS = P (dP - delta) in registers, and takes dQ += dS k with k through
+//     ldmatrix.trans, the path of the forward's P v; sm_scale multiplies
+//     the f32 sum once, at the store. Up to D = 64 the warp's q and dO
+//     fragments are loaded once and held in registers; above, they are
+//     re-read through ldmatrix every k tile (holding them would spill).
+//     Each dQ row belongs to one warp: no atomics, no split over keys.
 //   * dK/dV computes the transposed scores directly, S^T = k q^T and
 //     dP^T = v dO^T (q and dO rows as B, no transpose), so P^T and
 //     dS^T = P^T (dP^T - delta) are A fragments in registers for
@@ -74,7 +84,7 @@
 //     multiply and exponentiated with exp2f. lse is still written and read
 //     in natural-log units (the dQ kernel reads it).
 //   * Rounding: P is rounded to bf16 before P v and P^T dO, and dS before
-//     dS^T q (the sums stay f32; l sums the unrounded P).
+//     dS^T q and dS k (the sums stay f32; l sums the unrounded P).
 //   * mma.sync and cp.async, not wgmma and TMA: at L = 512 and D <= 128 the
 //     products are 64 x 64 x D per tile, which warp-level m16n8k16 tiles
 //     cover with register-resident softmax state, as the FA2-class kernels
@@ -82,13 +92,12 @@
 //     tiles fed from swizzled shared memory and an asynchronous pipeline
 //     with a producer warp; that is the next step, not this one.
 //
-// The FMA kernels (f32, and dQ in both dtypes). f32 keeps them because the
-// f32 BERT step on the card is held to the CPU's at rtol 1e-4, which TF32
-// or bf16 products would not meet. flash_bwd_dq stays on them in bf16 for
-// now: its redesign is the next step. The tiles are staged as f32 with a
-// row pitch of D + 1 words, so the 8 lanes that read 8 different rows at
-// one column hit 8 different banks; the 64 x 64 score tile goes through
-// shared memory (pitch 65) between the two products. Thread t owns rows
+// The FMA kernels (f32). f32 keeps them because the f32 BERT step on the
+// card is held to the CPU's at rtol 1e-4, which TF32 or bf16 products
+// would not meet. The tiles are staged as f32 with a row pitch of D + 1
+// words, so the 8 lanes that read 8 different rows at one column hit 8
+// different banks; the 64 x 64 score tile goes through shared memory
+// (pitch 65) between the two products. Thread t owns rows
 // 4 * (t / 8) .. + 3 of the tile, score columns (t % 8) + 8 j, and output
 // columns (t % 8) + 8 e; the 8 lanes of one row group reduce a row's max
 // and sum with three warp shuffles.
@@ -123,13 +132,7 @@ constexpr int kPitchS = kTile + 1;  // row pitch of a score tile in smem
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // max / sum over the 8 lanes of one row group (lanes 8g .. 8g + 7)
 __device__ __forceinline__ float group_max(float x) {
@@ -591,6 +594,44 @@ __device__ __forceinline__ void stage_tile(bf16* dst,
   }
 }
 
+// one k16 step of s[nt] += a B^T: NT n8 tiles of B rows through ldmatrix
+// (no transpose) from `b_base`, the lane's row address in B
+template <int DP, int NT>
+__device__ __forceinline__ void abt_step(float (&s)[NT][4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b_base, int ks) {
+  constexpr int kPitch = MmaTile<DP>::kPitch;
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t b[4];
+    ldsm_x4(b, b_base + (np * 16 * kPitch) * 2 + ks * 32);
+    mma_bf16(s[2 * np], a, b[0], b[1]);
+    mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// lane's ldmatrix row address in A (rows a_row0 .. + 15) and in B (NT * 8
+// rows from its first), both (rows, DP) in shared memory
+template <int DP>
+__device__ __forceinline__ uint32_t a_rows(const bf16* A, int a_row0,
+                                           int lane) {
+  return smem_addr(A + (a_row0 + (lane & 15)) * MmaTile<DP>::kPitch +
+                   (lane >> 4) * 8);
+}
+template <int DP>
+__device__ __forceinline__ uint32_t b_rows(const bf16* B, int lane) {
+  return smem_addr(B + ((lane >> 4) * 8 + (lane & 7)) * MmaTile<DP>::kPitch +
+                   ((lane >> 3) & 1) * 8);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&s)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+}
+
 // s[nt] = A B^T over one 16-row A slice (rows a_row0 .., of tile `A`) and
 // NT * 8 rows of `B` (from its first row), both (rows, DP) in shared
 // memory: NT n8 tiles of 8 B rows each. ldmatrix without a transpose gives
@@ -599,27 +640,39 @@ template <int DP, int NT>
 __device__ __forceinline__ void tile_mma_abt(float (&s)[NT][4], const bf16* A,
                                              int a_row0, const bf16* B,
                                              int lane) {
-  constexpr int kPitch = MmaTile<DP>::kPitch;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-  const uint32_t a_base =
-      smem_addr(A + (a_row0 + (lane & 15)) * kPitch + (lane >> 4) * 8);
-  const uint32_t b_base = smem_addr(
-      B + ((lane >> 4) * 8 + (lane & 7)) * kPitch + ((lane >> 3) & 1) * 8);
+  zero(s);
+  const uint32_t a_base = a_rows<DP>(A, a_row0, lane);
+  const uint32_t b_base = b_rows<DP>(B, lane);
 #pragma unroll
   for (int ks = 0; ks < MmaTile<DP>::kSteps; ++ks) {
     uint32_t a[4];
     ldsm_x4(a, a_base + ks * 32);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, b_base + (np * 16 * kPitch) * 2 + ks * 32);
-      mma_bf16(s[2 * np], a, b[0], b[1]);
-      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-    }
+    abt_step<DP, NT>(s, a, b_base, ks);
   }
+}
+
+// the same product with the A slice's fragments already in registers
+// (`a`, one per k16 step over D)
+template <int DP, int NT>
+__device__ __forceinline__ void tile_mma_abt(
+    float (&s)[NT][4], const uint32_t (&a)[MmaTile<DP>::kSteps][4],
+    const bf16* B, int lane) {
+  zero(s);
+  const uint32_t b_base = b_rows<DP>(B, lane);
+#pragma unroll
+  for (int ks = 0; ks < MmaTile<DP>::kSteps; ++ks)
+    abt_step<DP, NT>(s, a[ks], b_base, ks);
+}
+
+// the A fragments of rows a_row0 .. + 15 of tile `A` over every k16 step
+template <int DP>
+__device__ __forceinline__ void a_frags(
+    uint32_t (&a)[MmaTile<DP>::kSteps][4], const bf16* A, int a_row0,
+    int lane) {
+  const uint32_t a_base = a_rows<DP>(A, a_row0, lane);
+#pragma unroll
+  for (int ks = 0; ks < MmaTile<DP>::kSteps; ++ks)
+    ldsm_x4(a[ks], a_base + ks * 32);
 }
 
 // acc += S M over a 16-row score slice in registers (16 x NT * 8, rounded
@@ -783,6 +836,112 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[static_cast<size_t>(bh) * Lq + row] = m[h] * kLn2 + logf(lc);
   }
   store_slice(out + qoff + static_cast<size_t>(q0) * D, acc, inv, warp * 16,
+              Lq - q0, D, vec, lane);
+}
+
+// dQ on the tensor cores: a block owns 64 q rows (16 a warp) and walks the
+// k tiles its rows can see through a two-stage ring of K and V tiles. S
+// and dP are accumulator fragments; P and dS = P (dP - delta) stay in
+// registers, and dS, rounded to bf16, is the A operand of dQ += dS K.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int Lq, int Lk, int D,
+                        float scale, float scale_log2, int causal, int vec) {
+  using Tile = MmaTile<DP>;
+  // up to D = 64 the warp's q and dO fragments (2 x 4 x kSteps registers)
+  // are loaded once and held; above, holding them would spill, and they
+  // are re-read from shared memory for every k tile
+  constexpr bool kHold = DP <= 64;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sO = sQ + Tile::kElems;      // dout
+  bf16* sK = sO + Tile::kElems;      // two stages
+  bf16* sV = sK + 2 * Tile::kElems;  // two stages
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const size_t qoff = static_cast<size_t>(bh) * Lq * D;
+  const size_t koff = static_cast<size_t>(bh) * Lk * D;
+
+  stage_tile<DP>(sQ, q + qoff + static_cast<size_t>(q0) * D, Lq - q0, D, vec);
+  stage_tile<DP>(sO, dout + qoff + static_cast<size_t>(q0) * D, Lq - q0, D,
+                 vec);
+  stage_tile<DP>(sK, k + koff, Lk, D, vec);
+  stage_tile<DP>(sV, v + koff, Lk, D, vec);
+  cp_async_commit();
+
+  // this thread's rows row0 and row0 + 8: lse in base 2, and delta (rows
+  // past Lq read neither; their dO is zero, and they are not stored)
+  const int row0 = q0 + warp * 16 + g;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * Lq + row;
+    lse2[h] = row < Lq ? lse[at] * kLog2e : 0.f;
+    dlt[h] = row < Lq ? delta[at] : 0.f;
+  }
+  float acc[Tile::kOut][4];
+  zero(acc);
+
+  uint32_t qa[kHold ? Tile::kSteps : 1][4], oa[kHold ? Tile::kSteps : 1][4];
+  if constexpr (kHold) {
+    cp_async_wait_all();
+    __syncthreads();
+    a_frags<DP>(qa, sQ, warp * 16, lane);
+    a_frags<DP>(oa, sO, warp * 16, lane);
+  }
+
+  const int n_k = k_tiles(q0, Lq, Lk, causal);
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    if (kt + 1 < n_k) {
+      const int k1 = (kt + 1) * kTile;
+      const int st = (kt + 1) & 1;
+      stage_tile<DP>(sK + st * Tile::kElems,
+                     k + koff + static_cast<size_t>(k1) * D, Lk - k1, D, vec);
+      stage_tile<DP>(sV + st * Tile::kElems,
+                     v + koff + static_cast<size_t>(k1) * D, Lk - k1, D, vec);
+      cp_async_commit();
+    }
+    const int k0 = kt * kTile;
+    const bf16* cK = sK + (kt & 1) * Tile::kElems;
+    const bf16* cV = sV + (kt & 1) * Tile::kElems;
+    float s[8][4], dp[8][4];
+    if constexpr (kHold) {
+      tile_mma_abt<DP, 8>(s, qa, cK, lane);   // S = q k^T
+      tile_mma_abt<DP, 8>(dp, oa, cV, lane);  // dP = dO v^T
+    } else {
+      tile_mma_abt<DP, 8>(s, sQ, warp * 16, cK, lane);
+      tile_mma_abt<DP, 8>(dp, sO, warp * 16, cV, lane);
+    }
+    // dS = P (dP - delta), P = exp2(S scale log2e - lse log2e), masked to 0
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + nt * 8 + 2 * t + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        const bool ok = col < Lk && (!causal || col <= row);
+        const float p =
+            ok ? exp2f(s[nt][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dlt[e >> 1]);
+      }
+    tile_mma_sm<DP, 8>(acc, s, cK, lane);  // dQ += dS k, unscaled
+  }
+
+  const float sc[2] = {scale, scale};
+  store_slice(dq + qoff + static_cast<size_t>(q0) * D, acc, sc, warp * 16,
               Lq - q0, D, vec, lane);
 }
 
@@ -1043,8 +1202,28 @@ int bwd_dkv_mma(const bf16* q, const bf16* k, const bf16* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the FMA forward and dK/dV serve float32 only (bf16 takes fwd_mma and
-// bwd_dkv_mma); dQ serves both dtypes
+int bwd_dq_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+               const float* lse, const float* delta, bf16* dq, int BH,
+               int Lq, int Lk, int D, float scale, int causal,
+               cudaStream_t stream) {
+  if (!shape_ok(BH, Lq, Lk, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(BH, (Lq + kTile - 1) / kTile);
+  const int vec = rows16(D, q, k, v, dout, dq);
+  MMA_DISPATCH(D, {
+    auto kernel = flash_bwd_dq_mma_kernel<DP>;
+    const size_t smem = 6 * MmaTile<DP>::kBytes;
+    const int rc = set_smem(kernel, smem);
+    if (rc != 0) return rc;
+    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq,
+                                             Lq, Lk, D, scale,
+                                             scale * kLog2e, causal, vec);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the FMA kernels serve float32 only (bf16 takes fwd_mma, bwd_dq_mma and
+// bwd_dkv_mma)
 template <typename T>
 int fwd(const T* q, const T* k, const T* v, T* out, float* lse, int BH,
         int Lq, int Lk, int D, float scale, int causal,
@@ -1103,8 +1282,7 @@ int bwd_dkv(const T* q, const T* k, const T* v, const T* dout,
 
 }  // namespace
 
-// dtype: 0 float32 (the FMA kernels), 1 bfloat16 (the tensor-core kernels
-// for the forward and dK/dV; the FMA dQ kernel)
+// dtype: 0 float32 (the FMA kernels), 1 bfloat16 (the tensor-core kernels)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int dtype, int BH, int Lq,
                          int Lk, int D, float scale, int causal,
@@ -1136,12 +1314,12 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                   static_cast<const float*>(dout), l, dl,
                   static_cast<float*>(dq), BH, Lq, Lk, D, scale, causal, s);
   if (dtype == 1)
-    return bwd_dq(static_cast<const __nv_bfloat16*>(q),
-                  static_cast<const __nv_bfloat16*>(k),
-                  static_cast<const __nv_bfloat16*>(v),
-                  static_cast<const __nv_bfloat16*>(dout), l, dl,
-                  static_cast<__nv_bfloat16*>(dq), BH, Lq, Lk, D, scale,
-                  causal, s);
+    return bwd_dq_mma(static_cast<const bf16*>(q),
+                      static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v),
+                      static_cast<const bf16*>(dout), l, dl,
+                      static_cast<bf16*>(dq), BH, Lq, Lk, D, scale, causal,
+                      s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

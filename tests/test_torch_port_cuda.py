@@ -54,14 +54,17 @@ def _inputs(seed, b, h, d, pages, ps, maxp, lens):
 @pytest.mark.parametrize("kv_dtype,tol", [("float32", 1e-5),
                                           ("bfloat16", 4e-2)])
 @pytest.mark.parametrize("b,d", [(1, 64), (32, 64), (32, 16), (32, 80),
-                                 (32, 128)])
+                                 (32, 128), (4, 64), (32, 20), (32, 40)])
 def test_cuda_kernel_matches_plain_on_card(kv_dtype, tol, b, d):
     """Main-path shapes (H=12, Dh=64, page 16, 256 pages, 12 pages a
-    sequence) with ragged lengths: 0, 1, page-straddling, full; and other
-    head dims the kernel takes (any up to 128)."""
+    sequence) with ragged lengths: 0, 1, page-straddling, full; one and
+    four full-length sequences (B * H too small for the card: the kernel
+    splits each over a thread-block cluster); and other head dims the
+    kernel takes (any up to 128; 20 in bf16 is not whole 16-byte
+    vectors)."""
     _need_card()
     h, pages, ps, maxp = 12, 256, 16, 12
-    lens = ([0, 1, 17, maxp * ps] * b)[:b] if b > 1 else [maxp * ps]
+    lens = ([0, 1, 17, maxp * ps] * b)[:b] if b > 4 else [maxp * ps] * b
     q, kp, vp, tbl, lens = _inputs(5, b, h, d, pages, ps, maxp, lens)
     dev = torch.device("cuda")
     tdt = getattr(torch, kv_dtype)
@@ -77,6 +80,25 @@ def test_cuda_kernel_matches_plain_on_card(kv_dtype, tol, b, d):
     assert (out - ref).abs().max().item() <= tol
     inert = torch.from_numpy(lens).to(dev) == 0
     assert torch.equal(out[inert], torch.zeros_like(out[inert]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_paged_kernel_is_deterministic(kv_dtype):
+    """No atomics, and the cluster's splits merged in a fixed order: two
+    runs give the same bits, split (B = 1) and not (B = 32)."""
+    _need_card()
+    h, pages, ps, maxp = 12, 256, 16, 12
+    tdt = getattr(torch, kv_dtype)
+    for b, lens in ((1, [maxp * ps]), (32, [0, 1, 17, maxp * ps] * 8)):
+        q, kp, vp, tbl, lens = _inputs(8, b, h, 64, pages, ps, maxp, lens)
+        args = (torch.from_numpy(q).cuda(),
+                torch.from_numpy(kp).cuda().to(tdt),
+                torch.from_numpy(vp).cuda().to(tdt),
+                torch.from_numpy(tbl).cuda(), torch.from_numpy(lens).cuda())
+        runs = [tpk.paged_attention(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda
@@ -399,8 +421,8 @@ def test_flash_kernels_match_plain_on_card(dtype, causal, shape):
 
 @pytest.mark.cuda
 def test_flash_bf16_kernels_run_on_tensor_cores():
-    """The bf16 forward and dK/dV kernels hold HMMA instructions at every
-    padded head dim (chip_smoke's SASS check, through cuobjdump)."""
+    """The bf16 forward, dQ and dK/dV kernels hold HMMA instructions at
+    every padded head dim (chip_smoke's SASS check, through cuobjdump)."""
     _need_card()
     from chip_smoke import check_flash_sass
 

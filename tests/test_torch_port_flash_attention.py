@@ -168,10 +168,22 @@ def _mma_dkv(q, k, v, dout, lse, delta, causal, scale):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _mma_dq(q, k, v, dout, lse, delta, causal, scale):
+    """The plain dQ with the bf16 tensor-core kernel's rounding point: P in
+    f32, dS = P (dO v^T - delta) rounded to bf16 before dS k, the sum in f32
+    and sm_scale applied to it."""
+    p = torch.exp(tpk._flash_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", dout.float(), v.float())
+    ds = (p * (dp - delta[..., None])).bfloat16().float()
+    return (torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale).to(q.dtype)
+
+
+_MMA_CASES = [(2, 64, 64, 32), (1, 200, 260, 16), (2, 300, 300, 64),
+              (1, 130, 70, 40), (1, 130, 70, 20)]
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 64, 64, 32), (1, 200, 260, 16),
-                                   (2, 300, 300, 64), (1, 130, 70, 40),
-                                   (1, 130, 70, 20)])
+@pytest.mark.parametrize("shape", _MMA_CASES)
 def test_flash_bf16_rounding_points_match_jax_kernels(causal, shape):
     """CPU rehearsal of the bf16 tensor-core kernels' numerics: the plain
     forward and dK/dV with P (and dS) rounded to bf16 where the kernels
@@ -195,3 +207,27 @@ def test_flash_bf16_rounding_points_match_jax_kernels(causal, shape):
     dk, dv = _mma_dkv(tq, tk, tv, tg, t_lse, delta, causal, scale)
     _close(dk, j_dk, tol, "dk")
     _close(dv, j_dv, tol, "dv")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _MMA_CASES)
+def test_flash_bf16_dq_rounding_point_matches_jax_kernel(causal, shape):
+    """CPU rehearsal of the bf16 tensor-core dQ kernel's numerics: dS
+    rounded to bf16 before dS k, where the JAX kernel keeps it in f32, holds
+    the JAX package's dQ at the unchanged bf16 tolerance, causal and not,
+    at the padded head dims (40, 20) too."""
+    tol = TOL["bfloat16"]
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, "bfloat16")
+    b, lq, lk, d = shape
+    scale = 1.0 / np.sqrt(d)
+    j_out, j_lse = jpk._flash_fwd(jq, jk, jv, causal, scale)
+    run = jpk._bwd_compiled((b, lq, lk, d, str(jq.dtype), causal, scale,
+                             jpk._use_interpret()))
+    j_dq, _, _ = run(jq, jk, jv, j_out, j_lse, jg)
+
+    t_out = torch.from_numpy(np.array(j_out.astype(jnp.float32)))
+    t_lse = torch.from_numpy(np.asarray(j_lse))
+    delta = (tg.float() * t_out).sum(-1)
+    dq = _mma_dq(tq, tk, tv, tg, t_lse, delta, causal, scale)
+    assert dq.dtype == torch.bfloat16
+    _close(dq, j_dq, tol, "dq")
