@@ -34,11 +34,17 @@ Phases; each raises on failure, and the script then exits non-zero:
    yardstick; and the flash autograd Function against autograd through
    the plain attention. The three LSTM kernels (infer, forward, backward)
    at the word LM's layer (T 35, B 32, H 650, nonzero h0 and c0) and at
-   ragged, one-step and width-200 shapes, bf16 and f32, each run twice
-   and compared bit for bit; cuDNN's LSTM layer is their yardstick, and
-   one grid barrier (``lstm_barrier_probe``) times T gives each its
-   sequential floor; and `lstm_layer` (the autograd Function) against
-   autograd through the plain step loop.
+   ragged, one-step and width-200 shapes and the shapes the forward's
+   tensor-core tiling can get wrong (B 17 and 64, H 1500, odd H with B >
+   16) and shapes whose block cannot hold all of h (B 128, H 1500 at B
+   32: the streamed forward), bf16 and f32, each run twice and compared
+   bit for bit (a shape too large for a block must be refused); the bf16
+   forward kernels must
+   hold HMMA instructions and no LSTM kernel may spill registers; cuDNN's
+   LSTM layer is their yardstick, and one grid barrier
+   (``lstm_barrier_probe``) times T gives each its sequential floor, with
+   each kernel's µs a step beside one barrier's; and `lstm_layer` (the
+   autograd Function) against autograd through the plain step loop.
    Then ``mx.rtc`` on ``mx.nd`` arrays: every module compiled by NVRTC
    for sm_90a (seconds each); with the RTC launch count set to 0, the
    JAX package's RTC test kernels in CUDA form (axpy, scale, inc launched
@@ -810,11 +816,16 @@ FLASH_MMA = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
              "flash_bwd_dkv_mma_kernel")
 
 
-def sass_hmma(path, names):
+def _int_template_arg(symbol):
+    arg = re.search(r"Li(\d+)E", symbol)
+    return int(arg.group(1)) if arg else 0
+
+
+def sass_hmma(path, names, template_arg=_int_template_arg):
     """HMMA (tensor-core) instruction count of every kernel in the library
     at ``path`` whose symbol holds one of ``names``, from ``cuobjdump
-    -sass`` (the toolkit's, beside nvcc): {(name, template argument):
-    count}."""
+    -sass`` (the toolkit's, beside nvcc): {(name, template_arg(mangled
+    symbol)): count}; by default the first integer template argument."""
     from mxnet_tpu_torch.ops import _build
 
     sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", path],
@@ -825,9 +836,7 @@ def sass_hmma(path, names):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = next((n for n in names if n in m.group(1)), None)
-            arg = re.search(r"Li(\d+)E", m.group(1))
-            key = None if name is None else (name,
-                                             int(arg.group(1)) if arg else 0)
+            key = None if name is None else (name, template_arg(m.group(1)))
             if key is not None:
                 counts.setdefault(key, 0)
         elif key is not None and "HMMA" in line:
@@ -1021,7 +1030,14 @@ def check_flash(torch, pk, seed, flush):
 # RNNModel default width at batch 1
 LSTM_PATH = (35, 32, 650)
 LSTM_CASES = [("path", LSTM_PATH), ("ragged", (7, 5, 9)),
-              ("one step", (1, 3, 5)), ("width 200", (35, 1, 200))]
+              ("one step", (1, 3, 5)), ("width 200", (35, 1, 200)),
+              # the forward's tensor-core tiling: a partial second m16
+              # tile, four m16 tiles, 12 units a block (48 gate rows; f32
+              # does not fit a block there and must be refused), odd H
+              ("B 17", (5, 17, 650)), ("B 64", (5, 64, 650)),
+              ("H 1500", (5, 8, 1500)), ("odd H", (6, 24, 333)),
+              # blocks that cannot hold all of h: the streamed forward
+              ("B 128", (5, 128, 650)), ("H 1500 B 32", (5, 32, 1500))]
 # f32 results rtol 1e-4 with a floor of 1e-4 x max|plain|; bf16 tensors
 # 2^-7 the same way (the products' f32 sums in other orders can round a
 # bf16 h, gate or dgates to the neighbouring value, one step 2^-8, and the
@@ -1150,17 +1166,49 @@ def time_lstm(torch, pk, args, dtype, flush, barrier):
         floor_ms = barrier * (t if name == "lstm_bwd" else t - 1)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": lib_ms[name],
-                      "floor_ms": floor_ms, "projection_ms": proj_ms}
-        log("  %-10s %s %s: kernel %.4f ms plain %.4f ms library (cuDNN "
-            "LSTM %s, with its input projection) %.4f ms [projection GEMM "
-            "%.4f ms] bound %.4f ms (%s) sequential floor %.4f ms (%d "
-            "barriers)" % (name, LSTM_PATH, dtype, ms, plain_ms,
-                           {"lstm_infer": "forward, no_grad",
-                            "lstm_fwd": "training forward",
-                            "lstm_bwd": "backward"}[name], lib_ms[name],
-                           proj_ms, bound_ms, bound_by, floor_ms,
-                           t if name == "lstm_bwd" else t - 1))
+                      "floor_ms": floor_ms, "projection_ms": proj_ms,
+                      "us_per_step": ms * 1e3 / t,
+                      "barrier_us": barrier * 1e3}
+        log("  %-10s %s %s: kernel %.4f ms (%.3f us a step; one barrier "
+            "%.3f us) plain %.4f ms library (cuDNN LSTM %s, with its input "
+            "projection) %.4f ms [projection GEMM %.4f ms] bound %.4f ms "
+            "(%s) sequential floor %.4f ms (%d barriers)"
+            % (name, LSTM_PATH, dtype, ms, ms * 1e3 / t, barrier * 1e3,
+               plain_ms, {"lstm_infer": "forward, no_grad",
+                          "lstm_fwd": "training forward",
+                          "lstm_bwd": "backward"}[name], lib_ms[name],
+               proj_ms, bound_ms, bound_by, floor_ms,
+               t if name == "lstm_bwd" else t - 1))
     return rows
+
+
+# the LSTM forward kernel: bf16 instantiations on the tensor cores
+LSTM_MMA = "lstm_forward_kernel"
+
+
+def _lstm_template_arg(symbol):
+    """'bf16 fwd', 'f32 infer', ... from lstm_forward_kernel<T, kSave>'s
+    mangled symbol."""
+    return "%s %s" % ("bf16" if "__nv_bfloat16" in symbol else "f32",
+                      "fwd" if "Lb1E" in symbol else "infer")
+
+
+def check_lstm_sass():
+    """Both bf16 instantiations of the forward kernel (lstm_fwd and
+    lstm_infer) hold HMMA instructions; logs every instantiation's count
+    (the f32 ones run on the FMA units)."""
+    from mxnet_tpu_torch.ops import _build
+
+    counts = sass_hmma(_build.build("lstm")["path"], (LSTM_MMA,),
+                       _lstm_template_arg)
+    log("lstm SASS, HMMA instructions of %s by dtype and kernel: %s"
+        % (LSTM_MMA, ", ".join("%s %d" % (a, c)
+                               for (_, a), c in sorted(counts.items()))))
+    for arg in ("bf16 fwd", "bf16 infer"):
+        if counts.get((LSTM_MMA, arg), 0) < 1:
+            raise AssertionError("%s %s: no HMMA: the recurrent product is "
+                                 "not on the tensor cores" % (LSTM_MMA, arg))
+    return counts
 
 
 def check_lstm_grad(torch, pk, seed):
@@ -1199,6 +1247,9 @@ def check_lstm(torch, pk, seed, flush):
     compared bit for bit; the autograd Function; the timings at the
     path's shape. Returns the `kernels` rows (bf16, the path's dtype, with
     the f32 numbers beside) with the largest errors."""
+    from mxnet_tpu_torch.base import MXNetError
+
+    check_lstm_sass()
     for dtype in (torch.float32, torch.bfloat16):
         if not pk.lstm_layer_fits(LSTM_PATH[1], LSTM_PATH[2], dtype):
             raise AssertionError("lstm_layer_fits(%d, %d, %s) is false"
@@ -1209,15 +1260,28 @@ def check_lstm(torch, pk, seed, flush):
         % (blocks, barrier * 1e3))
     worst = dict.fromkeys(LSTM_KERNELS, 0.0)
     rows, f32_rows = {}, {}
+    refused = []
     for dtype in ("bfloat16", "float32"):
         tdt = getattr(torch, dtype)
         tol = LSTM_TOL[dtype]
         for i, (label, shape) in enumerate(LSTM_CASES):
             args = lstm_inputs(torch, seed + i, shape, tdt)
             gx, wh, h0, c0, dy, dct = args
+            tag = "%s %s %s" % (label, shape, dtype)
+            if not pk.lstm_layer_fits(shape[1], shape[2], tdt):
+                # ops/rnn.py routes such a shape to the step loop; the
+                # kernels must refuse it, not run it
+                for fn in (pk.lstm_infer, pk.lstm_fwd):
+                    try:
+                        fn(gx, wh, h0, c0)
+                    except MXNetError:
+                        continue
+                    raise AssertionError("%s %s: a shape that does not fit "
+                                         "a block ran" % (fn.__name__, tag))
+                refused.append(tag)
+                continue
             runs = [lstm_runs(pk, args) for _ in range(2)]
             torch.cuda.synchronize()
-            tag = "%s %s %s" % (label, shape, dtype)
             if not all(torch.equal(a, b) for a, b in zip(*runs)):
                 raise AssertionError("lstm kernels %s: two runs differ" % tag)
             ys, ct, ys2, c_all, gates = runs[0][:5]
@@ -1242,10 +1306,12 @@ def check_lstm(torch, pk, seed, flush):
             del args, runs
             torch.cuda.empty_cache()
     log("lstm: the three kernels agree with their plain versions at %d "
-        "cases x 2 dtypes (|kernel - plain| <= tol x |plain| + tol x "
-        "max|plain|, tol 1e-4 for f32 results and c_all, 2^-7 for bf16 "
-        "tensors); two runs give the same bits; largest absolute errors %s"
-        % (len(LSTM_CASES), json.dumps(worst)))
+        "cases x 2 dtypes less %d refused as too large for a block (%s) "
+        "(|kernel - plain| <= tol x |plain| + tol x max|plain|, tol 1e-4 "
+        "for f32 results and c_all, 2^-7 for bf16 tensors); two runs give "
+        "the same bits; largest absolute errors %s"
+        % (len(LSTM_CASES), len(refused), "; ".join(refused),
+           json.dumps(worst)))
     check_lstm_grad(torch, pk, seed)
     for k in LSTM_KERNELS:
         rows[k]["max_abs_err"] = worst[k]
@@ -2451,6 +2517,9 @@ def main(argv=None):
                           max(regs) if regs else "?",
                           "spills: " + " | ".join(spills) if spills
                           else "no spills"))
+        if name == "lstm" and spills:
+            raise AssertionError("lstm.cu: registers spill: "
+                                 + " | ".join(spills))
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     tiny = torch.zeros(16, device="cuda")

@@ -11,6 +11,8 @@
 //                        float32 or bfloat16 ("the dtype"), contiguous
 //   wh       (4H, H)     the recurrent weight in the reference's layout
 //   h0, c0   (B, H)      the dtype
+//   hx       (2, B, HP)  the dtype: the forward's h exchange buffer, HP = H
+//                        rounded up to 16 bytes; scratch, any contents
 //   ys       (T, B, H)   the dtype; hT is ys[T - 1]
 //   cT       (B, H)      the dtype (inference)
 //   c_all    (T, B, H)   float32: c_t of every step (training residual)
@@ -20,7 +22,8 @@
 //   dgx      (T, B, 4H)  the dtype: pre-activation gate gradients
 //   dh0, dc0 (B, H)      the dtype
 //
-// Any T >= 1, B >= 1, H >= 1: no padding of B, H or the gate blocks.
+// Any T >= 1, B >= 1, H >= 1: no padding of B, H or the gate blocks is
+// visible to the caller.
 //
 // Numerics kept from the TPU kernels: the recurrent product takes h in the
 // dtype with f32 accumulation; the h / c carries (and dh / dc) are f32; ys
@@ -33,54 +36,90 @@
 // waits at cooperative_groups' grid barrier once a step. On the TPU w_hh^T
 // stayed in VMEM for the whole loop; at the word LM's H = 650 it is 3.4 MB
 // in bf16, more than one SM's 227 KB of shared memory, so here it is cut:
-//   * block k owns hidden units j0 .. j0 + U - 1 (U = ceil(H / #SMs), one
-//     block an SM), with all four gate rows of each unit, so the cell update
-//     stays inside the block. It stages its slice of w_hh in shared memory
-//     once: the 4U gate rows in the forward (the output side), the U
-//     columns in the backward (the input side of dh = dgx . w_hh);
-//   * each step it streams the product's left operand (h_{t-1}, which is
-//     ys[t - 1] or h0; in the backward dgx[t]) through shared memory in
-//     chunks of KC columns and computes its outputs as 4 x 4 register tiles:
-//     a warp takes a tile, its 32 lanes split the contraction (k = lane,
-//     lane + 32, ...) and a fixed shuffle butterfly sums them;
-//   * c (and the backward's dh, dc) never leave the block; the carries stay
-//     in shared memory as f32. ys[t] (forward) and dgx[t] (backward) are
-//     the only values exchanged between blocks, and they are outputs anyway:
-//     ys[t - 1] in its dtype IS the h the product takes, so no separate
-//     exchange buffer exists and none is overwritten while still read;
+// block k owns hidden units j0 .. j0 + U - 1 (U = ceil(H / #SMs), one block
+// an SM), with all four gate rows of each unit, so the cell update stays
+// inside the block. It stages its slice of w_hh in shared memory once: the
+// 4U gate rows in the forward (the output side), the U columns in the
+// backward (the input side of dh = dgx . w_hh). c (and the backward's dh,
+// dc) never leave the block; the carries stay in shared memory as f32.
+//
+// The forward's step (lstm_forward_kernel), built to keep staging, the
+// reduction and the gate inputs' latency short and off the critical path:
+//   * h exchange: each block writes its units of h_t into hx[t % 2] (and
+//     ys[t]); step t + 1 stages all of hx[t % 2] into shared memory with
+//     16-byte cp.async.cg copies, all issued at once. ys rows (1300 bytes
+//     at H = 650 in bf16) are not 16-byte aligned, hence the padded
+//     buffer; its padding columns are never written and stay zero. Two
+//     buffers, because step t + 1 writes hx[(t + 1) % 2] only after the
+//     barrier that ends step t, and the last reads of that buffer were in
+//     step t - 1; one buffer would be overwritten while other blocks still
+//     read it. The kernel's prologue copies h0 into hx[1] (each block
+//     its units; the last block zeroes the padding) and waits at one grid
+//     barrier more before step 0.
+//   * bf16: the product h_{t-1} (B x HP) . w_s^T on the tensor cores,
+//     mma.sync m16n8k16 with both operands through ldmatrix: M = B in m16
+//     tiles (rows past B zero), N = the block's 4U gate rows in n8 tiles
+//     (unit-major, row u * 4 + g, which is the col operand as it lies), K
+//     in k16 steps over H padded with zeros. The K steps are cut into
+//     slices, one warp an (m16 tile, K slice); each warp stores its f32
+//     partial sums, and the cell update adds the slices in a fixed order.
+//     The staging is two commit groups split at a slice boundary: the
+//     warps of the first slices compute while the second group lands.
+//     Rows of both operands are an odd count of 16 bytes apart, so
+//     ldmatrix meets no bank conflict.
+//   * f32 keeps its products on the FMA units (4 x 4 register tiles, the
+//     32 lanes of a warp split the contraction, a fixed shuffle butterfly
+//     sums them), from the same staged h.
+//   * off the barrier's path: the gate inputs gx[t] are loaded into
+//     registers right after step t's copies are issued, by volatile loads
+//     the compiler cannot move down to their use, so they arrive while h
+//     lands (loaded before the barrier that ends step t - 1 instead, a
+//     step took 0.1 us more: PERF.md); the step's other outputs (ys,
+//     c_all, gates) stay in registers and are stored in step t + 1,
+//     behind its copies, so the barrier's fence waits only for hx.
 //   * every output element is written by one thread in a fixed order: no
 //     atomics, and two runs give the same bits. The "last step wins"
 //     outputs of the TPU grid (cT; dh0 and dc0) are one write by the owning
 //     block after its loop.
+// The backward streams dgx[t] through shared memory in chunks of KC
+// columns (block_gemm): 4 x 4 register tiles, the lanes of a warp split
+// the contraction, a shuffle butterfly sums them.
 //
 // Traps, and what the code does about them:
-//   * Stale reads: ys and dgx are written inside the kernel and read by
+//   * Stale reads: hx and dgx are written inside the kernel and read by
 //     other blocks after the barrier. They are never read through the
-//     read-only path (no const __restrict__, no __ldg): load_cg reads them
-//     from L2 (ld.global.cg), which every SM sees coherently.
+//     read-only path (no const __restrict__, no __ldg): cp.async.cg and
+//     load_cg read them from L2, which every SM sees coherently. gx, an
+//     input nobody writes, is read through the read-only path
+//     (ld.global.nc).
 //   * Refused launches: a cooperative launch larger than what can be
 //     co-resident is refused (cudaErrorCooperativeLaunchTooLarge). The grid
 //     is at most one block an SM, the occupancy is checked first, and every
 //     entry point returns the launch's error (0 on success) to the wrapper,
 //     which raises.
 //   * Shared memory above 48 KB: set with cudaFuncSetAttribute before each
-//     launch. At B = 32, H = 650: 118 KB (f32) or 91 KB (bf16) a block.
+//     launch. At B = 32, H = 650 the forward takes 136 KB (f32) or 108 KB
+//     (bf16) a block, the backward 116 KB or 91 KB. A forward whose block
+//     cannot hold all of h_{t-1} (B past 112 at H = 650 in bf16, 66 in
+//     f32; H = 1500 at B = 32) runs lstm_forward_streamed_kernel, which
+//     streams h through shared memory in chunks.
 //     mxnet_tpu_torch/ops/pallas_kernels.py:lstm_layer_fits mirrors the
-//     layout below to route a shape that does not fit to the step loop.
+//     layouts below to route a shape that fits neither to the step loop.
 //
 // Bound on the card at the word LM's shape (T = 35, B = 32, H = 650, bf16):
 // the infer kernel's 3.79 GFLOP of products against 10.8 MB of tensors is
 // bound by its operations at the tensor cores' rate (3.8 us), the forward
-// and backward by their bytes (about 19.5 MB each, 5.8 us). These kernels
-// do their products on the f32 FMA units, from shared memory, and pay one
-// grid barrier a step, so they stay far above that bound: a right, simple
-// kernel first. Thread-block clusters with DSMEM instead of the grid
-// barrier, tensor-core tiles and h kept on chip are later work.
+// and backward by their bytes (about 19.5 MB each, 5.8 us). The recurrence
+// pays one grid barrier a step (about 1.1 us, lstm_barrier_probe), T - 1
+// of them in the forward: that sequential floor, not the bound, is what
+// these kernels can approach.
 //
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise.
 
 #include <cooperative_groups.h>
+#include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -93,6 +132,35 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTiles = 3;             // 4 x 4 tiles a warp holds at once
 constexpr int kChunkBytes = 64 * 1024;  // budget of one streamed chunk
 constexpr int kStage = 8;                // staging loads in flight a thread
+constexpr int kKSlices = 8;  // most K slices of the forward's bf16 product
+constexpr int kMaxNT = 8;    // n8 tiles a warp accumulates at once (even)
+
+// A measurement aid, compiled only with -DLSTM_TRACE (tools/
+// lstm_step_probe.py --trace builds it so; the library the port loads has
+// none of it): thread 0 of block 0 of the forward kernel records the SM
+// clock and the global timer at fixed points of each step: (t, 0) the
+// kernel's start (t = 0) and end (t = T), (t, 1) step t begins, (t, 2) its
+// copies are issued, (t, 3) and (t, 4) the first and second commit group
+// have landed, (t, 5) the product is complete, (t, 6) the cell update is
+// done (the grid barrier follows).
+#ifdef LSTM_TRACE
+constexpr int kTraceSteps = 128, kTracePoints = 7;
+__device__ long long trace_clock[kTraceSteps + 1][kTracePoints];
+__device__ long long trace_ns[kTraceSteps + 1][kTracePoints];
+#define LSTM_TRACE_POINT(t, k)                                          \
+  do {                                                                  \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (t) <= kTraceSteps) {    \
+      long long ns;                                                     \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));            \
+      trace_clock[t][k] = clock64();                                    \
+      trace_ns[t][k] = ns;                                              \
+    }                                                                   \
+  } while (0)
+#else
+#define LSTM_TRACE_POINT(t, k) \
+  do {                         \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -108,6 +176,45 @@ __device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ __nv_bfloat16 load_cg(const __nv_bfloat16* p) {
   return __ushort_as_bfloat16(
       __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy global -> shared through L2 (.cg: never a stale L1 line)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a b over one m16n8k16 step (bf16 in, f32 accumulate)
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -219,10 +326,66 @@ __host__ __device__ inline int chunk_cols(int B, int K, int elem) {
   return kc < K ? kc : K;
 }
 
-// shared memory of a block (pallas_kernels.py:_lstm_smem mirrors these):
-// forward  out_s [B][4U] f32 | c_s [B][U] f32 | w_s [4U][H] | a_s [B][KC]
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
+// Shared memory of a forward block (pallas_kernels.py:_lstm_fwd_layout
+// mirrors it), regions 16-byte aligned, in this order:
+//   c_s   [B][U]                    f32   the c carry
+//   red_s [kslices][mpad][np]       f32   partial products, one slice a
+//                                         K slice (f32: one)
+//   w_s   [w_rows][pitch]           dtype w_hh's 4U gate rows, unit-major
+//   a_s   [mpad][pitch]             dtype h_{t-1}, staged from hx
+// bf16 pads for the tensor cores: mpad = B and w_rows = 4U rounded up to
+// 16, K to steps * 16 zero columns, and pitch = steps * 16 + 8 (an odd
+// count of 16 bytes); f32 pads nothing (pitch = hp).
+struct FwdLayout {
+  int hp;       // pitch of hx: H rounded up to 16 bytes
+  int steps;    // k16 steps: H rounded up to 16, over 16
+  int pitch;    // of a_s and w_s, in elements
+  int mpad;     // rows of a_s and red_s
+  int w_rows;   // rows of w_s
+  int np;       // pitch of red_s: 4U rounded up to 8
+  int kslices;  // K slices of the product
+  size_t red_off, w_off, a_off, bytes;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int B, int H, int U,
+                                                int elem) {
+  const bool mma = elem == 2;
+  FwdLayout L;
+  L.hp = round_up(H, 16 / elem);
+  L.steps = round_up(H, 16) / 16;
+  L.pitch = mma ? L.steps * 16 + 8 : L.hp;
+  L.mpad = mma ? round_up(B, 16) : B;
+  L.w_rows = mma ? round_up(4 * U, 16) : 4 * U;
+  L.np = round_up(4 * U, 8);
+  int ks = 1;
+  if (mma) {  // a warp an (m16 tile, K slice)
+    ks = kWarps / (L.mpad / 16);
+    ks = ks < 1 ? 1 : ks;
+    ks = ks < kKSlices ? ks : kKSlices;
+    ks = ks < L.steps ? ks : L.steps;
+  }
+  L.kslices = ks;
+  L.red_off = align16(sizeof(float) * static_cast<size_t>(B) * U);
+  L.w_off = L.red_off +
+            align16(sizeof(float) * static_cast<size_t>(ks) * L.mpad * L.np);
+  L.a_off = L.w_off + align16(static_cast<size_t>(elem) * L.w_rows * L.pitch);
+  L.bytes = L.a_off + align16(static_cast<size_t>(elem) * L.mpad * L.pitch);
+  return L;
+}
+
+// shared memory of a streamed forward block and of a backward block
+// (pallas_kernels.py:_lstm_smem mirrors them):
+// streamed forward out_s [B][4U] f32 | c_s [B][U] f32 | w_s [4U][H] |
+//                  a_s [B][KC]
 // backward dh_s [B][U] f32 | dc_s [B][U] f32 | wc_s [U][4H] | a_s [B][KC]
-inline size_t fwd_smem(int B, int H, int U, int elem) {
+inline size_t fwd_streamed_smem(int B, int H, int U, int elem) {
   return sizeof(float) * 5 * static_cast<size_t>(B) * U +
          static_cast<size_t>(elem) *
              (4 * static_cast<size_t>(U) * H +
@@ -235,14 +398,371 @@ inline size_t bwd_smem(int B, int H, int U, int elem) {
               static_cast<size_t>(B) * chunk_cols(B, 4 * H, elem));
 }
 
+// rows [0, B) x 16-byte chunks [lo, hi) of h (pitch hp) into a_s (pitch
+// `pitch`), one cp.async a chunk, as one commit group: a warp a row, its
+// lanes over the chunks
+template <typename T>
+__device__ __forceinline__ void stage_h(const T* h, int hp, T* a_s,
+                                        int pitch, int B, int lo, int hi) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < B; r += kWarps)
+    for (int c = (lo + lane) * kPer; c < hi * kPer; c += 32 * kPer)
+      cp_async16(smem_addr(a_s + r * pitch + c),
+                 h + static_cast<size_t>(r) * hp + c);
+  cp_async_commit();
+}
+
+// red[r][c] = sum over k16 steps s0 .. s1 - 1 of a_s[r][k] w_s[c][k] for
+// the 16 rows of m16 tile mt and the first `ntiles` n8 tiles of w_s: one
+// warp's K slice, f32 partial sums, on the tensor cores. a_s, w_s: bf16
+// (rows, pitch) in shared memory; red: (rows, np) f32.
+__device__ __forceinline__ void mma_slice(const __nv_bfloat16* a_s,
+                                          const __nv_bfloat16* w_s, int pitch,
+                                          int mt, int s0, int s1, int ntiles,
+                                          float* red, int np) {
+  const int lane = threadIdx.x % 32;
+  // the lane's ldmatrix row: A x4 = (rows 0-7 | 8-15) x (k 0-7 | 8-15);
+  // B x4 = (n tile j, k 0-7), (j, k 8-15), (j + 1, k 0-7), (j + 1, k 8-15)
+  const uint32_t a_base =
+      smem_addr(a_s + (mt * 16 + lane % 16) * pitch + (lane / 16) * 8);
+  const uint32_t w_base = smem_addr(
+      w_s + ((lane / 16) * 8 + lane % 8) * pitch + ((lane / 8) % 2) * 8);
+  for (int n0 = 0; n0 < ntiles; n0 += kMaxNT) {
+    float acc[kMaxNT][4];
+#pragma unroll
+    for (int j = 0; j < kMaxNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    for (int s = s0; s < s1; ++s) {
+      uint32_t a[4];
+      ldsm_x4(a, a_base + s * 32);
+#pragma unroll
+      for (int j = 0; j < kMaxNT; j += 2) {
+        if (n0 + j < ntiles) {
+          uint32_t b[4];
+          ldsm_x4(b, w_base + (n0 + j) * 8 * pitch * 2 + s * 32);
+          mma_bf16(acc[j], a, b[0], b[1]);
+          if (n0 + j + 1 < ntiles) mma_bf16(acc[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    // accumulator e of tile j: row lane / 4 (+ 8 for e >= 2), column
+    // 2 (lane % 4) + e % 2
+    const int r = mt * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < kMaxNT; ++j) {
+      if (n0 + j < ntiles) {
+        const int c = (n0 + j) * 8 + 2 * (lane % 4);
+        red[r * np + c] = acc[j][0];
+        red[r * np + c + 1] = acc[j][1];
+        red[(r + 8) * np + c] = acc[j][2];
+        red[(r + 8) * np + c + 1] = acc[j][3];
+      }
+    }
+  }
+}
+
+// out[r * ldo + c] = sum_k a_s[r * pitch + k] w_s[c * pitch + k] for r < R,
+// c < C, k < K, f32 on the FMA units, both operands in shared memory:
+// block_gemm's tiles and butterfly over an operand already staged
+__device__ void fma_product(const float* a_s, const float* w_s, int pitch,
+                            int R, int K, int C, float* out, int ldo) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles_c = (C + 3) / 4;
+  const int tiles = ((R + 3) / 4) * tiles_c;
+  for (int base = 0; base < tiles; base += kWarps * kMaxTiles) {
+    float acc[kMaxTiles][4][4];
+#pragma unroll
+    for (int s = 0; s < kMaxTiles; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kMaxTiles; ++s) {
+      const int tile = base + warp + s * kWarps;
+      if (tile < tiles) {
+        const int r0 = (tile / tiles_c) * 4, c0 = (tile % tiles_c) * 4;
+        const float* ar[4];
+        const float* wr[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ar[i] = a_s + min(r0 + i, R - 1) * pitch;
+          wr[i] = w_s + min(c0 + i, C - 1) * pitch;
+        }
+        for (int k = lane; k < K; k += 32) {
+          float a[4], w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a[i] = ar[i][k];
+            w[i] = wr[i][k];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[s][i][j] = fmaf(a[i], w[j], acc[s][i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kMaxTiles; ++s) {
+      const int tile = base + warp + s * kWarps;
+      if (tile < tiles) {
+        const int r0 = (tile / tiles_c) * 4, c0 = (tile % tiles_c) * 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float v = warp_sum(acc[s][i][j]);
+            if (lane == 0 && r0 + i < R && c0 + j < C)
+              out[(r0 + i) * ldo + c0 + j] = v;
+          }
+      }
+    }
+  }
+}
+
+// gate inputs loaded early: the dtype's raw bits, converted where used. The
+// load is volatile asm, so the compiler issues it where it stands and
+// cannot move it down to its use; the use waits for it
+__device__ __forceinline__ void load_early(float& v, const float* p) {
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+}
+__device__ __forceinline__ void load_early(unsigned short& v,
+                                           const __nv_bfloat16* p) {
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(v) : "l"(p));
+}
+__device__ __forceinline__ float raw_f32(float v) { return v; }
+__device__ __forceinline__ float raw_f32(unsigned short v) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+
+// the four gate inputs of pair p (batch row b = p / nu, unit j0 + p % nu)
+// at one step: gx_t = gx[t]
+template <typename T, typename R>
+__device__ __forceinline__ void load_gates(R (&g)[4], const T* gx_t, int p,
+                                           int nu, int j0, int H) {
+  const int b = p / nu;
+  const T* src = gx_t + static_cast<size_t>(b) * 4 * H + j0 + p - b * nu;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) load_early(g[e], src + e * H);
+}
+
+struct FwdStep {  // what the cell update of one step needs
+  const float* red_s;
+  float* c_s;
+  int kslices, mpad, np, nu, U, j0, H, B, hp;
+};
+
+struct CellOut {  // one pair's step outputs: h, c and the four gates
+  float h, c, i, f, g, o;
+};
+
+// the cell update of pair p: the product's K slices summed in their fixed
+// order, plus the gate inputs g_in; writes the new c into c_s and h into
+// the exchange buffer h_out, and returns the step's outputs
+template <typename T, typename R>
+__device__ __forceinline__ CellOut cell_update(const FwdStep& st, int p,
+                                               const R (&g_in)[4], T* h_out) {
+  const int b = p / st.nu, u = p - b * st.nu;
+  // the unit's four gate sums of every slice, 16 bytes a slice, all loads
+  // issued before the first add
+  float4 part[kKSlices];
+#pragma unroll
+  for (int ks = 0; ks < kKSlices; ++ks)
+    part[ks] = ks < st.kslices
+                   ? *reinterpret_cast<const float4*>(
+                         st.red_s +
+                         (static_cast<size_t>(ks) * st.mpad + b) * st.np +
+                         u * 4)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int ks = 0; ks < kKSlices; ++ks) {
+    acc[0] += part[ks].x;
+    acc[1] += part[ks].y;
+    acc[2] += part[ks].z;
+    acc[3] += part[ks].w;
+  }
+  CellOut o;
+  o.i = sigmoid(raw_f32(g_in[0]) + acc[0]);
+  o.f = sigmoid(raw_f32(g_in[1]) + acc[1]);
+  o.g = tanhf(raw_f32(g_in[2]) + acc[2]);
+  o.o = sigmoid(raw_f32(g_in[3]) + acc[3]);
+  o.c = o.f * st.c_s[b * st.U + u] + o.i * o.g;
+  st.c_s[b * st.U + u] = o.c;
+  o.h = o.o * tanhf(o.c);
+  store(h_out + b * st.hp + st.j0 + u, o.h);
+  return o;
+}
+
+// pair p's outputs of step t: ys (and, training, c_all and the gates)
+template <typename T, bool kSave>
+__device__ __forceinline__ void store_outputs(const FwdStep& st, int t, int p,
+                                              const CellOut& o, T* ys,
+                                              float* c_all, T* gates) {
+  const int b = p / st.nu, j = st.j0 + p - b * st.nu, H = st.H;
+  const size_t row = static_cast<size_t>(t) * st.B + b;
+  store(ys + row * H + j, o.h);
+  if (kSave) {
+    c_all[row * H + j] = o.c;
+    T* g_out = gates + row * 4 * H + j;
+    store(g_out, o.i);
+    store(g_out + H, o.f);
+    store(g_out + 2 * H, o.g);
+    store(g_out + 3 * H, o.o);
+  }
+}
+
 // forward over T steps. kSave: the training forward (c_all and gates
 // saved, cT left to the caller as c_all[T - 1]); otherwise the inference
-// forward (cT written, no residuals).
+// forward (cT written, no residuals). bf16 runs its product on the tensor
+// cores, f32 on the FMA units.
 template <typename T, bool kSave>
 __global__ void __launch_bounds__(kThreads)
     lstm_forward_kernel(const T* gx, const T* wh, const T* h0, const T* c0,
-                        T* ys, float* c_all, T* gates, T* cT, int nt, int B,
-                        int H, int U) {
+                        T* hx, T* ys, float* c_all, T* gates, T* cT, int nt,
+                        int B, int H, int U) {
+  constexpr bool kMma = sizeof(T) == 2;
+  using R = typename std::conditional<kMma, unsigned short, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const FwdLayout L = fwd_layout(B, H, U, sizeof(T));
+  const int warp = threadIdx.x / 32;
+  const int j0 = blockIdx.x * U;
+  const int nu = min(U, H - j0);
+  const int pairs = B * nu;
+  float* c_s = reinterpret_cast<float*>(smem);
+  float* red_s = reinterpret_cast<float*>(smem + L.red_off);
+  T* w_s = reinterpret_cast<T*>(smem + L.w_off);
+  T* a_s = reinterpret_cast<T*>(smem + L.a_off);
+  LSTM_TRACE_POINT(0, 0);
+  // w_s row u * 4 + g = w_hh row g * H + j0 + u; rows past 4 nu and columns
+  // past H are zero, and so is a_s: cp.async fills only rows < B and
+  // columns < hp, and hx's columns past H are zero. kStage loads in flight
+  // a thread before their stores (w_hh comes from device memory).
+  const int nw = L.w_rows * L.pitch;
+  for (int i0 = threadIdx.x; i0 < nw; i0 += kThreads * kStage) {
+    float v[kStage];
+#pragma unroll
+    for (int s = 0; s < kStage; ++s) {
+      const int i = i0 + s * kThreads, r = i / L.pitch, k = i - r * L.pitch;
+      v[s] = i < nw && r < 4 * nu && k < H
+                 ? to_f32(wh[(static_cast<size_t>(r % 4) * H + j0 + r / 4) *
+                                 H + k])
+                 : 0.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < kStage; ++s)
+      if (i0 + s * kThreads < nw) store(w_s + i0 + s * kThreads, v[s]);
+  }
+  for (int i = threadIdx.x; i < L.mpad * L.pitch; i += kThreads)
+    store(a_s + i, 0.0f);
+  // hx[1] = h0 (this block's units), and the last block zeroes both
+  // buffers' padding columns, which nothing writes afterwards
+  for (int p = threadIdx.x; p < pairs; p += kThreads) {
+    const int b = p / nu, u = p - b * nu;
+    c_s[b * U + u] = to_f32(c0[b * H + j0 + u]);
+    hx[static_cast<size_t>(B + b) * L.hp + j0 + u] = h0[b * H + j0 + u];
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const int pad = L.hp - H;
+    for (int i = threadIdx.x; i < 2 * B * pad; i += kThreads)
+      store(hx + static_cast<size_t>(i / pad) * L.hp + H + i % pad, 0.0f);
+  }
+  grid.sync();  // hx[1] complete; a_s zeroed before the copies land in it
+  const FwdStep st{red_s, c_s, L.kslices, L.mpad, L.np, nu, U, j0, H, B,
+                   L.hp};
+  // thread p updates pair p (and p + kThreads, ... where a block has more
+  // pairs than threads); pair p's outputs other than hx stay in registers
+  // across the barrier and are stored in the next step, behind its copies
+  const int p0 = threadIdx.x;
+  CellOut out;
+  for (int t = 0; t < nt; ++t) {
+    LSTM_TRACE_POINT(t, 1);
+    // h_{t-1}: hx[1] holds h0 for step 0; step t reads what t - 1 wrote
+    const T* h_prev = hx + static_cast<size_t>((t + 1) & 1) * B * L.hp;
+    const int nch = L.hp * sizeof(T) / 16;
+    // K slice ks takes steps ks S / KS .. (ks + 1) S / KS - 1; with the
+    // tensor cores slices ks < ceil(KS / 2) form the first commit group
+    const int KS = L.kslices, S = L.steps;
+    const int split = kMma ? min(2 * ((KS + 1) / 2 * S / KS), nch) : nch;
+    stage_h(h_prev, L.hp, a_s, L.pitch, B, 0, split);
+    stage_h(h_prev, L.hp, a_s, L.pitch, B, split, nch);
+    LSTM_TRACE_POINT(t, 2);
+    // this step's gate inputs, in flight while h lands; then step t - 1's
+    // outputs
+    const T* gx_t = gx + static_cast<size_t>(t) * B * 4 * H;
+    R g_in[4];
+    if (p0 < pairs) {
+      load_gates(g_in, gx_t, p0, nu, j0, H);
+      if (t > 0)
+        store_outputs<T, kSave>(st, t - 1, p0, out, ys, c_all, gates);
+    }
+    if constexpr (kMma) {
+      const int ntiles = (4 * nu + 7) / 8;
+      const int items = (L.mpad / 16) * KS;
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        if (g == 0)
+          cp_async_wait<1>();
+        else
+          cp_async_wait<0>();
+        __syncthreads();  // every thread's copies of group g have landed
+        LSTM_TRACE_POINT(t, 3 + g);
+        for (int item = warp; item < items; item += kWarps) {
+          const int mt = item / KS, ks = item - mt * KS;
+          if (ks * 2 / KS == g)
+            mma_slice(a_s, w_s, L.pitch, mt, ks * S / KS, (ks + 1) * S / KS,
+                      ntiles, red_s + static_cast<size_t>(ks) * L.mpad * L.np,
+                      L.np);
+        }
+      }
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();
+      LSTM_TRACE_POINT(t, 3);
+      LSTM_TRACE_POINT(t, 4);
+      fma_product(a_s, w_s, L.pitch, B, H, 4 * nu, red_s, L.np);
+    }
+    __syncthreads();  // red_s complete; a_s free for the next staging
+    LSTM_TRACE_POINT(t, 5);
+    T* h_out = hx + static_cast<size_t>(t & 1) * B * L.hp;
+    if (p0 < pairs) out = cell_update(st, p0, g_in, h_out);
+    for (int p = p0 + kThreads; p < pairs; p += kThreads) {
+      R g[4];
+      load_gates(g, gx_t, p, nu, j0, H);
+      store_outputs<T, kSave>(st, t, p, cell_update(st, p, g, h_out), ys,
+                              c_all, gates);
+    }
+    LSTM_TRACE_POINT(t, 6);
+    if (t + 1 < nt) grid.sync();  // hx[t % 2] complete for every block
+  }
+  if (p0 < pairs)
+    store_outputs<T, kSave>(st, nt - 1, p0, out, ys, c_all, gates);
+  LSTM_TRACE_POINT(nt, 0);
+  if (!kSave) {
+    // each pair's c_s entry was written by this same thread
+    for (int p = threadIdx.x; p < pairs; p += kThreads) {
+      const int b = p / nu, u = p - b * nu;
+      store(cT + b * H + j0 + u, c_s[b * U + u]);
+    }
+  }
+}
+
+// The forward for a shape whose block cannot hold all of h_{t-1} beside
+// its slice of w_hh (fwd_layout's bytes above the card's limit, as at H
+// 1500 with B 32, or B past 112 at H 650 in bf16): the same step loop, but
+// h_{t-1} (ys[t - 1] or h0) streamed through shared memory in chunks of KC
+// columns by block_gemm, on the FMA units in both dtypes, and no exchange
+// buffer. Outputs and numerics as lstm_forward_kernel.
+template <typename T, bool kSave>
+__global__ void __launch_bounds__(kThreads)
+    lstm_forward_streamed_kernel(const T* gx, const T* wh, const T* h0,
+                                 const T* c0, T* ys, float* c_all, T* gates,
+                                 T* cT, int nt, int B, int H, int U) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int j0 = blockIdx.x * U;
@@ -402,16 +922,25 @@ int launch(Kernel kernel, int blocks, size_t smem, void** args,
 bool shape_ok(int nt, int B, int H) { return nt >= 1 && B >= 1 && H >= 1; }
 
 template <typename T, bool kSave>
-int forward(const T* gx, const T* wh, const T* h0, const T* c0, T* ys,
-            float* c_all, T* gates, T* cT, int nt, int B, int H,
+int forward(const T* gx, const T* wh, const T* h0, const T* c0, T* hx,
+            T* ys, float* c_all, T* gates, T* cT, int nt, int B, int H,
             cudaStream_t stream) {
   if (!shape_ok(nt, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   int U = units_per_block(H);
   const int blocks = (H + U - 1) / U;
-  void* args[] = {&gx, &wh, &h0, &c0, &ys, &c_all, &gates, &cT,
+  const size_t smem = fwd_layout(B, H, U, sizeof(T)).bytes;
+  int dev = 0, most = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (smem > static_cast<size_t>(most)) {
+    void* args[] = {&gx, &wh, &h0, &c0, &ys, &c_all, &gates, &cT,
+                    &nt, &B, &H, &U};
+    return launch(lstm_forward_streamed_kernel<T, kSave>, blocks,
+                  fwd_streamed_smem(B, H, U, sizeof(T)), args, stream);
+  }
+  void* args[] = {&gx, &wh, &h0, &c0, &hx, &ys, &c_all, &gates, &cT,
                   &nt, &B, &H, &U};
-  return launch(lstm_forward_kernel<T, kSave>, blocks,
-                fwd_smem(B, H, U, sizeof(T)), args, stream);
+  return launch(lstm_forward_kernel<T, kSave>, blocks, smem, args, stream);
 }
 
 template <typename T>
@@ -429,46 +958,48 @@ int backward(const T* dy, const T* gates, const float* c_all, const T* c0,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16
+// dtype: 0 float32, 1 bfloat16. hx: (2, B, HP), HP = H rounded up to 16
+// bytes: scratch for the h exchange, any contents
 extern "C" int lstm_infer(const void* gx, const void* wh, const void* h0,
-                          const void* c0, void* ys, void* cT, int dtype,
-                          int nt, int B, int H, void* stream) {
+                          const void* c0, void* hx, void* ys, void* cT,
+                          int dtype, int nt, int B, int H, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return forward<float, false>(
         static_cast<const float*>(gx), static_cast<const float*>(wh),
         static_cast<const float*>(h0), static_cast<const float*>(c0),
-        static_cast<float*>(ys), nullptr, nullptr, static_cast<float*>(cT),
-        nt, B, H, s);
+        static_cast<float*>(hx), static_cast<float*>(ys), nullptr, nullptr,
+        static_cast<float*>(cT), nt, B, H, s);
   if (dtype == 1)
     return forward<__nv_bfloat16, false>(
         static_cast<const __nv_bfloat16*>(gx),
         static_cast<const __nv_bfloat16*>(wh),
         static_cast<const __nv_bfloat16*>(h0),
         static_cast<const __nv_bfloat16*>(c0),
-        static_cast<__nv_bfloat16*>(ys), nullptr, nullptr,
-        static_cast<__nv_bfloat16*>(cT), nt, B, H, s);
+        static_cast<__nv_bfloat16*>(hx), static_cast<__nv_bfloat16*>(ys),
+        nullptr, nullptr, static_cast<__nv_bfloat16*>(cT), nt, B, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int lstm_fwd(const void* gx, const void* wh, const void* h0,
-                        const void* c0, void* ys, void* c_all, void* gates,
-                        int dtype, int nt, int B, int H, void* stream) {
+                        const void* c0, void* hx, void* ys, void* c_all,
+                        void* gates, int dtype, int nt, int B, int H,
+                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ca = static_cast<float*>(c_all);
   if (dtype == 0)
     return forward<float, true>(
         static_cast<const float*>(gx), static_cast<const float*>(wh),
         static_cast<const float*>(h0), static_cast<const float*>(c0),
-        static_cast<float*>(ys), ca, static_cast<float*>(gates), nullptr, nt,
-        B, H, s);
+        static_cast<float*>(hx), static_cast<float*>(ys), ca,
+        static_cast<float*>(gates), nullptr, nt, B, H, s);
   if (dtype == 1)
     return forward<__nv_bfloat16, true>(
         static_cast<const __nv_bfloat16*>(gx),
         static_cast<const __nv_bfloat16*>(wh),
         static_cast<const __nv_bfloat16*>(h0),
         static_cast<const __nv_bfloat16*>(c0),
-        static_cast<__nv_bfloat16*>(ys), ca,
+        static_cast<__nv_bfloat16*>(hx), static_cast<__nv_bfloat16*>(ys), ca,
         static_cast<__nv_bfloat16*>(gates), nullptr, nt, B, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -506,3 +1037,16 @@ extern "C" int lstm_barrier_probe(int blocks, int iters, void* stream) {
   return launch(barrier_probe_kernel, blocks, 0, args,
                 static_cast<cudaStream_t>(stream));
 }
+
+#ifdef LSTM_TRACE
+// the forward kernel's trace points (see LSTM_TRACE_POINT) of the last
+// launch: clock[kTraceSteps + 1][kTracePoints] SM cycles, then as many
+// global-timer ns; returns the CUDA error
+extern "C" int lstm_trace_read(long long* clock, long long* ns) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(clock, trace_clock, sizeof(trace_clock));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(ns, trace_ns, sizeof(trace_ns));
+  return static_cast<int>(e);
+}
+#endif

@@ -738,14 +738,22 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
 # ---------------------------------------------------------------------------
 
 _LSTM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_LSTM_ARGTYPES = {"lstm_infer": [_P] * 6 + [_I] * 4,
-                  "lstm_fwd": [_P] * 7 + [_I] * 4,
+_LSTM_ARGTYPES = {"lstm_infer": [_P] * 7 + [_I] * 4,
+                  "lstm_fwd": [_P] * 8 + [_I] * 4,
                   "lstm_bwd": [_P] * 9 + [_I] * 4}
 # the card the resource check is made for (H100 SXM): SMs, and the shared
-# memory one block may take (227 KB); and csrc/lstm.cu's chunk budget
+# memory one block may take (227 KB); and csrc/lstm.cu's constants: its
+# warps a block, the most K slices of the forward's tensor-core product,
+# and the backward's chunk budget
 _H100_SMS = 132
 _SMEM_MAX_BYTES = 232448
+_LSTM_WARPS = 16
+_LSTM_MAX_KSLICES = 8
 _LSTM_CHUNK_BYTES = 64 * 1024
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
 
 
 def _lstm_chunk_cols(b, k, elem):
@@ -753,14 +761,48 @@ def _lstm_chunk_cols(b, k, elem):
     return min(kc, k)
 
 
+def _lstm_fwd_layout(b, h, u, elem):
+    """csrc/lstm.cu's ``fwd_layout``: the forward kernel's shared memory
+    for batch ``b``, hidden size ``h``, ``u`` units a block and ``elem``
+    bytes an element. ``hp``: the pitch of the h exchange buffer ``hx``
+    (H rounded up to 16 bytes); ``steps``: k16 steps of the product (H
+    rounded up to 16); ``pitch``: of the staged h (``mpad`` rows) and of
+    the block's gate rows of w_hh (``w_rows``), in elements; ``np``: 4U
+    rounded up to 8, the pitch of the f32 partial products, one (mpad, np)
+    slice for each of ``kslices`` K slices. bf16 takes the tensor cores
+    (rows, gate rows and K padded to the m16n8k16 tiles, an odd count of
+    16 bytes a row); f32 the FMA units, unpadded, one K slice. ``bytes``:
+    the total, each region 16-byte aligned."""
+    mma = elem == 2
+    lay = {"hp": _round_up(h, 16 // elem), "steps": _round_up(h, 16) // 16}
+    lay["pitch"] = lay["steps"] * 16 + 8 if mma else lay["hp"]
+    lay["mpad"] = _round_up(b, 16) if mma else b
+    lay["w_rows"] = _round_up(4 * u, 16) if mma else 4 * u
+    lay["np"] = _round_up(4 * u, 8)
+    lay["kslices"] = min(max(_LSTM_WARPS // (lay["mpad"] // 16), 1),
+                         _LSTM_MAX_KSLICES, lay["steps"]) if mma else 1
+    lay["bytes"] = (_round_up(4 * b * u, 16)
+                    + _round_up(4 * lay["kslices"] * lay["mpad"] * lay["np"],
+                                16)
+                    + _round_up(elem * lay["w_rows"] * lay["pitch"], 16)
+                    + _round_up(elem * lay["mpad"] * lay["pitch"], 16))
+    return lay
+
+
 def _lstm_smem(b, h, elem, sms=_H100_SMS):
     """Shared memory of one block of the forward and of the backward
-    kernel (csrc/lstm.cu's ``fwd_smem`` / ``bwd_smem``): with U = ceil(H /
-    SMs) units a block, the f32 carries and products (5 B U floats forward,
-    2 B U backward), the block's 4 U H slice of w_hh and one streamed chunk
-    of the product's left operand, in the dtype."""
+    kernel, with U = ceil(H / SMs) units a block. The forward is
+    `_lstm_fwd_layout` (c carry, partial products, w_hh's 4U gate rows and
+    all of h_{t-1}) where that fits a block, else the streamed forward's
+    (csrc/lstm.cu's ``fwd_streamed_smem``: f32 products and carries, 5 B U
+    floats, the 4U H slice of w_hh and one streamed chunk of h); the
+    backward's (``bwd_smem``) f32 dh and dc carries (2 B U floats), its U H
+    columns of w_hh and one streamed chunk of dgx, in the dtype."""
     u = -(-h // sms)
-    fwd = 4 * 5 * b * u + elem * (4 * u * h + b * _lstm_chunk_cols(b, h, elem))
+    fwd = _lstm_fwd_layout(b, h, u, elem)["bytes"]
+    if fwd > _SMEM_MAX_BYTES:
+        fwd = 4 * 5 * b * u + elem * (4 * u * h
+                                      + b * _lstm_chunk_cols(b, h, elem))
     bwd = 4 * 2 * b * u + elem * (4 * u * h
                                   + b * _lstm_chunk_cols(b, 4 * h, elem))
     return fwd, bwd
@@ -853,6 +895,15 @@ def lstm_infer_reference(gx, wh, h0, c0):
     return _lstm_forward_reference(gx, wh, h0, c0, save=False)
 
 
+def _lstm_hx(h0):
+    """Scratch for the forward kernels' h exchange: (2, B, HP) in h0's
+    dtype, HP = H rounded up to 16 bytes. The kernel fills it (h0 and the
+    zero padding) before its first step."""
+    b, h = h0.shape
+    return torch.empty((2, b, _round_up(h, 16 // h0.element_size())),
+                       dtype=h0.dtype, device=h0.device)
+
+
 def lstm_infer(gx, wh, h0, c0):
     """The LSTM recurrence without training residuals: gx (T, B, 4H) the
     input projection with both biases, wh (4H, H), h0 and c0 (B, H), all
@@ -864,9 +915,10 @@ def lstm_infer(gx, wh, h0, c0):
     t, b, h = _lstm_fwd_args("lstm_infer", gx, wh, h0, c0)
     ys = torch.empty((t, b, h), dtype=gx.dtype, device=gx.device)
     ct = torch.empty((b, h), dtype=gx.dtype, device=gx.device)
+    hx = _lstm_hx(h0)
     _call("lstm", _LSTM_ARGTYPES, "lstm_infer", gx.device, gx.data_ptr(),
-          wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
-          ct.data_ptr(), _LSTM_DTYPES[gx.dtype], t, b, h)
+          wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), hx.data_ptr(),
+          ys.data_ptr(), ct.data_ptr(), _LSTM_DTYPES[gx.dtype], t, b, h)
     lstm_infer.launches += 1
     return ys, ct
 
@@ -890,9 +942,11 @@ def lstm_fwd(gx, wh, h0, c0):
     ys = torch.empty((t, b, h), dtype=gx.dtype, device=gx.device)
     c_all = torch.empty((t, b, h), dtype=torch.float32, device=gx.device)
     gates = torch.empty_like(gx)
+    hx = _lstm_hx(h0)
     _call("lstm", _LSTM_ARGTYPES, "lstm_fwd", gx.device, gx.data_ptr(),
-          wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
-          c_all.data_ptr(), gates.data_ptr(), _LSTM_DTYPES[gx.dtype], t, b, h)
+          wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), hx.data_ptr(),
+          ys.data_ptr(), c_all.data_ptr(), gates.data_ptr(),
+          _LSTM_DTYPES[gx.dtype], t, b, h)
     lstm_fwd.launches += 1
     return ys, c_all, gates
 

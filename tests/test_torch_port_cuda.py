@@ -565,8 +565,15 @@ def test_bert_mini_step_on_card_matches_cpu():
 
 _LSTM_NAMES = ("lstm_infer", "lstm_fwd", "lstm_bwd")
 # (T, B, H): the word LM's layer, ragged, one step, the RNNModel default
-# width at batch 1
-_LSTM_SHAPES = [(35, 32, 650), (7, 5, 9), (1, 3, 5), (35, 1, 200)]
+# width at batch 1; then the forward's tensor-core tiling: B = 17 (the
+# second m16 tile partial), B = 64 (four m16 tiles), H = 1500 (12 units a
+# block, 48 gate rows; f32 does not fit a block there) and an odd H with
+# B > 16; and shapes whose block cannot hold all of h, which take the
+# streamed forward: B = 128 at H = 650, and H = 1500 at B = 32 (bf16; f32
+# does not fit)
+_LSTM_SHAPES = [(35, 32, 650), (7, 5, 9), (1, 3, 5), (35, 1, 200),
+                (5, 17, 650), (5, 64, 650), (5, 8, 1500), (6, 24, 333),
+                (5, 128, 650), (5, 32, 1500)]
 
 
 def _lstm_case(seed, t, b, h, dtype):
@@ -592,6 +599,14 @@ def test_lstm_kernels_match_plain_on_card(dtype, shape):
     tol = 1e-4 if dtype == "float32" else 2.0 ** -7
     gx, wh, h0, c0, dy, dct = _lstm_case(9, *shape, tdt)
     before = {n: getattr(tpk, n).launches for n in _LSTM_NAMES}
+    if not tpk.lstm_layer_fits(shape[1], shape[2], tdt):
+        # routed to the step loop by ops/rnn.py; the kernels refuse it
+        with pytest.raises(MXNetError, match="CUDA error"):
+            tpk.lstm_infer(gx, wh, h0, c0)
+        with pytest.raises(MXNetError, match="CUDA error"):
+            tpk.lstm_fwd(gx, wh, h0, c0)
+        assert {n: getattr(tpk, n).launches for n in _LSTM_NAMES} == before
+        return
     ys, ct = tpk.lstm_infer(gx, wh, h0, c0)
     want_ys, want_ct = tpk.lstm_infer_reference(gx, wh, h0, c0)
     _close(ys, want_ys, tol, "infer ys")

@@ -159,6 +159,108 @@ def test_infer_route_equals_training_route(dtype):
     assert torch.equal(c_all[-1].to(tdt), infer[2])
 
 
+def _forward_model(gx, wh, h0, c0):
+    """Test-only model of csrc/lstm.cu's forward (`lstm_fwd` and
+    `lstm_infer` on the card) in gx's dtype: h_{t-1} and w_hh in the dtype,
+    zero-padded as the kernel pads them (bf16: to its k16 steps; f32: to
+    hx's 16-byte pitch); the product's f32 partial sums over each K slice
+    of `_lstm_fwd_layout` (one warp's range of k16 steps; f32 has one
+    slice), added in the kernel's fixed order (0 + slice 0 + slice 1 +
+    ...), then to the f32 gate inputs; the carries f32, h rounded to the
+    dtype where the kernel stores it. The slices depend on B and H alone.
+    Returns ys (T, B, H) and cT (B, H) in the dtype."""
+    nt, b, g4 = gx.shape
+    h, dt = g4 // 4, gx.dtype
+    lay = tpk._lstm_fwd_layout(b, h, 1, gx.element_size())
+    slices = lay["kslices"]
+    if dt == torch.bfloat16:
+        unit, n = 16, lay["steps"]
+    else:
+        unit, n = 4, lay["hp"] // 4
+    kp = unit * n
+    w = torch.zeros(4 * h, kp)
+    w[:, :h] = wh.float()
+    h_pad = torch.zeros(b, kp, dtype=dt)
+    h_pad[:, :h] = h0
+    c = c0.float()
+    ys = []
+    for t in range(nt):
+        acc = torch.zeros(b, 4 * h)
+        for ks in range(slices):
+            lo, hi = ks * n // slices * unit, (ks + 1) * n // slices * unit
+            acc = acc + torch.matmul(h_pad[:, lo:hi].float(), w[:, lo:hi].t())
+        g = gx[t].float() + acc
+        i, f, gg, o = g.split(h, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h_new = (torch.sigmoid(o) * torch.tanh(c)).to(dt)
+        h_pad[:, :h] = h_new
+        ys.append(h_new)
+    return torch.stack(ys), c.to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(7, 5, 6, 9), (1, 3, 4, 5),
+                                   (6, 20, 6, 13)])
+def test_forward_summation_order_matches_jax_kernel(shape, dtype):
+    """The card's forward, rehearsed on the CPU: `_forward_model` (K split
+    into the kernel's slices over zero-padded columns, f32 partials added
+    in a fixed order) against the JAX Pallas layer in interpret mode, ys
+    and cT in the dtype within the file's tolerance (bf16 2^-7, f32 2e-5);
+    at the file's shapes and at B = 20 (two m16 tiles, the second
+    partial), H = 13 (not a multiple of 8: K padded past the 16-byte pitch
+    of hx)."""
+    x, wx, wh, bx, bh, h0, c0 = _inputs(*shape, seed=7)
+    gx = (np.einsum("tbi,gi->tbg", x, wx) + (bx + bh)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want_ys, _, want_ct = jpk.lstm_layer(
+        *[jnp.asarray(a, jdt) for a in (gx, wh, h0, c0)])
+    ys, ct = _forward_model(*[torch.from_numpy(a).to(getattr(torch, dtype))
+                              for a in (gx, wh, h0, c0)])
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 2e-5
+    _close(ys, want_ys, tol, "ys")
+    _close(ct, want_ct, tol, "cT")
+    lay = tpk._lstm_fwd_layout(shape[1], shape[3], 1, ys.element_size())
+    if dtype == "bfloat16":
+        assert lay["mpad"] == (32 if shape[1] > 16 else 16)
+        assert lay["hp"] % 8 == 0 and lay["pitch"] * 2 % 32 == 16
+    else:
+        assert lay["hp"] % 4 == 0 and lay["kslices"] == 1
+
+
+def test_lstm_fwd_smem_mirror_at_the_edge():
+    """`_lstm_fwd_layout` as csrc/lstm.cu lays out a forward block at the
+    word LM's shape (5 units a block): bf16 K slices of 41 k16 steps over
+    two m16 tiles, f32 unpadded. The largest batch at H = 650 whose block
+    holds all of h in 227 KB, in each dtype, and one past it, which takes
+    the streamed forward (`_lstm_smem` then mirrors that kernel) and still
+    fits; the word LM's large width (H 1500) at B 32 in bf16 likewise."""
+    bf = tpk._lstm_fwd_layout(32, 650, 5, 2)
+    assert (bf["hp"], bf["steps"], bf["pitch"], bf["mpad"], bf["w_rows"],
+            bf["np"], bf["kslices"]) == (656, 41, 664, 32, 32, 24, 8)
+    f32 = tpk._lstm_fwd_layout(32, 650, 5, 4)
+    assert (f32["hp"], f32["pitch"], f32["mpad"], f32["w_rows"],
+            f32["kslices"]) == (652, 652, 32, 20, 1)
+    for dtype, edge in ((torch.bfloat16, 112), (torch.float32, 66)):
+        elem = torch.empty((), dtype=dtype).element_size()
+        held = tpk._lstm_fwd_layout(edge, 650, 5, elem)["bytes"]
+        past = tpk._lstm_fwd_layout(edge + 1, 650, 5, elem)["bytes"]
+        assert held <= tpk._SMEM_MAX_BYTES < past
+        assert tpk._lstm_smem(edge, 650, elem)[0] == held
+        streamed = tpk._lstm_smem(edge + 1, 650, elem)[0]
+        assert streamed == 4 * 5 * (edge + 1) * 5 + elem * (
+            4 * 5 * 650 + (edge + 1) * tpk._lstm_chunk_cols(edge + 1, 650,
+                                                            elem))
+        assert tpk.lstm_layer_fits(edge + 1, 650, dtype)
+    assert tpk._lstm_fwd_layout(32, 1500, 12, 2)["bytes"] > \
+        tpk._SMEM_MAX_BYTES
+    assert tpk.lstm_layer_fits(32, 1500, torch.bfloat16)
+    # H = 1500 at batch 8 holds h in bf16; f32's w_hh slice alone does not
+    # fit a block in either forward
+    assert tpk._lstm_fwd_layout(8, 1500, 12, 2)["bytes"] <= \
+        tpk._SMEM_MAX_BYTES
+    assert not tpk.lstm_layer_fits(8, 1500, torch.float32)
+
+
 def test_lstm_layer_fits_the_card():
     """The H100's resource check: the word LM's (B 32, H 650) fits in f32
     and bf16, as does a one-unit layer; a layer whose w_hh slice alone
@@ -172,10 +274,12 @@ def test_lstm_layer_fits_the_card():
         assert not tpk.lstm_layer_fits(32, 20000, dtype)
     assert not tpk.lstm_layer_fits(32, 650, torch.float64)
     # the block's smem at the word LM's shape (csrc/lstm.cu: 5 units a
-    # block; in f32 both stream their left operand in chunks of 512
-    # columns)
-    assert tpk._lstm_smem(32, 650, 4) == (3200 + 4 * (13000 + 32 * 512),
-                                          1280 + 4 * (13000 + 32 * 512))
+    # block; in f32 the forward's c carry, one slice of partial products,
+    # 20 gate rows and all of h at a pitch of 652; the backward streams
+    # dgx in chunks of 512 columns)
+    assert tpk._lstm_smem(32, 650, 4) == (
+        4 * (32 * 5 + 32 * 24 + 20 * 652 + 32 * 652),
+        1280 + 4 * (13000 + 32 * 512))
 
 
 def test_wrappers_on_cpu_take_plain_versions_and_count_nothing():
