@@ -37,14 +37,18 @@ Phases; each raises on failure, and the script then exits non-zero:
    ragged, one-step and width-200 shapes and the shapes the forward's
    tensor-core tiling can get wrong (B 17 and 64, H 1500, odd H with B >
    16) and shapes whose block cannot hold all of h (B 128, H 1500 at B
-   32: the streamed forward), bf16 and f32, each run twice and compared
-   bit for bit (a shape too large for a block must be refused); the bf16
-   forward kernels must
-   hold HMMA instructions and no LSTM kernel may spill registers; cuDNN's
-   LSTM layer is their yardstick, and one grid barrier
-   (``lstm_barrier_probe``) times T gives each its sequential floor, with
-   each kernel's µs a step beside one barrier's; and `lstm_layer` (the
-   autograd Function) against autograd through the plain step loop.
+   32: the streamed forward; f32 B 128 and bf16 H 1500 B 32 also take the
+   streamed backward, the rest the backward's thread-block clusters) and a
+   layer whose cluster units do not divide H, bf16 and f32, each run twice
+   and compared bit for bit (a shape too large for a block must be
+   refused, by all three); the bf16 forward and clustered backward kernels
+   must hold HMMA instructions and no LSTM kernel may spill registers;
+   cuDNN's LSTM layer is their yardstick, and one grid barrier
+   (``lstm_barrier_probe``; for the backward, its own launch's,
+   ``lstm_cluster_probe``, which also times a cluster barrier) times T
+   gives each its sequential floor, with each kernel's µs a step beside
+   one barrier's; and `lstm_layer` (the autograd Function) against
+   autograd through the plain step loop.
    Then ``mx.rtc`` on ``mx.nd`` arrays: every module compiled by NVRTC
    for sm_90a (seconds each); with the RTC launch count set to 0, the
    JAX package's RTC test kernels in CUDA form (axpy, scale, inc launched
@@ -1037,7 +1041,11 @@ LSTM_CASES = [("path", LSTM_PATH), ("ragged", (7, 5, 9)),
               ("B 17", (5, 17, 650)), ("B 64", (5, 64, 650)),
               ("H 1500", (5, 8, 1500)), ("odd H", (6, 24, 333)),
               # blocks that cannot hold all of h: the streamed forward
-              ("B 128", (5, 128, 650)), ("H 1500 B 32", (5, 32, 1500))]
+              # (and, f32 at B 128 and bf16 at H 1500 B 32, the streamed
+              # backward)
+              ("B 128", (5, 128, 650)), ("H 1500 B 32", (5, 32, 1500)),
+              # the backward's clusters of Q U = 16 units do not divide H
+              ("QU does not divide H", (4, 20, 130))]
 # f32 results rtol 1e-4 with a floor of 1e-4 x max|plain|; bf16 tensors
 # 2^-7 the same way (the products' f32 sums in other orders can round a
 # bf16 h, gate or dgates to the neighbouring value, one step 2^-8, and the
@@ -1116,7 +1124,36 @@ def barrier_ms(torch, h, iters=2000):
     return s.elapsed_time(e) / iters, blocks
 
 
-def time_lstm(torch, pk, args, dtype, flush, barrier):
+def cluster_barriers_us(torch, h, iters=2000):
+    """The barriers of the backward's launch at hidden size h (cooperative,
+    its clusters, one block an SM; ``lstm_cluster_probe``), by CUDA events
+    around `iters` of each: the grid barrier and the cluster barrier, in
+    µs. Returns {"grid_us", "cluster_us", "blocks", "Q", "U"}."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops import _build
+
+    fn = _build.load("lstm").lstm_cluster_probe
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    stream = torch.cuda.current_stream().cuda_stream
+    grid = (ctypes.c_int * 3)()
+    out = {}
+    for kind, key in ((0, "grid_us"), (1, "cluster_us")):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        rcs = [fn(kind, h, 10, grid, stream)]
+        s.record()
+        rcs.append(fn(kind, h, iters, grid, stream))
+        e.record()
+        torch.cuda.synchronize()
+        if any(rcs):
+            raise AssertionError("lstm_cluster_probe %d: CUDA error %s"
+                                 % (kind, rcs))
+        out[key] = s.elapsed_time(e) * 1e3 / iters
+    out.update(blocks=grid[0], Q=grid[1], U=grid[2])
+    return out
+
+
+def time_lstm(torch, pk, args, dtype, flush, barrier, cbar):
     """Kernel, plain and library times, bound and sequential floor of the
     three kernels at the path's shape. The library yardstick is cuDNN's
     LSTM layer (`torch.nn.LSTM`, one layer, input size H, the same T, B, H
@@ -1162,18 +1199,27 @@ def time_lstm(torch, pk, args, dtype, flush, barrier):
         plain_ms = time_ms(torch, plain, flush, reps=10)
         bound_ms, bound_by = lstm_bound(name, LSTM_PATH, dtype)
         # the recurrence's sequential floor: one grid barrier a step (the
-        # forward kernels skip the one after the last step)
-        floor_ms = barrier * (t if name == "lstm_bwd" else t - 1)
+        # forward kernels skip the one after the last step), the
+        # backward's as wide as its clustered launch
+        barrier_us = cbar["grid_us"] if name == "lstm_bwd" else \
+            barrier * 1e3
+        floor_ms = barrier_us * 1e-3 * (t if name == "lstm_bwd" else t - 1)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": lib_ms[name],
                       "floor_ms": floor_ms, "projection_ms": proj_ms,
                       "us_per_step": ms * 1e3 / t,
-                      "barrier_us": barrier * 1e3}
-        log("  %-10s %s %s: kernel %.4f ms (%.3f us a step; one barrier "
-            "%.3f us) plain %.4f ms library (cuDNN LSTM %s, with its input "
-            "projection) %.4f ms [projection GEMM %.4f ms] bound %.4f ms "
-            "(%s) sequential floor %.4f ms (%d barriers)"
-            % (name, LSTM_PATH, dtype, ms, ms * 1e3 / t, barrier * 1e3,
+                      "barrier_us": barrier_us}
+        if name == "lstm_bwd":
+            rows[name]["cluster_barrier_us"] = cbar["cluster_us"]
+        log("  %-10s %s %s: kernel %.4f ms (%.3f us a step; %s) plain "
+            "%.4f ms library (cuDNN LSTM %s, with its input projection) "
+            "%.4f ms [projection GEMM %.4f ms] bound %.4f ms (%s) "
+            "sequential floor %.4f ms (%d steps)"
+            % (name, LSTM_PATH, dtype, ms, ms * 1e3 / t,
+               "its grid barrier %.3f us; a cluster barrier, which it does "
+               "not take a step, %.3f us" % (cbar["grid_us"],
+                                             cbar["cluster_us"])
+               if name == "lstm_bwd" else "one barrier %.3f us" % barrier_us,
                plain_ms, {"lstm_infer": "forward, no_grad",
                           "lstm_fwd": "training forward",
                           "lstm_bwd": "backward"}[name], lib_ms[name],
@@ -1182,32 +1228,36 @@ def time_lstm(torch, pk, args, dtype, flush, barrier):
     return rows
 
 
-# the LSTM forward kernel: bf16 instantiations on the tensor cores
-LSTM_MMA = "lstm_forward_kernel"
+# the LSTM kernels whose bf16 instantiations run on the tensor cores (the
+# streamed kernels' names do not contain these)
+LSTM_MMA = ("lstm_forward_kernel", "lstm_backward_kernel")
 
 
 def _lstm_template_arg(symbol):
-    """'bf16 fwd', 'f32 infer', ... from lstm_forward_kernel<T, kSave>'s
-    mangled symbol."""
+    """'bf16 fwd', 'f32 infer', 'bf16 bwd', ... from the mangled symbol of
+    lstm_forward_kernel<T, kSave> or lstm_backward_kernel<T>."""
     return "%s %s" % ("bf16" if "__nv_bfloat16" in symbol else "f32",
+                      "bwd" if "backward" in symbol else
                       "fwd" if "Lb1E" in symbol else "infer")
 
 
 def check_lstm_sass():
-    """Both bf16 instantiations of the forward kernel (lstm_fwd and
-    lstm_infer) hold HMMA instructions; logs every instantiation's count
-    (the f32 ones run on the FMA units)."""
+    """Every bf16 instantiation of the forward kernel (lstm_fwd and
+    lstm_infer) and of the clustered backward holds HMMA instructions;
+    logs every instantiation's count (the f32 ones run on the FMA
+    units)."""
     from mxnet_tpu_torch.ops import _build
 
-    counts = sass_hmma(_build.build("lstm")["path"], (LSTM_MMA,),
+    counts = sass_hmma(_build.build("lstm")["path"], LSTM_MMA,
                        _lstm_template_arg)
-    log("lstm SASS, HMMA instructions of %s by dtype and kernel: %s"
-        % (LSTM_MMA, ", ".join("%s %d" % (a, c)
-                               for (_, a), c in sorted(counts.items()))))
-    for arg in ("bf16 fwd", "bf16 infer"):
-        if counts.get((LSTM_MMA, arg), 0) < 1:
+    log("lstm SASS, HMMA instructions by kernel and instantiation: %s"
+        % ", ".join("%s %s %d" % (n, a, c)
+                    for (n, a), c in sorted(counts.items())))
+    for name, arg in ((LSTM_MMA[0], "bf16 fwd"), (LSTM_MMA[0], "bf16 infer"),
+                      (LSTM_MMA[1], "bf16 bwd")):
+        if counts.get((name, arg), 0) < 1:
             raise AssertionError("%s %s: no HMMA: the recurrent product is "
-                                 "not on the tensor cores" % (LSTM_MMA, arg))
+                                 "not on the tensor cores" % (name, arg))
     return counts
 
 
@@ -1255,12 +1305,16 @@ def check_lstm(torch, pk, seed, flush):
             raise AssertionError("lstm_layer_fits(%d, %d, %s) is false"
                                  % (LSTM_PATH[1], LSTM_PATH[2], dtype))
     barrier, blocks = barrier_ms(torch, LSTM_PATH[2])
+    cbar = cluster_barriers_us(torch, LSTM_PATH[2])
     log("lstm: one grid barrier of %d blocks takes %.3f us (lstm_barrier_"
-        "probe); lstm_layer_fits(32, 650) holds in f32 and bf16"
-        % (blocks, barrier * 1e3))
+        "probe); the backward's launch at H %d: %d blocks in clusters of %d, "
+        "%d units a block: its grid barrier %.3f us, a cluster barrier %.3f "
+        "us (lstm_cluster_probe); lstm_layer_fits(32, 650) holds in f32 and "
+        "bf16" % (blocks, barrier * 1e3, LSTM_PATH[2], cbar["blocks"],
+                  cbar["Q"], cbar["U"], cbar["grid_us"], cbar["cluster_us"]))
     worst = dict.fromkeys(LSTM_KERNELS, 0.0)
     rows, f32_rows = {}, {}
-    refused = []
+    refused, routes = [], []
     for dtype in ("bfloat16", "float32"):
         tdt = getattr(torch, dtype)
         tol = LSTM_TOL[dtype]
@@ -1271,15 +1325,21 @@ def check_lstm(torch, pk, seed, flush):
             if not pk.lstm_layer_fits(shape[1], shape[2], tdt):
                 # ops/rnn.py routes such a shape to the step loop; the
                 # kernels must refuse it, not run it
-                for fn in (pk.lstm_infer, pk.lstm_fwd):
+                _, c_all, gates = pk.lstm_fwd_reference(gx, wh, h0, c0)
+                for fn, fn_args in (
+                        (pk.lstm_infer, (gx, wh, h0, c0)),
+                        (pk.lstm_fwd, (gx, wh, h0, c0)),
+                        (pk.lstm_bwd, (dy, gates, c_all, c0, dct, wh))):
                     try:
-                        fn(gx, wh, h0, c0)
+                        fn(*fn_args)
                     except MXNetError:
                         continue
                     raise AssertionError("%s %s: a shape that does not fit "
                                          "a block ran" % (fn.__name__, tag))
                 refused.append(tag)
                 continue
+            routes.append("%s: backward %s" % (tag, pk._lstm_bwd_route(
+                shape[1], shape[2], gx.element_size())[0]))
             runs = [lstm_runs(pk, args) for _ in range(2)]
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(*runs)):
@@ -1301,7 +1361,8 @@ def check_lstm(torch, pk, seed, flush):
                 worst[kern] = max(worst[kern], max_err(
                     torch, got, want, t_tol, "%s %s %s" % (kern, name, tag)))
             if label == "path":
-                case_rows = time_lstm(torch, pk, args, dtype, flush, barrier)
+                case_rows = time_lstm(torch, pk, args, dtype, flush, barrier,
+                                      cbar)
                 (rows if dtype == "bfloat16" else f32_rows).update(case_rows)
             del args, runs
             torch.cuda.empty_cache()
@@ -1309,15 +1370,15 @@ def check_lstm(torch, pk, seed, flush):
         "cases x 2 dtypes less %d refused as too large for a block (%s) "
         "(|kernel - plain| <= tol x |plain| + tol x max|plain|, tol 1e-4 "
         "for f32 results and c_all, 2^-7 for bf16 tensors); two runs give "
-        "the same bits; largest absolute errors %s"
+        "the same bits; largest absolute errors %s; %s"
         % (len(LSTM_CASES), len(refused), "; ".join(refused),
-           json.dumps(worst)))
+           json.dumps(worst), "; ".join(routes)))
     check_lstm_grad(torch, pk, seed)
     for k in LSTM_KERNELS:
         rows[k]["max_abs_err"] = worst[k]
         rows[k]["f32"] = {key: f32_rows[k][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "floor_ms")}
+            "floor_ms", "us_per_step")}
     return rows
 
 

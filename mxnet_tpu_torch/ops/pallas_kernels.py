@@ -740,16 +740,20 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
 _LSTM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LSTM_ARGTYPES = {"lstm_infer": [_P] * 7 + [_I] * 4,
                   "lstm_fwd": [_P] * 8 + [_I] * 4,
-                  "lstm_bwd": [_P] * 9 + [_I] * 4}
-# the card the resource check is made for (H100 SXM): SMs, and the shared
-# memory one block may take (227 KB); and csrc/lstm.cu's constants: its
-# warps a block, the most K slices of the forward's tensor-core product,
-# and the backward's chunk budget
+                  "lstm_bwd": [_P] * 10 + [_I] * 4}
+# the card the resource check is made for (H100 SXM): SMs, the shared
+# memory one block may take (227 KB), and the clusters of 8 blocks it holds
+# at once at one block an SM (cudaOccupancyMaxActiveClusters); and
+# csrc/lstm.cu's constants: its warps a block, the most K slices of a
+# tensor-core product, the streamed kernels' chunk budget, and the
+# backward's cluster size
 _H100_SMS = 132
 _SMEM_MAX_BYTES = 232448
+_H100_CLUSTERS_OF_8 = 15
 _LSTM_WARPS = 16
 _LSTM_MAX_KSLICES = 8
 _LSTM_CHUNK_BYTES = 64 * 1024
+_LSTM_BWD_Q = 8
 
 
 def _round_up(x, m):
@@ -789,23 +793,79 @@ def _lstm_fwd_layout(b, h, u, elem):
     return lay
 
 
+def _lstm_bwd_layout(b, h, q, u, elem):
+    """csrc/lstm.cu's ``bwd_layout``: the backward kernel's shared memory
+    for batch ``b``, hidden size ``h``, clusters of ``q`` blocks, ``u``
+    units a block and ``elem`` bytes an element. ``gp``: the pitch of an
+    exchange row (4H rounded up to 16 bytes), ``nch`` its 16-byte chunks;
+    block r of a cluster takes chunks [r nch / q, (r + 1) nch / q) of every
+    row of dgx[t], at most ``kmax`` elements; ``steps``: k16 steps of the
+    largest share; ``pitch``: of the staged
+    share (``mpad`` rows) and of w_hh[share, the cluster's ``qu`` units]
+    (``w_rows`` rows), in elements; ``np``: ``qu`` rounded up to 8, plus
+    one (odd), the pitch of the f32 partial products, one (mpad, np) slice
+    for each of ``kslices`` K slices (bf16: as many as give each of the 16
+    warps one (m16 tile, pair of n8 tiles, K slice), at most 8; f32: one);
+    ``up``: U rounded up to 4, the row pitch of the peers' partial sums.
+    bf16 pads for the tensor cores as the forward does; f32 pads nothing.
+    ``bytes``: the mbarrier (16), the peers' sums (q B up floats), the dc
+    carry (B u floats), the partial products, w_hh's block and the share,
+    each region 16-byte aligned."""
+    mma = elem == 2
+    lay = {"gp": _round_up(4 * h, 16 // elem)}
+    lay["nch"] = lay["gp"] * elem // 16
+    lay["kmax"] = -(-lay["nch"] // q) * (16 // elem)
+    lay["steps"] = _round_up(lay["kmax"], 16) // 16
+    lay["pitch"] = lay["steps"] * 16 + 8 if mma else lay["kmax"]
+    lay["mpad"] = _round_up(b, 16) if mma else b
+    lay["qu"] = q * u
+    lay["up"] = _round_up(u, 4)
+    lay["w_rows"] = _round_up(q * u, 16) if mma else q * u
+    lay["np"] = _round_up(q * u, 8) + 1
+    lay["npairs"] = (lay["np"] // 8 + 1) // 2
+    lay["kslices"] = min(max(_LSTM_WARPS // (lay["mpad"] // 16
+                                             * lay["npairs"]), 1),
+                         _LSTM_MAX_KSLICES, lay["steps"]) if mma else 1
+    lay["bytes"] = (16 + _round_up(4 * q * b * lay["up"], 16)
+                    + _round_up(4 * b * u, 16)
+                    + _round_up(4 * lay["kslices"] * lay["mpad"] * lay["np"],
+                                16)
+                    + _round_up(elem * lay["w_rows"] * lay["pitch"], 16)
+                    + _round_up(elem * lay["mpad"] * lay["pitch"], 16))
+    return lay
+
+
+def _lstm_bwd_route(b, h, elem, clusters=_H100_CLUSTERS_OF_8,
+                    q=_LSTM_BWD_Q, sms=_H100_SMS):
+    """The backward kernel the card runs for (b, h): ``("clusters", U,
+    layout bytes)`` where `_lstm_bwd_layout` fits a block (clusters of
+    ``q``, U = ceil(H / (clusters q)) units a block), else ``("streamed",
+    U, bytes)``: csrc/lstm.cu's ``bwd_streamed_smem`` with U = ceil(H /
+    SMs), the f32 dh and dc carries (2 B U floats), U columns of w_hh over
+    4H and one streamed chunk of dgx, in the dtype."""
+    u = -(-h // (clusters * q))
+    fused = _lstm_bwd_layout(b, h, q, u, elem)["bytes"]
+    if fused <= _SMEM_MAX_BYTES:
+        return "clusters", u, fused
+    u = -(-h // sms)
+    return "streamed", u, 4 * 2 * b * u + elem * (
+        4 * u * h + b * _lstm_chunk_cols(b, 4 * h, elem))
+
+
 def _lstm_smem(b, h, elem, sms=_H100_SMS):
     """Shared memory of one block of the forward and of the backward
-    kernel, with U = ceil(H / SMs) units a block. The forward is
+    kernel. The forward, with U = ceil(H / SMs) units a block, is
     `_lstm_fwd_layout` (c carry, partial products, w_hh's 4U gate rows and
     all of h_{t-1}) where that fits a block, else the streamed forward's
     (csrc/lstm.cu's ``fwd_streamed_smem``: f32 products and carries, 5 B U
     floats, the 4U H slice of w_hh and one streamed chunk of h); the
-    backward's (``bwd_smem``) f32 dh and dc carries (2 B U floats), its U H
-    columns of w_hh and one streamed chunk of dgx, in the dtype."""
+    backward is the route `_lstm_bwd_route` takes."""
     u = -(-h // sms)
     fwd = _lstm_fwd_layout(b, h, u, elem)["bytes"]
     if fwd > _SMEM_MAX_BYTES:
         fwd = 4 * 5 * b * u + elem * (4 * u * h
                                       + b * _lstm_chunk_cols(b, h, elem))
-    bwd = 4 * 2 * b * u + elem * (4 * u * h
-                                  + b * _lstm_chunk_cols(b, 4 * h, elem))
-    return fwd, bwd
+    return fwd, _lstm_bwd_route(b, h, elem, sms=sms)[2]
 
 
 def lstm_layer_fits(b, h, dtype):
@@ -978,6 +1038,17 @@ def lstm_bwd_reference(dy, gates, c_all, c0, dct, wh):
     return dgx, dh.to(dt), dc.to(dt)
 
 
+def _lstm_xb(dy):
+    """Scratch for the backward kernel's exchange of dgx rows where a row
+    of 4H is not a whole number of 16 bytes (bfloat16 with odd H): (2, B,
+    GP) in dy's dtype, GP = 4H rounded up to 16 bytes; else None. The
+    kernel zeroes its padding before the first step."""
+    _, b, h = dy.shape
+    gp = _round_up(4 * h, 16 // dy.element_size())
+    return None if gp == 4 * h else torch.empty(
+        (2, b, gp), dtype=dy.dtype, device=dy.device)
+
+
 def lstm_bwd(dy, gates, c_all, c0, dct, wh):
     """The reverse recurrence: from dy (T, B, H) and dcT (B, H), both in
     the dtype, the forward's gates and c_all, c0 and wh, returns the
@@ -995,9 +1066,11 @@ def lstm_bwd(dy, gates, c_all, c0, dct, wh):
     dgx = torch.empty_like(gates)
     dh0 = torch.empty_like(c0)
     dc0 = torch.empty_like(c0)
+    xb = _lstm_xb(dy)
     _call("lstm", _LSTM_ARGTYPES, "lstm_bwd", dy.device, dy.data_ptr(),
           gates.data_ptr(), c_all.data_ptr(), c0.data_ptr(), dct.data_ptr(),
-          wh.data_ptr(), dgx.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+          wh.data_ptr(), dgx.data_ptr(), None if xb is None else
+          xb.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
           _LSTM_DTYPES[dy.dtype], t, b, h)
     lstm_bwd.launches += 1
     return dgx, dh0, dc0

@@ -570,10 +570,14 @@ _LSTM_NAMES = ("lstm_infer", "lstm_fwd", "lstm_bwd")
 # block, 48 gate rows; f32 does not fit a block there) and an odd H with
 # B > 16; and shapes whose block cannot hold all of h, which take the
 # streamed forward: B = 128 at H = 650, and H = 1500 at B = 32 (bf16; f32
-# does not fit)
+# does not fit); and for the backward's clusters, a layer whose units a
+# cluster (Q U = 16) do not divide H, with a partial m16 tile. The
+# backward streams dgx where its clustered layout does not fit a block:
+# f32 at B = 128, H = 650, and bf16 at H = 1500, B = 32
+# (test_torch_port_lstm.py:test_lstm_bwd_smem_mirror_at_the_edge)
 _LSTM_SHAPES = [(35, 32, 650), (7, 5, 9), (1, 3, 5), (35, 1, 200),
                 (5, 17, 650), (5, 64, 650), (5, 8, 1500), (6, 24, 333),
-                (5, 128, 650), (5, 32, 1500)]
+                (5, 128, 650), (5, 32, 1500), (4, 20, 130)]
 
 
 def _lstm_case(seed, t, b, h, dtype):
@@ -626,6 +630,31 @@ def test_lstm_kernels_match_plain_on_card(dtype, shape):
     torch.cuda.synchronize()
     assert all(getattr(tpk, n).launches == before[n] + 1
                for n in _LSTM_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _LSTM_SHAPES)
+def test_lstm_bwd_on_both_routes_is_deterministic(dtype, shape):
+    """The backward at every shape, on the route its layout takes
+    (clusters, or the streamed kernel), against its plain version, twice
+    and bit for bit. A shape that fits no route raises."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    gx, wh, h0, c0, dy, dct = _lstm_case(13, *shape, tdt)
+    _, c_all, gates = tpk.lstm_fwd_reference(gx, wh, h0, c0)
+    if tpk._lstm_bwd_route(shape[1], shape[2],
+                           gx.element_size())[2] > tpk._SMEM_MAX_BYTES:
+        with pytest.raises(MXNetError, match="CUDA error"):
+            tpk.lstm_bwd(dy, gates, c_all, c0, dct, wh)
+        return
+    runs = [tpk.lstm_bwd(dy, gates, c_all, c0, dct, wh) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    want = tpk.lstm_bwd_reference(dy, gates, c_all, c0, dct, wh)
+    for name, a, b in zip(("dgx", "dh0", "dc0"), runs[0], want):
+        _close(a, b, tol, "bwd " + name)
 
 
 @pytest.mark.cuda

@@ -33,6 +33,10 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import pallas_kernels as tpk
 
 NAMES = ("x", "wx", "wh", "bx", "bh", "h0", "c0")
+# (T, B, H) of the card tests (tests/test_torch_port_cuda.py:_LSTM_SHAPES)
+_CARD_SHAPES = [(35, 32, 650), (7, 5, 9), (1, 3, 5), (35, 1, 200),
+                (5, 17, 650), (5, 64, 650), (5, 8, 1500), (6, 24, 333),
+                (5, 128, 650), (5, 32, 1500), (4, 20, 130)]
 
 
 def _inputs(T=7, B=5, I=6, H=9, seed=0):
@@ -261,6 +265,149 @@ def test_lstm_fwd_smem_mirror_at_the_edge():
     assert not tpk.lstm_layer_fits(8, 1500, torch.float32)
 
 
+def _bwd_shares(h, q, elem):
+    """The contraction's columns [lo, hi) of 4H that each block of a
+    backward cluster of ``q`` blocks takes, as csrc/lstm.cu cuts them
+    (`_lstm_bwd_layout`'s 16-byte chunks of a row; hi may pass 4H into the
+    zero padding of an odd-H bf16 row)."""
+    nch = tpk._lstm_bwd_layout(1, h, q, 1, elem)["nch"]
+    per = 16 // elem
+    return [(r * nch // q * per, (r + 1) * nch // q * per) for r in range(q)]
+
+
+def _backward_model(dy, gates, c_all, c0, dct, wh, q):
+    """Test-only model of csrc/lstm.cu's backward (`lstm_bwd` on the card,
+    clusters of ``q`` blocks) in dy's dtype: dgates rounded to the dtype
+    where the kernel stores them, and multiplied back through w_hh in the
+    dtype: each block's share of the 4H columns (`_bwd_shares`: 16-byte
+    chunks; an odd-H bf16 row padded with zero columns) as f32 partial sums
+    over the kernel's K slices (`_lstm_bwd_layout`: ranges of k16 steps;
+    f32 has one slice), added in slice order (0 + slice 0 + slice 1 ...),
+    the blocks' sums added in block order q = 0 .. Q - 1, then dh = dy +
+    that carry; dh and dc f32. The slices and shares depend on B, H and Q
+    alone. Returns dgx (T, B, 4H), dh0 and dc0 (B, H) in the dtype."""
+    nt, b, h = dy.shape
+    dt, elem = dy.dtype, dy.element_size()
+    lay = tpk._lstm_bwd_layout(b, h, q, 1, elem)
+    steps, slices = lay["steps"], lay["kslices"]
+    w = torch.zeros(lay["gp"], h)
+    w[:4 * h] = wh.float()
+    x = torch.zeros(b, lay["gp"], dtype=dt)
+    dgx = torch.empty_like(gates)
+    dc = dct.float()
+    carry = torch.zeros(b, h)
+    for t in range(nt - 1, -1, -1):
+        i, f, gg, o = gates[t].float().split(h, dim=-1)
+        c_prev = c_all[t - 1] if t > 0 else c0.float()
+        dh = dy[t].float() + carry
+        tc = torch.tanh(c_all[t])
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dgx[t] = torch.cat([(dc * gg) * i * (1.0 - i),
+                            (dc * c_prev) * f * (1.0 - f),
+                            (dc * i) * (1.0 - gg * gg),
+                            (dh * tc) * o * (1.0 - o)], dim=-1).to(dt)
+        dc = dc * f
+        x[:, :4 * h] = dgx[t]
+        carry = torch.zeros(b, h)
+        for lo, hi in _bwd_shares(h, q, elem):
+            cuts = ([lo + ks * steps // slices * 16 for ks in range(slices)]
+                    + [hi] if dt == torch.bfloat16 else [lo, hi])
+            part = torch.zeros(b, h)
+            for a, z in zip(cuts[:-1], cuts[1:]):
+                z = min(z, hi)
+                part = part + torch.matmul(x[:, a:z].float(), w[a:z])
+            carry = carry + part
+    return dgx, carry.to(dt), dc.to(dt)
+
+
+@pytest.mark.parametrize("q", [2, 8])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(7, 5, 6, 9), (1, 3, 4, 5),
+                                   (6, 20, 6, 13), (5, 1, 4, 8)])
+def test_backward_summation_order_matches_jax_kernel(shape, dtype, q):
+    """The card's backward, rehearsed on the CPU: `_backward_model` (the
+    contraction cut into clusters' shares and K slices over zero-padded
+    columns, f32 partials added slice by slice, then block by block)
+    against jax.vjp of the JAX Pallas layer in interpret mode
+    (`_lstm_bwd_kernel`): dgx, dh0 and dc0 under cotangents on ys and cT,
+    in the dtype within the file's tolerance (bf16 2^-7, f32 5e-5); at the
+    file's shapes, at B = 20 (the second m16 tile partial) with H = 13 (odd:
+    the bf16 exchange row is padded, and so is the last share), and at
+    B = 1; clusters of 2 and of 8 blocks."""
+    nt, b, _, h = shape
+    x, wx, wh, bx, bh, h0, c0 = _inputs(*shape, seed=11)
+    gx = (np.einsum("tbi,gi->tbg", x, wx) + (bx + bh)).astype(np.float32)
+    rng = np.random.RandomState(12)
+    dy = rng.randn(nt, b, h).astype(np.float32)
+    dct = rng.randn(b, h).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    j_in = [jnp.asarray(a, jdt) for a in (gx, h0, c0)]
+    jwh = jnp.asarray(wh, jdt)
+    outs, vjp = jax.vjp(lambda g, hh, cc: jpk.lstm_layer(g, jwh, hh, cc),
+                        *j_in)
+    want = vjp((jnp.asarray(dy, jdt), jnp.zeros_like(outs[1]),
+                jnp.asarray(dct, jdt)))
+    tdt = getattr(torch, dtype)
+    t_gx, t_wh, t_h0, t_c0, t_dy, t_dct = (
+        torch.from_numpy(a).to(tdt) for a in (gx, wh, h0, c0, dy, dct))
+    _, c_all, gates = tpk.lstm_fwd_reference(t_gx, t_wh, t_h0, t_c0)
+    got = _backward_model(t_dy, gates, c_all, t_c0, t_dct, t_wh, q)
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 5e-5
+    for name, a, w in zip(("dgx", "dh0", "dc0"), got, want):
+        assert a.dtype == tdt
+        _close(a, w, tol, name)
+
+
+def test_lstm_bwd_smem_mirror_at_the_edge():
+    """`_lstm_bwd_layout` as csrc/lstm.cu lays out a backward block at the
+    word LM's shape (15 clusters of 8 blocks on an H100: 6 units a block,
+    48 a cluster, shares of 41 chunks, 328 columns): in bf16 two K slices
+    of the 21 k16 steps, for two m16 tiles by three pairs of n8 tiles (12
+    warps), f32 unpadded. The largest batch at
+    H = 650 whose block holds the clustered layout in each dtype, and one
+    past it, which takes the streamed backward; `lstm_layer_fits` still
+    admits B 1,258 (bf16) and 791 (f32) at H 650 and H 1500 at B 32 in
+    bf16, as before the clustered kernel; and the route each card-test
+    shape takes."""
+    bf = tpk._lstm_bwd_layout(32, 650, 8, 6, 2)
+    assert (bf["gp"], bf["nch"], bf["kmax"], bf["steps"], bf["pitch"],
+            bf["mpad"], bf["qu"], bf["up"], bf["w_rows"], bf["np"],
+            bf["npairs"], bf["kslices"], bf["bytes"]) == (
+                2600, 325, 328, 21, 344, 32, 48, 8, 48, 49, 3, 2, 76560)
+    f32 = tpk._lstm_bwd_layout(32, 650, 8, 6, 4)
+    assert (f32["gp"], f32["kmax"], f32["pitch"], f32["mpad"],
+            f32["kslices"], f32["bytes"]) == (2600, 328, 328, 32, 1, 120208)
+    # odd H in bf16: a row of 4H = 52 elements is padded to 56
+    assert tpk._lstm_bwd_layout(4, 13, 8, 1, 2)["gp"] == 56
+    assert _bwd_shares(13, 2, 2) == [(0, 24), (24, 56)]
+    assert _bwd_shares(650, 8, 2)[0] == (0, 320)
+    assert _bwd_shares(650, 8, 2)[-1] == (2272, 2600)
+    for dtype, edge in ((torch.bfloat16, 160), (torch.float32, 94)):
+        elem = torch.empty((), dtype=dtype).element_size()
+        route, u, held = tpk._lstm_bwd_route(edge, 650, elem)
+        assert route == "clusters" and u == 6
+        assert held == tpk._lstm_bwd_layout(edge, 650, 8, 6, elem)["bytes"]
+        assert held <= tpk._SMEM_MAX_BYTES
+        assert tpk._lstm_bwd_layout(edge + 1, 650, 8, 6, elem)["bytes"] > \
+            tpk._SMEM_MAX_BYTES
+        route, u, past = tpk._lstm_bwd_route(edge + 1, 650, elem)
+        assert route == "streamed" and u == 5
+        assert past == 4 * 2 * (edge + 1) * 5 + elem * (
+            4 * 5 * 650 + (edge + 1) * tpk._lstm_chunk_cols(edge + 1, 2600,
+                                                            elem))
+        assert tpk._lstm_smem(edge, 650, elem)[1] == held
+    for b, dtype in ((1258, torch.bfloat16), (791, torch.float32)):
+        assert tpk.lstm_layer_fits(b, 650, dtype)
+        assert not tpk.lstm_layer_fits(b + 1, 650, dtype)
+    assert tpk.lstm_layer_fits(32, 1500, torch.bfloat16)
+    routes = {(b, h, elem): tpk._lstm_bwd_route(b, h, elem)[0]
+              for _, b, h in _CARD_SHAPES for elem in (2, 4)}
+    streamed = sorted(k for k, r in routes.items() if r == "streamed")
+    assert streamed == [(8, 1500, 4), (32, 1500, 2), (32, 1500, 4),
+                        (128, 650, 4)]
+    assert tpk._lstm_bwd_route(8, 1500, 2)[:2] == ("clusters", 13)
+
+
 def test_lstm_layer_fits_the_card():
     """The H100's resource check: the word LM's (B 32, H 650) fits in f32
     and bf16, as does a one-unit layer; a layer whose w_hh slice alone
@@ -274,12 +421,15 @@ def test_lstm_layer_fits_the_card():
         assert not tpk.lstm_layer_fits(32, 20000, dtype)
     assert not tpk.lstm_layer_fits(32, 650, torch.float64)
     # the block's smem at the word LM's shape (csrc/lstm.cu: 5 units a
-    # block; in f32 the forward's c carry, one slice of partial products,
-    # 20 gate rows and all of h at a pitch of 652; the backward streams
-    # dgx in chunks of 512 columns)
+    # forward block; in f32 the forward's c carry, one slice of partial
+    # products, 20 gate rows and all of h at a pitch of 652; the backward,
+    # 6 units a block in clusters of 8, holds its mbarrier, its peers'
+    # partial sums in rows of 8, its dc carry, one slice of partial
+    # products, w_hh's 48 units over a share of 328 columns, and that share
+    # of dgx[t])
     assert tpk._lstm_smem(32, 650, 4) == (
         4 * (32 * 5 + 32 * 24 + 20 * 652 + 32 * 652),
-        1280 + 4 * (13000 + 32 * 512))
+        16 + 4 * (8 * 32 * 8 + 32 * 6 + 32 * 49 + 48 * 328 + 32 * 328))
 
 
 def test_wrappers_on_cpu_take_plain_versions_and_count_nothing():
