@@ -101,12 +101,32 @@ Phases; each raises on failure, and the script then exits non-zero:
    consecutive windows with the state carried; lstm_infer launches 2 x 4
    times and nothing else; the perplexity is finite, and the logits and
    final state equal a CPU run's of the same model and windows.
+   Then the same model through the Gluon façade, as the JAX package's
+   examples/rnn/word_lm.py loop drives it (`train_word_lm.train_epoch`):
+   RNNModel(10000, 650, 650, 2 layers, dropout 0) built and initialised
+   (Xavier from ``--seed``, on the card) through `gluon`,
+   `gluon.Trainer` SGD lr 1.0, f32, truncated BPTT over a corpus made from
+   the seed in which each token has 4 successors, 35 x 32 tokens a window,
+   the state detached and carried, a loss a token and the gradients'
+   global norm clipped at 0.25 x 35 x 32 as the reference's word_lm
+   ``train()``: 2 warm-up windows, then the LSTM launch counts set to 0
+   and 10 timed windows of ``record()`` / ``backward()`` /
+   ``trainer.step``. Every loss must be finite and the last below the
+   first; lstm_fwd and lstm_bwd launch 2 x 10 times and lstm_infer never.
+   Then 4 windows of ``net(x, state)`` outside ``record()``: lstm_infer
+   launches 2 x 4 times and the training kernels never, and
+   `metric.Perplexity` is finite. Prints tokens/s, ms a window and peak
+   allocated bytes; ``--profile`` adds the device busy share.
 5. parity: one f32 step of a small ResNet (2 bottleneck stages), one f32
    Adam step of bert_mini + an MLM head, and one f32 SGD step of a small
    word LM (vocab 1000, 2 x 650 units, 12 x 8 tokens), on the card
    (kernels, TF32 off) against the same step on the CPU (plain versions)
    from the same weights and batch: loss and every updated parameter and
    running statistic, after the step and as the change the step made.
+   Then the same small word LM's step through the Gluon façade
+   (``record()``, ``backward()``, ``gluon.Trainer`` SGD) on the card and
+   on the CPU: the loss, every ``Parameter.grad()`` and every updated
+   parameter, at the word-LM step's tolerance.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -2380,6 +2400,160 @@ def eval_word_lm(torch, pk, args, net):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, last part: the word LM through the Gluon façade, as the JAX
+# package's examples/rnn/word_lm.py loop drives it
+# ---------------------------------------------------------------------------
+
+# windows of 35 x 32 tokens: warm-up, timed, then evaluation
+FACADE_WARMUP, FACADE_STEPS, FACADE_EVAL = 2, 10, 4
+# the reference's word_lm train(): clip the gradients' global norm at
+# clip x bptt x batch
+FACADE_CLIP = 0.25
+# successors of each token in the smoke's corpus
+FACADE_SUCCESSORS = 4
+
+
+def facade_corpus(seed, windows=FACADE_WARMUP + FACADE_STEPS + FACADE_EVAL):
+    """(windows x 35 + 2, 32) token ids, TNC: 32 streams of a Markov chain
+    in which each of the 10,000 tokens has 4 successors drawn from the
+    seed, so a model can learn it (the loss can fall)."""
+    rng = np.random.RandomState(seed + 10)
+    succ = rng.randint(0, LM_VOCAB, (LM_VOCAB, FACADE_SUCCESSORS))
+    rows = [rng.randint(0, LM_VOCAB, LM_BATCH)]
+    for _ in range(windows * LM_BPTT + 1):
+        rows.append(succ[rows[-1], rng.randint(0, FACADE_SUCCESSORS,
+                                               LM_BATCH)])
+    return np.stack(rows).astype(np.int32)
+
+
+def device_busy_ms(torch, run, steps):
+    """Device busy time a step of ``run()`` (``steps`` steps), from the
+    kernels on a `torch.profiler` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = sum((ev.time_range.end - ev.time_range.start) / 1e3
+               for ev in prof.events()
+               if str(ev.device_type).endswith("CUDA")
+               and not is_annotation(ev))
+    return busy / steps
+
+
+def facade_word_lm(torch, pk, args):
+    """The word LM at bench_lstm's width through the Gluon façade: an
+    `RNNModel` built and initialised (Xavier, from the seed, on the card)
+    through `gluon`, `gluon.Trainer` with SGD lr 1.0, softmax cross-entropy
+    and `train_word_lm.train_epoch`'s truncated BPTT over `facade_corpus`
+    as the reference's word_lm ``train()`` runs it (the state detached and
+    carried; a loss a token, summed by the backward, gradients clipped at
+    0.25 x 35 x 32, ``trainer.step(32)``), f32: 2 warm-up windows, then the
+    LSTM launch counts set to 0 and 10 timed windows, each ``record()`` /
+    ``backward()`` / ``trainer.step``.
+    Then 4 evaluation windows of ``net(x, state)`` outside ``record()``
+    with `metric.Perplexity`; ``--profile`` then traces 3 more windows.
+    Returns the launch counts of training and evaluation."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, metric, nd
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+    from mxnet_tpu_torch.train_word_lm import train_epoch
+
+    dev = mx.gpu(0)
+    corpus = facade_corpus(args.seed)
+    t0 = time.monotonic()
+    with mx.context.scope(dev):
+        net = RNNModel(LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, dropout=0.0)
+        net.initialize(mx.init.Xavier(), ctx=dev, seed=args.seed)
+        n_params = sum(int(np.prod(p.shape))
+                       for p in net.collect_params().values())
+        if n_params != LM_PARAMS:
+            raise AssertionError("façade RNNModel has %d parameters, not %d"
+                                 % (n_params, LM_PARAMS))
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 1.0})
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def train(state, start, count):
+            return train_epoch(net, trainer, ce, corpus, LM_BPTT, LM_BATCH,
+                               ctx=dev, state=state, start=start,
+                               limit_batches=count, clip=FACADE_CLIP,
+                               flat_loss=True)
+
+        warm, state = train(None, 0, FACADE_WARMUP)
+        torch.cuda.synchronize()
+        log("façade: word LM RNNModel(%d, %d, %d, %d layers) through "
+            "gluon, %d parameters, f32; %d warm-up windows in %.2f s, "
+            "losses %s" % (LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, n_params,
+                           FACADE_WARMUP, time.monotonic() - t0,
+                           ["%.4f" % v for v in warm]))
+        torch.cuda.reset_peak_memory_stats()
+        for k in LSTM_KERNELS:   # the façade training path's counts
+            getattr(pk, k).launches = 0
+        t0 = time.monotonic()
+        losses, state = train(state, FACADE_WARMUP, FACADE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        train_launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        everything = np.asarray(warm + losses)
+        if not np.isfinite(everything).all():
+            raise AssertionError("non-finite façade loss: %s" % everything)
+        if not everything[-1] < everything[0]:
+            raise AssertionError("façade word-LM loss did not fall: %s"
+                                 % everything)
+        want = {"lstm_infer": 0, "lstm_fwd": LM_LAYERS * FACADE_STEPS,
+                "lstm_bwd": LM_LAYERS * FACADE_STEPS}
+        if train_launches != want:
+            raise AssertionError("façade training launches %s, not %s"
+                                 % (train_launches, want))
+        tps = LM_BPTT * LM_BATCH * FACADE_STEPS / wall
+        log("  %d timed windows of %d x %d tokens in %.3f s: %.1f tokens/s, "
+            "%.2f ms a window; peak allocated %d bytes (%s); losses %s; "
+            "launches %s" % (FACADE_STEPS, LM_BPTT, LM_BATCH, wall, tps,
+                             wall / FACADE_STEPS * 1e3, peak, smi_line(),
+                             ["%.4f" % v for v in losses],
+                             json.dumps(train_launches)))
+        ppl = metric.Perplexity()
+        for k in LSTM_KERNELS:   # the façade evaluation's counts
+            getattr(pk, k).launches = 0
+        first = (FACADE_WARMUP + FACADE_STEPS) * LM_BPTT
+        t0 = time.monotonic()
+        for i in range(FACADE_EVAL):
+            t = first + i * LM_BPTT
+            logits, state = net(nd.array(corpus[t:t + LM_BPTT],
+                                         dtype="int32"), state)
+            ppl.update([nd.array(corpus[t + 1:t + LM_BPTT + 1])],
+                       [nd.softmax(logits)])
+        torch.cuda.synchronize()
+        eval_wall = time.monotonic() - t0
+        eval_launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+        if args.profile:   # after the evaluation, which it would change
+            busy = device_busy_ms(
+                torch, lambda: train(state, FACADE_STEPS - 1, 3), 3)
+            log("  profile façade window (3 more windows, f32): device busy "
+                "%.3f ms a window = %.1f%% of the %.2f ms window timed "
+                "without the profiler" % (busy, 100.0 * busy * FACADE_STEPS
+                                          / wall / 1e3,
+                                          wall / FACADE_STEPS * 1e3))
+    want = {"lstm_infer": LM_LAYERS * FACADE_EVAL, "lstm_fwd": 0,
+            "lstm_bwd": 0}
+    if eval_launches != want:
+        raise AssertionError("façade evaluation launches %s, not %s"
+                             % (eval_launches, want))
+    name, value = ppl.get()
+    if not np.isfinite(value):
+        raise AssertionError("façade evaluation perplexity %s" % value)
+    log("  evaluation: %d windows outside record() in %.3f s, %s %.3f "
+        "(uniform would be %d); launches %s"
+        % (FACADE_EVAL, eval_wall, name, value, LM_VOCAB,
+           json.dumps(eval_launches)))
+    return train_launches, eval_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: a small ResNet's step on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -2525,6 +2699,79 @@ def word_lm_parity(torch, args):
                           worst_delta, big))
 
 
+def facade_lm_step(torch, seed, device):
+    """One façade step of a small word LM (vocab 1000, 2 x 650 units) on
+    ``device``: `RNNModel` through gluon, Xavier from ``seed`` (drawn on the
+    host, so the same weights on every device), one ``record()`` forward of
+    12 x 8 tokens from zero states, ``loss.backward()`` and
+    ``gluon.Trainer`` SGD lr 1.0. Returns host copies of the loss, every
+    `Parameter.grad()`, and every parameter before and after the step, by
+    name."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+
+    rng = np.random.RandomState(seed + 9)
+    x = rng.randint(0, 1000, (12, 8)).astype(np.int32)
+    y = rng.randint(0, 1000, (12, 8)).astype(np.float32)
+    with mx.context.scope(device):
+        net = RNNModel(1000, LM_UNITS, LM_UNITS, LM_LAYERS, dropout=0.0,
+                       prefix="lm_")
+        net.initialize(mx.init.Xavier(), seed=seed)
+        params = net.collect_params()
+        before = {k: torch.from_numpy(p.data().asnumpy())
+                  for k, p in params.items()}
+        trainer = gluon.Trainer(params, "sgd", {"learning_rate": 1.0})
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        state = net.begin_state(8, ctx=device)
+        with autograd.record():
+            logits, state = net(nd.array(x, dtype="int32"), state)
+            loss = ce(logits, nd.array(y))
+        loss.backward()
+        grads = {k: torch.from_numpy(p.grad().asnumpy())
+                 for k, p in params.items()}
+        trainer.step(x.size)
+        after = {k: torch.from_numpy(p.data().asnumpy())
+                 for k, p in params.items()}
+    return torch.from_numpy(loss.asnumpy()), grads, before, after
+
+
+def facade_step_errors(torch, card, cpu, tol=1e-4):
+    """Holds `facade_lm_step`'s card results to the CPU's: the loss, every
+    gradient (a floor of tol x max|CPU gradient| of the tensor), every
+    parameter after the step and the change the step made (a floor of tol
+    x the step's largest change as well, as `word_lm_parity`). Returns the
+    largest errors of the loss, the gradients and the parameters."""
+    loss = max_err(torch, card[0], cpu[0], tol, "façade word LM loss")
+    for k, w in cpu[2].items():
+        if not torch.equal(card[2][k], w):
+            raise AssertionError("façade word LM: %s starts differently" % k)
+    grad = max(max_err(torch, card[1][k], w, tol, "façade grad of " + k)
+               for k, w in cpu[1].items())
+    big = max(float((cpu[3][k] - cpu[2][k]).abs().max()) for k in cpu[3])
+    param = 0.0
+    for k, w in cpu[3].items():
+        param = max(param, max_err(torch, card[3][k], w, tol,
+                                   "façade step: " + k, scale=big))
+        max_err(torch, card[3][k] - cpu[2][k], w - cpu[2][k], tol,
+                "façade step, change of " + k, scale=big)
+    return loss, grad, param
+
+
+def facade_parity(torch, args):
+    """`facade_lm_step` on the card (the LSTM kernels; TF32 off) and on the
+    CPU (the plain versions), held together by `facade_step_errors`."""
+    card = facade_lm_step(torch, args.seed, torch.device("cuda", 0))
+    cpu = facade_lm_step(torch, args.seed, torch.device("cpu"))
+    loss, grad, param = facade_step_errors(torch, card, cpu)
+    log("parity: one f32 façade step of the small word LM (vocab 1000, 2 x "
+        "650; record, backward, gluon.Trainer SGD) on the card equals the "
+        "CPU step (loss %.6f vs %.6f; %d parameters, max abs err %.3g in "
+        "the loss, %.3g in the gradients, %.3g after the step)"
+        % (float(card[0].mean()), float(cpu[0].mean()), len(cpu[1]), loss,
+           grad, param))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2606,6 +2853,8 @@ def main(argv=None):
     launches.update(lm_launches)
     launches.update(eval_word_lm(torch, pk, args, lm))
     del lm
+    torch.cuda.empty_cache()
+    facade_word_lm(torch, pk, args)
     for k in KERNELS:
         if launches[k["name"]] < 1:
             raise AssertionError("%s never launched on its main path"
@@ -2613,6 +2862,7 @@ def main(argv=None):
     insitu_parity(torch, args)
     bert_parity(torch, args)
     word_lm_parity(torch, args)
+    facade_parity(torch, args)
 
     kernels = []
     for k in KERNELS:

@@ -14,7 +14,11 @@ whose attention runs the flash-attention kernels of
 layers run the kernels of ``csrc/lstm.cu``; and the array core: ``nd``
 (`NDArray` over a torch tensor, written in place, and every op of the JAX
 package's ``ops/tensor.py`` plus ``softmax`` / ``log_softmax``) with
-``rtc`` (CUDA C++ compiled at run time by NVRTC and launched on NDArrays).
+``rtc`` (CUDA C++ compiled at run time by NVRTC and launched on NDArrays);
+and the imperative Gluon training path: ``autograd`` (the tape over
+torch.autograd), ``gluon`` (``Parameter``, ``Block``, ``HybridBlock``,
+``Trainer``, the layers, losses and utilities), ``optimizer``,
+``lr_scheduler``, ``init`` (``initializer``) and ``metric``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``); without a card they raise.
 """
@@ -22,8 +26,16 @@ from . import context, env, random, telemetry
 from . import ndarray
 from . import ndarray as nd
 from . import rtc
+from . import autograd
+from . import initializer
+from . import initializer as init
+from . import lr_scheduler, metric, optimizer
+from . import gluon
 from .base import MXNetError
 from .context import cpu, current_context, gpu
+from .ndarray import NDArray
 
 __all__ = ["MXNetError", "cpu", "gpu", "current_context", "context", "env",
-           "random", "telemetry", "ndarray", "nd", "rtc"]
+           "random", "telemetry", "ndarray", "nd", "NDArray", "rtc",
+           "autograd", "initializer", "init", "lr_scheduler", "metric",
+           "optimizer", "gluon"]

@@ -1,5 +1,12 @@
-"""Models, layers and losses of the port (counterpart of
-`mxnet_tpu.gluon`: the generation, ResNet, BERT and word-LM paths)."""
-from . import loss, nn, rnn
+"""Gluon of the port (counterpart of `mxnet_tpu.gluon`): `Parameter`,
+`Block`, `HybridBlock`, `Trainer`, the layers (``nn``, ``rnn``), losses,
+utilities and the model zoo."""
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
+from .block import Block, HybridBlock
+from .trainer import Trainer
+from . import loss, nn, rnn, utils
 
-__all__ = ["loss", "nn", "rnn"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError", "Block", "HybridBlock", "Trainer",
+           "loss", "nn", "rnn", "utils"]

@@ -1,0 +1,347 @@
+"""Gluon Block and HybridBlock (counterpart of `mxnet_tpu/gluon/block.py`;
+reference: python/mxnet/gluon/block.py).
+
+A `Block` is a `torch.nn.Module` with Gluon's naming (prefixes from
+per-thread counters and `name_scope`), its `Parameter`s
+(`collect_params`, `initialize`, `save_parameters` / `load_parameters`
+by structural name in the `nd.save` container, so a ``.params`` file moves
+between this package and the JAX package both ways), `cast` and
+`summary`. Called with NDArrays (a façade call) a Block runs under
+`autograd`'s scope: grad mode on only while recording, and Dropout and
+BatchNorm in training mode only while `autograd.is_training`. Called with
+tensors it is a plain `torch.nn.Module` (the tensor-in, tensor-out calls
+of the trainers and serving).
+
+The port's layers compute on tensors (``_tensor_forward``): a façade call
+unwraps the NDArrays, runs the module, and wraps what comes out. A user's
+`Block` writes ``forward`` on NDArrays, and a user's `HybridBlock` writes
+``hybrid_forward(F, x, *args, **params)`` with ``F`` the port's `nd` and
+each Parameter passed by attribute name as its NDArray.
+
+`HybridBlock.hybridize` takes the JAX package's arguments and records
+them, and the forward stays eager: the captured graph (CUDA graphs or
+torch.compile per input signature) is ROADMAP queue 1 item 2.
+"""
+from __future__ import annotations
+
+import re
+import threading
+import weakref
+
+import numpy as _np
+import torch
+
+from .. import autograd
+from .. import ndarray as nd
+from ..base import MXNetError
+from ..context import cpu
+from ..ndarray import NDArray
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock"]
+
+_naming = threading.local()
+
+
+def _name_counter():
+    if not hasattr(_naming, "counts"):
+        _naming.counts = {}
+    return _naming.counts
+
+
+class _BlockScope:
+    """Name and prefix manager (reference: block.py:33 _BlockScope)."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        # weak: a strong one would put every block in a reference cycle,
+        # freed only by the garbage collector (a model's card memory too)
+        self._block_ref = weakref.ref(block)
+        self._counter = {}
+        self._old_scope = None
+
+    @property
+    def _block(self):
+        return self._block_ref()
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                counts = _name_counter()
+                count = counts.get(hint, 0)
+                counts[hint] = count + 1
+                prefix = "%s%d_" % (hint, count)
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            current._counter[hint] = count + 1
+            prefix = "%s%d_" % (hint, count)
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, *args):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+def _has_nd(args, kwargs):
+    for a in args:
+        if isinstance(a, NDArray) or (isinstance(a, (list, tuple)) and any(
+                isinstance(b, NDArray) for b in a)):
+            return True
+    return any(isinstance(v, NDArray) for v in kwargs.values())
+
+
+def _unwrap(x):
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap(a) for a in x)
+    return x
+
+
+def _wrap(x):
+    if torch.is_tensor(x):
+        return NDArray(x if x.is_contiguous() else x.contiguous())
+    if isinstance(x, (list, tuple)):
+        return type(x)(_wrap(a) for a in x)
+    return x
+
+
+class Block(torch.nn.Module):
+    """Base building block (reference: block.py:127)."""
+
+    # True for the port's layers, whose forward computes on tensors
+    _tensor_forward = False
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params = {}
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def params(self):
+        return self._params
+
+    def name_scope(self):
+        return self._scope
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            # the attribute is the Parameter; the module holds its tensor
+            self.__dict__.setdefault("_reg_params", {})[name] = value
+            object.__setattr__(self, name, value)
+            value._bind(self, name, "parameter")
+            return
+        super().__setattr__(name, value)
+
+    def _param(self, attr, kind="parameter", device=None, **kwargs):
+        """A layer's parameter ``attr`` (made by ``self.params.get(attr,
+        **kwargs)``), registered with the module under ``attr`` as a
+        parameter or a buffer, so the module's attribute is its tensor."""
+        if kind == "buffer":
+            self.register_buffer(attr, None)
+        else:
+            self.register_parameter(attr, None)
+        p = self.params.get(attr, **kwargs)
+        self._reg_params[attr] = p
+        p._bind(self, attr, kind, device=device)
+        return p
+
+    def register_child(self, block, name=None):
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+
+    @property
+    def _children(self):
+        return {k: v for k, v in self._modules.items()
+                if isinstance(v, Block)}
+
+    def collect_params(self, select=None):
+        """Every Parameter of this block and its Block children, by full name
+        (reference: block.py collect_params); ``select`` is a regular
+        expression on the names."""
+        ret = ParameterDict(self._params.prefix)
+        if select is None:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({n: p for n, p in self.params.items()
+                        if pattern.match(n)})
+        for child in self._children.values():
+            ret.update(child.collect_params(select=select))
+        return ret
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, seed=None):
+        """Initialize every parameter (see `Parameter.initialize`); random
+        initializers draw from a CPU generator seeded with ``seed``, or from
+        this thread's. Returns self."""
+        gen = None if seed is None \
+            else torch.Generator().manual_seed(int(seed))
+        self.collect_params().initialize(init, ctx, verbose, force_reinit,
+                                         generator=gen)
+        return self
+
+    def cast(self, dtype):
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self._reg_params.values():
+            p.cast(dtype)
+        return self
+
+    # -- persistence ------------------------------------------------------
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: p for k, p in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename):
+        """Save the parameters by structural name (``embedding.weight``,
+        ``rnn.l0_i2h_weight``) in the `nd.save` container (reference:
+        block.py:315)."""
+        params = self._collect_params_with_prefix()
+        nd.save(filename, {k: p._reduce() for k, p in params.items()})
+
+    save_params = save_parameters
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False):
+        """Load a file of `save_parameters` (either package's); a parameter
+        not made yet takes the file's shape (reference: block.py:356)."""
+        loaded = nd.load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError("Parameter %s missing in %s"
+                                     % (name, filename))
+        for name, val in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise MXNetError("Parameter %s in %s is not in the block"
+                                     % (name, filename))
+                continue
+            p = params[name]
+            if ctx is not None and p._nd is None:
+                p.initialize(ctx=ctx)
+            p.set_data(val)
+
+    load_params = load_parameters
+
+    # -- execution --------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        if not _has_nd(args, kwargs):
+            return super().__call__(*args, **kwargs)
+        with autograd._facade():
+            if self._tensor_forward:
+                return _wrap(super().__call__(*_unwrap(args),
+                                              **_unwrap(kwargs)))
+            return super().__call__(*args, **kwargs)
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+    def summary(self, *inputs):
+        """Print each block with its own parameter count."""
+        rows = []
+
+        def walk(block, depth):
+            n = sum(int(_np.prod(p.shape or ()))
+                    for p in block._reg_params.values())
+            rows.append(("  " * depth + block.__class__.__name__, n))
+            for c in block._children.values():
+                walk(c, depth + 1)
+
+        walk(self, 0)
+        lines = ["%-40s %12s" % ("Layer", "Params"), "-" * 53]
+        lines += ["%-40s %12d" % r for r in rows]
+        lines += ["-" * 53, "%-40s %12d" % ("Total (direct)",
+                                            sum(n for _, n in rows))]
+        print("\n".join(lines))  # allow-print
+
+
+class HybridBlock(Block):
+    """A Block written as ``hybrid_forward(F, x, ...)`` (reference:
+    block.py:671)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = {}
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Records ``active`` and the flags (reference: block.py:832); the
+        forward stays eager. Capturing it as a graph per input signature is
+        ROADMAP queue 1 item 2."""
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def forward(self, *args, **kwargs):
+        if not _has_nd(args, kwargs):
+            # called with tensors (inside a tensor-path module)
+            return _unwrap(self.forward(*_wrap(args), **_wrap(kwargs)))
+        params = {}
+        for name, p in self._reg_params.items():
+            if p._nd is None:
+                p._finish_deferred_init()
+            params[name] = p.data()
+        return self.hybrid_forward(nd, *args, **kwargs, **params)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+def _deferred(p):
+    """Raise if ``p`` is deferred and never given an initializer."""
+    if p._nd is None and not p._deferred_init:
+        raise DeferredInitializationError(
+            "Parameter %s has unknown shape %s and was not initialized; "
+            "call initialize() before the first forward"
+            % (p.name, p.shape))

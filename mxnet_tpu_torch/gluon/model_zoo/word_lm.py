@@ -4,57 +4,71 @@ example/rnn/word_lm/model.py).
 
 The LSTM is `gluon.rnn.LSTM`, whose layers run the kernels of
 ``csrc/lstm.cu`` on the card. Child names: ``embedding``, ``rnn``,
-``decoder`` (and ``drop`` with dropout); `convert.word_lm_params_from_jax`
-maps the JAX model's parameters onto them.
+``decoder`` (and ``drop`` with dropout); parameter names the JAX package's
+(``rnnmodel0_embed_weight``, ``rnnmodel0_lstm_l0_i2h_weight``,
+``rnnmodel0_decoder_weight``, ...). `convert.word_lm_params_from_jax` maps
+the JAX model's parameters onto the state dict.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ... import initializer as _init
-from ...context import resolve_device
+from ...context import current_context, resolve_device
 from .. import rnn
 from ..nn import Dense, Dropout, Embedding
+from ..nn.basic_layers import _Layer
 
 __all__ = ["RNNModel"]
 
 
-class RNNModel(nn.Module):
+class RNNModel(_Layer):
     """Embedding(vocab, embed) -> optional Dropout -> LSTM(hidden,
     num_layers, TNC) -> optional Dropout -> Dense(vocab, flatten=False).
     ``tie_weights`` shares one `Parameter` between the embedding and the
     decoder (embed_size must equal hidden_size, as in the reference).
-    ``device``: where the parameters live (default: the card,
-    `context.resolve_device`)."""
+    ``device``: where the parameters live (default: `current_context`, the
+    card unless a `context.scope` says otherwise). Called with tensors it
+    returns tensors, with NDArrays NDArrays."""
 
     def __init__(self, vocab_size, embed_size=200, hidden_size=200,
-                 num_layers=2, dropout=0.5, tie_weights=False, device=None):
-        super().__init__()
-        device = resolve_device(device)
-        self.drop = Dropout(dropout) if dropout else None
-        self.embedding = Embedding(vocab_size, embed_size, device=device)
-        self.rnn = rnn.LSTM(hidden_size, num_layers=num_layers,
-                            dropout=dropout, input_size=embed_size,
-                            layout="TNC", device=device)
+                 num_layers=2, dropout=0.5, tie_weights=False, device=None,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        device = current_context() if device is None \
+            else resolve_device(device)
         if tie_weights and embed_size != hidden_size:
             raise ValueError("tie_weights requires embed_size == hidden_size "
                              "(as in reference)")
-        self.decoder = Dense(vocab_size, flatten=False, in_units=hidden_size,
-                             device=device)
-        if tie_weights:
-            self.decoder.weight = self.embedding.weight
+        with self.name_scope():
+            self.drop = Dropout(dropout) if dropout else None
+            self.embedding = Embedding(vocab_size, embed_size, device=device,
+                                       prefix="embed_")
+            self.rnn = rnn.LSTM(hidden_size, num_layers=num_layers,
+                                dropout=dropout, input_size=embed_size,
+                                layout="TNC", device=device, prefix="lstm_")
+            if tie_weights:
+                self.decoder = Dense(vocab_size, flatten=False,
+                                     in_units=hidden_size, device=device,
+                                     params=self.embedding.params,
+                                     prefix="embed_")
+            else:
+                self.decoder = Dense(vocab_size, flatten=False,
+                                     in_units=hidden_size, device=device,
+                                     prefix="decoder_")
 
-    def initialize(self, init="xavier", seed=None):
+    def initialize(self, init="xavier", ctx=None, verbose=False,
+                   force_reinit=False, seed=None):
         """Fill the weights (default Xavier, the embedding included),
-        biases 0; see `initializer.initialize`. Returns self."""
-        return _init.initialize(self, init, seed)
+        biases 0; see `Block.initialize`. Returns self."""
+        return super().initialize(init, ctx, verbose, force_reinit, seed)
 
-    def begin_state(self, batch_size, device=None, func=None,
+    def begin_state(self, batch_size, ctx=None, func=None, device=None,
                     dtype=torch.float32):
-        """The LSTM's zero states [h, c], each (num_layers, batch, hidden)."""
+        """The LSTM's zero states [h, c], each (num_layers, batch, hidden):
+        NDArrays on ``ctx`` when it is given (the JAX package's signature),
+        else tensors on ``device`` (default: the parameters')."""
         return self.rnn.begin_state(batch_size=batch_size, func=func,
-                                    device=device, dtype=dtype)
+                                    device=device, dtype=dtype, ctx=ctx)
 
     def forward(self, inputs, state=None):
         """inputs: (T, B) int ids. Returns logits (T, B, vocab), or

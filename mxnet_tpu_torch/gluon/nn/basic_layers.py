@@ -1,60 +1,100 @@
 """Basic layers.
 
-Counterpart of `mxnet_tpu/gluon/nn/basic_layers.py` (HybridSequential,
-Dense, Activation, Flatten, BatchNorm, Embedding, LayerNorm, GELU,
-Dropout) as `torch.nn.Module`s over `ops.nn`. Parameter names and shapes
-are the JAX package's (``weight``, ``bias``, ``gamma``, ``beta``;
-BatchNorm's ``running_mean`` and ``running_var`` are buffers). A layer is
-in training mode when its module's ``training`` flag is set (``train()`` /
-``eval()``), the counterpart of the JAX package's autograd training
-scope.
+Counterpart of `mxnet_tpu/gluon/nn/basic_layers.py` (Sequential,
+HybridSequential, Dense, Activation, Flatten, BatchNorm, Embedding,
+LayerNorm, GELU, Dropout) as `HybridBlock`s that compute on tensors over
+`ops.nn`. Parameter names and shapes are the JAX package's (``weight``,
+``bias``, ``gamma``, ``beta``, ``running_mean``, ``running_var``; the
+running statistics are module buffers). A size left at 0 (``in_units``,
+``in_channels``) is taken from the first input, the parameters being made
+then (deferred initialisation). The module attribute of a parameter is its
+tensor (``dense.weight``); its `Parameter` is ``dense.params`` /
+``collect_params()``.
+
+A layer trains (Dropout drops, BatchNorm uses and updates the batch
+statistics) under ``autograd.is_training()`` when called with NDArrays,
+and under the module's ``training`` flag (``train()`` / ``eval()``) when
+called with tensors. ``device``: where the parameters of a known shape are
+made (the CPU when None, until `initialize` places them).
 """
 from __future__ import annotations
 
-import torch
+import numpy as _np
 from torch import nn
 
 from ... import random as _random
-from ...base import MXNetError
+from ...autograd import layer_training
 from ...ops import nn as _ops
+from ..block import Block, HybridBlock, _deferred
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
            "Flatten", "BatchNorm", "Embedding", "LayerNorm", "GELU",
            "Dropout"]
 
 
-class Sequential(nn.Sequential):
-    """Sequential container with the JAX package's ``add``."""
+def _materialize(*params):
+    """Make the tensors of deferred parameters whose shapes are now known."""
+    for p in params:
+        if p is not None and p._nd is None:
+            _deferred(p)
+            p._finish_deferred_init()
+
+
+class Sequential(Block, nn.Sequential):
+    """Blocks applied in order (reference: basic_layers.py:29); children
+    are named "0", "1", ... as in the JAX package."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
 
     def add(self, *blocks):
         for block in blocks:
-            self.append(block)
+            self.register_child(block)
+
+    forward = nn.Sequential.forward
 
 
-HybridSequential = Sequential
+class HybridSequential(HybridBlock, Sequential):
+    """Hybridizable `Sequential` (reference: basic_layers.py:99)."""
+
+    forward = nn.Sequential.forward
 
 
-class Dense(nn.Module):
+class _Layer(HybridBlock):
+    _tensor_forward = True
+
+
+class Dense(_Layer):
     """Fully-connected layer: weight (units, in_units), bias (units,);
     ``flatten`` reshapes the input to (N, -1) first; ``activation`` (an
     `ops.nn.activation` type) is applied to the output."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 in_units=0, device=None):
-        super().__init__()
-        if not in_units:
-            raise MXNetError("Dense: in_units must be given (the port does "
-                             "not infer shapes at the first forward)")
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, device=None,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
         self._act_type = activation
         self._flatten = flatten
-        self.weight = nn.Parameter(torch.zeros((units, in_units),
-                                               device=device))
-        if use_bias:
-            self.bias = nn.Parameter(torch.zeros(units, device=device))
-        else:
-            self.register_parameter("bias", None)
+        with self.name_scope():
+            self._param("weight", device=device, shape=(units, in_units),
+                        init=weight_initializer, dtype=dtype,
+                        allow_deferred_init=True)
+            if use_bias:
+                self._param("bias", device=device, shape=(units,),
+                            init=bias_initializer, dtype=dtype,
+                            allow_deferred_init=True)
+            else:
+                self.register_parameter("bias", None)
 
     def forward(self, x):
+        if self.weight is None:
+            in_units = int(_np.prod(x.shape[1:])) if self._flatten \
+                else x.shape[-1]
+            weight = self._reg_params["weight"]
+            weight.shape = (self._units, in_units)
+            _materialize(weight, self._reg_params.get("bias"))
         out = _ops.fully_connected(x, self.weight, self.bias,
                                    flatten=self._flatten)
         if self._act_type is not None:
@@ -62,21 +102,24 @@ class Dense(nn.Module):
         return out
 
 
-class Activation(nn.Module):
-    def __init__(self, activation):
-        super().__init__()
+class Activation(_Layer):
+    def __init__(self, activation, prefix=None, params=None):
         self._act_type = activation
+        super().__init__(prefix=prefix, params=params)
+
+    def _alias(self):
+        return self._act_type
 
     def forward(self, x):
         return _ops.activation(x, act_type=self._act_type)
 
 
-class Flatten(nn.Module):
+class Flatten(_Layer):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(_Layer):
     """Batch normalization over ``axis`` (default 1, or -1 when built inside
     a channels-last `layout_scope`): eps 1e-5, momentum 0.9.
 
@@ -89,30 +132,51 @@ class BatchNorm(nn.Module):
     running statistics stay f32 whatever the compute dtype."""
 
     def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
-                 scale=True, use_global_stats=False, in_channels=0,
-                 act_type=None, device=None):
-        super().__init__()
-        if not in_channels:
-            raise MXNetError("BatchNorm: in_channels must be given (the "
-                             "port does not infer shapes at the first "
-                             "forward)")
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 act_type=None, device=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if axis is None:
             from .conv_layers import in_channels_last_scope
 
             axis = -1 if in_channels_last_scope() else 1
         self._act_type = act_type
+        self._axis = axis
         self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
                         "fix_gamma": not scale,
                         "use_global_stats": use_global_stats}
-        c = int(in_channels)
-        self.gamma = nn.Parameter(torch.ones(c, device=device),
-                                  requires_grad=scale)
-        self.beta = nn.Parameter(torch.zeros(c, device=device),
-                                 requires_grad=center)
-        self.register_buffer("running_mean", torch.zeros(c, device=device))
-        self.register_buffer("running_var", torch.ones(c, device=device))
+        c = (int(in_channels),)
+        with self.name_scope():
+            self._stats = [
+                self._param("gamma", device=device,
+                            grad_req="write" if scale else "null", shape=c,
+                            init=gamma_initializer, allow_deferred_init=True,
+                            differentiable=scale),
+                self._param("beta", device=device,
+                            grad_req="write" if center else "null", shape=c,
+                            init=beta_initializer, allow_deferred_init=True,
+                            differentiable=center),
+                self._param("running_mean", "buffer", device=device,
+                            grad_req="null", shape=c,
+                            init=running_mean_initializer,
+                            allow_deferred_init=True, differentiable=False),
+                self._param("running_var", "buffer", device=device,
+                            grad_req="null", shape=c,
+                            init=running_variance_initializer,
+                            allow_deferred_init=True, differentiable=False)]
+
+    def cast(self, dtype):
+        if _np.dtype(dtype) == _np.float16:
+            dtype = "float32"  # BN stats stay f32, as in the reference
+        return super().cast(dtype)
 
     def forward(self, x, addend=None):
+        if self.gamma is None:
+            for p in self._stats:
+                p.shape = (x.shape[self._axis],)
+            _materialize(*self._stats)
+        train = layer_training(self)
         if addend is not None:
             if self._act_type is None:
                 raise ValueError("BatchNorm: a residual input requires "
@@ -121,62 +185,94 @@ class BatchNorm(nn.Module):
             return _ops.batch_norm_add_relu(
                 x, addend, self.gamma, self.beta, self.running_mean,
                 self.running_var, act_type=self._act_type,
-                is_train=self.training, **self._kwargs)[0]
+                is_train=train, **self._kwargs)[0]
         if self._act_type is not None:
             return _ops.batch_norm_relu(
                 x, self.gamma, self.beta, self.running_mean,
                 self.running_var, act_type=self._act_type,
-                is_train=self.training, **self._kwargs)[0]
+                is_train=train, **self._kwargs)[0]
         return _ops.batch_norm(x, self.gamma, self.beta, self.running_mean,
-                               self.running_var, is_train=self.training,
+                               self.running_var, is_train=train,
                                **self._kwargs)[0]
 
 
-class Embedding(nn.Module):
+class Embedding(_Layer):
     """Lookup table: weight (input_dim, output_dim); indices are clipped to
     [0, input_dim - 1]."""
 
-    def __init__(self, input_dim, output_dim, device=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros((input_dim, output_dim),
-                                               device=device))
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, device=None,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if sparse_grad:
+            from ...base import MXNetError
+
+            raise MXNetError("Embedding(sparse_grad=True): row-sparse "
+                             "gradients are not ported yet")
+        with self.name_scope():
+            self._param("weight", device=device,
+                        shape=(input_dim, output_dim),
+                        init=weight_initializer, dtype=dtype)
 
     def forward(self, x):
         return _ops.embedding(x, self.weight)
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm over the last axis (``in_channels`` units), ``gamma`` 1
-    and ``beta`` 0 at construction, computed by `ops.nn.layer_norm`."""
+class LayerNorm(_Layer):
+    """LayerNorm over the last axis (``in_channels`` units; 0 takes them
+    from the first input), ``gamma`` 1 and ``beta`` 0, computed by
+    `ops.nn.layer_norm`. ``in_channels`` comes first, as the port's models
+    pass it; only ``axis=-1`` is ported."""
 
-    def __init__(self, in_channels, epsilon=1e-5, device=None):
-        super().__init__()
+    def __init__(self, in_channels=0, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones", axis=-1,
+                 device=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if axis != -1:
+            from ...base import MXNetError
+
+            raise MXNetError("LayerNorm: only axis=-1 is ported")
         self.eps = float(epsilon)
-        self.gamma = nn.Parameter(torch.ones(in_channels, device=device))
-        self.beta = nn.Parameter(torch.zeros(in_channels, device=device))
+        c = (int(in_channels),)
+        with self.name_scope():
+            self._norm = [
+                self._param("gamma", device=device,
+                            grad_req="write" if scale else "null", shape=c,
+                            init=gamma_initializer, allow_deferred_init=True),
+                self._param("beta", device=device,
+                            grad_req="write" if center else "null", shape=c,
+                            init=beta_initializer, allow_deferred_init=True)]
 
     def forward(self, x):
+        if self.gamma is None:
+            for p in self._norm:
+                p.shape = (x.shape[-1],)
+            _materialize(*self._norm)
         return _ops.layer_norm(x, self.gamma, self.beta, self.eps)
 
 
-class GELU(nn.Module):
+class GELU(_Layer):
     """Exact (erf) GELU."""
 
     def forward(self, x):
         return _ops.gelu(x)
 
 
-class Dropout(nn.Module):
+class Dropout(_Layer):
     """Dropout of ``rate`` in training mode (keep mask from this thread's
     generator for the input's device, `mxnet_tpu_torch.random`); the
     identity otherwise."""
 
-    def __init__(self, rate):
-        super().__init__()
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if axes:
+            from ...base import MXNetError
+
+            raise MXNetError("Dropout(axes=...) is not ported yet")
         self._rate = float(rate)
 
     def forward(self, x):
-        if not self.training or self._rate <= 0.0:
+        if not layer_training(self) or self._rate <= 0.0:
             return x
         return _ops.dropout(x, self._rate, is_train=True,
                             generator=_random.generator(x.device))

@@ -2,19 +2,17 @@
 
 Counterpart of `mxnet_tpu/gluon/nn/conv_layers.py` (Conv2D, MaxPool2D,
 GlobalAvgPool2D and the construction-time `layout_scope`) as
-`torch.nn.Module`s over `ops.nn`. Parameter shapes are the JAX package's:
-a channels-last conv weight is (O, kh, kw, I). The port does not defer a
-shape to the first forward: ``in_channels`` is required.
+`HybridBlock`s that compute on tensors over `ops.nn`. Parameter shapes are
+the JAX package's: a channels-last conv weight is (O, kh, kw, I).
+``in_channels`` left at 0 is taken from the first input (deferred
+initialisation).
 """
 from __future__ import annotations
 
 import threading
 
-import torch
-from torch import nn
-
-from ...base import MXNetError
 from ...ops import nn as _ops
+from .basic_layers import _Layer, _materialize
 
 __all__ = ["layout_scope", "in_channels_last_scope", "Conv2D", "MaxPool2D",
            "GlobalAvgPool2D"]
@@ -60,41 +58,57 @@ def _default_layout(explicit):
     return "NHWC" if in_channels_last_scope() else "NCHW"
 
 
-class Conv2D(nn.Module):
+class Conv2D(_Layer):
     """2-D convolution. Weight (O, kh, kw, I/groups) under a channels-last
-    layout, (O, I/groups, kh, kw) otherwise; optional bias (O,)."""
+    layout, (O, I/groups, kh, kw) otherwise; optional bias (O,);
+    ``activation`` (an `ops.nn.activation` type) on the output."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout=None, use_bias=True,
-                 in_channels=0, device=None):
-        super().__init__()
-        if not in_channels:
-            raise MXNetError("Conv2D: in_channels must be given (the port "
-                             "does not infer shapes at the first forward)")
+                 dilation=(1, 1), groups=1, layout=None, activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, device=None,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._layout = _default_layout(layout)
+        self._act_type = activation
         k = _pair(kernel_size, 2)
         self._kwargs = {"kernel": k, "stride": _pair(strides, 2),
                         "dilate": _pair(dilation, 2),
                         "pad": _pair(padding, 2), "num_group": groups,
                         "layout": self._layout}
-        in_cg = in_channels // groups
-        wshape = ((channels,) + k + (in_cg,)
-                  if _ops._channels_last(self._layout)
-                  else (channels, in_cg) + k)
-        self.weight = nn.Parameter(torch.zeros(wshape, device=device))
-        if use_bias:
-            self.bias = nn.Parameter(torch.zeros(channels, device=device))
-        else:
-            self.register_parameter("bias", None)
+        self._ch_last = _ops._channels_last(self._layout)
+        self._channels = channels
+        with self.name_scope():
+            self._param("weight", device=device,
+                        shape=self._wshape(in_channels // groups),
+                        init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self._param("bias", device=device, shape=(channels,),
+                            init=bias_initializer, allow_deferred_init=True)
+            else:
+                self.register_parameter("bias", None)
+
+    def _wshape(self, in_cg):
+        k = self._kwargs["kernel"]
+        return (self._channels,) + k + (in_cg,) if self._ch_last \
+            else (self._channels, in_cg) + k
 
     def forward(self, x):
-        return _ops.convolution(x, self.weight, self.bias, **self._kwargs)
+        if self.weight is None:
+            c = x.shape[-1 if self._ch_last else 1]
+            weight = self._reg_params["weight"]
+            weight.shape = self._wshape(c // self._kwargs["num_group"])
+            _materialize(weight, self._reg_params.get("bias"))
+        out = _ops.convolution(x, self.weight, self.bias, **self._kwargs)
+        if self._act_type is not None:
+            out = _ops.activation(out, act_type=self._act_type)
+        return out
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(_Layer):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout=None, ceil_mode=False):
-        super().__init__()
+                 layout=None, ceil_mode=False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         k = _pair(pool_size, 2)
         self._kwargs = {"kernel": k,
                         "stride": k if strides is None else _pair(strides, 2),
@@ -107,11 +121,11 @@ class MaxPool2D(nn.Module):
         return _ops.pooling(x, **self._kwargs)
 
 
-class GlobalAvgPool2D(nn.Module):
+class GlobalAvgPool2D(_Layer):
     """Mean over the spatial extent, kept as 1 x 1."""
 
-    def __init__(self, layout=None):
-        super().__init__()
+    def __init__(self, layout=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._layout = _default_layout(layout)
 
     def forward(self, x):

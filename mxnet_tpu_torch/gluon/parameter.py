@@ -1,0 +1,481 @@
+"""Gluon Parameter and ParameterDict (counterpart of
+`mxnet_tpu/gluon/parameter.py`; reference: python/mxnet/gluon/parameter.py).
+
+A `Parameter` owns one `torch.nn.Parameter` (a plain tensor for a
+parameter without gradient that a module holds as a buffer, such as
+BatchNorm's running statistics) and an NDArray over it, on one device. The
+modules that use it (`Block`s, and layers that are `torch.nn.Module`s) hold
+the same tensor, registered under their attribute name, so ``state_dict``,
+``named_parameters`` and the tensor-in, tensor-out calls see it too; when
+the Parameter makes a new tensor (a deferred shape becomes known, `cast`,
+`reset_ctx`, `initialize` on another device) it rebinds every such module.
+
+- Shapes may hold 0s, filled at the first forward (deferred
+  initialisation, `DeferredInitializationError` until then).
+- ``grad_req`` (write, add or null) and the gradient buffer are the
+  autograd variable's (`mxnet_tpu_torch.autograd.mark_variables`).
+- `initialize` draws from an explicit CPU `torch.Generator`. With no
+  ``ctx`` the tensor stays on the device it was made on when its module
+  was given one, and goes to `context.current_context` (the card by
+  default) otherwise.
+- One device a parameter: several contexts raise (the multi-card slice,
+  ROADMAP queue 1 item 11).
+"""
+from __future__ import annotations
+
+import weakref
+from collections import OrderedDict
+
+import numpy as _np
+import torch
+
+from .. import autograd
+from .. import initializer
+from .. import ndarray as nd
+from ..base import MXNetError, np_dtype, torch_dtype
+from ..context import cpu, current_context, resolve_device
+from ..ndarray import NDArray
+
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter was used before its shape was known (reference:
+    parameter.py:38)."""
+
+
+def _one_ctx(ctx, what):
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise MXNetError(
+                "%s: %d contexts; the port keeps a parameter on one device "
+                "(several contexts come with the multi-card slice, ROADMAP "
+                "queue 1 item 11)" % (what, len(ctx)))
+        ctx = ctx[0]
+    return None if ctx is None else resolve_device(ctx)
+
+
+class Parameter:
+    """A trainable parameter (reference: parameter.py:43)."""
+
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        if stype != "default" or grad_stype != "default":
+            raise MXNetError("Parameter %s: sparse storage is not ported yet"
+                             % name)
+        self.name = name
+        self._differentiable = differentiable
+        self._grad_req = grad_req if differentiable else "null"
+        if isinstance(shape, int):
+            shape = (shape,)
+        self._shape = tuple(shape) if shape is not None else None
+        self.dtype = np_dtype(dtype)
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self._nd = None            # NDArray over the tensor
+        self._owners = []          # (weakref to module, attribute, kind)
+        self._placed = False       # the tensor's device was chosen
+        self._initialized = False
+        self._deferred_init = ()   # (init, ctx, generator)
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
+                                                      self.dtype)
+
+    # -- shape ------------------------------------------------------------
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        new_shape = tuple(new_shape)
+        if self._shape is None:
+            self._shape = new_shape
+            return
+        # 0 is the unknown dim on either side (reference: parameter.py)
+        if len(self._shape) != len(new_shape) or not all(
+                s == 0 or n == 0 or s == n
+                for s, n in zip(self._shape, new_shape)):
+            raise MXNetError("cannot update shape %s -> %s for %s"
+                             % (self._shape, new_shape, self.name))
+        self._shape = tuple(s if n == 0 else n
+                            for s, n in zip(self._shape, new_shape))
+
+    def _shape_known(self):
+        return self._shape is not None and all(s > 0 for s in self._shape)
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be write, add or null")
+        if not self._differentiable:
+            req = "null"
+        if req == self._grad_req:
+            return
+        self._grad_req = req
+        if self._nd is not None:   # a new, zero gradient buffer
+            self._nd._grad = None
+            self._set_tensor(self._nd._data)
+
+    # -- the tensor -------------------------------------------------------
+    @property
+    def var(self):
+        """The tensor the modules hold (None until it exists). A buffer is
+        read back from its module, which may have replaced it
+        (``module.to(...)``)."""
+        if self._nd is None:
+            return None
+        for ref, attr, kind in self._owners:
+            module = ref()
+            if kind == "buffer" and module is not None:
+                t = module._buffers.get(attr)
+                if t is not None and t is not self._nd._data:
+                    self._nd._data = t
+                break
+        return self._nd._data
+
+    def _bind(self, module, attr, kind="parameter", device=None):
+        """Register ``module.<attr>`` as a user of this parameter, as a
+        torch parameter or (``kind="buffer"``) a buffer. A parameter whose
+        shape is known gets its tensor now, zeros on ``device`` (the CPU
+        when None, until `initialize` places it)."""
+        self._owners.append((weakref.ref(module), attr, kind))
+        if self._nd is None and self._shape_known():
+            self._placed = device is not None
+            # a "ones" parameter (gamma, running_var) starts at 1, as the
+            # tensor path's modules always had it; the rest at 0
+            fill = torch.ones if self.init in ("ones", "one") \
+                or isinstance(self.init, initializer.One) else torch.zeros
+            self._set_tensor(fill(
+                self._shape, dtype=torch_dtype(self.dtype),
+                device=resolve_device(device) if device is not None
+                else None))
+        else:
+            self._rebind(module, attr, kind)
+
+    def _rebind(self, module, attr, kind):
+        t = None if self._nd is None else self._nd._data
+        if kind == "buffer":
+            module._buffers[attr] = t
+        elif kind == "parameter":
+            module._parameters[attr] = t
+
+    def _set_tensor(self, t):
+        """Make ``t``'s values this parameter's tensor, a leaf that requires
+        grad unless ``grad_req`` is null, and rebind every module."""
+        buffer = any(k == "buffer" for _, _, k in self._owners)
+        trainable = self._grad_req != "null" and not buffer
+        t = t.detach()
+        var = torch.nn.Parameter(t, requires_grad=True) if trainable \
+            else (t if buffer else torch.nn.Parameter(t, requires_grad=False))
+        if self._nd is None:
+            self._nd = NDArray(var)
+            self._nd._pinned = True
+        else:
+            self._nd._data = var
+        if trainable:
+            # the gradient buffer is made at the first backward or grad()
+            # (a module trained on the tensor path never needs one)
+            grad = self._nd._grad
+            if grad is not None and (grad.shape != tuple(var.shape)
+                                     or grad._data.dtype != var.dtype
+                                     or grad._data.device != var.device):
+                grad = None
+            autograd.mark_variables([self._nd], [grad], self._grad_req)
+        else:
+            self._nd._grad, self._nd._grad_req = None, "null"
+        for ref, attr, kind in self._owners:
+            if ref() is not None:
+                self._rebind(ref(), attr, kind)
+
+    # -- init -------------------------------------------------------------
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, generator=None):
+        """Fill the parameter (reference: parameter.py Parameter.initialize):
+        with ``init``, else its own initializer, else ``default_init``, else
+        `initializer.Uniform`. An unknown shape defers to the first forward
+        when ``allow_deferred_init``."""
+        if self._initialized and not force_reinit:
+            return
+        ctx = _one_ctx(ctx, "Parameter %s" % self.name)
+        if init is None:
+            init = self.init if self.init is not None \
+                else (default_init if default_init is not None
+                      else initializer.Uniform())
+        if not self._shape_known():
+            if self.allow_deferred_init:
+                self._deferred_init = (init, ctx, generator)
+                return
+            raise MXNetError("cannot initialize %s: shape %s unknown; set "
+                             "allow_deferred_init or give the full shape"
+                             % (self.name, self._shape))
+        self._init_impl(init, ctx, generator)
+
+    def _device(self, ctx):
+        if ctx is not None:
+            return ctx
+        if self._nd is not None and self._placed:
+            return self.var.device
+        return current_context()
+
+    def _init_impl(self, init, ctx, generator):
+        dev = self._device(ctx)
+        t = self.var
+        if t is None or tuple(t.shape) != self._shape or t.device != dev \
+                or t.dtype != torch_dtype(self.dtype):
+            self._set_tensor(torch.zeros(self._shape,
+                                         dtype=torch_dtype(self.dtype),
+                                         device=dev))
+        self._placed = True
+        initializer.create(init)(initializer.InitDesc(self.name), self.var,
+                                 generator)
+        self._deferred_init = ()
+        self._initialized = True
+
+    def _finish_deferred_init(self):
+        """Initialize a deferred parameter once its shape is known."""
+        if not self._deferred_init:
+            return
+        if not self._shape_known():
+            raise DeferredInitializationError(
+                "Parameter %s has unknown shape %s" % (self.name,
+                                                       self._shape))
+        init, ctx, generator = self._deferred_init
+        self._init_impl(init, ctx, generator)
+
+    # -- access -----------------------------------------------------------
+    def _check(self, ctx):
+        if self._nd is None:
+            if self._deferred_init:
+                raise DeferredInitializationError(
+                    "Parameter %s has not been initialized yet: its shape "
+                    "is known at the first forward" % self.name)
+            raise MXNetError("Parameter %s has not been initialized. Call "
+                             ".initialize() first" % self.name)
+        if ctx is not None and resolve_device(_one_ctx(ctx, self.name)) \
+                != self.var.device:
+            raise MXNetError("Parameter %s is on %s, not %s"
+                             % (self.name, self.var.device, ctx))
+
+    def data(self, ctx=None):
+        """The parameter's NDArray (the same object every call)."""
+        self._check(ctx)
+        return self._nd
+
+    def list_data(self):
+        self._check(None)
+        return [self._nd]
+
+    def grad(self, ctx=None):
+        self._check(ctx)
+        if self._grad_req == "null" or not self.var.requires_grad:
+            raise MXNetError("Parameter %s has grad_req='null'" % self.name)
+        if self._nd._grad is None:
+            self._nd._grad = autograd._zeros_like(self.var)
+        return self._nd._grad
+
+    def list_grad(self):
+        if self._nd is None or not self.var.requires_grad:
+            return []
+        return [self.grad()]
+
+    def list_ctx(self):
+        if self._nd is None:
+            if self._deferred_init:
+                return [self._device(self._deferred_init[1])]
+            return []
+        return [self.var.device]
+
+    def zero_grad(self):
+        for g in self.list_grad():
+            g._data.zero_()
+
+    def set_data(self, data):
+        """Write ``data`` (an NDArray, tensor or array) into the parameter,
+        off the tape; a deferred parameter takes its shape from it."""
+        src = data._data if isinstance(data, NDArray) \
+            else torch.from_numpy(_np.array(data)) \
+            if not torch.is_tensor(data) else data
+        self.shape = tuple(src.shape)
+        if self._nd is None or tuple(self.var.shape) != self._shape:
+            init, ctx, generator = self._deferred_init or (None, None, None)
+            self._init_impl(initializer.Zero(), ctx, generator)
+        with torch.no_grad():
+            self.var.copy_(src)
+        self._initialized = True
+
+    def reset_ctx(self, ctx):
+        """Move the parameter (and its gradient buffer) to ``ctx``."""
+        dev = _one_ctx(ctx, "Parameter %s" % self.name)
+        if self._nd is not None:
+            self._placed = True
+            self._set_tensor(self.var.to(dev))
+        elif self._deferred_init:
+            init, _, generator = self._deferred_init
+            self._deferred_init = (init, dev, generator)
+
+    def cast(self, dtype):
+        """Cast the parameter and its gradient buffer to ``dtype``."""
+        self.dtype = np_dtype(dtype)
+        if self._nd is not None:
+            self._set_tensor(self.var.to(torch_dtype(dtype)))
+
+    def _reduce(self):
+        """A host copy (what `save` writes)."""
+        return self.data().copyto(cpu())
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (reference:
+    parameter.py Constant)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = nd.array(value, ctx=cpu())
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype,
+                         init=initializer.Constant(value.asnumpy()),
+                         differentiable=False)
+
+
+class ParameterDict:
+    """Parameters by name, with a prefix and sharing (reference:
+    parameter.py:508)."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = OrderedDict()
+        self._shared = shared
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def __repr__(self):
+        return "ParameterDict(%s)" % ", ".join(str(p) for p in
+                                               self._params.values())
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def __contains__(self, key):
+        return key in self._params
+
+    def get(self, name, **kwargs):
+        """The parameter ``prefix + name``, made with ``kwargs`` when it does
+        not exist yet (here or in the shared dict)."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            param = Parameter(name, **kwargs)
+            self._params[name] = param
+        elif kwargs.get("shape") is not None:
+            shape = kwargs["shape"]
+            param.shape = (shape,) if isinstance(shape, int) else shape
+        return param
+
+    def get_constant(self, name, value=None):
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise MXNetError("no constant %s and no value given" % name)
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
+    def _get_impl(self, name):
+        if name in self._params:
+            return self._params[name]
+        if self._shared is not None and name in self._shared._params:
+            self._params[name] = self._shared._params[name]
+            return self._params[name]
+        return None
+
+    def update(self, other):
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise MXNetError("duplicate parameter name %s" % k)
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None):
+        """Initialize every parameter, ``init`` being the default for those
+        without an initializer of their own."""
+        for p in self._params.values():
+            p.initialize(None, ctx, default_init=init,
+                         force_reinit=force_reinit, generator=generator)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self._params.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        for p in self._params.values():
+            setattr(p, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Save every parameter by its full name (``strip_prefix`` taken
+        off) in the `nd.save` container."""
+        args = {}
+        for p in self._params.values():
+            name = p.name
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            args[name] = p._reduce()
+        nd.save(filename, args)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load a file of `save` (or of the JAX package's): ``arg:`` /
+        ``aux:`` prefixes are dropped and ``restore_prefix`` added."""
+        loaded = nd.load(filename, ctx=cpu())
+        loaded = {(k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                   else k): v for k, v in loaded.items()}
+        if restore_prefix:
+            loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in loaded:
+                    raise MXNetError("Parameter %s missing in file %s"
+                                     % (name, filename))
+        for name, val in loaded.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError("Parameter %s in file %s is not in "
+                                     "the ParameterDict" % (name, filename))
+                continue
+            p = self._params[name]
+            if ctx is not None and p._nd is None:
+                p.initialize(ctx=ctx)
+            p.set_data(val)

@@ -1,0 +1,111 @@
+"""Learning-rate schedulers (counterpart of `mxnet_tpu/lr_scheduler.py`;
+reference: python/mxnet/lr_scheduler.py): Factor, MultiFactor, Poly and
+Cosine schedules with a linear or constant warm-up. Pure Python: a
+scheduler maps the optimizer's update count to a learning rate, and the
+port keeps its own copy of the JAX package's arithmetic."""
+from __future__ import annotations
+
+import math
+
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+           "PolyScheduler", "CosineScheduler"]
+
+
+class LRScheduler:
+    def __init__(self, base_lr=0.01, warmup_steps=0, warmup_begin_lr=0.0,
+                 warmup_mode="linear"):
+        self.base_lr = base_lr
+        self.warmup_steps = warmup_steps
+        self.warmup_begin_lr = warmup_begin_lr
+        self.warmup_final_lr = base_lr
+        self.warmup_mode = warmup_mode
+
+    def get_warmup_lr(self, num_update):
+        if self.warmup_mode == "linear":
+            inc = (self.warmup_final_lr - self.warmup_begin_lr) * num_update / self.warmup_steps
+            return self.warmup_begin_lr + inc
+        return self.warmup_final_lr  # constant
+
+    def __call__(self, num_update):
+        raise NotImplementedError
+
+
+class FactorScheduler(LRScheduler):
+    """lr *= factor every `step` updates (reference: lr_scheduler.py Factor)."""
+
+    def __init__(self, step, factor=1.0, stop_factor_lr=1e-8, base_lr=0.01,
+                 warmup_steps=0, warmup_begin_lr=0.0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        self.step = step
+        self.factor = factor
+        self.stop_factor_lr = stop_factor_lr
+        self.count = 0
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        while num_update > self.count + self.step:
+            self.count += self.step
+            self.base_lr *= self.factor
+            if self.base_lr < self.stop_factor_lr:
+                self.base_lr = self.stop_factor_lr
+        return self.base_lr
+
+
+class MultiFactorScheduler(LRScheduler):
+    def __init__(self, step, factor=1.0, base_lr=0.01, warmup_steps=0,
+                 warmup_begin_lr=0.0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        assert all(step[i] < step[i + 1] for i in range(len(step) - 1))
+        self.step = step
+        self.cur_step_ind = 0
+        self.factor = factor
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        while self.cur_step_ind <= len(self.step) - 1:
+            if num_update > self.step[self.cur_step_ind]:
+                self.cur_step_ind += 1
+                self.base_lr *= self.factor
+            else:
+                return self.base_lr
+        return self.base_lr
+
+
+class PolyScheduler(LRScheduler):
+    def __init__(self, max_update, base_lr=0.01, pwr=2, final_lr=0.0,
+                 warmup_steps=0, warmup_begin_lr=0.0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        self.power = pwr
+        self.base_lr_orig = self.base_lr
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.max_steps = self.max_update - self.warmup_steps
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        if num_update <= self.max_update:
+            frac = 1 - (num_update - self.warmup_steps) / self.max_steps
+            self.base_lr = self.final_lr + (self.base_lr_orig - self.final_lr) * frac ** self.power
+        return self.base_lr
+
+
+class CosineScheduler(LRScheduler):
+    def __init__(self, max_update, base_lr=0.01, final_lr=0.0, warmup_steps=0,
+                 warmup_begin_lr=0.0, warmup_mode="linear"):
+        super().__init__(base_lr, warmup_steps, warmup_begin_lr, warmup_mode)
+        self.base_lr_orig = base_lr
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.max_steps = self.max_update - self.warmup_steps
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.get_warmup_lr(num_update)
+        if num_update <= self.max_update:
+            frac = (num_update - self.warmup_steps) / self.max_steps
+            self.base_lr = self.final_lr + (self.base_lr_orig - self.final_lr) * \
+                (1 + math.cos(math.pi * frac)) / 2
+        return self.base_lr

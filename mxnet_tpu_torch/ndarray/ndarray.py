@@ -18,25 +18,34 @@ mapping:
   shares storage with its inputs.
 - ``WaitToRead`` (ndarray.h:359) → `wait_to_read` synchronises the
   array's current stream.
+- Autograd (`attach_grad`, `backward`, `grad`) is torch's graph, run by
+  `mxnet_tpu_torch.autograd`: ops, indexing and views run with grad mode
+  on only inside ``autograd.record()``. A write to an array that is part
+  of a graph (a recorded output, or a variable) rebinds it to a new tensor,
+  as the JAX package's immutable buffers behave, so the graph keeps the
+  value it saved; a gluon Parameter's array is the exception, written in
+  place off the tape (the optimizer's update), since its module holds
+  that tensor.
 
 Every operator call goes through `invoke` — the equivalent of
 ``Imperative::Invoke`` (src/imperative/imperative.cc:89): resolve the
 `OpDef`, run its torch function, wrap the outputs, honour ``out=``.
 
-Not ported yet: autograd (`attach_grad`, `backward` and `grad` raise),
-sparse storage, and the JAX package's telemetry memory accounting and
-profiler hook. 64-bit arrays stay 64-bit, as in the reference, where the
+Not ported yet: sparse storage (and row-sparse gradients), and the JAX
+package's telemetry memory accounting and profiler hook. 64-bit arrays stay 64-bit, as in the reference, where the
 JAX package narrows them to 32 bits (README, "int64").
 """
 from __future__ import annotations
 
 import io
+import weakref
 import zipfile
 import zlib
 
 import numpy as _np
 import torch
 
+from .. import autograd as _autograd
 from .. import ops as _ops
 from ..base import MXNetError, atomic_writer, np_dtype, numeric_types, \
     torch_dtype
@@ -48,18 +57,42 @@ __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
            "from_dlpack", "to_dlpack_for_read", "to_dlpack_for_write"]
 
 
-def _not_ported(what):
-    return MXNetError("%s is not ported yet: autograd on NDArrays comes "
-                      "with the tape over torch.autograd" % what)
-
-
 class NDArray:
     """Multi-dimensional array on a device (reference: ndarray.h:82)."""
 
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "_grad", "_grad_req", "_fresh_grad", "_leaves",
+                 "_pinned", "__weakref__")
 
     def __init__(self, data):
         self._data = data  # torch.Tensor, contiguous
+        self._grad = None       # gradient buffer (an NDArray) of a variable
+        self._grad_req = "null"
+        self._fresh_grad = False  # written by a backward since the last step
+        self._leaves = None     # weakrefs to tensors a write replaced
+        self._pinned = False    # a gluon Parameter's: written in place
+
+    def _write(self, fn):
+        """Apply ``fn`` (an in-place write) to this array's value. An array
+        outside any graph, or a Parameter's, is written in place (the latter
+        off the tape); one in a graph is rebound to a written copy, so the
+        graph keeps the value it saved, and a variable's new tensor is a
+        leaf again."""
+        t = self._data
+        if not t.requires_grad:
+            fn(t)
+            return
+        if self._pinned:
+            with torch.no_grad():
+                fn(t)
+            return
+        with torch.set_grad_enabled(_autograd.is_recording()
+                                    and not t.is_leaf):
+            new = t.detach().clone() if t.is_leaf else t.clone()
+            fn(new)
+        if t.is_leaf:
+            new.requires_grad_(True)
+            self._leaves = (self._leaves or []) + [weakref.ref(t)]
+        self._data = new
 
     # -- core properties --------------------------------------------------
     @property
@@ -94,8 +127,8 @@ class NDArray:
 
     def _set_data(self, value):
         """Write ``value`` (a tensor, broadcast to the shape) into this
-        array's storage."""
-        self._data.copy_(value)
+        array (see `_write`)."""
+        self._write(lambda t: t.copy_(value))
 
     # -- sync / transfer --------------------------------------------------
     def wait_to_read(self):
@@ -139,7 +172,9 @@ class NDArray:
             other._set_data(self._data)
             return other
         if isinstance(other, (torch.device, str)):
-            return NDArray(self._data.to(resolve_device(other), copy=True))
+            with _autograd._grad_mode():
+                return NDArray(self._data.to(resolve_device(other),
+                                             copy=True))
         raise TypeError("copyto: expected NDArray or device")
 
     def as_in_context(self, ctx):
@@ -153,7 +188,8 @@ class NDArray:
         return self.copyto(self.context)
 
     def detach(self):
-        return NDArray(self._data)
+        """The same values, cut from the graph (shares the storage)."""
+        return NDArray(self._data.detach())
 
     def astype(self, dtype, copy=True):
         return invoke("Cast", (self,), {"dtype": str(np_dtype(dtype))})
@@ -170,22 +206,34 @@ class NDArray:
 
     # -- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        raise _not_ported("NDArray.attach_grad")
+        """Make this array a variable with a zero gradient buffer of its
+        shape and dtype (reference: ndarray.py attach_grad); ``grad_req``
+        is write, add or null."""
+        if stype not in (None, "default"):
+            raise MXNetError("sparse gradients (%s) are not ported yet"
+                             % stype)
+        _autograd.mark_variables([self], [_autograd._zeros_like(self._data)],
+                                 grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
-        raise _not_ported("NDArray.backward")
+        """Gradients of this array into every variable's buffer; a
+        non-scalar array's head gradient defaults to ones."""
+        _autograd.backward([self], None if out_grad is None else [out_grad],
+                           retain_graph=retain_graph, train_mode=train_mode)
 
     @property
     def grad(self):
-        raise _not_ported("NDArray.grad")
+        """The gradient buffer (None unless `attach_grad` was called)."""
+        return self._grad
 
     # -- shape ops --------------------------------------------------------
     def reshape(self, *shape, **kwargs):
         """A view with the new shape (MXNet's magic codes apply)."""
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
-        return NDArray(self._data.view(mx_reshape_shape(
-            self.shape, shape, kwargs.get("reverse", False))))
+        with _autograd._grad_mode():
+            return NDArray(self._data.view(mx_reshape_shape(
+                self.shape, shape, kwargs.get("reverse", False))))
 
     def reshape_like(self, other):
         return self.reshape(other.shape)
@@ -415,7 +463,7 @@ class NDArray:
     def __hash__(self):
         return id(self)
 
-    # in-place: the result is written into this array's storage
+    # in-place: the result is written into this array (see `_write`)
     def __iadd__(self, o):
         self._set_data((self + o)._data)
         return self
@@ -436,9 +484,12 @@ class NDArray:
     def __getitem__(self, key):
         if isinstance(key, NDArray):
             key = key._data.long()
-        out = self._data[key]
-        if not out.is_contiguous():
-            out = out.contiguous()
+        dims, key = _positive_steps(key, self.shape)
+        with _autograd._grad_mode():
+            src = self._data.flip(dims) if dims else self._data
+            out = src[key]
+            if not out.is_contiguous():
+                out = out.contiguous()
         return NDArray(out)
 
     def __setitem__(self, key, value):
@@ -450,7 +501,19 @@ class NDArray:
             value = value.to(self._data.device, self._data.dtype)
         if isinstance(key, NDArray):
             key = key._data.long()
-        self._data[key] = value
+        dims, key = _positive_steps(key, self.shape)
+
+        def write(t):
+            if not dims:
+                t[key] = value
+                return
+            # torch takes no negative step: write the flipped copy through
+            # the mirrored key, and flip it back into place
+            flipped = t.flip(dims)
+            flipped[key] = value
+            t.copy_(flipped.flip(dims))
+
+        self._write(write)
 
     def __iter__(self):
         for i in range(self.shape[0]):
@@ -464,6 +527,38 @@ class NDArray:
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
         return a.astype(dtype) if dtype is not None else a
+
+
+def _positive_steps(key, shape):
+    """``(dims, key)``: the dimensions a key slices with a negative step, and
+    the key that takes the same elements, in the same order, from the array
+    flipped along those dimensions (every step positive), as torch needs.
+    Keys without a negative step come back as they are."""
+    parts = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in parts):
+        return (), key
+    used = sum(1 for k in parts if k is not None and k is not Ellipsis)
+    out, dims, d = [], [], 0
+    for k in parts:
+        if k is Ellipsis:
+            out.append(k)
+            d += len(shape) - used
+            continue
+        if k is None:
+            out.append(k)
+            continue
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            n = shape[d]
+            start, stop, step = k.indices(n)
+            count = len(range(start, stop, step))
+            first = n - 1 - start
+            k = slice(first, first + count * -step, -step) if count \
+                else slice(0, 0)
+            dims.append(d)
+        out.append(k)
+        d += 1
+    return tuple(dims), tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -490,16 +585,17 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
         dev = resolve_device(ctx)
     else:
         dev = arrays[0].device if arrays else current_context()
-    results = _ops.invoke_torch(opdef.name, tensors, attrs)
-    results = tuple(results) if isinstance(results, (tuple, list)) \
-        else (results,)
-    shared = {_storage(t) for t in arrays}
-    out_nd = []
-    for r in results:
-        r = r.to(dev)
-        if _storage(r) in shared or not r.is_contiguous():
-            r = r.clone(memory_format=torch.contiguous_format)
-        out_nd.append(NDArray(r))
+    with _autograd._grad_mode():
+        results = _ops.invoke_torch(opdef.name, tensors, attrs)
+        results = tuple(results) if isinstance(results, (tuple, list)) \
+            else (results,)
+        shared = {_storage(t) for t in arrays}
+        out_nd = []
+        for r in results:
+            r = r.to(dev)
+            if _storage(r) in shared or not r.is_contiguous():
+                r = r.clone(memory_format=torch.contiguous_format)
+            out_nd.append(NDArray(r))
 
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]

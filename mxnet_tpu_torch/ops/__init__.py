@@ -3,8 +3,8 @@
 The modules hold what the generation, ResNet, BERT and word-LM paths use
 (`nn`, `rnn`, `contrib`, `optimizer_ops`, `random_ops`, the kernel
 wrappers of `pallas_kernels`) and the registered ops behind ``mx.nd``:
-every op of `mxnet_tpu/ops/tensor.py` (`tensor`) and ``softmax`` /
-``log_softmax`` (`nn`).
+every op of `mxnet_tpu/ops/tensor.py` (`tensor`), ``softmax`` /
+``log_softmax`` (`nn`) and the 17 optimizer updates (`optimizer_ops`).
 
 A registered op is a plain function on torch tensors,
 ``fn(*tensors, **attrs) -> tensor | tuple``, run eagerly by
@@ -65,3 +65,4 @@ def invoke_torch(name, tensors, attrs):
 # populate the registry
 from . import tensor as _tensor  # noqa: E402,F401
 from . import nn as _nn  # noqa: E402,F401
+from . import optimizer_ops as _optimizer_ops  # noqa: E402,F401

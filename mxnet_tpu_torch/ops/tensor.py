@@ -622,6 +622,7 @@ def broadcast_axis(data, axis=(), size=()):
 
 @register("take")
 def take(a, indices, axis=0, mode="clip"):
+    axis %= a.ndim
     n = a.shape[axis]
     idx = indices.long()
     idx = torch.remainder(idx, n) if mode == "wrap" else idx.clamp(0, n - 1)
@@ -687,12 +688,16 @@ def where(condition, x, y):
 
 @register("sort")
 def sort(data, axis=-1, is_ascend=True):
+    if axis is None:   # the flattened array, as jnp.sort(axis=None)
+        data, axis = data.reshape(-1), 0
     out = torch.sort(data, dim=axis, stable=True).values
     return out if is_ascend else torch.flip(out, dims=(axis,))
 
 
 @register("argsort")
 def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
+    if axis is None:
+        data, axis = data.reshape(-1), 0
     out = torch.argsort(data, dim=axis, stable=True)
     if not is_ascend:
         out = torch.flip(out, dims=(axis,))
@@ -701,15 +706,25 @@ def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
 
 @register("topk", num_outputs=-1)
 def topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False, dtype="float32"):
+    """The k largest (smallest with ``is_ascend``) along ``axis``; among
+    equal values the lower index comes first, as ``lax.top_k`` gives them.
+    The mask marks what the JAX package's stable ascending argsort puts
+    last (first with ``is_ascend``): among equal values, the higher
+    indices for the largest."""
     ax = axis % data.ndim
-    vals, idxs = torch.topk(data, k, dim=ax, largest=not is_ascend,
-                            sorted=True)
+    if ret_typ == "mask":
+        order = torch.argsort(data, dim=ax, stable=True)
+        n = data.shape[ax]
+        pick = order.narrow(ax, 0, k) if is_ascend \
+            else order.narrow(ax, n - k, k)
+        return (torch.zeros_like(data).scatter_(ax, pick, 1),)
+    vals, idxs = torch.sort(data, dim=ax, descending=not is_ascend,
+                            stable=True)
+    vals, idxs = vals.narrow(ax, 0, k), idxs.narrow(ax, 0, k)
     if ret_typ == "value":
         return (vals,)
     if ret_typ == "both":
         return (vals, idxs.to(torch_dtype(dtype)))
-    if ret_typ == "mask":
-        return (torch.zeros_like(data).scatter_(ax, idxs, 1),)
     return (idxs.to(torch_dtype(dtype)),)
 
 

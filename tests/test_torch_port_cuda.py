@@ -3,7 +3,9 @@ the four conv-epilogue kernels, the three flash-attention kernels, the
 three LSTM kernels) against its plain PyTorch version on the same card
 tensors, the generation engine on the card against the full-sequence
 forward, a ResNet, a BERT and a word-LM training step on the card
-against the same step on the CPU, and ``mx.rtc`` (NVRTC-compiled CUDA C++
+against the same step on the CPU, the word LM's step through the Gluon
+façade (``record()`` / ``backward()`` / ``gluon.Trainer``) on the card
+against the CPU, and ``mx.rtc`` (NVRTC-compiled CUDA C++
 launched on ``mx.nd`` arrays) with ``mx.nd`` on the card against the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
@@ -20,7 +22,8 @@ import torch
 import threading
 
 from chip_smoke import (RTC_CASES, RTC_SOFTMAX, RTC_SOFTMAX_EXPORTS,
-                        RTC_TEMPLATED_AXPY, rtc_close, rtc_kernels,
+                        RTC_TEMPLATED_AXPY, facade_lm_step,
+                        facade_step_errors, rtc_close, rtc_kernels,
                         rtc_planted_faults, rtc_scale, rtc_softmax,
                         softmax_bwd_plain, softmax_plain)
 from mxnet_tpu_torch import initializer
@@ -774,6 +777,26 @@ def test_word_lm_step_on_card_matches_cpu():
         _close(v.cpu(), want[k], 1e-4, k, scale=big)
         _close(v.cpu() - before[k], want[k] - before[k], 1e-4,
                "change of " + k, scale=big)
+
+
+@pytest.mark.cuda
+def test_facade_word_lm_step_on_card_matches_cpu():
+    """One f32 step of the small word LM (vocab 1000, 2 x 650) through the
+    Gluon façade, `chip_smoke.facade_lm_step`: on the card (TF32 off) the
+    LSTM layers launch the forward and backward kernels once each a layer
+    and never the inference kernel; the loss, every Parameter.grad() and
+    every updated parameter equal the CPU step's (`facade_step_errors`,
+    the word-LM step's tolerance)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {n: getattr(tpk, n).launches for n in _LSTM_NAMES}
+    card = facade_lm_step(torch, 5, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    assert {n: getattr(tpk, n).launches - launches[n]
+            for n in _LSTM_NAMES} == {"lstm_infer": 0, "lstm_fwd": 2,
+                                      "lstm_bwd": 2}
+    cpu = facade_lm_step(torch, 5, torch.device("cpu"))
+    facade_step_errors(torch, card, cpu)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Four faults of the port against the JAX package, each held at the input
-that showed it, on the CPU:
+"""Faults of the port against the JAX package, each held at the input that
+showed it, on the CPU:
 
 1. ``ops/nn.py:pooling`` with ``pooling_convention="full"`` keeps MXNet's
    ceil((H + 2 p - k) / s) + 1 windows, a last window that starts in the
@@ -13,6 +13,17 @@ that showed it, on the CPU:
 4. ``nd.softmax(x, length=l)`` binds ``l`` by name. The JAX package's
    generated function fails on the same call, so the port's ``nd`` is held
    against the JAX op.
+5. ``nd.take(x, idx, axis=-1)`` takes along the last axis (it raised).
+6. ``nd.sort`` / ``nd.argsort`` with ``axis=None`` sort the flattened array
+   (they raised).
+7. ``nd.topk`` puts the lower index first among equal values, as
+   ``lax.top_k``, both ways, and its mask marks what the JAX package's
+   stable argsort picks.
+8. NDArray indexing with a negative step reads and writes numpy's elements
+   (it raised).
+9. ``SoftmaxCrossEntropyLoss`` clips a label outside [0, K) as ``pick``
+   does (it raised).
+10. ``NDArray.detach`` cuts the array from the graph.
 
 Float results within 1e-6 relative and absolute (both sides compute in f32
 from the same inputs); integer results and shapes exactly.
@@ -23,9 +34,11 @@ import torch
 
 import jax.numpy as jnp
 
+import mxnet_tpu as mx_j
 import mxnet_tpu.ops as jops
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import nd
+from mxnet_tpu_torch import autograd, nd
+from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch import ops as tops
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.ops import nn as tnn_ops
@@ -157,3 +170,143 @@ def test_nd_softmax_length_by_keyword_matches_jax_op(attrs):
                      **attrs).asnumpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     assert (got[0, 2:] == 0).all() and (got[2, 1:] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# 5. take along axis -1
+# ---------------------------------------------------------------------------
+
+_X234 = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+
+
+@pytest.mark.parametrize("mode", ["clip", "wrap"])
+@pytest.mark.parametrize("idx", [[1, 0], [[0, 2], [1, -1]]])
+@pytest.mark.parametrize("axis", [-1, -2, -3])
+def test_take_negative_axis_matches_jax(axis, idx, mode):
+    i = np.array(idx, np.float32)
+    want = mx_j.nd.take(mx_j.nd.array(_X234), mx_j.nd.array(i), axis=axis,
+                        mode=mode).asnumpy()
+    got = nd.take(nd.array(_X234, ctx=CPU), nd.array(i, ctx=CPU), axis=axis,
+                  mode=mode).asnumpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# 6. sort / argsort of the flattened array
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["sort", "argsort"])
+@pytest.mark.parametrize("is_ascend", [True, False])
+def test_sort_axis_none_matches_jax(op, is_ascend):
+    x = np.random.RandomState(5).permutation(24).astype(np.float32) \
+        .reshape(2, 3, 4)
+    want = getattr(mx_j.nd, op)(mx_j.nd.array(x), axis=None,
+                                is_ascend=is_ascend).asnumpy()
+    got = getattr(nd, op)(nd.array(x, ctx=CPU), axis=None,
+                          is_ascend=is_ascend).asnumpy()
+    assert got.shape == want.shape == (24,)
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# 7. topk among equal values
+# ---------------------------------------------------------------------------
+
+_TIES = np.array([[1, 3, 3, 3, 0, 3], [2, 2, 2, 2, 2, 2]], np.float32)
+
+
+def _ties_wide(dtype):
+    rng = np.random.RandomState(7)
+    return rng.randint(0, 4, (2, 120)).astype(np.float32), dtype
+
+
+@pytest.mark.parametrize("ret_typ", ["indices", "value", "both", "mask"])
+@pytest.mark.parametrize("is_ascend", [False, True])
+@pytest.mark.parametrize("case", ["ties", "wide-float32", "wide-bfloat16"])
+def test_topk_ties_match_jax(case, is_ascend, ret_typ):
+    x, dtype = (_TIES, "float32") if case == "ties" \
+        else _ties_wide(case.split("-")[1])
+    k = 2 if case == "ties" else 7
+    want = mx_j.nd.topk(mx_j.nd.array(x, dtype=dtype), k=k,
+                        ret_typ=ret_typ, is_ascend=is_ascend)
+    got = nd.topk(nd.array(x, ctx=CPU, dtype=dtype), k=k, ret_typ=ret_typ,
+                  is_ascend=is_ascend)
+    want = want if isinstance(want, list) else [want]
+    got = got if isinstance(got, list) else [got]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.asnumpy(), w.asnumpy())
+    if case == "ties" and ret_typ == "indices" and not is_ascend:
+        np.testing.assert_array_equal(got[0].asnumpy(), [[1, 2], [0, 1]])
+
+
+# ---------------------------------------------------------------------------
+# 8. negative steps in NDArray indexing
+# ---------------------------------------------------------------------------
+
+_X453 = np.arange(60, dtype=np.float32).reshape(4, 5, 3)
+_NEG_KEYS = [slice(None, None, -1), (slice(None), slice(None, None, -2)),
+             slice(3, 1, -1), (Ellipsis, slice(None, None, -1)),
+             (1, slice(4, None, -3), None), (slice(2, None, -1), 0),
+             slice(0, 2, -1)]
+
+
+@pytest.mark.parametrize("key", _NEG_KEYS, ids=repr)
+def test_negative_step_read_matches_jax(key):
+    want = mx_j.nd.array(_X453)[key].asnumpy()
+    got = nd.array(_X453, ctx=CPU)[key].asnumpy()
+    np.testing.assert_array_equal(want, _X453[key])
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("key", _NEG_KEYS[:4], ids=repr)
+def test_negative_step_write_matches_jax(key):
+    value = -1 - np.arange(_X453[key].size, dtype=np.float32) \
+        .reshape(_X453[key].shape)
+    j = mx_j.nd.array(_X453)
+    j[key] = mx_j.nd.array(value)
+    t = nd.array(_X453, ctx=CPU)
+    t[key] = nd.array(value, ctx=CPU)
+    np.testing.assert_array_equal(t.asnumpy(), j.asnumpy())
+
+
+# ---------------------------------------------------------------------------
+# 9. SoftmaxCrossEntropyLoss with labels outside [0, K)
+# ---------------------------------------------------------------------------
+
+def test_softmax_ce_clips_labels_as_jax():
+    pred = np.random.RandomState(9).normal(size=(4, 5)).astype(np.float32)
+    label = np.array([-1, 1, 2, 5], np.float32)
+    want = mx_j.gluon.loss.SoftmaxCrossEntropyLoss()(
+        mx_j.nd.array(pred), mx_j.nd.array(label)).asnumpy()
+    got = tloss.SoftmaxCrossEntropyLoss()(
+        nd.array(pred, ctx=CPU), nd.array(label, ctx=CPU)).asnumpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    clipped = tloss.SoftmaxCrossEntropyLoss()(
+        nd.array(pred, ctx=CPU), nd.array([0, 1, 2, 4], ctx=CPU)).asnumpy()
+    np.testing.assert_array_equal(got, clipped)
+
+
+# ---------------------------------------------------------------------------
+# 10. detach stops the gradient
+# ---------------------------------------------------------------------------
+
+def test_detach_stops_the_gradient():
+    x = nd.array([1.0, 2.0, 3.0], ctx=CPU)
+    x.attach_grad()
+    with autograd.record():
+        y = x * x
+        z = (y.detach() * x + y).sum()
+    z.backward()
+    # d/dx (y_const * x + x^2) = y + 2x, with y = x^2 held constant
+    np.testing.assert_allclose(x.grad.asnumpy(), [3.0, 8.0, 15.0])
+    assert not y.detach()._data.requires_grad
+    jx = mx_j.nd.array([1.0, 2.0, 3.0])
+    jx.attach_grad()
+    with mx_j.autograd.record():
+        jy = jx * jx
+        jz = (jy.detach() * jx + jy).sum()
+    jz.backward()
+    np.testing.assert_allclose(x.grad.asnumpy(), jx.grad.asnumpy())

@@ -436,11 +436,19 @@ def test_softmax_length_matches_jax_op():
 
 def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     """157 ops under 228 names from ops/tensor.py, plus softmax and
-    log_softmax; each alias resolves to the op its JAX alias names."""
+    log_softmax, and the 17 updates of ops/optimizer_ops.py under 19 names;
+    each alias resolves to the op its JAX alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
-    assert sorted(tops.list_ops()) == sorted(names + ["softmax",
-                                                      "log_softmax"])
+    opt = sorted(n for n, o in jops._REGISTRY.items()
+                 if o.fn.__module__ == "mxnet_tpu.ops.optimizer_ops")
+    assert len(opt) == 19
+    assert len({jops._REGISTRY[n].name for n in opt}) == 17
+    assert sorted(tops.list_ops()) == sorted(names + opt + ["softmax",
+                                                            "log_softmax"])
+    for n in opt:
+        assert tops.get(n).name == jops._REGISTRY[n].name, n
+        assert callable(getattr(nd, n))
     assert sorted(SPECS) == sorted(primaries + ["softmax", "log_softmax"])
     for n in names:
         assert tops.get(n).name == jops._REGISTRY[n].name, n
@@ -678,6 +686,15 @@ def test_dlpack_shares_memory_and_autograd_is_not_ported():
     back = torch.utils.dlpack.from_dlpack(nd.to_dlpack_for_write(x))
     back += 10
     np.testing.assert_array_equal(x.asnumpy(), [10, 11, 12, 13])
-    for f in (x.attach_grad, x.backward, lambda: x.grad):
-        with pytest.raises(MXNetError, match="not ported yet"):
-            f()
+    # autograd is ported now: an integer array has no gradient, and a float
+    # one shared through DLPack takes one over the same storage
+    with pytest.raises(MXNetError, match="no gradient"):
+        x.attach_grad()
+    f = nd.from_dlpack(torch.arange(4, dtype=torch.float32))
+    f.attach_grad()
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record():
+        y = (f * f).sum()
+    y.backward()
+    np.testing.assert_array_equal(f.grad.asnumpy(), [0, 2, 4, 6])

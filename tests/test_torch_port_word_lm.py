@@ -180,11 +180,22 @@ def test_gluon_layers_match_jax(pallas_lstm, kind, bidir, layout):
 
 
 def test_gluon_layer_contract():
-    with pytest.raises(MXNetError, match="input_size"):
-        trnn.LSTM(8, device="cpu")
-    with pytest.raises(MXNetError, match="initializer"):
-        trnn.LSTM(8, input_size=4, i2h_weight_initializer="uniform",
-                  device="cpu")
+    # input_size 0 is taken from the first input (deferred initialisation)
+    layer = trnn.LSTM(8, device="cpu")
+    assert layer.l0_i2h_weight is None and layer.l0_h2h_weight.shape == (
+        32, 8)
+    layer.initialize(ctx="cpu")
+    layer(torch.zeros(3, 2, 5))
+    assert layer.l0_i2h_weight.shape == (32, 5)
+    # each parameter's own initializer wins over initialize's
+    layer = trnn.LSTM(8, input_size=4, i2h_weight_initializer="uniform",
+                      h2h_bias_initializer="lstmbias", device="cpu")
+    layer.initialize("xavier", seed=0)
+    with torch.no_grad():
+        assert float(layer.l0_i2h_weight.abs().max()) <= 0.07
+        assert float(layer.l0_h2h_weight.abs().max()) > 0.07
+        np.testing.assert_array_equal(
+            layer.l0_h2h_bias.numpy(), np.repeat([0.0, 1.0, 0.0, 0.0], 8))
     with pytest.raises(MXNetError, match="layout"):
         trnn.GRU(8, input_size=4, layout="NCT", device="cpu")
     layer = trnn.LSTM(8, num_layers=2, input_size=4, device="cpu")
