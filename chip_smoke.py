@@ -126,7 +126,30 @@ Phases; each raises on failure, and the script then exits non-zero:
    Then the same small word LM's step through the Gluon façade
    (``record()``, ``backward()``, ``gluon.Trainer`` SGD) on the card and
    on the CPU: the loss, every ``Parameter.grad()`` and every updated
-   parameter, at the word-LM step's tolerance.
+   parameter, at the word-LM step's tolerance. Then one f32 symbolic step
+   (``Module`` ``forward_backward`` and SGD ``update``) of a small
+   FusedRNNCell LM (the LSTM kernels) and of a conv -> BatchNorm ->
+   Pooling -> FC net (BatchNorm's conv-epilogue kernels) on the card
+   against the CPU: every output, gradient, argument and aux state within
+   rtol 1e-4.
+6. symbolic (run before the parity phase): the word LM at the same width
+   through ``mx.sym`` / ``mx.mod`` / ``mx.rnn``, as the reference's
+   cudnn_lstm_bucketing.py builds it: a ``BucketingModule`` over
+   Embedding(10000, 650) -> FusedRNNCell(650, 2 layers) (the ``RNN`` op,
+   time-major) -> FullyConnected(10000) -> SoftmaxOutput, 19,780,400 f32
+   parameters (Xavier and FusedRNN from ``--seed``), SGD lr 1.0 through
+   ``Module.init_optimizer``, ``BucketSentenceIter`` batches of 32
+   sentences from a chain where each token has 4 successors, buckets 10,
+   20 and 35: ``fit`` over 2 warm-up batches, then the LSTM launch counts
+   set to 0 and ``fit`` over 12 timed batches (perplexity finite and
+   falling; lstm_fwd and lstm_bwd 2 x 12 launches, lstm_infer none); then
+   ``score`` with ``Perplexity`` over 4 batches at bucket 35 (lstm_infer
+   2 x 4, nothing else); then ``save_checkpoint`` and ``Module.load`` of
+   the default bucket, whose outputs over those batches must equal the
+   trained module's bit for bit. Prints tokens/s and ms a batch at bucket
+   35 and over the fit, the score's tokens/s, perplexities and peak
+   allocated bytes; ``--profile`` adds the device busy share of a bucket-35
+   batch and its split (LSTM, GEMM, loss, optimizer, rest).
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -2208,18 +2231,25 @@ def seq_ce(gloss):
 
 
 def profile_word_lm(torch, trainer, x, y, step_ms, steps=3):
-    """`torch.profiler` over ``steps`` word-LM steps: the device busy share
-    against ``step_ms`` (timed without the profiler) and device time by
-    group: the LSTM kernels and the GEMMs by kernel name, the loss
-    (log-softmax and its gather, both ways) by kernel name, the optimizer
-    by the trainer's ``trainer.optimizer`` range, and the rest."""
+    """`lstm_profile` over ``steps`` word-LM steps."""
+    lstm_profile(torch, lambda: [trainer.step(x, y) for _ in range(steps)],
+                 steps, "profile word-LM step (bf16, %d x %d tokens, %d "
+                 "steps)" % (x.shape[0], x.shape[1], steps), step_ms)
+
+
+def lstm_profile(torch, run, steps, label, step_ms):
+    """`torch.profiler` over ``run()``, ``steps`` steps of an LSTM model:
+    the device busy share against ``step_ms`` (timed without the profiler)
+    and device time by group: the LSTM kernels and the GEMMs by kernel
+    name, the loss (softmax, log-softmax and their gathers, both ways) by
+    kernel name, the optimizer by a ``trainer.optimizer`` range, and the
+    rest."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            trainer.step(x, y)
+        run()
         torch.cuda.synchronize()
     kernels, optimizer = {}, 0.0
     for ev in prof.events():
@@ -2254,12 +2284,11 @@ def profile_word_lm(torch, trainer, x, y, step_ms, steps=3):
                 break
     shares["optimizer"] = optimizer / steps
     shares["rest"] = busy - sum(shares.values())
-    log("profile word-LM step (bf16, %d x %d tokens, %d steps): device busy "
-        "%.3f ms a step = %.1f%% of the %.2f ms step timed without the "
-        "profiler; %s" % (x.shape[0], x.shape[1], steps, busy,
-                          100.0 * busy / step_ms, step_ms,
-                          "; ".join("%s %.3f ms" % kv
-                                    for kv in shares.items())))
+    log("%s: device busy %.3f ms a step = %.1f%% of the %.2f ms step timed "
+        "without the profiler; %s" % (label, busy, 100.0 * busy / step_ms,
+                                      step_ms, "; ".join(
+                                          "%s %.3f ms" % kv
+                                          for kv in shares.items())))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     for key, (ms, count) in top:
         log("  %8.3f ms  x%-4d %s" % (ms / steps, count // steps, key[:100]))
@@ -2772,6 +2801,341 @@ def facade_parity(torch, args):
            grad, param))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the symbolic path (mx.sym, Module / BucketingModule, mx.rnn) on
+# the word LM, as example/rnn/bucketing/cudnn_lstm_bucketing.py trains it
+# ---------------------------------------------------------------------------
+
+# buckets (sequence lengths, 35 the default); batches: warm-up, timed
+# (4 of each bucket, in the iterator's shuffled order), score (bucket 35)
+SYM_BUCKETS = (10, 20, 35)
+SYM_WARMUP_PLAN = (35, 10)
+SYM_STEPS, SYM_EVAL = 12, 4
+SYM_LR = 1.0
+# BucketSentenceIter's default padding label: the label of each sentence's
+# last step, which SoftmaxOutput's one-hot leaves at zero and the metric
+# ignores
+SYM_INVALID = -1
+
+
+def symbolic_sentences(rng, succ, plan):
+    """LM_BATCH sentences for each bucket length in ``plan``: walks of the
+    Markov chain ``succ`` (each token has FACADE_SUCCESSORS successors)
+    from random tokens, exactly as long as their bucket."""
+    out = []
+    for length in plan:
+        for _ in range(LM_BATCH):
+            tok = [int(rng.randint(LM_VOCAB))]
+            for _ in range(length - 1):
+                tok.append(int(succ[tok[-1], rng.randint(FACADE_SUCCESSORS)]))
+            out.append(tok)
+    return out
+
+
+def symbolic_iters(seed):
+    """`BucketSentenceIter`s (time-major, "TN") of the warm-up, timed and
+    score batches, over one chain drawn from the seed."""
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(seed + 12)
+    succ = rng.randint(0, LM_VOCAB, (LM_VOCAB, FACADE_SUCCESSORS))
+    timed = tuple(b for b in SYM_BUCKETS
+                  for _ in range(SYM_STEPS // len(SYM_BUCKETS)))
+
+    def it(plan):
+        return mx.rnn.BucketSentenceIter(
+            symbolic_sentences(rng, succ, plan), LM_BATCH,
+            buckets=list(SYM_BUCKETS), invalid_label=SYM_INVALID,
+            layout="TN")
+
+    return it(SYM_WARMUP_PLAN), it(timed), it((35,) * SYM_EVAL)
+
+
+def symbolic_word_lm(torch, pk, args):
+    """The word LM at bench_lstm's width through the symbolic API: a
+    `BucketingModule` over `train_lstm_bucketing.lm_sym_gen`
+    (Embedding(10000, 650) -> FusedRNNCell(650, 2 layers).unroll(layout
+    "TNC") -> Reshape -> FullyConnected(10000) -> SoftmaxOutput), 19,780,400
+    f32 parameters (Xavier and the FusedRNN initializer from the seed), SGD
+    lr SYM_LR through `Module.init_optimizer` (its rescale_grad is
+    1 / data_shapes[0][1][0], 1/35 for time-major data), fed by
+    `BucketSentenceIter` at batch 32 and buckets 10, 20 and 35: `fit` over
+    2 warm-up batches, then the LSTM launch counts set to 0 and `fit` over
+    12 timed batches; then the counts set to 0 and `score` with
+    `Perplexity` over 4 batches at bucket 35. Then `save_checkpoint` and
+    `Module.load` of the default bucket, whose outputs over those 4 batches
+    must equal the trained module's bit for bit. Returns the launch counts
+    of `fit` and of `score`."""
+    import random
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.train_lstm_bucketing import lm_sym_gen
+
+    dev = mx.gpu(0)
+    mx.random.seed(args.seed)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    t0 = time.monotonic()
+    with mx.context.scope(dev):
+        warm_it, timed_it, eval_it = symbolic_iters(args.seed)
+        bm = mx.mod.BucketingModule(
+            lm_sym_gen(LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, fused=True,
+                       layout="TNC"),
+            default_bucket_key=max(SYM_BUCKETS), context=dev)
+        record = []   # (bucket, end time, the batch's perplexity)
+
+        def batch_end(param):
+            b = param.locals["data_batch"]
+            m = mx.metric.Perplexity(SYM_INVALID)
+            m.update(b.label, bm.get_outputs())
+            record.append((b.bucket_key, time.perf_counter(), m.get()[1]))
+
+        def fit(it):
+            bm.fit(it, eval_metric=mx.metric.Perplexity(SYM_INVALID),
+                   optimizer="sgd",
+                   optimizer_params={"learning_rate": SYM_LR},
+                   initializer=mx.init.Xavier(), num_epoch=1,
+                   batch_end_callback=batch_end)
+
+        fit(warm_it)
+        torch.cuda.synchronize()
+        n_params = sum(int(np.prod(a.shape))
+                       for a in bm.get_params()[0].values())
+        if n_params != LM_PARAMS:
+            raise AssertionError("symbolic LM has %d parameters, not %d"
+                                 % (n_params, LM_PARAMS))
+        warm = [r[2] for r in record]
+        log("symbolic: word LM BucketingModule(FusedRNNCell(%d, %d layers)), "
+            "%d parameters, f32, buckets %s, SGD lr %g (rescale_grad 1/%d); "
+            "%d warm-up batches in %.2f s, perplexities %s"
+            % (LM_UNITS, LM_LAYERS, n_params, list(SYM_BUCKETS), SYM_LR,
+               max(SYM_BUCKETS), len(warm), time.monotonic() - t0,
+               ["%.1f" % v for v in warm]))
+        torch.cuda.reset_peak_memory_stats()
+        for k in LSTM_KERNELS:   # the symbolic training path's counts
+            getattr(pk, k).launches = 0
+        del record[:]
+        t0 = time.perf_counter()
+        fit(timed_it)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fit_launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        ppls = np.asarray([r[2] for r in record])
+        if not np.isfinite(np.asarray(warm + list(ppls))).all():
+            raise AssertionError("non-finite symbolic perplexity: %s" % ppls)
+        if not ppls[-1] < ppls[0]:
+            raise AssertionError("symbolic perplexity did not fall over the "
+                                 "timed batches: %s" % ppls)
+        want = {"lstm_infer": 0, "lstm_fwd": LM_LAYERS * SYM_STEPS,
+                "lstm_bwd": LM_LAYERS * SYM_STEPS}
+        if fit_launches != want:
+            raise AssertionError("symbolic fit launches %s, not %s"
+                                 % (fit_launches, want))
+        ends = [t0] + [r[1] for r in record]
+        b35 = [ends[i + 1] - ends[i] for i, r in enumerate(record)
+               if r[0] == 35]
+        ms35 = 1e3 * float(np.mean(b35))
+        tokens = sum(r[0] * LM_BATCH for r in record)
+        log("  fit: %d timed batches (buckets %s) in %.3f s: %.1f tokens/s, "
+            "%.2f ms a batch; bucket 35: %.2f ms a batch, %.1f tokens/s (%d "
+            "batches); peak allocated %d bytes (%s); perplexities %s; "
+            "launches %s"
+            % (len(record), [r[0] for r in record], wall, tokens / wall,
+               1e3 * wall / len(record), ms35, 35 * LM_BATCH / ms35 * 1e3,
+               len(b35), peak, smi_line(), ["%.1f" % v for v in ppls],
+               json.dumps(fit_launches)))
+        for k in LSTM_KERNELS:   # the symbolic evaluation's counts
+            getattr(pk, k).launches = 0
+        t0 = time.perf_counter()
+        score = dict(bm.score(eval_it, mx.metric.Perplexity(SYM_INVALID)))
+        torch.cuda.synchronize()
+        eval_wall = time.perf_counter() - t0
+        score_launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+        want = {"lstm_infer": LM_LAYERS * SYM_EVAL, "lstm_fwd": 0,
+                "lstm_bwd": 0}
+        if score_launches != want:
+            raise AssertionError("symbolic score launches %s, not %s"
+                                 % (score_launches, want))
+        if not np.isfinite(score["perplexity"]):
+            raise AssertionError("symbolic score perplexity %s" % score)
+        log("  score: %d batches at bucket 35 in %.3f s, %.1f tokens/s, "
+            "perplexity %.3f (uniform would be %d); launches %s"
+            % (SYM_EVAL, eval_wall, SYM_EVAL * 35 * LM_BATCH / eval_wall,
+               score["perplexity"], LM_VOCAB, json.dumps(score_launches)))
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "lm")
+            bm.save_checkpoint(prefix, 0)
+            loaded = mx.mod.Module.load(prefix, 0, context=dev)
+            loaded.bind(eval_it.provide_data, eval_it.provide_label,
+                        for_training=False)
+            loaded.init_params()
+        # one pass over the score batches (a reset reshuffles them)
+        eval_it.reset()
+        metrics = [mx.metric.Perplexity(SYM_INVALID) for _ in range(2)]
+        for b in eval_it:
+            for m, module in zip(metrics, (bm, loaded)):
+                module.forward(b, is_train=False)
+                module.update_metric(m, b.label)
+            if not torch.equal(bm.get_outputs()[0]._data,
+                               loaded.get_outputs()[0]._data):
+                raise AssertionError("symbolic checkpoint: the reloaded "
+                                     "module's outputs differ")
+        if metrics[0].get() != metrics[1].get():
+            raise AssertionError("symbolic checkpoint: score %s, not %s"
+                                 % (metrics[1].get(), metrics[0].get()))
+        log("  checkpoint: save_checkpoint, then Module.load of the default "
+            "bucket: its outputs over the %d score batches equal the trained "
+            "module's bit for bit; perplexity %r both"
+            % (SYM_EVAL, metrics[1].get()[1]))
+        if args.profile:
+            timed_it.reset()
+            batches = [b for b in timed_it if b.bucket_key == 35][:3]
+            lstm_profile(torch, lambda: fit_body(torch, bm, batches),
+                         len(batches), "  profile symbolic batch (f32, "
+                         "bucket 35, %d batches)" % len(batches), ms35)
+    return fit_launches, score_launches
+
+
+def fit_body(torch, bm, batches):
+    """`BaseModule.fit`'s loop body over ``batches`` (forward_backward,
+    update, update_metric), the update inside a ``trainer.optimizer``
+    range for `lstm_profile`."""
+    import mxnet_tpu_torch as mx
+
+    ppl = mx.metric.Perplexity(SYM_INVALID)
+    for b in batches:
+        bm.forward_backward(b)
+        with torch.profiler.record_function("trainer.optimizer"):
+            bm.update()
+        bm.update_metric(ppl, b.label)
+
+
+def module_step(torch, mod, seed, batch):
+    """Initialise the bound ``mod`` (Xavier from ``seed``, drawn on the
+    host, so the same weights on every device), then one training
+    `forward_backward` and SGD `update` (lr 0.1) on ``batch``. Returns host
+    tensors by name: the outputs, the parameters' gradients, and the
+    arguments and aux states before and after the step."""
+    import mxnet_tpu_torch as mx
+
+    def host(arrays):
+        return {k: torch.from_numpy(v.asnumpy()) for k, v in arrays.items()}
+
+    mx.random.seed(seed)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1})
+    ex = mod._exec
+    before = host(dict(ex.arg_dict, **ex.aux_dict))
+    mod.forward_backward(batch)
+    outs = host(dict(zip(mod.output_names, mod.get_outputs())))
+    grads = host({k: ex.grad_dict[k] for k in mod._param_names})
+    mod.update()
+    after = host(dict(ex.arg_dict, **ex.aux_dict))
+    return outs, grads, before, after
+
+
+def symbolic_lm_step(torch, seed, device):
+    """`module_step` of a small FusedRNNCell LM (vocab 50, embedding 16,
+    2 x 16 units; `lm_sym_gen` time-major) on a 6 x 4 batch on ``device``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.train_lstm_bucketing import lm_sym_gen
+
+    rng = np.random.RandomState(seed + 13)
+    x = rng.randint(1, 50, (6, 4)).astype(np.float32)
+    y = rng.randint(0, 50, (6, 4)).astype(np.float32)
+    net, data_names, label_names = lm_sym_gen(50, 16, 16, 2, fused=True,
+                                              layout="TNC")(6)
+    with mx.context.scope(device):
+        mod = mx.mod.Module(net, data_names, label_names, context=device)
+        mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+        return module_step(torch, mod, seed, DataBatch([mx.nd.array(x)],
+                                                       [mx.nd.array(y)]))
+
+
+def symbolic_conv_step(torch, seed, device):
+    """`module_step` of Convolution(3 x 3, 8, no bias) -> BatchNorm -> relu ->
+    Pooling(max 2 x 2) -> FullyConnected(10) -> SoftmaxOutput on a
+    (4, 3, 8, 8) batch on ``device``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import DataBatch
+
+    sym = mx.sym
+    rng = np.random.RandomState(seed + 14)
+    x = rng.randn(4, 3, 8, 8).astype(np.float32)
+    y = rng.randint(0, 10, (4,)).astype(np.float32)
+    # no bias before the BatchNorm: its gradient is zero up to rounding
+    net = sym.Convolution(sym.var("data"), kernel=(3, 3), pad=(1, 1),
+                          num_filter=8, no_bias=True, name="conv")
+    net = sym.BatchNorm(net, fix_gamma=False, name="bn")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    net = sym.FullyConnected(net, num_hidden=10, name="fc")
+    net = sym.SoftmaxOutput(net, name="softmax")
+    with mx.context.scope(device):
+        mod = mx.mod.Module(net, context=device)
+        mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+        return module_step(torch, mod, seed, DataBatch([mx.nd.array(x)],
+                                                       [mx.nd.array(y)]))
+
+
+def module_step_errors(torch, card, cpu, what, tol=1e-4):
+    """Holds `module_step`'s card results to the CPU's, as
+    `facade_step_errors`: every output and gradient (a floor of tol x
+    max|CPU value|), every argument and aux state after the step and the
+    change the step made (a floor of tol x the step's largest change).
+    Returns the largest errors of the outputs, gradients and arguments."""
+    for k, w in cpu[2].items():
+        if not torch.equal(card[2][k], w):
+            raise AssertionError("%s: %s starts differently" % (what, k))
+    out = max(max_err(torch, card[0][k], w, tol, "%s output %s" % (what, k))
+              for k, w in cpu[0].items())
+    grad = max(max_err(torch, card[1][k], w, tol,
+                       "%s grad of %s" % (what, k))
+               for k, w in cpu[1].items())
+    big = max(float((cpu[3][k] - cpu[2][k]).abs().max()) for k in cpu[3])
+    arg = 0.0
+    for k, w in cpu[3].items():
+        arg = max(arg, max_err(torch, card[3][k], w, tol,
+                               "%s step: %s" % (what, k), scale=big))
+        max_err(torch, card[3][k] - cpu[2][k], w - cpu[2][k], tol,
+                "%s step, change of %s" % (what, k), scale=big)
+    return out, grad, arg
+
+
+SYMBOLIC_STEPS = (
+    ("small FusedRNNCell LM (vocab 50, 2 x 16)", symbolic_lm_step,
+     ("lstm_fwd", "lstm_bwd")),
+    ("conv -> BatchNorm -> Pooling -> FC net", symbolic_conv_step,
+     tuple(EPI_KERNELS)))
+
+
+def symbolic_parity(torch, pk, args):
+    """Each of SYMBOLIC_STEPS on the card (its kernels, which must launch;
+    TF32 off) against the same step on the CPU (plain versions), held
+    together by `module_step_errors`."""
+    for name, step, kernels in SYMBOLIC_STEPS:
+        for k in kernels:
+            getattr(pk, k).launches = 0
+        card = step(torch, args.seed, torch.device("cuda", 0))
+        launched = {k: getattr(pk, k).launches for k in kernels}
+        if min(launched.values()) < 1:
+            raise AssertionError("symbolic %s step on the card launched %s"
+                                 % (name, launched))
+        cpu = step(torch, args.seed, torch.device("cpu"))
+        out, grad, arg = module_step_errors(torch, card, cpu,
+                                            "symbolic " + name)
+        log("parity: one f32 symbolic step (Module forward_backward, SGD "
+            "update) of the %s on the card equals the CPU step (%d "
+            "outputs, %d gradients, %d arguments and aux states; max abs "
+            "err %.3g in the outputs, %.3g in the gradients, %.3g after the "
+            "step); launches %s" % (name, len(cpu[0]), len(cpu[1]),
+                                    len(cpu[3]), out, grad, arg,
+                                    json.dumps(launched)))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2855,6 +3219,9 @@ def main(argv=None):
     del lm
     torch.cuda.empty_cache()
     facade_word_lm(torch, pk, args)
+    torch.cuda.empty_cache()
+    symbolic_word_lm(torch, pk, args)
+    torch.cuda.empty_cache()
     for k in KERNELS:
         if launches[k["name"]] < 1:
             raise AssertionError("%s never launched on its main path"
@@ -2863,6 +3230,7 @@ def main(argv=None):
     bert_parity(torch, args)
     word_lm_parity(torch, args)
     facade_parity(torch, args)
+    symbolic_parity(torch, pk, args)
 
     kernels = []
     for k in KERNELS:

@@ -18,7 +18,12 @@ package's ``ops/tensor.py`` plus ``softmax`` / ``log_softmax``) with
 and the imperative Gluon training path: ``autograd`` (the tape over
 torch.autograd), ``gluon`` (``Parameter``, ``Block``, ``HybridBlock``,
 ``Trainer``, the layers, losses and utilities), ``optimizer``,
-``lr_scheduler``, ``init`` (``initializer``) and ``metric``.
+``lr_scheduler``, ``init`` (``initializer``) and ``metric``; and the
+symbolic training path: ``sym`` (``symbol``: the graph, its shape
+inference and JSON), ``executor``, ``mod`` (``module``: ``Module`` and
+``BucketingModule``), ``io``, ``rnn`` (the symbolic cells, ``FusedRNNCell``
+over the ``RNN`` op, and ``BucketSentenceIter``), ``model`` and
+``callback``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``); without a card they raise.
 """
@@ -31,6 +36,14 @@ from . import initializer
 from . import initializer as init
 from . import lr_scheduler, metric, optimizer
 from . import gluon
+from . import attribute, name
+from . import symbol
+from . import symbol as sym
+from . import executor, io, model, callback
+from . import module
+from . import module as mod
+from . import rnn
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, current_context, gpu
 from .ndarray import NDArray
@@ -38,4 +51,6 @@ from .ndarray import NDArray
 __all__ = ["MXNetError", "cpu", "gpu", "current_context", "context", "env",
            "random", "telemetry", "ndarray", "nd", "NDArray", "rtc",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
-           "optimizer", "gluon"]
+           "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
+           "sym", "executor", "io", "model", "callback", "module", "mod",
+           "rnn"]

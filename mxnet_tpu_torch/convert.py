@@ -18,10 +18,13 @@ as numpy arrays keyed by gluon auto-names (``resnetv10_conv2d0_weight``,
 ...); `resnet_params_from_jax` maps them onto the port's `ResNetV1`, and
 `bert_params_from_jax` maps a `BERTModel`'s (with or without an output
 head) onto the port's `BERTModel`, and `word_lm_params_from_jax` a word-LM
-`RNNModel`'s onto the port's `RNNModel`.
+`RNNModel`'s onto the port's `RNNModel`. A symbolic `Module`'s
+``get_params()`` needs no renaming: `module_params_from_jax` turns its
+numpy arrays into the port's NDArrays on a device.
 
-Every function returns plain data (a ``state_dict`` of CPU tensors, or a
-dict of numpy arrays); the caller loads it into a module on its device.
+Every function but `module_params_from_jax` returns plain data (a
+``state_dict`` of CPU tensors, or a dict of numpy arrays); the caller loads
+it into a module on its device.
 NDArrays themselves cross as files: `ndarray.save` / `ndarray.load` use
 the JAX package's ``nd.save`` container, both ways.
 """
@@ -36,7 +39,7 @@ from .base import MXNetError
 
 __all__ = ["params_from_jax", "state_from_npz", "npz_from_state",
            "resnet_params_from_jax", "bert_params_from_jax",
-           "word_lm_params_from_jax"]
+           "word_lm_params_from_jax", "module_params_from_jax"]
 
 _DENSE = {"q": "attention.proj_query", "k": "attention.proj_key",
           "v": "attention.proj_value", "o": "attention.proj_out",
@@ -360,3 +363,28 @@ def word_lm_params_from_jax(params):
         raise MXNetError("word-LM parameters missing: %s"
                          % (missing or ["rnn.*"]))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Symbolic Module
+# ---------------------------------------------------------------------------
+
+def module_params_from_jax(arg_params, aux_params, device):
+    """The JAX package's `Module` parameters -> the port's: ``(arg_params,
+    aux_params)`` of NDArrays on ``device``, for `Module.init_params` /
+    `set_params`. ``arg_params`` / ``aux_params``: name -> numpy array (or
+    anything with ``asnumpy``), as ``{k: v.asnumpy() for k, v in
+    mod.get_params()[0].items()}``. Symbolic parameters keep their graph
+    names in both packages (``fc1_weight``, ``lstm_parameters``,
+    ``bn0_moving_mean``), so nothing is renamed; the dtype is kept."""
+    from .ndarray import array
+
+    def move(params):
+        out = {}
+        for k, v in (params or {}).items():
+            a = _np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v)
+            out[k] = array(a, ctx=device, dtype=a.dtype)
+        return out
+
+    return move(arg_params), move(aux_params)
+

@@ -9,7 +9,8 @@ initializer's own rule, ``*bias`` and ``*beta`` 0, ``*gamma`` 1,
 from an explicit `torch.Generator` and copied to the array's device, so a
 seed gives the same weights on every device. They are not the JAX package's
 numbers (it draws from numpy's global state); the rule and its scale are
-the same. ``FusedRNN`` waits for the symbolic ``rnn`` package.
+the same. ``FusedRNN`` fills a `rnn.FusedRNNCell`'s flat parameter vector
+gate by gate.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
            "Constant", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
-           "LSTMBias", "Load", "Mixed", "register", "create", "initialize",
-           "xavier_scale"]
+           "LSTMBias", "FusedRNN", "Load", "Mixed", "register", "create",
+           "initialize", "xavier_scale"]
 
 _REGISTRY = {}
 
@@ -303,6 +304,50 @@ class LSTMBias(Initializer):
 
     _init_bias = _init_weight
     _init_default = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """A `rnn.FusedRNNCell`'s flat parameter vector (reference:
+    initializer.py:702): unpacked into per-gate matrices and biases, each
+    filled by ``init`` (default: the caller's ``global_init`` if the
+    parameter's `InitDesc` has one, else `Uniform`), the LSTM forget-gate
+    biases set to ``forget_bias``, and packed back, as the JAX package
+    does."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            init = create(init)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr, generator):
+        from .ndarray import NDArray
+        from .rnn import rnn_cell
+
+        cell = rnn_cell.FusedRNNCell(
+            self._num_hidden, self._num_layers, self._mode,
+            self._bidirectional, forget_bias=self._forget_bias, prefix="")
+        args = cell.unpack_weights(
+            {"parameters": NDArray(arr.detach().float().cpu().contiguous())})
+        global_init = getattr(desc, "global_init", None)
+        inner = self._init or global_init or Uniform()
+        for name, sub in args.items():
+            if self._mode == "lstm" and name.endswith("_f_bias"):
+                sub._data.fill_(self._forget_bias)
+            else:
+                inner(InitDesc(name, global_init=global_init), sub,
+                      generator)
+        _fill(arr, cell.pack_weights(args)["parameters"]._data)
 
 
 @register

@@ -62,6 +62,22 @@ def _as_numpy(x):
     return _np.asarray(x)
 
 
+def _picked(pred, label):
+    """Row i of ``pred`` (reshaped to (-1, K)) at column ``label[i]`` (a
+    negative label counts from the end, as numpy indexes), float64 on the
+    host. A tensor or NDArray is gathered where it lies, so only these N
+    values leave the card, not the (N, K) prediction."""
+    t = pred._data if hasattr(pred, "_data") else pred
+    if not isinstance(t, torch.Tensor):
+        p = _np.asarray(pred).astype(_np.float64)
+        p = p.reshape(-1, p.shape[-1])
+        return p[_np.arange(label.shape[0]), label]
+    t = t.detach().reshape(-1, t.shape[-1])[:label.shape[0]]
+    idx = torch.from_numpy(label.astype(_np.int64)).to(t.device)
+    return t.gather(1, idx.remainder(t.shape[1])[:, None])[:, 0].double() \
+        .cpu().numpy()
+
+
 class EvalMetric:
     """Base metric (reference: metric.py:68)."""
 
@@ -280,9 +296,7 @@ class Perplexity(EvalMetric):
         num = 0
         for label, pred in zip(labels, preds):
             label = _as_numpy(label).astype(_np.int32).reshape(-1)
-            pred = _as_numpy(pred).astype(_np.float64)
-            pred = pred.reshape(-1, pred.shape[-1])
-            probs = pred[_np.arange(label.shape[0]), label]
+            probs = _picked(pred, label)
             if self.ignore_label is not None:
                 ignore = (label == self.ignore_label)
                 probs = _np.where(ignore, 1.0, probs)

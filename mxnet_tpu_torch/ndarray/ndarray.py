@@ -47,6 +47,7 @@ import torch
 
 from .. import autograd as _autograd
 from .. import ops as _ops
+from .. import random as _random
 from ..base import MXNetError, atomic_writer, np_dtype, numeric_types, \
     torch_dtype
 from ..context import current_context, resolve_device
@@ -574,7 +575,10 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     MXImperativeInvokeEx c_api_ndarray.cc:132 -> Imperative::Invoke
     imperative.cc:89). Outputs go to ``ctx`` if given, else to the first
     input's device, else to `current_context`; each is a contiguous tensor
-    of its own, never a view of an input."""
+    of its own, never a view of an input. An op taking ``is_train`` gets
+    autograd's training mode, one that ``needs_rng`` this thread's
+    generator for the device, and an op's hidden trailing outputs (the
+    aux inputs it updated in place) are not returned."""
     opdef = _ops.get(op_name)
     attrs = {k: v._data if isinstance(v, NDArray) else v
              for k, v in attrs.items() if v is not None or k in ("axis",)}
@@ -585,10 +589,16 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
         dev = resolve_device(ctx)
     else:
         dev = arrays[0].device if arrays else current_context()
+    if _ops.takes_is_train(opdef):
+        attrs.setdefault("is_train", _autograd.is_training())
+    if opdef.needs_rng:
+        attrs.setdefault("generator", _random.generator(dev))
     with _autograd._grad_mode():
         results = _ops.invoke_torch(opdef.name, tensors, attrs)
         results = tuple(results) if isinstance(results, (tuple, list)) \
             else (results,)
+        if opdef.num_outputs > 0:
+            results = results[:opdef.visible_outputs]
         shared = {_storage(t) for t in arrays}
         out_nd = []
         for r in results:

@@ -12,7 +12,14 @@ use:
   (`_bn_act`), log-softmax and softmax cross-entropy;
 * ``mx.nd``: ``softmax`` (with ``temperature`` and ``length``) and
   ``log_softmax``, registered as ops (`mxnet_tpu/ops/nn.py` ``softmax``,
-  ``log_softmax``).
+  ``log_softmax``);
+* ``mx.nd`` and ``mx.sym``: the registered layers ``FullyConnected``,
+  ``Convolution``, ``Pooling``, ``BatchNorm`` (3 outputs, 1 visible),
+  ``Activation`` and ``Dropout`` over the functions above, and the loss
+  heads ``SoftmaxOutput`` / ``Softmax``, ``LinearRegressionOutput``,
+  ``LogisticRegressionOutput``, ``MAERegressionOutput`` and ``MakeLoss``:
+  autograd Functions whose backward ignores the head gradient, as the
+  reference's loss heads do.
 
 Layouts are the JAX package's: a channels-last activation is a logical
 (N, *spatial, C) tensor and its conv weight is (O, *k, I). Convolution and
@@ -35,7 +42,7 @@ __all__ = ["layer_norm", "embedding", "dropout", "dense", "gelu",
            "convolution", "pooling",
            "fully_connected", "activation", "batch_norm", "batch_norm_relu",
            "batch_norm_add_relu", "softmax", "log_softmax",
-           "softmax_cross_entropy"]
+           "softmax_cross_entropy", "softmax_output"]
 
 
 def _ln_fwd(data, gamma, beta, eps):
@@ -94,16 +101,19 @@ def embedding(data, weight):
     return F.embedding(data.long().clamp(0, weight.shape[0] - 1), weight)
 
 
-def dropout(data, p=0.5, is_train=False, generator=None):
+def dropout(data, p=0.5, is_train=False, generator=None, axes=()):
     """Inverted dropout: each element kept with probability ``1 - p`` and
     scaled by ``1 / (1 - p)``, in the input dtype; the identity when
     ``p <= 0`` or not training. The keep mask is drawn from ``generator``
-    (on data's device); it cannot reproduce the JAX package's threefry
-    bits."""
+    (on data's device), one value shared along each of ``axes``; it cannot
+    reproduce the JAX package's threefry bits."""
     if not is_train or p <= 0.0:
         return data
     keep = 1.0 - p
-    mask = torch.rand(data.shape, generator=generator, device=data.device)
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    mask = torch.rand(shape, generator=generator, device=data.device)
     return data * (mask < keep).to(data.dtype) / keep
 
 
@@ -209,11 +219,12 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
 
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
-                "tanh": torch.tanh}
+                "tanh": torch.tanh, "softrelu": F.softplus,
+                "softsign": F.softsign}
 
 
 def activation(data, act_type="relu"):
-    """relu, sigmoid or tanh."""
+    """relu, sigmoid, tanh, softrelu (softplus) or softsign."""
     fn = _ACTIVATIONS.get(act_type)
     if fn is None:
         raise MXNetError("Activation: unsupported act_type %r" % act_type)
@@ -380,3 +391,184 @@ def softmax_cross_entropy(data, label):
     ``log_softmax(data)`` (N, K)."""
     logp = torch.log_softmax(data, dim=-1)
     return -logp.gather(-1, label.long()[:, None]).sum()
+
+
+# --------------------------------------------------------------------------
+# registered layers: the JAX package's op signatures over the functions
+# above (the symbol layer reads the array slots and attrs from them)
+# --------------------------------------------------------------------------
+
+@register("FullyConnected")
+def _fully_connected_op(data, weight, bias=None, num_hidden=None,
+                        no_bias=False, flatten=True):
+    return fully_connected(data, weight, None if no_bias else bias,
+                           flatten=flatten)
+
+
+@register("Convolution")
+def _convolution_op(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                    pad=(), num_filter=0, num_group=1, no_bias=False,
+                    cudnn_tune=None, cudnn_off=False, workspace=1024,
+                    layout=None):
+    return convolution(data, weight, None if no_bias else bias, kernel,
+                       stride, dilate, pad, num_group, layout)
+
+
+@register("Pooling")
+def _pooling_op(data, kernel=(), pool_type="max", global_pool=False,
+                stride=(), pad=(), pooling_convention="valid",
+                count_include_pad=True, p_value=2, cudnn_off=False,
+                layout=None):
+    return pooling(data, kernel, pool_type, global_pool, stride, pad,
+                   pooling_convention, layout)
+
+
+@register("BatchNorm", num_outputs=3, num_visible_outputs=1)
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False,
+                   is_train=False):
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
+                      momentum, fix_gamma, use_global_stats, axis, is_train)
+
+
+@register("Activation")
+def _activation_op(data, act_type="relu"):
+    return activation(data, act_type)
+
+
+@register("Dropout", needs_rng=True)
+def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+                is_train=False, generator=None):
+    return dropout(data, p, is_train or mode == "always", generator,
+                   tuple(axes))
+
+
+# --------------------------------------------------------------------------
+# loss heads: the forward is the prediction, the backward the loss's
+# gradient, whatever head gradient arrives (the reference's loss-head
+# convention; the JAX package's custom_vjp ops)
+# --------------------------------------------------------------------------
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax forward; backward ``(p - onehot(label)) * grad_scale``, with
+    label smoothing, ignored labels and the "batch" / "valid"
+    normalizations of the JAX package's `softmax_output`."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, grad_scale, ignore_label,
+                use_ignore, normalization, smooth_alpha):
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (axis, grad_scale, ignore_label, use_ignore,
+                     normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, _ct):
+        out, lab = ctx.saved_tensors
+        axis, grad_scale, ignore_label, use_ignore, normalization, \
+            smooth_alpha = ctx.attrs
+        depth = out.shape[axis]
+        li = lab.long()
+        # the class axis of out, where the label has none: last, or 1
+        cls = li.dim() if axis == -1 else axis
+        bshape = [1] * out.dim()
+        bshape[cls] = depth
+        pos = torch.arange(depth, device=out.device).reshape(bshape)
+        onehot = (li.unsqueeze(cls) == pos).to(out.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1 - smooth_alpha) \
+                + smooth_alpha / (depth - 1) * (1 - onehot)
+        grad = out - onehot
+        valid = None
+        if use_ignore:
+            keep = (li != int(ignore_label)).to(out.dtype)
+            grad = grad * keep.unsqueeze(cls)
+            valid = keep.sum()
+        if normalization == "batch":
+            grad = grad / out.shape[0]
+        elif normalization == "valid":
+            grad = grad / (torch.clamp(valid, min=1.0) if valid is not None
+                           else out.shape[0])
+        return (grad * grad_scale,) + (None,) * 7
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False,
+                   preserve_shape=False, normalization="null",
+                   out_grad=False, smooth_alpha=0.0):
+    """Softmax over the last axis (over axis 1 with ``multi_output``), whose
+    gradient is the cross-entropy's: ``(p - onehot(label)) * grad_scale``,
+    zero at ``ignore_label`` with ``use_ignore``, divided by the batch
+    (``normalization="batch"``) or by the count of labels kept ("valid")."""
+    return _SoftmaxOutput.apply(data, label, 1 if multi_output else -1,
+                                float(grad_scale), ignore_label,
+                                bool(use_ignore), normalization,
+                                float(smooth_alpha))
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """``fwd(data)``; backward ``grad_of(out, data, label) * grad_scale``."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad_of, grad_scale):
+        out = fwd(data)
+        ctx.save_for_backward(data, out, label)
+        ctx.grad_of, ctx.grad_scale = grad_of, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _ct):
+        data, out, label = ctx.saved_tensors
+        grad = ctx.grad_of(out, data, label.reshape(data.shape))
+        return grad * ctx.grad_scale, None, None, None, None
+
+
+@register("LinearRegressionOutput")
+def linear_regression_output(data, label, grad_scale=1.0):
+    """The identity; gradient ``(data - label) * grad_scale``."""
+    return _RegressionOutput.apply(data, label, torch.clone,
+                                   lambda o, d, l: d - l, float(grad_scale))
+
+
+@register("LogisticRegressionOutput")
+def logistic_regression_output(data, label, grad_scale=1.0):
+    """sigmoid; gradient ``(sigmoid(data) - label) * grad_scale``."""
+    return _RegressionOutput.apply(data, label, torch.sigmoid,
+                                   lambda o, d, l: o - l, float(grad_scale))
+
+
+@register("MAERegressionOutput")
+def mae_regression_output(data, label, grad_scale=1.0):
+    """The identity; gradient ``sign(data - label) * grad_scale``."""
+    return _RegressionOutput.apply(data, label, torch.clone,
+                                   lambda o, d, l: torch.sign(d - l),
+                                   float(grad_scale))
+
+
+class _MakeLoss(torch.autograd.Function):
+    """The identity; backward ``grad_scale`` everywhere (over the batch with
+    ``normalization="batch"``), in f32."""
+
+    @staticmethod
+    def forward(ctx, data, scale):
+        ctx.shape, ctx.scale = data.shape, scale
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _ct):
+        return torch.full(ctx.shape, ctx.scale, dtype=torch.float32,
+                          device=_ct.device), None
+
+
+@register("MakeLoss", aliases=("make_loss",))
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """Mark ``data`` as a loss: its gradient is ``grad_scale`` (divided by
+    the batch size under ``normalization="batch"``); ``valid_thresh`` and
+    "valid" are accepted and ignored, as in the JAX package."""
+    scale = float(grad_scale)
+    if normalization == "batch":
+        scale = scale / data.shape[0]
+    return _MakeLoss.apply(data, scale)

@@ -21,8 +21,10 @@ it holds no Pallas. Ported so far:
 
 Every wrapper launches its hand-written CUDA kernel (sm_90a) for CUDA
 tensors, and adds one to its ``launches`` count where it does; it runs its
-plain PyTorch version (``*_reference``) only for tensors on the CPU.
-Nothing sends a CUDA tensor to a plain version.
+plain PyTorch version (``*_reference``) only for tensors on the CPU. The
+conv-epilogue and LSTM wrappers, which the symbolic path's shape inference
+reaches, run it for ``meta`` tensors too (shapes only: nothing is
+launched or built). Nothing sends a CUDA tensor to a plain version.
 """
 from __future__ import annotations
 
@@ -50,6 +52,12 @@ _NEG_INF = -1e30
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+
+
+def _plain(t):
+    """Whether a conv-epilogue or LSTM wrapper runs its plain version: for
+    a CPU tensor, and for a meta tensor (shape inference)."""
+    return t.device.type in ("cpu", "meta")
 
 
 def _call(source, argtypes, symbol, dev, *args):
@@ -274,7 +282,7 @@ def epi_stats(x2d, gamma, beta, eps=1e-3, fix_gamma=False):
     ``shift = beta - mean * scale``. CUDA: the kernel pair ``epi_stats`` of
     ``csrc/conv_epilogue.cu`` (deterministic two-pass column sums); CPU:
     `epi_stats_reference`."""
-    if x2d.device.type == "cpu":
+    if _plain(x2d):
         return epi_stats_reference(x2d, gamma, beta, eps, fix_gamma)
     _epi_check("epi_stats", x2d, params=(("gamma", gamma), ("beta", beta)))
     r, c = x2d.shape
@@ -307,7 +315,7 @@ def epi_apply(x2d, res2d, scale, shift, relu=True):
     """``relu?(x * scale + shift (+ res))`` over rows (R, C), computed in
     f32 and stored in x's dtype; ``res2d`` may be None. CUDA: the
     ``epi_apply`` kernel; CPU: `epi_apply_reference`."""
-    if x2d.device.type == "cpu":
+    if _plain(x2d):
         return epi_apply_reference(x2d, res2d, scale, shift, relu)
     _epi_check("epi_apply", x2d, rows=(("residual", res2d),),
                vecs=(("scale", scale), ("shift", shift)))
@@ -351,7 +359,7 @@ def epi_bwd_reduce(ct, x2d, out, mean, inv, gamma, fix_gamma=False):
     dx coefficients coef = gamma * inv, cb = sum(g) / R, cg =
     sum(g * xhat) / R. CUDA: the kernel pair ``epi_bwd_reduce``
     (deterministic); CPU: `epi_bwd_reduce_reference`."""
-    if x2d.device.type == "cpu":
+    if _plain(x2d):
         return epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma,
                                         fix_gamma)
     _epi_check("epi_bwd_reduce", x2d, rows=(("ct", ct), ("out", out)),
@@ -388,7 +396,7 @@ def epi_bwd_dx(ct, x2d, out, mean, inv, coef, cb, cg, has_res=False):
     xhat as in `epi_bwd_reduce`, and ``dres = g`` when ``has_res`` (else
     None), both in x's dtype. CUDA: the ``epi_bwd_dx`` kernel; CPU:
     `epi_bwd_dx_reference`."""
-    if x2d.device.type == "cpu":
+    if _plain(x2d):
         return epi_bwd_dx_reference(ct, x2d, out, mean, inv, coef, cb, cg,
                                     has_res)
     _epi_check("epi_bwd_dx", x2d, rows=(("ct", ct), ("out", out)),
@@ -441,7 +449,7 @@ class _ConvEpilogue(torch.autograd.Function):
 
 
 def _epi_rows(x, c, label):
-    if x.device.type != "cpu" and not x.is_contiguous():
+    if not _plain(x) and not x.is_contiguous():
         raise MXNetError("conv_epilogue: %s must be a contiguous "
                          "channels-last tensor (..., C); got strides %s"
                          % (label, tuple(x.stride())))
@@ -970,7 +978,7 @@ def lstm_infer(gx, wh, h0, c0):
     float32 or all bfloat16. Returns ys (T, B, H) and cT (B, H) in the
     dtype. CUDA: the ``lstm_infer`` kernel of ``csrc/lstm.cu``; CPU:
     `lstm_infer_reference`."""
-    if gx.device.type == "cpu":
+    if _plain(gx):
         return lstm_infer_reference(gx, wh, h0, c0)
     t, b, h = _lstm_fwd_args("lstm_infer", gx, wh, h0, c0)
     ys = torch.empty((t, b, h), dtype=gx.dtype, device=gx.device)
@@ -996,7 +1004,7 @@ def lstm_fwd(gx, wh, h0, c0):
     (T, B, H) in the dtype, c_all (T, B, H) f32 (c_t of every step; cT is
     ``c_all[-1]``) and the post-activation gates (T, B, 4H), i, f, g, o, in
     the dtype. CUDA: the ``lstm_fwd`` kernel; CPU: `lstm_fwd_reference`."""
-    if gx.device.type == "cpu":
+    if _plain(gx):
         return lstm_fwd_reference(gx, wh, h0, c0)
     t, b, h = _lstm_fwd_args("lstm_fwd", gx, wh, h0, c0)
     ys = torch.empty((t, b, h), dtype=gx.dtype, device=gx.device)
@@ -1055,7 +1063,7 @@ def lstm_bwd(dy, gates, c_all, c0, dct, wh):
     pre-activation gate gradients dgx (T, B, 4H) and dh0, dc0 (B, H), all in
     the dtype. dy carries the cotangent of hT in its last step. CUDA: the
     ``lstm_bwd`` kernel; CPU: `lstm_bwd_reference`."""
-    if dy.device.type == "cpu":
+    if _plain(dy):
         return lstm_bwd_reference(dy, gates, c_all, c0, dct, wh)
     t, b, h = _lstm_check(
         "lstm_bwd", dy, wh,

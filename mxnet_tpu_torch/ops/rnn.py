@@ -12,7 +12,8 @@ matrix product. An LSTM layer then runs `pallas_kernels.lstm_layer` (the
 kernels of ``csrc/lstm.cu`` for CUDA tensors) when
 `pallas_kernels.lstm_layer_fits` takes its shape and dtype; every other
 layer runs the step loop, the counterpart of the JAX package's
-``lax.scan``. `CTCLoss` is not ported yet.
+``lax.scan``. ``RNN``, ``_rnn_state_zeros`` and ``_rnn_fused_state_zeros``
+are registered ops (``mx.nd`` / ``mx.sym``); `CTCLoss` is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ import torch
 from .. import random as _random
 from ..base import MXNetError
 from . import nn as _nn
-from . import pallas_kernels
+from . import pallas_kernels, register
 
-__all__ = ["rnn_param_size", "rnn", "rnn_layers", "rnn_state_zeros"]
+__all__ = ["rnn_param_size", "rnn", "rnn_layers", "rnn_state_zeros",
+           "rnn_fused_state_zeros"]
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
 
@@ -180,6 +182,7 @@ def rnn_layers(data, weights, state, state_cell=None, mode="lstm", p=0.0,
     return x, torch.stack(h_finals)
 
 
+@register("RNN", num_outputs=-1, needs_rng=True)
 def rnn(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
         bidirectional=False, mode="lstm", p=0.0, state_outputs=False,
         projection_size=None, lstm_state_clip_min=None,
@@ -204,8 +207,18 @@ def rnn(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
                       is_train=is_train, generator=generator)
 
 
+@register("_rnn_state_zeros")
 def rnn_state_zeros(data, state_shape=()):
     """Zero initial state with the batch dim taken from ``data``: shape
     ``(data.shape[0],) + state_shape``, data's dtype and device."""
     return torch.zeros((data.shape[0],) + tuple(state_shape),
                        dtype=data.dtype, device=data.device)
+
+
+@register("_rnn_fused_state_zeros")
+def rnn_fused_state_zeros(data, num_directions_layers=1, state_size=0,
+                          batch_axis=1):
+    """Zero fused-RNN state (L * D, B, H), B from ``data`` at
+    ``batch_axis`` (1 for a (T, B, I) unroll input, 0 for a (B, C) step)."""
+    return torch.zeros((num_directions_layers, data.shape[batch_axis],
+                        state_size), dtype=data.dtype, device=data.device)

@@ -640,14 +640,14 @@ def pick(data, index, axis=-1, keepdims=False, mode="clip"):
     return out
 
 
-@register("Embedding")
+@register("Embedding", size_attrs=("input_dim",))
 def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32", sparse_grad=False):
     """reference: src/operator/tensor/indexing_op.cc (Embedding): gather
     rows of `weight`, positions clipped."""
     return weight[data.long().clamp(0, weight.shape[0] - 1)]
 
 
-@register("one_hot")
+@register("one_hot", size_attrs=("depth",))
 def one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
     pos = torch.arange(depth, device=indices.device)
     oh = (indices.long().unsqueeze(-1) == pos).to(torch.float32)
@@ -767,7 +767,7 @@ def _full(shape=(), value=0.0, dtype="float32"):
     return torch.full(tuple(shape), value, dtype=torch_dtype(dtype))
 
 
-@register("_arange")
+@register("_arange", size_attrs=("start", "stop"))
 def _arange(start=0.0, stop=None, step=1.0, repeat=1, dtype="float32"):
     if stop is None:
         start, stop = 0, start

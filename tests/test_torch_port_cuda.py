@@ -5,8 +5,10 @@ tensors, the generation engine on the card against the full-sequence
 forward, a ResNet, a BERT and a word-LM training step on the card
 against the same step on the CPU, the word LM's step through the Gluon
 façade (``record()`` / ``backward()`` / ``gluon.Trainer``) on the card
-against the CPU, and ``mx.rtc`` (NVRTC-compiled CUDA C++
-launched on ``mx.nd`` arrays) with ``mx.nd`` on the card against the CPU.
+against the CPU, a small FusedRNNCell LM's and a conv + BatchNorm net's
+symbolic step (``Module``) on the card against the CPU, and ``mx.rtc``
+(NVRTC-compiled CUDA C++ launched on ``mx.nd`` arrays) with ``mx.nd`` on
+the card against the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -22,10 +24,10 @@ import torch
 import threading
 
 from chip_smoke import (RTC_CASES, RTC_SOFTMAX, RTC_SOFTMAX_EXPORTS,
-                        RTC_TEMPLATED_AXPY, facade_lm_step,
-                        facade_step_errors, rtc_close, rtc_kernels,
-                        rtc_planted_faults, rtc_scale, rtc_softmax,
-                        softmax_bwd_plain, softmax_plain)
+                        RTC_TEMPLATED_AXPY, SYMBOLIC_STEPS, facade_lm_step,
+                        facade_step_errors, module_step_errors, rtc_close,
+                        rtc_kernels, rtc_planted_faults, rtc_scale,
+                        rtc_softmax, softmax_bwd_plain, softmax_plain)
 from mxnet_tpu_torch import initializer
 from mxnet_tpu_torch import nd, rtc
 from mxnet_tpu_torch.base import MXNetError
@@ -797,6 +799,30 @@ def test_facade_word_lm_step_on_card_matches_cpu():
                                       "lstm_bwd": 2}
     cpu = facade_lm_step(torch, 5, torch.device("cpu"))
     facade_step_errors(torch, card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1])
+def test_symbolic_step_on_card_matches_cpu(which):
+    """One f32 symbolic step (`Module.forward_backward`, SGD `update`) on
+    the card (TF32 off) against the CPU step, `chip_smoke.SYMBOLIC_STEPS`:
+    the small FusedRNNCell LM, whose RNN op launches lstm_fwd and lstm_bwd
+    once a layer, and the conv -> BatchNorm -> Pooling -> FC net, whose
+    BatchNorm launches the four conv-epilogue kernels once each. Every
+    output, gradient, argument and aux state agrees
+    (`module_step_errors`, rtol 1e-4)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, step, kernels = SYMBOLIC_STEPS[which]
+    launches = {n: getattr(tpk, n).launches for n in kernels}
+    card = step(torch, 5, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    per_layer = 2 if which == 0 else 1
+    assert {n: getattr(tpk, n).launches - launches[n] for n in kernels} == \
+        dict.fromkeys(kernels, per_layer)
+    cpu = step(torch, 5, torch.device("cpu"))
+    module_step_errors(torch, card, cpu, name)
 
 
 # ---------------------------------------------------------------------------

@@ -436,17 +436,24 @@ def test_softmax_length_matches_jax_op():
 
 def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     """157 ops under 228 names from ops/tensor.py, plus softmax and
-    log_softmax, and the 17 updates of ops/optimizer_ops.py under 19 names;
-    each alias resolves to the op its JAX alias names."""
+    log_softmax, the 17 updates of ops/optimizer_ops.py under 19 names, and
+    the layers, loss heads and RNN ops the symbolic path registers (12 ops
+    of ops/nn.py under 14 names, 3 of ops/rnn.py); each alias resolves to
+    the op its JAX alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
     opt = sorted(n for n, o in jops._REGISTRY.items()
                  if o.fn.__module__ == "mxnet_tpu.ops.optimizer_ops")
     assert len(opt) == 19
     assert len({jops._REGISTRY[n].name for n in opt}) == 17
-    assert sorted(tops.list_ops()) == sorted(names + opt + ["softmax",
-                                                            "log_softmax"])
-    for n in opt:
+    layers = ["FullyConnected", "Convolution", "Pooling", "BatchNorm",
+              "Activation", "Dropout", "SoftmaxOutput", "Softmax",
+              "LinearRegressionOutput", "LogisticRegressionOutput",
+              "MAERegressionOutput", "MakeLoss", "make_loss", "RNN",
+              "_rnn_state_zeros", "_rnn_fused_state_zeros"]
+    assert sorted(tops.list_ops()) == sorted(names + opt + layers + [
+        "softmax", "log_softmax"])
+    for n in opt + layers:
         assert tops.get(n).name == jops._REGISTRY[n].name, n
         assert callable(getattr(nd, n))
     assert sorted(SPECS) == sorted(primaries + ["softmax", "log_softmax"])
