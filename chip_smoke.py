@@ -150,6 +150,27 @@ Phases; each raises on failure, and the script then exits non-zero:
    35 and over the fit, the score's tokens/s, perplexities and peak
    allocated bytes; ``--profile`` adds the device busy share of a bucket-35
    batch and its split (LSTM, GEMM, loss, optimizer, rest).
+7. predict_serving (after the symbolic phase, before parity): that
+   phase's checkpoint, as it was written, served as a scoring model
+   (`score_symbol`: data (N, 35) int32 -> Embedding -> FusedRNNCell
+   unrolled batch-major -> FullyConnected(10000, flatten=False) ->
+   log_softmax -> pick(label): each token's log-likelihood) through
+   ``ModelRepository.load`` on the card (max_batch 32: buckets 1 to 32,
+   each a ``Predictor`` binding the prototype's weight tensors, warmed
+   before publishing; the default 5 ms coalescing window) and
+   ``ServingServer`` on a free port. With the LSTM launch counts set to 0
+   just before the load: 32 sequential one-sentence ``:predict`` requests,
+   256 from 32 concurrent clients, 64 of 1 to 4 sentences from 16 clients,
+   then a SIGTERM with 32 requests in flight. Every request must answer
+   200 with a CPU ``Predictor``'s log-likelihoods (plain versions) within
+   atol 1e-3; lstm_infer launches 2 x (batches dispatched + buckets
+   warmed) and lstm_fwd / lstm_bwd never; the buckets share one copy of
+   the weights (``data_ptr``); the drain completes. Prints requests/s and
+   p50 / p99 latency of each part, the mean dispatched batch and the
+   batches by size, load and warm seconds and peak allocated bytes;
+   ``--profile`` adds the device busy share of a bucket-32 batch and its
+   split (LSTM, GEMM, log-softmax and pick, rest). The LSTM kernel phase
+   holds lstm_infer at the served shapes (35, B, 650), B 1 to 32, too.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -1088,7 +1109,11 @@ LSTM_CASES = [("path", LSTM_PATH), ("ragged", (7, 5, 9)),
               # backward)
               ("B 128", (5, 128, 650)), ("H 1500 B 32", (5, 32, 1500)),
               # the backward's clusters of Q U = 16 units do not divide H
-              ("QU does not divide H", (4, 20, 130))]
+              ("QU does not divide H", (4, 20, 130)),
+              # the predict_serving phase's buckets below 32
+              ("served B 1", (35, 1, 650)), ("served B 2", (35, 2, 650)),
+              ("served B 4", (35, 4, 650)), ("served B 8", (35, 8, 650)),
+              ("served B 16", (35, 16, 650))]
 # f32 results rtol 1e-4 with a floor of 1e-4 x max|plain|; bf16 tensors
 # 2^-7 the same way (the products' f32 sums in other orders can round a
 # bf16 h, gate or dgates to the neighbouring value, one step 2^-8, and the
@@ -2851,7 +2876,7 @@ def symbolic_iters(seed):
     return it(SYM_WARMUP_PLAN), it(timed), it((35,) * SYM_EVAL)
 
 
-def symbolic_word_lm(torch, pk, args):
+def symbolic_word_lm(torch, pk, args, ckpt_dir=None):
     """The word LM at bench_lstm's width through the symbolic API: a
     `BucketingModule` over `train_lstm_bucketing.lm_sym_gen`
     (Embedding(10000, 650) -> FusedRNNCell(650, 2 layers).unroll(layout
@@ -2864,8 +2889,10 @@ def symbolic_word_lm(torch, pk, args):
     12 timed batches; then the counts set to 0 and `score` with
     `Perplexity` over 4 batches at bucket 35. Then `save_checkpoint` and
     `Module.load` of the default bucket, whose outputs over those 4 batches
-    must equal the trained module's bit for bit. Returns the launch counts
-    of `fit` and of `score`."""
+    must equal the trained module's bit for bit. Given ``ckpt_dir``, the
+    checkpoint stays there for the predict_serving phase. Returns the
+    launch counts of `fit` and of `score`, and the checkpoint's prefix
+    (None without ``ckpt_dir``)."""
     import random
 
     import mxnet_tpu_torch as mx
@@ -2964,7 +2991,7 @@ def symbolic_word_lm(torch, pk, args):
             % (SYM_EVAL, eval_wall, SYM_EVAL * 35 * LM_BATCH / eval_wall,
                score["perplexity"], LM_VOCAB, json.dumps(score_launches)))
         with tempfile.TemporaryDirectory() as tmp:
-            prefix = os.path.join(tmp, "lm")
+            prefix = os.path.join(ckpt_dir or tmp, "lm")
             bm.save_checkpoint(prefix, 0)
             loaded = mx.mod.Module.load(prefix, 0, context=dev)
             loaded.bind(eval_it.provide_data, eval_it.provide_label,
@@ -2994,7 +3021,7 @@ def symbolic_word_lm(torch, pk, args):
             lstm_profile(torch, lambda: fit_body(torch, bm, batches),
                          len(batches), "  profile symbolic batch (f32, "
                          "bucket 35, %d batches)" % len(batches), ms35)
-    return fit_launches, score_launches
+    return fit_launches, score_launches, prefix if ckpt_dir else None
 
 
 def fit_body(torch, bm, batches):
@@ -3136,6 +3163,299 @@ def symbolic_parity(torch, pk, args):
                                     json.dumps(launched)))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: predict serving (ModelRepository -> DynamicBatcher -> bucketed
+# Predictors -> the RNN op's lstm_infer) of the symbolic phase's word LM
+# as a scoring model
+# ---------------------------------------------------------------------------
+
+SERVE_MAX_BATCH = 32          # buckets 1, 2, 4, 8, 16, 32
+SERVE_SEQ = 35
+SERVE_SEQUENTIAL = 32         # single-sentence requests, one client
+SERVE_CONCURRENT = (32, 8)    # clients, requests each: one sentence each
+SERVE_MIXED = (16, 4)         # clients, requests each: 1-4 sentences each
+SERVE_DRAIN = 32              # requests in flight at the SIGTERM
+# each token's log-likelihood (magnitude about 9) on the card against the
+# CPU's plain versions, f32 with TF32 off
+SERVE_ATOL = 1e-3
+
+
+def score_symbol(mx, vocab=LM_VOCAB, units=LM_UNITS, layers=LM_LAYERS,
+                 seq=SERVE_SEQ):
+    """The word LM's scoring graph with `lm_sym_gen`'s argument names:
+    ``data`` (N, seq) token ids -> Embedding -> FusedRNNCell unrolled
+    batch-major -> FullyConnected(flatten=False) -> log_softmax ->
+    pick(``label``): (N, seq), each token's log-likelihood."""
+    with mx.name.NameManager():
+        embed = mx.sym.Embedding(mx.sym.var("data"), input_dim=vocab,
+                                 output_dim=units, name="embed")
+        cell = mx.rnn.FusedRNNCell(units, num_layers=layers, mode="lstm",
+                                   prefix="lstm_")
+        out, _ = cell.unroll(seq, inputs=embed, layout="NTC",
+                             merge_outputs=True)
+        pred = mx.sym.FullyConnected(out, num_hidden=vocab, flatten=False,
+                                     name="pred")
+        return mx.sym.pick(mx.sym.log_softmax(pred, axis=-1),
+                           mx.sym.var("label"), axis=-1)
+
+
+def score_inputs(seed, n):
+    """``n`` sentences of SERVE_SEQ + 1 tokens from the symbolic phase's
+    chain (`symbolic_sentences`): data the first SERVE_SEQ, label the next
+    token of each."""
+    rng = np.random.RandomState(seed + 12)
+    succ = rng.randint(0, LM_VOCAB, (LM_VOCAB, FACADE_SUCCESSORS))
+    plan = [SERVE_SEQ + 1] * -(-n // LM_BATCH)
+    toks = np.asarray(symbolic_sentences(np.random.RandomState(seed + 13),
+                                         succ, plan), np.int32)[:n]
+    return toks[:, :-1], toks[:, 1:]
+
+
+def serve_clients(port, bodies, clients):
+    """``bodies`` split over ``clients`` threads, each POSTing its share in
+    turn over one keep-alive connection. Returns per body (status, reply,
+    seconds) and the wall seconds of the whole."""
+    import http.client
+
+    results = [None] * len(bodies)
+    gate = threading.Barrier(clients)
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        gate.wait()
+        try:
+            for i in range(k, len(bodies), clients):
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/models/lm:predict",
+                             json.dumps(bodies[i]),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                reply = json.loads(r.read())
+                results[i] = (r.status, reply, time.perf_counter() - t0)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,),
+                                name="smoke-client-%d" % k)
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def predict_serving(torch, pk, args, prefix):
+    """The symbolic phase's trained word LM (its ``save_checkpoint``
+    params, as they are) served as a scoring model: `score_symbol` saved
+    beside the params, loaded by `ModelRepository.load` on the card with
+    max_batch 32 (buckets 1 to 32, each a `Predictor` over the
+    prototype's weight tensors, warmed before publishing) and the default
+    MXTPU_SERVE_MAX_DELAY_MS, served by `ServingServer` on a free port.
+    With the LSTM launch counts set to 0 just before the load: 32
+    sequential one-sentence requests, 256 from 32 concurrent clients, 64
+    of 1 to 4 sentences from 16 clients, then SIGTERM with 32 requests in
+    flight. Every request must answer 200 with the log-likelihoods a
+    `Predictor` on the CPU (plain versions) gives the same sentences
+    (within SERVE_ATOL), lstm_infer must launch 2 x (batches dispatched +
+    buckets warmed) times and lstm_fwd / lstm_bwd never, the buckets must
+    hold one copy of the weights, and the drain must complete. Returns the
+    launch counts."""
+    import signal
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.predict import Predictor
+    from mxnet_tpu_torch.serving import ModelRepository, ServingServer
+
+    score = os.path.join(os.path.dirname(prefix), "score")
+    score_symbol(mx).save(score + "-symbol.json")
+    os.link(prefix + "-0000.params", score + "-0000.params")
+    shapes = {"data": (SERVE_SEQ,), "label": (SERVE_SEQ,)}
+    dtypes = {"data": "int32", "label": "int32"}
+
+    n_seq = SERVE_SEQUENTIAL
+    n_con = SERVE_CONCURRENT[0] * SERVE_CONCURRENT[1]
+    rng = np.random.RandomState(args.seed + 14)
+    mixed = rng.randint(1, 5, SERVE_MIXED[0] * SERVE_MIXED[1])
+    sizes = [1] * (n_seq + n_con) + list(mixed) + [4] * SERVE_DRAIN
+    data, label = score_inputs(args.seed, sum(sizes))
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    bodies = [{"inputs": {"data": data[a:b].tolist(),
+                          "label": label[a:b].tolist()},
+               "timeout_ms": 60000} for a, b in zip(offsets, offsets[1:])]
+    parts = [("sequential", 0, n_seq, 1),
+             ("concurrent", n_seq, n_seq + n_con, SERVE_CONCURRENT[0]),
+             ("mixed 1-4 sentences", n_seq + n_con,
+              n_seq + n_con + len(mixed), SERVE_MIXED[0])]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in LSTM_KERNELS:   # the predict-serving path's counts
+        getattr(pk, k).launches = 0
+    repo = ModelRepository()
+    t0 = time.monotonic()
+    model = repo.load("lm", score, input_shapes=shapes, input_dtypes=dtypes,
+                      max_batch=SERVE_MAX_BATCH, ctx=mx.gpu(0))
+    load_s = time.monotonic() - t0
+    preds = model._runner.predictors
+    proto = preds[SERVE_MAX_BATCH]
+    n_params = sum(a.size for k, a in proto._args.items()
+                   if k not in shapes)
+    if n_params != LM_PARAMS:
+        raise AssertionError("served LM has %d parameters, not %d"
+                             % (n_params, LM_PARAMS))
+    for b, p in preds.items():
+        if p is proto:
+            continue
+        for k, a in proto._args.items():
+            same = p._args[k]._data.data_ptr() == a._data.data_ptr()
+            if same != (k not in shapes):
+                raise AssertionError("bucket %d: %s %s the prototype's "
+                                     "tensor" % (b, k, "shares" if same
+                                                 else "does not share"))
+    log("predict_serving: the symbolic phase's word LM (%d parameters, "
+        "f32) served as a scoring model (log-likelihood of each of %d "
+        "tokens): loaded in %.3f s, of which warming buckets %s %.3f s; "
+        "the %d buckets bind one copy of the weights (data_ptr equal); %s"
+        % (n_params, SERVE_SEQ, load_s, model.buckets, model.warm_seconds,
+           len(model.buckets), smi_line()))
+
+    server = ServingServer(repo, port=0, addr="127.0.0.1")
+    previous = {s: signal.getsignal(s)
+                for s in (signal.SIGTERM, signal.SIGINT)}
+    server.install_signal_handlers()
+    server.start()
+    replies = [None] * len(bodies)
+    try:
+        for name, a, b, clients in parts:
+            res, wall = serve_clients(server.port, bodies[a:b], clients)
+            replies[a:b] = res
+            lat = np.asarray([r[2] for r in res]) * 1e3
+            log("  %s: %d requests (%d sentences) from %d client(s) in "
+                "%.3f s: %.1f requests/s, %.1f sentences/s; latency p50 "
+                "%.2f ms, p99 %.2f ms"
+                % (name, b - a, sum(sizes[a:b]), clients, wall,
+                   (b - a) / wall, sum(sizes[a:b]) / wall,
+                   np.percentile(lat, 50), np.percentile(lat, 99)))
+        # the drain: SIGTERM once every request of the last part is
+        # admitted to the batcher (its request counter says so)
+        a = len(bodies) - SERVE_DRAIN
+        admitted = telemetry.counter("mxtpu_serve_requests_total",
+                                     {"model": "lm/1"})
+        before = admitted.value
+        drain_box = {}
+
+        def drain_traffic():
+            drain_box["res"] = serve_clients(server.port, bodies[a:],
+                                             SERVE_DRAIN)
+
+        sender = threading.Thread(target=drain_traffic)
+        sender.start()
+        deadline = time.monotonic() + 60
+        while admitted.value - before < SERVE_DRAIN:
+            if time.monotonic() > deadline:
+                raise AssertionError("drain requests never reached the "
+                                     "batcher")
+            time.sleep(0.0002)
+        pending = model.pending()
+        t_drain = time.monotonic()
+        os.kill(os.getpid(), signal.SIGTERM)
+        sender.join(120)
+        server._serve_thread.join(120)
+        drain_s = time.monotonic() - t_drain
+        replies[a:] = drain_box["res"][0]
+    finally:
+        for s, h in previous.items():
+            signal.signal(s, h)
+        if server._serve_thread.is_alive():
+            server.shutdown()
+    if server.drain_failed or server._serve_thread.is_alive():
+        raise AssertionError("predict serving: the SIGTERM drain did not "
+                             "complete")
+    peak = torch.cuda.max_memory_allocated()
+    snap = telemetry.snapshot()
+    batches = int(snap['mxtpu_serve_batches_total{model="lm/1"}']["value"])
+    examples = int(snap['mxtpu_serve_examples_total{model="lm/1"}'][
+        "value"])
+    hist = snap['mxtpu_serve_batch_size{model="lm/1"}']["buckets"]
+    launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+    repo.unload("lm", timeout=30)
+    log("  drain: SIGTERM with %d requests pending in the batcher; the "
+        "server drained and stopped in %.3f s" % (pending, drain_s))
+    bad = [(i, r[0], r[1]) for i, r in enumerate(replies)
+           if r is None or r[0] != 200]
+    if bad:
+        raise AssertionError("predict serving: %d of %d requests did not "
+                             "answer 200: %s" % (len(bad), len(replies),
+                                                 bad[:3]))
+    want = {"lstm_infer": LM_LAYERS * (batches + len(model.buckets)),
+            "lstm_fwd": 0, "lstm_bwd": 0}
+    if launches != want:
+        raise AssertionError("predict serving launches %s, not %s (%d "
+                             "batches, %d buckets warmed)"
+                             % (launches, want, batches,
+                                len(model.buckets)))
+    if examples != sum(sizes):
+        raise AssertionError("predict serving: %d examples dispatched, "
+                             "not %d" % (examples, sum(sizes)))
+    cum, per_bucket = 0, {}
+    for bound, count in hist.items():
+        if bound != "+Inf" and count > cum:
+            per_bucket[bound] = count - cum
+        cum = count if bound != "+Inf" else cum
+    log("  %d batches dispatched for %d requests (%d sentences): mean "
+        "batch %.2f sentences; batches by size up to each bucket %s; "
+        "peak allocated %d bytes; launches %s"
+        % (batches, len(replies), examples, examples / batches,
+           json.dumps(per_bucket), peak, json.dumps(launches)))
+
+    # the replies against a CPU Predictor of the same artifact
+    got = np.concatenate([np.asarray(r[1]["outputs"][0], np.float32)
+                          for r in replies])
+    chunk = 64
+    cpu = Predictor(score + "-symbol.json", score + "-0000.params",
+                    ctx=mx.cpu(), input_dtypes=dtypes,
+                    input_shapes={k: (chunk, SERVE_SEQ) for k in shapes})
+    want_ll = []
+    for i in range(0, len(data), chunk):
+        d, lab = data[i:i + chunk], label[i:i + chunk]
+        pad = chunk - len(d)
+        if pad:
+            d = np.concatenate([d, np.zeros((pad, SERVE_SEQ), np.int32)])
+            lab = np.concatenate([lab, np.zeros((pad, SERVE_SEQ),
+                                                np.int32)])
+        out = cpu.forward(data=d, label=lab).get_output(0).asnumpy()
+        want_ll.append(out[:chunk - pad])
+    want_ll = np.concatenate(want_ll)
+    err = float(np.abs(got - want_ll).max())
+    if got.shape != want_ll.shape or not np.isfinite(got).all() \
+            or err > SERVE_ATOL:
+        raise AssertionError("predict serving: replies differ from the "
+                             "CPU by %g (atol %g)" % (err, SERVE_ATOL))
+    log("  every reply (%d sentences x %d tokens, log-likelihoods from %.2f "
+        "to %.2f) equals a CPU Predictor's on the plain versions: max abs "
+        "err %.3g (atol %g)" % (got.shape[0], SERVE_SEQ, got.min(),
+                                 got.max(), err, SERVE_ATOL))
+    if args.profile:
+        run = model._runner
+        batch = {"data": data[:SERVE_MAX_BATCH],
+                 "label": label[:SERVE_MAX_BATCH]}
+        run(batch, SERVE_MAX_BATCH, SERVE_MAX_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run(batch, SERVE_MAX_BATCH, SERVE_MAX_BATCH)
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        lstm_profile(torch, lambda: [run(batch, SERVE_MAX_BATCH,
+                                         SERVE_MAX_BATCH)
+                                     for _ in range(3)], 3,
+                     "  profile predict batch (f32, bucket 32, the runner "
+                     "alone)", ms)
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3220,7 +3540,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
-    symbolic_word_lm(torch, pk, args)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as ckpt:
+        prefix = symbolic_word_lm(torch, pk, args, ckpt)[2]
+        torch.cuda.empty_cache()
+        predict_serving(torch, pk, args, prefix)
     torch.cuda.empty_cache()
     for k in KERNELS:
         if launches[k["name"]] < 1:

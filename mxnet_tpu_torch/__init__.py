@@ -23,7 +23,8 @@ symbolic training path: ``sym`` (``symbol``: the graph, its shape
 inference and JSON), ``executor``, ``mod`` (``module``: ``Module`` and
 ``BucketingModule``), ``io``, ``rnn`` (the symbolic cells, ``FusedRNNCell``
 over the ``RNN`` op, and ``BucketSentenceIter``), ``model`` and
-``callback``.
+``callback``; and predict serving: ``predict`` (``Predictor`` over an
+exported or checkpointed graph) behind ``serving``'s dynamic batcher.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``); without a card they raise.
 """
@@ -43,6 +44,7 @@ from . import executor, io, model, callback
 from . import module
 from . import module as mod
 from . import rnn
+from . import predict
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, current_context, gpu
@@ -53,4 +55,4 @@ __all__ = ["MXNetError", "cpu", "gpu", "current_context", "context", "env",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
            "sym", "executor", "io", "model", "callback", "module", "mod",
-           "rnn"]
+           "rnn", "predict"]

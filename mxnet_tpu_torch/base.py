@@ -13,7 +13,7 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "atomic_writer", "numeric_types", "np_dtype",
-           "torch_dtype"]
+           "torch_dtype", "unpad_outputs"]
 
 numeric_types = (float, int, _np.generic)
 
@@ -60,6 +60,22 @@ def torch_dtype(dtype):
         return _TORCH_DTYPES[name]
     except KeyError:
         raise MXNetError("unsupported dtype %s" % (dtype,)) from None
+
+
+def unpad_outputs(outputs, pad, copy=False):
+    """Drop the trailing ``pad`` rows from every array in ``outputs``.
+
+    The one unpad of every padded-batch consumer: a DataIter's last batch
+    carries ``pad`` filler rows (`Module.predict` / `iter_predict`), and the
+    serving micro-batcher pads coalesced batches up to a bucket
+    (`serving/batcher.py`). Works on anything row-sliceable (NDArray,
+    numpy). ``copy=True`` detaches each slice from the padded buffer.
+    """
+    out = []
+    for o in outputs:
+        s = o[0:o.shape[0] - pad] if pad else o
+        out.append(s.copy() if copy else s)
+    return out
 
 
 class atomic_writer:

@@ -85,8 +85,11 @@ _var("MXTPU_PALLAS_CONV_EPILOGUE", "str", "",
 
 # -- serving (same names and defaults as mxnet_tpu/env.py) -------------------
 _var("MXTPU_SERVE_MAX_BATCH", "int", 32,
-     "generation serving: largest decode batch; the decode buckets are the "
-     "powers of two up to this value.")
+     "serving: largest coalesced predict batch and largest decode batch; "
+     "the padding buckets are the powers of two up to this value.")
+_var("MXTPU_SERVE_MAX_DELAY_MS", "float", 5.0,
+     "serving: longest the micro-batcher holds an admitted request open "
+     "waiting for coalescing partners before dispatching a partial batch.")
 _var("MXTPU_SERVE_QUEUE_DEPTH", "int", 256,
      "serving admission control: bounded per-model request queue; a submit "
      "beyond this depth is rejected immediately (HTTP 429).")

@@ -140,7 +140,7 @@ class Executor:
                                                        self.aux_arrays))
             outs = self._symbol._interpret(
                 values, is_train=bool(is_train),
-                generator=_random.generator(self._ctx))
+                generator=_random.generator(self._ctx), device=self._ctx)
         self.outputs = [NDArray(o.detach().contiguous()) for o in outs]
         if leaves and any(o.requires_grad for o in outs):
             self._graph = (outs, leaves)

@@ -1,12 +1,13 @@
 """Gluon of the port (counterpart of `mxnet_tpu.gluon`): `Parameter`,
-`Block`, `HybridBlock`, `Trainer`, the layers (``nn``, ``rnn``), losses,
+`Block`, `HybridBlock`, `SymbolBlock`, `Trainer`, the layers (``nn``, ``rnn``), losses,
 utilities and the model zoo."""
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from .trainer import Trainer
 from . import loss, nn, rnn, utils
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
-           "DeferredInitializationError", "Block", "HybridBlock", "Trainer",
+           "DeferredInitializationError", "Block", "HybridBlock", "SymbolBlock",
+           "Trainer",
            "loss", "nn", "rnn", "utils"]

@@ -18,6 +18,16 @@ unwraps the NDArrays, runs the module, and wraps what comes out. A user's
 ``hybrid_forward(F, x, *args, **params)`` with ``F`` the port's `nd` and
 each Parameter passed by attribute name as its NDArray.
 
+Called with `Symbol`s, a `HybridBlock` composes a graph instead: it runs
+``hybrid_forward`` with ``F`` the port's `sym` and each Parameter as a
+variable of its full name, and each ported layer gives its symbol form
+(the JAX package's ops and attributes). `HybridBlock.export` writes that
+graph as ``prefix-symbol.json`` and the parameters as ``arg:`` / ``aux:``
+entries of ``prefix-NNNN.params``, which `SymbolBlock.imports`, the
+`Predictor` and the serving repository of either package load. A block
+without a symbol form (a plain `Block`, LayerNorm, GELU, the recurrent
+layers) raises there, naming itself.
+
 `HybridBlock.hybridize` takes the JAX package's arguments and records
 them, and the forward stays eager: the captured graph (CUDA graphs or
 torch.compile per input signature) is ROADMAP queue 1 item 2.
@@ -36,9 +46,10 @@ from .. import ndarray as nd
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray import NDArray
+from ..symbol import Symbol
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 _naming = threading.local()
 
@@ -109,6 +120,11 @@ def _has_nd(args, kwargs):
                 isinstance(b, NDArray) for b in a)):
             return True
     return any(isinstance(v, NDArray) for v in kwargs.values())
+
+
+def _has_sym(args, kwargs):
+    return any(isinstance(a, Symbol) for a in list(args) + list(
+        kwargs.values()))
 
 
 def _unwrap(x):
@@ -269,6 +285,8 @@ class Block(torch.nn.Module):
 
     # -- execution --------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        if _has_sym(args, kwargs):
+            return self._symbol_forward(*args, **kwargs)
         if not _has_nd(args, kwargs):
             return super().__call__(*args, **kwargs)
         with autograd._facade():
@@ -279,6 +297,11 @@ class Block(torch.nn.Module):
 
     def forward(self, *args):
         raise NotImplementedError
+
+    def _symbol_forward(self, *args, **kwargs):
+        raise MXNetError("%s has no symbol form: only a HybridBlock (and "
+                         "the ported layers) composes a graph for export"
+                         % type(self).__name__)
 
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
@@ -334,8 +357,102 @@ class HybridBlock(Block):
             params[name] = p.data()
         return self.hybrid_forward(nd, *args, **kwargs, **params)
 
+    def _symbol_forward(self, *args, **kwargs):
+        """``hybrid_forward`` with ``F`` the port's `sym` and each
+        Parameter a variable of its full name."""
+        from .. import symbol as sym_mod
+
+        params = {name: sym_mod.var(p.name, shape=p.shape)
+                  for name, p in self._reg_params.items()}
+        return self.hybrid_forward(sym_mod, *args, **kwargs, **params)
+
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    def export(self, path, epoch=0, n_inputs=1, input_names=None):
+        """Write ``path-symbol.json`` (the graph of ``hybrid_forward`` on
+        variable inputs, named ``data`` or ``data0``, ``data1``, ...) and
+        ``path-%04d.params`` (every parameter under its full name,
+        ``aux:`` for the graph's aux states, ``arg:`` otherwise), as the JAX
+        package's export writes them (reference: block.py:868). The
+        parameters must exist (a first forward makes deferred ones)."""
+        from .. import symbol as sym_mod
+
+        if input_names is None:
+            input_names = ["data"] if n_inputs == 1 else \
+                ["data%d" % i for i in range(n_inputs)]
+        out = self(*[sym_mod.var(n) for n in input_names])
+        if isinstance(out, (list, tuple)):
+            out = sym_mod.Group(list(out))
+        params = self.collect_params()
+        aux_names = set(out.list_auxiliary_states())
+        save_dict = {("aux:" if k in aux_names else "arg:") + k: p._reduce()
+                     for k, p in params.items()}
+        out.save("%s-symbol.json" % path)
+        nd.save("%s-%04d.params" % (path, epoch), save_dict)
+
+
+class SymbolBlock(HybridBlock):
+    """A graph run as a Block (reference: block.py:952): every argument
+    of ``outputs`` that is not an input, and every aux state, is a
+    Parameter of its full name. Called with NDArrays (a façade call, so
+    recorded under ``autograd.record``) or with tensors it interprets the
+    graph, BatchNorm in training mode only while
+    `autograd.is_training`."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from .. import symbol as sym_mod
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(list(outputs))
+        if isinstance(inputs, sym_mod.Symbol):
+            inputs = list(inputs)
+        self._sym_outputs = outputs
+        self._input_names = [i.name for i in inputs]
+        for name in outputs.list_arguments():
+            if name not in self._input_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in outputs.list_auxiliary_states():
+            if name not in self._input_names:
+                self.params.get(name, grad_req="null",
+                                allow_deferred_init=True)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock over ``symbol_file`` with ``input_names``, its
+        parameters loaded from ``param_file`` onto ``ctx`` (either
+        package's export; reference: block.py imports)."""
+        from .. import symbol as sym_mod
+
+        symbol = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(symbol, [sym_mod.var(n) for n in input_names])
+        if param_file is not None:
+            ret.collect_params().load(param_file, ctx=ctx)
+        return ret
+
+    def _symbol_forward(self, *args, **kwargs):
+        raise MXNetError("SymbolBlock has no symbol form: export the block "
+                         "it was imported from")
+
+    def forward(self, *args):
+        wrap = _has_nd(args, {})
+        values = dict(zip(self._input_names, _unwrap(args)))
+        values.update((n, p.var) for n, p in self.params.items())
+        if any(v is None for v in values.values()):
+            raise MXNetError("SymbolBlock: parameters %s are not loaded"
+                             % [n for n, v in values.items() if v is None])
+        from .. import random as _random
+
+        dev = next(iter(values.values())).device
+        outs = self._sym_outputs._interpret(
+            values, is_train=autograd.is_training() if wrap
+            else self.training, generator=_random.generator(dev),
+            device=dev)
+        outs = [_wrap(o) for o in outs] if wrap else list(outs)
+        return outs[0] if len(outs) == 1 else outs
 
 
 def _deferred(p):

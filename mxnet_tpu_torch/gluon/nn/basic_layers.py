@@ -16,6 +16,11 @@ statistics) under ``autograd.is_training()`` when called with NDArrays,
 and under the module's ``training`` flag (``train()`` / ``eval()``) when
 called with tensors. ``device``: where the parameters of a known shape are
 made (the CPU when None, until `initialize` places them).
+
+Called with `Symbol`s (`HybridBlock.export`), ``hybrid_forward`` composes
+the JAX package's op of each layer (FullyConnected, Activation, Dropout,
+Flatten, BatchNorm / BatchNormRelu / BatchNormAddRelu, Embedding); a
+layer without one (LayerNorm, GELU) raises.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from torch import nn
 
 from ... import random as _random
 from ...autograd import layer_training
+from ...base import MXNetError
 from ...ops import nn as _ops
 from ..block import Block, HybridBlock, _deferred
 
@@ -59,9 +65,18 @@ class HybridSequential(HybridBlock, Sequential):
 
     forward = nn.Sequential.forward
 
+    def hybrid_forward(self, F, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
 
 class _Layer(HybridBlock):
     _tensor_forward = True
+
+    def hybrid_forward(self, F, x, *args, **params):
+        raise MXNetError("%s has no symbol form in the port: it cannot be "
+                         "exported" % type(self).__name__)
 
 
 class Dense(_Layer):
@@ -101,6 +116,13 @@ class Dense(_Layer):
             out = _ops.activation(out, act_type=self._act_type)
         return out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               flatten=self._flatten, no_bias=bias is None)
+        if self._act_type is not None:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
+
 
 class Activation(_Layer):
     def __init__(self, activation, prefix=None, params=None):
@@ -113,10 +135,16 @@ class Activation(_Layer):
     def forward(self, x):
         return _ops.activation(x, act_type=self._act_type)
 
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
 
 class Flatten(_Layer):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
 
 
 class BatchNorm(_Layer):
@@ -195,6 +223,22 @@ class BatchNorm(_Layer):
                                self.running_var, is_train=train,
                                **self._kwargs)[0]
 
+    def hybrid_forward(self, F, x, addend=None, gamma=None, beta=None,
+                       running_mean=None, running_var=None):
+        kw = self._kwargs
+        if addend is not None:
+            if self._act_type is None:
+                raise ValueError("BatchNorm: a residual input requires "
+                                 "act_type (the fused BatchNormAddRelu "
+                                 "path)")
+            return F.BatchNormAddRelu(x, addend, gamma, beta, running_mean,
+                                      running_var, act_type=self._act_type,
+                                      **kw)
+        if self._act_type is not None:
+            return F.BatchNormRelu(x, gamma, beta, running_mean, running_var,
+                                   act_type=self._act_type, **kw)
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var, **kw)
+
 
 class Embedding(_Layer):
     """Lookup table: weight (input_dim, output_dim); indices are clipped to
@@ -205,10 +249,9 @@ class Embedding(_Layer):
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if sparse_grad:
-            from ...base import MXNetError
-
             raise MXNetError("Embedding(sparse_grad=True): row-sparse "
                              "gradients are not ported yet")
+        self._input_dim, self._output_dim = input_dim, output_dim
         with self.name_scope():
             self._param("weight", device=device,
                         shape=(input_dim, output_dim),
@@ -216,6 +259,10 @@ class Embedding(_Layer):
 
     def forward(self, x):
         return _ops.embedding(x, self.weight)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
 
 
 class LayerNorm(_Layer):
@@ -229,8 +276,6 @@ class LayerNorm(_Layer):
                  device=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if axis != -1:
-            from ...base import MXNetError
-
             raise MXNetError("LayerNorm: only axis=-1 is ported")
         self.eps = float(epsilon)
         c = (int(in_channels),)
@@ -266,8 +311,6 @@ class Dropout(_Layer):
     def __init__(self, rate, axes=(), prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if axes:
-            from ...base import MXNetError
-
             raise MXNetError("Dropout(axes=...) is not ported yet")
         self._rate = float(rate)
 
@@ -276,3 +319,6 @@ class Dropout(_Layer):
             return x
         return _ops.dropout(x, self._rate, is_train=True,
                             generator=_random.generator(x.device))
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=())

@@ -5,7 +5,8 @@ GlobalAvgPool2D and the construction-time `layout_scope`) as
 `HybridBlock`s that compute on tensors over `ops.nn`. Parameter shapes are
 the JAX package's: a channels-last conv weight is (O, kh, kw, I).
 ``in_channels`` left at 0 is taken from the first input (deferred
-initialisation).
+initialisation). Called with `Symbol`s, each composes the JAX package's
+Convolution or Pooling op (`HybridBlock.export`).
 """
 from __future__ import annotations
 
@@ -104,6 +105,13 @@ class Conv2D(_Layer):
             out = _ops.activation(out, act_type=self._act_type)
         return out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.Convolution(x, weight, bias, num_filter=self._channels,
+                            no_bias=bias is None, **self._kwargs)
+        if self._act_type is not None:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
+
 
 class MaxPool2D(_Layer):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
@@ -120,6 +128,9 @@ class MaxPool2D(_Layer):
     def forward(self, x):
         return _ops.pooling(x, **self._kwargs)
 
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self._kwargs)
+
 
 class GlobalAvgPool2D(_Layer):
     """Mean over the spatial extent, kept as 1 x 1."""
@@ -131,3 +142,7 @@ class GlobalAvgPool2D(_Layer):
     def forward(self, x):
         return _ops.pooling(x, pool_type="avg", global_pool=True,
                             layout=self._layout)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, kernel=(1, 1), pool_type="avg", global_pool=True,
+                         layout=self._layout)

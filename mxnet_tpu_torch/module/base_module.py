@@ -14,7 +14,7 @@ from __future__ import annotations
 import logging
 import time
 
-from ..base import MXNetError
+from ..base import MXNetError, unpad_outputs
 from .. import metric as metric_mod
 from .. import ndarray as nd
 
@@ -25,15 +25,6 @@ def _as_metric(m):
     if isinstance(m, metric_mod.EvalMetric):
         return m
     return metric_mod.create(m)
-
-
-def _unpad(outputs, pad, copy=False):
-    """Each output without its last ``pad`` rows (a padded last batch)."""
-    out = []
-    for o in outputs:
-        s = o[0:o.shape[0] - pad] if pad else o
-        out.append(s.copy() if copy else s)
-    return out
 
 
 class BaseModule(object):
@@ -117,7 +108,8 @@ class BaseModule(object):
                 break
             self.forward(eval_batch, is_train=False)
             pad = getattr(eval_batch, "pad", 0) or 0
-            output_list.append(_unpad(self.get_outputs(), pad, copy=True))
+            output_list.append(unpad_outputs(self.get_outputs(), pad,
+                                             copy=True))
         if not output_list:
             return output_list
         if merge_batches:
@@ -143,7 +135,7 @@ class BaseModule(object):
                 break
             self.forward(eval_batch, is_train=False)
             pad = getattr(eval_batch, "pad", 0) or 0
-            yield _unpad(self.get_outputs(), pad), nbatch, eval_batch
+            yield unpad_outputs(self.get_outputs(), pad), nbatch, eval_batch
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",

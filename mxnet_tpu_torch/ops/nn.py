@@ -432,6 +432,29 @@ def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                       momentum, fix_gamma, use_global_stats, axis, is_train)
 
 
+@register("BatchNormRelu", aliases=("_contrib_BatchNormRelu",),
+          num_outputs=3, num_visible_outputs=1)
+def _batch_norm_relu_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                        momentum=0.9, fix_gamma=True, use_global_stats=False,
+                        output_mean_var=False, axis=1, act_type="relu",
+                        cudnn_off=False, is_train=False):
+    return batch_norm_relu(data, gamma, beta, moving_mean, moving_var, eps,
+                           momentum, fix_gamma, use_global_stats, axis,
+                           act_type, is_train)
+
+
+@register("BatchNormAddRelu", aliases=("_contrib_BatchNormAddRelu",),
+          num_outputs=3, num_visible_outputs=1)
+def _batch_norm_add_relu_op(data, addend, gamma, beta, moving_mean,
+                            moving_var, eps=1e-3, momentum=0.9,
+                            fix_gamma=True, use_global_stats=False,
+                            output_mean_var=False, axis=1, act_type="relu",
+                            cudnn_off=False, is_train=False):
+    return batch_norm_add_relu(data, addend, gamma, beta, moving_mean,
+                               moving_var, eps, momentum, fix_gamma,
+                               use_global_stats, axis, act_type, is_train)
+
+
 @register("Activation")
 def _activation_op(data, act_type="relu"):
     return activation(data, act_type)

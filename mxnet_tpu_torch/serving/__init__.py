@@ -1,16 +1,20 @@
-"""Generation serving (counterpart of `mxnet_tpu.serving`, the ``@generate``
-path): paged-KV continuous batching behind an HTTP ``:generate`` route."""
-from .batcher import (DeadlineExceededError, DrainingError,
-                      ModelUnavailableError, QueueFullError, ServingError,
-                      bucket_for, drain_timeout_s, power_of_two_buckets)
+"""Serving (counterpart of `mxnet_tpu.serving`): predict serving (a
+dynamic micro-batcher over bucketed `Predictor`s) and generation serving
+(paged-KV continuous batching), behind one HTTP server."""
+from .batcher import (DeadlineExceededError, DrainingError, DynamicBatcher,
+                      MemoryBudgetError, ModelUnavailableError,
+                      OverloadedError, QueueFullError, ServingError,
+                      bucket_for, drain_timeout_s, pad_batch,
+                      power_of_two_buckets)
 from .generate import (GenerateScheduler, GenRequest, KVPageAllocator,
                        ServedLM, TransformerLMEngine, load_lm, save_lm)
-from .model_repository import ModelRepository
+from .model_repository import ModelRepository, ServedModel, build_runner
 from .server import ServingServer
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
-           "ModelUnavailableError", "DrainingError", "drain_timeout_s",
-           "power_of_two_buckets", "bucket_for", "KVPageAllocator",
+           "ModelUnavailableError", "DrainingError", "OverloadedError",
+           "MemoryBudgetError", "drain_timeout_s", "power_of_two_buckets",
+           "bucket_for", "pad_batch", "DynamicBatcher", "KVPageAllocator",
            "GenRequest", "GenerateScheduler", "TransformerLMEngine",
-           "ServedLM", "save_lm", "load_lm", "ModelRepository",
-           "ServingServer"]
+           "ServedLM", "save_lm", "load_lm", "ServedModel", "build_runner",
+           "ModelRepository", "ServingServer"]

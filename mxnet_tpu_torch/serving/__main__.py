@@ -1,16 +1,28 @@
-"""Serve generation LM artifacts over HTTP on the CUDA card.
+"""Serve deployment artifacts over HTTP on the CUDA card.
 
-Counterpart of the JAX package's ``tools/serve.py --model NAME=PREFIX@generate``
-path. Loads each ``save_lm`` artifact (either package's) into a
-`ModelRepository`, warms every prefill and decode bucket, and serves
-``POST /v1/models/<name>:generate`` until SIGTERM, which drains queued and
-running requests before exiting 0.
+Counterpart of the JAX package's ``tools/serve.py``. Loads each artifact
+(either package's) into a `ModelRepository`, warms every padding bucket,
+and serves the ``/v1/models`` routes until SIGTERM, which drains queued
+and running requests before exiting 0.
 
-    python -m mxnet_tpu_torch.serving --model lm=/models/lm/model@generate \\
-        --port 8500
+Model specs (repeatable ``--model``):
+
+  NAME=PREFIX@in=DIMS[:dtype][,in2=...]   export prefix (PREFIX-symbol.json
+      + the newest PREFIX-NNNN.params; DIMS are the per-example dims,
+      'x'-separated, batch dim excluded; dtype defaults to float32), served
+      through the dynamic batcher at ``POST /v1/models/<name>:predict``
+  NAME=PREFIX@generate                    generation LM artifact (``save_lm``),
+      served through the continuous-batching decode scheduler at
+      ``POST /v1/models/<name>:generate``
+
+    python -m mxnet_tpu_torch.serving --model mlp=/models/mlp/model@data=8
+    python -m mxnet_tpu_torch.serving \\
+        --model lm=/models/lm/model@data=35:int32,label=35:int32 \\
+        --model gen=/models/gen/model@generate --port 8500
 
 Knobs default to the ``MXTPU_SERVE_*`` variables; flags override them.
 ``--device cpu`` serves on the host (there is no silent fallback to it).
+Compiled ``.mxc`` artifacts and replica pools are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,15 +32,29 @@ import sys
 
 
 def parse_model_spec(spec):
-    """``name=PREFIX@generate`` -> (name, prefix)."""
+    """``name=PREFIX@in=DIMS[:dtype][,in2=...]`` -> (name, prefix, shapes,
+    dtypes), dtypes None when none is given; ``name=PREFIX@generate`` ->
+    (name, prefix, "generate", None)."""
     if "=" not in spec:
-        raise ValueError("model spec %r needs name=PREFIX@generate" % spec)
+        raise ValueError("model spec %r needs name=PREFIX@..." % spec)
     name, rest = spec.split("=", 1)
-    prefix, sep, sig = rest.rpartition("@")
-    if not sep or sig != "generate":
-        raise ValueError("model spec %r: only NAME=PREFIX@generate "
-                         "artifacts are ported" % spec)
-    return name, prefix
+    if "@" not in rest:
+        raise ValueError("model spec %r: compiled (.mxc) artifacts are not "
+                         "ported; give PREFIX@in=DIMS or PREFIX@generate"
+                         % spec)
+    path, sig = rest.split("@", 1)
+    if sig == "generate":
+        return name, path, "generate", None
+    shapes, dtypes = {}, {}
+    for part in sig.split(","):
+        if "=" not in part:
+            raise ValueError("input spec %r needs input=DIMS" % part)
+        iname, dims = part.split("=", 1)
+        if ":" in dims:
+            dims, dtype = dims.split(":", 1)
+            dtypes[iname] = dtype
+        shapes[iname] = tuple(int(d) for d in dims.split("x") if d)
+    return name, path, shapes, (dtypes or None)
 
 
 def main(argv=None):
@@ -36,17 +62,20 @@ def main(argv=None):
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", action="append", required=True,
-                   metavar="NAME=PREFIX@generate",
-                   help="generation artifact to serve (repeatable)")
+                   metavar="NAME=PREFIX@IN=DIMS[:DTYPE],...|@generate",
+                   help="artifact to serve (repeatable)")
     p.add_argument("--port", type=int, default=None,
                    help="HTTP port (default MXTPU_SERVE_PORT; 0 = free port)")
     p.add_argument("--addr", default="0.0.0.0")
     p.add_argument("--max-batch", type=int, default=None,
                    help="override MXTPU_SERVE_MAX_BATCH")
+    p.add_argument("--delay-ms", type=float, default=None,
+                   help="override MXTPU_SERVE_MAX_DELAY_MS")
     p.add_argument("--queue-depth", type=int, default=None,
                    help="override MXTPU_SERVE_QUEUE_DEPTH")
     p.add_argument("--kv-dtype", default="float32",
-                   choices=("float32", "bfloat16"))
+                   choices=("float32", "bfloat16"),
+                   help="KV cache dtype of generation models")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA card)")
     args = p.parse_args(argv)
@@ -60,17 +89,27 @@ def main(argv=None):
 
     repo = ModelRepository()
     for spec in args.model:
-        name, prefix = parse_model_spec(spec)
+        name, prefix, shapes, dtypes = parse_model_spec(spec)
         log.info("loading %s from %s ...", name, prefix)
-        model = repo.load(name, prefix, generate=True,
-                          generate_opts={"kv_dtype": args.kv_dtype},
-                          max_batch=args.max_batch,
+        if shapes == "generate":
+            model = repo.load(name, prefix, generate=True,
+                              generate_opts={"kv_dtype": args.kv_dtype},
+                              max_batch=args.max_batch,
+                              queue_depth=args.queue_depth,
+                              device=args.device)
+            log.info("loaded %s/%d (generate) on %s buckets=%s warm=%.2fs",
+                     model.name, model.version,
+                     model.generate_info.get("device"),
+                     model.generate_info.get("decode_buckets"),
+                     model.warm_seconds or 0.0)
+            continue
+        model = repo.load(name, prefix, input_shapes=shapes,
+                          input_dtypes=dtypes, max_batch=args.max_batch,
+                          max_delay_ms=args.delay_ms,
                           queue_depth=args.queue_depth, device=args.device)
-        log.info("loaded %s/%d (generate) on %s buckets=%s warm=%.2fs",
-                 model.name, model.version,
-                 model.generate_info.get("device"),
-                 model.generate_info.get("decode_buckets"),
-                 model.warm_seconds or 0.0)
+        log.info("loaded %s/%d (predict) on %s buckets=%s warm=%.2fs",
+                 model.name, model.version, model.meta.get("device"),
+                 model.buckets, model.warm_seconds or 0.0)
 
     server = ServingServer(repo, port=args.port, addr=args.addr)
     server.install_signal_handlers()

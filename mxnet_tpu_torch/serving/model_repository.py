@@ -1,23 +1,292 @@
 """Model repository: name/version -> served model, with hot load/unload.
 
-Counterpart of `mxnet_tpu/serving/model_repository.py`, generation models
-only. Loading a predict (classification) artifact raises: predict serving,
-replica pools, memory-budget admission and autoscaling are not ported yet.
+Counterpart of `mxnet_tpu/serving/model_repository.py`. Two kinds load:
+
+  * an export ``prefix`` (``prefix-symbol.json`` + the newest
+    ``prefix-NNNN.params``, from `HybridBlock.export` or
+    `model.save_checkpoint` of either package) as a `ServedModel`: one
+    `Predictor` bound per power-of-two padding bucket, every clone over the
+    prototype's weight tensors (one copy on the device), behind its own
+    `DynamicBatcher`;
+  * a generation LM (``generate=True``: a ``save_lm`` prefix) as a
+    `ServedLM` over the continuous-batching decode scheduler.
+
+A load warms every bucket (one forward of zeros each) before it publishes,
+so a half-warm model never serves; an unload drains queued and running
+work, then drops the model.
+
+Not ported yet, and raising where asked for: compiled ``.mxc`` artifacts
+(ROADMAP queue 1 items 2 and 13), replica pools (``replicas > 0``) and the
+autoscaler's ``min_replicas`` / ``max_replicas`` / ``pinned`` (item 12),
+``MXTPU_SERVE_MEMORY_BUDGET`` admission with `reclaim_memory`, which need
+``telemetry/memory.py``, and the compile manifest (item 13).
 """
 from __future__ import annotations
 
+import os
+import re
 import threading
 import time
 
+import numpy as _np
+
+from .. import env as _env
 from .. import telemetry
 from ..base import MXNetError
-from .batcher import ModelUnavailableError, drain_timeout_s
+from .batcher import (DynamicBatcher, ModelUnavailableError,
+                      drain_timeout_s, power_of_two_buckets)
 
-__all__ = ["ModelRepository"]
+__all__ = ["ServedModel", "ModelRepository", "build_runner"]
 
+
+def _unported(what, item):
+    return MXNetError("%s is not ported yet (ROADMAP queue 1 item %s)"
+                      % (what, item))
+
+
+class ServedModel:
+    """One ``name/version`` of predict serving: a bucketed runner behind a
+    dynamic batcher.
+
+    ``runner(batch_arrays, bucket, n) -> [numpy outputs]`` owns the model;
+    `from_path` builds it from a deployment artifact, and tests may inject
+    a stub (the repository needs only this interface).
+    """
+
+    def __init__(self, name, version, runner, buckets, example_shapes,
+                 input_dtypes=None, meta=None, max_delay_ms=None,
+                 queue_depth=None, pool=None):
+        if pool is not None:
+            raise _unported("a replica pool", 12)
+        self.name = str(name)
+        self.version = int(version)
+        self.example_shapes = {k: tuple(v) for k, v in example_shapes.items()}
+        self.input_dtypes = {k: _np.dtype(input_dtypes[k])
+                             if input_dtypes and k in input_dtypes
+                             else _np.dtype(_np.float32)
+                             for k in self.example_shapes}
+        self.meta = dict(meta or {})
+        self.loaded_at = time.time()
+        self.warmed = False
+        self.warm_seconds = None
+        self._runner = runner
+        self._batcher = DynamicBatcher(
+            runner, buckets, max_delay_ms=max_delay_ms,
+            queue_depth=queue_depth, name="%s/%d" % (self.name, self.version))
+
+    # -- construction from artifacts --------------------------------------
+    @staticmethod
+    def from_path(name, version, path, input_shapes=None, input_dtypes=None,
+                  ctx=None, max_batch=None, max_delay_ms=None,
+                  queue_depth=None):
+        """Load an export ``prefix`` (or its ``-symbol.json``) with
+        ``input_shapes`` per example, batch dim excluded, on ``ctx``
+        (default: the card)."""
+        _, (symbol_file, param_file) = _resolve_artifact(path)
+        return ServedModel._from_symbol(
+            name, version, symbol_file, param_file, input_shapes,
+            input_dtypes=input_dtypes, ctx=ctx, max_batch=max_batch,
+            max_delay_ms=max_delay_ms, queue_depth=queue_depth)
+
+    @staticmethod
+    def _from_symbol(name, version, symbol_file, param_file, input_shapes,
+                     input_dtypes=None, ctx=None, max_batch=None,
+                     max_delay_ms=None, queue_depth=None):
+        runner, buckets, example_shapes, dtypes, meta = _symbol_runner(
+            symbol_file, param_file, input_shapes,
+            input_dtypes=input_dtypes, ctx=ctx, max_batch=max_batch)
+        return ServedModel(name, version, runner, buckets, example_shapes,
+                           input_dtypes=dtypes, meta=meta,
+                           max_delay_ms=max_delay_ms,
+                           queue_depth=queue_depth)
+
+    # -- serving surface ---------------------------------------------------
+    @property
+    def buckets(self):
+        return list(self._batcher.buckets)
+
+    @property
+    def max_batch(self):
+        return self._batcher.max_batch
+
+    def validate(self, arrays):
+        """Check names and per-example shapes against the signature and
+        cast to the declared dtypes; returns the cast arrays. Raises
+        MXNetError on a mismatch (HTTP 400)."""
+        want = set(self.example_shapes)
+        got = set(arrays)
+        if want != got:
+            raise MXNetError("inputs %s != model inputs %s"
+                             % (sorted(got), sorted(want)))
+        out = {}
+        for k, a in arrays.items():
+            a = _np.asarray(a, dtype=self.input_dtypes[k])
+            if tuple(a.shape[1:]) != self.example_shapes[k]:
+                raise MXNetError(
+                    "input %r per-example shape %s != declared %s"
+                    % (k, tuple(a.shape[1:]), self.example_shapes[k]))
+            out[k] = a
+        return out
+
+    def predict(self, arrays, timeout_ms=None):
+        """Validate, admit, and wait: returns the request's list of output
+        arrays. Raises QueueFullError / DeadlineExceededError /
+        DrainingError per the admission contract."""
+        arrays = self.validate(arrays)
+        if timeout_ms is None:
+            timeout_ms = _env.get("MXTPU_SERVE_TIMEOUT_MS")
+        deadline = None
+        if timeout_ms and timeout_ms > 0:
+            deadline = time.monotonic() + float(timeout_ms) / 1e3
+        req = self._batcher.submit(arrays, deadline)
+        timeout = None if deadline is None \
+            else max(0.0, deadline - time.monotonic())
+        return req.wait(timeout)
+
+    def warm(self):
+        """One forward of zeros per bucket before the model publishes, so
+        the first request of each bucket pays no first-launch cost (kernel
+        builds, allocator growth). Emits one ``serve_bucket_warm`` event
+        per bucket; returns the seconds taken."""
+        t_all = time.monotonic()
+        for b in self._batcher.buckets:
+            zeros = {k: _np.zeros((b,) + s, dtype=self.input_dtypes[k])
+                     for k, s in self.example_shapes.items()}
+            t0 = time.monotonic()
+            self._runner(zeros, b, b)
+            telemetry.record_event(
+                "serve_bucket_warm", model=self.name, version=self.version,
+                bucket=b, seconds=round(time.monotonic() - t0, 4))
+        self.warm_seconds = time.monotonic() - t_all
+        self.warmed = True
+        return self.warm_seconds
+
+    def pending(self):
+        return self._batcher.pending()
+
+    def drain(self, timeout=None):
+        return self._batcher.drain(timeout)
+
+    def abort_pending(self, error=None):
+        """Force-complete every queued and in-flight request; returns how
+        many were force-resolved."""
+        return self._batcher.abort_pending(error)
+
+    def close(self, drain=True, timeout=None):
+        return self._batcher.close(drain=drain, timeout=timeout)
+
+    def describe(self):
+        return {
+            "name": self.name,
+            "version": self.version,
+            "kind": "predict",
+            "buckets": self.buckets,
+            "max_batch": self.max_batch,
+            "inputs": {k: {"shape": list(s),
+                           "dtype": self.input_dtypes[k].name}
+                       for k, s in self.example_shapes.items()},
+            "warmed": self.warmed,
+            "warm_seconds": self.warm_seconds,
+            "pending": self.pending(),
+            "loaded_at": self.loaded_at,
+            "meta": self.meta,
+        }
+
+
+# ---------------------------------------------------------------------------
+# artifact loading
+# ---------------------------------------------------------------------------
+
+def build_runner(path, input_shapes=None, input_dtypes=None, ctx=None,
+                 max_batch=None):
+    """Load a deployment artifact into a bucketed ``runner(arrays, bucket,
+    n) -> [numpy outputs]``. Returns ``(runner, buckets, example_shapes,
+    input_dtypes, meta)``."""
+    _, (symbol_file, param_file) = _resolve_artifact(path)
+    return _symbol_runner(symbol_file, param_file, input_shapes,
+                          input_dtypes=input_dtypes, ctx=ctx,
+                          max_batch=max_batch)
+
+
+def _symbol_runner(symbol_file, param_file, input_shapes, input_dtypes=None,
+                   ctx=None, max_batch=None):
+    from ..predict import Predictor, _clone_with
+
+    if not input_shapes:
+        raise MXNetError(
+            "symbol/params models need input_shapes (per-example, "
+            "batch dim excluded), e.g. {'data': (8,)}")
+    example_shapes = {k: tuple(v) for k, v in input_shapes.items()}
+    if max_batch is None:
+        max_batch = _env.get("MXTPU_SERVE_MAX_BATCH")
+    buckets = power_of_two_buckets(max_batch)
+
+    def shapes_at(b):
+        return {k: (b,) + s for k, s in example_shapes.items()}
+
+    # one Predictor per bucket, each binding the prototype's weight
+    # tensors: N buckets hold one copy of the weights and N input buffers
+    proto = Predictor(symbol_file, param_file, ctx=ctx,
+                      input_shapes=shapes_at(buckets[-1]),
+                      input_dtypes=input_dtypes)
+    by_bucket = {buckets[-1]: proto}
+    for b in buckets[:-1]:
+        by_bucket[b] = _clone_with(proto, shapes_at(b), shared=proto)
+    num_outputs = proto.num_outputs
+
+    def runner(arrays, bucket, n):
+        pred = by_bucket[bucket]
+        pred.forward(**arrays)
+        return [pred.get_output(i).asnumpy() for i in range(num_outputs)]
+
+    runner.predictors = by_bucket   # for checks of the shared weights
+    meta = {"artifact": "symbol", "symbol_file": str(symbol_file),
+            "param_file": str(param_file), "device": str(proto._ctx)}
+    return runner, buckets, example_shapes, input_dtypes, meta
+
+
+_PARAMS_RE = re.compile(r"-(\d{4})\.params$")
+
+
+def _resolve_artifact(path):
+    """``('symbol', (symbol_json, params))`` for an export prefix (or its
+    ``-symbol.json``), the params file the newest ``-NNNN.params``. A
+    compiled ``.mxc`` artifact raises: not ported yet."""
+    from ..predict import _MXC_MAGIC
+
+    path = os.fspath(path)
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            magic = f.read(len(_MXC_MAGIC))
+        if magic == _MXC_MAGIC or path.endswith(".mxc"):
+            raise _unported("serving a compiled .mxc artifact", "2 and 13")
+        if path.endswith("-symbol.json"):
+            path = path[:-len("-symbol.json")]
+        else:
+            raise MXNetError("%r is not a *-symbol.json or an export prefix"
+                             % path)
+    symbol_file = path + "-symbol.json"
+    if not os.path.exists(symbol_file):
+        raise MXNetError("no artifact at %r (expected %s)"
+                         % (path, symbol_file))
+    directory, base = os.path.split(path)
+    candidates = []
+    for fn in os.listdir(directory or "."):
+        m = _PARAMS_RE.search(fn)
+        if m and fn == "%s-%s.params" % (base, m.group(1)):
+            candidates.append((int(m.group(1)), fn))
+    if not candidates:
+        raise MXNetError("no %s-NNNN.params next to %s" % (base, symbol_file))
+    _, newest = max(candidates)
+    return "symbol", (symbol_file, os.path.join(directory, newest))
+
+
+# ---------------------------------------------------------------------------
+# the repository
+# ---------------------------------------------------------------------------
 
 class ModelRepository:
-    """name/version -> `ServedLM`.
+    """name/version -> `ServedModel` or `ServedLM`.
 
     A load warms before it publishes (a half-warm model never serves);
     an unload drains queued and running work, then drops the model. `get`
@@ -30,20 +299,39 @@ class ModelRepository:
         self._loading = set()  # (name, version) reservations mid-load
         self._m_loaded = telemetry.gauge("mxtpu_serve_models_loaded")
 
-    def load(self, name, path, version=None, generate=False,
-             generate_opts=None, queue_depth=None, max_batch=None,
-             device=None):
-        """Load the ``save_lm`` artifact at prefix ``path`` as
-        ``name/version`` (auto-increment when ``version`` is None) on
-        ``device`` (default: the CUDA card) and publish it after warm-up.
-        ``generate_opts`` go to `TransformerLMEngine` (KV geometry, buckets,
-        ``kv_dtype``). Only ``generate=True`` loads are ported."""
-        if not generate:
-            raise MXNetError(
-                "predict serving is not ported yet: mxnet_tpu_torch loads "
-                "generation LM artifacts only (generate=True)")
-        from .generate import ServedLM
+    def load(self, name, path, version=None, input_shapes=None,
+             input_dtypes=None, ctx=None, max_batch=None, max_delay_ms=None,
+             queue_depth=None, warm=True, replicas=0, generate=False,
+             generate_opts=None, min_replicas=None, max_replicas=None,
+             pinned=False, device=None):
+        """Load an artifact as ``name/version`` (auto-increment when
+        ``version`` is None) and publish it after warm-up. The version is
+        reserved for the whole load, and a failed load tears its half-built
+        model (and batcher thread) down.
 
+        A predict model: an export prefix with ``input_shapes`` per example
+        (batch dim excluded) and ``input_dtypes`` of the inputs that are not
+        float32, on ``ctx`` (default: the card; ``device`` is the port's
+        name for it), buckets the powers of two up to ``max_batch``.
+        ``generate=True`` loads a ``save_lm`` prefix instead, its geometry
+        through ``generate_opts`` (to `TransformerLMEngine`); the
+        predict-only knobs raise there."""
+        if replicas:
+            raise _unported("serving through replica pools (replicas > 0)",
+                            12)
+        if min_replicas is not None or max_replicas is not None or pinned:
+            raise _unported("the autoscaler (min_replicas / max_replicas / "
+                            "pinned)", 12)
+        if os.environ.get("MXTPU_SERVE_MEMORY_BUDGET"):
+            raise _unported("MXTPU_SERVE_MEMORY_BUDGET admission", 13)
+        if ctx is not None and device is not None:
+            raise MXNetError("pass the device as ctx or device, not both")
+        if generate and (input_shapes or input_dtypes or ctx is not None
+                         or max_delay_ms is not None or not warm):
+            raise MXNetError(
+                "generate=True loads take geometry through generate_opts "
+                "(and always warm); input_shapes/input_dtypes/ctx/"
+                "max_delay_ms/warm=False do not apply")
         with self._lock:
             have = self._models.get(name, {})
             reserved = [v for (n, v) in self._loading if n == name]
@@ -55,20 +343,36 @@ class ModelRepository:
                                  % (name, version))
             self._loading.add((name, version))
         try:
-            opts = dict(generate_opts or {})
-            if max_batch is not None:
-                opts.setdefault("max_batch", max_batch)
-            model = ServedLM.load(name, version, path,
-                                  queue_depth=queue_depth, device=device,
-                                  **opts)
+            if generate:
+                from .generate import ServedLM
+
+                opts = dict(generate_opts or {})
+                if max_batch is not None:
+                    opts.setdefault("max_batch", max_batch)
+                model = ServedLM.load(name, version, path,
+                                      queue_depth=queue_depth,
+                                      device=device, **opts)
+            else:
+                model = ServedModel.from_path(
+                    name, version, path, input_shapes=input_shapes,
+                    input_dtypes=input_dtypes,
+                    ctx=ctx if ctx is not None else device,
+                    max_batch=max_batch, max_delay_ms=max_delay_ms,
+                    queue_depth=queue_depth)
             try:
+                if warm and not generate:
+                    model.warm()
                 return self.add(model)
             except Exception:
-                model.close(drain=False, timeout=0)
+                model.close(drain=False, timeout=0)  # no thread/weight leak
                 raise
         finally:
             with self._lock:
                 self._loading.discard((name, version))
+
+    def reclaim_memory(self, needed_bytes, exclude=None, reason="load",
+                       dry_run=False):
+        raise _unported("reclaim_memory (memory-budget residency)", 13)
 
     def add(self, model):
         """Publish an already-built served model."""

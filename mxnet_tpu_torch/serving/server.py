@@ -1,34 +1,44 @@
 """HTTP frontend over a `ModelRepository`.
 
-Counterpart of `mxnet_tpu/serving/server.py`, for generation models: a
-stdlib `ThreadingHTTPServer`, one handler thread per connection, handler
-threads blocking cheaply on their request while the model's decode worker
-drives the card.
+Counterpart of `mxnet_tpu/serving/server.py`: a stdlib
+`ThreadingHTTPServer`, one handler thread per connection, handler threads
+blocking cheaply on their request while the model's batcher or decode
+worker drives the card.
 
 Routes:
 
+  * ``POST /v1/models/<name>[/versions/<v>]:predict``
+      body: ``{"inputs": {"<input>": <nested list>}, "timeout_ms": opt}``
+      or ``{"instances": <nested list>}`` for single-input models; inputs
+      are cast to the model's declared dtypes;
+      reply: ``{"outputs": [...], "model": ..., "version": ...}``
   * ``POST /v1/models/<name>[/versions/<v>]:generate``
       body: ``{"tokens": [int...], "max_new_tokens": opt,
       "temperature": opt, "top_k": opt, "top_p": opt, "timeout_ms": opt}``
       reply: ``{"tokens": [generated ids], "num_generated": ...,
       "finish_reason": "eos"|"length", "model": ..., "version": ...}``
-  * ``GET /v1/models``        repository listing
+  * ``GET /v1/models``        repository listing (both kinds)
   * ``GET /v1/models/<name>`` one model (``?version=``)
   * ``GET /healthz``          200 ``ok`` / 503 ``draining``
   * ``GET|POST /drainz``      start draining (idempotent)
 
 Admission is deterministic: a full queue answers 429, an expired deadline
-504, draining 503, an unknown model 404, a malformed request 400.
-SIGTERM (via `install_signal_handlers`) drains queued and running requests,
-then stops the server.
+504, draining 503, an unknown model 404, a malformed request (or the
+other kind's verb) 400. SIGTERM (via `install_signal_handlers`) drains
+queued and running requests, then stops the server. Not ported yet: the
+trace header and spans of the JAX package's ``_tracing``, which wait for
+``telemetry/tracing.py`` (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import signal
 import threading
 import time
+
+import numpy as _np
 
 from .. import env as _env
 from .. import telemetry
@@ -44,6 +54,22 @@ def _int_version(raw):
         return int(raw)
     except ValueError:
         raise MXNetError("version %r is not an integer" % (raw,))
+
+
+def _finite(body, field, cast):
+    """``cast(body[field])``, None when absent. A NaN/Infinity literal (or
+    a non-number) is the client's error (400): it would poison a sampling
+    mask or a deadline, and must never become a garbage 200 or a 500."""
+    if body.get(field) is None:
+        return None
+    try:
+        value = cast(body[field])
+    except (TypeError, ValueError):
+        value = None
+    if value is None or not math.isfinite(value):
+        raise MXNetError("%r must be a finite number, got %r"
+                         % (field, body[field]))
+    return value
 
 
 class ServingServer:
@@ -76,6 +102,10 @@ class ServingServer:
         class _Handler(BaseHTTPRequestHandler):
             # keep-alive: every reply carries Content-Length
             protocol_version = "HTTP/1.1"
+            # TCP_NODELAY: a reply goes out as two writes (headers, body),
+            # and Nagle would hold the body back until the client's
+            # delayed ACK (Linux's 40 ms timer) on a keep-alive connection
+            disable_nagle_algorithm = True
 
             def do_GET(self):
                 outer._route(self, "GET")
@@ -225,13 +255,10 @@ class ServingServer:
         name = rest.strip("/")
         if version is None and query.startswith("version="):
             version = _int_version(query.split("=", 1)[1].split("&")[0])
-        if verb == "generate" and method == "POST":
+        if verb == "predict" and method == "POST":
+            self._predict(handler, name, version)
+        elif verb == "generate" and method == "POST":
             self._generate(handler, name, version)
-        elif verb == "predict" and method == "POST":
-            self._read_body(handler)
-            self.repository.get(name, version)   # 404 for an unknown name
-            raise MXNetError("model %r is a generation model; use :generate "
-                             "(predict serving is not ported yet)" % name)
         elif verb is None and method == "GET":
             model = self.repository.get(name, version)
             self._json(handler, 200, model.describe())
@@ -247,12 +274,20 @@ class ServingServer:
         length = int(handler.headers.get("Content-Length") or 0)
         return handler.rfile.read(length) if length > 0 else b""
 
-    # -- generate ----------------------------------------------------------
-    def _generate(self, handler, name, version):
+    def _body(self, handler, name, version, verb):
+        """Read the body (before any reply: keep-alive), then the model
+        (404), its kind (400 for the other kind's verb) and the JSON
+        object."""
         raw_body = self._read_body(handler)
         if self._draining:
             raise DrainingError("server is draining")
         model = self.repository.get(name, version)
+        if not hasattr(model, verb):
+            raise MXNetError(
+                "model %r is a generation model; use :generate" % name
+                if verb == "predict" else
+                "model %r does not serve :generate (it is a predict model; "
+                "load an LM artifact with generate=True)" % name)
         if not raw_body:
             raise MXNetError("empty request body")
         try:
@@ -261,6 +296,54 @@ class ServingServer:
             raise MXNetError("request body is not JSON: %s" % e)
         if not isinstance(body, dict):
             raise MXNetError("request body must be a JSON object")
+        return model, body
+
+    @contextlib.contextmanager
+    def _in_flight(self):
+        """Count a request in flight, its reply included (what `drain`
+        waits on before it stops the server)."""
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            yield
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    # -- predict -----------------------------------------------------------
+    def _predict(self, handler, name, version):
+        model, body = self._body(handler, name, version, "predict")
+        if "inputs" in body:
+            raw = body["inputs"]
+            if not isinstance(raw, dict):
+                raise MXNetError("'inputs' must be an object of "
+                                 "input-name -> array")
+        elif "instances" in body:
+            names = sorted(model.example_shapes)
+            if len(names) != 1:
+                raise MXNetError(
+                    "'instances' shorthand needs a single-input model; "
+                    "%r has inputs %s; use 'inputs'" % (name, names))
+            raw = {names[0]: body["instances"]}
+        else:
+            raise MXNetError("request needs 'inputs' or 'instances'")
+        try:
+            arrays = {k: _np.asarray(v, dtype=model.input_dtypes.get(k))
+                      for k, v in raw.items()}
+        except (ValueError, TypeError, KeyError) as e:
+            raise MXNetError("malformed input array: %s" % e)
+        timeout_ms = _finite(body, "timeout_ms", float)
+        with self._in_flight():
+            outputs = model.predict(arrays, timeout_ms=timeout_ms)
+            self._json(handler, 200, {
+                "model": model.name,
+                "version": model.version,
+                "outputs": [o.tolist() for o in outputs],
+            })
+
+    # -- generate ----------------------------------------------------------
+    def _generate(self, handler, name, version):
+        model, body = self._body(handler, name, version, "generate")
         tokens = body.get("tokens")
         if not isinstance(tokens, list) or not tokens \
                 or not all(isinstance(t, int) and not isinstance(t, bool)
@@ -271,21 +354,10 @@ class ServingServer:
         for field, cast in (("max_new_tokens", int), ("temperature", float),
                             ("top_k", int), ("top_p", float),
                             ("timeout_ms", float)):
-            if body.get(field) is None:
-                continue
-            try:
-                value = cast(body[field])
-            except (TypeError, ValueError):
-                value = None
-            # a NaN/Infinity literal would poison the sampling masks: the
-            # client's error (400), never a garbage 200 or a 500
-            if value is None or not math.isfinite(value):
-                raise MXNetError("%r must be a finite number, got %r"
-                                 % (field, body[field]))
-            kwargs[field] = value
-        with self._inflight_lock:
-            self._inflight += 1
-        try:
+            value = _finite(body, field, cast)
+            if value is not None:
+                kwargs[field] = value
+        with self._in_flight():
             result = model.generate(tokens, **kwargs)
             self._json(handler, 200, {
                 "model": model.name,
@@ -294,9 +366,6 @@ class ServingServer:
                 "num_generated": len(result["tokens"] or ()),
                 "finish_reason": result.get("finish_reason"),
             })
-        finally:
-            with self._inflight_lock:
-                self._inflight -= 1
 
     # -- replies -----------------------------------------------------------
     def _count(self, code):

@@ -23,6 +23,10 @@ _INPUT_SLOTS = {
     "FullyConnected": (["data", "weight", "bias"], []),
     "Convolution": (["data", "weight", "bias"], []),
     "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
+    "BatchNormRelu": (["data", "gamma", "beta"],
+                      ["moving_mean", "moving_var"]),
+    "BatchNormAddRelu": (["data", "addend", "gamma", "beta"],
+                         ["moving_mean", "moving_var"]),
     "Embedding": (["data", "weight"], []),
     "RNN": (["data", "parameters", "state", "state_cell"], []),
     "SoftmaxOutput": (["data", "label"], []),
@@ -253,6 +257,8 @@ _ARG_SHAPE_RULES = {
     "FullyConnected": _fc_rule,
     "Convolution": _conv_rule,
     "BatchNorm": _bn_rule,
+    "BatchNormRelu": _bn_rule,
+    "BatchNormAddRelu": _bn_rule,
     "Embedding": _embed_rule,
     "RNN": _rnn_rule,
 }

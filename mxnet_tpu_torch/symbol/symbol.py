@@ -286,14 +286,17 @@ class Symbol:
         return call
 
     # -- interpretation ----------------------------------------------------
-    def _interpret(self, values, is_train=False, generator=None):
+    def _interpret(self, values, is_train=False, generator=None,
+                   device=None):
         """Evaluate the graph on torch tensors, ``values`` {var name:
         tensor}; returns the output tensors. An op taking ``is_train`` gets
         ``is_train``; a random op draws from ``generator`` (default: this
-        thread's generator for its first input's device). BatchNorm writes
-        its moving statistics into the aux tensors in place in training
-        (the reference's in-place aux update; the JAX package returns them
-        instead)."""
+        thread's generator for its first input's device); an op with no
+        array input (``_zeros``, ``_arange``...) puts its outputs on
+        ``device`` when given (the bound device), as the JAX package's land
+        on the current context. BatchNorm writes its moving statistics into
+        the aux tensors in place in training (the reference's in-place aux
+        update; the JAX package returns them instead)."""
         computed = {}
         for node in self._topo():
             if node.is_var:
@@ -319,8 +322,11 @@ class Symbol:
             bind_names = node.attrs.get("__input_names__")
             if bind_names is not None and len(bind_names) == len(in_arrays):
                 out = opdef.fn(**dict(zip(bind_names, in_arrays)), **attrs)
-            else:
+            elif in_arrays or device is None:
                 out = opdef.fn(*in_arrays, **attrs)
+            else:
+                with torch.device(device):   # factories make it there
+                    out = opdef.fn(**attrs)
             computed[id(node)] = tuple(out) if isinstance(out, (tuple, list)) \
                 else (out,)
         return [computed[id(node)][idx] for node, idx in self._outputs]
@@ -337,8 +343,9 @@ class Symbol:
                         if isinstance(v, NDArray)), None)
         values = {k: (v if isinstance(v, NDArray) else array(v, ctx=ctx))
                   ._data for k, v in kwargs.items()}
+        dev = next(iter(values.values())).device if values else None
         with torch.no_grad():
-            outs = self._interpret(values)
+            outs = self._interpret(values, device=dev)
         return [NDArray(o.contiguous()) for o in outs]
 
     def eval_with(self, values):

@@ -6,9 +6,13 @@ forward, a ResNet, a BERT and a word-LM training step on the card
 against the same step on the CPU, the word LM's step through the Gluon
 façade (``record()`` / ``backward()`` / ``gluon.Trainer``) on the card
 against the CPU, a small FusedRNNCell LM's and a conv + BatchNorm net's
-symbolic step (``Module``) on the card against the CPU, and ``mx.rtc``
+symbolic step (``Module``) on the card against the CPU, ``mx.rtc``
 (NVRTC-compiled CUDA C++ launched on ``mx.nd`` arrays) with ``mx.nd`` on
-the card against the CPU.
+the card against the CPU, and a scoring word LM served by the predict
+path (``ModelRepository`` -> ``DynamicBatcher`` -> bucketed
+``Predictor``s -> ``lstm_infer``) on the card against a ``Predictor`` on
+the CPU, with its launch counts and its buckets' shared weights; and a
+bound graph's no-input ops on the card.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -25,6 +29,7 @@ import threading
 
 from chip_smoke import (RTC_CASES, RTC_SOFTMAX, RTC_SOFTMAX_EXPORTS,
                         RTC_TEMPLATED_AXPY, SYMBOLIC_STEPS, facade_lm_step,
+                        score_symbol,
                         facade_step_errors, module_step_errors, rtc_close,
                         rtc_kernels, rtc_planted_faults, rtc_scale,
                         rtc_softmax, softmax_bwd_plain, softmax_plain)
@@ -823,6 +828,108 @@ def test_symbolic_step_on_card_matches_cpu(which):
         dict.fromkeys(kernels, per_layer)
     cpu = step(torch, 5, torch.device("cpu"))
     module_step_errors(torch, card, cpu, name)
+
+
+# ---------------------------------------------------------------------------
+# predict serving: the scoring word LM (vocab 1000, 2 x 650 units, 35
+# tokens) through ModelRepository on the card
+
+_SCORE = dict(vocab=1000, units=650, layers=2, seq=35)
+
+
+def _score_artifact(tmp_path):
+    """`chip_smoke.score_symbol` at `_SCORE`, checkpointed with weights
+    from a seed (uniform in +-0.1); returns (prefix, data, label) with 9
+    sentences of token ids."""
+    import mxnet_tpu_torch as mx
+
+    with mx.context.scope(mx.cpu()):
+        sym = score_symbol(mx, **_SCORE)
+        n, t = 9, _SCORE["seq"]
+        shapes = sym.infer_shape(data=(1, t), label=(1, t))[0]
+        rng = np.random.RandomState(3)
+        params = {k: mx.nd.array(rng.uniform(-0.1, 0.1, s))
+                  for k, s in zip(sym.list_arguments(), shapes)
+                  if k not in ("data", "label")}
+        prefix = str(tmp_path / "score")
+        mx.model.save_checkpoint(prefix, 0, sym, params, {})
+    data = rng.randint(0, _SCORE["vocab"], (n, t)).astype(np.int32)
+    label = rng.randint(0, _SCORE["vocab"], (n, t)).astype(np.int32)
+    return prefix, data, label
+
+
+@pytest.mark.cuda
+def test_scoring_lm_served_on_card_matches_cpu_predictor(tmp_path):
+    """Served on the card (max_batch 8: buckets 1, 2, 4, 8, warmed), one
+    request of 1, 3 and 5 sentences each: every reply equals a `Predictor`
+    on the CPU (plain versions, TF32 off) within atol 1e-3; lstm_infer
+    launches 2 a warmed bucket and 2 a dispatched batch, lstm_fwd and
+    lstm_bwd never; the buckets bind one copy of the weights."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.predict import Predictor
+    from mxnet_tpu_torch.serving import ModelRepository
+
+    prefix, data, label = _score_artifact(tmp_path)
+    shapes = {"data": (_SCORE["seq"],), "label": (_SCORE["seq"],)}
+    dtypes = {"data": "int32", "label": "int32"}
+    kernels = ("lstm_infer", "lstm_fwd", "lstm_bwd")
+    before = {k: getattr(tpk, k).launches for k in kernels}
+    repo = ModelRepository()
+    model = repo.load("score", prefix, input_shapes=shapes,
+                      input_dtypes=dtypes, max_batch=8, ctx=mx.gpu(0))
+    try:
+        assert {k: getattr(tpk, k).launches - before[k]
+                for k in kernels} == {"lstm_infer": 2 * 4, "lstm_fwd": 0,
+                                      "lstm_bwd": 0}
+        preds = model._runner.predictors
+        for b in (1, 2, 4):
+            for k in ("embed_weight", "lstm_parameters", "pred_weight",
+                      "pred_bias"):
+                assert preds[b]._args[k]._data.data_ptr() == \
+                    preds[8]._args[k]._data.data_ptr()
+                assert preds[b]._args[k]._data.is_cuda
+        cpu = Predictor(prefix + "-symbol.json", prefix + "-0000.params",
+                        ctx=mx.cpu(), input_dtypes=dtypes,
+                        input_shapes={k: (len(data), _SCORE["seq"])
+                                      for k in shapes})
+        want = cpu.forward(data=data, label=label).get_output(0).asnumpy()
+        start = 0
+        for i, n in enumerate((1, 3, 5)):
+            mid = {k: getattr(tpk, k).launches for k in kernels}
+            (got,) = model.predict({"data": data[start:start + n],
+                                    "label": label[start:start + n]})
+            assert {k: getattr(tpk, k).launches - mid[k]
+                    for k in kernels} == {"lstm_infer": 2, "lstm_fwd": 0,
+                                          "lstm_bwd": 0}
+            assert got.shape == (n, _SCORE["seq"])
+            np.testing.assert_allclose(got, want[start:start + n], rtol=0,
+                                       atol=1e-3)
+            start += n
+    finally:
+        repo.unload("score", timeout=30)
+
+
+@pytest.mark.cuda
+def test_bound_graph_no_input_ops_on_card():
+    """``_zeros``, ``_ones``, ``_arange`` and ``_full`` in a graph bound on
+    the card make their outputs there (they took torch's default device,
+    the CPU)."""
+    _need_card()
+    import mxnet_tpu_torch as mx
+
+    data = mx.sym.var("data")
+    graph = mx.sym.Group([
+        data + mx.sym.zeros((2, 3)), data * mx.sym.ones((2, 3)),
+        mx.sym.broadcast_add(data, mx.sym.arange(3)),
+        data + mx.sym._full(shape=(2, 3), value=1.5)])
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    exe = graph.bind(mx.gpu(0), {"data": mx.nd.array(x, ctx=mx.gpu(0))},
+                     grad_req="null")
+    outs = [o.asnumpy() for o in exe.forward(is_train=False)]
+    for got, want in zip(outs, (x, x, x + np.arange(3), x + 1.5)):
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

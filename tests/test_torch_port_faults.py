@@ -24,6 +24,12 @@ showed it, on the CPU:
 9. ``SoftmaxCrossEntropyLoss`` clips a label outside [0, K) as ``pick``
    does (it raised).
 10. ``NDArray.detach`` cuts the array from the graph.
+11. A bound graph's ops with no array input (``_zeros``, ``_ones``,
+    ``_full``, ``_arange``) put their outputs on the executor's device, as
+    the JAX package's land on the current context; they took torch's
+    default device, so a graph bound on the card mixed devices. Held here
+    with torch's default device set to ``meta`` while a CPU executor runs
+    (on the card in ``test_torch_port_cuda.py``), from a fresh thread.
 
 Float results within 1e-6 relative and absolute (both sides compute in f32
 from the same inputs); integer results and shapes exactly.
@@ -310,3 +316,40 @@ def test_detach_stops_the_gradient():
         jz = (jy.detach() * jx + jy).sum()
     jz.backward()
     np.testing.assert_allclose(x.grad.asnumpy(), jx.grad.asnumpy())
+
+
+# ---------------------------------------------------------------------------
+# 11. ops with no array input, in a bound graph
+# ---------------------------------------------------------------------------
+
+def _creation_graph(m):
+    data = m.sym.var("data")
+    return m.sym.Group([
+        data + m.sym.zeros((2, 3)), data * m.sym.ones((2, 3)),
+        m.sym.broadcast_add(data, m.sym.arange(3)),
+        data + m.sym._full(shape=(2, 3), value=1.5)])
+
+
+def test_creation_ops_take_the_executors_device():
+    import threading
+
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    want = [o.asnumpy() for o in _creation_graph(mx_j).eval(
+        data=mx_j.nd.array(x))]
+    got = []
+
+    def run():
+        exe = _creation_graph(mx).bind(
+            CPU, {"data": nd.array(x, ctx=CPU)}, grad_req="null")
+        torch.set_default_device("meta")
+        try:
+            got.extend(o.asnumpy() for o in exe.forward(is_train=False))
+        finally:
+            torch.set_default_device(None)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(30)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)

@@ -437,8 +437,9 @@ def test_softmax_length_matches_jax_op():
 def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     """157 ops under 228 names from ops/tensor.py, plus softmax and
     log_softmax, the 17 updates of ops/optimizer_ops.py under 19 names, and
-    the layers, loss heads and RNN ops the symbolic path registers (12 ops
-    of ops/nn.py under 14 names, 3 of ops/rnn.py); each alias resolves to
+    the layers, loss heads and RNN ops the symbolic path registers (14 ops
+    of ops/nn.py under 18 names, with the fused BatchNorm ops that
+    `HybridBlock.export` writes, 3 of ops/rnn.py); each alias resolves to
     the op its JAX alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
@@ -450,7 +451,9 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
               "Activation", "Dropout", "SoftmaxOutput", "Softmax",
               "LinearRegressionOutput", "LogisticRegressionOutput",
               "MAERegressionOutput", "MakeLoss", "make_loss", "RNN",
-              "_rnn_state_zeros", "_rnn_fused_state_zeros"]
+              "_rnn_state_zeros", "_rnn_fused_state_zeros", "BatchNormRelu",
+              "_contrib_BatchNormRelu", "BatchNormAddRelu",
+              "_contrib_BatchNormAddRelu"]
     assert sorted(tops.list_ops()) == sorted(names + opt + layers + [
         "softmax", "log_softmax"])
     for n in opt + layers:

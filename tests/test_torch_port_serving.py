@@ -319,15 +319,36 @@ def test_serving_module_serves_and_drains_on_sigterm(port_lm, tmp_path):
 
 
 def test_model_spec_parsing():
-    assert parse_model_spec("lm=/m/lm@generate") == ("lm", "/m/lm")
-    for bad in ("lm", "lm=/m/lm", "lm=/m/lm@data=1,3"):
+    """``@generate`` specs and the predict specs of ``tools/serve.py``
+    (``in=DIMS[:dtype]``, 'x'-separated, per example) parse; compiled
+    artifacts are refused."""
+    assert parse_model_spec("lm=/m/lm@generate") == \
+        ("lm", "/m/lm", "generate", None)
+    assert parse_model_spec("mlp=/m/mlp@data=8") == \
+        ("mlp", "/m/mlp", {"data": (8,)}, None)
+    assert parse_model_spec("rn=/m/rn@data=3x32x32") == \
+        ("rn", "/m/rn", {"data": (3, 32, 32)}, None)
+    assert parse_model_spec("lm=/m/lm@data=35:int32,label=35:int32") == \
+        ("lm", "/m/lm", {"data": (35,), "label": (35,)},
+         {"data": "int32", "label": "int32"})
+    for bad in ("lm", "lm=/m/lm", "lm=/m/lm@data=1,3", "lm=/m/lm.mxc"):
         with pytest.raises(ValueError):
             parse_model_spec(bad)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, port_lm, tmp_path):
     """Entry points default to the card and raise without one; they never
-    run on the CPU unless asked to. Predict loads are not ported."""
+    run on the CPU unless asked to: generation and predict loads alike."""
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.predict import Predictor
+
+    clf = str(tmp_path / "clf")
+    with tmx.context.scope(tmx.cpu()):
+        fc = tmx.sym.FullyConnected(tmx.sym.var("data"), num_hidden=3,
+                                    name="fc")
+        tmx.model.save_checkpoint(clf, 0, fc,
+                                  {"fc_weight": tmx.nd.zeros((3, 4)),
+                                   "fc_bias": tmx.nd.zeros((3,))}, {})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     prefix = save_lm(port_lm, str(tmp_path / "lm"))
     with pytest.raises(MXNetError, match="no CUDA device"):
@@ -339,8 +360,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, port_lm, tmp_path):
     repo = ModelRepository()
     with pytest.raises(MXNetError, match="no CUDA device"):
         repo.load("lm", prefix, generate=True, generate_opts=GEOM)
-    with pytest.raises(MXNetError, match="not ported"):
-        repo.load("clf", prefix, device="cpu")
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        repo.load("clf", clf, input_shapes={"data": (4,)}, max_batch=2)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        Predictor(clf + "-symbol.json", clf + "-0000.params",
+                  input_shapes={"data": (1, 4)})
     assert repo.names() == []
     assert context.resolve_device("cpu") == torch.device("cpu")
 
