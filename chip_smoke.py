@@ -79,6 +79,28 @@ Phases; each raises on failure, and the script then exits non-zero:
    Prints images/s, MFU against 989 TFLOP/s bf16 and peak allocated
    bytes; ``--profile`` adds the device busy share and device time by
    kernel of two steps.
+   Then train_rec: the same model and step fed from records. 1,664
+   training and 250 validation images made from ``--seed`` (short side
+   256, long side 256 to 341, smooth content plus noise, labels in [0,
+   1000)) are written as PNG records by the port's `recordio` into a
+   temporary directory. Data gate: `io.ImageRecordIter` over the
+   validation records (center crop, no mirror, no shuffle, 8 threads)
+   must give exactly the center crops of the images written, labels in
+   record order, pad 6 on the last batch. Then `train_imagenet.main` on
+   both files (ResNet-50 v1 NHWC bf16, the fused graph, batch 128, lr
+   0.02, random crop and mirror, ImageNet mean and std, min(CPUs, 16)
+   decode threads, `data.DevicePrefetcher` before the step, --top-k 5):
+   every loss finite; with the counts set to 0 after 3 warm-up steps, each
+   epilogue kernel launches 53 x 10 times in the 10 timed steps and never
+   in the validation pass, which scores exactly 250 samples. Prints
+   images/s beside the train phase's synthetic images/s, the share of the
+   step time spent waiting in ``next()``, decode-only images/s at 1, 4 and
+   min(CPUs, 16) threads, ``os.cpu_count()`` and peak allocated bytes
+   (``--profile``: device busy time of the run). Then, with CUDA up,
+   `gluon.data.DataLoader` over `ImageRecordDataset` (CenterCrop,
+   ToTensor, Normalize) at 0 and 4 forked workers: equal batches, within
+   1e-6 of the iterator's normalized crops, no worker process left; prints
+   images/s of each.
    Then BERT-base pretraining as bench.py's ``bench_bert`` drives it:
    `bert_12_768_12` (no dropout) + an MLM Dense(30522) head, 132,953,658
    parameters, Xavier from ``--seed``, Adam lr 1e-4, bf16 over f32
@@ -2044,7 +2066,316 @@ def train(torch, pk, args):
            ["%.4f" % v for v in losses], json.dumps(launches), steps))
     if args.profile:
         profile_train(torch, trainer, x, y, wall / steps * 1e3)
-    return launches
+    return launches, ips
+
+
+# ---------------------------------------------------------------------------
+# phase 4, train_rec: the same ResNet-50 trained from RecordIO records
+# through train_imagenet (ImageRecordIter -> DecodePool -> DevicePrefetcher
+# -> the NHWC transpose on the card -> DistributedTrainer), then validated
+# ---------------------------------------------------------------------------
+
+REC_TRAIN = (TRAIN_WARMUP + TRAIN_STEPS) * TRAIN_BATCH   # 1664 images
+REC_VAL = 250                                            # 2 batches, pad 6
+REC_SHORT, REC_LONG = 256, (256, 341)
+IMAGENET_MEAN = (123.68, 116.779, 103.939)
+IMAGENET_STD = (58.393, 57.12, 57.375)
+
+
+def rec_image(seed, i):
+    """Image ``i`` of a record set and its label, from ``seed``: short side
+    256, long side 256 to 341 (either orientation), smooth content (a
+    per-channel sum of two random plane waves) plus uniform noise, and a
+    label in [0, 1000)."""
+    rng = np.random.RandomState((seed * 1000003 + i) % (2 ** 32))
+    long_side = rng.randint(REC_LONG[0], REC_LONG[1] + 1)
+    h, w = (REC_SHORT, long_side) if rng.rand() < 0.5 \
+        else (long_side, REC_SHORT)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.empty((h, w, 3), np.float32)
+    for ch in range(3):
+        fx, fy = rng.uniform(0.005, 0.05, 2)
+        ph = rng.uniform(0, 2 * np.pi, 2)
+        img[:, :, ch] = 128 + 60 * np.sin(x * fx + ph[0]) \
+            + 50 * np.cos(y * fy + ph[1])
+    img += rng.uniform(-12, 12, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8), int(rng.randint(0, 1000))
+
+
+def write_records(prefix, seed, n, threads):
+    """``n`` images of `rec_image` as PNG records in ``prefix``.rec/.idx
+    through the port's `recordio`, encoded on ``threads`` threads and
+    written in order. Returns (bytes written, labels, images)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import recordio
+
+    def make(i):
+        img, label = rec_image(seed, i)
+        return img, label, recordio.pack_img(
+            recordio.IRHeader(0, float(label), i, 0), img, img_fmt=".png")
+
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    labels, images = [], []
+    with ThreadPoolExecutor(threads) as pool:
+        for i, (img, label, buf) in enumerate(pool.map(make, range(n))):
+            rec.write_idx(i, buf)
+            labels.append(label)
+            images.append(img)
+    rec.close()
+    return os.path.getsize(prefix + ".rec"), labels, images
+
+
+def center_crop_chw(img, size=224):
+    h, w = img.shape[:2]
+    y0, x0 = (h - size) // 2, (w - size) // 2
+    return np.transpose(img[y0:y0 + size, x0:x0 + size].astype(np.float32),
+                        (2, 0, 1))
+
+
+def decode_rate(path, threads, batches, card):
+    """Images/s of the training iterator alone (decode, random crop and
+    mirror, mean/std) over ``batches`` batches at ``threads`` threads."""
+    from mxnet_tpu_torch import io
+
+    it = io.ImageRecordIter(
+        path_imgrec=path, data_shape=(3, 224, 224), batch_size=TRAIN_BATCH,
+        shuffle=True, rand_crop=True, rand_mirror=True,
+        mean_r=IMAGENET_MEAN[0], mean_g=IMAGENET_MEAN[1],
+        mean_b=IMAGENET_MEAN[2], std_r=IMAGENET_STD[0],
+        std_g=IMAGENET_STD[1], std_b=IMAGENET_STD[2],
+        preprocess_threads=threads, rng=np.random.RandomState(threads))
+    try:
+        it.next()   # the pipeline's start and first batch
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            it.next()
+        rate = batches * TRAIN_BATCH / (time.perf_counter() - t0)
+    finally:
+        it.close()
+    log("  decode only: %.1f images/s at %d thread(s) (%d batches of %d "
+        "after the first; %s)" % (rate, threads, batches, TRAIN_BATCH, card))
+    return rate
+
+
+def no_pipeline_threads():
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("mxtpu-")]
+    if left:
+        raise AssertionError("pipeline threads left running: %s" % left)
+
+
+def train_rec(torch, pk, args, synthetic_ips):
+    """The `train` phase's model and step fed from records: see the module
+    docstring's phase 4."""
+    import multiprocessing
+
+    from mxnet_tpu_torch import io, telemetry, train_imagenet
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+
+    card = smi_line()
+    t_phase = time.monotonic()
+    cpus = os.cpu_count()
+    threads = min(cpus, 16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-rec-") as d:
+        t0 = time.monotonic()
+        tbytes, _, _ = write_records(os.path.join(d, "T"), args.seed,
+                                     REC_TRAIN, cpus)
+        vbytes, vlabels, vimages = write_records(os.path.join(d, "V"),
+                                                 args.seed + 1, REC_VAL,
+                                                 cpus)
+        log("train_rec: %d training and %d validation PNG records (short "
+            "side %d, long %d-%d), %d + %d bytes, written in %.1f s on %d "
+            "CPUs (os.cpu_count()); %s" % (
+                REC_TRAIN, REC_VAL, REC_SHORT, REC_LONG[0], REC_LONG[1],
+                tbytes, vbytes, time.monotonic() - t0, cpus, card))
+        trec, vrec = os.path.join(d, "T.rec"), os.path.join(d, "V.rec")
+
+        # data gate: center crops in record order, exact (PNG is lossless)
+        it = io.ImageRecordIter(path_imgrec=vrec, data_shape=(3, 224, 224),
+                                batch_size=TRAIN_BATCH, shuffle=False,
+                                preprocess_threads=8)
+        got = []
+        try:
+            for b in it:
+                got.append((b.data[0].asnumpy(), b.label[0].asnumpy(),
+                            b.pad))
+        finally:
+            it.close()
+        pad = 2 * TRAIN_BATCH - REC_VAL
+        if [g[2] for g in got] != [0, pad]:
+            raise AssertionError("validation pads %s, not [0, %d]"
+                                 % ([g[2] for g in got], pad))
+        data = np.concatenate([g[0] for g in got])[:REC_VAL]
+        labels = np.concatenate([g[1] for g in got])[:REC_VAL]
+        want = np.stack([center_crop_chw(im) for im in vimages])
+        if not np.array_equal(data, want):
+            raise AssertionError("ImageRecordIter's center crops differ from "
+                                 "the images written: max abs err %g"
+                                 % np.abs(data - want).max())
+        if not np.array_equal(labels, np.asarray(vlabels, np.float32)):
+            raise AssertionError("validation labels not in record order")
+        log("  data gate: %d validation images through ImageRecordIter (8 "
+            "threads) equal their center crops exactly; labels in record "
+            "order; pads [0, %d]" % (REC_VAL, pad))
+        no_pipeline_threads()
+
+        # training and validation through the script
+        state = {"losses": []}
+        wait = telemetry.counter("mxtpu_data_wait_seconds_total",
+                                 {"src": "train_imagenet"})
+
+        prof = None
+        if args.profile:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+
+        def on_batch(p):
+            state["losses"].append(p.locals["loss"])
+            if p.nbatch == TRAIN_WARMUP - 1:
+                torch.cuda.synchronize()
+                for k in EPI_KERNELS:   # the timed steps' counts start here
+                    getattr(pk, k).launches = 0
+                torch.cuda.reset_peak_memory_stats()
+                if prof is not None:
+                    prof.start()
+                state["t0"], state["w0"] = time.perf_counter(), wait.value
+            elif p.nbatch == TRAIN_WARMUP + TRAIN_STEPS - 1:
+                torch.cuda.synchronize()
+                state["t1"], state["w1"] = time.perf_counter(), wait.value
+                if prof is not None:
+                    prof.stop()
+                state["train"] = {k: getattr(pk, k).launches
+                                  for k in EPI_KERNELS}
+                state["peak"] = torch.cuda.max_memory_allocated()
+
+        def on_eval(p):
+            state["val"] = {k: getattr(pk, k).launches - state["train"][k]
+                            for k in EPI_KERNELS}
+            m = p.eval_metric
+            state["scored"] = m.metrics[0].num_inst
+            state["metrics"] = dict(m.get_name_value())
+
+        argv = ["--network", "resnet50_v1", "--layout", "NHWC", "--dtype",
+                "bfloat16", "--batch-size", str(TRAIN_BATCH), "--lr", "0.02",
+                "--num-epochs", "1", "--data-train", trec, "--data-val",
+                vrec, "--top-k", "5", "--random-crop", "1",
+                "--random-mirror", "1", "--rgb-mean",
+                ",".join(map(str, IMAGENET_MEAN)), "--rgb-std",
+                ",".join(map(str, IMAGENET_STD)), "--data-nthreads",
+                str(threads), "--seed", str(args.seed), "--disp-batches",
+                "1000"]
+        # the train phase's graph: every BN -> ReLU fused, as there
+        old = os.environ.get("MXTPU_PALLAS_CONV_EPILOGUE")
+        os.environ["MXTPU_PALLAS_CONV_EPILOGUE"] = "1"
+        try:
+            train_imagenet.main(argv, batch_end_callback=on_batch,
+                                eval_end_callback=on_eval)
+        finally:
+            if old is None:
+                os.environ.pop("MXTPU_PALLAS_CONV_EPILOGUE")
+            else:
+                os.environ["MXTPU_PALLAS_CONV_EPILOGUE"] = old
+        no_pipeline_threads()
+        losses = torch.stack(state["losses"]).float().cpu().numpy()
+        if len(losses) != TRAIN_WARMUP + TRAIN_STEPS or \
+                not np.isfinite(losses).all():
+            raise AssertionError("record training losses: %s" % losses)
+        for k in EPI_KERNELS:
+            if state["train"][k] != 53 * TRAIN_STEPS:
+                raise AssertionError("%s launched %d times in %d record "
+                                     "steps, not %d" % (
+                                         k, state["train"][k], TRAIN_STEPS,
+                                         53 * TRAIN_STEPS))
+            if state["val"][k] != 0:
+                raise AssertionError("%s launched %d times in validation"
+                                     % (k, state["val"][k]))
+        if state["scored"] != REC_VAL:
+            raise AssertionError("validation scored %d samples, not %d"
+                                 % (state["scored"], REC_VAL))
+        wall = state["t1"] - state["t0"]
+        waited = state["w1"] - state["w0"]
+        ips = TRAIN_BATCH * TRAIN_STEPS / wall
+        log("  train_imagenet from records: %d timed steps (after %d "
+            "warm-up) in %.3f s: %.1f images/s, %.2f ms a step, against "
+            "%.1f images/s of the train phase's one synthetic batch on the "
+            "card; the loop waited in next() %.3f s = %.1f%% of the step "
+            "time; %d decode threads; peak allocated %d bytes; losses %s; "
+            "launches %s (= 53 x %d each), validation launches %s; "
+            "validation scored %d samples: %s; %s" % (
+                TRAIN_STEPS, TRAIN_WARMUP, wall, ips, wall / TRAIN_STEPS * 1e3,
+                synthetic_ips, waited, 100.0 * waited / wall, threads,
+                state["peak"], ["%.4f" % v for v in losses],
+                json.dumps(state["train"]), TRAIN_STEPS,
+                json.dumps(state["val"]), state["scored"],
+                json.dumps({k: round(v, 6) for k, v in
+                            state["metrics"].items()}), card))
+        if prof is not None:
+            busy = 0.0
+            for ev in prof.key_averages():
+                if is_annotation(ev) or \
+                        not str(ev.device_type).endswith("CUDA"):
+                    continue
+                dev_us = getattr(ev, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(ev, "self_cuda_time_total", 0)
+                busy += dev_us / 1e3
+            log("  profile of the timed steps (the profiler slows the "
+                "host): device busy %.2f ms a step = %.1f%% of the %.2f ms "
+                "step; %s" % (busy / TRAIN_STEPS, 100.0 * busy / (wall * 1e3),
+                              wall / TRAIN_STEPS * 1e3, card))
+        for n_threads, batches in ((1, 2), (4, 4), (threads, 6)):
+            decode_rate(trec, n_threads, batches, card)
+        no_pipeline_threads()
+
+        # the gluon DataLoader over the validation records, after CUDA is up
+        tf = T.Compose([T.CenterCrop(224), T.ToTensor(),
+                        T.Normalize([m / 255 for m in IMAGENET_MEAN],
+                                    [s / 255 for s in IMAGENET_STD])])
+        dataset = ImageRecordDataset(vrec).transform_first(tf)
+        runs = {}
+        for workers in (0, 4):
+            loader = DataLoader(dataset, batch_size=TRAIN_BATCH,
+                                num_workers=workers, timeout=120)
+            secs = []
+            try:
+                for _ in range(2):   # the first pass forks the workers
+                    t0 = time.perf_counter()
+                    runs[workers] = [(x.asnumpy(), y.asnumpy())
+                                     for x, y in loader]
+                    secs.append(time.perf_counter() - t0)
+            finally:
+                loader.close()
+            log("  gluon DataLoader (ImageRecordDataset + CenterCrop, "
+                "ToTensor, Normalize; batches on the card) at %d workers: "
+                "%.1f images/s in the first pass over the %d images (%.3f "
+                "s), %.1f in the second; %s" % (
+                    workers, REC_VAL / secs[0], REC_VAL, secs[0],
+                    REC_VAL / secs[1], card))
+        left = multiprocessing.active_children()
+        if left:
+            raise AssertionError("DataLoader worker processes left: %s"
+                                 % left)
+        for (x0, y0), (x4, y4) in zip(runs[0], runs[4]):
+            if not (np.array_equal(x0, x4) and np.array_equal(y0, y4)):
+                raise AssertionError("DataLoader batches differ between 0 "
+                                     "and 4 workers")
+        x = np.concatenate([r[0] for r in runs[4]])
+        mean = np.asarray(IMAGENET_MEAN, np.float32).reshape(1, 3, 1, 1)
+        std = np.asarray(IMAGENET_STD, np.float32).reshape(1, 3, 1, 1)
+        err = float(np.abs(x - (want - mean) / std).max())
+        if x.shape != want.shape or err > 1e-6:
+            raise AssertionError("DataLoader batches differ from the "
+                                 "iterator's normalized crops by %g" % err)
+        log("  DataLoader batches at 0 and 4 workers equal; against the "
+            "iterator's normalized center crops max abs err %.3g (tol "
+            "1e-6); no worker process left; the phase took %.1f s"
+            % (err, time.monotonic() - t_phase))
+    return state["train"]
 
 
 # ---------------------------------------------------------------------------
@@ -3529,7 +3860,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     launches = serve(torch, pk, args)
     launches["rtc"] = rtc_launches
-    launches.update(train(torch, pk, args))
+    train_launches, train_ips = train(torch, pk, args)
+    launches.update(train_launches)
+    torch.cuda.empty_cache()
+    train_rec(torch, pk, args, train_ips)
     torch.cuda.empty_cache()
     launches.update(train_bert(torch, pk, args))
     torch.cuda.empty_cache()

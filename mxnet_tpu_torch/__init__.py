@@ -24,7 +24,12 @@ inference and JSON), ``executor``, ``mod`` (``module``: ``Module`` and
 ``BucketingModule``), ``io``, ``rnn`` (the symbolic cells, ``FusedRNNCell``
 over the ``RNN`` op, and ``BucketSentenceIter``), ``model`` and
 ``callback``; and predict serving: ``predict`` (``Predictor`` over an
-exported or checkpointed graph) behind ``serving``'s dynamic batcher.
+exported or checkpointed graph) behind ``serving``'s dynamic batcher;
+and the input path: ``recordio``, ``image`` (PNG decode with numpy and
+zlib, JPEG through Pillow where installed, the augmenters and the
+threaded ``ImageRecordIterPy``), ``data`` (the prefetch core, the device
+prefetcher and sharded record streams), the file iterators of ``io`` and
+``gluon.data``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``); without a card they raise.
 """
@@ -45,6 +50,7 @@ from . import module
 from . import module as mod
 from . import rnn
 from . import predict
+from . import recordio, image, data
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, current_context, gpu
@@ -55,4 +61,4 @@ __all__ = ["MXNetError", "cpu", "gpu", "current_context", "context", "env",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
            "sym", "executor", "io", "model", "callback", "module", "mod",
-           "rnn", "predict"]
+           "rnn", "predict", "recordio", "image", "data"]

@@ -15,7 +15,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "resolve_device", "current_context", "scope"]
+__all__ = ["cpu", "gpu", "resolve_device", "current_context", "scope",
+           "in_scope_of"]
 
 _scopes = threading.local()
 
@@ -68,3 +69,19 @@ def current_context():
     `MXNetError` when that is a card and none is present."""
     devices = getattr(_scopes, "devices", None)
     return resolve_device(devices[-1] if devices else None)
+
+
+def in_scope_of(fn):
+    """``fn`` wrapped to run under the calling thread's innermost `scope`
+    (if any) on whatever thread calls it: a pipeline thread then makes its
+    arrays where its consumer's ``with scope(...)`` asked."""
+    devices = getattr(_scopes, "devices", None)
+    if not devices:
+        return fn
+    device = devices[-1]
+
+    def run(*args, **kwargs):
+        with scope(device):
+            return fn(*args, **kwargs)
+
+    return run

@@ -1,7 +1,8 @@
 """Typed registry of the ``MXTPU_*`` environment variables the port reads.
 
 Counterpart of `mxnet_tpu/env.py`, holding only the variables of the
-paths ported so far (generation serving, ResNet training), under the same
+paths ported so far (generation serving, ResNet training, the input
+pipeline), under the same
 names and, but for the one noted at its entry, the same defaults, so one
 deployment's settings mean the same thing to both packages. There is no kernel gate: a CUDA tensor always goes through
 the port's kernel.
@@ -29,12 +30,16 @@ class EnvVar:
         self.doc = doc
 
     def parse(self, value):
+        if self.vtype == "bool":
+            return value.strip().lower() not in _FALSY
         if self.vtype == "int":
             return int(value)
         if self.vtype == "float":
             return float(value)
         return value
 
+
+_FALSY = ("", "0", "false", "no", "off")
 
 _REGISTRY: dict = {}
 
@@ -113,3 +118,26 @@ _var("MXTPU_SERVE_MAX_NEW_TOKENS", "int", 128,
 _var("MXTPU_SERVE_MAX_PROMPT", "int", 64,
      "generation serving: longest admissible prompt in tokens; prompts pad "
      "to power-of-two prefill buckets up to this length.")
+
+# -- data loading (same names and defaults as mxnet_tpu/env.py) --------------
+_var("MXTPU_DATALOADER_CTX", "str", "fork",
+     "multiprocessing start method for DataLoader worker processes "
+     "(`spawn` needs a `__main__` guard).")
+_var("MXTPU_DATALOADER_TIMEOUT", "float", 300.0,
+     "seconds to wait for a worker batch before raising (dead-worker "
+     "detection); a DataLoader's `timeout` argument overrides it.")
+_var("MXTPU_DATALOADER_PROBE_TIMEOUT", "float", 20.0,
+     "seconds the DataLoader's worker-viability probe (one sample round-"
+     "tripped through a real worker process) may take before the loader "
+     "falls back to in-process threads.")
+_var("MXTPU_DATA_PREFETCH", "bool", False,
+     "`1` wraps the `module.fit` batch iterator in the "
+     "mxnet_tpu_torch.data DevicePrefetcher: batch N+1's host decode and "
+     "host->device copy overlap batch N's compute.")
+_var("MXTPU_DATA_PREFETCH_DEPTH", "int", 2,
+     "batches the DevicePrefetcher stages ahead (double-buffering). Depth "
+     "d absorbs producer jitter up to d x step-time.")
+_var("MXTPU_DATA_JOIN_TIMEOUT_S", "float", 30.0,
+     "seconds the data pipeline's close()/reset() wait for producer and "
+     "decode-worker threads to stop before raising (rewinding reader "
+     "state under a live reader would corrupt the next epoch).")

@@ -76,6 +76,14 @@ class _BlockScope:
     def _block(self):
         return self._block_ref()
 
+    def __getstate__(self):
+        # a weakref does not pickle: the block rebinds it when unpickled
+        # (`Block.__setstate__`), so a dataset's transforms reach a
+        # DataLoader worker process
+        d = dict(self.__dict__)
+        d["_block_ref"] = None
+        return d
+
     @staticmethod
     def create(prefix, params, hint):
         current = getattr(_BlockScope._current, "value", None)
@@ -158,6 +166,10 @@ class Block(torch.nn.Module):
             else self._prefix
         self._scope = _BlockScope(self)
         self._reg_params = {}
+
+    def __setstate__(self, state):
+        super().__setstate__(state)
+        self._scope._block_ref = weakref.ref(self)
 
     def _alias(self):
         return self.__class__.__name__.lower()

@@ -14,6 +14,7 @@ from __future__ import annotations
 import logging
 import time
 
+from .. import env as _env
 from ..base import MXNetError, unpad_outputs
 from .. import metric as metric_mod
 from .. import ndarray as nd
@@ -151,7 +152,9 @@ class BaseModule(object):
         init_optimizer, then each epoch every batch's `forward_backward`,
         `update`, `update_metric` and ``batch_end_callback``; at the
         epoch's end ``epoch_end_callback(epoch, symbol, arg_params,
-        aux_params)`` and `score` on ``eval_data``."""
+        aux_params)`` and `score` on ``eval_data``. With
+        ``MXTPU_DATA_PREFETCH`` set the batches come through a
+        `data.DevicePrefetcher` onto the module's device."""
         assert num_epoch is not None, "please specify number of epochs"
         if checkpoint_dir is not None or resume is not None:
             raise MXNetError("fit(checkpoint_dir=, resume=) needs "
@@ -175,18 +178,31 @@ class BaseModule(object):
             validation_metric = eval_metric
         eval_metric = _as_metric(eval_metric)
 
+        # MXTPU_DATA_PREFETCH: batch N+1's host work and its copy to this
+        # module's device overlap batch N's compute
+        use_prefetch = _env.get("MXTPU_DATA_PREFETCH")
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             train_data.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                for cb in _as_list(batch_end_callback):
-                    cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                     eval_metric=eval_metric,
-                                     locals=locals()))
+            batches = iter(train_data)
+            if use_prefetch:
+                from ..data import DevicePrefetcher
+
+                batches = DevicePrefetcher(
+                    batches, mesh=getattr(self, "_context", None), src="fit")
+            try:
+                for nbatch, data_batch in enumerate(batches):
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
+                    for cb in _as_list(batch_end_callback):
+                        cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                         eval_metric=eval_metric,
+                                         locals=locals()))
+            finally:
+                if use_prefetch:
+                    batches.close()
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

@@ -79,11 +79,16 @@ class _OpNamespace(object):
 def populate(target_module_dict):
     """Install generated functions into the nd module namespace: each name
     at the top unless the module already defines it, and all of them in
-    ``op``."""
+    ``op``; the ``_image_*`` ops also in ``image`` without the prefix
+    (``mx.nd.image.to_tensor``)."""
     op_ns = _OpNamespace()
+    image_ns = _OpNamespace()
     for name in _ops.list_ops():
         f = _make_function(_ops.get(name))
         if name.isidentifier():
             setattr(op_ns, name, f)  # flat mx.nd.op.* (reference op.py)
+        if name.startswith("_image_"):
+            setattr(image_ns, name[len("_image_"):], f)
         target_module_dict.setdefault(name, f)
     target_module_dict.setdefault("op", op_ns)
+    target_module_dict.setdefault("image", image_ns)

@@ -6,7 +6,8 @@ wrappers of `pallas_kernels`) and the registered ops behind ``mx.nd`` and
 ``mx.sym``: every op of `mxnet_tpu/ops/tensor.py` (`tensor`), the layers,
 loss heads, ``softmax`` / ``log_softmax`` and ``Dropout`` of `nn`, the
 ``RNN`` op and its zero states (`rnn`), and the 17 optimizer updates
-(`optimizer_ops`).
+(`optimizer_ops`), and the four image ops behind ``mx.nd.image``
+(`image_ops`).
 
 A registered op is a plain function on torch tensors,
 ``fn(*tensors, **attrs) -> tensor | tuple``, run eagerly by
@@ -106,3 +107,4 @@ from . import tensor as _tensor  # noqa: E402,F401
 from . import nn as _nn  # noqa: E402,F401
 from . import optimizer_ops as _optimizer_ops  # noqa: E402,F401
 from . import rnn as _rnn  # noqa: E402,F401
+from . import image_ops as _image_ops  # noqa: E402,F401

@@ -137,6 +137,14 @@ class DistributedTrainer:
                                step=self._step_count, kind="dist")
         return loss.detach()
 
+    def prefetch(self, it, depth=None):
+        """``it`` wrapped in a `data.DevicePrefetcher` onto this trainer's
+        device: the copy of batch N+1 overlaps step N."""
+        from ..data import DevicePrefetcher
+
+        return DevicePrefetcher(it, depth=depth, mesh=self._device,
+                                src="sharded")
+
     def forward(self, data, is_train=False):
         """Forward of the block in f32 without gradients; in training mode
         (``is_train``) BatchNorm uses batch statistics and advances its

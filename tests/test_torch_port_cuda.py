@@ -1145,3 +1145,90 @@ def test_nd_on_card_matches_cpu(tmp_path):
     np.testing.assert_array_equal(back["z"].asnumpy(),
                                   res["cuda"][0].asnumpy())
     assert back["i"].dtype == np.int32
+
+
+class _OverwritingIter:
+    """Yields the same numpy buffer every time, overwritten with batch i's
+    values on the i-th ``next()``: a prefetcher that lets a copy read the
+    buffer after its producer asked for the next batch delivers the wrong
+    values."""
+
+    def __init__(self, n, shape):
+        self._n = n
+        self._i = 0
+        self._buf = np.empty(shape, np.float32)
+        self._label = np.empty(shape[:1], np.float32)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._i >= self._n:
+            raise StopIteration
+        self._buf[...] = self._i
+        self._buf.reshape(-1)[::7] = -self._i   # not one constant
+        self._label[...] = self._i
+        self._i += 1
+        return [self._buf, self._label]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_device_prefetcher_copies_before_the_source_is_overwritten(depth):
+    """Every batch arrives on the card with its own values, though its
+    source buffer is overwritten as soon as the next one is asked for and
+    the consumer's stream is kept busy (a long sleep kernel) while copies
+    queue up behind it."""
+    _need_card()
+    from mxnet_tpu_torch.data import DevicePrefetcher
+
+    before = set(threading.enumerate())
+    n, shape = 12, (64, 3, 224, 224)   # 38.5 MB a batch
+    want = np.empty(shape, np.float32)
+    pf = DevicePrefetcher(_OverwritingIter(n, shape), depth=depth,
+                          mesh="cuda")
+    got = 0
+    try:
+        for i, (x, y) in enumerate(pf):
+            assert x.is_cuda and y.is_cuda
+            torch.cuda._sleep(20_000_000)   # ~10 ms of busy stream
+            want[...] = i
+            want.reshape(-1)[::7] = -i
+            assert torch.equal(x.cpu(), torch.from_numpy(want)), i
+            assert torch.equal(y.cpu(), torch.full(shape[:1], float(i))), i
+            got += 1
+    finally:
+        pf.close()
+    assert got == n
+    assert not [t.name for t in threading.enumerate()
+                if t.name.startswith("mxtpu-") and t not in before]
+
+
+@pytest.mark.cuda
+def test_image_ops_and_transforms_on_card_match_cpu():
+    """`mx.nd.image` ops and the DataLoader's transforms give the CPU's
+    bits on the card (to_tensor and normalize divide by tensors, never by
+    a Python number, which CUDA turns into a reciprocal multiply); resize
+    within one uint8 level, and 1e-4 in float, of the CPU."""
+    _need_card()
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 256, (37, 53, 3)).astype(np.uint8)
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    out = {}
+    for ctx in ("cpu", "cuda"):
+        x = nd.array(img, ctx=ctx, dtype="uint8")
+        t = nd.image.to_tensor(x)
+        chain = T.Compose([T.CenterCrop(32), T.ToTensor(),
+                           T.Normalize(mean, std)])
+        out[ctx] = [t, nd.image.normalize(t, mean=mean, std=std), chain(x),
+                    nd.image.resize(x, size=(20, 30)),
+                    nd.image.resize(t.transpose((1, 2, 0)), size=(80, 60))]
+    for k, (c, g) in enumerate(zip(out["cpu"], out["cuda"])):
+        if k < 3:
+            np.testing.assert_array_equal(g.asnumpy(), c.asnumpy())
+        else:
+            np.testing.assert_allclose(g.asnumpy().astype(np.float32),
+                                       c.asnumpy().astype(np.float32),
+                                       atol=1 if k == 3 else 1e-4)

@@ -12,7 +12,8 @@ batches. The weights and aux states after `fit`, then `score` and
 largest magnitude of the compared tensor (both compute in f32 and sum in
 other orders). Checkpoint files (``-symbol.json`` and ``.params``) cross
 both ways. Also: the iterators against the JAX package's, the parts that
-are not ported yet raising, and the default device.
+are not ported yet raising (and the ported file iterators raising on a
+missing file), and the default device.
 """
 import logging
 
@@ -269,10 +270,18 @@ def test_ndarray_iter_matches_jax(cpu, handle):
 
 
 def test_unported_parts_raise(cpu, tmp_path):
-    for name in ("MNISTIter", "CSVIter", "LibSVMIter", "ImageRecordIter",
-                 "PrefetchingIter"):
-        with pytest.raises(MXNetError, match="item 7"):
-            getattr(mx.io, name)()
+    # the file iterators are ported (tests/test_torch_port_data.py); a
+    # missing file raises naming it
+    for name, kw in (("MNISTIter", {"image": str(tmp_path / "nope"),
+                                    "label": str(tmp_path / "nope-l")}),
+                     ("CSVIter", {"data_csv": str(tmp_path / "nope"),
+                                  "data_shape": (1,)}),
+                     ("LibSVMIter", {"data_libsvm": str(tmp_path / "nope"),
+                                     "data_shape": (1,)}),
+                     ("ImageRecordIter",
+                      {"path_imgrec": str(tmp_path / "nope")})):
+        with pytest.raises(MXNetError, match="nope"):
+            getattr(mx.io, name)(**kw)
     x, y = _data(NETS["mlp"][1], seed=1)
     it = mx.io.NDArrayIter(x, y, batch_size=BATCH)
     mod = mx.mod.Module(_build(mx, "mlp"))

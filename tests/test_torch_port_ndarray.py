@@ -439,8 +439,9 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     log_softmax, the 17 updates of ops/optimizer_ops.py under 19 names, and
     the layers, loss heads and RNN ops the symbolic path registers (14 ops
     of ops/nn.py under 18 names, with the fused BatchNorm ops that
-    `HybridBlock.export` writes, 3 of ops/rnn.py); each alias resolves to
-    the op its JAX alias names."""
+    `HybridBlock.export` writes, 3 of ops/rnn.py), and the 4 image ops of
+    ops/image_ops.py under 8 names; each alias resolves to the op its JAX
+    alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
     opt = sorted(n for n, o in jops._REGISTRY.items()
@@ -454,9 +455,12 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
               "_rnn_state_zeros", "_rnn_fused_state_zeros", "BatchNormRelu",
               "_contrib_BatchNormRelu", "BatchNormAddRelu",
               "_contrib_BatchNormAddRelu"]
-    assert sorted(tops.list_ops()) == sorted(names + opt + layers + [
+    image = sorted(n for n, o in jops._REGISTRY.items()
+                   if o.fn.__module__ == "mxnet_tpu.ops.image_ops")
+    assert len(image) == 8
+    assert sorted(tops.list_ops()) == sorted(names + opt + layers + image + [
         "softmax", "log_softmax"])
-    for n in opt + layers:
+    for n in opt + layers + image:
         assert tops.get(n).name == jops._REGISTRY[n].name, n
         assert callable(getattr(nd, n))
     assert sorted(SPECS) == sorted(primaries + ["softmax", "log_softmax"])
