@@ -25,8 +25,10 @@ Phases; each raises on failure, and the script then exits non-zero:
    over a thread-block cluster; bf16 at head dims 20 and 40), each run
    twice and compared bit for bit; the
    four conv-epilogue kernels at ResNet-50's BatchNorm shapes at batch
-   128, 224 x 224, in bf16 and f32, with and without ReLU and residual, and
-   two runs of each reduction compared bit for bit. ``--details`` writes every conv-epilogue
+   128, 224 x 224, and at the vision path's extremes (Inception v3's
+   (2,765,952, 64) and (8,192, 448), ResNet v2's input BatchNorm (6,422,528,
+   3) without gamma or beta), in bf16 and f32, with and without ReLU and
+   residual, and two runs of each reduction compared bit for bit. ``--details`` writes every conv-epilogue
    case to a JSON file. The three flash-attention kernels at BERT-base's
    attention at batch 8 ((8 x 12, 512, 64), bf16 and f32), causal and not,
    and at ragged, other-head-dim and one-row shapes, each run twice and
@@ -101,6 +103,22 @@ Phases; each raises on failure, and the script then exits non-zero:
    ToTensor, Normalize) at 0 and 4 forked workers: equal batches, within
    1e-6 of the iterator's normalized crops, no worker process left; prints
    images/s of each.
+   Then train_vision: Inception v3 built by `train_imagenet.build_network`
+   (NHWC, 1000 classes, Xavier from ``--seed``) and trained by
+   `DistributedTrainer` in bf16 over f32 masters (SGD lr 0.02, momentum
+   0.9, wd 1e-4) on one synthetic batch of 128 x 299 x 299 x 3: 3 warm-up
+   steps, then the epilogue counts set to 0 and 10 timed steps; every
+   loss finite and the last below the first, each epilogue kernel 94 x
+   10 launches. Prints images/s, ms a step, MFU against 989 TFLOP/s with
+   bench.py's 3 x 11.46e9 FLOPs an image and the forward hooks' count,
+   peak allocated bytes (``--profile``: the device busy share and its
+   groups). Then AlexNet, VGG-16-BN, SqueezeNet 1.1, DenseNet-121,
+   MobileNet v1 and v2 and ResNet-50 v2 at full width, batch 32 at 224 x
+   224, 2 steps each: losses finite, the forward kernels a BatchNorm x 2
+   launches and the backward pair a BatchNorm whose backward runs x 2
+   (not ResNet v2's input BatchNorm, whose gamma, beta and input take no
+   gradient); ms a step and peak bytes (``--profile``: DenseNet's and
+   the MobileNets' busy share and groups, depthwise convolutions apart).
    Then BERT-base pretraining as bench.py's ``bench_bert`` drives it:
    `bert_12_768_12` (no dropout) + an MLM Dense(30522) head, 132,953,658
    parameters, Xavier from ``--seed``, Adam lr 1e-4, bf16 over f32
@@ -145,6 +163,15 @@ Phases; each raises on failure, and the script then exits non-zero:
    (kernels, TF32 off) against the same step on the CPU (plain versions)
    from the same weights and batch: loss and every updated parameter and
    running statistic, after the step and as the change the step made.
+   Then Inception v3 (batch 2, 299 x 299), DenseNet-121 and MobileNet v2
+   (batch 2, 224 x 224), f32: one trainer step's loss on the card and on
+   the CPU within rtol 1e-4, then every layer of the card's training
+   forward and backward (each Conv2D, BatchNorm, Dense, pool and
+   activation) recomputed on the CPU from the inputs, weights and output
+   cotangent the card gave it: output, input gradient, parameter
+   gradients and moving statistics within rtol 1e-4 over floors of the
+   sums of their terms (a whole step cannot be compared element by
+   element across devices: ReLUs flip on a rounding apart).
    Then the same small word LM's step through the Gluon façade
    (``record()``, ``backward()``, ``gluon.Trainer`` SGD) on the card and
    on the CPU: the loss, every ``Parameter.grad()`` and every updated
@@ -210,6 +237,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 
@@ -591,10 +619,19 @@ def serve(torch, pk, args):
 # ---------------------------------------------------------------------------
 
 # ResNet-50's BatchNorm shapes at batch 128, 224 x 224, as (R = N*H*W, C);
-# and an odd one (C not a multiple of the 16-byte packs)
+# an odd one (C not a multiple of the 16-byte packs); and the extremes of
+# the vision families' training path (train_vision): Inception v3's widest
+# BatchNorm at batch 128, 299 x 299 (128 x 147 x 147 rows of 64) and its
+# narrowest (128 x 8 x 8 rows of 448), and ResNet v2's input BatchNorm at
+# batch 128, 224 x 224 (6,422,528 rows of the 3 image channels: the
+# scalar path, without gamma or beta: fix_gamma and beta 0)
 EPI_SHAPES = [("stem", 1605632, 64), ("stage1-mid", 401408, 64),
               ("stage1-out", 401408, 256), ("stage4-out", 6272, 2048),
-              ("odd", 1000, 3)]
+              ("odd", 1000, 3), ("inception-widest", 2765952, 64),
+              ("inception-narrowest", 8192, 448),
+              ("resnet_v2-input", 6422528, 3)]
+# the shapes whose BatchNorm has no learned gamma or beta
+EPI_FIXED_GAMMA = ("resnet_v2-input",)
 # the case each kernel's row of the "kernels" line reports: the stage-1
 # block output in bf16, in the variant the path runs at that shape, the
 # block tail's BN + add + ReLU (the backward reduce sees only the ReLU
@@ -625,7 +662,7 @@ def max_err(torch, got, want, tol, what, scale=0.0):
         raise AssertionError("%s: non-finite kernel output" % what)
     diff = (got - want).abs()
     excess = float((diff - tol * want.abs()).max())
-    floor = tol * max(float(want.abs().max()), scale)
+    floor = tol * max(float(want.detach().abs().max()), scale)
     if excess > floor:
         raise AssertionError("%s: error beyond tolerance %g (excess %g > "
                              "floor %g)" % (what, tol, excess, floor))
@@ -643,10 +680,12 @@ def epi_bound(kernel, r, c, elem, rows_in, rows_out, vec_floats):
         "operations"
 
 
-def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
+def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush,
+                        fix_gamma=False):
     """Every variant of the four kernels at one (R, C, dtype) against the
     plain versions; the timed variants' rows; the largest error of each
-    kernel."""
+    kernel. ``fix_gamma``: the BatchNorm has no learned gamma or beta
+    (gamma taken as 1, beta 0)."""
     tdt = getattr(torch, dtype)
     tol = EPI_TOL[dtype]
     elem = torch.empty((), dtype=tdt).element_size()
@@ -656,6 +695,8 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
     ct = torch.randn(r, c, generator=g, device="cuda").to(tdt)
     gamma = torch.rand(c, generator=g, device="cuda") + 0.5
     beta = torch.randn(c, generator=g, device="cuda")
+    if fix_gamma:
+        gamma, beta = torch.ones_like(gamma), torch.zeros_like(beta)
     worst = dict.fromkeys(EPI_KERNELS, 0.0)
     rows = []
     tag = "%s (%d, %d) %s" % (label, r, c, dtype)
@@ -679,9 +720,10 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
                                     bound_by))
 
     # stats: two runs give the same bits
-    got = pk.epi_stats(x, gamma, beta, EPI_EPS, False)
-    again = pk.epi_stats(x, gamma, beta, EPI_EPS, False)
-    want = pk.epi_stats_reference(x, gamma, beta, EPI_EPS, False)
+    got = pk.epi_stats(x, gamma, beta, EPI_EPS, fix_gamma)
+    again = pk.epi_stats(x, gamma, beta, EPI_EPS, fix_gamma)
+    want = pk.epi_stats_reference(x, gamma, beta, EPI_EPS,
+                                       fix_gamma)
     for name, a, b in zip(("mean", "var", "inv", "scale", "shift"), got,
                           want):
         worst["epi_stats"] = max(worst["epi_stats"], max_err(
@@ -689,8 +731,10 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("epi_stats %s: two runs differ" % tag)
     mean, _, inv, scale, shift = want
-    row("epi_stats", "-", lambda: pk.epi_stats(x, gamma, beta, EPI_EPS),
-        lambda: pk.epi_stats_reference(x, gamma, beta, EPI_EPS, False),
+    row("epi_stats", "-",
+        lambda: pk.epi_stats(x, gamma, beta, EPI_EPS, fix_gamma),
+        lambda: pk.epi_stats_reference(x, gamma, beta, EPI_EPS,
+                                       fix_gamma),
         lambda: torch.var_mean(x, 0, correction=0), 1, 0, 7)
 
     outs = {}
@@ -713,10 +757,10 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
     coefs = {}
     for relu in (False, True):
         out = outs[(True, False)] if relu else None
-        got = pk.epi_bwd_reduce(ct, x, out, mean, inv, gamma, False)
-        again = pk.epi_bwd_reduce(ct, x, out, mean, inv, gamma, False)
+        got = pk.epi_bwd_reduce(ct, x, out, mean, inv, gamma, fix_gamma)
+        again = pk.epi_bwd_reduce(ct, x, out, mean, inv, gamma, fix_gamma)
         want = pk.epi_bwd_reduce_reference(ct, x, out, mean, inv, gamma,
-                                           False)
+                                           fix_gamma)
         for name, a, b in zip(("dgamma", "dbeta", "coef", "cb", "cg"), got,
                               want):
             worst["epi_bwd_reduce"] = max(worst["epi_bwd_reduce"], max_err(
@@ -733,13 +777,14 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush):
 
     out_relu = outs[(True, False)]
     row("epi_bwd_reduce", "bn",
-        lambda: pk.epi_bwd_reduce(ct, x, None, mean, inv, gamma, False),
+        lambda: pk.epi_bwd_reduce(ct, x, None, mean, inv, gamma, fix_gamma),
         lambda: pk.epi_bwd_reduce_reference(ct, x, None, mean, inv, gamma,
-                                            False), lib_bwd, 2, 0, 8)
+                                            fix_gamma), lib_bwd, 2, 0, 8)
     row("epi_bwd_reduce", "relu",
-        lambda: pk.epi_bwd_reduce(ct, x, out_relu, mean, inv, gamma, False),
+        lambda: pk.epi_bwd_reduce(ct, x, out_relu, mean, inv, gamma,
+                                  fix_gamma),
         lambda: pk.epi_bwd_reduce_reference(ct, x, out_relu, mean, inv,
-                                            gamma, False), None, 3, 0, 8)
+                                            gamma, fix_gamma), None, 3, 0, 8)
 
     for relu, has_res in ((False, False), (True, False), (True, True)):
         out = outs[(True, False)] if relu else None
@@ -818,7 +863,8 @@ def check_epilogue(torch, pk, seed, flush, details):
     for i, (label, r, c) in enumerate(EPI_SHAPES):
         for dtype in ("bfloat16", "float32"):
             case_rows, case_worst = check_epilogue_case(
-                torch, pk, label, r, c, dtype, seed + i, flush)
+                torch, pk, label, r, c, dtype, seed + i, flush,
+                fix_gamma=label in EPI_FIXED_GAMMA)
             rows.extend(case_rows)
             for k, v in case_worst.items():
                 worst[k] = max(worst[k], v)
@@ -2379,6 +2425,213 @@ def train_rec(torch, pk, args, synthetic_ips):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, train_vision: the rest of the vision zoo trained through
+# train_imagenet's build_network and DistributedTrainer
+# ---------------------------------------------------------------------------
+
+# Inception v3 as bench.py's _TRAIN_NETS row (bench.py:178): batch 128 at
+# 299 x 299, 3 x 11.46e9 FLOPs an image for a training step
+VISION_BATCH, VISION_SIDE, VISION_FLOPS = 128, 299, 3 * 11.46e9
+# every other family at full width: its BatchNorms, and those whose
+# backward runs (ResNet v2's input BatchNorm has no gamma or beta and its
+# input, the image, takes no gradient, so autograd runs no backward for it)
+VISION_OTHERS = [("alexnet", 0, 0), ("vgg16_bn", 13, 13),
+                 ("squeezenet1_1", 0, 0), ("densenet121", 121, 121),
+                 ("mobilenet1_0", 27, 27), ("mobilenet_v2_1_0", 53, 53),
+                 ("resnet50_v2", 51, 50)]
+VISION_OTHER_BATCH, VISION_OTHER_STEPS = 32, 2
+INCEPTION_BNS = 94
+
+
+def vision_trainer(torch, name, side, seed, amp="bfloat16", lr=0.02,
+                   device="cuda"):
+    """``name`` built by `train_imagenet.build_network` (NHWC, 1000
+    classes, Xavier from ``seed``) and its `DistributedTrainer` (SGD,
+    momentum 0.9, wd 1e-4, softmax cross-entropy, ``amp`` over f32
+    masters)."""
+    from mxnet_tpu_torch import train_imagenet
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.parallel import DistributedTrainer
+
+    net = train_imagenet.build_network(name, 1000, (3, side, side), "NHWC",
+                                       device, seed)
+    tr = DistributedTrainer(
+        net, "sgd", {"learning_rate": lr, "momentum": 0.9, "wd": 1e-4},
+        loss=gloss.SoftmaxCrossEntropyLoss(), amp_dtype=amp)
+    return net, tr
+
+
+def vision_batch(torch, seed, batch, side, device="cuda"):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, side, side, 3))
+                         .astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, 1000, batch)).to(device)
+    return x, y
+
+
+def profile_vision(torch, trainer, x, y, step_ms, label, steps=2):
+    """Device busy time of ``steps`` steps under `torch.profiler`, as a
+    share of ``step_ms`` (timed without it), split into the conv-epilogue
+    kernels, depthwise convolutions, other convolutions and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+    groups = {"conv epilogue": lambda k: any(
+                  "::%s<" % f in k or "::%s(" % f in k for f in EPI_FUNCS),
+              # cuDNN's grouped kernels of one channel a group
+              "depthwise conv": lambda k: "depthwise" in k.lower()
+              or "_c1_k1_" in k,
+              "other conv": lambda k: any(
+                  t in k for t in ("xmma", "cudnn", "conv", "implicit_gemm",
+                                   "cutlass")),
+              "rest": lambda k: True}
+    shares = dict.fromkeys(groups, 0.0)
+    rows, host = [], []
+    for ev in prof.key_averages():
+        if is_annotation(ev):
+            continue
+        if not str(ev.device_type).endswith("CUDA"):
+            host.append((ev.self_cpu_time_total / steps / 1e3,
+                         ev.count // steps, ev.key))
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        rows.append((us / steps / 1e3, ev.count // steps, ev.key))
+        for name, test in groups.items():
+            if test(ev.key):
+                shares[name] += us / steps / 1e3
+                break
+    busy = sum(shares.values())
+    rows.sort(reverse=True)
+    host.sort(reverse=True)
+    log("  profile %s: device busy %.3f ms a step = %.1f%% of the %.2f ms "
+        "step; %s" % (label, busy, 100.0 * busy / step_ms, step_ms,
+                      "; ".join("%s %.3f ms (%.1f%%)" % (
+                          k, v, 100.0 * v / max(busy, 1e-9))
+                          for k, v in shares.items())))
+    for ms, count, key in rows[:10]:
+        log("    %8.3f ms  x%-4d %s" % (ms, count, key[:100]))
+    log("    host, by own CPU time a step (profiled):")
+    for ms, count, key in host[:8]:
+        log("    %8.3f ms  x%-4d %s" % (ms, count, key[:100]))
+
+
+def train_vision(torch, pk, args):
+    """Inception v3 (NHWC, bf16 over f32 masters, batch 128 at 299 x 299,
+    SGD lr 0.02 with momentum) on one synthetic batch: 3 warm-up steps,
+    then the epilogue counts set to 0 and 10 timed steps; then every other
+    family at full width, 2 steps each at batch 32. Returns the epilogue
+    kernels' launches in the Inception run."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+
+    t0 = time.monotonic()
+    net, trainer = vision_trainer(torch, "inception_v3", VISION_SIDE,
+                                  args.seed)
+    n_bn = sum(isinstance(m, gnn.BatchNorm) for m in net.modules())
+    if n_bn != INCEPTION_BNS:
+        raise AssertionError("inception_v3 has %d BatchNorms, not %d"
+                             % (n_bn, INCEPTION_BNS))
+    fwd_flops, stem_flops = count_flops(torch, net, gnn,
+                                        (VISION_SIDE, VISION_SIDE, 3))
+    x, y = vision_batch(torch, args.seed + 7, VISION_BATCH, VISION_SIDE)
+    log("train_vision: inception_v3 NHWC bf16, %d parameters, %d "
+        "BatchNorms, built in %.1f s; %.4g forward FLOPs an image by the "
+        "forward hooks (3 x that = %.4g; bench.py's row: %.4g)"
+        % (sum(p.numel() for p in net.parameters()), n_bn,
+           time.monotonic() - t0, fwd_flops, 3 * fwd_flops, VISION_FLOPS))
+    t0 = time.monotonic()
+    warm = [float(trainer.step(x, y)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    log("  %d warm-up steps in %.2f s, losses %s"
+        % (TRAIN_WARMUP, time.monotonic() - t0, ["%.4f" % v for v in warm]))
+    torch.cuda.reset_peak_memory_stats()
+    for k in EPI_KERNELS:   # the Inception path's counts start here
+        getattr(pk, k).launches = 0
+    t0 = time.monotonic()
+    losses = [trainer.step(x, y) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite inception_v3 loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("inception_v3 loss did not fall over the timed "
+                             "steps: %s" % losses)
+    for k, n in launches.items():
+        if n != n_bn * TRAIN_STEPS:
+            raise AssertionError("%s launched %d times in %d inception_v3 "
+                                 "steps, not %d" % (k, n, TRAIN_STEPS,
+                                                    n_bn * TRAIN_STEPS))
+    ips = VISION_BATCH * TRAIN_STEPS / wall
+    step_ms = wall / TRAIN_STEPS * 1e3
+    log("  %d timed steps in %.3f s: %.1f images/s, %.2f ms a step; MFU "
+        "%.4f (bench.py's 3 x 11.46e9 FLOPs an image at 989 TFLOP/s bf16; "
+        "%.4f by the hooks' count); peak allocated %d bytes; losses %s; "
+        "launches %s (= %d x %d each)"
+        % (TRAIN_STEPS, wall, ips, step_ms,
+           ips * VISION_FLOPS / BF16_FLOPS_PER_S,
+           ips * 3 * fwd_flops / BF16_FLOPS_PER_S, peak,
+           ["%.4f" % v for v in losses], json.dumps(launches), n_bn,
+           TRAIN_STEPS))
+    if args.profile:
+        profile_vision(torch, trainer, x, y, step_ms, "inception_v3")
+    del net, trainer, x, y
+    torch.cuda.empty_cache()
+    for name, bns, bwd in VISION_OTHERS:
+        t0 = time.monotonic()
+        net, trainer = vision_trainer(torch, name, 224, args.seed)
+        n_bn = sum(isinstance(m, gnn.BatchNorm) for m in net.modules())
+        if n_bn != bns:
+            raise AssertionError("%s has %d BatchNorms, not %d"
+                                 % (name, n_bn, bns))
+        x, y = vision_batch(torch, args.seed + 8, VISION_OTHER_BATCH, 224)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in EPI_KERNELS:
+            getattr(pk, k).launches = 0
+        first = time.monotonic()
+        losses = [float(trainer.step(x, y))]
+        last = time.monotonic()
+        losses += [float(trainer.step(x, y))
+                   for _ in range(VISION_OTHER_STEPS - 1)]
+        step_ms = (time.monotonic() - last) / (VISION_OTHER_STEPS - 1) * 1e3
+        counts = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+        if not np.isfinite(losses).all():
+            raise AssertionError("non-finite %s loss: %s" % (name, losses))
+        for k, n in counts.items():
+            want = (bns if k in ("epi_stats", "epi_apply") else bwd) \
+                * VISION_OTHER_STEPS
+            if n != want:
+                raise AssertionError("%s launched %d times in %d %s steps, "
+                                     "not %d" % (k, n, VISION_OTHER_STEPS,
+                                                 name, want))
+        log("  %s NHWC bf16 batch %d: built in %.1f s, first step %.1f ms, "
+            "then %.2f ms a step (%.1f images/s); peak allocated %d bytes; "
+            "losses %s; epilogue launches %s (forward %d x %d, backward "
+            "%d x %d)"
+            % (name, VISION_OTHER_BATCH, first - t0,
+               (last - first) * 1e3, step_ms,
+               VISION_OTHER_BATCH / step_ms * 1e3,
+               torch.cuda.max_memory_allocated(),
+               ["%.4f" % v for v in losses], json.dumps(counts), bns,
+               VISION_OTHER_STEPS, bwd, VISION_OTHER_STEPS))
+        if args.profile and name in ("densenet121", "mobilenet1_0",
+                                     "mobilenet_v2_1_0"):
+            profile_vision(torch, trainer, x, y, step_ms, name)
+        del net, trainer, x, y
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: BERT-base pretraining through DistributedTrainer
 # ---------------------------------------------------------------------------
 
@@ -2989,6 +3242,259 @@ def insitu_parity(torch, args):
         "CPU step (loss %.6f vs %.6f; %d tensors, max abs err %.3g after "
         "the step, %.3g in the change it made)"
         % (losses["cuda"], losses["cpu"], len(want), worst, worst_delta))
+
+
+# the card-against-CPU steps of the vision families: (name, image side)
+VISION_PARITY = [("inception_v3", 299), ("densenet121", 224),
+                 ("mobilenet_v2_1_0", 224)]
+
+
+# a layer's tolerance in the layer parity, relative to the sums of the
+# magnitudes of the terms each of its results sums: cuDNN's f32 weight
+# gradient of Inception v3's 5 x 5 convolutions (an algorithm its
+# heuristics pick; TF32 off) was 8.2e-4 to 9.7e-4 of those sums from the
+# CPU's in three runs and above 1e-3 in a fourth, on an H100 80GB HBM3
+# (7e-4 of its L2 norm); PyTorch's own CUDA convolution 4e-7 and every
+# other cuDNN convolution of the three nets within 9.1e-6. Convolutions
+# take 4e-3, every other layer 1e-4
+CONV_PARITY_TOL, LAYER_PARITY_TOL = 4e-3, 1e-4
+
+
+def _layer_forward(ops_nn, mod, x, w, b):
+    """A Conv2D's or a Dense layer's forward from its weight and bias,
+    its activation included."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+
+    if isinstance(mod, gnn.Conv2D):
+        out = ops_nn.convolution(x, w, b, **mod._kwargs)
+    else:
+        out = ops_nn.fully_connected(x, w, b, flatten=mod._flatten)
+    if mod._act_type is not None:
+        out = ops_nn.activation(out, act_type=mod._act_type)
+    return out
+
+
+def _terms(torch, mod, x, g, ops_nn):
+    """The sums of the magnitudes of the terms of a Conv2D's or a Dense
+    layer's output, input gradient and parameter gradients: the same layer
+    (without its activation) on |x|, |w| and the cotangent |g| (a sum's
+    rounding scales with them, not with the sum)."""
+    from mxnet_tpu_torch.gluon import nn as gnn
+
+    xa = x.detach().abs().requires_grad_()
+    w = mod.weight.detach().cpu().abs().requires_grad_()
+    b = None
+    if getattr(mod, "bias", None) is not None:
+        b = mod.bias.detach().cpu().abs().requires_grad_()
+    if isinstance(mod, gnn.Conv2D):
+        out = ops_nn.convolution(xa, w, b, **mod._kwargs)
+    else:
+        out = ops_nn.fully_connected(xa, w, b, flatten=mod._flatten)
+    leaves = [xa, w] + ([] if b is None else [b])
+    grads = torch.autograd.grad(out, leaves, g.abs())
+    terms = {"out": out.detach(), "dx": grads[0], "weight": grads[1]}
+    if b is not None:
+        terms["bias"] = grads[2]
+    return terms
+
+
+def layer_parity(torch, net, x, y):
+    """The card's f32 training forward and backward of ``net`` on (x, y),
+    every layer recorded (each Conv2D, BatchNorm with its training
+    statistics through the epilogue kernels, Dense, pooling and
+    activation), then each recomputed on the CPU (the plain versions) from
+    the very inputs, weights and output cotangent the card gave it: its output, its own share of its input's gradient, its
+    parameters' gradients and, for a BatchNorm, its moving statistics
+    after. Returns the loss, the largest error of each kind over its
+    tolerance, and the layer count. Tolerance: rtol 1e-4 with a floor of
+    a tolerance x the sums of the magnitudes of the terms the result sums
+    (a gradient summed over the rows can cancel far below its terms, and
+    summed in another order then differs by a rounding of the terms):
+    `CONV_PARITY_TOL` for a convolution's results, `LAYER_PARITY_TOL` for
+    the rest; a BatchNorm's or a parameterless layer's output and input
+    gradient take 1e-4 x max|CPU value|, and a moving statistic 1e-4 x its largest change plus
+    1e-4 x (1 - momentum) x the batch mean of |x| (of x^2 for the
+    variance), the terms its batch mean sums."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    records = []
+
+    def hook(mod, inp, out):
+        rec = {"mod": mod, "x": inp[0].detach().clone(),
+               "out": out.detach().clone(), "grad_x": inp[0].requires_grad}
+        if isinstance(mod, gnn.BatchNorm):
+            rec["stats"] = [t.detach().clone() for t in
+                            (mod.running_mean, mod.running_var)]
+        records.append(rec)
+        mod._record = rec
+        if out.requires_grad:   # ResNet v2's input BatchNorm: no grad
+            out.register_hook(lambda g: rec.__setitem__("g", g.clone()))
+
+    def backward_hook(mod, grad_in, grad_out):
+        # this layer's own share of its input's gradient (the input's
+        # tensor hook would see the sum over all its consumers)
+        if grad_in[0] is not None:
+            mod._record["dx"] = grad_in[0].detach().clone()
+
+    def pre_hook(mod, inp):
+        mod._stats_before = [mod.running_mean.detach().clone(),
+                             mod.running_var.detach().clone()]
+
+    hooks = []
+    for m in net.modules():
+        # every layer: the leaves of the module tree (the concatenations
+        # and residual adds of the blocks above them are torch.cat and +)
+        if isinstance(m, gnn.HybridBlock) and not list(m.children()):
+            hooks.append(m.register_forward_hook(hook))
+            hooks.append(m.register_full_backward_hook(backward_hook))
+            if isinstance(m, gnn.BatchNorm):
+                hooks.append(m.register_forward_pre_hook(pre_hook))
+    net.train()
+    for p in net.parameters():
+        p.grad = None
+    out = net(x)
+    loss = F.cross_entropy(out.float(), y)
+    with warnings.catch_warnings():
+        # the first layer's hook fires with no input gradient, as meant
+        warnings.simplefilter("ignore", UserWarning)
+        loss.backward()
+    for h in hooks:
+        h.remove()
+    worst = {"out": 0.0, "dx": 0.0, "grad": 0.0, "stats": 0.0}
+
+    def check(kind, got, want, floor, what):
+        got, want = got.detach().float().cpu(), want.detach().float()
+        diff = (got - want).abs()
+        bound = 1e-4 * want.abs() + floor
+        excess = float((diff - bound).max())
+        if excess > 0:
+            raise AssertionError("%s: beyond tolerance by %g (largest "
+                                 "|CPU value| %g)" % (
+                                     what, excess, float(want.detach().abs().max())))
+        worst[kind] = max(worst[kind], float(
+            (diff / torch.as_tensor(bound).clamp_min(1e-30)).max()))
+
+    for i, rec in enumerate(records):
+        mod = rec["mod"]
+        what = "%s %d (%s)" % (type(mod).__name__, i, mod.name)
+        xc = rec["x"].cpu().requires_grad_(rec["grad_x"])
+        params = [(n, p) for n, p in mod.named_parameters(recurse=False)
+                  if p is not None]
+        leaves = {n: p.detach().cpu().clone().requires_grad_(p.requires_grad)
+                  for n, p in params}
+        bn = isinstance(mod, gnn.BatchNorm)
+        if bn:
+            rm, rv = [t.cpu().clone() for t in mod._stats_before]
+            want = ops_nn.batch_norm(xc, leaves["gamma"], leaves["beta"], rm,
+                                     rv, is_train=True, **mod._kwargs)[0]
+            # a moving statistic moves by (1 - momentum) x a batch mean
+            # (of x, of the squared deviations): its rounding scales with
+            # the mean of |x| (of x^2), which can be far above the mean
+            with torch.no_grad():
+                c = xc.shape[mod._axis]
+                x2 = xc.detach().movedim(mod._axis, -1).reshape(-1, c)
+                step = 1e-4 * (1 - mod._kwargs["momentum"])
+                stat_floors = (step * x2.abs().mean(0),
+                               step * x2.square().mean(0))
+            for t, before, after, sf in zip((rm, rv), mod._stats_before,
+                                            rec["stats"], stat_floors):
+                change = t - before.cpu()
+                check("stats", after - before, change,
+                      1e-4 * float(change.abs().max()) + sf,
+                      what + " moving statistic")
+        elif isinstance(mod, (gnn.Conv2D, gnn.Dense)):
+            want = _layer_forward(ops_nn, mod, xc, leaves["weight"],
+                                  leaves.get("bias"))
+        else:   # a layer without parameters: pooling, activation, Flatten
+            want = mod(xc)
+        if "g" not in rec:
+            check("out", rec["out"], want, 1e-4 * float(want.detach().abs().max()),
+                  what + " output")
+            continue
+        g = rec["g"].cpu()
+        if bn:
+            with torch.no_grad():
+                c = xc.shape[mod._axis]
+                x2 = xc.detach().movedim(mod._axis, -1).reshape(-1, c)
+                var, mean = torch.var_mean(x2, 0, correction=0)
+                xhat = (x2 - mean) * torch.rsqrt(var + mod._kwargs["eps"])
+                g2 = g.movedim(mod._axis, -1).reshape(-1, c)
+                floors = {"out": 1e-4 * float(want.detach().abs().max()),
+                          "gamma": 1e-4 * (g2 * xhat).abs().sum(0),
+                          "beta": 1e-4 * g2.abs().sum(0)}
+        elif isinstance(mod, (gnn.Conv2D, gnn.Dense)):
+            tol = CONV_PARITY_TOL if isinstance(mod, gnn.Conv2D) \
+                else LAYER_PARITY_TOL
+            floors = {k: tol * v for k, v in
+                      _terms(torch, mod, xc, g, ops_nn).items()}
+        else:
+            floors = {"out": 1e-4 * float(want.detach().abs().max())}
+        check("out", rec["out"], want, floors["out"], what + " output")
+        need = [t for t in [xc] + list(leaves.values()) if t.requires_grad]
+        grads = dict(zip([id(t) for t in need],
+                         torch.autograd.grad(want, need, g)))
+        if rec["grad_x"]:
+            if "dx" not in rec:
+                raise AssertionError("%s: no input gradient recorded" % what)
+            ref = grads[id(xc)]
+            check("dx", rec["dx"], ref, floors.get(
+                "dx", 1e-4 * float(ref.abs().max())), what + " input gradient")
+        for n, p in params:
+            if p.grad is None or not p.requires_grad:
+                continue
+            check("grad", p.grad, grads[id(leaves[n])], floors[n],
+                  "%s d%s" % (what, n))
+    return float(loss.detach()), worst, len(records)
+
+
+def vision_parity(torch, args):
+    """Inception v3 at batch 2, 299 x 299, and DenseNet-121 and MobileNet
+    v2 at batch 2, 224 x 224 (NHWC, full width, f32, TF32 off, Dropout at
+    rate 0: the card's and the CPU's generators differ), from the same
+    weights and batch. One `DistributedTrainer` step (SGD lr 0.1,
+    momentum 0.9, wd 1e-4) on the card and on the CPU: the losses agree
+    within rtol 1e-4. The step's every gradient cannot be held across the
+    two devices element by element in f32: these deep ReLU + BatchNorm
+    nets carry a rounding apart (cuDNN's and the CPU's convolutions sum in
+    other orders) into ReLUs taking the other branch, and the gradients
+    below then differ by up to tens of percent (the CPU alone differs so
+    from itself at another thread count: tools/vision_grad_spread.py). So
+    each layer is held instead (`layer_parity`): the card's training
+    forward and backward, every Conv2D, BatchNorm and Dense against the
+    CPU's plain computation on the very inputs the card gave it."""
+    for name, side in VISION_PARITY:
+        x, y = vision_batch(torch, args.seed + 9, 2, side, device="cpu")
+        nets, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            nets[dev], tr = vision_trainer(torch, name, side, args.seed,
+                                           amp=None, lr=0.1, device=dev)
+            for m in nets[dev].modules():
+                if type(m).__name__ == "Dropout":
+                    m._rate = 0.0
+            if dev == "cpu":
+                before = {k: v.clone()
+                          for k, v in nets[dev].state_dict().items()}
+            else:
+                nets[dev].load_state_dict(before)
+            losses[dev] = float(tr.step(x.to(dev), y.to(dev)))
+        max_err(torch, torch.tensor(losses["cuda"]),
+                torch.tensor(losses["cpu"]), 1e-4, name + " loss")
+        nets["cuda"].load_state_dict(before)
+        loss, worst, n = layer_parity(torch, nets["cuda"], x.cuda(),
+                                      y.cuda())
+        log("parity: %s (batch 2, %d x %d, f32): one trainer step's loss "
+            "on the card %.6f, on the CPU %.6f; %d layers of the card's "
+            "step each equal the CPU's on the same inputs (largest error "
+            "over its tolerance: outputs %.3g, input gradients %.3g, "
+            "parameter gradients %.3g, moving statistics %.3g; 1 is the "
+            "tolerance)"
+            % (name, side, side, losses["cuda"], losses["cpu"], n,
+               worst["out"], worst["dx"], worst["grad"], worst["stats"]))
+        del nets
+        torch.cuda.empty_cache()
 
 
 def bert_parity(torch, args):
@@ -3865,6 +4371,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train_rec(torch, pk, args, train_ips)
     torch.cuda.empty_cache()
+    vision_launches = train_vision(torch, pk, args)
+    torch.cuda.empty_cache()
     launches.update(train_bert(torch, pk, args))
     torch.cuda.empty_cache()
     lm_launches, lm = train_word_lm(torch, pk, args)
@@ -3884,6 +4392,7 @@ def main(argv=None):
             raise AssertionError("%s never launched on its main path"
                                  % k["name"])
     insitu_parity(torch, args)
+    vision_parity(torch, args)
     bert_parity(torch, args)
     word_lm_parity(torch, args)
     facade_parity(torch, args)
@@ -3893,6 +4402,10 @@ def main(argv=None):
     for k in KERNELS:
         row = dict(k)
         row["launches"] = launches[k["name"]]
+        if k["name"] in vision_launches:
+            # the Inception v3 run of train_vision, beside the train
+            # phase's ResNet-50 count in "launches"
+            row["launches_train_vision"] = vision_launches[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)
     print(smi_line())

@@ -12,6 +12,13 @@ Two layouts of one `TransformerLM`'s parameters come from the JAX package:
     block was built with dropout (an ``embed_dropout`` child comes first).
     `state_from_npz` reads it and `npz_from_state` writes it.
 
+The other vision nets (ResNet v2, AlexNet, VGG, SqueezeNet, DenseNet,
+Inception V3, MobileNet v1 / v2) are built in the port as the JAX package
+builds them, with its parameter names: `vision_params_from_jax` places the
+JAX net's arrays by those names onto the port net's parameter paths (and
+their ``.params`` files cross both ways through ``save_parameters`` /
+``load_parameters``).
+
 A ResNet v1's parameters come from the JAX net's ``collect_params()``
 as numpy arrays keyed by gluon auto-names (``resnetv10_conv2d0_weight``,
 ``resnetv10_stage1_batchnorm2_running_var``, ``resnetv10_dense0_bias``
@@ -39,7 +46,8 @@ from .base import MXNetError
 
 __all__ = ["params_from_jax", "state_from_npz", "npz_from_state",
            "resnet_params_from_jax", "bert_params_from_jax",
-           "word_lm_params_from_jax", "module_params_from_jax"]
+           "word_lm_params_from_jax", "module_params_from_jax",
+           "vision_params_from_jax"]
 
 _DENSE = {"q": "attention.proj_query", "k": "attention.proj_key",
           "v": "attention.proj_value", "o": "attention.proj_out",
@@ -311,6 +319,70 @@ def bert_params_from_jax(params):
     for field, value in next(iter(dense.values())).items():
         out["mlm." + field] = _t(value)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the vision nets built as the JAX package builds them
+# ---------------------------------------------------------------------------
+
+def _net_prefix(names):
+    """The top block's prefix of a net's parameter names (its alias and
+    count, ``inception30_``): the part before the first "_", shared by
+    all."""
+    prefixes = {n.split("_", 1)[0] + "_" for n in names}
+    if len(prefixes) != 1:
+        raise MXNetError("not one network's parameters: prefixes %s"
+                         % sorted(prefixes))
+    return prefixes.pop()
+
+
+def vision_params_from_jax(params, net):
+    """The JAX package's parameters of a vision net -> the state dict of
+    the port's ``net`` of the same family and configuration (ResNet v2,
+    AlexNet, VGG, SqueezeNet, DenseNet, Inception V3, MobileNet v1 / v2),
+    built under the same layout.
+
+    ``params``: name -> numpy array, as ``{k: p.data().asnumpy() for k, p
+    in jnet.collect_params().items()}``, running statistics included. Both
+    packages name a parameter by its block's prefix chain, which differs
+    between the two nets only in the top block's count
+    (``inception30_conv0_weight`` against ``inception31_conv0_weight``);
+    each array goes to the port parameter of that name, under its module
+    path (``features.0.0.weight``, the `state_dict` key). Both store a
+    conv weight as the layout gives it, (O, *k, I/g) channels-last, so no
+    array is transposed. Raises `MXNetError` on a name it cannot place, a
+    port parameter left without an array, or a shape that differs (a
+    dimension the port net has not inferred yet, 0, takes the array's).
+    Load the result with ``net.load_state_dict`` once the net's
+    parameters exist (after a first forward when a shape was deferred)."""
+    ours = net._collect_params_with_prefix()
+    if not params or not ours:
+        raise MXNetError("no parameters to place")
+    jprefix = _net_prefix(params)
+    tprefix = _net_prefix([p.name for p in ours.values()])
+    by_name = {}
+    for path, p in ours.items():
+        by_name.setdefault(p.name[len(tprefix):], []).append((path, p))
+    state, missing = {}, []
+    for rest, places in by_name.items():
+        key = jprefix + rest
+        if key not in params:
+            missing.append(key)
+            continue
+        arr = _np.asarray(params[key])
+        for path, p in places:
+            shape = p.shape or ()
+            if len(shape) != arr.ndim or any(
+                    s not in (0, a) for s, a in zip(shape, arr.shape)):
+                raise MXNetError("%s: the JAX array has shape %s, the port "
+                                 "parameter %s" % (key, arr.shape, shape))
+            state[path] = _t(arr)
+    extra = sorted(set(params) - {jprefix + r for r in by_name})
+    if missing or extra:
+        raise MXNetError("cannot place the parameters onto %s: missing %s, "
+                         "not in the port net %s"
+                         % (type(net).__name__, missing[:8], extra[:8]))
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""ResNet v1 (counterpart of `mxnet_tpu/gluon/model_zoo/vision/resnet.py`:
-`ResNetV1`, `BasicBlockV1`, `BottleneckV1`, `get_resnet`,
-`resnet18_v1` ... `resnet152_v1`) as `torch.nn.Module`s.
+"""ResNet v1 and v2 (counterpart of
+`mxnet_tpu/gluon/model_zoo/vision/resnet.py`: `ResNetV1`, `BasicBlockV1`,
+`BottleneckV1` and `resnet18_v1` ... `resnet152_v1` as `torch.nn.Module`s;
+`ResNetV2`, `BasicBlockV2`, `BottleneckV2` and `resnet18_v2` ...
+`resnet152_v2` as `HybridBlock`s; `get_resnet`).
 
 Build under `gluon.nn.layout_scope()` for the channels-last layout: inputs
 (N, H, W, C), conv weights (O, kh, kw, I). The module tree follows the JAX
@@ -12,8 +14,15 @@ package's parameter names onto it.
 "0", as in the JAX package) builds every BN -> ReLU as one
 ``BatchNorm(act_type="relu")`` and each block's tail as BN + add + ReLU;
 parameter names do not change. Either graph runs training-mode BatchNorm
-through the conv-epilogue kernels on the card. ResNet v2 and the
-space-to-depth stem are not ported yet.
+through the conv-epilogue kernels on the card.
+
+ResNet v2 is pre-activation: BN -> ReLU before each convolution, one BN ->
+ReLU after the last stage, and a first BatchNorm of the input image
+without gamma or beta (``scale=False, center=False``). It is built as the
+JAX package builds it (a `HybridBlock` tree with the JAX prefixes), so its
+parameter names are the JAX net's and its ``.params`` files and export are
+the JAX package's. The space-to-depth stem (``stem_s2d``) is not ported
+yet (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -21,13 +30,18 @@ from torch import nn as _tnn
 
 from .... import env as _env
 from .... import initializer as _init
+from ....base import MXNetError
 from ....context import resolve_device
 from ....ops import nn as _ops
 from ... import nn
+from ...nn.basic_layers import _Layer
+from ._common import _Net
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
-           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
-           "resnet152_v1", "resnet_spec"]
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
+           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
+           "get_resnet"]
 
 
 def _fuse_epilogue_default(flag):
@@ -181,6 +195,137 @@ class ResNetV1(_tnn.Module):
         return self.output(_run(self.features, x, not self._fuse_epilogue))
 
 
+class BasicBlockV2(_Layer):
+    """BN, ReLU, 3x3 conv (stride), BN, ReLU, 3x3 conv, plus the input (or
+    its 1x1 projection of the first BN -> ReLU when ``downsample``). Under
+    ``fuse_epilogue`` each BN carries its ReLU."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 fuse_epilogue=False, **kwargs):
+        super().__init__(**kwargs)
+        self._fused = fuse_epilogue
+        self.bn1 = _bn_v2(fuse_epilogue)
+        self.conv1 = _conv3x3(channels, stride, in_channels, None)
+        self.bn2 = _bn_v2(fuse_epilogue)
+        self.conv2 = _conv3x3(channels, 1, channels, None)
+        self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                    in_channels=in_channels) \
+            if downsample else None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        out = _act_v2(F, self.bn1(x), self._fused)
+        if self.downsample is not None:
+            residual = self.downsample(out)
+        out = self.conv1(out)
+        out = _act_v2(F, self.bn2(out), self._fused)
+        return self.conv2(out) + residual
+
+
+class BottleneckV2(_Layer):
+    """BN, ReLU, 1x1 conv to ``channels // 4``, BN, ReLU, 3x3 conv
+    (stride), BN, ReLU, 1x1 conv to ``channels``, plus the input (or its
+    projection, as in `BasicBlockV2`)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 fuse_epilogue=False, **kwargs):
+        super().__init__(**kwargs)
+        self._fused = fuse_epilogue
+        self.bn1 = _bn_v2(fuse_epilogue)
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False)
+        self.bn2 = _bn_v2(fuse_epilogue)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, None)
+        self.bn3 = _bn_v2(fuse_epilogue)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False)
+        self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                    in_channels=in_channels) \
+            if downsample else None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        out = _act_v2(F, self.bn1(x), self._fused)
+        if self.downsample is not None:
+            residual = self.downsample(out)
+        out = self.conv1(out)
+        out = _act_v2(F, self.bn2(out), self._fused)
+        out = self.conv2(out)
+        out = _act_v2(F, self.bn3(out), self._fused)
+        return self.conv3(out) + residual
+
+
+def _bn_v2(fused):
+    """A v2 BatchNorm of a deferred width, carrying the ReLU when
+    ``fused``."""
+    return nn.BatchNorm(act_type="relu" if fused else None)
+
+
+def _act_v2(F, x, fused):
+    return x if fused else F.Activation(x, act_type="relu")
+
+
+class ResNetV2(_Net):
+    """ResNet v2: BatchNorm of the input (no gamma, no beta), the stem
+    (7x7/2 conv, BN, ReLU, 3x3/2 max pool; a 3x3/1 conv alone when
+    ``thumbnail``), ``len(layers)`` stages of pre-activation blocks, BN,
+    ReLU, global average pool, Flatten, the classifier. ``in_channels``
+    sizes the input BatchNorm and the stem (0: from the first input);
+    ``device`` as `_Net`."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, fuse_epilogue=None, in_channels=0,
+                 device=None, **kwargs):
+        super().__init__(device=device, **kwargs)
+        assert len(layers) == len(channels) - 1
+        fuse_epilogue = _fuse_epilogue_default(fuse_epilogue)
+        self._fuse_epilogue = fuse_epilogue
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False,
+                                           in_channels=in_channels))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, in_channels,
+                                           None))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False,
+                                            in_channels=in_channels))
+                self.features.add(_bn_v2(fuse_epilogue))
+                if not fuse_epilogue:
+                    self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels, fuse_epilogue))
+                in_channels = channels[i + 1]
+            self.features.add(_bn_v2(fuse_epilogue))
+            if not fuse_epilogue:
+                self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    @staticmethod
+    def _make_layer(block, layers, channels, stride, stage_index,
+                    in_channels, fuse_epilogue):
+        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels,
+                            fuse_epilogue=fuse_epilogue, prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels,
+                                fuse_epilogue=fuse_epilogue, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
+
 resnet_spec = {18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
                34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
                50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
@@ -189,20 +334,27 @@ resnet_spec = {18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
                152: ("bottle_neck", [3, 8, 36, 3],
                      [64, 256, 512, 1024, 2048])}
 
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_NETS = {1: ResNetV1, 2: ResNetV2}
+_BLOCKS = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+           2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
 
 
-def get_resnet(version, num_layers, **kwargs):
-    """ResNet of ``num_layers`` (18, 34, 50, 101, 152). Only version 1 is
-    ported."""
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    """ResNet ``version`` 1 or 2 of ``num_layers`` (18, 34, 50, 101,
+    152)."""
     if num_layers not in resnet_spec:
         raise ValueError("Invalid resnet depth %d; options: %s"
                          % (num_layers, sorted(resnet_spec)))
-    if version != 1:
-        raise NotImplementedError("ResNet v%d is not ported yet (v1 only)"
-                                  % version)
+    if version not in _NETS:
+        raise ValueError("Invalid resnet version %r; options: 1, 2"
+                         % (version,))
+    if pretrained:
+        raise MXNetError("pretrained weights are not downloaded: load them "
+                         "with net.load_parameters(path)")
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+    return _NETS[version](_BLOCKS[version][block_type], layers, channels,
+                          **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -223,3 +375,23 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

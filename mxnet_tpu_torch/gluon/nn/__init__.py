@@ -1,13 +1,9 @@
-"""Layers of the port (counterpart of `mxnet_tpu.gluon.nn`: the layers of
-the ResNet, BERT and word-LM paths, and `Block` / `HybridBlock`)."""
-from .basic_layers import (GELU, Activation, BatchNorm, Dense, Dropout,
-                           Embedding, Flatten, HybridSequential, LayerNorm,
-                           Sequential)
-from .conv_layers import (Conv2D, GlobalAvgPool2D, MaxPool2D,
-                          in_channels_last_scope, layout_scope)
+"""Layers of the port (counterpart of `mxnet_tpu.gluon.nn`: every layer of
+its basic and convolution modules, and `Block` / `HybridBlock`)."""
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _basic_all
+from .conv_layers import __all__ as _conv_all
 from ..block import Block, HybridBlock
 
-__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
-           "Flatten", "GELU", "HybridSequential", "LayerNorm", "Sequential",
-           "Conv2D", "GlobalAvgPool2D", "MaxPool2D",
-           "in_channels_last_scope", "layout_scope", "Block", "HybridBlock"]
+__all__ = list(_basic_all) + list(_conv_all) + ["Block", "HybridBlock"]

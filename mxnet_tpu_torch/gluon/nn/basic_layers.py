@@ -1,8 +1,9 @@
 """Basic layers.
 
 Counterpart of `mxnet_tpu/gluon/nn/basic_layers.py` (Sequential,
-HybridSequential, Dense, Activation, Flatten, BatchNorm, Embedding,
-LayerNorm, GELU, Dropout) as `HybridBlock`s that compute on tensors over
+HybridSequential, Dense, Activation, LeakyReLU, PReLU, ELU, SELU, Swish,
+GELU, Flatten, BatchNorm, InstanceNorm, LayerNorm, Embedding, Dropout,
+Lambda, HybridLambda) as `HybridBlock`s that compute on tensors over
 `ops.nn`. Parameter names and shapes are the JAX package's (``weight``,
 ``bias``, ``gamma``, ``beta``, ``running_mean``, ``running_var``; the
 running statistics are module buffers). A size left at 0 (``in_units``,
@@ -18,24 +19,29 @@ called with tensors. ``device``: where the parameters of a known shape are
 made (the CPU when None, until `initialize` places them).
 
 Called with `Symbol`s (`HybridBlock.export`), ``hybrid_forward`` composes
-the JAX package's op of each layer (FullyConnected, Activation, Dropout,
-Flatten, BatchNorm / BatchNormRelu / BatchNormAddRelu, Embedding); a
-layer without one (LayerNorm, GELU) raises.
+the JAX package's op of each layer (FullyConnected, Activation,
+LeakyReLU, Dropout, Flatten, BatchNorm / BatchNormRelu /
+BatchNormAddRelu, InstanceNorm, LayerNorm, Embedding); a `Lambda` (a plain
+`Block`) has none and raises.
 """
 from __future__ import annotations
 
 import numpy as _np
 from torch import nn
 
+from ... import initializer as _init
+from ... import ndarray as _nd
+from ... import ops as _registry
 from ... import random as _random
 from ...autograd import layer_training
 from ...base import MXNetError
 from ...ops import nn as _ops
-from ..block import Block, HybridBlock, _deferred
+from ..block import Block, HybridBlock, _deferred, _has_nd
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "Flatten", "BatchNorm", "Embedding", "LayerNorm", "GELU",
-           "Dropout"]
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU", "Flatten",
+           "BatchNorm", "InstanceNorm", "LayerNorm", "Embedding", "Dropout",
+           "Lambda", "HybridLambda"]
 
 
 def _materialize(*params):
@@ -71,8 +77,30 @@ class HybridSequential(HybridBlock, Sequential):
         return x
 
 
+class _TensorOps:
+    """The registered ops as functions of tensors (``F.concat`` is the
+    ``concat`` op's torch function): the ``F`` of `_Layer.forward`."""
+
+    def __getattr__(self, name):
+        return _registry.get(name).fn
+
+
+_TENSOR_F = _TensorOps()
+
+
 class _Layer(HybridBlock):
+    """A port layer: its forward computes on tensors. The default forward
+    runs ``hybrid_forward`` with ``F`` the registered ops on tensors and
+    each parameter as the module's tensor (the one
+    `torch.func.functional_call` substitutes), so a block written as the
+    JAX package's ``hybrid_forward`` over children and ops runs on tensors
+    too."""
+
     _tensor_forward = True
+
+    def forward(self, *args):
+        params = {name: getattr(self, name) for name in self._reg_params}
+        return self.hybrid_forward(_TENSOR_F, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **params):
         raise MXNetError("%s has no symbol form in the port: it cannot be "
@@ -137,6 +165,61 @@ class Activation(_Layer):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
+
+
+class LeakyReLU(_Layer):
+    """``x`` where ``x >= 0``, else ``alpha * x``."""
+
+    def __init__(self, alpha, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(_Layer):
+    """LeakyReLU with a learned slope ``alpha`` (shape (1,), 0.25 unless
+    ``alpha_initializer`` says otherwise)."""
+
+    def __init__(self, alpha_initializer=None, device=None, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._param("alpha", device=device, shape=(1,),
+                        init=alpha_initializer or _init.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(_Layer):
+    """``x`` where ``x >= 0``, else ``alpha * (exp(x) - 1)``."""
+
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(_Layer):
+    """Scaled ELU with the self-normalizing constants."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class Swish(_Layer):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
 
 
 class Flatten(_Layer):
@@ -265,18 +348,51 @@ class Embedding(_Layer):
                            output_dim=self._output_dim)
 
 
+class InstanceNorm(_Layer):
+    """Instance normalization (`ops.nn.instance_norm`): each sample's
+    channel normalized over its spatial axes, then ``gamma`` and ``beta``
+    a channel (axis 1). ``scale`` False (the default) leaves gamma at 1
+    without gradient."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._epsilon = epsilon
+        self._axis = axis
+        c = (int(in_channels),)
+        with self.name_scope():
+            self._norm = [
+                self._param("gamma", device=device,
+                            grad_req="write" if scale else "null", shape=c,
+                            init=gamma_initializer, allow_deferred_init=True),
+                self._param("beta", device=device,
+                            grad_req="write" if center else "null", shape=c,
+                            init=beta_initializer, allow_deferred_init=True)]
+
+    def forward(self, x):
+        if self.gamma is None:
+            for p in self._norm:
+                p.shape = (x.shape[self._axis],)
+            _materialize(*self._norm)
+        return _ops.instance_norm(x, self.gamma, self.beta,
+                                  eps=self._epsilon)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
 class LayerNorm(_Layer):
-    """LayerNorm over the last axis (``in_channels`` units; 0 takes them
-    from the first input), ``gamma`` 1 and ``beta`` 0, computed by
+    """LayerNorm over ``axis`` (``in_channels`` units; 0 takes them from
+    the first input), ``gamma`` 1 and ``beta`` 0, computed by
     `ops.nn.layer_norm`. ``in_channels`` comes first, as the port's models
-    pass it; only ``axis=-1`` is ported."""
+    pass it."""
 
     def __init__(self, in_channels=0, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones", axis=-1,
                  device=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        if axis != -1:
-            raise MXNetError("LayerNorm: only axis=-1 is ported")
+        self._axis = axis
         self.eps = float(epsilon)
         c = (int(in_channels),)
         with self.name_scope():
@@ -291,9 +407,16 @@ class LayerNorm(_Layer):
     def forward(self, x):
         if self.gamma is None:
             for p in self._norm:
-                p.shape = (x.shape[-1],)
+                p.shape = (x.shape[self._axis],)
             _materialize(*self._norm)
-        return _ops.layer_norm(x, self.gamma, self.beta, self.eps)
+        if self._axis in (-1, x.dim() - 1):
+            return _ops.layer_norm(x, self.gamma, self.beta, self.eps)
+        return _registry.invoke_torch("LayerNorm", (x, self.gamma,
+                                                    self.beta),
+                                      {"axis": self._axis, "eps": self.eps})
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self.eps)
 
 
 class GELU(_Layer):
@@ -302,23 +425,66 @@ class GELU(_Layer):
     def forward(self, x):
         return _ops.gelu(x)
 
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
 
 class Dropout(_Layer):
     """Dropout of ``rate`` in training mode (keep mask from this thread's
-    generator for the input's device, `mxnet_tpu_torch.random`); the
-    identity otherwise."""
+    generator for the input's device, `mxnet_tpu_torch.random`; one draw
+    shared along each of ``axes``); the identity otherwise."""
 
     def __init__(self, rate, axes=(), prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        if axes:
-            raise MXNetError("Dropout(axes=...) is not ported yet")
         self._rate = float(rate)
+        self._axes = tuple(axes)
 
     def forward(self, x):
         if not layer_training(self) or self._rate <= 0.0:
             return x
         return _ops.dropout(x, self._rate, is_train=True,
-                            generator=_random.generator(x.device))
+                            generator=_random.generator(x.device),
+                            axes=self._axes)
 
     def hybrid_forward(self, F, x):
-        return F.Dropout(x, p=self._rate, axes=())
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+
+class Lambda(Block):
+    """A function as a Block: ``function`` a callable, or the name of an
+    ``mx.nd`` function (on tensors, the registered op of that name)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not hasattr(_nd, function):
+                raise MXNetError("function %s not found in nd" % function)
+            self._func_impl = getattr(_nd, function)
+            self._op_name = function
+        else:
+            self._func_impl = function
+            self._op_name = None
+
+    def forward(self, *args):
+        if self._op_name is not None and not _has_nd(args, {}):
+            return _registry.get(self._op_name).fn(*args)
+        return self._func_impl(*args)
+
+
+class HybridLambda(_Layer):
+    """A function as a HybridBlock: ``function`` a callable, applied to the
+    inputs as they come (tensors, NDArrays or Symbols), or the name of a
+    registered op (``F.<name>`` for Symbols, the op itself on tensors)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name, self._func = function, None
+        else:
+            self._func = function
+            self._func_name = getattr(function, "__name__", "lambda")
+
+    def hybrid_forward(self, F, *args):
+        fn = self._func if self._func is not None \
+            else getattr(F, self._func_name)
+        return fn(*args)

@@ -39,7 +39,9 @@ from . import register
 from .tensor import _inexact
 
 __all__ = ["layer_norm", "embedding", "dropout", "dense", "gelu",
-           "convolution", "pooling",
+           "convolution", "deconvolution", "pooling", "instance_norm",
+           "l2_normalization", "lrn", "leaky_relu", "im2col", "col2im",
+           "upsampling", "correlation", "identity_attach_kl_sparse_reg",
            "fully_connected", "activation", "batch_norm", "batch_norm_relu",
            "batch_norm_add_relu", "softmax", "log_softmax",
            "softmax_cross_entropy", "softmax_output"]
@@ -159,63 +161,220 @@ def fully_connected(data, weight, bias=None, flatten=True):
     return F.linear(x, weight, bias)
 
 
+def _to_channels_first(x, ch_last):
+    """(N, *spatial, C) -> the (N, C, *spatial) view, channels-last in
+    memory (no copy); the identity for a channels-first tensor."""
+    return x.movedim(-1, 1) if ch_last else x
+
+
+def _from_channels_first(x, ch_last):
+    return x.movedim(1, -1) if ch_last else x
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _nspatial(data, what):
+    nsp = data.dim() - 2
+    if nsp not in (1, 2, 3):
+        raise MXNetError("%s: 1-D, 2-D or 3-D data only, got shape %s"
+                         % (what, tuple(data.shape)))
+    return nsp
+
+
 def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 pad=(), num_group=1, layout=None):
-    """2-D convolution over (N, C, H, W) with an (O, I, kh, kw) weight or,
-    with the channels-last ``layout`` "NHWC", over (N, H, W, C) with an
-    (O, kh, kw, I) weight. The channels-last case hands PyTorch (cuDNN on
-    the card) the views ``data.permute(0, 3, 1, 2)`` and
-    ``weight.permute(0, 3, 1, 2)``, channels-last in memory, and permutes
-    the result back: a contiguous channels-last input gives a contiguous
+    """1-D, 2-D or 3-D convolution over (N, C, *spatial) with an
+    (O, I/g, *k) weight or, under a channels-last ``layout`` ("NWC",
+    "NHWC", "NDHWC"), over (N, *spatial, C) with an (O, *k, I/g) weight.
+    The channels-last case hands PyTorch (cuDNN on the card) the views with
+    the channel axis moved to 1, channels-last in memory, and moves it back
+    in the result: a contiguous channels-last input gives a contiguous
     channels-last output, and no copy is made."""
-    if data.dim() != 4:
-        raise MXNetError("Convolution: 2-D convolution only in the port, "
-                         "got shape %s" % (tuple(data.shape),))
+    nsp = _nspatial(data, "Convolution")
     ch_last = _channels_last(layout)
-    w_spatial = tuple(weight.shape[1:3] if ch_last else weight.shape[2:])
-    if kernel and _tup(kernel, 2, 0) != w_spatial:
+    w_spatial = tuple(weight.shape[1:-1] if ch_last else weight.shape[2:])
+    if kernel and _tup(kernel, nsp, 0) != w_spatial:
         raise MXNetError("Convolution: kernel attr %s != weight spatial "
                          "shape %s" % (tuple(kernel), w_spatial))
-    if ch_last:
-        data = data.permute(0, 3, 1, 2)
-        weight = weight.permute(0, 3, 1, 2)
-    out = F.conv2d(data, weight, bias, stride=_tup(stride, 2, 1),
-                   padding=_tup(pad, 2, 0), dilation=_tup(dilate, 2, 1),
-                   groups=int(num_group))
-    return out.permute(0, 2, 3, 1) if ch_last else out
+    out = _CONV[nsp](_to_channels_first(data, ch_last),
+                     _to_channels_first(weight, ch_last), bias,
+                     stride=_tup(stride, nsp, 1), padding=_tup(pad, nsp, 0),
+                     dilation=_tup(dilate, nsp, 1), groups=int(num_group))
+    return _from_channels_first(out, ch_last)
+
+
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_group=1, layout=None):
+    """Transposed convolution with the JAX package's weight: (I, O/g, *k),
+    or (I, *k, O/g) under a channels-last layout. Each side's output is
+    ``(in - 1) * stride - 2 * pad + dilate * (k - 1) + 1 + adj``, ``adj``
+    computed from ``target_shape`` when one is given. PyTorch's transposed
+    convolution runs without padding (its weight layout is the same), and
+    the window ``[pad, pad + out)`` of that full output is taken, zeros
+    beyond its end: so any ``adj`` works, where PyTorch's own
+    ``output_padding`` must stay below the stride."""
+    nsp = _nspatial(data, "Deconvolution")
+    ch_last = _channels_last(layout)
+    x = _to_channels_first(data, ch_last)
+    w = _to_channels_first(weight, ch_last)
+    stride, dilate = _tup(stride, nsp, 1), _tup(dilate, nsp, 1)
+    pad, adj = _tup(pad, nsp, 0), _tup(adj, nsp, 0)
+    k = w.shape[2:]
+    if target_shape:
+        adj = tuple(int(target_shape[i]) - ((x.shape[2 + i] - 1) * stride[i]
+                                            - 2 * pad[i]
+                                            + dilate[i] * (k[i] - 1) + 1)
+                    for i in range(nsp))
+    full = _DECONV[nsp](x, w, None, stride=stride, groups=int(num_group),
+                        dilation=dilate)
+    index = [slice(None), slice(None)]
+    grow = []
+    for i in range(nsp):
+        size = (x.shape[2 + i] - 1) * stride[i] - 2 * pad[i] \
+            + dilate[i] * (k[i] - 1) + 1 + adj[i]
+        index.append(slice(pad[i], pad[i] + size))
+        grow.append(max(pad[i] + size - full.shape[2 + i], 0))
+    out = full[tuple(index)]
+    if any(grow):
+        pads = []
+        for g in reversed(grow):
+            pads += [0, g]
+        out = F.pad(out, pads)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp).to(out.dtype)
+    return _from_channels_first(out, ch_last)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pad_spatial(x, pads, value):
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return F.pad(x, flat, value=value) if any(flat) else x
+
+
+def _torch_pad(pads, kernel):
+    """The padding a PyTorch pool takes itself for ``pads`` (its implicit
+    padding is symmetric and at most half the window), else None."""
+    if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
+        return tuple(lo for lo, _ in pads)
+    return None
+
+
+def _window_mean(x, kernel, stride, pads):
+    """Mean of every window of the zero-padded channels-first floating
+    ``x``, the padding counted: PyTorch's avg pool, which accumulates a
+    bf16 window in f32 and rounds the mean once. The JAX package sums bf16
+    windows in bf16 (`lax.reduce_window`), so the port's bf16 results are
+    the closer ones, within a few bf16 steps of it. The padding is made
+    explicitly, never by the pool: on the card (PyTorch 2.11, CUDA 12.8,
+    H100) the avg pool's backward over a channels-last tensor with
+    implicit padding gives wrong input gradients (its forward is right),
+    and explicit zeros then a pool without padding compute the same mean,
+    gradient included."""
+    return _AVG_POOL[len(kernel)](_pad_spatial(x, pads, 0.0), kernel,
+                                  stride, 0, count_include_pad=True)
+
+
+def _window_sum(x, kernel, stride, pads):
+    """Sum of every window of the zero-padded channels-first ``x``, in f32
+    for a bf16 or f16 ``x`` (see `_window_mean`) and in f64 for an integer
+    one."""
+    if not x.is_floating_point():
+        x = x.double()
+    elif x.dtype not in (torch.float32, torch.float64):
+        x = x.float()
+    n = 1
+    for k in kernel:
+        n *= k
+    return _window_mean(x, kernel, stride, pads) * n
+
+
+def _int_window_max(x, kernel, stride, pads):
+    """Max of every window of an integer channels-first ``x`` padded with the
+    dtype's minimum (PyTorch's max pools take floats only)."""
+    x = _pad_spatial(x, pads, torch.iinfo(x.dtype).min)
+    for i, (k, s) in enumerate(zip(kernel, stride)):
+        x = x.unfold(2 + i, k, s)
+    return x.flatten(-len(kernel)).amax(-1)
 
 
 def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
-            pad=(), pooling_convention="valid", layout=None):
-    """2-D max pooling (padded with -inf), or the global average pool
-    (``global_pool``, pool_type "avg": the mean over the spatial extent,
-    taken in f32 and kept as 1 x 1), of (N, C, H, W), or (N, H, W, C)
-    under the channels-last layout. ``pooling_convention="full"`` gives
-    MXNet's ceil((H + 2 p - k) / s) + 1 windows a side: the bottom and right
-    are padded with -inf up to that size, so a last window that starts in
-    the padding is kept (PyTorch's ``ceil_mode`` drops it). The other pool
-    types are not ported yet."""
-    if data.dim() != 4:
-        raise MXNetError("Pooling: 2-D pooling only in the port, got shape "
-                         "%s" % (tuple(data.shape),))
+            pad=(), pooling_convention="valid", count_include_pad=True,
+            p_value=2, layout=None):
+    """1-D, 2-D or 3-D pooling (`mxnet_tpu/ops/nn.py` ``pooling``) of
+    (N, C, *spatial), or (N, *spatial, C) under a channels-last layout:
+    ``pool_type`` max (padded with -inf, or the integer dtype's minimum),
+    avg, sum or lp (``(sum |x|^p)^(1/p)``); ``global_pool`` takes the whole
+    spatial extent as the window. ``pooling_convention="full"`` gives
+    MXNet's ceil((size + 2 p - k) / s) + 1 windows a side: the bottom and
+    right are padded up to that size, and that padding is part of every
+    window it reaches: an avg window with ``count_include_pad`` divides by
+    its full size, PyTorch's ``ceil_mode`` would drop the padding (and a
+    last window that starts in it). ``count_include_pad=False`` divides by
+    the count of real elements. Window means and sums accumulate in f32 (see
+    `_window_mean`), and so does the global average, a mean over the
+    spatial axes."""
+    nsp = _nspatial(data, "Pooling")
     ch_last = _channels_last(layout)
     if global_pool and pool_type == "avg":
-        dims = (1, 2) if ch_last else (2, 3)
-        return data.float().mean(dim=dims, keepdim=True).to(data.dtype)
-    if global_pool or pool_type != "max":
-        raise MXNetError("Pooling: %s%s pooling is not ported yet"
-                         % ("global " if global_pool else "", pool_type))
-    x = data.permute(0, 3, 1, 2) if ch_last else data
-    kernel, stride = _tup(kernel, 2, 1), _tup(stride, 2, 1)
-    pad = _tup(pad, 2, 0)
-    if pooling_convention == "full":
-        extra = []
-        for size, k, s, p in zip(x.shape[2:], kernel, stride, pad):
+        dims = tuple(range(1, 1 + nsp) if ch_last else range(2, 2 + nsp))
+        out = data.float().mean(dim=dims, keepdim=True)
+        return out.to(data.dtype if data.is_floating_point()
+                      else torch.float32)
+    x = _to_channels_first(data, ch_last)
+    if global_pool:
+        kernel, stride, pad = tuple(x.shape[2:]), (1,) * nsp, (0,) * nsp
+    else:
+        kernel, stride = _tup(kernel, nsp, 1), _tup(stride, nsp, 1)
+        pad = _tup(pad, nsp, 0)
+    pads = []
+    for size, k, s, p in zip(x.shape[2:], kernel, stride, pad):
+        hi = p
+        if pooling_convention == "full" and not global_pool:
             out_d = -(-(size + 2 * p - k) // s) + 1
-            extra.append(max((out_d - 1) * s + k - (size + 2 * p), 0))
-        x = F.pad(x, (0, extra[1], 0, extra[0]), value=float("-inf"))
-    out = F.max_pool2d(x, kernel, stride, pad)
-    return out.permute(0, 2, 3, 1) if ch_last else out
+            hi += max((out_d - 1) * s + k - (size + 2 * p), 0)
+        pads.append((p, hi))
+    floating = x.is_floating_point()
+    if pool_type == "max":
+        if not floating:
+            out = _int_window_max(x, kernel, stride, pads)
+        else:
+            tp = _torch_pad(pads, kernel)
+            if tp is None:
+                x, tp = _pad_spatial(x, pads, float("-inf")), 0
+            out = _MAX_POOL[nsp](x, kernel, stride, tp)
+        return _from_channels_first(out, ch_last)
+    if pool_type not in ("avg", "sum", "lp"):
+        raise MXNetError("Pooling: unknown pool_type %r" % (pool_type,))
+    if pool_type == "avg" and count_include_pad and floating:
+        return _from_channels_first(_window_mean(x, kernel, stride, pads),
+                                    ch_last)
+    src = x.abs().pow(p_value) if pool_type == "lp" else x
+    s = _window_sum(src, kernel, stride, pads)
+    if pool_type == "sum":
+        out = s.to(x.dtype)
+    else:
+        if pool_type == "lp":
+            out = s.pow(1.0 / p_value)
+        elif count_include_pad:
+            n = 1
+            for k in kernel:
+                n *= k
+            out = s / n
+        else:
+            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=s.dtype,
+                              device=x.device)
+            out = s / _window_sum(ones, kernel, stride, pads)
+        # an integer input's mean or norm is f32, as jnp's true division
+        out = out.to(x.dtype if floating else torch.float32)
+    return _from_channels_first(out, ch_last)
 
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -297,11 +456,16 @@ def _bn_act(data, addend, gamma, beta, moving_mean, moving_var, eps,
         if gamma.dtype != beta.dtype:   # one of them frozen outside amp
             gamma = gamma.to(beta.dtype)
 
+        # the kernels take dense (R, C) rows: a channels-last activation
+        # is one already (no copy) unless an op before it left it strided
+        # (a convolution whose output is not channels-last in memory); a
+        # channel axis elsewhere is moved last, a copy in and out
         last = ax == data.dim() - 1
-        x = data if last else data.movedim(ax, -1).contiguous()
+        x = data.contiguous() if last else data.movedim(ax, -1).contiguous()
         res = addend
-        if addend is not None and not last:
-            res = addend.movedim(ax, -1).contiguous()
+        if addend is not None:
+            res = addend.contiguous() if last \
+                else addend.movedim(ax, -1).contiguous()
         out, mean, var = pallas_kernels.conv_epilogue(
             x, gamma, beta, res, eps=eps, fix_gamma=fix_gamma, relu=relu)
         if not last:
@@ -420,7 +584,7 @@ def _pooling_op(data, kernel=(), pool_type="max", global_pool=False,
                 count_include_pad=True, p_value=2, cudnn_off=False,
                 layout=None):
     return pooling(data, kernel, pool_type, global_pool, stride, pad,
-                   pooling_convention, layout)
+                   pooling_convention, count_include_pad, p_value, layout)
 
 
 @register("BatchNorm", num_outputs=3, num_visible_outputs=1)
@@ -465,6 +629,234 @@ def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False,
                 is_train=False, generator=None):
     return dropout(data, p, is_train or mode == "always", generator,
                    tuple(axes))
+
+
+@register("Deconvolution")
+def _deconvolution_op(data, weight, bias=None, kernel=(), stride=(),
+                      dilate=(), pad=(), adj=(), target_shape=(),
+                      num_filter=0, num_group=1, no_bias=True,
+                      cudnn_tune=None, cudnn_off=False, workspace=1024,
+                      layout=None):
+    return deconvolution(data, weight, None if no_bias else bias, kernel,
+                         stride, dilate, pad, adj, target_shape, num_group,
+                         layout)
+
+
+# --------------------------------------------------------------------------
+# normalizations and activations of the reference's nn family
+# (`mxnet_tpu/ops/nn.py` LayerNorm, InstanceNorm, L2Normalization, LRN,
+# LeakyReLU)
+# --------------------------------------------------------------------------
+
+@register("LayerNorm")
+def _layer_norm_op(data, gamma, beta, axis=-1, eps=1e-5,
+                   output_mean_var=False):
+    """`layer_norm` over ``axis`` (moved last and back for another axis)."""
+    ax = axis % data.dim()
+    if ax == data.dim() - 1:
+        return layer_norm(data, gamma, beta, eps)
+    return layer_norm(data.movedim(ax, -1), gamma, beta, eps).movedim(-1, ax)
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalize each (sample, channel) over the spatial axes 2.. with its
+    own mean and biased variance; gamma and beta per channel (axis 1)."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, keepdim=True, correction=0)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    bshape = (1, data.shape[1]) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)``, the sum over every axis but the
+    batch ("instance"), over the channels ("channel", axis 1) or over the
+    spatial axes ("spatial")."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(data.square().sum(dim=red, keepdim=True) + eps)
+
+
+@register("LRN")
+def lrn(data, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across channels (axis 1):
+    ``data / (knorm + alpha / nsize * s)^beta``, s the sum of squares over
+    a window of ``nsize`` channels centred on each (zeros beyond the
+    ends)."""
+    half = nsize // 2
+    sq = data.square()
+    pad = [0, 0] * (data.dim() - 2) + [half, half]
+    sqp = F.pad(sq, pad)
+    n_out = sqp.shape[1] - nsize + 1
+    s = sum(sqp[:, i:i + n_out] for i in range(nsize))
+    return data / torch.pow(knorm + (alpha / nsize) * s, beta)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU")
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """leaky (``slope * x`` below 0), prelu (a learned ``gamma`` a channel,
+    axis 1), elu (``slope * expm1(x)``), selu, gelu (erf) or rrelu. Each
+    takes the ``x >= 0`` branch at 0, as the JAX package's ``jnp.where``
+    does, gradient included. rrelu uses the mean slope ``(lower_bound +
+    upper_bound) / 2`` in training too, as the JAX package does: it draws
+    no random slope, so the op takes no generator."""
+    pos = data >= 0
+    if act_type == "leaky":
+        return torch.where(pos, data, slope * data)
+    if act_type == "prelu":
+        bshape = (1, -1) + (1,) * (data.dim() - 2) if data.dim() > 1 \
+            else (-1,)
+        return torch.where(pos, data, gamma.reshape(bshape) * data)
+    if act_type == "elu":
+        return torch.where(pos, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(pos, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return gelu(data)
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(pos, data, mid * data)
+    raise MXNetError("LeakyReLU: unknown act_type %r" % (act_type,))
+
+
+# --------------------------------------------------------------------------
+# patches, resampling and the rest (`mxnet_tpu/ops/nn.py` im2col, col2im,
+# softmax_cross_entropy, UpSampling, Correlation,
+# IdentityAttachKLSparseReg)
+# --------------------------------------------------------------------------
+
+def _pair2(v, default):
+    return tuple(int(i) for i in v) if v else (default, default)
+
+
+@register("im2col")
+def im2col(data, kernel=(), stride=(), dilate=(), pad=()):
+    """Sliding 2-D windows of (N, C, H, W) as columns: (N, C * kh * kw, L),
+    the channel slowest, L the windows in row-major order."""
+    return F.unfold(data, tuple(int(k) for k in kernel),
+                    dilation=_pair2(dilate, 1), padding=_pair2(pad, 0),
+                    stride=_pair2(stride, 1))
+
+
+@register("col2im")
+def col2im(data, output_size=(), kernel=(), stride=(), dilate=(), pad=()):
+    """`im2col`'s transpose: columns (N, C * kh * kw, L) summed back into
+    an (N, C, H, W) image of ``output_size`` (H, W)."""
+    return F.fold(data, tuple(int(s) for s in output_size),
+                  tuple(int(k) for k in kernel), dilation=_pair2(dilate, 1),
+                  padding=_pair2(pad, 0), stride=_pair2(stride, 1))
+
+
+register("softmax_cross_entropy")(softmax_cross_entropy)
+
+
+def _bilinear_upsample(data, scale):
+    """``jax.image.resize(method="bilinear")`` to scale x the size: half-
+    pixel centres, and at the borders the weights of the taps inside the
+    image renormalised to 1 (PyTorch's align_corners=False clamps the
+    coordinate instead; the two agree inside the image)."""
+    n, c, h, w = data.shape
+    out = data
+    for axis, size in ((2, h), (3, w)):
+        pos = (torch.arange(size * scale, dtype=torch.float64) + 0.5) \
+            / scale - 0.5
+        lo = torch.floor(pos)
+        frac = pos - lo
+        lo = lo.long()
+        taps, weights = [], []
+        for off, wt in ((0, 1.0 - frac), (1, frac)):
+            idx = lo + off
+            inside = (idx >= 0) & (idx < size)
+            taps.append(idx.clamp(0, size - 1))
+            weights.append(torch.where(inside, wt, torch.zeros_like(wt)))
+        total = weights[0] + weights[1]
+        shape = [1] * 4
+        shape[axis] = -1
+        acc = None
+        for idx, wt in zip(taps, weights):
+            wt = (wt / total).to(out.dtype).to(out.device).reshape(shape)
+            term = out.index_select(axis, idx.to(out.device)) * wt
+            acc = term if acc is None else acc + term
+        out = acc
+    return out
+
+
+@register("UpSampling")
+def upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest-neighbour upsampling of (N, C, H, W) by ``scale`` (several
+    inputs each brought to the first's size x scale, then concatenated on
+    the channels or summed), or bilinear resizing of the first input."""
+    data = args[0]
+    scale = int(scale)
+    if sample_type == "nearest":
+        outs = []
+        for d in args:
+            s = scale if not outs else data.shape[2] * scale // d.shape[2]
+            outs.append(d.repeat_interleave(s, dim=2)
+                        .repeat_interleave(s, dim=3))
+        if len(outs) == 1:
+            return outs[0]
+        if multi_input_mode == "sum":
+            return sum(outs)
+        return torch.cat(outs, dim=1)
+    return _bilinear_upsample(data, scale)
+
+
+@register("Correlation")
+def correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                stride2=1, pad_size=0, is_multiply=True):
+    """FlowNet's correlation of two (N, C, H, W) maps: for each
+    displacement (dy, dx) on the ``stride2`` grid within
+    ``max_displacement``, the product (or absolute difference) of a
+    ``kernel_size`` patch of ``data1`` with the displaced patch of
+    ``data2``, averaged over the channels and the patch; channels
+    dy-major."""
+    b, c, h, w = data1.shape
+    kr = (kernel_size - 1) // 2
+    border = max_displacement + kr
+    p1 = F.pad(data1, [pad_size] * 4)
+    p2 = F.pad(data2, [pad_size] * 4)
+    ph, pw = h + 2 * pad_size, w + 2 * pad_size
+    out_h = -(-(ph - 2 * border) // stride1)
+    out_w = -(-(pw - 2 * border) // stride1)
+    rad = max_displacement // stride2
+    md = max_displacement
+    p2x = F.pad(p2, [md] * 4)
+    norm = float(c * kernel_size * kernel_size)
+    chans = []
+    for dy in range(-rad, rad + 1):
+        for dx in range(-rad, rad + 1):
+            oy, ox = md + dy * stride2, md + dx * stride2
+            shifted = p2x[:, :, oy:oy + ph, ox:ox + pw]
+            prod = p1 * shifted if is_multiply else (p1 - shifted).abs()
+            box = F.avg_pool2d(prod.sum(dim=1, keepdim=True), kernel_size,
+                               1) * (kernel_size * kernel_size)
+            y0 = border - kr
+            chans.append(box[:, :, y0:y0 + (out_h - 1) * stride1 + 1:stride1,
+                             y0:y0 + (out_w - 1) * stride1 + 1:stride1]
+                         / norm)
+    return torch.cat(chans, dim=1)
+
+
+@register("IdentityAttachKLSparseReg")
+def identity_attach_kl_sparse_reg(data, sparseness_target=0.1, penalty=0.001,
+                                  momentum=0.9):
+    """The identity, as in the JAX package (which attaches no KL
+    penalty)."""
+    return data
 
 
 # --------------------------------------------------------------------------

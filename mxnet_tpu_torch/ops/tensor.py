@@ -296,7 +296,15 @@ def cast(data, dtype="float32"):
 
 @register("clip")
 def clip(data, a_min=0.0, a_max=1.0):
-    return torch.clamp(data, a_min, a_max)
+    """``data`` clipped to [a_min, a_max]. A floating input is clipped as
+    ``jnp.clip`` does, ``minimum(maximum(x, a_min), a_max)``, whose
+    gradient is split in halves at a bound (0.5 there, as JAX's; `clamp`
+    gives 1)."""
+    if not data.is_floating_point():
+        return torch.clamp(data, a_min, a_max)
+    lo = torch.tensor(a_min, dtype=data.dtype, device=data.device)
+    hi = torch.tensor(a_max, dtype=data.dtype, device=data.device)
+    return torch.minimum(torch.maximum(data, lo), hi)
 
 
 # --------------------------------------------------------------------------

@@ -22,12 +22,16 @@ from .symbol import Symbol, _Node, var
 _INPUT_SLOTS = {
     "FullyConnected": (["data", "weight", "bias"], []),
     "Convolution": (["data", "weight", "bias"], []),
+    "Deconvolution": (["data", "weight", "bias"], []),
     "BatchNorm": (["data", "gamma", "beta"], ["moving_mean", "moving_var"]),
     "BatchNormRelu": (["data", "gamma", "beta"],
                       ["moving_mean", "moving_var"]),
     "BatchNormAddRelu": (["data", "addend", "gamma", "beta"],
                          ["moving_mean", "moving_var"]),
+    "LayerNorm": (["data", "gamma", "beta"], []),
+    "InstanceNorm": (["data", "gamma", "beta"], []),
     "Embedding": (["data", "weight"], []),
+    "LeakyReLU": (["data", "gamma"], []),
     "RNN": (["data", "parameters", "state", "state_cell"], []),
     "SoftmaxOutput": (["data", "label"], []),
     "LinearRegressionOutput": (["data", "label"], []),
@@ -43,6 +47,7 @@ _SHAPE_TRANSPARENT = {"Cast", "cast", "BlockGrad", "identity", "_copy"}
 _OPTIONAL_DROP = {
     "FullyConnected": ("no_bias", ["bias"]),
     "Convolution": ("no_bias", ["bias"]),
+    "Deconvolution": ("no_bias", ["bias"]),
 }
 
 # op parameters the caller of an op fills, never a symbol attribute
@@ -59,6 +64,8 @@ def _slot_names(opname, attrs):
         flag, names = drop
         if attrs.get(flag):
             slots = [s for s in slots if s not in names]
+    if opname == "LeakyReLU" and attrs.get("act_type", "leaky") != "prelu":
+        slots = ["data"]
     if opname == "RNN" and str(attrs.get("mode", "lstm")) != "lstm":
         slots = [s for s in slots if s != "state_cell"]
     return list(slots), tuple(aux)
@@ -218,18 +225,51 @@ def _fc_rule(attrs, in_shapes):
     return {"weight": (nh, in_dim), "bias": (nh,)}
 
 
-def _conv_rule(attrs, in_shapes):
+def _conv_geometry(attrs, in_shapes):
     data = in_shapes[0]
-    nf = int(attrs.get("num_filter", 0))
-    kernel = tuple(attrs.get("kernel", ()))
-    ng = int(attrs.get("num_group", 1))
-    return {"weight": (nf, data[1] // ng) + kernel, "bias": (nf,)}
+    from ..ops.nn import _channels_last
+
+    ch_last = _channels_last(attrs.get("layout"))
+    return (data[-1] if ch_last else data[1], ch_last,
+            int(attrs.get("num_filter", 0)),
+            tuple(int(k) for k in attrs.get("kernel", ())),
+            int(attrs.get("num_group", 1)))
+
+
+def _conv_rule(attrs, in_shapes):
+    """Weight (O, I/g, *k), or (O, *k, I/g) under a channels-last layout
+    (the JAX package's rule reads the channels at axis 1 in either)."""
+    c, ch_last, nf, kernel, ng = _conv_geometry(attrs, in_shapes)
+    w = (nf,) + kernel + (c // ng,) if ch_last else (nf, c // ng) + kernel
+    return {"weight": w, "bias": (nf,)}
+
+
+def _deconv_rule(attrs, in_shapes):
+    """Weight (I, O/g, *k), or (I, *k, O/g) under a channels-last layout."""
+    c, ch_last, nf, kernel, ng = _conv_geometry(attrs, in_shapes)
+    w = (c,) + kernel + (nf // ng,) if ch_last else (c, nf // ng) + kernel
+    return {"weight": w, "bias": (nf,)}
 
 
 def _bn_rule(attrs, in_shapes):
     c = in_shapes[0][int(attrs.get("axis", 1)) % len(in_shapes[0])]
     return {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
             "moving_var": (c,)}
+
+
+def _ln_rule(attrs, in_shapes):
+    c = in_shapes[0][int(attrs.get("axis", -1)) % len(in_shapes[0])]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+def _in_rule(attrs, in_shapes):
+    return {"gamma": (in_shapes[0][1],), "beta": (in_shapes[0][1],)}
+
+
+def _prelu_rule(attrs, in_shapes):
+    if attrs.get("act_type") == "prelu":
+        return {"gamma": (in_shapes[0][1],)}
+    return {}
 
 
 def _embed_rule(attrs, in_shapes):
@@ -256,10 +296,14 @@ def _rnn_rule(attrs, in_shapes):
 _ARG_SHAPE_RULES = {
     "FullyConnected": _fc_rule,
     "Convolution": _conv_rule,
+    "Deconvolution": _deconv_rule,
     "BatchNorm": _bn_rule,
     "BatchNormRelu": _bn_rule,
     "BatchNormAddRelu": _bn_rule,
+    "LayerNorm": _ln_rule,
+    "InstanceNorm": _in_rule,
     "Embedding": _embed_rule,
+    "LeakyReLU": _prelu_rule,
     "RNN": _rnn_rule,
 }
 

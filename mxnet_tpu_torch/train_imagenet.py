@@ -3,16 +3,23 @@
 names and defaults for the subset ported so far.
 
     python -m mxnet_tpu_torch.train_imagenet [--network resnet50_v1]
-        [--batch-size 32] [--dtype bfloat16] [--layout NHWC] ...
+        [--batch-size 32] [--dtype bfloat16] [--layout NHWC]
+        [--image-shape 3,224,224] ...
         [--data-train T.rec] [--data-val V.rec] [--top-k 5]
         [--data-nthreads 4] [--random-crop 1] [--random-mirror 1]
         [--rgb-mean 123.68,116.779,103.939] [--rgb-std 58.393,57.12,57.375]
         [--device cuda|cpu] [--seed 0]
 
-It builds a model-zoo ResNet v1 (under `gluon.nn.layout_scope` for NHWC),
-initializes it with Xavier from ``--seed``, and trains it with
+It builds the model-zoo network ``--network`` names (any factory of
+`gluon.model_zoo.vision.get_model`: ResNet v1 and v2, AlexNet, VGG,
+SqueezeNet, DenseNet, Inception V3 with ``--image-shape 3,299,299``,
+MobileNet v1 and v2; under `gluon.nn.layout_scope` for NHWC), initializes
+it with Xavier from ``--seed`` (`build_network`: a net whose shapes are
+deferred takes them from one forward of a zero image, which also checks
+that ``--image-shape`` fits it), and trains it with
 `parallel.DistributedTrainer` (SGD with momentum, softmax cross-entropy,
-bf16 compute over f32 master weights by default).
+bf16 compute over f32 master weights by default). Dropout layers drop
+(in training mode) with this thread's generator for the card.
 
 With ``--data-train`` the batches come from a RecordIO file through
 `io.ImageRecordIter` (``--data-nthreads`` decode threads; shuffled by a
@@ -27,8 +34,8 @@ validation pass in inference mode (running statistics, no gradients),
 scored by `metric.Accuracy` (and `metric.TopKAccuracy` with ``--top-k``)
 on every sample but the padding. ``--device`` defaults to the card; a run
 on the host must ask for ``--device cpu``. ``--model-prefix`` (export) is
-not ported: the port's ResNet is a `torch.nn.Module`, not a `HybridBlock`
-(ROADMAP queue 1 item 9).
+not ported (a net other than ResNet v1 is a `HybridBlock`, which
+``export`` writes; ROADMAP queue 1 item 9).
 
 `main` returns the last training loss. ``batch_end_callback`` is called
 after every training step and ``eval_end_callback`` after every
@@ -44,7 +51,7 @@ import time
 
 import numpy as np
 
-__all__ = ["add_fit_args", "main"]
+__all__ = ["add_fit_args", "build_network", "main"]
 
 
 def add_fit_args(parser):
@@ -52,8 +59,11 @@ def add_fit_args(parser):
     arguments that the record path takes, plus --device and --seed."""
     t = parser.add_argument_group("Training")
     t.add_argument("--network", type=str, default="resnet50_v1",
-                   help="model zoo factory name (resnet18_v1 ... "
-                        "resnet152_v1)")
+                   help="model zoo name (gluon.model_zoo.vision.get_model: "
+                        "resnet18_v1 ... resnet152_v2, alexnet, vgg11 ... "
+                        "vgg19_bn, squeezenet1_0/1_1, densenet121 ... 201, "
+                        "inception_v3, mobilenet1_0 ... "
+                        "mobilenet_v2_0_25)")
     t.add_argument("--num-epochs", type=int, default=1)
     t.add_argument("--lr", type=float, default=0.1)
     t.add_argument("--lr-factor", type=float, default=0.1)
@@ -144,6 +154,61 @@ def _rec_batches(args, it, device, nhwc):
         prefetcher.close()
 
 
+# the input side a family's fixed final pool is built for (the
+# reference's training rows): Inception's AvgPool2D(8) takes the 8 x 8 map
+# of a 299 x 299 image, DenseNet's AvgPool2D(7) and SqueezeNet's
+# AvgPool2D(13) those of a 224 x 224 one
+_IMAGE_SIDE = {"inception": 299, "densenet": 224, "squeezenet": 224}
+
+
+def build_network(network, classes, image_shape, layout, device, seed):
+    """The zoo net ``network`` for ``classes`` and an image of
+    ``image_shape`` (C, H, W) in ``layout`` (NCHW or NHWC), its parameters
+    on ``device``, filled with Xavier from ``seed``. A net whose shapes are
+    deferred (every family but ResNet v1) runs one inference-mode forward
+    of a zero image, which makes its parameters and checks that the image
+    fits it: a shape it cannot take raises `MXNetError`, naming the side
+    the family's final pool is built for."""
+    import torch
+
+    from . import gluon
+    from .base import MXNetError
+    from .gluon.model_zoo import vision
+
+    c, h, w = image_shape
+    nhwc = layout == "NHWC"
+    with gluon.nn.layout_scope(nhwc):
+        net = vision.get_model(network, classes=classes, in_channels=c,
+                               device=device)
+    net.initialize("xavier", seed=seed)
+    if isinstance(net, gluon.Block) and any(
+            p.var is None for p in net.collect_params().values()):
+        shape = (1, h, w, c) if nhwc else (1, c, h, w)
+        side = [v for k, v in _IMAGE_SIDE.items()
+                if network.lower().startswith(k)]
+        was = net.training
+        net.eval()
+        try:
+            with torch.no_grad():
+                out = net(torch.zeros(shape, device=device))
+        except RuntimeError as e:
+            raise MXNetError(
+                "--image-shape %s does not fit %s%s: %s"
+                % (",".join(map(str, image_shape)), network,
+                   " (built for %d x %d images)" % (side[0], side[0])
+                   if side else "", e)) from None
+        finally:
+            net.train(was)
+        if tuple(out.shape) != (1, classes):
+            raise MXNetError("--image-shape %s gives %s an output of shape "
+                             "%s, not (1, %d)%s"
+                             % (",".join(map(str, image_shape)), network,
+                                tuple(out.shape), classes,
+                                "; it is built for %d x %d images"
+                                % (side[0], side[0]) if side else ""))
+    return net
+
+
 def main(argv=None, batch_end_callback=None, eval_end_callback=None):
     args = add_fit_args(argparse.ArgumentParser(
         description="train imagenet-1k",
@@ -155,9 +220,7 @@ def main(argv=None, batch_end_callback=None, eval_end_callback=None):
 
     from . import autograd, gluon, telemetry
     from . import metric as mx_metric
-    from .base import MXNetError
     from .context import resolve_device
-    from .gluon.model_zoo import vision
     from .model import BatchEndParam
     from .parallel import DistributedTrainer
 
@@ -165,15 +228,8 @@ def main(argv=None, batch_end_callback=None, eval_end_callback=None):
     c, h, w = (int(s) for s in args.image_shape.split(","))
     nhwc = args.layout == "NHWC"
     shape = (h, w, c) if nhwc else (c, h, w)
-    fac = getattr(vision, args.network, None)
-    if fac is None:
-        raise MXNetError("unknown --network %r" % args.network)
-    if nhwc:
-        with gluon.nn.layout_scope():
-            net = fac(classes=args.num_classes, in_channels=c, device=device)
-    else:
-        net = fac(classes=args.num_classes, in_channels=c, device=device)
-    net.initialize("xavier", seed=args.seed)
+    net = build_network(args.network, args.num_classes, (c, h, w),
+                        args.layout, device, args.seed)
     opt_params = {"learning_rate": args.lr, "wd": args.wd}
     if args.optimizer == "sgd":
         opt_params["momentum"] = args.mom

@@ -1232,3 +1232,139 @@ def test_image_ops_and_transforms_on_card_match_cpu():
             np.testing.assert_allclose(g.asnumpy().astype(np.float32),
                                        c.asnumpy().astype(np.float32),
                                        atol=1 if k == 3 else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the vision slice: its ops, the ResNet v2 input BatchNorm and an Inception
+# block through the epilogue kernels, each on the card against the CPU
+# ---------------------------------------------------------------------------
+
+_VISION_OPS = [
+    ("Pooling", [(2, 9, 9, 5)], dict(kernel=(3, 3), stride=(2, 2),
+                                     pool_type="avg",
+                                     pooling_convention="full",
+                                     layout="NHWC")),
+    ("Pooling", [(2, 8, 8, 5)], dict(kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                                     pool_type="avg", layout="NHWC")),
+    ("Pooling", [(2, 3, 8, 8)], dict(kernel=(2, 2), stride=(2, 2),
+                                     pool_type="lp", p_value=2)),
+    ("Pooling", [(2, 6, 9)], dict(global_pool=True, pool_type="max")),
+    ("Convolution", [(1, 5, 6, 7, 4), (6, 3, 2, 3, 2)],
+     dict(kernel=(3, 2, 3), num_group=2, layout="NDHWC")),
+    ("Deconvolution", [(2, 5, 6, 4), (4, 3, 3, 3)],
+     dict(kernel=(3, 3), stride=(2, 2), num_group=2, layout="NHWC")),
+    ("LeakyReLU", [(2, 3, 4)], dict(act_type="elu", slope=0.7)),
+    ("UpSampling", [(2, 3, 4, 5)], dict(scale=3, sample_type="bilinear")),
+    ("Correlation", [(1, 2, 9, 9), (1, 2, 9, 9)],
+     dict(kernel_size=3, max_displacement=2, stride2=2, pad_size=2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shapes,attrs", _VISION_OPS)
+def test_vision_ops_on_card_match_cpu(name, shapes, attrs):
+    """The slice's pooling, convolution and transposed-convolution cases
+    and a few of its registrations, forward and the gradient of every
+    input, on the card (cuDNN, TF32 off) against the CPU: rtol 1e-4 with a
+    floor of 1e-4 x max|CPU value|."""
+    _need_card()
+    from mxnet_tpu_torch import ops as tops
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(len(shapes))
+    arrays = [rng.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+    results = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in arrays]
+        out = tops.get(name).fn(*leaves, **attrs)
+        ct = torch.from_numpy(np.random.RandomState(9).standard_normal(
+            tuple(out.shape)).astype(np.float32)).to(dev)
+        grads = torch.autograd.grad(out, leaves, ct)
+        results[dev] = [out.detach().cpu()] + [g.cpu() for g in grads]
+    for got, want in zip(results["cuda"], results["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resnet_v2_input_batchnorm_runs_the_kernels_on_card(dtype):
+    """BatchNorm(scale=False, center=False) over an NHWC image's 3
+    channels in training mode: the kernels' scalar path, a gamma of 1 and
+    a beta of 0 with no parameter behind them; output, moving statistics
+    and the input's gradient against the CPU's plain version (f32: rtol
+    1e-4; bf16: 2^-7, one rounding step), and each forward kernel
+    launched once, the backward pair once."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    x = np.random.RandomState(3).uniform(0, 255, (4, 32, 32, 3)).astype(
+        np.float32)
+    ct = np.random.RandomState(4).standard_normal(x.shape).astype(
+        np.float32)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        with tnn.layout_scope():
+            bn = tnn.BatchNorm(scale=False, center=False, in_channels=3,
+                               device=dev)
+        bn.train()
+        xt = torch.from_numpy(x).to(dev).to(tdt).requires_grad_()
+        before = {k: getattr(tpk, k).launches for k in
+                  ("epi_stats", "epi_apply", "epi_bwd_reduce", "epi_bwd_dx")}
+        out = bn(xt)
+        (dx,) = torch.autograd.grad(out, xt, torch.from_numpy(ct).to(dev)
+                                    .to(tdt))
+        counts = {k: getattr(tpk, k).launches - v for k, v in
+                  before.items()}
+        assert counts == dict.fromkeys(counts, 1 if dev == "cuda" else 0)
+        results[dev] = [out.detach().float().cpu(), dx.float().cpu(),
+                        bn.running_mean.cpu(), bn.running_var.cpu()]
+    for i, (got, want) in enumerate(zip(results["cuda"], results["cpu"])):
+        t = 1e-4 if i >= 2 else tol
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=t,
+                                   atol=t * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_inception_block_trains_through_the_kernels_on_card():
+    """Inception's A block (NHWC, f32, batch 2, 35 x 35 x 192) in training
+    mode on the card and on the CPU from the same weights: the output and
+    the moving statistics agree (rtol 1e-4, floor 1e-4 x max|CPU value|),
+    and each epilogue kernel launches once a BatchNorm (7) in the forward
+    and the backward."""
+    _need_card()
+    from mxnet_tpu_torch.gluon.model_zoo.vision import inception
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = np.random.RandomState(5).uniform(-1, 1, (2, 35, 35, 192)).astype(
+        np.float32)
+    nets, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        with tnn.layout_scope():
+            net = inception._make_A(32, "A1_")
+        net.initialize(ctx=dev, seed=0)
+        net.eval()
+        with torch.no_grad():
+            net(torch.zeros(1, 35, 35, 192, device=dev))
+        nets[dev] = net
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    for dev, net in nets.items():
+        net.train()
+        before = {k: getattr(tpk, k).launches for k in
+                  ("epi_stats", "epi_apply", "epi_bwd_reduce", "epi_bwd_dx")}
+        out = net(torch.from_numpy(x).to(dev))
+        out.float().square().mean().backward()
+        counts = {k: getattr(tpk, k).launches - v for k, v in
+                  before.items()}
+        assert counts == dict.fromkeys(counts, 7 if dev == "cuda" else 0)
+        outs[dev] = out.detach().cpu()
+    np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
+                               rtol=1e-4,
+                               atol=1e-4 * float(outs["cpu"].abs().max()))
+    want = nets["cpu"].state_dict()
+    for k, v in nets["cuda"].state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(
+                v.cpu().numpy(), want[k].numpy(), rtol=1e-4,
+                atol=1e-4 * float(want[k].abs().max()), err_msg=k)

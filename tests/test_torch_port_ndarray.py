@@ -437,11 +437,11 @@ def test_softmax_length_matches_jax_op():
 def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     """157 ops under 228 names from ops/tensor.py, plus softmax and
     log_softmax, the 17 updates of ops/optimizer_ops.py under 19 names, and
-    the layers, loss heads and RNN ops the symbolic path registers (14 ops
-    of ops/nn.py under 18 names, with the fused BatchNorm ops that
-    `HybridBlock.export` writes, 3 of ops/rnn.py), and the 4 image ops of
-    ops/image_ops.py under 8 names; each alias resolves to the op its JAX
-    alias names."""
+    the layers, loss heads and RNN ops the symbolic path registers (the
+    26 other ops of ops/nn.py under 30 names, with the fused BatchNorm ops
+    that `HybridBlock.export` writes, 3 of ops/rnn.py), and the 4 image
+    ops of ops/image_ops.py under 8 names; each alias resolves to the op
+    its JAX alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
     opt = sorted(n for n, o in jops._REGISTRY.items()
@@ -454,7 +454,10 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
               "MAERegressionOutput", "MakeLoss", "make_loss", "RNN",
               "_rnn_state_zeros", "_rnn_fused_state_zeros", "BatchNormRelu",
               "_contrib_BatchNormRelu", "BatchNormAddRelu",
-              "_contrib_BatchNormAddRelu"]
+              "_contrib_BatchNormAddRelu", "Deconvolution", "LayerNorm",
+              "InstanceNorm", "L2Normalization", "LRN", "LeakyReLU",
+              "im2col", "col2im", "softmax_cross_entropy", "UpSampling",
+              "Correlation", "IdentityAttachKLSparseReg"]
     image = sorted(n for n, o in jops._REGISTRY.items()
                    if o.fn.__module__ == "mxnet_tpu.ops.image_ops")
     assert len(image) == 8
