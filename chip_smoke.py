@@ -428,7 +428,7 @@ def greedy(torch, lm, prompt, n):
     toks, out = list(prompt), []
     with torch.no_grad():
         for _ in range(n):
-            ids = torch.tensor([toks], device=lm.word_weight.device)
+            ids = torch.tensor([toks], device=lm._held("word_weight").device)
             t = int(torch.argmax(lm(ids)[0, -1]))
             out.append(t)
             toks.append(t)
@@ -629,7 +629,8 @@ EPI_SHAPES = [("stem", 1605632, 64), ("stage1-mid", 401408, 64),
               ("stage1-out", 401408, 256), ("stage4-out", 6272, 2048),
               ("odd", 1000, 3), ("inception-widest", 2765952, 64),
               ("inception-narrowest", 8192, 448),
-              ("resnet_v2-input", 6422528, 3)]
+              ("resnet_v2-input", 6422528, 3), ("stage4-mid", 6272, 512),
+              ("stage3-out", 25088, 1024), ("inception-17x17", 36992, 192)]
 # the shapes whose BatchNorm has no learned gamma or beta
 EPI_FIXED_GAMMA = ("resnet_v2-input",)
 # the case each kernel's row of the "kernels" line reports: the stage-1
@@ -639,6 +640,10 @@ EPI_FIXED_GAMMA = ("resnet_v2-input",)
 # the plain BatchNorm variant, which has a one-call yardstick, goes beside
 # it under "bn_variant".
 EPI_ROW = ("stage1-out", "bfloat16")
+# the small-R case the two reductions' rows also report ("small_r"), in the
+# plain BatchNorm variant: Inception v3's 8 x 8 BatchNorms, the cluster
+# route
+EPI_SMALL_R = ("inception-narrowest", "bfloat16")
 EPI_ROW_VARIANT = {"epi_stats": "-", "epi_apply": "add+relu",
                    "epi_bwd_reduce": "relu", "epi_bwd_dx": "add+relu"}
 EPI_EPS = 1e-5
@@ -680,6 +685,15 @@ def epi_bound(kernel, r, c, elem, rows_in, rows_out, vec_floats):
         "operations"
 
 
+def route_taken(wrapper, before):
+    """The route of a reduction wrapper's one launch since ``before`` (a
+    copy of its ``routes`` counts): "cluster" or "streamed", "+fold" when
+    the rows were folded."""
+    moved = {k for k, n in wrapper.routes.items() if n != before[k]}
+    return ("cluster" if "cluster" in moved else "streamed") + \
+        ("+fold" if "folded" in moved else "")
+
+
 def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush,
                         fix_gamma=False):
     """Every variant of the four kernels at one (R, C, dtype) against the
@@ -701,6 +715,12 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush,
     rows = []
     tag = "%s (%d, %d) %s" % (label, r, c, dtype)
 
+    # the route each reduction takes here, as the wrapper's mirror of the
+    # kernel's layout names it (the tensors are fresh: 16-byte aligned)
+    lay = pk._epi_layout(r, c, elem)
+    want_route = lay["route"] + ("+fold" if lay["l"] > 1 else "")
+    routes = {}
+
     def row(kernel, variant, fn, plain, library, rows_in, rows_out,
             vec_floats):
         ms = time_ms(torch, fn, flush, reps=50)
@@ -712,7 +732,8 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush,
         rows.append({"kernel": kernel, "variant": variant, "case": label,
                      "r": r, "c": c, "dtype": dtype, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "route": routes.get(kernel)})
         log("  %-14s %-9s %s: kernel %.4f ms plain %.4f ms library %s "
             "bound %.4f ms (%s)" % (kernel, variant, tag, ms, plain_ms,
                                     "none" if lib_ms is None
@@ -720,7 +741,9 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush,
                                     bound_by))
 
     # stats: two runs give the same bits
+    before = dict(pk.epi_stats.routes)
     got = pk.epi_stats(x, gamma, beta, EPI_EPS, fix_gamma)
+    routes["epi_stats"] = route_taken(pk.epi_stats, before)
     again = pk.epi_stats(x, gamma, beta, EPI_EPS, fix_gamma)
     want = pk.epi_stats_reference(x, gamma, beta, EPI_EPS,
                                        fix_gamma)
@@ -757,7 +780,9 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush,
     coefs = {}
     for relu in (False, True):
         out = outs[(True, False)] if relu else None
+        before = dict(pk.epi_bwd_reduce.routes)
         got = pk.epi_bwd_reduce(ct, x, out, mean, inv, gamma, fix_gamma)
+        routes["epi_bwd_reduce"] = route_taken(pk.epi_bwd_reduce, before)
         again = pk.epi_bwd_reduce(ct, x, out, mean, inv, gamma, fix_gamma)
         want = pk.epi_bwd_reduce_reference(ct, x, out, mean, inv, gamma,
                                            fix_gamma)
@@ -810,6 +835,10 @@ def check_epilogue_case(torch, pk, label, r, c, dtype, seed, flush,
                               True),
         lambda: pk.epi_bwd_dx_reference(ct, x, out_relu, mean, inv, coef, cb,
                                         cg, True), None, 3, 2, 5)
+    for k, got in routes.items():
+        if got != want_route:
+            raise AssertionError("%s %s: took the %s route, its layout names "
+                                 "%s" % (k, tag, got, want_route))
     return rows, worst
 
 
@@ -869,12 +898,26 @@ def check_epilogue(torch, pk, seed, flush, details):
             for k, v in case_worst.items():
                 worst[k] = max(worst[k], v)
             torch.cuda.empty_cache()
+    taken = {(r["case"], r["dtype"], r["kernel"]): r["route"] for r in rows
+             if r["route"] is not None}
+    seen = set(taken.values())
+    for need in ("cluster", "streamed"):
+        if not any(t.startswith(need) for t in seen):
+            raise AssertionError("no reduction took the %s route: %s"
+                                 % (need, sorted(seen)))
+    if not any(t.endswith("+fold") for t in seen):
+        raise AssertionError("no reduction folded its rows: %s"
+                             % sorted(seen))
     log("conv epilogue: every variant of the four kernels agrees with its "
         "plain version at %d shapes x 2 dtypes (|kernel - plain| <= tol x "
         "|plain| + tol x max|plain|, tol 1e-4 for f32 results and 2^-7 for "
         "bf16 tensors); the two reductions give the same bits on a second "
-        "run; largest absolute errors %s"
-        % (len(EPI_SHAPES), json.dumps(worst)))
+        "run, each on the route its layout names; largest absolute errors "
+        "%s; routes %s" % (len(EPI_SHAPES), json.dumps(worst),
+                           json.dumps(sorted({"%s %s" % (k[0], k[1]): v
+                                              for k, v in taken.items()
+                                              if k[2] == "epi_stats"}
+                                             .items()))))
     check_conv_epilogue_grad(torch, pk, seed)
     if details:
         os.makedirs(os.path.dirname(os.path.abspath(details)), exist_ok=True)
@@ -891,6 +934,12 @@ def check_epilogue(torch, pk, seed, flush, details):
         if "bn" in case:
             out[k]["bn_variant"] = {key: case["bn"][key] for key in (
                 "ms", "plain_ms", "bound_ms", "library_ms")}
+        small = [r for r in rows if r["kernel"] == k and r["variant"] in
+                 ("-", "bn") and (r["case"], r["dtype"]) == EPI_SMALL_R]
+        if k in ("epi_stats", "epi_bwd_reduce"):
+            out[k]["small_r"] = {key: small[0][key] for key in (
+                "r", "c", "route", "ms", "plain_ms", "bound_ms",
+                "library_ms")}
     return out
 
 
@@ -1966,7 +2015,7 @@ def count_flops(torch, net, gnn, shape):
             stem.append(flops[-1])
 
     def dense_hook(mod, inp, out):
-        flops.append(2 * mod.weight.numel())
+        flops.append(2 * mod._held("weight").numel())
 
     hooks = [m.register_forward_hook(conv_hook) for m in net.modules()
              if isinstance(m, gnn.Conv2D)]
@@ -1983,8 +2032,8 @@ def count_flops(torch, net, gnn, shape):
 
 
 # the conv-epilogue kernels' function names in a profile
-EPI_FUNCS = ("stats_partial", "stats_finish", "apply_kernel",
-             "bwd_reduce_partial", "bwd_reduce_finish", "bwd_dx_kernel")
+EPI_FUNCS = ("reduce_partial", "reduce_finish", "reduce_cluster",
+             "apply_kernel", "bwd_dx_kernel")
 
 
 def is_annotation(ev):
@@ -2087,11 +2136,15 @@ def train(torch, pk, args):
     torch.cuda.reset_peak_memory_stats()
     for k in EPI_KERNELS:   # the training path's counts start here
         getattr(pk, k).launches = 0
+    for k in ("epi_stats", "epi_bwd_reduce"):
+        getattr(pk, k).routes = dict.fromkeys(getattr(pk, k).routes, 0)
     t0 = time.monotonic()
     losses = [trainer.step(x, y) for _ in range(steps)]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+    routes = {k: dict(getattr(pk, k).routes)
+              for k in ("epi_stats", "epi_bwd_reduce")}
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all():
@@ -2106,10 +2159,12 @@ def train(torch, pk, args):
     ips = batch * steps / wall
     log("  %d timed steps in %.3f s: %.1f images/s, %.2f ms a step; MFU "
         "%.4f (%.4g FLOPs an image at 989 TFLOP/s bf16); peak allocated "
-        "%d bytes; losses %s; launches %s (= 53 x %d each)"
+        "%d bytes; losses %s; launches %s (= 53 x %d each); the "
+        "reductions' routes %s"
         % (steps, wall, ips, wall / steps * 1e3,
            ips * train_flops / BF16_FLOPS_PER_S, train_flops, peak,
-           ["%.4f" % v for v in losses], json.dumps(launches), steps))
+           ["%.4f" % v for v in losses], json.dumps(launches), steps,
+           json.dumps(routes)))
     if args.profile:
         profile_train(torch, trainer, x, y, wall / steps * 1e3)
     return launches, ips
@@ -2749,7 +2804,7 @@ def train_bert(torch, pk, args):
                              % (n_params, BERT_PARAMS))
     # bench.py's count: 6 x the parameters less the word, segment and
     # position tables, plus 12 x layers x units x seq for the scores
-    embed = sum(t.weight.numel() for t in (
+    embed = sum(t._held("weight").numel() for t in (
         net.bert.word_embed, net.bert.token_type_embed,
         net.bert.position_embed))
     layers = len(net.bert.encoder.cells)
@@ -3282,10 +3337,10 @@ def _terms(torch, mod, x, g, ops_nn):
     from mxnet_tpu_torch.gluon import nn as gnn
 
     xa = x.detach().abs().requires_grad_()
-    w = mod.weight.detach().cpu().abs().requires_grad_()
+    w = mod._held("weight").detach().cpu().abs().requires_grad_()
     b = None
-    if getattr(mod, "bias", None) is not None:
-        b = mod.bias.detach().cpu().abs().requires_grad_()
+    if mod._held("bias") is not None:
+        b = mod._held("bias").detach().cpu().abs().requires_grad_()
     if isinstance(mod, gnn.Conv2D):
         out = ops_nn.convolution(xa, w, b, **mod._kwargs)
     else:
@@ -3326,8 +3381,8 @@ def layer_parity(torch, net, x, y):
         rec = {"mod": mod, "x": inp[0].detach().clone(),
                "out": out.detach().clone(), "grad_x": inp[0].requires_grad}
         if isinstance(mod, gnn.BatchNorm):
-            rec["stats"] = [t.detach().clone() for t in
-                            (mod.running_mean, mod.running_var)]
+            rec["stats"] = [mod._held(n).detach().clone() for n in
+                            ("running_mean", "running_var")]
         records.append(rec)
         mod._record = rec
         if out.requires_grad:   # ResNet v2's input BatchNorm: no grad
@@ -3340,8 +3395,8 @@ def layer_parity(torch, net, x, y):
             mod._record["dx"] = grad_in[0].detach().clone()
 
     def pre_hook(mod, inp):
-        mod._stats_before = [mod.running_mean.detach().clone(),
-                             mod.running_var.detach().clone()]
+        mod._stats_before = [mod._held(n).detach().clone() for n in
+                             ("running_mean", "running_var")]
 
     hooks = []
     for m in net.modules():

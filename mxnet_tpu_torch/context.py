@@ -5,13 +5,18 @@ Counterpart of `mxnet_tpu/context.py`. A device is a `torch.device`:
 an explicit ``device`` and default to the card; without a card they raise
 instead of running on the host, so a CPU run is always one the caller asked
 for. ``with scope(device):`` sets the default of `current_context` for the
-calling thread, as ``with mx.cpu():`` does in the JAX package.
+calling thread, as ``with mx.cpu():`` does in the JAX package; so does
+``with mx.cpu():`` or ``with mx.gpu(i):`` itself, which enters the device's
+own torch context (torch's factories then default to it too), whichever of
+the two blocks is the inner one.
 """
 from __future__ import annotations
 
 import threading
 
 import torch
+from torch.overrides import _get_current_function_mode_stack
+from torch.utils._device import DeviceContext
 
 from .base import MXNetError
 
@@ -21,7 +26,9 @@ __all__ = ["cpu", "gpu", "resolve_device", "current_context", "scope",
 _scopes = threading.local()
 
 
-def cpu():
+def cpu(device_id=0):
+    """The host. ``device_id`` is the reference's argument; the host is
+    one device, whatever its id."""
     return torch.device("cpu")
 
 
@@ -57,28 +64,50 @@ class scope:
     def __enter__(self):
         if not hasattr(_scopes, "devices"):
             _scopes.devices = []
-        _scopes.devices.append(self._device)
+        # beside the device, the depth of torch's mode stack: a `with
+        # torch.device(...)` block entered later is the inner one
+        _scopes.devices.append((self._device,
+                                len(_get_current_function_mode_stack())))
         return self._device
 
     def __exit__(self, *exc):
         _scopes.devices.pop()
 
 
-def current_context():
-    """The innermost `scope`'s device, else the first CUDA card; raises
-    `MXNetError` when that is a card and none is present."""
+def _torch_device_block():
+    """(depth on torch's mode stack, device) of the innermost ``with
+    torch.device(...)`` block (``with mx.cpu():``), or None."""
+    stack = _get_current_function_mode_stack()
+    for i in range(len(stack) - 1, -1, -1):
+        if isinstance(stack[i], DeviceContext):
+            return i, stack[i].device
+    return None
+
+
+def _innermost():
+    """The device of the innermost `scope` or ``with torch.device(...)``
+    block, or None."""
     devices = getattr(_scopes, "devices", None)
-    return resolve_device(devices[-1] if devices else None)
+    block = _torch_device_block()
+    if block is not None and (not devices or block[0] >= devices[-1][1]):
+        return block[1]
+    return devices[-1][0] if devices else None
+
+
+def current_context():
+    """The device of the innermost `scope` or ``with mx.cpu():`` / ``with
+    mx.gpu(i):`` block, else the first CUDA card; raises `MXNetError` when
+    that is a card and none is present."""
+    return resolve_device(_innermost())
 
 
 def in_scope_of(fn):
     """``fn`` wrapped to run under the calling thread's innermost `scope`
     (if any) on whatever thread calls it: a pipeline thread then makes its
     arrays where its consumer's ``with scope(...)`` asked."""
-    devices = getattr(_scopes, "devices", None)
-    if not devices:
+    device = _innermost()
+    if device is None:
         return fn
-    device = devices[-1]
 
     def run(*args, **kwargs):
         with scope(device):

@@ -10,7 +10,9 @@ Two layouts of one `TransformerLM`'s parameters come from the JAX package:
     ``embed_norm.gamma``, ``<n>.attention.proj_query.weight`` ...), where
     ``<n>`` is the cell's child index: 2 for the first cell, 3 when the
     block was built with dropout (an ``embed_dropout`` child comes first).
-    `state_from_npz` reads it and `npz_from_state` writes it.
+    The port's `TransformerLM` is built as the JAX package's, so these are
+    its state-dict keys too: `state_from_npz` reads the file and
+    `npz_from_state` writes it.
 
 The other vision nets (ResNet v2, AlexNet, VGG, SqueezeNet, DenseNet,
 Inception V3, MobileNet v1 / v2) are built in the port as the JAX package
@@ -22,7 +24,9 @@ their ``.params`` files cross both ways through ``save_parameters`` /
 A ResNet v1's parameters come from the JAX net's ``collect_params()``
 as numpy arrays keyed by gluon auto-names (``resnetv10_conv2d0_weight``,
 ``resnetv10_stage1_batchnorm2_running_var``, ``resnetv10_dense0_bias``
-...); `resnet_params_from_jax` maps them onto the port's `ResNetV1`, and
+...); `resnet_params_from_jax` maps them onto the port's `ResNetV1` (or
+`vision_params_from_jax`, by name: the port builds it as the JAX package
+does), and
 `bert_params_from_jax` maps a `BERTModel`'s (with or without an output
 head) onto the port's `BERTModel`, and `word_lm_params_from_jax` a word-LM
 `RNNModel`'s onto the port's `RNNModel`. A symbolic `Module`'s
@@ -60,38 +64,36 @@ def _t(a):
     return torch.from_numpy(_np.array(a, dtype=_np.float32, copy=True))
 
 
-def params_from_jax(d):
-    """``TransformerLM.decode_params()`` of the JAX package -> the port's
-    `TransformerLM` state dict."""
+def _cell_offset(dropout):
+    """The child index of a `TransformerLM`'s first cell: after
+    ``position_embed`` and ``embed_norm``, and ``embed_dropout`` when the
+    LM has dropout."""
+    return 3 if dropout else 2
+
+
+def params_from_jax(d, dropout=0.0):
+    """``TransformerLM.decode_params()`` of the JAX package -> the state
+    dict of the port's `TransformerLM` built with ``dropout``."""
     state = {"word_weight": _t(d["word"]),
              "position_embed.weight": _t(d["pos"]),
              "embed_norm.gamma": _t(d["embed_norm"]["g"]),
              "embed_norm.beta": _t(d["embed_norm"]["b"])}
     for i, layer in enumerate(d["layers"]):
+        cell = i + _cell_offset(dropout)
         for short, path in _DENSE.items():
-            state["cells.%d.%s.weight" % (i, path)] = _t(layer[short]["w"])
-            state["cells.%d.%s.bias" % (i, path)] = _t(layer[short]["b"])
+            state["%d.%s.weight" % (cell, path)] = _t(layer[short]["w"])
+            state["%d.%s.bias" % (cell, path)] = _t(layer[short]["b"])
         for short, path in _NORM.items():
-            state["cells.%d.%s.gamma" % (i, path)] = _t(layer[short]["g"])
-            state["cells.%d.%s.beta" % (i, path)] = _t(layer[short]["b"])
+            state["%d.%s.gamma" % (cell, path)] = _t(layer[short]["g"])
+            state["%d.%s.beta" % (cell, path)] = _t(layer[short]["b"])
     return state
 
 
 def state_from_npz(arrays):
     """The JAX package's ``-lm.params`` arrays (any mapping of key ->
-    array, such as an `np.load` result) -> the port's state dict. Cell
-    indices are taken in numeric order, whatever their offset."""
-    state = {}
-    cells = {}
-    for key in arrays:
-        m = _CELL_KEY.match(key)
-        if m is None:
-            state[key] = _t(arrays[key])
-        else:
-            cells.setdefault(int(m.group(1)), []).append((m.group(2), key))
-    for i, idx in enumerate(sorted(cells)):
-        for rest, key in cells[idx]:
-            state["cells.%d.%s" % (i, rest)] = _t(arrays[key])
+    array, such as an `np.load` result) -> the port's state dict (the
+    same keys)."""
+    state = {key: _t(arrays[key]) for key in arrays}
     if "word_weight" not in state:
         raise MXNetError("not a TransformerLM parameter file: no "
                          "'word_weight' among %s" % sorted(arrays)[:8])
@@ -100,15 +102,19 @@ def state_from_npz(arrays):
 
 def npz_from_state(state, dropout=0.0):
     """The port's state dict -> the arrays of the JAX package's
-    ``-lm.params`` (its ``load_lm`` reads the file unchanged)."""
-    offset = 3 if dropout else 2
+    ``-lm.params`` (its ``load_lm`` reads the file unchanged). A state
+    dict of an LM built with ``dropout`` has the JAX package's keys
+    already; one whose cells start at another child index has them
+    renumbered from the one ``dropout`` gives."""
+    cells = sorted({int(m.group(1)) for m in map(_CELL_KEY.match, state)
+                    if m is not None})
+    renumber = {c: i + _cell_offset(dropout) for i, c in enumerate(cells)}
     out = {}
     for key, value in state.items():
-        arr = value.detach().float().cpu().numpy()
-        if key.startswith("cells."):
-            _, idx, rest = key.split(".", 2)
-            key = "%d.%s" % (int(idx) + offset, rest)
-        out[key] = arr
+        m = _CELL_KEY.match(key)
+        if m is not None:
+            key = "%d.%s" % (renumber[int(m.group(1))], m.group(2))
+        out[key] = value.detach().float().cpu().numpy()
     return out
 
 
@@ -126,7 +132,7 @@ def _kernel_hw(shape, layout):
     return tuple(shape[1:3]) if layout == "NHWC" else tuple(shape[2:4])
 
 
-def resnet_params_from_jax(params, layout="NHWC"):
+def resnet_params_from_jax(params, layout="NHWC", fuse_epilogue=None):
     """The JAX package's ResNet v1 parameters -> the port's `ResNetV1`
     state dict.
 
@@ -138,9 +144,16 @@ def resnet_params_from_jax(params, layout="NHWC"):
     first stage's first conv (1x1: bottleneck, 3 convs a block; 3x3: basic,
     2), a downsample conv and BN after the first block's body when a stage
     has one more conv than whole blocks, and a thumbnail stem when there is
-    no stem BatchNorm. Raises `MXNetError` on a name, a count or a shape it
-    cannot place. The port's state-dict keys are the same in the fused and
-    the reference graph."""
+    no stem BatchNorm. The keys are those of the graph ``fuse_epilogue``
+    names (default: the zoo's, from ``MXTPU_PALLAS_CONV_EPILOGUE``), whose
+    reference form holds each ReLU as a paramless ``Activation`` child, as
+    the JAX package's does. Raises `MXNetError` on a name, a count or a
+    shape it cannot place. The same net's parameters also place by name
+    (`vision_params_from_jax`)."""
+    from .gluon.model_zoo.vision.resnet import _fuse_epilogue_default
+
+    fused = _fuse_epilogue_default(fuse_epilogue)
+    step = 2 if fused else 3    # body children a conv, its BN (, ReLU)
     if layout not in ("NHWC", "NCHW"):
         raise MXNetError("layout must be NHWC or NCHW, got %r" % (layout,))
     prefixes = {k.split("_", 1)[0] for k in params}
@@ -183,9 +196,9 @@ def resnet_params_from_jax(params, layout="NHWC"):
         raise MXNetError("unexpected top-level layers %s" % sorted(top))
     c0 = conv("features.0", top.get(("conv2d", 0)), "conv2d0")
     offset = 1
-    if ("batchnorm", 0) in top:     # 7x7 stem: conv, BN, max pool
+    if ("batchnorm", 0) in top:     # 7x7 stem: conv, BN (, ReLU), max pool
         bn("features.1", top[("batchnorm", 0)], c0, "batchnorm0")
-        offset = 3
+        offset = 3 if fused else 4
     if sorted(stages) != list(range(1, len(stages) + 1)) or not stages:
         raise MXNetError("stages must be 1..n, got %s" % sorted(stages))
     first = stages[1].get(("conv2d", 0), {}).get("weight")
@@ -209,14 +222,14 @@ def resnet_params_from_jax(params, layout="NHWC"):
                              "(+ one downsample)" % (s, n, per))
         for k in range(n):
             if k < per:
-                dst = "features.%d.0.body.%d" % (offset + s - 1, 2 * k)
+                dst = "features.%d.0.body.%d" % (offset + s - 1, step * k)
             elif ds and k == per:
                 dst = "features.%d.0.downsample.0" % (offset + s - 1)
             else:
                 j = k - per - ds
                 dst = "features.%d.%d.body.%d" % (offset + s - 1,
                                                   1 + j // per,
-                                                  2 * (j % per))
+                                                  step * (j % per))
             label = "stage%d_conv2d%d" % (s, k)
             c = conv(dst, layers[("conv2d", k)], label)
             head, pos = dst.rsplit(".", 1)
@@ -290,7 +303,7 @@ def bert_params_from_jax(params):
         else:
             path = _BERT_NORM[norm]
         layers.setdefault(int(layer), set()).add("%s.%s" % (path, field))
-        state["encoder.cells.%s.%s.%s" % (layer, path, field)] = _t(value)
+        state["encoder.%s.%s.%s" % (layer, path, field)] = _t(value)
     if len(prefixes) != 1:
         raise MXNetError("not one BERT model's parameters: prefixes %s"
                          % sorted(prefixes))

@@ -189,6 +189,23 @@ class Block(torch.nn.Module):
     def name_scope(self):
         return self._scope
 
+    def __getattr__(self, name):
+        # a parameter registered by `_param` is the gluon Parameter here,
+        # as in the JAX package (``dense.weight.lr_mult = 0.1``); the
+        # module holds its tensor (`_held`), which state_dict and
+        # torch.func.functional_call see
+        reg = self.__dict__.get("_reg_params")
+        if reg is not None and name in reg:
+            return reg[name]
+        return super().__getattr__(name)
+
+    def _held(self, name):
+        """The tensor the module holds under ``name``, a parameter or a
+        buffer (None while a deferred shape is unknown)."""
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._buffers.get(name)
+
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
             # the attribute is the Parameter; the module holds its tensor
@@ -201,7 +218,8 @@ class Block(torch.nn.Module):
     def _param(self, attr, kind="parameter", device=None, **kwargs):
         """A layer's parameter ``attr`` (made by ``self.params.get(attr,
         **kwargs)``), registered with the module under ``attr`` as a
-        parameter or a buffer, so the module's attribute is its tensor."""
+        parameter or a buffer: the module's attribute is the Parameter, and
+        `_held` its tensor."""
         if kind == "buffer":
             self.register_buffer(attr, None)
         else:

@@ -1,27 +1,39 @@
 """Transformer encoder cells, the BERT model family and the decoder-only
 Transformer LM.
 
-Counterpart of `mxnet_tpu/gluon/model_zoo/transformer.py` as `nn.Module`s.
-Submodule and parameter names follow the JAX blocks (``proj_query``,
-``attention_norm.gamma``, ``ffn.ffn_1`` ...) so `convert.py` maps the JAX
-package's parameters one to one. Attention without a mask (BERT without
-``valid_length``) runs `ops.contrib.flash_attention`, whose three CUDA
-kernels carry the forward and the backward on the card; with a mask (the
-LM's causal mask, BERT's padding mask) it is the JAX package's masked
-dense path (scores, finite -1e30 mask, softmax).
+Counterpart of `mxnet_tpu/gluon/model_zoo/transformer.py`, built as the
+JAX package builds it: `HybridBlock`s with its prefixes and children
+(``proj_query`` with prefix ``query_``, ``attention_norm``, ``ffn.ffn_1``,
+an encoder's cells registered as children ``0``, ``1``, ...), so the
+parameter names (``collect_params``), ``.params`` files and the module
+paths are the JAX package's. Called with NDArrays (``net(mx.nd.zeros(...))``)
+or with tensors, each block computes on tensors; like the JAX blocks they
+have no symbol form (their shapes come from the input), so ``export``
+raises, as it does in the JAX package.
+
+Attention without a mask (BERT without ``valid_length``) runs
+`ops.contrib.flash_attention`, whose three CUDA kernels carry the forward
+and the backward on the card; with a mask (the LM's causal mask, BERT's
+padding mask) it is the JAX package's masked dense path (scores, finite
+-1e30 mask, softmax). The generation engine (`serving.generate`) runs a
+`TransformerLM`'s cells incrementally over the paged-attention kernel.
+
+``device``: where the parameters are made at construction and where
+`initialize` keeps them (default: `BERTModel` `current_context` at
+`initialize`, `TransformerLM` the host).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-from torch import nn
 
 from ... import initializer as _init
 from ...base import MXNetError
-from ...context import resolve_device
+from ...context import cpu, resolve_device
 from ...ops import contrib as _contrib
 from ..nn import Dense, Dropout, Embedding, GELU, LayerNorm
+from ..nn.basic_layers import _Layer
 
 __all__ = ["LayerNorm", "MultiHeadAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder", "BERTModel",
@@ -33,29 +45,32 @@ def _dropout(rate):
     return Dropout(rate) if rate else None
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(_Layer):
     """Multi-head self/cross attention: flash attention without a mask,
     the masked dense path with one; ``dropout`` on the output
     projection."""
 
-    def __init__(self, units, num_heads, dropout=0.0, device=None):
-        super().__init__()
+    def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         if units % num_heads != 0:
             raise MXNetError("num_heads (%d) must evenly divide units (%d)"
                              % (num_heads, units))
-        self.units = units
-        self.num_heads = num_heads
-        self.proj_query = nn.Linear(units, units, device=device)
-        self.proj_key = nn.Linear(units, units, device=device)
-        self.proj_value = nn.Linear(units, units, device=device)
-        self.proj_out = nn.Linear(units, units, device=device)
-        self.dropout = _dropout(dropout)
+        self._units = units
+        self._num_heads = num_heads
+        with self.name_scope():
+            self.proj_query, self.proj_key, self.proj_value, \
+                self.proj_out = (
+                    Dense(units, flatten=False, use_bias=use_bias,
+                          in_units=units, device=device, prefix=p)
+                    for p in ("query_", "key_", "value_", "out_"))
+            self.dropout = _dropout(dropout)
 
     def _split(self, x):
         # (B, L, C) -> (B, H, L, Dh)
         b, length = x.shape[0], x.shape[1]
-        return x.reshape(b, length, self.num_heads,
-                         self.units // self.num_heads).transpose(1, 2)
+        return x.reshape(b, length, self._num_heads,
+                         self._units // self._num_heads).transpose(1, 2)
 
     def forward(self, query, key=None, value=None, mask=None):
         """mask: (B, Lq, Lk), nonzero where a query may attend a key."""
@@ -65,7 +80,7 @@ class MultiHeadAttention(nn.Module):
         q = self._split(self.proj_query(query))
         k = self._split(self.proj_key(key))
         v = self._split(self.proj_value(value))
-        dh = self.units // self.num_heads
+        dh = self._units // self._num_heads
         if mask is None:
             out = _contrib.flash_attention(q, k, v, causal=False,
                                            sm_scale=1.0 / math.sqrt(dh))
@@ -74,21 +89,25 @@ class MultiHeadAttention(nn.Module):
             scores = torch.where(mask.unsqueeze(1) > 0, scores,
                                  torch.full_like(scores, -1e30))
             out = torch.matmul(torch.softmax(scores, dim=-1), v)
-        out = self.proj_out(out.transpose(1, 2).reshape(b, lq, self.units))
+        out = self.proj_out(out.transpose(1, 2).reshape(b, lq, self._units))
         if self.dropout is not None:
             out = self.dropout(out)
         return out
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(_Layer):
     """FFN sublayer with erf GELU; ``dropout`` on its output."""
 
-    def __init__(self, units, hidden_size, dropout=0.0, device=None):
-        super().__init__()
-        self.ffn_1 = nn.Linear(units, hidden_size, device=device)
-        self.activation = GELU()
-        self.ffn_2 = nn.Linear(hidden_size, units, device=device)
-        self.dropout = _dropout(dropout)
+    def __init__(self, units, hidden_size, dropout=0.0, device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ffn_1 = Dense(hidden_size, flatten=False, in_units=units,
+                               device=device, prefix="ffn1_")
+            self.activation = GELU()
+            self.ffn_2 = Dense(units, flatten=False, in_units=hidden_size,
+                               device=device, prefix="ffn2_")
+            self.dropout = _dropout(dropout)
 
     def forward(self, x):
         out = self.ffn_2(self.activation(self.ffn_1(x)))
@@ -97,33 +116,47 @@ class PositionwiseFFN(nn.Module):
         return out
 
 
-class TransformerEncoderCell(nn.Module):
+class TransformerEncoderCell(_Layer):
     """Post-LN (BERT-style) encoder layer."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 device=None):
-        super().__init__()
-        self.attention = MultiHeadAttention(units, num_heads, dropout,
-                                            device=device)
-        self.attention_norm = LayerNorm(units, device=device)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout, device=device)
-        self.ffn_norm = LayerNorm(units, device=device)
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.attention = MultiHeadAttention(units, num_heads, dropout,
+                                                device=device)
+            self.attention_norm = LayerNorm(units, device=device)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       device=device)
+            self.ffn_norm = LayerNorm(units, device=device)
 
     def forward(self, x, mask=None):
         out = self.attention_norm(x + self.attention(x, x, x, mask))
         return self.ffn_norm(out + self.ffn(out))
 
 
-class TransformerEncoder(nn.Module):
-    """``num_layers`` encoder cells (``cells.<i>``) applied in order."""
+def _add_cells(block, n, units, hidden_size, num_heads, dropout, device):
+    """``n`` encoder cells (prefixes ``layer<i>_``) registered as the
+    block's next children and listed in ``block.cells``, as the JAX
+    package does."""
+    block.cells = []
+    for i in range(n):
+        cell = TransformerEncoderCell(units, hidden_size, num_heads, dropout,
+                                      device=device, prefix="layer%d_" % i)
+        block.register_child(cell)
+        block.cells.append(cell)
+
+
+class TransformerEncoder(_Layer):
+    """``num_layers`` encoder cells (children ``0``, ``1``, ...) applied in
+    order."""
 
     def __init__(self, units=512, hidden_size=2048, num_layers=6, num_heads=8,
-                 dropout=0.0, device=None):
-        super().__init__()
-        self.cells = nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads, dropout,
-                                   device=device)
-            for _ in range(num_layers))
+                 dropout=0.0, device=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            _add_cells(self, num_layers, units, hidden_size, num_heads,
+                       dropout, device)
 
     def forward(self, x, mask=None):
         for cell in self.cells:
@@ -131,32 +164,40 @@ class TransformerEncoder(nn.Module):
         return x
 
 
-class BERTModel(nn.Module):
+class BERTModel(_Layer):
     """BERT encoder: token, segment and position embeddings, LayerNorm,
-    dropout, the encoder, and the CLS-token pooler (Dense + tanh).
-    ``device``: where the parameters live (default: the card,
-    `context.resolve_device`)."""
+    dropout, the encoder, and the CLS-token pooler (Dense + tanh)."""
 
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512, token_types=2,
-                 dropout=0.1, device=None):
-        super().__init__()
-        device = resolve_device(device)
-        self.word_embed = Embedding(vocab_size, units, device=device)
-        self.token_type_embed = Embedding(token_types, units, device=device)
-        self.position_embed = Embedding(max_length, units, device=device)
-        self.embed_norm = LayerNorm(units, device=device)
-        self.embed_dropout = _dropout(dropout)
-        self.encoder = TransformerEncoder(units, hidden_size, num_layers,
-                                          num_heads, dropout, device=device)
-        self.pooler = Dense(units, activation="tanh", in_units=units,
-                            device=device)
+                 dropout=0.1, device=None, **kwargs):
+        super().__init__(**kwargs)
+        self._device = None if device is None else resolve_device(device)
+        device = self._device
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units, device=device,
+                                        prefix="word_")
+            self.token_type_embed = Embedding(token_types, units,
+                                              device=device,
+                                              prefix="segment_")
+            self.position_embed = Embedding(max_length, units, device=device,
+                                            prefix="pos_")
+            self.embed_norm = LayerNorm(units, device=device)
+            self.embed_dropout = _dropout(dropout)
+            self.encoder = TransformerEncoder(units, hidden_size, num_layers,
+                                              num_heads, dropout,
+                                              device=device)
+            self.pooler = Dense(units, activation="tanh", in_units=units,
+                                device=device, prefix="pooler_")
 
-    def initialize(self, init="xavier", seed=None):
+    def initialize(self, init="xavier", ctx=None, verbose=False,
+                   force_reinit=False, seed=None):
         """Fill the weights (default Xavier, embeddings included), LayerNorm
-        gamma 1 / beta 0, biases 0; see `initializer.initialize`. Returns
-        self."""
-        return _init.initialize(self, init, seed)
+        gamma 1 / beta 0, biases 0, on ``ctx`` (default: the device the
+        model was built for, else `current_context`); see
+        `Block.initialize`. Returns self."""
+        return super().initialize(init, self._device if ctx is None else ctx,
+                                  verbose, force_reinit, seed)
 
     def _embed_prelude(self, inputs, token_types=None, valid_length=None):
         """Token + segment + position embeddings, norm and dropout; and the
@@ -185,82 +226,88 @@ class BERTModel(nn.Module):
         return seq, self.pooler(seq[:, 0])
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(_Layer):
     """Decoder-only language model: BERT encoder cells under a causal mask,
-    learned positions, and a TIED head (the logits reuse the word-embedding
-    weight). The full-sequence form: the generation engine
-    (`serving.generate.TransformerLMEngine`) computes the same function
-    incrementally over a paged KV cache. Dropout is an inference no-op and
-    is kept in `config` only for the artifact header."""
+    learned positions, and a TIED head (the logits reuse ``word_weight``,
+    a parameter of this block). The full-sequence form: the generation
+    engine (`serving.generate.TransformerLMEngine`) computes the same
+    function incrementally over a paged KV cache. It is built in eval
+    mode: its dropout drops in a tensor call only after ``train()``, and in
+    a façade call (NDArrays) under ``autograd.record()``, as in the JAX
+    package."""
 
     def __init__(self, vocab_size=1000, units=64, hidden_size=128,
                  num_layers=2, num_heads=2, max_length=256, dropout=0.0,
-                 device=None):
-        super().__init__()
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
         self._config = dict(vocab_size=int(vocab_size), units=int(units),
                             hidden_size=int(hidden_size),
                             num_layers=int(num_layers),
                             num_heads=int(num_heads),
                             max_length=int(max_length),
                             dropout=float(dropout))
-        self.word_weight = nn.Parameter(
-            torch.empty(vocab_size, units, device=device))
-        self.position_embed = nn.Embedding(max_length, units, device=device)
-        self.embed_norm = LayerNorm(units, device=device)
-        self.cells = nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads,
-                                   device=device)
-            for _ in range(num_layers))
-        nn.init.normal_(self.word_weight)
+        self._device = None if device is None else resolve_device(device)
+        device = self._device
+        with self.name_scope():
+            self._param("word_weight", device=device,
+                        shape=(vocab_size, units))
+            self.position_embed = Embedding(max_length, units, device=device,
+                                            prefix="pos_")
+            self.embed_norm = LayerNorm(units, device=device)
+            self.embed_dropout = _dropout(dropout)
+            _add_cells(self, num_layers, units, hidden_size, num_heads,
+                       dropout, device)
+        self.eval()
 
     @property
     def config(self):
         """Architecture dict (the generation artifact header)."""
         return dict(self._config)
 
-    def initialize(self, seed, std=0.02):
-        """Random weights from ``seed``: every matrix and embedding from
-        N(0, std) (BERT's initializer range), biases 0, norms 1/0. Drawn
-        on the host with an explicit generator, so a seed gives the same
-        weights on every device."""
-        gen = torch.Generator().manual_seed(int(seed))
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("gamma"):
-                    val = torch.ones(p.shape)
-                elif name.endswith(("bias", "beta")):
-                    val = torch.zeros(p.shape)
-                else:
-                    val = torch.normal(0.0, std, tuple(p.shape),
-                                       generator=gen)
-                p.copy_(val)
-        return self
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, seed=None, std=0.02):
+        """Fill the parameters (`Block.initialize`) with ``init``, by
+        default every matrix and embedding from N(0, std) (BERT's
+        initializer range), biases 0, norms 1 / 0, drawn on the host from
+        ``seed`` (the same weights on every device). ``ctx`` defaults to
+        the device the LM was built for, else the host. An int in place of
+        ``init`` is the seed. Returns self."""
+        if isinstance(init, int) and not isinstance(init, bool):
+            init, seed = None, init
+        if init is None:
+            init = _init.Normal(std)
+        if ctx is None:
+            ctx = self._device if self._device is not None else cpu()
+        return super().initialize(init, ctx, verbose, force_reinit, seed)
 
     def forward(self, inputs):
         """inputs: (B, L) int token ids -> logits (B, L, V); position t
         sees tokens [0, t]."""
         b, length = inputs.shape[0], inputs.shape[1]
         inputs = inputs.long()
+        word = self._held("word_weight")
         pos = torch.arange(length, device=inputs.device)
-        x = self.word_weight[inputs] + self.position_embed.weight[pos][None]
+        x = word[inputs] + self.position_embed(pos)[None]
         x = self.embed_norm(x)
+        if self.embed_dropout is not None:
+            x = self.embed_dropout(x)
         causal = pos[None, :] <= pos[:, None]
         mask = causal[None].expand(b, length, length)
         for cell in self.cells:
             x = cell(x, mask)
-        return torch.matmul(x, self.word_weight.t())
+        return torch.matmul(x, word.t())
 
     def decode_params(self):
         """The parameters as the structured numpy dict of the JAX package's
         `TransformerLM.decode_params` (see `convert.params_from_jax`)."""
-        def arr(p):
-            return p.detach().float().cpu().numpy()
+        def arr(block, name):
+            return block._held(name).detach().float().cpu().numpy()
 
-        def dense(lin):
-            return {"w": arr(lin.weight), "b": arr(lin.bias)}
+        def dense(d):
+            return {"w": arr(d, "weight"), "b": arr(d, "bias")}
 
         def norm(ln):
-            return {"g": arr(ln.gamma), "b": arr(ln.beta)}
+            return {"g": arr(ln, "gamma"), "b": arr(ln, "beta")}
 
         layers = []
         for cell in self.cells:
@@ -272,8 +319,8 @@ class TransformerLM(nn.Module):
                 "ffn1": dense(cell.ffn.ffn_1), "ffn2": dense(cell.ffn.ffn_2),
                 "ffn_norm": norm(cell.ffn_norm),
             })
-        return {"word": arr(self.word_weight),
-                "pos": arr(self.position_embed.weight),
+        return {"word": arr(self, "word_weight"),
+                "pos": arr(self.position_embed, "weight"),
                 "embed_norm": norm(self.embed_norm),
                 "layers": layers}
 

@@ -3,9 +3,8 @@ reference: python/mxnet/gluon/model_zoo/vision/alexnet.py), with the JAX
 net's block structure and parameter names."""
 from __future__ import annotations
 
-from ....base import MXNetError
 from ... import nn
-from ._common import _Net
+from ._common import _Net, _factory
 
 __all__ = ["AlexNet", "alexnet"]
 
@@ -46,7 +45,4 @@ class AlexNet(_Net):
 
 
 def alexnet(pretrained=False, ctx=None, root=None, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return AlexNet(**kwargs)
+    return _factory(AlexNet, pretrained, ctx, kwargs)

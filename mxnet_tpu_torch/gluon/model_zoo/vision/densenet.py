@@ -6,10 +6,11 @@ onto its input on the channel axis of the layout scope it was built in
 (fixed at construction, as the JAX blocks capture it)."""
 from __future__ import annotations
 
-from ....base import MXNetError
+import functools
+
 from ... import nn
 from ...nn.basic_layers import _Layer
-from ._common import _Net
+from ._common import _Net, _factory
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201"]
@@ -99,12 +100,12 @@ densenet_spec = {121: (64, 32, [6, 12, 24, 16]),
                  201: (64, 32, [6, 12, 48, 32])}
 
 
-def get_densenet(num_layers, pretrained=False, **kwargs):
+def get_densenet(num_layers, pretrained=False, ctx=None, root=None,
+                 **kwargs):
     num_init_features, growth_rate, block_config = densenet_spec[num_layers]
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return DenseNet(num_init_features, growth_rate, block_config, **kwargs)
+    return _factory(functools.partial(DenseNet, num_init_features,
+                                      growth_rate, block_config),
+                    pretrained, ctx, kwargs)
 
 
 def densenet121(**kwargs):

@@ -9,10 +9,9 @@ concatenated on the channel axis of the layout scope the block was built
 in (fixed at construction, as the JAX blocks capture it)."""
 from __future__ import annotations
 
-from ....base import MXNetError
 from ... import nn
 from ...nn.basic_layers import _Layer
-from ._common import _Net
+from ._common import _Net, _factory
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -170,8 +169,5 @@ class Inception3(_Net):
         return self.output(self.features(x))
 
 
-def inception_v3(pretrained=False, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return Inception3(**kwargs)
+def inception_v3(pretrained=False, ctx=None, root=None, **kwargs):
+    return _factory(Inception3, pretrained, ctx, kwargs)

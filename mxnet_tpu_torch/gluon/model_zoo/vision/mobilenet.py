@@ -6,10 +6,11 @@ convolutions (``groups`` = channels); RELU6 is ``clip(x, 0, 6)``, whose
 gradient at 0 and at 6 is the JAX package's 0.5 (`ops.tensor.clip`)."""
 from __future__ import annotations
 
-from ....base import MXNetError
+import functools
+
 from ... import nn
 from ...nn.basic_layers import _Layer
-from ._common import _Net
+from ._common import _Net, _factory
 
 __all__ = ["MobileNet", "MobileNetV2", "mobilenet1_0", "mobilenet0_75",
            "mobilenet0_5", "mobilenet0_25", "mobilenet_v2_1_0",
@@ -126,18 +127,16 @@ class MobileNetV2(_Net):
         return self.output(self.features(x))
 
 
-def get_mobilenet(multiplier, pretrained=False, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return MobileNet(multiplier, **kwargs)
+def get_mobilenet(multiplier, pretrained=False, ctx=None, root=None,
+                  **kwargs):
+    return _factory(functools.partial(MobileNet, multiplier), pretrained,
+                    ctx, kwargs)
 
 
-def get_mobilenet_v2(multiplier, pretrained=False, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return MobileNetV2(multiplier, **kwargs)
+def get_mobilenet_v2(multiplier, pretrained=False, ctx=None, root=None,
+                     **kwargs):
+    return _factory(functools.partial(MobileNetV2, multiplier), pretrained,
+                    ctx, kwargs)
 
 
 def mobilenet1_0(**kwargs):

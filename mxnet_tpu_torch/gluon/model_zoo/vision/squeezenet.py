@@ -4,10 +4,11 @@ python/mxnet/gluon/model_zoo/vision/squeezenet.py), with the JAX net's
 block structure and parameter names."""
 from __future__ import annotations
 
-from ....base import MXNetError
+import functools
+
 from ... import nn
 from ...nn.basic_layers import _Layer
-from ._common import _Net
+from ._common import _Net, _factory
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
@@ -91,15 +92,11 @@ class SqueezeNet(_Net):
         return self.output(self.features(x))
 
 
-def squeezenet1_0(pretrained=False, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return SqueezeNet("1.0", **kwargs)
+def squeezenet1_0(pretrained=False, ctx=None, root=None, **kwargs):
+    return _factory(functools.partial(SqueezeNet, "1.0"), pretrained, ctx,
+                    kwargs)
 
 
-def squeezenet1_1(pretrained=False, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return SqueezeNet("1.1", **kwargs)
+def squeezenet1_1(pretrained=False, ctx=None, root=None, **kwargs):
+    return _factory(functools.partial(SqueezeNet, "1.1"), pretrained, ctx,
+                    kwargs)

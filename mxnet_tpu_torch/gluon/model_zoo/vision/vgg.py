@@ -4,9 +4,10 @@ python/mxnet/gluon/model_zoo/vision/vgg.py), with the JAX net's block
 structure and parameter names."""
 from __future__ import annotations
 
-from ....base import MXNetError
+import functools
+
 from ... import nn
-from ._common import _Net
+from ._common import _Net, _factory
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn",
            "vgg16_bn", "vgg19_bn", "get_vgg"]
@@ -60,10 +61,8 @@ vgg_spec = {11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
 
 def get_vgg(num_layers, pretrained=False, ctx=None, root=None, **kwargs):
     layers, filters = vgg_spec[num_layers]
-    if pretrained:
-        raise MXNetError("pretrained weights are not downloaded: load them "
-                         "with net.load_parameters(path)")
-    return VGG(layers, filters, **kwargs)
+    return _factory(functools.partial(VGG, layers, filters), pretrained, ctx,
+                    kwargs)
 
 
 def vgg11(**kwargs):

@@ -9,8 +9,9 @@ Lambda, HybridLambda) as `HybridBlock`s that compute on tensors over
 running statistics are module buffers). A size left at 0 (``in_units``,
 ``in_channels``) is taken from the first input, the parameters being made
 then (deferred initialisation). The module attribute of a parameter is its
-tensor (``dense.weight``); its `Parameter` is ``dense.params`` /
-``collect_params()``.
+gluon `Parameter` (``dense.weight.lr_mult``, ``dense.weight.data()``), as
+in the JAX package; the module holds its tensor (``state_dict``,
+``Block._held``), which the forwards compute with.
 
 A layer trains (Dropout drops, BatchNorm uses and updates the batch
 statistics) under ``autograd.is_training()`` when called with NDArrays,
@@ -63,6 +64,20 @@ class Sequential(Block, nn.Sequential):
         for block in blocks:
             self.register_child(block)
 
+    def __getitem__(self, key):
+        """The child at ``key``; a slice gives a container of the same type
+        holding those children (reference: basic_layers.py:64)."""
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._children)
+
     forward = nn.Sequential.forward
 
 
@@ -99,7 +114,7 @@ class _Layer(HybridBlock):
     _tensor_forward = True
 
     def forward(self, *args):
-        params = {name: getattr(self, name) for name in self._reg_params}
+        params = {name: self._held(name) for name in self._reg_params}
         return self.hybrid_forward(_TENSOR_F, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **params):
@@ -132,14 +147,14 @@ class Dense(_Layer):
                 self.register_parameter("bias", None)
 
     def forward(self, x):
-        if self.weight is None:
+        if self._held("weight") is None:
             in_units = int(_np.prod(x.shape[1:])) if self._flatten \
                 else x.shape[-1]
             weight = self._reg_params["weight"]
             weight.shape = (self._units, in_units)
             _materialize(weight, self._reg_params.get("bias"))
-        out = _ops.fully_connected(x, self.weight, self.bias,
-                                   flatten=self._flatten)
+        out = _ops.fully_connected(x, self._held("weight"),
+                                   self._held("bias"), flatten=self._flatten)
         if self._act_type is not None:
             out = _ops.activation(out, act_type=self._act_type)
         return out
@@ -283,27 +298,26 @@ class BatchNorm(_Layer):
         return super().cast(dtype)
 
     def forward(self, x, addend=None):
-        if self.gamma is None:
+        if self._held("gamma") is None:
             for p in self._stats:
                 p.shape = (x.shape[self._axis],)
             _materialize(*self._stats)
         train = layer_training(self)
+        stats = [self._held(n) for n in ("gamma", "beta", "running_mean",
+                                         "running_var")]
         if addend is not None:
             if self._act_type is None:
                 raise ValueError("BatchNorm: a residual input requires "
                                  "act_type (the fused BatchNormAddRelu "
                                  "path)")
             return _ops.batch_norm_add_relu(
-                x, addend, self.gamma, self.beta, self.running_mean,
-                self.running_var, act_type=self._act_type,
-                is_train=train, **self._kwargs)[0]
+                x, addend, *stats, act_type=self._act_type, is_train=train,
+                **self._kwargs)[0]
         if self._act_type is not None:
             return _ops.batch_norm_relu(
-                x, self.gamma, self.beta, self.running_mean,
-                self.running_var, act_type=self._act_type,
-                is_train=train, **self._kwargs)[0]
-        return _ops.batch_norm(x, self.gamma, self.beta, self.running_mean,
-                               self.running_var, is_train=train,
+                x, *stats, act_type=self._act_type, is_train=train,
+                **self._kwargs)[0]
+        return _ops.batch_norm(x, *stats, is_train=train,
                                **self._kwargs)[0]
 
     def hybrid_forward(self, F, x, addend=None, gamma=None, beta=None,
@@ -341,7 +355,7 @@ class Embedding(_Layer):
                         init=weight_initializer, dtype=dtype)
 
     def forward(self, x):
-        return _ops.embedding(x, self.weight)
+        return _ops.embedding(x, self._held("weight"))
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,
@@ -371,11 +385,11 @@ class InstanceNorm(_Layer):
                             init=beta_initializer, allow_deferred_init=True)]
 
     def forward(self, x):
-        if self.gamma is None:
+        if self._held("gamma") is None:
             for p in self._norm:
                 p.shape = (x.shape[self._axis],)
             _materialize(*self._norm)
-        return _ops.instance_norm(x, self.gamma, self.beta,
+        return _ops.instance_norm(x, self._held("gamma"), self._held("beta"),
                                   eps=self._epsilon)
 
     def hybrid_forward(self, F, x, gamma, beta):
@@ -405,14 +419,14 @@ class LayerNorm(_Layer):
                             init=beta_initializer, allow_deferred_init=True)]
 
     def forward(self, x):
-        if self.gamma is None:
+        if self._held("gamma") is None:
             for p in self._norm:
                 p.shape = (x.shape[self._axis],)
             _materialize(*self._norm)
+        gamma, beta = self._held("gamma"), self._held("beta")
         if self._axis in (-1, x.dim() - 1):
-            return _ops.layer_norm(x, self.gamma, self.beta, self.eps)
-        return _registry.invoke_torch("LayerNorm", (x, self.gamma,
-                                                    self.beta),
+            return _ops.layer_norm(x, gamma, beta, self.eps)
+        return _registry.invoke_torch("LayerNorm", (x, gamma, beta),
                                       {"axis": self._axis, "eps": self.eps})
 
     def hybrid_forward(self, F, x, gamma, beta):

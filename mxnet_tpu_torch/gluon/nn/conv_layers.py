@@ -111,13 +111,13 @@ class _Conv(_Layer):
             if self._ch_last else (in_channels, self._channels // g) + k
 
     def forward(self, x):
-        if self.weight is None:
+        if self._held("weight") is None:
             weight = self._reg_params["weight"]
             weight.shape = self._wshape(x.shape[-1 if self._ch_last else 1])
             _materialize(weight, self._reg_params.get("bias"))
         fn = _ops.convolution if self._op_name == "Convolution" \
             else _ops.deconvolution
-        out = fn(x, self.weight, self.bias, **self._kwargs)
+        out = fn(x, self._held("weight"), self._held("bias"), **self._kwargs)
         if self._act_type is not None:
             out = _ops.activation(out, act_type=self._act_type)
         return out

@@ -90,7 +90,7 @@ class _RNNLayer(_Layer):
                 for info in self.state_info(batch_size)]
 
     def _weights(self):
-        return [[[getattr(self, "%s%d_%s" % (j, i, f)) for f in _FIELDS]
+        return [[[self._held("%s%d_%s" % (j, i, f)) for f in _FIELDS]
                  for j in "lr"[:self._dir]]
                 for i in range(self._num_layers)]
 
@@ -98,7 +98,7 @@ class _RNNLayer(_Layer):
         """``inputs`` (T, B, in) or, under NTC, (B, T, in). Returns the
         output (T, B, D * H) (or (B, T, D * H)), and with ``states`` given
         (a tensor or a list of them) also the list of final states."""
-        if self.l0_i2h_weight is None:
+        if self._held("l0_i2h_weight") is None:
             self._input_size = inputs.shape[-1]
             first = [self._reg_params["%s0_i2h_weight" % j]
                      for j in "lr"[:self._dir]]

@@ -191,8 +191,14 @@ paged_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 _EPI_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# pass-1 row chunks of the two reductions: one per 128 rows, at most 1024
-# (a function of R alone, so a shape always reduces in the same order)
+
+# csrc/conv_epilogue.cu's reduction layout constants (`epi_layout`)
+_EPI_THREADS = 256
+_EPI_CLUSTER_BYTES_PER_BLOCK = 400 * 1024
+_EPI_CLUSTER_MIN_K = 8
+_EPI_CLUSTER_TILE_PACKS = 8
+_EPI_CLUSTER_MIN_TILES = 8
+_EPI_FOLD_MAX_BYTES = 512
 _EPI_CHUNK_ROWS = 128
 _EPI_MAX_CHUNKS = 1024
 
@@ -205,8 +211,78 @@ _EPI_ARGTYPES = {
 }
 
 
-def _epi_chunks(r):
-    return max(1, min(_EPI_MAX_CHUNKS, -(-r // _EPI_CHUNK_ROWS)))
+def _epi_layout(r, c, itemsize, aligned=True):
+    """csrc/conv_epilogue.cu's ``epi_layout``: how `epi_stats` and
+    `epi_bwd_reduce` reduce (r, c) rows of ``itemsize``-byte elements whose
+    row tensors are all 16-byte aligned (``aligned``) or not.
+
+    ``v``: elements a load (16 bytes, or 1 on the scalar path); ``l``: the
+    fold, (r // l, w = l * c) rows read instead, column j standing for
+    channel j % c, the r % l tail rows added by the finishing thread; ``rf``
+    the folded rows. A c of whole 16-byte packs is not folded; another c
+    folds the fewest rows that make whole packs, when r has that many and
+    the folded row is at most 512 bytes; else the scalar path. ``route``:
+    "cluster" (one launch, clusters of K blocks over each of ``tiles``
+    tiles of ``tx`` packs: 8, doubled up to 32 while at least 8 tiles are
+    left; no workspace) when the tensor's bytes are at most 400 KiB for
+    each of 8 blocks a tile, else "streamed" (two
+    launches over ``part``, (2, n_chunks, c) floats; ``tx`` packs a tile,
+    a power of two up to 32, or the whole folded row). ``ty``: rows in
+    flight a block."""
+    kv = 16 // itemsize
+    v, l = 1, 1
+    if aligned and c % kv == 0:
+        v = kv
+    elif aligned:
+        l0 = 16 // math.gcd(c * itemsize % 16, 16)
+        if l0 * c * itemsize <= _EPI_FOLD_MAX_BYTES and r >= l0:
+            v, l = kv, l0
+    w = l * c
+    rf = r // l
+    packs = w // v
+    twc = packs    # the cluster route's tile
+    if l == 1 and v == 1:
+        twc = min(packs, 32)
+    elif l == 1:
+        twc = _EPI_CLUSTER_TILE_PACKS
+        while twc < 32 and -(-packs // (2 * twc)) >= _EPI_CLUSTER_MIN_TILES:
+            twc *= 2
+        twc = min(twc, packs)
+    tiles_c = -(-packs // twc)
+    cluster = rf * w * itemsize <= (_EPI_CLUSTER_BYTES_PER_BLOCK
+                                    * _EPI_CLUSTER_MIN_K * tiles_c)
+    if cluster:
+        tx = twc
+    elif l > 1:
+        tx = packs
+    else:
+        tx = 1
+        while tx < packs and tx < 32:
+            tx *= 2
+    ty = 1
+    while tx * ty * 2 <= _EPI_THREADS:
+        ty *= 2
+    lay = {"v": v, "l": l, "w": w, "rf": rf, "tx": tx, "ty": ty,
+           "tiles": -(-packs // tx),
+           "route": "cluster" if cluster else "streamed", "n_chunks": 0}
+    if not cluster:
+        lay["n_chunks"] = max(1, min(_EPI_MAX_CHUNKS,
+                                     -(-rf // _EPI_CHUNK_ROWS)))
+    return lay
+
+
+def _epi_aligned(*tensors):
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _epi_part(lay, dev):
+    """The streamed route's workspace (2, n_chunks, c) floats and its chunk
+    count, or (None, 0) on the cluster route."""
+    if lay["route"] == "cluster":
+        return None, 0
+    part = torch.empty((2, lay["n_chunks"], lay["w"] // lay["l"]),
+                       dtype=torch.float32, device=dev)
+    return part, lay["n_chunks"]
 
 
 def _epi_call(symbol, dev, *args):
@@ -279,26 +355,33 @@ def epi_stats(x2d, gamma, beta, eps=1e-3, fix_gamma=False):
     with the biased ``var = max(E[d^2] - E[d]^2, 0)`` of ``d = x - proxy``
     (the proxy: the mean of the first 8 rows), ``inv = 1/sqrt(var + eps)``,
     ``scale = gamma * inv`` (gamma taken as 1 under ``fix_gamma``) and
-    ``shift = beta - mean * scale``. CUDA: the kernel pair ``epi_stats`` of
-    ``csrc/conv_epilogue.cu`` (deterministic two-pass column sums); CPU:
+    ``shift = beta - mean * scale``. CUDA: ``epi_stats`` of
+    ``csrc/conv_epilogue.cu`` on the route `_epi_layout` names (one
+    cluster launch for small R, else two streamed passes; deterministic
+    either way), counted in ``epi_stats.routes`` beside ``launches`` (and
+    under "folded" when a narrow C is read as folded rows); CPU:
     `epi_stats_reference`."""
     if _plain(x2d):
         return epi_stats_reference(x2d, gamma, beta, eps, fix_gamma)
     _epi_check("epi_stats", x2d, params=(("gamma", gamma), ("beta", beta)))
     r, c = x2d.shape
-    n = _epi_chunks(r)
-    part = torch.empty((2, n, c), dtype=torch.float32, device=x2d.device)
+    lay = _epi_layout(r, c, x2d.element_size(), _epi_aligned(x2d))
+    part, n = _epi_part(lay, x2d.device)
     vecs = torch.empty((5, c), dtype=torch.float32, device=x2d.device)
     _epi_call("epi_stats", x2d.device, x2d.data_ptr(),
               _EPI_DTYPES[x2d.dtype], r, c, gamma.data_ptr(),
               beta.data_ptr(), int(gamma.dtype == torch.bfloat16),
-              float(eps), int(bool(fix_gamma)), part.data_ptr(), n,
+              float(eps), int(bool(fix_gamma)), _ptr(part), n,
               *(v.data_ptr() for v in vecs))
     epi_stats.launches += 1
+    epi_stats.routes[lay["route"]] += 1
+    if lay["l"] > 1:
+        epi_stats.routes["folded"] += 1
     return tuple(vecs)
 
 
 epi_stats.launches = 0
+epi_stats.routes = dict.fromkeys(("cluster", "streamed", "folded"), 0)
 
 
 def epi_apply_reference(x2d, res2d, scale, shift, relu):
@@ -357,8 +440,9 @@ def epi_bwd_reduce(ct, x2d, out, mean, inv, gamma, fix_gamma=False):
     ``(dgamma, dbeta, coef, cb, cg)``: dgamma = sum(g * xhat) (zeros under
     ``fix_gamma``) and dbeta = sum(g) in gamma's dtype, and the f32 (C,)
     dx coefficients coef = gamma * inv, cb = sum(g) / R, cg =
-    sum(g * xhat) / R. CUDA: the kernel pair ``epi_bwd_reduce``
-    (deterministic); CPU: `epi_bwd_reduce_reference`."""
+    sum(g * xhat) / R. CUDA: ``epi_bwd_reduce`` on the route `_epi_layout`
+    names, counted as `epi_stats` counts (deterministic); CPU:
+    `epi_bwd_reduce_reference`."""
     if _plain(x2d):
         return epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma,
                                         fix_gamma)
@@ -366,21 +450,25 @@ def epi_bwd_reduce(ct, x2d, out, mean, inv, gamma, fix_gamma=False):
                vecs=(("mean", mean), ("inv", inv)),
                params=(("gamma", gamma),))
     r, c = x2d.shape
-    n = _epi_chunks(r)
-    part = torch.empty((2, n, c), dtype=torch.float32, device=x2d.device)
+    lay = _epi_layout(r, c, x2d.element_size(), _epi_aligned(ct, x2d, out))
+    part, n = _epi_part(lay, x2d.device)
     grads = torch.empty((2, c), dtype=gamma.dtype, device=x2d.device)
     vecs = torch.empty((3, c), dtype=torch.float32, device=x2d.device)
     _epi_call("epi_bwd_reduce", x2d.device, ct.data_ptr(), x2d.data_ptr(),
               _ptr(out), _EPI_DTYPES[x2d.dtype], r, c, mean.data_ptr(),
               inv.data_ptr(), gamma.data_ptr(),
               int(gamma.dtype == torch.bfloat16), int(bool(fix_gamma)),
-              part.data_ptr(), n, grads[0].data_ptr(), grads[1].data_ptr(),
+              _ptr(part), n, grads[0].data_ptr(), grads[1].data_ptr(),
               *(v.data_ptr() for v in vecs))
     epi_bwd_reduce.launches += 1
+    epi_bwd_reduce.routes[lay["route"]] += 1
+    if lay["l"] > 1:
+        epi_bwd_reduce.routes["folded"] += 1
     return (grads[0], grads[1]) + tuple(vecs)
 
 
 epi_bwd_reduce.launches = 0
+epi_bwd_reduce.routes = dict.fromkeys(("cluster", "streamed", "folded"), 0)
 
 
 def epi_bwd_dx_reference(ct, x2d, out, mean, inv, coef, cb, cg, has_res):

@@ -568,7 +568,8 @@ class TransformerLMEngine:
                 raise MXNetError("TransformerLMEngine needs an lm= module or "
                                  "params= + config=")
             lm = TransformerLM(**config, device=self.device)
-            lm.load_state_dict(_convert.params_from_jax(params))
+            lm.load_state_dict(_convert.params_from_jax(
+                params, dropout=config.get("dropout", 0.0)))
         self.lm = lm.to(device=self.device, dtype=torch.float32).eval()
         config = lm.config
         self.config = dict(config)
@@ -693,7 +694,8 @@ class TransformerLMEngine:
             rows = torch.arange(n, device=dev)
             pos = torch.arange(lp, device=dev)
             causal = (pos[None, :] <= pos[:, None])[None]
-            x = lm.word_weight[tok] + lm.position_embed.weight[:lp]
+            word = lm._held("word_weight")
+            x = word[tok] + lm.position_embed._held("weight")[:lp]
             x = lm.embed_norm(x)
 
             def write_kv(li, k, v):
@@ -706,7 +708,7 @@ class TransformerLMEngine:
                 return torch.einsum("hqk,khd->qhd", p, v)
 
             x = self._cells(x, attend, write_kv)
-            logits = torch.matmul(x[n - 1], lm.word_weight.t())
+            logits = torch.matmul(x[n - 1], word.t())
             temp, top_k, top_p = sampling
             out = sample_token_logits(logits[None], [float(temp)],
                                       [int(top_k)], [float(top_p)],
@@ -736,7 +738,8 @@ class TransformerLMEngine:
             slots = torch.from_numpy(
                 _np.asarray(dest_slots, _np.int64)[rows]).to(dev)
             rows_t = torch.from_numpy(rows).to(dev)
-            x = lm.word_weight[tok] + lm.position_embed.weight[pos]
+            word = lm._held("word_weight")
+            x = word[tok] + lm.position_embed._held("weight")[pos]
             x = lm.embed_norm(x)
 
             def write_kv(li, k, v):
@@ -747,7 +750,7 @@ class TransformerLMEngine:
                                        tbl, lens, sm_scale=self._scale)
 
             x = self._cells(x, attend, write_kv)
-            logits = torch.matmul(x, lm.word_weight.t())
+            logits = torch.matmul(x, word.t())
             out = sample_token_logits(logits, temps, top_ks, top_ps,
                                       generator=generator)
             return out.cpu().numpy()

@@ -125,7 +125,7 @@ def test_embedding_clips_indices_like_jax():
     got = tops.embedding(torch.from_numpy(idx), torch.from_numpy(w))
     _close(got, want, 0.0, "embedding")
     layer = tnn.Embedding(7, 3, device="cpu")
-    layer.weight.data.copy_(torch.from_numpy(w))
+    layer.weight.set_data(w)
     _close(layer(torch.from_numpy(idx)), want, 0.0, "Embedding")
 
 

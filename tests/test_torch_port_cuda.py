@@ -130,7 +130,8 @@ def _greedy(lm, prompt, n):
     toks, out = list(prompt), []
     with torch.no_grad():
         for _ in range(n):
-            ids = torch.tensor([toks], device=lm.word_weight.device)
+            ids = torch.tensor([toks],
+                               device=lm._held("word_weight").device)
             t = int(torch.argmax(lm(ids)[0, -1]))
             out.append(t)
             toks.append(t)
@@ -247,6 +248,84 @@ def test_epilogue_kernels_match_plain_on_card(dtype, r, c, relu, has_res):
         assert dres is None
     torch.cuda.synchronize()
     assert all(getattr(tpk, n).launches == before[n] + 1 for n in _EPI_NAMES)
+
+
+# (R, C): the cluster route folded with a tail and unfolded over 7 tiles,
+# R < 8, and the streamed route folded and unfolded
+_ROUTE_SHAPES = [(1003, 3), (777, 5), (5, 3), (8192, 448), (6272, 2048),
+                 (26000, 64), (1100000, 3)]
+
+
+@pytest.mark.cuda
+def test_epi_layout_mirrors_the_kernel_layout_on_card():
+    """`_epi_layout` against the kernel's own layout (``epi_layout_query``:
+    V, L, W, route, tx, ty, tiles, n_chunks) at the route shapes and the
+    smoke's, both dtypes, aligned or not; the cluster size the card takes
+    is 8 or 16."""
+    import ctypes
+
+    from chip_smoke import EPI_SHAPES
+    from mxnet_tpu_torch.ops import _build
+
+    _need_card()
+    fn = _build.load("conv_epilogue").epi_layout_query
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    shapes = _ROUTE_SHAPES + [(r, c) for _, r, c in EPI_SHAPES]
+    for r, c in shapes:
+        for code, itemsize in ((0, 4), (1, 2)):
+            for aligned in (True, False):
+                out = (ctypes.c_int * 9)()
+                assert fn(code, r, c, int(aligned), out) == 0
+                lay = tpk._epi_layout(r, c, itemsize, aligned)
+                want = [lay["v"], lay["l"], lay["w"],
+                        int(lay["route"] == "cluster"), lay["tx"], lay["ty"],
+                        lay["tiles"], lay["n_chunks"]]
+                assert list(out)[:8] == want, (r, c, itemsize, aligned)
+                assert out[8] in (8, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,c", _ROUTE_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_reductions_on_each_route_match_plain_on_card(dtype, r, c, offset):
+    """Both reductions on the route their layout names (counted in
+    ``routes``), folded or not, and from rows that start one element past
+    16-byte alignment (the scalar path), against the plain versions; two
+    runs give the same bits."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    x, _, gamma, beta, ct = _epi_case(11, r, c, tdt)
+    if offset:   # views one element into a buffer: not 16-byte aligned
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(r, c)
+        ct = torch.cat([ct.new_zeros(1), ct.flatten()])[1:].view(r, c)
+    aligned = offset == 0
+    lay = tpk._epi_layout(r, c, x.element_size(), aligned)
+    out = torch.relu(x)
+    if offset:
+        out = torch.cat([out.new_zeros(1), out.flatten()])[1:].view(r, c)
+    for fn, args, names, ref in (
+            (tpk.epi_stats, (x, gamma, beta, 1e-5, False),
+             ("mean", "var", "inv", "scale", "shift"),
+             tpk.epi_stats_reference),
+            (tpk.epi_bwd_reduce, (ct, x, out, None, None, gamma, False),
+             ("dgamma", "dbeta", "coef", "cb", "cg"),
+             tpk.epi_bwd_reduce_reference)):
+        if fn is tpk.epi_bwd_reduce:
+            mean, _, inv, _, _ = tpk.epi_stats_reference(x, gamma, beta,
+                                                         1e-5, False)
+            args = (ct, x, out, mean, inv, gamma, False)
+        before = dict(fn.routes)
+        got = fn(*args)
+        again = fn(*args)
+        want = ref(*args)
+        moved = {k: n - before[k] for k, n in fn.routes.items()}
+        assert moved[lay["route"]] == 2 and \
+            moved["folded"] == (2 if lay["l"] > 1 else 0), (moved, lay)
+        for name, a, b, a2 in zip(names, got, want, again):
+            _close(a, b, 1e-4, "%s (%d, %d) %s" % (name, r, c, dtype))
+            assert torch.equal(a, a2), name
 
 
 @pytest.mark.cuda
@@ -1319,7 +1398,8 @@ def test_resnet_v2_input_batchnorm_runs_the_kernels_on_card(dtype):
                   before.items()}
         assert counts == dict.fromkeys(counts, 1 if dev == "cuda" else 0)
         results[dev] = [out.detach().float().cpu(), dx.float().cpu(),
-                        bn.running_mean.cpu(), bn.running_var.cpu()]
+                        bn._held("running_mean").cpu(),
+                        bn._held("running_var").cpu()]
     for i, (got, want) in enumerate(zip(results["cuda"], results["cpu"])):
         t = 1e-4 if i >= 2 else tol
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=t,

@@ -31,8 +31,28 @@ showed it, on the CPU:
     with torch's default device set to ``meta`` while a CPU executor runs
     (on the card in ``test_torch_port_cuda.py``), from a fresh thread.
 
+12. ``context``: ``cpu(0)`` takes the reference's device id (it raised);
+    ``with mx.cpu():`` and ``with mx.gpu(0):`` set what `current_context`
+    returns, whichever of that block and a `context.scope` is the inner
+    one (the block entered torch's device context, which
+    `current_context` never read); every zoo factory and ``get_model``
+    build on the ``ctx`` they are given (they dropped it and resolved the
+    card).
+13. A layer's ``weight``, ``bias``, ``gamma``, ``beta``, ``running_mean``,
+    ``running_var`` and ``alpha`` are its gluon Parameters (they were
+    tensors): ``lr_mult`` and ``grad_req`` set there reach the Trainer,
+    and ``data()`` returns the array.
+14. ResNet v1 and the transformer zoo are `HybridBlock`s built as the JAX
+    package builds them: names, ``.params`` files both ways, a forward on
+    NDArrays, ``export`` (ResNet; the transformer blocks refuse it in both
+    packages), ``initialize(init, ctx=)`` and the pretrained message.
+15. ``HybridSequential`` slicing gives a container of the same type (the
+    slice was passed as a prefix).
+
 Float results within 1e-6 relative and absolute (both sides compute in f32
-from the same inputs); integer results and shapes exactly.
+from the same inputs); integer results and shapes exactly. A whole net's
+output (14) within 1e-5 of its largest magnitude: the two packages'
+convolutions and GEMMs sum in other orders.
 """
 import numpy as np
 import pytest
@@ -353,3 +373,250 @@ def test_creation_ops_take_the_executors_device():
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# 12. devices: cpu(0), `with mx.cpu():`, the zoo's ctx
+# ---------------------------------------------------------------------------
+
+def test_cpu_takes_the_reference_device_id():
+    assert mx.cpu(0) == mx.cpu() == torch.device("cpu")
+    assert str(mx_j.cpu(0)) == "cpu(0)"
+    a = nd.zeros((2,), ctx=mx.cpu(0))
+    assert a.context == torch.device("cpu")
+
+
+def test_with_device_sets_current_context_as_jax():
+    from mxnet_tpu_torch import context
+
+    with mx.cpu():
+        got = nd.zeros((2,))
+        assert mx.current_context() == torch.device("cpu")
+    with mx_j.cpu():
+        want = mx_j.nd.zeros((2,))
+    assert got.context.type == "cpu" and str(want.context) == "cpu(0)"
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+    # the inner block wins, a scope or a device block (devices not
+    # resolved: the card need not be present)
+    with context.scope(mx.gpu(0)):
+        with mx.cpu():
+            assert context._innermost() == torch.device("cpu")
+        assert context._innermost() == torch.device("cuda", 0)
+    with mx.gpu(0):
+        with context.scope(mx.cpu()):
+            assert context._innermost() == torch.device("cpu")
+        assert context._innermost() == torch.device("cuda", 0)
+    assert context._innermost() is None
+
+
+@pytest.mark.parametrize("name", ["alexnet", "vgg11", "squeezenet1.0",
+                                  "densenet121", "inceptionv3",
+                                  "mobilenet0.25", "mobilenetv2_0.25",
+                                  "resnet18_v1", "resnet18_v2"])
+def test_zoo_builds_on_the_ctx_it_is_given(name):
+    from mxnet_tpu.gluon.model_zoo import vision as jvision
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.get_model(name, ctx=mx.cpu(), classes=10)
+    # (several JAX factories take no ctx; its default context is the host)
+    jnet = jvision.get_model(name, classes=10)
+    net.initialize()
+    params = net.collect_params()
+    assert [p.list_ctx() for p in params.values()] == \
+        [[torch.device("cpu")]] * len(params)
+    assert sorted(k.split("_", 1)[1] for k in params) == \
+        sorted(k.split("_", 1)[1] for k in jnet.collect_params())
+
+
+# ---------------------------------------------------------------------------
+# 13. layer parameter attributes
+# ---------------------------------------------------------------------------
+
+def _dense_step(pkg, attr, value):
+    """A Dense(2, in_units=3) of ones, ``attr`` of its weight set, one SGD
+    step at lr 1 on sum(d(ones((1, 3)))): the weight after."""
+    d = pkg.gluon.nn.Dense(2, in_units=3)
+    d.initialize(pkg.init.One(), ctx=pkg.cpu())
+    setattr(d.weight, attr, value)
+    trainer = pkg.gluon.Trainer(d.collect_params(), "sgd",
+                                {"learning_rate": 1.0})
+    x = pkg.nd.ones((1, 3), ctx=pkg.cpu())
+    with pkg.autograd.record():
+        y = d(x).sum()
+    y.backward()
+    trainer.step(1)
+    return d.weight.data().asnumpy()
+
+
+@pytest.mark.parametrize("attr,value,expect", [("lr_mult", 0.1, 0.9),
+                                               ("grad_req", "null", 1.0)])
+def test_layer_parameter_attributes_reach_the_trainer_as_jax(attr, value,
+                                                             expect):
+    want = _dense_step(mx_j, attr, value)
+    got = _dense_step(mx, attr, value)
+    np.testing.assert_allclose(want, expect, rtol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_layer_attributes_are_parameters():
+    from mxnet_tpu_torch.gluon.parameter import Parameter
+
+    layers = {"dense": (tnn.Dense(2, in_units=3), ("weight", "bias")),
+              "conv": (tnn.Conv2D(2, 3, in_channels=1), ("weight", "bias")),
+              "bn": (tnn.BatchNorm(in_channels=2),
+                     ("gamma", "beta", "running_mean", "running_var")),
+              "prelu": (tnn.PReLU(), ("alpha",)),
+              "embed": (tnn.Embedding(5, 2), ("weight",)),
+              "ln": (tnn.LayerNorm(2), ("gamma", "beta"))}
+    for name, (layer, attrs) in layers.items():
+        layer.initialize(ctx=CPU)
+        for a in attrs:
+            p = getattr(layer, a)
+            assert isinstance(p, Parameter), (name, a)
+            assert p is layer.collect_params()[layer.prefix + a]
+            assert p.data()._data is layer._held(a), (name, a)
+    x = nd.array(np.arange(6, dtype=np.float32).reshape(2, 3), ctx=CPU)
+    dense = layers["dense"][0]
+    want = x.asnumpy() @ dense.weight.data().asnumpy().T \
+        + dense.bias.data().asnumpy()
+    np.testing.assert_allclose(dense(x).asnumpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(dense(x._data).detach().numpy(), want,
+                               rtol=1e-6)
+    assert tnn.Dense(2, in_units=3, use_bias=False).bias is None
+
+
+# ---------------------------------------------------------------------------
+# 14. ResNet v1 and the transformer zoo as HybridBlocks
+# ---------------------------------------------------------------------------
+
+def _same_weights(jnet, net):
+    from mxnet_tpu_torch import convert
+
+    params = {k: p.data().asnumpy() for k, p in
+              jnet.collect_params().items()}
+    net.load_state_dict(convert.vision_params_from_jax(params, net),
+                        strict=True)
+
+
+def _net_close(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_resnet18_v1_save_load_export_as_jax(tmp_path, fused):
+    from mxnet_tpu.gluon.model_zoo import vision as jvision
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    np.random.seed(0)
+    jnet = jvision.resnet18_v1(classes=10, fuse_epilogue=fused)
+    jnet.initialize(mx_j.init.Xavier(), ctx=mx_j.cpu())
+    x = np.random.RandomState(1).randn(2, 3, 32, 32).astype(np.float32)
+    want = jnet(mx_j.nd.array(x)).asnumpy()
+    net = vision.resnet18_v1(classes=10, fuse_epilogue=fused, ctx=CPU)
+    assert isinstance(net, mx.gluon.HybridBlock)
+    assert sorted(net._collect_params_with_prefix()) == \
+        sorted(jnet._collect_params_with_prefix())
+    _same_weights(jnet, net)
+    xn = nd.array(x, ctx=CPU)
+    _net_close(net(xn).asnumpy(), want, "forward")
+    # the port's file back into the port, and the JAX package's file
+    net.save_parameters(str(tmp_path / "t.params"))
+    jnet.save_parameters(str(tmp_path / "j.params"))
+    for f in ("t.params", "j.params"):
+        again = vision.resnet18_v1(classes=10, fuse_epilogue=fused, ctx=CPU)
+        again.load_parameters(str(tmp_path / f), ctx=CPU)
+        _net_close(again(xn).asnumpy(), want, f)
+    again.hybridize()
+    again.export(str(tmp_path / "net"))
+    sb = SymbolBlock.imports(str(tmp_path / "net-symbol.json"), ["data"],
+                             str(tmp_path / "net-0000.params"), ctx=CPU)
+    _net_close(sb(xn).asnumpy(), want, "export")
+    jsb = mx_j.gluon.SymbolBlock.imports(str(tmp_path / "net-symbol.json"),
+                                         ["data"],
+                                         str(tmp_path / "net-0000.params"))
+    _net_close(jsb(mx_j.nd.array(x)).asnumpy(), want, "export in JAX")
+
+
+def test_resnet_pretrained_names_load_parameters_as_jax():
+    from mxnet_tpu.gluon.model_zoo import vision as jvision
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    with pytest.raises(Exception, match="load_parameters"):
+        jvision.resnet18_v1(pretrained=True)
+    with pytest.raises(MXNetError, match="load_parameters"):
+        vision.resnet18_v1(pretrained=True)
+    assert callable(vision.ResNetV1.load_parameters)
+
+
+def _lm_pair(tmp_path, make, jmake, **kw):
+    """The JAX net, its `.params` file, and the port's net with it loaded
+    (names and child paths are the JAX package's)."""
+    np.random.seed(3)
+    jnet = jmake(vocab_size=50, **kw)
+    jnet.initialize(mx_j.init.Xavier(), ctx=mx_j.cpu())
+    ids = np.random.RandomState(4).randint(0, 50, (2, 6)).astype(np.int32)
+    jout = jnet(mx_j.nd.array(ids, dtype="int32"))
+    jnet.save_parameters(str(tmp_path / "j.params"))
+    net = make(vocab_size=50, **kw)
+    net.initialize(mx.init.Xavier(), ctx=CPU)
+    assert sorted(k.split("_", 1)[1] for k in net.collect_params()) == \
+        sorted(k.split("_", 1)[1] for k in jnet.collect_params())
+    net.load_parameters(str(tmp_path / "j.params"), ctx=CPU)
+    return jnet, net, ids, jout
+
+
+def test_transformer_lm_initialize_ctx_save_load_as_jax(tmp_path):
+    """examples/serving/generate_lm.py:51's call, then the JAX LM's file
+    in the port, a save -> load round trip, and export refused in both."""
+    from mxnet_tpu.gluon.model_zoo import transformer as jtr
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as ttr
+
+    jnet, net, ids, jout = _lm_pair(tmp_path, ttr.lm_mini, jtr.lm_mini)
+    _net_close(net(nd.array(ids, ctx=CPU, dtype="int32")).asnumpy(),
+               jout.asnumpy(), "lm_mini")
+    net.save_parameters(str(tmp_path / "t.params"))
+    again = ttr.lm_mini(vocab_size=50).initialize(mx.init.Xavier(),
+                                                  ctx=mx.cpu())
+    again.load_parameters(str(tmp_path / "t.params"), ctx=CPU)
+    _net_close(again(torch.from_numpy(ids)).detach().numpy(),
+               jout.asnumpy(), "lm_mini reloaded")
+    with pytest.raises(Exception):
+        jnet.export(str(tmp_path / "j"))
+    with pytest.raises(Exception):
+        again.export(str(tmp_path / "t"))
+
+
+def test_bert_mini_loads_the_jax_file(tmp_path):
+    from mxnet_tpu.gluon.model_zoo import transformer as jtr
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as ttr
+
+    jnet, net, ids, jout = _lm_pair(tmp_path, ttr.bert_mini, jtr.bert_mini,
+                                    dropout=0.0)
+    seq, pooled = net(nd.array(ids, ctx=CPU, dtype="int32"))
+    _net_close(seq.asnumpy(), jout[0].asnumpy(), "bert_mini sequence")
+    _net_close(pooled.asnumpy(), jout[1].asnumpy(), "bert_mini pooled")
+    assert len(net.encoder.cells) == 2
+
+
+# ---------------------------------------------------------------------------
+# 15. HybridSequential slicing
+# ---------------------------------------------------------------------------
+
+def test_sequential_slice_matches_jax():
+    out = {}
+    for pkg in (mx_j, mx):
+        net = pkg.gluon.nn.HybridSequential()
+        net.add(pkg.gluon.nn.Dense(4, in_units=3),
+                pkg.gluon.nn.Dense(2, in_units=4))
+        net.initialize(pkg.init.One(), ctx=pkg.cpu())
+        tail = net[1:]
+        assert type(tail) is type(net) and len(tail) == 1
+        assert tail.prefix == net.prefix
+        assert list(tail._children.values()) == [net[1]] == [net[-1]]
+        out[pkg] = tail(pkg.nd.ones((1, 4), ctx=pkg.cpu())).asnumpy()
+    np.testing.assert_array_equal(out[mx], out[mx_j])

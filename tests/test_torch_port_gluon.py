@@ -124,8 +124,9 @@ def test_names_and_structure_match_jax():
         list(jnet.collect_params(".*weight"))
     assert tnet.prefix == jnet.prefix == "net_"
     assert tnet[0].name == jnet[0].name == "net_dense0"
-    # the module tree holds the same tensors
-    assert tnet[0].weight is tnet.collect_params()["net_dense0_weight"].var
+    # the attribute is the Parameter, and the module tree holds its tensor
+    assert tnet[0].weight is tnet.collect_params()["net_dense0_weight"]
+    assert tnet[0]._held("weight") is tnet[0].weight.var
     assert sorted(tnet.state_dict()) == sorted(
         k for k in tnet._collect_params_with_prefix())
 
@@ -778,10 +779,10 @@ def test_cast_apply_and_summary(capsys):
     net = _mlp(gluon)
     net.initialize()
     net.cast("float64")
-    assert net[0].weight.dtype == torch.float64
+    assert net[0].weight.data().dtype == np.float64
     assert net.collect_params()["net_dense0_weight"].data().dtype == \
         np.float64
-    assert net[1].running_mean.dtype == torch.float64
+    assert net[1].running_mean.data().dtype == np.float64
     out = net(nd.array(_rand(1, 2, 4), dtype="float64"))
     assert out.dtype == np.float64
     seen = []

@@ -348,7 +348,7 @@ def test_resnet50_structure_matches_jax():
         tnet = tresnet.resnet50_v1(classes=1000, fuse_epilogue=True,
                                    device="cpu")
     state = tnet.state_dict()
-    conv = convert.resnet_params_from_jax(params)
+    conv = convert.resnet_params_from_jax(params, fuse_epilogue=True)
     assert sorted(conv) == sorted(state)
     for k, v in conv.items():
         assert tuple(v.shape) == tuple(state[k].shape), k
@@ -357,10 +357,14 @@ def test_resnet50_structure_matches_jax():
         int(np.prod(v.shape)) for v in params.values()) == 25610152
     bns = [m for m in tnet.modules() if isinstance(m, tnn.BatchNorm)]
     assert len(bns) == 53
-    # the reference graph has the same parameter paths
+    # the reference graph: the same names, and the JAX reference graph's
+    # paths (its ReLUs are Activation children)
     with tnn.layout_scope():
         plain = tresnet.resnet50_v1(fuse_epilogue=False, device="cpu")
-    assert sorted(plain.state_dict()) == sorted(state)
+    assert sorted(p.split("_", 1)[1] for p in plain.collect_params()) == \
+        sorted(k.split("_", 1)[1] for k in params)
+    assert sorted(plain.state_dict()) == sorted(
+        convert.resnet_params_from_jax(params, fuse_epilogue=False))
 
 
 @pytest.mark.parametrize("value", [None, "", "0", "1", "auto"])

@@ -182,26 +182,26 @@ def test_gluon_layers_match_jax(pallas_lstm, kind, bidir, layout):
 def test_gluon_layer_contract():
     # input_size 0 is taken from the first input (deferred initialisation)
     layer = trnn.LSTM(8, device="cpu")
-    assert layer.l0_i2h_weight is None and layer.l0_h2h_weight.shape == (
-        32, 8)
+    assert layer._held("l0_i2h_weight") is None \
+        and layer.l0_h2h_weight.shape == (32, 8)
     layer.initialize(ctx="cpu")
     layer(torch.zeros(3, 2, 5))
-    assert layer.l0_i2h_weight.shape == (32, 5)
+    assert layer._held("l0_i2h_weight").shape == (32, 5)
     # each parameter's own initializer wins over initialize's
     layer = trnn.LSTM(8, input_size=4, i2h_weight_initializer="uniform",
                       h2h_bias_initializer="lstmbias", device="cpu")
     layer.initialize("xavier", seed=0)
     with torch.no_grad():
-        assert float(layer.l0_i2h_weight.abs().max()) <= 0.07
-        assert float(layer.l0_h2h_weight.abs().max()) > 0.07
+        assert float(layer._held("l0_i2h_weight").abs().max()) <= 0.07
+        assert float(layer._held("l0_h2h_weight").abs().max()) > 0.07
         np.testing.assert_array_equal(
-            layer.l0_h2h_bias.numpy(), np.repeat([0.0, 1.0, 0.0, 0.0], 8))
+            layer._held("l0_h2h_bias").numpy(), np.repeat([0.0, 1.0, 0.0, 0.0], 8))
     with pytest.raises(MXNetError, match="layout"):
         trnn.GRU(8, input_size=4, layout="NCT", device="cpu")
     layer = trnn.LSTM(8, num_layers=2, input_size=4, device="cpu")
     assert [n for n, _ in layer.named_parameters()][:4] == [
         "l0_i2h_weight", "l0_h2h_weight", "l0_i2h_bias", "l0_h2h_bias"]
-    assert layer.l1_i2h_weight.shape == (32, 8)
+    assert layer._held("l1_i2h_weight").shape == (32, 8)
 
 
 def _model_pair(seed, tie=False, hidden=HIDDEN):
@@ -322,9 +322,10 @@ def test_full_width_word_lm_counts_as_the_jax_model():
     assert sorted(state) == sorted(tnet.state_dict())
     tnet.initialize(seed=0)
     with torch.no_grad():
-        assert float(tnet.rnn.l1_h2h_bias.abs().max()) == 0.0
+        assert float(tnet.rnn._held("l1_h2h_bias").abs().max()) == 0.0
         bound = np.sqrt(3.0 / ((650 + 2600) / 2.0))   # Xavier on (4H, H)
-        assert 0.9 * bound < float(tnet.rnn.l1_h2h_weight.abs().max()) \
+        assert 0.9 * bound < float(
+            tnet.rnn._held("l1_h2h_weight").abs().max()) \
             <= bound
 
 
