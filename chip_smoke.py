@@ -41,7 +41,9 @@ Phases; each raises on failure, and the script then exits non-zero:
    16) and shapes whose block cannot hold all of h (B 128, H 1500 at B
    32: the streamed forward; f32 B 128 and bf16 H 1500 B 32 also take the
    streamed backward, the rest the backward's thread-block clusters) and a
-   layer whose cluster units do not divide H, bf16 and f32, each run twice
+   layer whose cluster units do not divide H, and the OCR net's layers
+   (examples/ctc/lstm_ocr.py: T 24, H 64, B 32 in training and 256 in its
+   closing decode), bf16 and f32, each run twice
    and compared bit for bit (a shape too large for a block must be
    refused, by all three); the bf16 forward and clustered backward kernels
    must hold HMMA instructions and no LSTM kernel may spill registers;
@@ -220,6 +222,50 @@ Phases; each raises on failure, and the script then exits non-zero:
    ``--profile`` adds the device busy share of a bucket-32 batch and its
    split (LSTM, GEMM, log-softmax and pick, rest). The LSTM kernel phase
    holds lstm_infer at the served shapes (35, B, 650), B 1 to 32, too.
+
+8. random (after the kernels): the 19 drawing ops of ``mx.nd.random``
+   (and ``mx.nd.shuffle``) on the card at 2^20 draws each (`check_random`:
+   moments within 5 standard errors of the scipy distribution, a KS test
+   for continuous draws, each likely value's frequency for discrete ones,
+   ranges and dtypes, the permutation, the multinomial's ``get_prob``, the
+   zipfian's unique rows; one seed twice the same bits, the next seed
+   other draws); ``GridGenerator``, ``BilinearSampler`` and
+   ``SpatialTransformer``, the 15 linalg ops and ``foreach`` /
+   ``while_loop`` / ``cond`` on card tensors against the CPU, values and
+   gradients (`spatial_run`, `linalg_run`, `control_flow_run`).
+9. F1 (after serve): ``ModelRepository.load(generate=True)`` of a small LM
+   under ``context.scope(mx.cpu())`` builds its engine on the CPU, and
+   without a scope on the card.
+10. ctc_ocr (after the façade): the OCR net of examples/ctc/lstm_ocr.py
+   (``rnn.LSTM(64, num_layers=2, layout="NTC")`` + ``Dense(11)``, f32)
+   built and initialized with ``ctx=mx.gpu()``, Adam lr 5e-3,
+   ``gluon.loss.CTCLoss``, the example's 350 steps of 32 from its
+   generator (`ocr_generator`): losses finite, the last 25 steps' mean at
+   most half the first 25's; lstm_fwd and lstm_bwd 2 x 350 launches, then
+   lstm_infer 2 in the closing greedy decode of 256 samples; steps/s and
+   the sequence accuracy printed. The CTC op on the card against the CPU
+   op, loss and gradient within 1e-5, at the OCR shape and at (T 200, B
+   32, C 30, L 40), with its card time.
+11. dropout (after ctc_ocr): `bert_12_768_12(dropout=0.1)` + the MLM head
+   (Adam, bf16, 8 x 512) and ``RNNModel(10000, 650, 650, 2,
+   dropout=0.5)`` (SGD, bf16, 35 x 32), 3 steps each: losses finite,
+   every dropout call's kept share (`DropoutMeter`) within 1 % of 1 - p,
+   its kept values x / (1 - p) within two of the dtype's eps and a new
+   mask each step, each flash kernel 12 launches a step and each LSTM
+   training kernel 2, as without dropout; then the masks' cost, A/B on
+   the same model: 8 rounds of 10 steps with dropout and 10 with
+   ``ops.nn.dropout`` the identity, the medians and paired differences
+   printed.
+12. predict_vision (after predict_serving): ``train_imagenet.main
+   --network resnet50_v1 --layout NHWC --batch-size 32 --num-batches 2
+   --model-prefix`` (bf16; the epilogue kernels 53 x 2 launches each),
+   its export loaded by ``ModelRepository.load`` on the card (f32,
+   buckets 1 to 32) and served by ``ServingServer``: 320 sequential
+   one-image requests, then 320 of 1 to 4 images from 8 clients, each
+   image one of 64. Every reply 200 and equal to a CPU ``Predictor`` on
+   the same files within 1e-3 of the logits' largest magnitude; inference
+   launches no epilogue kernel; requests/s, p50 / p99 / max over each
+   part's requests, load and warm seconds printed.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -1230,7 +1276,10 @@ LSTM_CASES = [("path", LSTM_PATH), ("ragged", (7, 5, 9)),
               # the predict_serving phase's buckets below 32
               ("served B 1", (35, 1, 650)), ("served B 2", (35, 2, 650)),
               ("served B 4", (35, 4, 650)), ("served B 8", (35, 8, 650)),
-              ("served B 16", (35, 16, 650))]
+              ("served B 16", (35, 16, 650)),
+              # the ctc_ocr phase's layers (examples/ctc/lstm_ocr.py) and
+              # its closing decode's batch
+              ("OCR", (24, 32, 64)), ("OCR decode", (24, 256, 64))]
 # f32 results rtol 1e-4 with a floor of 1e-4 x max|plain|; bf16 tensors
 # 2^-7 the same way (the products' f32 sums in other orders can round a
 # bf16 h, gate or dgates to the neighbouring value, one step 2^-8, and the
@@ -2697,10 +2746,11 @@ BERT_WARMUP, BERT_STEPS = 3, 10
 BERT_PARAMS = 132953658   # 109,482,240 BERT + 23,471,418 MLM head
 
 
-def bert_pretrain(torch, device, vocab=BERT_VOCAB, mini=False):
+def bert_pretrain(torch, device, vocab=BERT_VOCAB, mini=False, dropout=0.0):
     """bench.py's pretraining block: a BERT (`bert_12_768_12`, or
-    `bert_mini`) without dropout and an MLM Dense(vocab, flatten=False) on
-    its sequence output; children ``bert`` and ``mlm``."""
+    `bert_mini`), without dropout unless ``dropout`` is given, and an MLM
+    Dense(vocab, flatten=False) on its sequence output; children ``bert``
+    and ``mlm``."""
     from mxnet_tpu_torch.gluon import nn as gnn
     from mxnet_tpu_torch.gluon.model_zoo import transformer as zoo
 
@@ -2708,7 +2758,8 @@ def bert_pretrain(torch, device, vocab=BERT_VOCAB, mini=False):
         def __init__(self):
             super().__init__()
             make = zoo.bert_mini if mini else zoo.bert_12_768_12
-            self.bert = make(vocab_size=vocab, dropout=0.0, device=device)
+            self.bert = make(vocab_size=vocab, dropout=dropout,
+                             device=device)
             units = self.bert.pooler.weight.shape[0]
             self.mlm = gnn.Dense(vocab, flatten=False, in_units=units,
                                  device=device)
@@ -4103,10 +4154,10 @@ def score_inputs(seed, n):
     return toks[:, :-1], toks[:, 1:]
 
 
-def serve_clients(port, bodies, clients):
-    """``bodies`` split over ``clients`` threads, each POSTing its share in
-    turn over one keep-alive connection. Returns per body (status, reply,
-    seconds) and the wall seconds of the whole."""
+def serve_clients(port, bodies, clients, model="lm"):
+    """``bodies`` (dicts, or JSON already made) split over ``clients``
+    threads, each POSTing its share in turn to ``model``'s :predict over one keep-alive connection. Returns per
+    body (status, reply, seconds) and the wall seconds of the whole."""
     import http.client
 
     results = [None] * len(bodies)
@@ -4118,8 +4169,9 @@ def serve_clients(port, bodies, clients):
         try:
             for i in range(k, len(bodies), clients):
                 t0 = time.perf_counter()
-                conn.request("POST", "/v1/models/lm:predict",
-                             json.dumps(bodies[i]),
+                conn.request("POST", "/v1/models/%s:predict" % model,
+                             bodies[i] if isinstance(bodies[i], str)
+                             else json.dumps(bodies[i]),
                              {"Content-Type": "application/json"})
                 r = conn.getresponse()
                 reply = json.loads(r.read())
@@ -4348,6 +4400,1099 @@ def predict_serving(torch, pk, args, prefix):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase random: the 22 random ops of mx.nd.random (and ``shuffle``) on the
+# card, each draw held to its distribution; linalg and control flow on card
+# tensors against the CPU. The CPU tests run the same checks on the host.
+# ---------------------------------------------------------------------------
+
+RANDOM_DRAWS = 1 << 20
+RANDOM_SE = 5.0        # moments and frequencies within 5 standard errors
+RANDOM_KS_P = 1e-4     # a continuous draw's KS p-value must exceed this
+
+
+def random_cases(mx, ctx, n):
+    """(op, draw, rows) for every drawing op at ``n`` draws on ``ctx``:
+    ``draw()`` makes the NDArray; ``rows`` is a list of (index into the
+    draw's first axis or None, scipy frozen distribution, discrete) for a
+    distribution op, or the name of a custom check."""
+    from scipy import stats
+
+    nd = mx.nd
+
+    def arr(v):
+        return nd.array(v, ctx=ctx)
+
+    half = n // 2
+    zipf_rows = n // 8
+    return [
+        ("_random_uniform", lambda: nd.random.uniform(
+            -1.0, 3.0, shape=(n,), ctx=ctx),
+         [(None, stats.uniform(-1.0, 4.0), False)]),
+        ("_random_normal", lambda: nd.random.normal(
+            1.0, 2.0, shape=(n,), ctx=ctx),
+         [(None, stats.norm(1.0, 2.0), False)]),
+        ("_random_gamma", lambda: nd.random.gamma(
+            0.5, 2.0, shape=(n,), ctx=ctx),
+         [(None, stats.gamma(0.5, scale=2.0), False)]),
+        ("_random_exponential", lambda: nd.random.exponential(
+            2.0, shape=(n,), ctx=ctx),
+         [(None, stats.expon(scale=0.5), False)]),
+        ("_random_poisson", lambda: nd.random.poisson(
+            4.0, shape=(n,), ctx=ctx),
+         [(None, stats.poisson(4.0), True)]),
+        ("_random_negative_binomial", lambda: nd.random.negative_binomial(
+            3, 0.4, shape=(n,), ctx=ctx),
+         [(None, stats.nbinom(3, 0.4), True)]),
+        ("_random_generalized_negative_binomial",
+         lambda: nd.random.generalized_negative_binomial(
+             2.0, 0.5, shape=(n,), ctx=ctx),
+         [(None, stats.nbinom(2.0, 0.5), True)]),
+        ("_random_randint", lambda: nd.random.randint(
+            -3, 7, shape=(n,), ctx=ctx),
+         [(None, stats.randint(-3, 7), True)]),
+        ("_sample_uniform", lambda: nd.random.sample_uniform(
+            arr([0.0, -2.0]), arr([1.0, 5.0]), shape=(half,)),
+         [(0, stats.uniform(0.0, 1.0), False),
+          (1, stats.uniform(-2.0, 7.0), False)]),
+        ("_sample_normal", lambda: nd.random.sample_normal(
+            arr([0.0, 3.0]), arr([1.0, 0.5]), shape=(half,)),
+         [(0, stats.norm(0.0, 1.0), False),
+          (1, stats.norm(3.0, 0.5), False)]),
+        ("_sample_gamma", lambda: nd.random.sample_gamma(
+            arr([0.5, 3.0]), arr([1.0, 2.0]), shape=(half,)),
+         [(0, stats.gamma(0.5, scale=1.0), False),
+          (1, stats.gamma(3.0, scale=2.0), False)]),
+        ("_sample_exponential", lambda: nd.random.sample_exponential(
+            arr([1.0, 4.0]), shape=(half,)),
+         [(0, stats.expon(scale=1.0), False),
+          (1, stats.expon(scale=0.25), False)]),
+        ("_sample_poisson", lambda: nd.random.sample_poisson(
+            arr([0.5, 10.0]), shape=(half,)),
+         [(0, stats.poisson(0.5), True), (1, stats.poisson(10.0), True)]),
+        ("_sample_negative_binomial",
+         lambda: nd.random.sample_negative_binomial(
+             arr([2.0, 5.0]), arr([0.3, 0.7]), shape=(half,)),
+         [(0, stats.nbinom(2.0, 0.3), True),
+          (1, stats.nbinom(5.0, 0.7), True)]),
+        ("_sample_generalized_negative_binomial",
+         lambda: nd.random.sample_generalized_negative_binomial(
+             arr([1.0, 4.0]), arr([0.5, 1.0]), shape=(half,)),
+         # n = 1 / alpha, p = 1 / (1 + alpha mu)
+         [(0, stats.nbinom(2.0, 2.0 / 3.0), True),
+          (1, stats.nbinom(1.0, 0.2), True)]),
+        ("_sample_unique_zipfian", lambda: nd.random.sample_unique_zipfian(
+            range_max=50, shape=(zipf_rows, 8), ctx=ctx), "zipfian"),
+        ("_sample_multinomial", lambda: nd.random.sample_multinomial(
+            arr(RANDOM_PROBS), shape=(half,), get_prob=True),
+         "multinomial"),
+        ("_shuffle", lambda: nd.shuffle(nd.arange(n, ctx=ctx)), "shuffle"),
+        ("_sample_token", lambda: nd.random.sample_token(
+            arr(np.tile(RANDOM_LOGITS, (n // len(RANDOM_LOGITS), 1))),
+            temperature=0.7, top_k=5), "token"),
+    ]
+
+
+RANDOM_PROBS = [[0.1, 0.2, 0.7], [0.5, 0.25, 0.25]]
+RANDOM_LOGITS = np.linspace(-1.5, 2.0, 16).astype(np.float32)[::-1].copy()
+
+
+def _within(what, got, want, se):
+    if not abs(got - want) <= RANDOM_SE * se:
+        raise AssertionError("%s: %.6g is %.2f standard errors (%.3g) from "
+                             "%.6g" % (what, got, abs(got - want) / se, se,
+                                       want))
+
+
+def check_distribution(what, x, dist, discrete):
+    """``x`` (numpy, 1-D) against the scipy distribution ``dist``: mean and
+    variance within RANDOM_SE standard errors, and for a continuous one
+    the KS test, for a discrete one each value's frequency where its
+    probability is at least 1e-3. Returns the KS p-value (None if
+    discrete)."""
+    from scipy import stats
+
+    x = np.asarray(x, dtype=np.float64)
+    n = x.size
+    if not np.isfinite(x).all():
+        raise AssertionError("%s: non-finite draws" % what)
+    mean, var, kurt = (float(v) for v in dist.stats(moments="mvk"))
+    _within(what + " mean", x.mean(), mean, (var / n) ** 0.5)
+    _within(what + " variance", x.var(), var,
+            ((kurt + 2.0) * var * var / n) ** 0.5)
+    if discrete:
+        if not np.array_equal(x, np.round(x)):
+            raise AssertionError("%s: a discrete draw is not whole" % what)
+        lo, hi = dist.ppf(1e-6), dist.ppf(1 - 1e-6)
+        for v in np.arange(max(lo, x.min()), hi + 1):
+            p = float(dist.pmf(v))
+            if p >= 1e-3:
+                _within("%s P(%d)" % (what, v), float((x == v).mean()), p,
+                        (p * (1 - p) / n) ** 0.5)
+        return None
+    p_ks = float(stats.kstest(x, dist.cdf).pvalue)
+    if not p_ks > RANDOM_KS_P:
+        raise AssertionError("%s: KS p-value %.3g" % (what, p_ks))
+    return p_ks
+
+
+def _check_custom(kind, out, n):
+    """The draws of zipfian, multinomial, shuffle and sample_token."""
+    if kind == "zipfian":
+        x = out.asnumpy()
+        if out.dtype != np.int32 or x.min() < 0 or x.max() >= 50:
+            raise AssertionError("zipfian: dtype %s, range [%d, %d]"
+                                 % (out.dtype, x.min(), x.max()))
+        s = np.sort(x, axis=1)
+        if (s[:, 1:] == s[:, :-1]).any():
+            raise AssertionError("zipfian: a row repeats a class")
+        freq = np.bincount(x.ravel(), minlength=50) / x.shape[0]
+        # inclusion falls with the class: p(k) ∝ log((k + 2) / (k + 1))
+        if not freq[0] > freq[5] > freq[20] > freq[49]:
+            raise AssertionError("zipfian: inclusion frequencies %s do not "
+                                 "fall" % freq[[0, 5, 20, 49]])
+        return
+    if kind == "multinomial":
+        draws, logp = (a.asnumpy() for a in out)
+        probs = np.asarray(RANDOM_PROBS)
+        for r in range(probs.shape[0]):
+            for k in range(probs.shape[1]):
+                p = probs[r, k]
+                _within("multinomial row %d P(%d)" % (r, k),
+                        float((draws[r] == k).mean()), p,
+                        (p * (1 - p) / draws.shape[1]) ** 0.5)
+            want = np.log(probs[r][draws[r]]).astype(np.float32)
+            if not np.allclose(logp[r], want, rtol=1e-6, atol=1e-6):
+                raise AssertionError("multinomial: get_prob is not the "
+                                     "draws' log-probability")
+        return
+    if kind == "shuffle":
+        x = out.asnumpy()
+        if not np.array_equal(np.sort(x), np.arange(n, dtype=x.dtype)):
+            raise AssertionError("shuffle: not a permutation")
+        if np.array_equal(x, np.arange(n, dtype=x.dtype)):
+            raise AssertionError("shuffle: the identity")
+        first = x[: n // 2].astype(np.float64)
+        _within("shuffle: mean of the first half", first.mean(),
+                (n - 1) / 2.0, (n * n / 12.0 / first.size) ** 0.5)
+        return
+    if kind == "token":
+        x = out.asnumpy().ravel()
+        logits = RANDOM_LOGITS.astype(np.float64) / 0.7
+        top = np.argsort(-RANDOM_LOGITS, kind="stable")[:5]
+        p = np.zeros_like(logits)
+        p[top] = np.exp(logits[top] - logits[top].max())
+        p /= p.sum()
+        for k in range(len(p)):
+            _within("sample_token P(%d)" % k, float((x == k).mean()), p[k],
+                    max(p[k] * (1 - p[k]) / x.size, 1e-12) ** 0.5)
+        return
+    raise ValueError(kind)
+
+
+def check_random(mx, ctx, n, seed):
+    """Every case of `random_cases` on ``ctx`` at ``n`` draws: the draws
+    held to their distribution; the same seed twice gives the same bits,
+    and the next seed other draws. Returns {op: smallest KS p-value or
+    None}."""
+    import torch
+
+    report = {}
+    for op, draw, rows in random_cases(mx, ctx, n):
+        mx.random.seed(seed)
+        out = draw()
+        again_out = (mx.random.seed(seed), draw())[1]
+        other_out = (mx.random.seed(seed + 1), draw())[1]
+        outs = out if isinstance(out, list) else [out]
+        again = again_out if isinstance(again_out, list) else [again_out]
+        other = other_out if isinstance(other_out, list) else [other_out]
+        for a, b in zip(outs, again):
+            if not torch.equal(a._data, b._data):
+                raise AssertionError("%s: one seed gave two draws" % op)
+        if torch.equal(outs[0]._data, other[0]._data):
+            raise AssertionError("%s: two seeds gave one draw" % op)
+        if outs[0].context != torch.device(ctx):
+            raise AssertionError("%s: drawn on %s, not %s"
+                                 % (op, outs[0].context, ctx))
+        if isinstance(rows, str):
+            _check_custom(rows, out, n)
+            report[op] = None
+            continue
+        x = out.asnumpy()
+        ps = [check_distribution("%s[%s]" % (op, i), x if i is None else
+                                 x[i], dist, discrete)
+              for i, dist, discrete in rows]
+        ps = [p for p in ps if p is not None]
+        report[op] = min(ps) if ps else None
+    return report
+
+
+LINALG_RTOL = 1e-4     # f32 factorizations in other libraries' orders
+
+
+def linalg_inputs(seed):
+    """Batched f32 inputs of the 15 linalg ops (2 x 4 x 4 unless named):
+    general A, B, C; SPD S; lower L with a diagonal in [1, 2]; wide W (2 x
+    3 x 5) for gelqf; symmetric Y for syevd."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    a = rng.randn(2, 4, 4).astype(f)
+    b = rng.randn(2, 4, 4).astype(f)
+    c = rng.randn(2, 4, 4).astype(f)
+    s = (np.einsum("bij,bkj->bik", a, a) + 4 * np.eye(4)).astype(f)
+    low = np.tril(rng.randn(2, 4, 4)).astype(f)
+    low[:, range(4), range(4)] = rng.uniform(1.0, 2.0, (2, 4))
+    w = rng.randn(2, 3, 5).astype(f)
+    y = (a + a.transpose(0, 2, 1)).astype(f)
+    v = rng.randn(2, 4).astype(f)
+    return {"A": a, "B": b, "C": c, "S": s, "L": low, "W": w, "Y": y,
+            "v": v}
+
+
+# (op, input names, attrs); factor ops come back sign-aligned (see
+# `linalg_run`)
+LINALG_CASES = [
+    ("gemm", ("A", "B", "C"), {"transpose_a": True, "alpha": 0.5,
+                               "beta": 2.0}),
+    ("gemm2", ("A", "B"), {"transpose_b": True, "alpha": 1.5}),
+    ("potrf", ("S",), {}),
+    ("potri", ("L",), {}),
+    ("trsm", ("L", "B"), {"alpha": 2.0}),
+    ("trsm", ("L", "B"), {"transpose": True, "rightside": True}),
+    ("trsm", ("L", "B"), {"transpose": True}),
+    ("trsm", ("L", "B"), {"rightside": True}),
+    ("trmm", ("L", "B"), {"transpose": True, "alpha": 0.5}),
+    ("trmm", ("L", "B"), {"rightside": True}),
+    ("sumlogdiag", ("L",), {}),
+    ("syrk", ("W",), {"alpha": 2.0}),
+    ("syrk", ("W",), {"transpose": True}),
+    ("gelqf", ("W",), {}),
+    ("syevd", ("Y",), {}),
+    ("makediag", ("v",), {}),
+    ("extractdiag", ("A",), {"offset": 1}),
+    ("inverse", ("S",), {}),
+    ("det", ("A",), {}),
+    ("slogdet", ("A",), {}),
+]
+
+
+def _sign_align(op, outs):
+    """gelqf's (L, Q) with L's diagonal made positive; syevd's (V^T, w)
+    with each eigenvector's largest component made positive: factors of
+    two libraries then compare element by element."""
+    if op == "gelqf":
+        low, q = outs
+        d = np.sign(np.diagonal(low, axis1=-2, axis2=-1))
+        d[d == 0] = 1
+        return [low * d[..., None, :], q * d[..., :, None]]
+    if op == "syevd":
+        vt, w = outs
+        pick = np.take_along_axis(
+            vt, np.abs(vt).argmax(axis=-1)[..., None], axis=-1)
+        return [vt * np.sign(pick), w]
+    return outs
+
+
+def linalg_run(mx, ctx, seed):
+    """Each case of LINALG_CASES through ``mx.nd.linalg`` on ``ctx`` of the
+    package ``mx`` (the port or the JAX package): its outputs and the
+    gradient of every input under ``autograd.record()``, for a cotangent
+    of the outputs (for gelqf and syevd, of functions their signs leave
+    alone: L^2, Q^2 and w). Returns [(label, [numpy arrays])]."""
+    data = linalg_inputs(seed)
+    rng = np.random.RandomState(seed + 1)
+    results = []
+    for op, names, attrs in LINALG_CASES:
+        xs = [mx.nd.array(data[k], ctx=ctx) for k in names]
+        for x in xs:
+            x.attach_grad()
+        with mx.autograd.record():
+            outs = getattr(mx.nd.linalg, op)(*xs, **attrs)
+            outs = outs if isinstance(outs, (list, tuple)) else [outs]
+            if op == "gelqf":
+                terms = [outs[0] * outs[0], outs[1] * outs[1]]
+            elif op == "syevd":
+                terms = [outs[1]]
+            elif op == "slogdet":
+                terms = [outs[1]]
+            else:
+                terms = list(outs)
+            total = None
+            for t in terms:
+                cot = mx.nd.array(rng.randn(*t.shape).astype(np.float32),
+                                  ctx=ctx)
+                part = (t * cot).sum()
+                total = part if total is None else total + part
+        total.backward()
+        vals = _sign_align(op, [o.asnumpy() for o in outs])
+        if op == "gelqf":
+            vals.append(np.matmul(*[o.asnumpy() for o in outs]))
+        if op == "syevd":
+            vt, w = (o.asnumpy() for o in outs)
+            vals.append(np.einsum("bki,bk,bkj->bij", vt, w, vt))
+        results.append(("%s %s" % (op, attrs), vals
+                        + [x.grad.asnumpy() for x in xs]))
+    return results
+
+
+CONTROL_FLOW_TOL = 1e-5
+
+
+def control_flow_run(mx, ctx, seed):
+    """``foreach`` (a tanh recurrence over 6 steps), ``while_loop`` (stopping
+    after 4 of at most 4 and of at most 7 iterations: outputs padded) and
+    ``cond`` (each branch) of ``mx.nd.contrib`` on ``ctx`` of the package
+    ``mx``, under ``autograd.record()``: outputs, final states and the
+    gradients of the inputs. Returns [(label, [numpy arrays])]."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    nd = mx.nd
+    results = []
+
+    data = nd.array(rng.randn(6, 3).astype(f), ctx=ctx)
+    w = nd.array(rng.randn(3).astype(f), ctx=ctx)
+    h0 = nd.array(rng.randn(3).astype(f), ctx=ctx)
+    for x in (w, h0):
+        x.attach_grad()
+    with mx.autograd.record():
+        outs, h = nd.contrib.foreach(
+            lambda x, s: (s * 2.0, nd.tanh(x * w + s)), data, h0)
+        loss = (outs * outs).sum() + (h * 3.0).sum()
+    loss.backward()
+    # data's gradient is left out: the JAX package's NDArray indexing (the
+    # slice a step) is not on its tape (ROADMAP queue 3, not queued)
+    results.append(("foreach", [outs.asnumpy(), h.asnumpy(),
+                                w.grad.asnumpy(), h0.grad.asnumpy()]))
+
+    for max_it in (4, 7):
+        i0 = nd.array(np.zeros(1, f), ctx=ctx)
+        acc0 = nd.array(rng.randn(2).astype(f), ctx=ctx)
+        acc0.attach_grad()
+        with mx.autograd.record():
+            outs, (i, acc) = nd.contrib.while_loop(
+                lambda i, acc: i < 4,
+                lambda i, acc: (acc * 2.0, (i + 1, nd.sin(acc) + acc)),
+                [i0, acc0], max_iterations=max_it)
+            # the JAX package's padding rows are off its tape: the
+            # gradient flows through the outputs only when no row is pad
+            loss = (acc * acc).sum() + (outs.sum() if max_it == 4 else 0)
+        loss.backward()
+        results.append(("while_loop max %d" % max_it,
+                        [outs.asnumpy(), i.asnumpy(), acc.asnumpy(),
+                         acc0.grad.asnumpy()]))
+
+    for flag in (1.0, 0.0):
+        x = nd.array(rng.randn(4).astype(f), ctx=ctx)
+        x.attach_grad()
+        with mx.autograd.record():
+            out = nd.contrib.cond(nd.array([flag], ctx=ctx),
+                                  lambda: nd.exp(x) * 2.0,
+                                  lambda: x * x - 1.0)
+            loss = (out * out).sum()
+        loss.backward()
+        results.append(("cond %g" % flag, [out.asnumpy(),
+                                           x.grad.asnumpy()]))
+    return results
+
+
+def compare_runs(what, got, want, rtol):
+    """Two `linalg_run` / `control_flow_run` results, array by array:
+    |got - want| <= rtol |want| + rtol max|want|."""
+    worst = 0.0
+    for (label, g_arrs), (label2, w_arrs) in zip(got, want):
+        assert label == label2, (label, label2)
+        for i, (g, w) in enumerate(zip(g_arrs, w_arrs)):
+            g = np.asarray(g, np.float64)
+            w = np.asarray(w, np.float64)
+            if g.shape != w.shape:
+                raise AssertionError("%s %s [%d]: shape %s, not %s"
+                                     % (what, label, i, g.shape, w.shape))
+            diff = np.abs(g - w)
+            floor = rtol * max(float(np.abs(w).max(initial=0.0)), 1e-30)
+            if not (diff <= rtol * np.abs(w) + floor).all():
+                raise AssertionError("%s %s [%d]: off by %.3g (rtol %g)"
+                                     % (what, label, i, diff.max(), rtol))
+            worst = max(worst, float(diff.max(initial=0.0)))
+    return worst
+
+
+def spatial_run(torch, device, seed):
+    """``GridGenerator`` (affine and warp), ``BilinearSampler`` (a grid
+    reaching past the image) and ``SpatialTransformer`` on ``device``:
+    outputs and the gradients of every input for a random cotangent, as
+    numpy [(label, [arrays])]."""
+    from mxnet_tpu_torch import ops as tops
+
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    theta = (np.tile([[0.9, 0.1, 0.05, -0.2, 1.1, 0.1]], (4, 1))
+             + 0.1 * rng.randn(4, 6)).astype(f)
+    data = rng.randn(4, 3, 32, 40).astype(f)
+    flow = (2.0 * rng.randn(4, 2, 24, 30)).astype(f)
+    grid = (1.3 * rng.uniform(-1, 1, (4, 2, 24, 30))).astype(f)
+    cases = [("GridGenerator affine", "GridGenerator", [theta],
+              {"transform_type": "affine", "target_shape": (24, 30)}),
+             ("GridGenerator warp", "GridGenerator", [flow],
+              {"transform_type": "warp", "target_shape": (24, 30)}),
+             ("BilinearSampler", "BilinearSampler", [data, grid], {}),
+             ("SpatialTransformer", "SpatialTransformer", [data, theta],
+              {"target_shape": (24, 30)})]
+    out = []
+    for label, op, inputs, attrs in cases:
+        ts = [torch.tensor(a, device=device, requires_grad=True)
+              for a in inputs]
+        y = tops.get(op).fn(*ts, **attrs)
+        cot = torch.tensor(rng.randn(*y.shape).astype(f), device=device)
+        y.backward(cot)
+        out.append((label, [y.detach().cpu().numpy()]
+                    + [t.grad.cpu().numpy() for t in ts]))
+    return out
+
+
+def random_phase(torch, args):
+    """The random ops on the card: `check_random` at RANDOM_DRAWS draws
+    (each op's distribution, one seed twice the same bits, the next seed
+    other draws), the spatial transformer ops, linalg and control flow on
+    card tensors against the CPU at the CPU tests' tolerances."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.monotonic()
+    report = check_random(mx, mx.gpu(0), RANDOM_DRAWS, args.seed + 20)
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    log("random: %d drawing ops on the card at %d draws each held to their "
+        "distribution (moments within %g standard errors, KS p > %g for "
+        "continuous draws, each likely value's frequency for discrete "
+        "ones), the same seed twice the same bits and the next seed other "
+        "draws, in %.2f s; smallest KS p-value an op %s"
+        % (len(report), RANDOM_DRAWS, RANDOM_SE, RANDOM_KS_P, draw_s,
+           json.dumps({k: None if v is None else round(v, 4)
+                       for k, v in report.items()})))
+    spatial = compare_runs("spatial", spatial_run(torch, "cuda", args.seed),
+                           spatial_run(torch, "cpu", args.seed), 1e-5)
+    linalg = compare_runs("linalg", linalg_run(mx, mx.gpu(0), args.seed),
+                          linalg_run(mx, mx.cpu(), args.seed), LINALG_RTOL)
+    flow = compare_runs("control flow",
+                        control_flow_run(mx, mx.gpu(0), args.seed),
+                        control_flow_run(mx, mx.cpu(), args.seed),
+                        CONTROL_FLOW_TOL)
+    log("  GridGenerator / BilinearSampler / SpatialTransformer values and "
+        "gradients on the card equal the CPU's (rtol 1e-5; largest abs "
+        "err %.3g); the 15 linalg ops (%d cases, values and gradients, "
+        "gelqf and syevd sign-aligned) within rtol %g (%.3g); foreach / "
+        "while_loop / cond within %g (%.3g)"
+        % (spatial, len(LINALG_CASES), LINALG_RTOL, linalg,
+           CONTROL_FLOW_TOL, flow))
+
+
+# ---------------------------------------------------------------------------
+# phase ctc_ocr: examples/ctc/lstm_ocr.py on the card
+# ---------------------------------------------------------------------------
+
+OCR_SEQ, OCR_FEAT, OCR_CLASSES = 24, 16, 11     # the example's task
+OCR_STEPS, OCR_BATCH, OCR_LR, OCR_HIDDEN = 350, 32, 5e-3, 64
+OCR_TEST = 256                                  # the closing decode's batch
+CTC_TOL = 1e-5
+# (T, B, C, L) of the CTC op's card-against-CPU check: the OCR net's, and
+# a long one
+CTC_SHAPES = [(OCR_SEQ, OCR_BATCH, OCR_CLASSES, 4), (200, 32, 30, 40)]
+
+
+def ocr_generator(seed=7):
+    """The example's ``make_generator`` (examples/ctc/lstm_ocr.py, numpy
+    only; the example module imports the JAX package's name): per-digit
+    column signatures, and a sampler of unaligned 3-4 digit sequences
+    (zero-based labels, the blank the last class)."""
+    rng = np.random.RandomState(seed)
+    signatures = rng.uniform(-1, 1, (10, OCR_FEAT)).astype(np.float32) * 2.0
+
+    def sample(batch):
+        x = rng.normal(0, 0.2, (batch, OCR_SEQ, OCR_FEAT)).astype(np.float32)
+        labels = np.zeros((batch, 4), np.float32)
+        lab_len = np.zeros((batch,), np.float32)
+        for i in range(batch):
+            n = rng.randint(3, 5)
+            digits = rng.randint(0, 10, n)
+            pos = 1
+            kept = []
+            for d in digits:
+                width, gap = 4, 1
+                if pos + width >= OCR_SEQ:
+                    break
+                x[i, pos:pos + width] += signatures[d]
+                kept.append(d)
+                pos += width + gap
+            labels[i, :len(kept)] = np.array(kept)
+            lab_len[i] = len(kept)
+        return x, labels, lab_len
+
+    return sample
+
+
+def ocr_net(mx):
+    """The example's OCRNet: ``rnn.LSTM(64, num_layers=2, layout="NTC")``
+    then ``Dense(11, flatten=False)``."""
+
+    class OCRNet(mx.gluon.HybridBlock):
+        def __init__(self, hidden=OCR_HIDDEN, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.lstm = mx.gluon.rnn.LSTM(hidden, num_layers=2,
+                                              layout="NTC")
+                self.fc = mx.gluon.nn.Dense(OCR_CLASSES, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            return self.fc(self.lstm(x))
+
+    return OCRNet()
+
+
+def greedy_decode(logits):
+    """argmax a step, repeats collapsed, blanks dropped (the example's)."""
+    seqs = []
+    for row in logits.argmax(axis=-1):
+        out, prev = [], -1
+        for c in row:
+            if c != prev and c != OCR_CLASSES - 1:
+                out.append(int(c))
+            prev = c
+        seqs.append(out)
+    return seqs
+
+
+def check_ctc_op(torch, seed):
+    """The CTC op on the card against the CPU op on the same inputs at
+    CTC_SHAPES ("last" blank, label lengths given): loss and the input
+    gradient within CTC_TOL; the card's forward + backward ms."""
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    rng = np.random.RandomState(seed)
+    notes = []
+    for t, b, c, l in CTC_SHAPES:
+        pred = rng.randn(t, b, c).astype(np.float32)
+        lab_len = rng.randint(1, l + 1, b).astype(np.float32)
+        lab = rng.randint(0, c - 1, (b, l)).astype(np.float32)
+        cot = rng.rand(b).astype(np.float32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = torch.tensor(pred, device=dev, requires_grad=True)
+
+            def run():
+                loss = rnn_ops.ctc_loss(
+                    p, torch.tensor(lab, device=dev), None,
+                    torch.tensor(lab_len, device=dev),
+                    use_label_lengths=True, blank_label="last")
+                loss.backward(torch.tensor(cot, device=dev))
+                return loss
+
+            loss = run()
+            res[dev] = (loss.detach(), p.grad.clone())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    p.grad = None
+                    run()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / 5 * 1e3
+        errs = [max_err(torch, g.cpu(), w, CTC_TOL, "CTC %s %s" % (
+            what, (t, b, c, l))) for what, g, w in zip(
+                ("loss", "gradient"), res["cuda"], res["cpu"])]
+        notes.append("(T %d, B %d, C %d, L %d): loss err %.3g, gradient err "
+                     "%.3g, forward + backward %.2f ms (%d frames of small "
+                     "ops)" % (t, b, c, l, errs[0], errs[1], ms, t))
+    return notes
+
+
+def ctc_ocr(torch, pk, args):
+    """examples/ctc/lstm_ocr.py on the card: OCRNet built and initialized
+    with ``ctx=mx.gpu()`` (Xavier), Adam lr 5e-3, ``gluon.loss.CTCLoss``
+    (NTC, NT), the example's 350 steps of 32 from its generator; the
+    closing greedy decode of 256 fresh samples outside ``record()``. The
+    losses finite, the last 25 steps' mean at most half the first 25's;
+    lstm_fwd and lstm_bwd 2 x 350 launches in training and lstm_infer 2
+    in the decode. Then the CTC op on the card against the CPU. Returns
+    the launch counts of the training steps and the decode."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(args.seed)
+    net = ocr_net(mx)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": OCR_LR})
+    ctc = mx.gluon.loss.CTCLoss(layout="NTC", label_layout="NT")
+    sample = ocr_generator()
+    torch.cuda.reset_peak_memory_stats()
+    for k in LSTM_KERNELS:   # the OCR training path's counts start here
+        getattr(pk, k).launches = 0
+    losses = []
+    t0 = time.monotonic()
+    for _ in range(OCR_STEPS):
+        xb, yb, yl = sample(OCR_BATCH)
+        x = mx.nd.array(xb, ctx=mx.gpu())
+        with mx.autograd.record():
+            loss = ctc(net(x), mx.nd.array(yb, ctx=mx.gpu()), None,
+                       mx.nd.array(yl, ctx=mx.gpu()))
+        loss.backward()
+        trainer.step(OCR_BATCH)
+        losses.append(loss.mean()._data)
+    losses = torch.stack(losses).cpu().numpy()
+    wall = time.monotonic() - t0
+    train_launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+    if not np.isfinite(losses).all():
+        raise AssertionError("ctc_ocr: non-finite loss")
+    first, last = losses[:25].mean(), losses[-25:].mean()
+    if not last <= 0.5 * first:
+        raise AssertionError("ctc_ocr: the last 25 steps' mean loss %.4f is "
+                             "above half the first 25's %.4f" % (last, first))
+    want = {"lstm_infer": 0, "lstm_fwd": 2 * OCR_STEPS,
+            "lstm_bwd": 2 * OCR_STEPS}
+    if train_launches != want:
+        raise AssertionError("ctc_ocr training launches %s, not %s"
+                             % (train_launches, want))
+    for k in LSTM_KERNELS:
+        getattr(pk, k).launches = 0
+    xb, yb, yl = sample(OCR_TEST)
+    logits = net(mx.nd.array(xb, ctx=mx.gpu())).asnumpy()
+    decode_launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+    if decode_launches != {"lstm_infer": 2, "lstm_fwd": 0, "lstm_bwd": 0}:
+        raise AssertionError("ctc_ocr decode launches %s, not lstm_infer 2"
+                             % decode_launches)
+    hits = sum(pred == [int(v) for v in lab[:int(n)]]
+               for pred, lab, n in zip(greedy_decode(logits), yb, yl))
+    n_params = sum(int(np.prod(p.shape))
+                   for p in net.collect_params().values())
+    log("ctc_ocr: examples/ctc/lstm_ocr.py's OCRNet (LSTM(64) x 2 NTC + "
+        "Dense(11), %d parameters, f32, ctx=mx.gpu()), Adam lr %g, %d steps "
+        "of %d in %.2f s: %.2f steps/s; CTC loss mean of the first 25 steps "
+        "%.4f, of the last 25 %.4f; training launches %s; greedy decode of "
+        "%d: sequence accuracy %.3f, launches %s; peak allocated %d bytes"
+        % (n_params, OCR_LR, OCR_STEPS, OCR_BATCH, wall, OCR_STEPS / wall,
+           first, last, json.dumps(train_launches), OCR_TEST,
+           hits / OCR_TEST, json.dumps(decode_launches),
+           torch.cuda.max_memory_allocated()))
+    log("  CTC op on the card against the CPU op (blank last, label "
+        "lengths; tol %g): %s" % (CTC_TOL, "; ".join(check_ctc_op(
+            torch, args.seed + 21))))
+    return train_launches, decode_launches
+
+
+# ---------------------------------------------------------------------------
+# phase dropout: BERT-base at dropout 0.1 and the word LM at 0.5 on the card
+# ---------------------------------------------------------------------------
+
+DROPOUT_STEPS = 3
+DROPOUT_KEEP_TOL = 0.01    # kept share within 1 % of 1 - p
+DROPOUT_SAMPLE = 4096      # leading mask elements compared across steps
+DROPOUT_ROUNDS, DROPOUT_ROUND_STEPS = 8, 10   # the timed A/B
+
+
+class DropoutMeter:
+    """Records every dropout call (`ops.nn.dropout`, which the gluon
+    ``Dropout`` layers and the RNN op's inter-layer dropout both call)
+    while it is entered: the share of an input's nonzero elements that
+    stay nonzero, the largest relative gap between a kept element and
+    x / (1 - p), and the keep pattern of the leading DROPOUT_SAMPLE
+    elements."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self.shares = []
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import nn as ops_nn
+
+        self._mod, self._fn = ops_nn, ops_nn.dropout
+        torch = self._torch
+
+        def measured(x, p=0.5, is_train=False, generator=None, axes=()):
+            out = self._fn(x, p, is_train=is_train, generator=generator,
+                           axes=axes)
+            if is_train and p > 0:
+                with torch.no_grad():
+                    live = x != 0
+                    kept = (out != 0) & live
+                    share = kept.sum() / live.sum()
+                    want = x.float() / (1 - p)
+                    gap = torch.where(kept, (out.float() - want).abs()
+                                      / want.abs().clamp_min(1e-30),
+                                      torch.zeros_like(want)).max()
+                    dropped = torch.where(kept, torch.zeros_like(want),
+                                          out.float().abs()).max()
+                    pattern = (out != 0).flatten()[:DROPOUT_SAMPLE].clone()
+                self.shares.append((float(p), share, gap, dropped, pattern,
+                                    tuple(x.shape), x.dtype))
+            return out
+
+        ops_nn.dropout = measured
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.dropout = self._fn
+
+    def check(self, what, steps):
+        """Every call's share within DROPOUT_KEEP_TOL of 1 - p, every kept
+        element x / (1 - p) within two of its dtype's eps, every other one
+        0, and each call's keep pattern different from the same call's a
+        step later (a fresh mask a step); returns (calls, smallest share,
+        largest share, largest relative gap)."""
+        torch = self._torch
+        if not self.shares or len(self.shares) % steps:
+            raise AssertionError("%s: %d dropout calls over %d steps"
+                                 % (what, len(self.shares), steps))
+        gaps = []
+        for p, share, gap, dropped, _, shape, dtype in self.shares:
+            share, gap = float(share), float(gap)
+            gaps.append(gap)
+            if abs(share - (1 - p)) > DROPOUT_KEEP_TOL * (1 - p):
+                raise AssertionError("%s: a dropout of p %g over %s kept "
+                                     "%.5f" % (what, p, shape, share))
+            if gap > 2 * torch.finfo(dtype).eps:
+                raise AssertionError("%s: a dropout of p %g over %s (%s) "
+                                     "kept values %.3g from x / (1 - p)"
+                                     % (what, p, shape, dtype, gap))
+            if float(dropped) != 0:
+                raise AssertionError("%s: a dropout over %s left %g where "
+                                     "it dropped" % (what, shape,
+                                                     float(dropped)))
+        per_step = len(self.shares) // steps
+        for i in range(len(self.shares) - per_step):
+            if torch.equal(self.shares[i][4], self.shares[i + per_step][4]):
+                raise AssertionError("%s: dropout call %d of a step (%s) "
+                                     "drew the same mask in two steps"
+                                     % (what, i % per_step,
+                                        self.shares[i][5]))
+        vals = [float(v[1]) for v in self.shares]
+        return len(vals), min(vals), max(vals), max(gaps)
+
+
+def _dropout_off(calls):
+    """`ops.nn.dropout` replaced by the identity while entered (the same
+    model and trainer without the masks), each training call counted in
+    ``calls``."""
+    from contextlib import contextmanager
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    @contextmanager
+    def off():
+        fn = ops_nn.dropout
+
+        def identity(x, p=0.5, is_train=False, generator=None, axes=()):
+            if is_train and p > 0:
+                calls.append(1)
+            return x
+
+        ops_nn.dropout = identity
+        try:
+            yield
+        finally:
+            ops_nn.dropout = fn
+    return off()
+
+
+def _dropout_steps(torch, pk, trainer, x, y, kernels, per_step, what):
+    """DROPOUT_STEPS steps with the launch counts of ``kernels`` from 0 and
+    every dropout call measured (`DropoutMeter`), and the gates; then the
+    cost of the masks, A/B on the same model and trainer: DROPOUT_ROUNDS
+    rounds, each DROPOUT_ROUND_STEPS steps with dropout and as many with
+    `ops.nn.dropout` the identity, queued back to back with one
+    synchronize a block. Returns (ms a step with and without dropout, each
+    a list over rounds; launches; meter stats; losses)."""
+    for k in kernels:
+        getattr(pk, k).launches = 0
+    with DropoutMeter(torch) as meter:
+        losses = [trainer.step(x, y) for _ in range(DROPOUT_STEPS)]
+    launches = {k: getattr(pk, k).launches for k in kernels}
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("%s: non-finite loss %s" % (what, losses))
+    want = {k: n * DROPOUT_STEPS for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError("%s: launches %s, not %s (as without dropout)"
+                             % (what, launches, want))
+    stats = meter.check(what, DROPOUT_STEPS)
+
+    def block():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DROPOUT_ROUND_STEPS):
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DROPOUT_ROUND_STEPS * 1e3
+
+    on, off, calls = [], [], []
+    for _ in range(DROPOUT_ROUNDS):
+        on.append(block())
+        with _dropout_off(calls):
+            off.append(block())
+    if len(calls) != stats[0] // DROPOUT_STEPS * DROPOUT_ROUNDS \
+            * DROPOUT_ROUND_STEPS:
+        raise AssertionError("%s: the runs without dropout passed %d "
+                             "dropout calls, not %d a step"
+                             % (what, len(calls), stats[0] // DROPOUT_STEPS))
+    return on, off, launches, stats, losses
+
+
+def _ab_line(on, off):
+    """The A/B's medians, each side's range, and the rounds' paired
+    differences (a round with dropout less the round after it without)."""
+    a, b = float(np.median(on)), float(np.median(off))
+    d = [x - y for x, y in zip(on, off)]
+    return ("with dropout %.4f ms a step (median of %d rounds of %d steps; "
+            "range %.4f to %.4f), without %.4f (range %.4f to %.4f); paired "
+            "differences median %.4f ms a step (%.2f %%), range %.4f to %.4f"
+            % (a, len(on), DROPOUT_ROUND_STEPS, min(on), max(on), b,
+               min(off), max(off), float(np.median(d)),
+               float(np.median(d)) / b * 100, min(d), max(d)))
+
+
+def dropout_phase(torch, pk, args):
+    """BERT-base (`bert_12_768_12(dropout=0.1)` + MLM head, Adam, bf16, 8 x
+    512) and the word LM (`RNNModel(10000, 650, 650, 2, dropout=0.5)`,
+    SGD lr 1.0, bf16, 35 x 32) for DROPOUT_STEPS steps each: finite
+    losses, every dropout call right (`DropoutMeter.check`), and each
+    flash kernel 12 launches a step, each LSTM training kernel 2, as the
+    runs without dropout; then the masks' cost, A/B (`_dropout_steps`).
+    Returns the launch counts."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+    from mxnet_tpu_torch.parallel import DistributedTrainer
+
+    net = initializer.initialize(bert_pretrain(torch, "cuda", dropout=0.1),
+                                 seed=args.seed)
+    rng = np.random.RandomState(args.seed + 22)
+    x = torch.from_numpy(rng.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ))
+                         .astype(np.float32)).cuda()
+    trainer = DistributedTrainer(
+        net, "adam", {"learning_rate": 1e-4},
+        loss=gloss.SoftmaxCrossEntropyLoss(), amp_dtype="bfloat16")
+    layers = len(net.bert.encoder.cells)
+    on, off, launches, stats, losses = _dropout_steps(
+        torch, pk, trainer, x, y, FLASH_KERNELS,
+        dict.fromkeys(FLASH_KERNELS, layers), "dropout BERT")
+    log("dropout: bert_12_768_12(dropout=0.1) + MLM head, bf16, %d x %d, "
+        "%d steps: losses %s; %d dropout calls kept %.5f to %.5f (1 - p = "
+        "0.9), kept values x / 0.9 within %.3g, a new mask each step; "
+        "launches %s (= %d a step each, as without dropout); %s; %.1f "
+        "tokens/s with dropout"
+        % (BERT_BATCH, BERT_SEQ, DROPOUT_STEPS, ["%.4f" % v for v in losses],
+           stats[0], stats[1], stats[2], stats[3], json.dumps(launches),
+           layers, _ab_line(on, off),
+           BERT_BATCH * BERT_SEQ / float(np.median(on)) * 1e3))
+    out = dict(launches)
+    del net, trainer
+    torch.cuda.empty_cache()
+
+    lm = RNNModel(LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, dropout=0.5,
+                  device="cuda").initialize(seed=args.seed)
+    x = torch.from_numpy(rng.randint(0, LM_VOCAB, (LM_BPTT, LM_BATCH))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.randint(0, LM_VOCAB, (LM_BPTT, LM_BATCH))
+                         .astype(np.float32)).cuda()
+    trainer = DistributedTrainer(lm, "sgd", {"learning_rate": 1.0},
+                                 loss=seq_ce(gloss), amp_dtype="bfloat16")
+    on, off, launches, stats, losses = _dropout_steps(
+        torch, pk, trainer, x, y, LSTM_KERNELS,
+        {"lstm_infer": 0, "lstm_fwd": LM_LAYERS, "lstm_bwd": LM_LAYERS},
+        "dropout word LM")
+    log("  RNNModel(%d, %d, %d, %d, dropout=0.5), bf16, %d x %d, %d steps: "
+        "losses %s; %d dropout calls (embedding, between the LSTM layers, "
+        "output) kept %.5f to %.5f (1 - p = 0.5), kept values x / 0.5 "
+        "within %.3g, a new mask each step; launches %s; %s; %.1f tokens/s "
+        "with dropout"
+        % (LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, LM_BPTT, LM_BATCH,
+           DROPOUT_STEPS, ["%.4f" % v for v in losses], stats[0], stats[1],
+           stats[2], stats[3], json.dumps(launches), _ab_line(on, off),
+           LM_BPTT * LM_BATCH / float(np.median(on)) * 1e3))
+    out.update({k: launches[k] for k in ("lstm_fwd", "lstm_bwd")})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase predict_vision: ResNet-50 v1 trained by train_imagenet
+# --model-prefix, exported, served by :predict on the card
+# ---------------------------------------------------------------------------
+
+VISION_SERVE_BATCH = 32     # buckets 1 to 32, f32
+VISION_TRAIN_BATCH = 32
+VISION_IMAGES = 64          # distinct images the requests draw from
+VISION_SEQUENTIAL = 320     # one image each, one client
+VISION_MIXED = (8, 40)      # clients, requests each: 1 to 4 images each
+VISION_BODIES = 32          # distinct bodies the concurrent requests cycle
+VISION_RTOL = 1e-3          # of the logits' largest magnitude
+
+
+def predict_vision(torch, pk, args, workdir):
+    """`train_imagenet.main` with ``--model-prefix`` (resnet50_v1, NHWC,
+    bf16, batch 32, 2 steps, the epilogue kernels 53 x 2 launches each),
+    its export loaded by `ModelRepository.load` on the card (f32 buckets 1
+    to 32, warmed) and served by `ServingServer`: VISION_SEQUENTIAL
+    one-image requests from one client, then VISION_MIXED[0] clients of
+    VISION_MIXED[1] requests of 1 to 4 images, every image one of
+    VISION_IMAGES (the JSON bodies made once, before the clock starts).
+    Every reply 200 and equal to a CPU `Predictor` on the same files, run
+    over the VISION_IMAGES images, within VISION_RTOL of the logits'
+    largest magnitude. Returns the training run's epilogue launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import train_imagenet
+    from mxnet_tpu_torch.predict import Predictor
+    from mxnet_tpu_torch.serving import ModelRepository, ServingServer
+
+    prefix = os.path.join(workdir, "resnet50_v1")
+    for k in EPI_KERNELS:   # the training run behind the export
+        getattr(pk, k).launches = 0
+    t0 = time.monotonic()
+    train_imagenet.main(["--network", "resnet50_v1", "--layout", "NHWC",
+                         "--batch-size", str(VISION_TRAIN_BATCH),
+                         "--num-batches", "2", "--lr", "0.02",
+                         "--seed", str(args.seed),
+                         "--model-prefix", prefix])
+    train_s = time.monotonic() - t0
+    launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+    if launches != dict.fromkeys(EPI_KERNELS, 53 * 2):
+        raise AssertionError("predict_vision: train_imagenet's 2 steps "
+                             "launched %s, not 53 x 2 each" % launches)
+    for f in (prefix + "-symbol.json", prefix + "-0000.params"):
+        if not os.path.exists(f):
+            raise AssertionError("predict_vision: --model-prefix wrote no "
+                                 "%s" % f)
+    shape = (224, 224, 3)
+    rng = np.random.RandomState(args.seed + 23)
+    # pixels in halves of [-1, 1]: the JSON stays short
+    images = (rng.randint(-2, 3, (VISION_IMAGES,) + shape) / 2.0).astype(
+        np.float32)
+
+    def body(idx):
+        return json.dumps({"inputs": {"data": images[idx].tolist()},
+                           "timeout_ms": 120000})
+
+    single = [body([i]) for i in range(VISION_IMAGES)]
+    mixed = [list(rng.randint(0, VISION_IMAGES, n))
+             for n in rng.randint(1, 5, VISION_BODIES)]
+    mixed_bodies = [body(idx) for idx in mixed]
+    n_mixed = VISION_MIXED[0] * VISION_MIXED[1]
+    # per request: its body and the images it sends
+    requests = ([(single[i % VISION_IMAGES], [i % VISION_IMAGES])
+                 for i in range(VISION_SEQUENTIAL)]
+                + [(mixed_bodies[i % VISION_BODIES], mixed[i % VISION_BODIES])
+                   for i in range(n_mixed)])
+
+    for k in EPI_KERNELS:
+        getattr(pk, k).launches = 0
+    repo = ModelRepository()
+    t0 = time.monotonic()
+    model = repo.load("resnet", prefix, input_shapes={"data": shape},
+                      max_batch=VISION_SERVE_BATCH, ctx=mx.gpu(0))
+    load_s = time.monotonic() - t0
+    server = ServingServer(repo, port=0, addr="127.0.0.1").start()
+    replies = []
+    try:
+        for name, a, b, clients in (
+                ("sequential", 0, VISION_SEQUENTIAL, 1),
+                ("concurrent 1-4 images", VISION_SEQUENTIAL, len(requests),
+                 VISION_MIXED[0])):
+            res, wall = serve_clients(server.port,
+                                      [r[0] for r in requests[a:b]],
+                                      clients, model="resnet")
+            replies += res
+            lat = np.asarray([r[2] for r in res]) * 1e3
+            n_img = sum(len(r[1]) for r in requests[a:b])
+            log("  %s: %d requests (%d images) from %d client(s) in %.3f "
+                "s: %.2f requests/s, %.2f images/s; latency over the %d "
+                "requests p50 %.2f ms, p99 %.2f ms, max %.2f ms"
+                % (name, b - a, n_img, clients, wall, (b - a) / wall,
+                   n_img / wall, b - a, np.percentile(lat, 50),
+                   np.percentile(lat, 99), lat.max()))
+    finally:
+        server.shutdown()
+        serve_launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+        repo.unload("resnet", timeout=30)
+    bad = [(i, r[0]) for i, r in enumerate(replies) if r[0] != 200]
+    if bad:
+        raise AssertionError("predict_vision: %d of %d requests did not "
+                             "answer 200: %s" % (len(bad), len(replies),
+                                                 bad[:3]))
+    if any(serve_launches.values()):
+        raise AssertionError("predict_vision: inference launched epilogue "
+                             "kernels %s" % serve_launches)
+    cpu = Predictor(prefix + "-symbol.json", prefix + "-0000.params",
+                    ctx=mx.cpu(), input_shapes={"data": (16,) + shape})
+    want = []
+    for i in range(0, len(images), 16):
+        chunk = images[i:i + 16]
+        pad = 16 - len(chunk)
+        if pad:
+            chunk = np.concatenate([chunk, np.zeros((pad,) + shape,
+                                                    np.float32)])
+        want.append(cpu.forward(data=chunk).get_output(0).asnumpy()
+                    [:16 - pad])
+    want = np.concatenate(want)
+    scale = float(np.abs(want).max())
+    err = 0.0
+    for (_, idx), r in zip(requests, replies):
+        got = np.asarray(r[1]["outputs"][0], np.float32)
+        err = max(err, float(np.abs(got - want[idx]).max())
+                  if got.shape == want[idx].shape and np.isfinite(got).all()
+                  else float("inf"))
+    if err > VISION_RTOL * scale:
+        raise AssertionError("predict_vision: replies differ from the CPU "
+                             "Predictor by %g (%g of the logits' scale %g)"
+                             % (err, VISION_RTOL, scale))
+    log("predict_vision: train_imagenet --network resnet50_v1 --layout NHWC "
+        "--batch-size %d --num-batches 2 --model-prefix (bf16) in %.1f s, "
+        "epilogue launches %s (53 x 2 each); the export served by "
+        "ModelRepository.load on the card (f32, buckets %s): loaded in "
+        "%.3f s, of which warming %.3f s; %d replies (%d images, each one "
+        "of %d) all 200, equal to a CPU Predictor within %.3g (logits' "
+        "scale %.4g, rtol %g); inference launched no epilogue kernel; %s"
+        % (VISION_TRAIN_BATCH, train_s, json.dumps(launches), model.buckets,
+           load_s, model.warm_seconds, len(replies),
+           sum(len(r[1]) for r in requests), VISION_IMAGES, err, scale,
+           VISION_RTOL, smi_line()))
+    return launches
+
+
+def f1_scope_check(torch):
+    """Fault F1 on the card: ``generate_lm``'s load under ``scope(cpu())``
+    builds its engine on the CPU, and without a scope on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import lm_mini
+    from mxnet_tpu_torch.serving import ModelRepository, save_lm
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-lm-") as d:
+        lm = lm_mini(vocab_size=128)
+        lm.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        prefix = save_lm(lm, os.path.join(d, "lm"))
+        repo = ModelRepository()
+        opts = dict(num_pages=64, page_size=4, max_prompt=8,
+                    max_new_tokens=2, max_batch=4)
+        devices = []
+        for scoped in (True, False):
+            if scoped:
+                with mx.context.scope(mx.cpu()):
+                    model = repo.load("lm", prefix, generate=True,
+                                      generate_opts=opts)
+            else:
+                model = repo.load("lm", prefix, generate=True,
+                                  generate_opts=opts)
+            engine = model.scheduler.engine
+            devices.append((str(engine.device),
+                            str(next(engine.lm.parameters()).device)))
+            repo.unload("lm", timeout=30)
+    if devices != [("cpu", "cpu"), ("cuda:0", "cuda:0")]:
+        raise AssertionError("F1: generate loads built on %s, not the CPU "
+                             "under scope(cpu()) and the card without"
+                             % devices)
+    log("F1: ModelRepository.load(generate=True) under scope(cpu()) builds "
+        "its engine and weights on the CPU, without a scope on the card "
+        "(%s)" % devices)
+
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4419,8 +5564,10 @@ def main(argv=None):
     rows["rtc"], rtc_launches = rtc_phase(torch, args.seed, flush)
     del flush
     torch.cuda.empty_cache()
+    random_phase(torch, args)
     launches = serve(torch, pk, args)
     launches["rtc"] = rtc_launches
+    f1_scope_check(torch)
     train_launches, train_ips = train(torch, pk, args)
     launches.update(train_launches)
     torch.cuda.empty_cache()
@@ -4437,10 +5584,19 @@ def main(argv=None):
     torch.cuda.empty_cache()
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
+    extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {}}
+    for part in ctc_ocr(torch, pk, args):
+        for k, n in part.items():
+            extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
+    torch.cuda.empty_cache()
+    extra["dropout"] = dropout_phase(torch, pk, args)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as ckpt:
         prefix = symbolic_word_lm(torch, pk, args, ckpt)[2]
         torch.cuda.empty_cache()
         predict_serving(torch, pk, args, prefix)
+        torch.cuda.empty_cache()
+        extra["predict_vision"] = predict_vision(torch, pk, args, ckpt)
     torch.cuda.empty_cache()
     for k in KERNELS:
         if launches[k["name"]] < 1:
@@ -4461,6 +5617,11 @@ def main(argv=None):
             # the Inception v3 run of train_vision, beside the train
             # phase's ResNet-50 count in "launches"
             row["launches_train_vision"] = vision_launches[k["name"]]
+        for phase, counts in extra.items():
+            if counts.get(k["name"]):
+                # this slice's paths: ctc_ocr (training + decode), the
+                # dropout runs, the training run behind predict_vision
+                row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)
     print(smi_line())

@@ -29,13 +29,26 @@ and the input path: ``recordio``, ``image`` (PNG decode with numpy and
 zlib, JPEG through Pillow where installed, the augmenters and the
 threaded ``ImageRecordIterPy``), ``data`` (the prefetch core, the device
 prefetcher and sharded record streams), the file iterators of ``io`` and
-``gluon.data``.
+``gluon.data``; and the op namespaces ``nd.random`` / ``sym.random``
+(the random ops, seeded by ``random.seed``), ``nd.linalg``,
+``nd.contrib`` (``CTCLoss``, ``flash_attention``, and the control-flow
+``foreach`` / ``while_loop`` / ``cond``) behind ``gluon.loss.CTCLoss``.
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``); without a card they raise.
+``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``) or runs them in a ``with
+context.scope(mx.cpu()):`` (or ``with mx.cpu():``) block; without a card
+they raise.
 """
 from . import context, env, random, telemetry
 from . import ndarray
 from . import ndarray as nd
+
+# mx.random.<draw>: each mx.nd.random draw under its own name, multinomial
+# (sample_multinomial) and shuffle (mx.nd.shuffle)
+for _name, _fn in vars(nd.random).items():
+    if not _name.startswith(("_", "sample_")):
+        setattr(random, _name, _fn)
+random.multinomial, random.shuffle = nd.random.sample_multinomial, nd.shuffle
+del _name, _fn
 from . import rtc
 from . import autograd
 from . import initializer
@@ -53,10 +66,11 @@ from . import predict
 from . import recordio, image, data
 from .attribute import AttrScope
 from .base import MXNetError
-from .context import cpu, current_context, gpu
+from .context import cpu, cpu_pinned, current_context, gpu, num_gpus
 from .ndarray import NDArray
 
-__all__ = ["MXNetError", "cpu", "gpu", "current_context", "context", "env",
+__all__ = ["MXNetError", "cpu", "gpu", "cpu_pinned", "num_gpus",
+           "current_context", "context", "env",
            "random", "telemetry", "ndarray", "nd", "NDArray", "rtc",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",

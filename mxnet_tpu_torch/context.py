@@ -2,13 +2,14 @@
 
 Counterpart of `mxnet_tpu/context.py`. A device is a `torch.device`:
 ``gpu(i)`` is the i-th CUDA card and ``cpu()`` the host. Entry points take
-an explicit ``device`` and default to the card; without a card they raise
-instead of running on the host, so a CPU run is always one the caller asked
-for. ``with scope(device):`` sets the default of `current_context` for the
-calling thread, as ``with mx.cpu():`` does in the JAX package; so does
-``with mx.cpu():`` or ``with mx.gpu(i):`` itself, which enters the device's
-own torch context (torch's factories then default to it too), whichever of
-the two blocks is the inner one.
+an explicit ``device``; one left as None is the calling thread's
+innermost ``with scope(device):`` block, else the card. Without a card they
+raise instead of running on the host, so a CPU run is always one the caller
+asked for. ``with scope(device):`` sets the default of `current_context`
+for the calling thread, as ``with mx.cpu():`` does in the JAX package; so
+does ``with mx.cpu():`` or ``with mx.gpu(i):`` itself, which enters the
+device's own torch context (torch's factories then default to it too),
+whichever of the two blocks is the inner one.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from torch.utils._device import DeviceContext
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "resolve_device", "current_context", "scope",
-           "in_scope_of"]
+__all__ = ["cpu", "gpu", "cpu_pinned", "resolve_device", "current_context",
+           "scope", "in_scope_of", "num_gpus", "gpu_memory_info"]
 
 _scopes = threading.local()
 
@@ -32,14 +33,38 @@ def cpu(device_id=0):
     return torch.device("cpu")
 
 
+def cpu_pinned(device_id=0):
+    """The host, for page-locked staging (reference: context.py
+    cpu_pinned). A `torch.device` carries no pinning: the port pins where
+    it stages (`data.DevicePrefetcher`), so this is the host device."""
+    return torch.device("cpu")
+
+
 def gpu(device_id=0):
     return torch.device("cuda", int(device_id))
 
 
+def num_gpus():
+    """The number of CUDA cards (reference: context.py num_gpus)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def gpu_memory_info(device_id=0):
+    """(free, total) bytes of card ``device_id`` (reference: context.py
+    gpu_memory_info, cudaMemGetInfo)."""
+    if not torch.cuda.is_available():
+        raise MXNetError("no CUDA device is available")
+    free, total = torch.cuda.mem_get_info(int(device_id))
+    return int(free), int(total)
+
+
 def resolve_device(device=None):
-    """``device`` as a `torch.device`; None means the first CUDA card.
-    Raises `MXNetError` when a CUDA device is asked for (or defaulted to)
-    and no card is present."""
+    """``device`` as a `torch.device`; None means the device of the calling
+    thread's innermost `scope` (or ``with mx.cpu():`` block), else the
+    first CUDA card. Raises `MXNetError` when a CUDA device is asked for
+    (or defaulted to) and no card is present."""
+    if device is None:
+        device = _innermost()
     dev = gpu(0) if device is None else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -98,7 +123,7 @@ def current_context():
     """The device of the innermost `scope` or ``with mx.cpu():`` / ``with
     mx.gpu(i):`` block, else the first CUDA card; raises `MXNetError` when
     that is a card and none is present."""
-    return resolve_device(_innermost())
+    return resolve_device(None)
 
 
 def in_scope_of(fn):

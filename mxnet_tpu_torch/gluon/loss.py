@@ -1,11 +1,11 @@
 """Losses (counterpart of `mxnet_tpu/gluon/loss.py`; reference:
 python/mxnet/gluon/loss.py): L2, L1, sigmoid binary and softmax cross
 entropy, KL divergence, Huber, hinge, squared hinge, logistic, triplet,
-Poisson NLL and cosine embedding, as `HybridBlock`s that compute on tensors
-(called with NDArrays they return NDArrays). A loss maps (pred, label) to
-one value a sample, the mean over every axis but ``batch_axis``, after the
-``weight`` (a number) and the ``sample_weight`` input (broadcast) scale it.
-``CTCLoss`` needs the CTC op (ROADMAP queue 1 item 9) and raises.
+Poisson NLL, cosine embedding and CTC, as `HybridBlock`s that compute on
+tensors (called with NDArrays they return NDArrays). A loss maps (pred,
+label) to one value a sample, the mean over every axis but ``batch_axis``,
+after the ``weight`` (a number) and the ``sample_weight`` input (broadcast)
+scale it.
 """
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ import math
 import torch
 import torch.nn.functional as _F
 
-from ..base import MXNetError
 from ..ops import nn as _ops
+from ..ops import rnn as _rnn_ops
 from .nn.basic_layers import _Layer
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -159,13 +159,29 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification: not ported yet (it needs the
-    CTC op, ROADMAP queue 1 item 9)."""
+    """Connectionist temporal classification over the `CTCLoss` op
+    (reference: loss.py CTCLoss). ``layout`` "NTC" or "TNC" for pred,
+    ``label_layout`` "NT" or "TN"; labels are zero-based with the blank the
+    last class (``blank_label="last"``), and the op's ``use_data_lengths``
+    / ``use_label_lengths`` follow from whether ``pred_lengths`` /
+    ``label_lengths`` are given. One loss a sample, weighted."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("CTCLoss is not ported yet: it needs the CTC op "
-                         "(ROADMAP queue 1 item 9)")
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+        self._layout = layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._batch_axis == 1:
+            label = label.transpose(0, 1)
+        loss = _rnn_ops.ctc_loss(
+            pred, label, pred_lengths, label_lengths,
+            use_data_lengths=pred_lengths is not None,
+            use_label_lengths=label_lengths is not None, blank_label="last")
+        return _weighting(loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ...context import current_context, resolve_device
+from ...context import resolve_device
 from .. import rnn
 from ..nn import Dense, Dropout, Embedding
 from ..nn.basic_layers import _Layer
@@ -26,16 +26,15 @@ class RNNModel(_Layer):
     num_layers, TNC) -> optional Dropout -> Dense(vocab, flatten=False).
     ``tie_weights`` shares one `Parameter` between the embedding and the
     decoder (embed_size must equal hidden_size, as in the reference).
-    ``device``: where the parameters live (default: `current_context`, the
-    card unless a `context.scope` says otherwise). Called with tensors it
-    returns tensors, with NDArrays NDArrays."""
+    ``device``: where the parameters live (default: the context
+    `initialize` is given, else `current_context` then). Called with
+    tensors it returns tensors, with NDArrays NDArrays."""
 
     def __init__(self, vocab_size, embed_size=200, hidden_size=200,
                  num_layers=2, dropout=0.5, tie_weights=False, device=None,
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        device = current_context() if device is None \
-            else resolve_device(device)
+        device = None if device is None else resolve_device(device)
         if tie_weights and embed_size != hidden_size:
             raise ValueError("tie_weights requires embed_size == hidden_size "
                              "(as in reference)")

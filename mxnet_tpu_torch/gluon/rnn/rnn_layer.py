@@ -19,7 +19,7 @@ import torch
 
 from ...autograd import layer_training
 from ...base import MXNetError
-from ...context import current_context, resolve_device
+from ...context import resolve_device
 from ...ops import rnn as _rnn
 from ..nn.basic_layers import _Layer, _materialize
 
@@ -32,8 +32,9 @@ class _RNNLayer(_Layer):
     """A stack of ``num_layers`` fused recurrent layers of ``mode``. The
     ``*_initializer`` arguments are each parameter's own initializer (the
     weights' default is the one `initialize` is given, the biases' zeros).
-    ``device``: where the parameters live (default: `current_context`, the
-    card unless a `context.scope` says otherwise)."""
+    ``device``: where the parameters live (default: the context
+    `initialize` is given, else `current_context` then, as in the JAX
+    package)."""
 
     def __init__(self, hidden_size, num_layers, layout, dropout,
                  bidirectional, input_size, i2h_weight_initializer,
@@ -44,8 +45,7 @@ class _RNNLayer(_Layer):
         if layout not in ("TNC", "NTC"):
             raise MXNetError("Invalid layout %s; must be TNC or NTC"
                              % (layout,))
-        device = current_context() if device is None \
-            else resolve_device(device)
+        device = None if device is None else resolve_device(device)
         self._hidden_size = int(hidden_size)
         self._num_layers = int(num_layers)
         self._mode = mode

@@ -1,7 +1,8 @@
 """mxnet_tpu_torch.ndarray — imperative array API (counterpart of
-`mxnet_tpu.ndarray`; reference: python/mxnet/ndarray). Sparse storage and
-the control-flow ops (``contrib.foreach`` / ``while_loop`` / ``cond``) are
-not ported yet."""
+`mxnet_tpu.ndarray`; reference: python/mxnet/ndarray), with the op
+namespaces ``contrib`` (the control-flow ops ``foreach`` / ``while_loop`` /
+``cond`` among them), ``linalg``, ``random`` and ``image``. Sparse storage
+is not ported yet."""
 from __future__ import annotations
 
 from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty, arange,
@@ -10,6 +11,13 @@ from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty, arange,
 from . import register as _register
 
 _register.populate(globals())
+
+# control-flow ops live on nd.contrib (reference: ndarray/contrib.py)
+from . import control_flow as _control_flow  # noqa: E402
+
+contrib.foreach = _control_flow.foreach  # noqa: F821
+contrib.while_loop = _control_flow.while_loop  # noqa: F821
+contrib.cond = _control_flow.cond  # noqa: F821
 
 
 def concatenate(arrays, axis=0, always_copy=True):

@@ -4,7 +4,11 @@ Counterpart of `mxnet_tpu/ndarray/register.py` (reference mechanism:
 python/mxnet/ndarray/register.py:170 `_init_op_module`): each `OpDef` gets
 a wrapper that splits NDArray arguments from attrs by the op function's
 signature, then calls `ndarray.invoke`. Every registered name lands at the
-top of ``mx.nd`` and in the flat ``mx.nd.op`` namespace.
+top of ``mx.nd`` and in the flat ``mx.nd.op`` namespace, and the prefixed
+ones also, without their prefix, in the JAX package's namespaces:
+``_contrib_*`` in ``contrib``, ``_linalg_*`` in ``linalg``, ``_random_*``
+in ``random`` and ``_sample_*`` in ``random`` as ``sample_*``, ``_image_*``
+in ``image``.
 """
 from __future__ import annotations
 
@@ -76,19 +80,27 @@ class _OpNamespace(object):
     pass
 
 
+_NAMESPACES = (("_contrib_", "contrib", ""), ("_linalg_", "linalg", ""),
+               ("_random_", "random", ""), ("_sample_", "random", "sample_"),
+               ("_image_", "image", ""))
+
+
 def populate(target_module_dict):
     """Install generated functions into the nd module namespace: each name
-    at the top unless the module already defines it, and all of them in
-    ``op``; the ``_image_*`` ops also in ``image`` without the prefix
-    (``mx.nd.image.to_tensor``)."""
+    at the top unless the module already defines it, all of them in
+    ``op``, and the prefixed ones in their namespace (`_NAMESPACES`:
+    ``mx.nd.random.uniform``, ``mx.nd.linalg.potrf``,
+    ``mx.nd.contrib.CTCLoss``, ``mx.nd.image.to_tensor``)."""
+    spaces = {ns: _OpNamespace() for _, ns, _ in _NAMESPACES}
     op_ns = _OpNamespace()
-    image_ns = _OpNamespace()
     for name in _ops.list_ops():
         f = _make_function(_ops.get(name))
         if name.isidentifier():
             setattr(op_ns, name, f)  # flat mx.nd.op.* (reference op.py)
-        if name.startswith("_image_"):
-            setattr(image_ns, name[len("_image_"):], f)
+        for prefix, ns, renamed in _NAMESPACES:
+            if name.startswith(prefix):
+                setattr(spaces[ns], renamed + name[len(prefix):], f)
         target_module_dict.setdefault(name, f)
     target_module_dict.setdefault("op", op_ns)
-    target_module_dict.setdefault("image", image_ns)
+    for ns, space in spaces.items():
+        target_module_dict.setdefault(ns, space)

@@ -6,8 +6,11 @@ wrappers of `pallas_kernels`) and the registered ops behind ``mx.nd`` and
 ``mx.sym``: every op of `mxnet_tpu/ops/tensor.py` (`tensor`), the layers,
 loss heads, ``softmax`` / ``log_softmax`` and ``Dropout`` of `nn`, the
 ``RNN`` op and its zero states (`rnn`), and the 17 optimizer updates
-(`optimizer_ops`), and the four image ops behind ``mx.nd.image``
-(`image_ops`).
+(`optimizer_ops`), the four image ops behind ``mx.nd.image``
+(`image_ops`), the 22 random ops behind ``mx.nd.random`` (`random_ops`),
+the 15 linear-algebra ops behind ``mx.nd.linalg`` (`linalg`), and
+``CTCLoss`` (`rnn`) and ``_contrib_flash_attention`` (`contrib`) behind
+``mx.nd.contrib``.
 
 A registered op is a plain function on torch tensors,
 ``fn(*tensors, **attrs) -> tensor | tuple``, run eagerly by
@@ -108,3 +111,6 @@ from . import nn as _nn  # noqa: E402,F401
 from . import optimizer_ops as _optimizer_ops  # noqa: E402,F401
 from . import rnn as _rnn  # noqa: E402,F401
 from . import image_ops as _image_ops  # noqa: E402,F401
+from . import random_ops as _random_ops  # noqa: E402,F401
+from . import linalg as _linalg  # noqa: E402,F401
+from . import contrib as _contrib  # noqa: E402,F401

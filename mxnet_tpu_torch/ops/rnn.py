@@ -12,8 +12,8 @@ matrix product. An LSTM layer then runs `pallas_kernels.lstm_layer` (the
 kernels of ``csrc/lstm.cu`` for CUDA tensors) when
 `pallas_kernels.lstm_layer_fits` takes its shape and dtype; every other
 layer runs the step loop, the counterpart of the JAX package's
-``lax.scan``. ``RNN``, ``_rnn_state_zeros`` and ``_rnn_fused_state_zeros``
-are registered ops (``mx.nd`` / ``mx.sym``); `CTCLoss` is not ported yet.
+``lax.scan``. ``RNN``, ``_rnn_state_zeros``, ``_rnn_fused_state_zeros``
+and ``CTCLoss`` are registered ops (``mx.nd`` / ``mx.sym``).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from . import nn as _nn
 from . import pallas_kernels, register
 
 __all__ = ["rnn_param_size", "rnn", "rnn_layers", "rnn_state_zeros",
-           "rnn_fused_state_zeros"]
+           "rnn_fused_state_zeros", "ctc_loss"]
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
 
@@ -222,3 +222,84 @@ def rnn_fused_state_zeros(data, num_directions_layers=1, state_size=0,
     ``batch_axis`` (1 for a (T, B, I) unroll input, 0 for a (B, C) step)."""
     return torch.zeros((num_directions_layers, data.shape[batch_axis],
                         state_size), dtype=data.dtype, device=data.device)
+
+
+_CTC_NEG = -1e30   # the finite log-zero: a length-0 path never gives NaN
+
+
+def _lse(a, b):
+    m = torch.maximum(a, b)
+    return m + torch.log(torch.exp(a - m) + torch.exp(b - m))
+
+
+@register("CTCLoss", aliases=("ctc_loss", "_contrib_CTCLoss",
+                              "_contrib_ctc_loss"))
+def ctc_loss(pred, label, pred_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Connectionist temporal classification, one loss a sample (the JAX
+    package's `ctc_loss`; reference: src/operator/contrib/ctc_loss.cc).
+
+    pred (T, B, C) raw activations (log-softmax taken inside); label (B, L)
+    class indices. ``blank_label="first"``: blank 0, labels 1-based, 0
+    pads; ``"last"``: blank C - 1, labels 0-based, -1 pads. The alpha
+    recursion runs over the 2L + 1 extended labels in log space, one step
+    a frame, with -1e30 as log zero, so the gradient is autograd's through
+    the same arithmetic. It runs in float64 and returns float32 (the JAX
+    package's runs in f32): the alphas grow to about T log C, where f32's
+    spacing (6e-5 at 600) would leave the card's and the host's gradients
+    2e-5 apart at T 200; -1e30 absorbs every finite term in float64 too,
+    so an unreachable label keeps the JAX op's loss and gradient.
+    ``pred_lengths`` (with ``use_data_lengths``) picks each sample's last
+    frame; ``label_lengths`` (with ``use_label_lengths``) its label
+    length, else the non-padding count."""
+    T, B, C = pred.shape
+    L = label.shape[1]
+    dev = pred.device
+    blank = 0 if blank_label == "first" else C - 1
+    lab_raw = label.to(torch.int64)
+    lab = torch.where(lab_raw < 0, torch.full_like(lab_raw, blank), lab_raw)
+    f64 = torch.float64
+    logp = torch.log_softmax(pred.to(f64), dim=-1)
+    S = 2 * L + 1
+    ext = torch.full((B, S), blank, dtype=torch.int64, device=dev)
+    ext[:, 1::2] = lab
+    ext_logp = torch.gather(logp, 2, ext.unsqueeze(0).expand(T, B, S))
+    same_as_prev2 = torch.cat(
+        [torch.ones((B, 2), dtype=torch.bool, device=dev),
+         ext[:, 2:] == ext[:, :-2]], dim=1)
+    can_skip = (ext != blank) & ~same_as_prev2
+    neg1 = torch.full((B, 1), _CTC_NEG, dtype=f64, device=dev)
+    neg2 = torch.full((B, 2), _CTC_NEG, dtype=f64, device=dev)
+
+    alpha = torch.cat([ext_logp[0, :, :2],
+                       torch.full((B, S - 2), _CTC_NEG, dtype=f64,
+                                  device=dev)], dim=1)
+    alphas = [alpha]
+    for t in range(1, T):
+        shift1 = torch.cat([neg1, alpha[:, :-1]], dim=1)
+        shift2 = torch.cat([neg2, alpha[:, :-2]], dim=1)
+        acc = _lse(alpha, shift1)
+        acc = torch.where(can_skip, _lse(acc, shift2), acc)
+        alpha = acc + ext_logp[t]
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)   # (T, B, S)
+
+    if use_data_lengths and pred_lengths is not None:
+        t_idx = pred_lengths.to(dev, torch.int64) - 1
+    else:
+        t_idx = torch.full((B,), T - 1, dtype=torch.int64, device=dev)
+    if use_label_lengths and label_lengths is not None:
+        l_len = label_lengths.to(dev, torch.int64)
+    elif blank == 0:
+        l_len = (lab_raw != 0).sum(dim=1)
+    else:
+        l_len = (lab_raw >= 0).sum(dim=1)
+    final = alphas[t_idx, torch.arange(B, device=dev)]   # (B, S)
+    end1 = torch.gather(final, 1, (2 * l_len).unsqueeze(1))[:, 0]
+    end2 = torch.gather(final, 1, torch.clamp(2 * l_len - 1, min=0)
+                        .unsqueeze(1))[:, 0]
+    # an empty label's only path is all blanks (end1); the clamped end2
+    # would count it twice
+    end2 = torch.where(l_len == 0, torch.full_like(end2, _CTC_NEG), end2)
+    return (-_lse(end1, end2)).float()

@@ -1,10 +1,16 @@
 """Per-thread RNG state.
 
 Counterpart of `mxnet_tpu/random.py`. The JAX package splits one threefry
-key chain per thread; here each thread keeps one seeded `torch.Generator`
-per device, and every sampling call draws from it. Threefry and Philox give
-different numbers from the same seed, so only distributions (and greedy
-decoding) are comparable across the two packages.
+key chain per thread (`next_key` hands each random op a subkey); here each
+thread keeps one seeded `torch.Generator` per device (`generator`, the
+role of `next_key`), and every random op draws from the generator of its
+device. Threefry and Philox give different numbers from the same seed, so
+only distributions (and greedy decoding) are comparable across the two
+packages; one seed gives the same bits twice on one device.
+
+``mx.random.uniform``, ``normal`` and the other draws of the reference's
+``mx.random`` are the ``mx.nd.random`` functions, bound here by the
+package's ``__init__`` (reference: python/mxnet/random.py).
 """
 from __future__ import annotations
 
@@ -12,7 +18,8 @@ import threading
 
 import torch
 
-__all__ = ["seed", "current_seed", "generator", "worker_seed"]
+__all__ = ["seed", "current_seed", "generator", "get_state", "set_state",
+           "worker_seed"]
 
 _state = threading.local()
 _DEFAULT_SEED = 0
@@ -25,11 +32,18 @@ def _get():
     return _state
 
 
-def seed(seed_state):
-    """Seed this thread's generators (reference: mx.random.seed)."""
+def seed(seed_state, ctx="all"):
+    """Seed this thread's generators (reference: python/mxnet/random.py:38
+    mx.random.seed): every device's with ``ctx="all"``, else only the
+    generator of device ``ctx``."""
     st = _get()
-    st.seed_val = int(seed_state)
-    st.generators = {}
+    if ctx == "all":
+        st.seed_val = int(seed_state)
+        st.generators = {}
+        return
+    gen = torch.Generator(device=torch.device(ctx))
+    gen.manual_seed(int(seed_state))
+    st.generators[torch.device(ctx)] = gen
 
 
 def current_seed():
@@ -47,6 +61,25 @@ def generator(device):
         gen.manual_seed(st.seed_val)
         st.generators[dev] = gen
     return gen
+
+
+def get_state():
+    """This thread's seed and each made generator's state as plain host data
+    (for checkpoints: a resumed run continues the same streams)."""
+    st = _get()
+    return {"seed": st.seed_val,
+            "generators": {str(dev): gen.get_state().tolist()
+                           for dev, gen in st.generators.items()}}
+
+
+def set_state(state):
+    """Restore a `get_state` snapshot."""
+    st = _get()
+    st.seed_val = int(state["seed"])
+    st.generators = {}
+    for dev, bits in state.get("generators", {}).items():
+        gen = generator(dev)
+        gen.set_state(torch.tensor(bits, dtype=torch.uint8))
 
 
 def worker_seed(base_seed, pid, index):

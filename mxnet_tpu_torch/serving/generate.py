@@ -807,7 +807,8 @@ def save_lm(lm, prefix):
 
 
 def load_lm(prefix, device=None):
-    """Rebuild a `TransformerLM` on ``device`` (default: the CUDA card)
+    """Rebuild a `TransformerLM` on ``device`` (default: the calling
+    thread's innermost `context.scope`, else the CUDA card)
     from a ``save_lm`` artifact of either package."""
     device = resolve_device(device)
     prefix = os.fspath(prefix)
@@ -855,7 +856,8 @@ class ServedLM:
     def load(name, version, prefix, queue_depth=None, device=None,
              **engine_kwargs):
         """Load a ``save_lm`` artifact as a served generation model on
-        ``device`` (default: the CUDA card), in this process (the JAX
+        ``device`` (default: the calling thread's innermost
+        `context.scope`, else the CUDA card), in this process (the JAX
         package's pooled replicas are not ported yet). ``engine_kwargs`` go
         to `TransformerLMEngine`."""
         device = resolve_device(device)

@@ -81,7 +81,8 @@ class ServedModel:
                   queue_depth=None):
         """Load an export ``prefix`` (or its ``-symbol.json``) with
         ``input_shapes`` per example, batch dim excluded, on ``ctx``
-        (default: the card)."""
+        (default: the calling thread's innermost `context.scope`, else the
+        card)."""
         _, (symbol_file, param_file) = _resolve_artifact(path)
         return ServedModel._from_symbol(
             name, version, symbol_file, param_file, input_shapes,
@@ -311,8 +312,9 @@ class ModelRepository:
 
         A predict model: an export prefix with ``input_shapes`` per example
         (batch dim excluded) and ``input_dtypes`` of the inputs that are not
-        float32, on ``ctx`` (default: the card; ``device`` is the port's
-        name for it), buckets the powers of two up to ``max_batch``.
+        float32, on ``ctx`` (default: the calling thread's innermost
+        `context.scope`, else the card; ``device`` is the port's name for
+        it), buckets the powers of two up to ``max_batch``.
         ``generate=True`` loads a ``save_lm`` prefix instead, its geometry
         through ``generate_opts`` (to `TransformerLMEngine`); the
         predict-only knobs raise there."""

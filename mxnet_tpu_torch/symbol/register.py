@@ -186,21 +186,27 @@ class _OpNamespace(object):
 
 def populate(target_module_dict):
     """Install a symbol function for every registered op at the top of
-    ``mx.sym`` (``_contrib_*`` under ``contrib``) and in ``mx.sym.op``;
-    returns them by op name."""
-    contrib = _OpNamespace()
+    ``mx.sym`` (but ``_contrib_*`` and ``_linalg_*``) and in ``mx.sym.op``,
+    and the prefixed ones in their namespace, as ``mx.nd`` does
+    (``mx.sym.contrib``, ``linalg``, ``random``, ``image``); returns them by
+    op name."""
+    from ..ndarray.register import _NAMESPACES
+
+    spaces = {ns: _OpNamespace() for _, ns, _ in _NAMESPACES}
     op_ns = _OpNamespace()
     functions = {}
     for name in _ops.list_ops():
         f = _make_symbol_function(_ops.get(name))
         functions[name] = f
-        if name.startswith("_contrib_"):
-            setattr(contrib, name[len("_contrib_"):], f)
-        else:
+        for prefix, ns, renamed in _NAMESPACES:
+            if name.startswith(prefix):
+                setattr(spaces[ns], renamed + name[len(prefix):], f)
+        if not name.startswith(("_contrib_", "_linalg_")):
             target_module_dict.setdefault(name, f)
         if name.isidentifier():
             setattr(op_ns, name, f)  # flat mx.sym.op.* (reference op.py)
-    target_module_dict["contrib"] = contrib
+    for ns, space in spaces.items():
+        target_module_dict[ns] = space
     target_module_dict.setdefault("op", op_ns)
     return functions
 

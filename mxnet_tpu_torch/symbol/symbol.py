@@ -316,7 +316,7 @@ class Symbol:
                 attrs.setdefault("is_train", is_train)
             if opdef.needs_rng:
                 attrs["generator"] = generator if generator is not None \
-                    else _rng_for(in_arrays)
+                    else _rng_for(in_arrays, device)
             # the generated caller records parameter names when inputs bind
             # to non-leading slots (optional array args skipped)
             bind_names = node.attrs.get("__input_names__")
@@ -514,12 +514,13 @@ class Symbol:
         return "\n".join(lines)
 
 
-def _rng_for(tensors):
-    """This thread's generator for the device of ``tensors``' first (a
-    fresh CPU generator for meta tensors: shape inference draws nothing)."""
+def _rng_for(tensors, device=None):
+    """This thread's generator for the device of ``tensors``' first, else
+    of ``device`` (a fresh CPU generator for meta tensors: shape inference
+    draws nothing it keeps)."""
     from .. import random as _random
 
-    dev = tensors[0].device if tensors else torch.device("cpu")
+    dev = tensors[0].device if tensors else torch.device(device or "cpu")
     return torch.Generator() if dev.type == "meta" \
         else _random.generator(dev)
 

@@ -8,7 +8,7 @@ names and defaults for the subset ported so far.
         [--data-train T.rec] [--data-val V.rec] [--top-k 5]
         [--data-nthreads 4] [--random-crop 1] [--random-mirror 1]
         [--rgb-mean 123.68,116.779,103.939] [--rgb-std 58.393,57.12,57.375]
-        [--device cuda|cpu] [--seed 0]
+        [--model-prefix PREFIX] [--device cuda|cpu] [--seed 0]
 
 It builds the model-zoo network ``--network`` names (any factory of
 `gluon.model_zoo.vision.get_model`: ResNet v1 and v2, AlexNet, VGG,
@@ -33,9 +33,10 @@ numpy from ``--seed``. With ``--data-val`` each epoch ends with a
 validation pass in inference mode (running statistics, no gradients),
 scored by `metric.Accuracy` (and `metric.TopKAccuracy` with ``--top-k``)
 on every sample but the padding. ``--device`` defaults to the card; a run
-on the host must ask for ``--device cpu``. ``--model-prefix`` (export) is
-not ported (a net other than ResNet v1 is a `HybridBlock`, which
-``export`` writes; ROADMAP queue 1 item 9).
+on the host must ask for ``--device cpu``. With ``--model-prefix`` each
+epoch ends with the trained net exported (`HybridBlock.export`:
+``PREFIX-symbol.json`` and ``PREFIX-%04d.params`` of the epoch), which
+`predict.Predictor` and the serving repository of either package load.
 
 `main` returns the last training loss. ``batch_end_callback`` is called
 after every training step and ``eval_end_callback`` after every
@@ -86,6 +87,9 @@ def add_fit_args(parser):
                         "unset")
     t.add_argument("--data-val", type=str, default=None,
                    help="RecordIO file scored after each epoch")
+    t.add_argument("--model-prefix", type=str, default=None,
+                   help="export the net at each epoch's end as "
+                        "PREFIX-symbol.json + PREFIX-%%04d.params")
     t.add_argument("--num-batches", type=int, default=10,
                    help="synthetic-data batches per epoch")
     t.add_argument("--device", type=str, default=None,
@@ -315,6 +319,9 @@ def main(argv=None, batch_end_callback=None, eval_end_callback=None):
         logging.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
         if args.data_val:
             evaluate(epoch)
+        if args.model_prefix:
+            trainer.sync_params()   # export the trained weights, not init
+            net.export(args.model_prefix, epoch=epoch)
     print("done: trained %s %s %s on %s, last loss %s" % (
         args.network, args.dtype, args.layout, device, loss))
     return loss

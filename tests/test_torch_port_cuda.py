@@ -12,7 +12,9 @@ the card against the CPU, and a scoring word LM served by the predict
 path (``ModelRepository`` -> ``DynamicBatcher`` -> bucketed
 ``Predictor``s -> ``lstm_infer``) on the card against a ``Predictor`` on
 the CPU, with its launch counts and its buckets' shared weights; and a
-bound graph's no-input ops on the card.
+bound graph's no-input ops on the card; and the CTC op, the random ops
+(by distribution), the spatial transformer ops, linalg and control flow
+on the card against the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -1448,3 +1450,29 @@ def test_inception_block_trains_through_the_kernels_on_card():
             np.testing.assert_allclose(
                 v.cpu().numpy(), want[k].numpy(), rtol=1e-4,
                 atol=1e-4 * float(want[k].abs().max()), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_ctc_op_on_card_matches_cpu():
+    _need_card()
+    from chip_smoke import check_ctc_op
+
+    assert len(check_ctc_op(torch, 5)) == 2
+
+
+@pytest.mark.cuda
+def test_random_linalg_control_flow_on_card():
+    _need_card()
+    import mxnet_tpu_torch as mx
+    from chip_smoke import (CONTROL_FLOW_TOL, LINALG_RTOL, check_random,
+                            compare_runs, control_flow_run, linalg_run,
+                            spatial_run)
+
+    report = check_random(mx, mx.gpu(0), 1 << 16, 7)
+    assert len(report) == 19
+    compare_runs("spatial", spatial_run(torch, "cuda", 1),
+                 spatial_run(torch, "cpu", 1), 1e-5)
+    compare_runs("linalg", linalg_run(mx, mx.gpu(0), 1),
+                 linalg_run(mx, mx.cpu(), 1), LINALG_RTOL)
+    compare_runs("control flow", control_flow_run(mx, mx.gpu(0), 1),
+                 control_flow_run(mx, mx.cpu(), 1), CONTROL_FLOW_TOL)

@@ -48,6 +48,15 @@ showed it, on the CPU:
     packages), ``initialize(init, ctx=)`` and the pretrained message.
 15. ``HybridSequential`` slicing gives a container of the same type (the
     slice was passed as a prefix).
+16. An entry point's ``device=None`` / ``ctx=None`` resolves through the
+    innermost ``context.scope`` (or ``with mx.cpu():``) block, then the
+    card: ``ModelRepository.load(generate=True)`` under ``scope(cpu())``
+    (``examples/serving/generate_lm.py:58``) builds its engine on the CPU
+    (it raised "no CUDA device" here and built on the card there), as do
+    `ServedLM.load`, `load_lm`, ``Predictor``, the recurrent layers and
+    ``RNNModel`` (these two resolved the card at construction; they now
+    take the device at ``initialize``, as the JAX package's do). Without
+    a scope, the entry points still default to the card.
 
 Float results within 1e-6 relative and absolute (both sides compute in f32
 from the same inputs); integer results and shapes exactly. A whole net's
@@ -620,3 +629,61 @@ def test_sequential_slice_matches_jax():
         assert list(tail._children.values()) == [net[1]] == [net[-1]]
         out[pkg] = tail(pkg.nd.ones((1, 4), ctx=pkg.cpu())).asnumpy()
     np.testing.assert_array_equal(out[mx], out[mx_j])
+
+
+# ---------------------------------------------------------------------------
+# 16. entry points read the caller's device scope
+# ---------------------------------------------------------------------------
+
+def _lm_artifact(tmp_path):
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import lm_mini
+    from mxnet_tpu_torch.serving import save_lm
+
+    lm = lm_mini(vocab_size=32)
+    lm.initialize(mx.init.Xavier(), ctx=CPU)
+    return save_lm(lm, str(tmp_path / "lm"))
+
+
+@pytest.mark.parametrize("block", ["scope", "with cpu"])
+def test_generate_load_under_a_cpu_scope_builds_on_the_cpu(tmp_path, block):
+    from mxnet_tpu_torch.serving import ModelRepository
+
+    prefix = _lm_artifact(tmp_path)
+    repo = ModelRepository()
+    scope = mx.context.scope(CPU) if block == "scope" else mx.cpu()
+    with scope:
+        model = repo.load("lm", prefix, generate=True,
+                          generate_opts=dict(num_pages=16, page_size=4,
+                                             max_prompt=8, max_new_tokens=2,
+                                             max_batch=2))
+    try:
+        engine = model.scheduler.engine
+        assert engine.device == torch.device("cpu")
+        assert all(p.device.type == "cpu" for p in engine.lm.parameters())
+    finally:
+        model.close(drain=False, timeout=0)
+
+
+def test_entry_points_take_the_scope_then_the_card(tmp_path):
+    from mxnet_tpu_torch.serving.generate import load_lm
+
+    prefix = _lm_artifact(tmp_path)
+    with mx.context.scope(CPU):
+        assert mx.context.resolve_device(None) == torch.device("cpu")
+        lm = load_lm(prefix)
+        assert next(lm.parameters()).device.type == "cpu"
+        layer = mx.gluon.rnn.LSTM(4, num_layers=1, input_size=3)
+        layer.initialize()
+        assert layer.l0_i2h_weight.data().context == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(mx.MXNetError, match="no CUDA device"):
+            mx.context.resolve_device(None)
+        with pytest.raises(mx.MXNetError, match="no CUDA device"):
+            load_lm(prefix)
+    # built without a scope, a recurrent layer takes its device at
+    # initialize, as the JAX package's does
+    from mxnet_tpu_torch.gluon.model_zoo.word_lm import RNNModel
+
+    net = RNNModel(20, 8, 8, 1, dropout=0.0)
+    net.initialize(ctx=CPU)
+    assert all(p.device.type == "cpu" for p in net.parameters())

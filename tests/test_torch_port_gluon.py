@@ -6,10 +6,11 @@ Covers `gluon.Parameter` / `ParameterDict` / `Block` / `HybridBlock`
 ``hybrid_forward`` block with ``hybridize()`` leaving its outputs as they
 were), `gluon.Trainer` with every optimizer over 5 steps under a learning-
 rate schedule (SGLD by its distribution), the 5 schedulers, the 17
-``nd`` optimizer update ops, every loss but CTC with ``weight`` and
-``sample_weight``, every metric, every deterministic initializer (the
-random ones by distribution), `gluon.utils.clip_global_norm`, and
-`Trainer.save_states` / `load_states`.
+``nd`` optimizer update ops, every loss but CTC (held in
+test_torch_port_ctc.py) with ``weight`` and ``sample_weight``, every
+metric, every deterministic initializer (the random ones by
+distribution), `gluon.utils.clip_global_norm`, and `Trainer.save_states` /
+`load_states`.
 
 The same numpy inputs (from a seed) go through both packages; weights are
 carried from the JAX model to the port's by `Parameter.set_data`, by
@@ -541,8 +542,18 @@ def test_losses_match_jax(cls, kw, args, sw):
 
 
 def test_ctc_loss_waits_for_the_ctc_op():
-    with pytest.raises(MXNetError, match="queue 1 item 9"):
-        gluon.loss.CTCLoss()
+    """The CTC op it waited for is ported: the block is that op on (T, N,
+    C) pred with the blank last and the lengths' flags from their
+    presence (held to the JAX block in test_torch_port_ctc.py)."""
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    pred = torch.from_numpy(_rand(17, 2, 5, 4))
+    label = torch.tensor([[0.0, 1.0], [2.0, 0.0]])
+    lengths = torch.tensor([2.0, 1.0])
+    got = gluon.loss.CTCLoss()(pred, label, None, lengths)
+    want = rnn_ops.ctc_loss(pred.transpose(0, 1), label, None, lengths,
+                            use_label_lengths=True, blank_label="last")
+    assert torch.equal(got, want) and got.shape == (2,)
 
 
 def test_losses_take_tensors_on_the_tensor_path():

@@ -440,8 +440,10 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     the layers, loss heads and RNN ops the symbolic path registers (the
     26 other ops of ops/nn.py under 30 names, with the fused BatchNorm ops
     that `HybridBlock.export` writes, 3 of ops/rnn.py), and the 4 image
-    ops of ops/image_ops.py under 8 names; each alias resolves to the op
-    its JAX alias names."""
+    ops of ops/image_ops.py under 8 names, and the 22 random ops of
+    ops/random_ops.py under 40 names, the 15 of ops/linalg.py under 30,
+    CTCLoss under 4 and _contrib_flash_attention under 2; each alias
+    resolves to the op its JAX alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
     opt = sorted(n for n, o in jops._REGISTRY.items()
@@ -461,9 +463,17 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     image = sorted(n for n, o in jops._REGISTRY.items()
                    if o.fn.__module__ == "mxnet_tpu.ops.image_ops")
     assert len(image) == 8
+    rand = sorted(n for n, o in jops._REGISTRY.items()
+                  if o.fn.__module__ == "mxnet_tpu.ops.random_ops")
+    linalg = sorted(n for n, o in jops._REGISTRY.items()
+                    if o.fn.__module__ == "mxnet_tpu.ops.linalg")
+    assert (len(rand), len(linalg)) == (40, 30)
+    slice17 = rand + linalg + ["CTCLoss", "ctc_loss", "_contrib_CTCLoss",
+                               "_contrib_ctc_loss", "_contrib_flash_attention",
+                               "flash_attention"]
     assert sorted(tops.list_ops()) == sorted(names + opt + layers + image + [
-        "softmax", "log_softmax"])
-    for n in opt + layers + image:
+        "softmax", "log_softmax"] + slice17)
+    for n in opt + layers + image + slice17:
         assert tops.get(n).name == jops._REGISTRY[n].name, n
         assert callable(getattr(nd, n))
     assert sorted(SPECS) == sorted(primaries + ["softmax", "log_softmax"])

@@ -331,10 +331,12 @@ def test_full_width_word_lm_counts_as_the_jax_model():
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # built without a device, as the JAX package's, they take it at
+    # initialize: the card unless a ctx or a scope names the host
     with pytest.raises(MXNetError, match="device='cpu'"):
-        RNNModel(VOCAB, EMBED, HIDDEN, LAYERS)
+        RNNModel(VOCAB, EMBED, HIDDEN, LAYERS).initialize()
     with pytest.raises(MXNetError, match="device='cpu'"):
-        trnn.LSTM(HIDDEN, input_size=EMBED)
+        trnn.LSTM(HIDDEN, input_size=EMBED).initialize()
     for make in (lambda: nd.zeros((2,)), lambda: nd.array([1.0])):
         with pytest.raises(MXNetError, match="device='cpu'"):
             make()
