@@ -267,6 +267,36 @@ Phases; each raises on failure, and the script then exits non-zero:
    launches no epilogue kernel; requests/s, p50 / p99 / max over each
    part's requests, load and warm seconds printed.
 
+13. detection (after predict_vision, before parity): ``ssd_512_resnet50_v1
+   (num_classes=20)`` (ResNet-50 v1 cut at stages 3 and 4, four extras,
+   6,140 anchors; channels-first, the fused ResNet graph, Xavier from
+   ``--seed``) trained in f32 with TF32 off as examples/ssd/train.py
+   trains it (``record()``, ``net(x)``, ``training_targets``:
+   MultiBoxTarget with hard-negative mining 3, ``SSDMultiBoxLoss``,
+   ``backward``, ``gluon.Trainer`` Adam lr 2e-3), batch 32 at 3 x 512 x
+   512 from `image.ImageDetIter` (``rand_mirror``) over 64 generated PNGs
+   with 1 to 3 boxes of the 20 classes each: 3 warm-up steps, then the
+   epilogue counts set to 0 and 10 timed steps. Gates: the loss finite,
+   its last 3 steps' mean below its first 3's; each epilogue kernel 61 x
+   10 launches (53 BatchNorms in the ResNet, 8 in the extras);
+   ``net.detections`` over the last batch equal to MultiBoxDetection on
+   the CPU over the same class probabilities (ids and kept set exactly,
+   scores and boxes within 1e-5). Prints images/s, ms a step, the share
+   of it in ``next()`` and the copy to the card, peak allocated bytes, the
+   reductions' launches a step by route and the detections' time and
+   count (``--profile``: the device busy share and time by group, the
+   BatchNorms' movedim copies as "layout copies"). Then MultiBoxTarget,
+   MultiBoxDetection, box_nms, Proposal, ROIAlign and ROIPooling on card
+   tensors (`detection_op_cases`: SSD-512's shapes at batch 32, Faster
+   R-CNN's default Proposal and ROI ops on a stride-16 map, and
+   examples/rcnn/train.py's shapes) against the CPU, values and gradients
+   within 1e-5, the discrete parts exactly; then examples/rcnn/train.py
+   --steps 20 --image-size 64 on the card (its ``mxnet_tpu`` imports
+   answered by the port; the script asserts that the loss falls). The
+   kernel phase also holds the epilogue at SSD's shapes
+   (`EPI_SSD_SHAPES`: R = 2,097,152 at C 64, 8,192 at 2,048, 128 at 128
+   and 256, 32 at 128).
+
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
 limit, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Without
@@ -677,6 +707,14 @@ EPI_SHAPES = [("stem", 1605632, 64), ("stage1-mid", 401408, 64),
               ("inception-narrowest", 8192, 448),
               ("resnet_v2-input", 6422528, 3), ("stage4-mid", 6272, 512),
               ("stage3-out", 25088, 1024), ("inception-17x17", 36992, 192)]
+# SSD-512 ResNet-50 v1's training BatchNorms at batch 32, 512 x 512 (the
+# detection phase; channels-first, so each behind a movedim copy), that no
+# other path reaches: the stem (32 x 256 x 256 rows of 64), stage 4 (32 x
+# 16 x 16 rows of 2048), and the extras' smallest maps (2 x 2 x 32 = 128
+# rows of 128 and 256, 1 x 1 x 32 = 32 rows of 128)
+EPI_SSD_SHAPES = [("ssd-stem", 2097152, 64), ("ssd-stage4-out", 8192, 2048),
+                  ("ssd-extra4-mid", 128, 128),
+                  ("ssd-extra3-out", 128, 256), ("ssd-extra4-out", 32, 128)]
 # the shapes whose BatchNorm has no learned gamma or beta
 EPI_FIXED_GAMMA = ("resnet_v2-input",)
 # the case each kernel's row of the "kernels" line reports: the stage-1
@@ -935,7 +973,7 @@ def check_conv_epilogue_grad(torch, pk, seed):
 
 def check_epilogue(torch, pk, seed, flush, details):
     rows, worst = [], dict.fromkeys(EPI_KERNELS, 0.0)
-    for i, (label, r, c) in enumerate(EPI_SHAPES):
+    for i, (label, r, c) in enumerate(EPI_SHAPES + EPI_SSD_SHAPES):
         for dtype in ("bfloat16", "float32"):
             case_rows, case_worst = check_epilogue_case(
                 torch, pk, label, r, c, dtype, seed + i, flush,
@@ -959,7 +997,8 @@ def check_epilogue(torch, pk, seed, flush, details):
         "|plain| + tol x max|plain|, tol 1e-4 for f32 results and 2^-7 for "
         "bf16 tensors); the two reductions give the same bits on a second "
         "run, each on the route its layout names; largest absolute errors "
-        "%s; routes %s" % (len(EPI_SHAPES), json.dumps(worst),
+        "%s; routes %s" % (len(EPI_SHAPES + EPI_SSD_SHAPES),
+                           json.dumps(worst),
                            json.dumps(sorted({"%s %s" % (k[0], k[1]): v
                                               for k, v in taken.items()
                                               if k[2] == "epi_stats"}
@@ -5493,6 +5532,563 @@ def f1_scope_check(torch):
 
 
 
+# ---------------------------------------------------------------------------
+# the detection ops (ops/contrib.py): cases shared with the CPU tests
+# ---------------------------------------------------------------------------
+
+# SSD-512's anchor layout: feature sides and (sizes, ratios) a scale (the
+# JAX package's _SIZES_512 / _RATIOS_6), 6,140 anchors in all
+SSD_SIDES = (32, 16, 8, 4, 2, 1)
+SSD_SIZES = [[.1, .141], [.2, .272], [.37, .447], [.54, .619], [.71, .79],
+             [.88, .961]]
+SSD_RATIOS = [[1, 2, .5], [1, 2, .5, 3, 1. / 3], [1, 2, .5, 3, 1. / 3],
+              [1, 2, .5, 3, 1. / 3], [1, 2, .5, 3, 1. / 3], [1, 2, .5]]
+SSD_ANCHORS = 6140
+# detection ops on the card against the CPU, and the port against JAX:
+# f32 values and gradients within 1e-5 (|got - want| <= 1e-5 |want| +
+# 1e-5 max|want|); the discrete parts exactly
+DET_TOL = 1e-5
+
+
+def ssd_anchors(sides, sizes, ratios):
+    """(1, A, 4) anchors of feature maps of the given sides, as
+    ``MultiBoxPrior`` makes them scale by scale."""
+    import torch
+    from mxnet_tpu_torch.ops import contrib
+
+    return np.concatenate([contrib.multibox_prior(
+        torch.zeros(1, 1, s, s), sizes=z, ratios=r).numpy()
+        for s, z, r in zip(sides, sizes, ratios)], axis=1)
+
+
+def det_labels(rng, batch, classes, most=3):
+    """(batch, most, 5) labels: 1 to ``most`` boxes of random classes a
+    sample, normalized corners inside the image, then -1 rows."""
+    lab = np.full((batch, most, 5), -1.0, np.float32)
+    for b in range(batch):
+        for m in range(rng.randint(1, most + 1)):
+            w, h = rng.uniform(0.1, 0.6, 2)
+            x0, y0 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            lab[b, m] = [rng.randint(classes), x0, y0, x0 + w, y0 + h]
+    return lab
+
+
+def image_rois(rng, n, batch, side, lo, hi):
+    """(n, 5) ROIs ``[batch, x1, y1, x2, y2]`` in image coordinates, sides
+    in [lo, hi) inside a ``side`` x ``side`` image."""
+    w = rng.uniform(lo, hi, n)
+    h = rng.uniform(lo, hi, n)
+    x0 = rng.uniform(0, side - w)
+    y0 = rng.uniform(0, side - h)
+    return np.stack([rng.randint(0, batch, n), x0, y0, x0 + w, y0 + h],
+                    axis=1).astype(np.float32)
+
+
+def detection_op_cases(seed, full):
+    """The detection ops' cases: (label, op, [(argument, array)], attrs,
+    arguments whose gradient is taken, exact parts as (result index,
+    column or None)). ``full``: the SSD-512 shapes (batch 32, 6,140
+    anchors, 21 classes; the NMS ops on 4 samples), Faster R-CNN's
+    default Proposal (12 anchors on a 32 x 32 map of a 512^2 image, 6,000
+    -> 300) and ROI ops on SSD-512's stride-16 map (32 x 32, 256 channels,
+    128 ROIs, 7 x 7); else a small SSD (352 anchors, 4 classes, batch 2).
+    Both include
+    examples/rcnn/train.py's shapes (64^2 images, stride 8, 2 anchors,
+    48 -> 12, 64 ROIs pooled 3 x 3 from 32 channels)."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    if full:
+        anchors = ssd_anchors(SSD_SIDES, SSD_SIZES, SSD_RATIOS)
+        batch, classes = 32, 21
+    else:
+        anchors = ssd_anchors((8, 4), SSD_SIZES[:2], SSD_RATIOS[:2])
+        batch, classes = 2, 4
+    a = anchors.shape[1]
+    labels = det_labels(rng, batch, classes - 1)
+    cls_pred = rng.randn(batch, classes, a).astype(f)
+    e = np.exp(cls_pred - cls_pred.max(1, keepdims=True))
+    cls_prob = (e / e.sum(1, keepdims=True)).astype(f)
+    loc = (0.5 * rng.randn(batch, 4 * a)).astype(f)
+    # the NMS ops at SSD-512's 6,140 rows on 4 samples (the detection
+    # phase holds its whole batch's MultiBoxDetection on its own)
+    nb = 4 if full else batch
+    n_nms = a if full else 64
+    nms = np.concatenate([rng.randint(0, 3, (nb, n_nms, 1)),
+                          rng.uniform(0, 1, (nb, n_nms, 1)),
+                          det_labels_boxes(rng, nb, n_nms)],
+                         axis=2).astype(f)
+    cases = [
+        ("MultiBoxTarget", "multibox_target",
+         [("anchor", anchors), ("label", labels), ("cls_pred", cls_pred)],
+         {"overlap_threshold": 0.5, "ignore_label": -1,
+          "negative_mining_ratio": 3, "negative_mining_thresh": 0.5},
+         [], [(1, None), (2, None)]),
+        ("MultiBoxDetection", "multibox_detection",
+         [("cls_prob", cls_prob[:nb]), ("loc_pred", loc[:nb]),
+          ("anchor", anchors)],
+         {"nms_threshold": 0.45, "threshold": 0.01},
+         ["cls_prob", "loc_pred"], [(0, 0)]),
+        ("box_nms", "box_nms", [("data", nms)],
+         {"overlap_thresh": 0.5, "id_index": 0, "coord_start": 2,
+          "score_index": 1}, ["data"], [(0, 0)])]
+    rcnn = [("rcnn", 2, 32, 8, 64, (2.0, 4.0), (1.0,), 48, 12, 4, 64,
+             (3, 3))]
+    if full:
+        rcnn.append(("Faster R-CNN", 2, 256, 16, 512, (4, 8, 16, 32),
+                     (0.5, 1, 2), 6000, 300, 16, 128, (7, 7)))
+    for (name, b, ch, stride, side, scales, ratios, pre, post, min_size,
+         n_rois, pooled) in rcnn:
+        hw = side // stride
+        na = len(scales) * len(ratios)
+        logit = rng.randn(b, 2, na, hw, hw).astype(f)
+        ex = np.exp(logit - logit.max(1, keepdims=True))
+        prob = (ex / ex.sum(1, keepdims=True)).reshape(b, 2 * na, hw, hw)
+        deltas = (0.2 * rng.randn(b, 4 * na, hw, hw)).astype(f)
+        info = np.tile([side, side, 1.0], (b, 1)).astype(f)
+        cases.append((
+            "Proposal " + name, "proposal",
+            [("cls_prob", prob.astype(f)), ("bbox_pred", deltas),
+             ("im_info", info)],
+            {"rpn_pre_nms_top_n": pre, "rpn_post_nms_top_n": post,
+             "threshold": 0.7, "rpn_min_size": min_size, "scales": scales,
+             "ratios": ratios, "feature_stride": stride,
+             "output_score": True}, ["cls_prob", "bbox_pred"], []))
+        feat_b = b if not full or name == "rcnn" else 8
+        feat = rng.randn(feat_b, ch, hw, hw).astype(f)
+        rois = image_rois(rng, n_rois, feat_b, side, stride,
+                          side / 2)
+        cases.append((
+            "ROIAlign " + name, "roi_align",
+            [("data", feat), ("rois", rois)],
+            {"pooled_size": pooled, "spatial_scale": 1.0 / stride,
+             "sample_ratio": 2}, ["data", "rois"], []))
+        # ReLU zeros: bins whose maximum is a tie of zeros
+        cases.append((
+            "ROIPooling " + name, "roi_pooling",
+            [("data", np.maximum(feat, 0)), ("rois", rois)],
+            {"pooled_size": pooled, "spatial_scale": 1.0 / stride},
+            ["data"], []))
+    return cases
+
+
+def det_labels_boxes(rng, batch, n):
+    """(batch, n, 4) random normalized corner boxes."""
+    w = rng.uniform(0.05, 0.5, (batch, n, 1))
+    h = rng.uniform(0.05, 0.5, (batch, n, 1))
+    x0 = rng.uniform(0, 1, (batch, n, 1)) * (1 - w)
+    y0 = rng.uniform(0, 1, (batch, n, 1)) * (1 - h)
+    return np.concatenate([x0, y0, x0 + w, y0 + h], axis=2)
+
+
+def detection_op_run(torch, device, cases, seed):
+    """Each case's op (`mxnet_tpu_torch.ops.contrib`) on ``device``: its
+    outputs, then the gradients of its gradient arguments for a random
+    cotangent of every float output, as numpy [(label, [arrays])], and the
+    seconds each took (synchronised)."""
+    from mxnet_tpu_torch.ops import contrib
+
+    rng = np.random.RandomState(seed)
+    out, times = [], {}
+    for label, op, args, attrs, grad, _exact in cases:
+        ts = [torch.tensor(a, device=device, requires_grad=n in grad)
+              for n, a in args]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = getattr(contrib, op)(*ts, **attrs)
+        res = list(res) if isinstance(res, (tuple, list)) else [res]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times[label] = time.monotonic() - t0
+        arrays = [r.detach().cpu().numpy() for r in res]
+        if grad:
+            cot = [torch.tensor(rng.randn(*r.shape).astype(np.float32),
+                                device=device) for r in res]
+            loss = sum((r * c).sum() for r, c in zip(res, cot))
+            wrt = [t for (n, _), t in zip(args, ts) if n in grad]
+            arrays += [g.cpu().numpy()
+                       for g in torch.autograd.grad(loss, wrt)]
+        out.append((label, arrays))
+    return out, times
+
+
+def compare_detection(what, cases, got, want, tol=DET_TOL):
+    """Two `detection_op_run` results: the exact parts bit for bit, every
+    array within ``tol`` (`compare_runs`); returns the largest error."""
+    for (label, op, args, attrs, grad, exact), (l1, g), (l2, w) in zip(
+            cases, got, want):
+        assert label == l1 == l2, (label, l1, l2)
+        dtypes = [(a.dtype, b.dtype) for a, b in zip(g, w)]
+        if any(a != b for a, b in dtypes):
+            raise AssertionError("%s %s: dtypes %s" % (what, label, dtypes))
+        for i, col in exact:
+            gi, wi = g[i], w[i]
+            if col is not None:
+                gi, wi = gi[..., col], wi[..., col]
+            if not np.array_equal(gi, wi):
+                raise AssertionError(
+                    "%s %s: result %d%s differs at %d of %d elements"
+                    % (what, label, i, "" if col is None else
+                       " column %d" % col, int((gi != wi).sum()), wi.size))
+    return compare_runs(what, got, want, tol)
+
+
+# ---------------------------------------------------------------------------
+# the detection phase: SSD-512 ResNet-50 v1 trained from ImageDetIter, its
+# detections, the detection ops on the card, examples/rcnn/train.py's loop
+# ---------------------------------------------------------------------------
+
+DET_BATCH, DET_WARMUP, DET_STEPS = 32, 3, 10
+DET_SIDE, DET_CLASSES, DET_IMAGES = 512, 20, 64
+# BatchNorms of ssd_512_resnet50_v1: 53 in ResNet-50 v1 through stage 4, 8
+# in the four extra blocks
+SSD_BNS = 61
+DET_LR = 2e-3
+
+
+def det_image(rng, side, classes):
+    """One generated detection sample: a smooth noisy background and 1 to 3
+    filled boxes, each of its class's colour -> (HWC uint8, label [2, 5,
+    cls, x1, y1, x2, y2, ...] with normalized corners)."""
+    yy, xx = np.mgrid[0:side, 0:side] / float(side)
+    base = rng.uniform(0, 90, 3)
+    img = (base + 40 * np.sin(2 * np.pi * (xx[..., None] * rng.uniform(
+        0.5, 2, 3) + yy[..., None] * rng.uniform(0.5, 2, 3)))
+        + rng.normal(0, 8, (side, side, 3)))
+    label = [2.0, 5.0]
+    for _ in range(rng.randint(1, 4)):
+        c = rng.randint(classes)
+        w, h = rng.randint(side // 8, side // 2, 2)
+        x0, y0 = rng.randint(0, side - w), rng.randint(0, side - h)
+        colour = np.array([(c * 53) % 256, (c * 97 + 80) % 256,
+                           (c * 151 + 160) % 256], np.float64)
+        img[y0:y0 + h, x0:x0 + w] = colour
+        label += [float(c), x0 / side, y0 / side, (x0 + w) / side,
+                  (y0 + h) / side]
+    return np.clip(img, 0, 255).astype(np.uint8), label
+
+
+def write_det_images(workdir, seed, n, side=DET_SIDE, classes=DET_CLASSES):
+    """``n`` `det_image` samples as PNG files (the port's encoder: the card's
+    machine has no Pillow) -> the imglist of `image.ImageDetIter`."""
+    from mxnet_tpu_torch import image
+
+    rng = np.random.RandomState(seed)
+    items = []
+    for i in range(n):
+        img, label = det_image(rng, side, classes)
+        path = os.path.join(workdir, "det%03d.png" % i)
+        with open(path, "wb") as f:
+            f.write(image.imencode(img, fmt=".png"))
+        items.append(label + [path])
+    return items
+
+
+def profile_groups(torch, run, steps, step_ms, label, groups, top=20):
+    """Device busy time of ``steps`` calls of ``run`` under `torch.profiler`
+    as a share of ``step_ms`` (timed without it), split into ``groups``
+    (name -> test of a kernel's name, the first that matches); the ``top``
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    shares = dict.fromkeys(groups, 0.0)
+    rows = []
+    for ev in prof.key_averages():
+        if is_annotation(ev) or not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        rows.append((us / steps / 1e3, ev.count // steps, ev.key))
+        for name, test in groups.items():
+            if test(ev.key):
+                shares[name] += us / steps / 1e3
+                break
+    busy = sum(shares.values())
+    rows.sort(reverse=True)
+    log("  profile %s: device busy %.3f ms a step = %.1f%% of the %.2f ms "
+        "step; %s" % (label, busy, 100.0 * busy / step_ms, step_ms,
+                      "; ".join("%s %.3f ms (%.1f%%)" % (
+                          k, v, 100.0 * v / max(busy, 1e-9))
+                          for k, v in shares.items())))
+    for ms, count, key in rows[:top]:
+        log("    %8.3f ms  x%-4d %s" % (ms, count, key[:150]))
+
+
+DET_GROUPS = {
+    "conv epilogue": lambda k: any("::%s<" % f in k or "::%s(" % f in k
+                                   for f in EPI_FUNCS),
+    # the channels-first BatchNorms' movedim copies in and out (PyTorch's
+    # copy of a permuted view)
+    "layout copies": lambda k: "copy_kernel" in k,
+    # cuDNN's own NCHW <-> NHWC transforms around its kernels
+    "cuDNN layout transforms": lambda k: "nhwcToNchw" in k
+    or "nchwToNhwc" in k,
+    # cuDNN's convolutions, the FFT ones among them
+    "convolution": lambda k: any(t in k for t in (
+        "xmma", "cudnn", "conv", "implicit_gemm", "cutlass", "sm90_",
+        "fft", "complex")),
+    "batch to the card": lambda k: "Memcpy HtoD" in k,
+    "rest": lambda k: True}
+
+
+def ssd_step(autograd, net, loss_fn, trainer, x, labels):
+    """One step of examples/ssd/train.py's loop; the loss as a float."""
+    with autograd.record():
+        cls_preds, loc_preds, anchors = net(x)
+        targets = net.training_targets(anchors, cls_preds, labels)
+        loss = loss_fn(cls_preds, loc_preds, *targets)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return float(loss.asnumpy()), (cls_preds, loc_preds, anchors)
+
+
+def train_ssd(torch, pk, args, workdir):
+    """SSD-512 ResNet-50 v1 (VOC's 20 classes, channels-first, Xavier from
+    the seed, the fused ResNet graph) trained in f32 as
+    examples/ssd/train.py trains it, from `ImageDetIter` over DET_IMAGES
+    generated PNGs with ``rand_mirror``: DET_WARMUP steps, then the
+    epilogue counts set to 0 and DET_STEPS timed steps. Gates: a finite
+    loss whose last 3 steps' mean is below the first 3's; each epilogue
+    kernel SSD_BNS launches a step; the detections of the last batch on
+    the card equal MultiBoxDetection on the CPU over the same inputs.
+    Returns the timed steps' epilogue launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, image
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (SSDMultiBoxLoss,
+                                                        ssd_512_resnet50_v1)
+    from mxnet_tpu_torch.ops import contrib
+
+    t0 = time.monotonic()
+    items = write_det_images(workdir, args.seed + 40, DET_IMAGES)
+    write_s = time.monotonic() - t0
+    np.random.seed(args.seed)   # the mirror's draws
+    it = image.ImageDetIter(DET_BATCH, (3, DET_SIDE, DET_SIDE),
+                            imglist=items, path_root="", rand_mirror=True)
+    net = ssd_512_resnet50_v1(num_classes=DET_CLASSES, fuse_epilogue=True)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0), seed=args.seed)
+    n_bn = sum(isinstance(m, gnn.BatchNorm) for m in net.modules())
+    if n_bn != SSD_BNS:
+        raise AssertionError("ssd_512_resnet50_v1 has %d BatchNorms, not %d"
+                             % (n_bn, SSD_BNS))
+    loss_fn = SSDMultiBoxLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": DET_LR})
+
+    def batch():
+        t = time.monotonic()
+        try:
+            b = it.next()
+        except StopIteration:
+            it.reset()
+            b = it.next()
+        x = b.data[0].as_in_context(mx.gpu(0))
+        y = b.label[0].as_in_context(mx.gpu(0))
+        torch.cuda.synchronize()
+        return x, y, time.monotonic() - t
+
+    losses = []
+    t0 = time.monotonic()
+    for _ in range(DET_WARMUP):
+        x, y, _ = batch()
+        losses.append(ssd_step(autograd, net, loss_fn, trainer, x, y)[0])
+    warm_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in net.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    for k in EPI_KERNELS:
+        getattr(pk, k).launches = 0
+    for k in ("epi_stats", "epi_bwd_reduce"):
+        getattr(pk, k).routes = dict.fromkeys(getattr(pk, k).routes, 0)
+    wait = 0.0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(DET_STEPS):
+        x, y, w = batch()
+        wait += w
+        loss, outs = ssd_step(autograd, net, loss_fn, trainer, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+    routes = {k: {r: n / DET_STEPS for r, n in getattr(pk, k).routes.items()}
+              for k in ("epi_stats", "epi_bwd_reduce")}
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.asarray(losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError("detection: non-finite loss %s" % losses)
+    if not losses[-3:].mean() < losses[:3].mean():
+        raise AssertionError("detection: the loss did not fall: %s" % losses)
+    for k, n in launches.items():
+        if n != SSD_BNS * DET_STEPS:
+            raise AssertionError("detection: %s launched %d times in %d "
+                                 "steps, not %d x %d" % (
+                                     k, n, DET_STEPS, SSD_BNS, DET_STEPS))
+    step_ms = wall / DET_STEPS * 1e3
+    log("detection: ssd_512_resnet50_v1 (20 classes, NCHW, fused ResNet "
+        "graph, f32, TF32 off), %d parameters, %d BatchNorms, %d anchors; "
+        "%d PNGs of %d x %d written in %.1f s; Adam lr %g, batch %d from "
+        "ImageDetIter (rand_mirror); %d warm-up steps in %.1f s, then %d "
+        "timed in %.3f s: %.2f images/s, %.2f ms a step, %.1f%% of it in "
+        "next() and the copy to the card; peak allocated %d bytes; losses "
+        "%s (first 3 mean %.4f, last 3 %.4f); epilogue launches %s (= %d "
+        "x %d); the reductions' launches a step by route %s; %s"
+        % (n_params, n_bn, outs[2].shape[1], DET_IMAGES, DET_SIDE, DET_SIDE,
+           write_s, DET_LR, DET_BATCH, DET_WARMUP, warm_s, DET_STEPS, wall,
+           DET_BATCH * DET_STEPS / wall, step_ms, 100.0 * wait / wall, peak,
+           ["%.4f" % v for v in losses], losses[:3].mean(),
+           losses[-3:].mean(), json.dumps(launches), SSD_BNS, DET_STEPS,
+           json.dumps(routes), smi_line()))
+    if outs[2].shape[1] != SSD_ANCHORS:
+        raise AssertionError("detection: %d anchors, not %d"
+                             % (outs[2].shape[1], SSD_ANCHORS))
+    if args.profile:
+        def run():
+            xb, yb, _ = batch()
+            ssd_step(autograd, net, loss_fn, trainer, xb, yb)
+
+        profile_groups(torch, run, 2, step_ms, "SSD-512 f32 step", DET_GROUPS)
+
+    # the detections of the last batch, on the card and on the CPU
+    cls_preds, loc_preds, anchors = (o.detach() for o in outs)
+    cls_prob = mx.nd.softmax(mx.nd.transpose(cls_preds, (0, 2, 1)), axis=1)
+    det_args = dict(nms_threshold=0.45, nms_topk=400, threshold=0.01)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    det = net.detections(cls_preds, loc_preds, anchors)
+    torch.cuda.synchronize()
+    det_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    card = contrib.multibox_detection(cls_prob._data, loc_preds._data,
+                                      anchors._data, **det_args)
+    torch.cuda.synchronize()
+    op_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    cpu = contrib.multibox_detection(cls_prob._data.cpu(),
+                                     loc_preds._data.cpu(),
+                                     anchors._data.cpu(), **det_args)
+    cpu_s = time.monotonic() - t0
+    # the NMS's parts: the packed suppression matrix of the score-ordered
+    # boxes on the card (class-blind here), then its read to the host
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    words = contrib._suppression_words(card[..., 2:6], 0.45)
+    torch.cuda.synchronize()
+    words_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    words = words.cpu()
+    read_s = time.monotonic() - t0
+    det_np, card_np, cpu_np = (t.cpu().numpy() for t in
+                               (det._data, card, cpu))
+    if not np.array_equal(det_np, card_np):
+        raise AssertionError("detection: net.detections differs from "
+                             "MultiBoxDetection over its softmax")
+    if not np.array_equal(card_np[..., 0], cpu_np[..., 0]):
+        raise AssertionError("detection: the card's kept ids differ from "
+                             "the CPU's at %d of %d rows"
+                             % (int((card_np[..., 0] != cpu_np[..., 0])
+                                    .sum()), cpu_np[..., 0].size))
+    err = compare_runs("detection card vs CPU", [("det", [card_np[..., 1:]])],
+                       [("det", [cpu_np[..., 1:]])], DET_TOL)
+    kept = int((card_np[..., 0] >= 0).sum())
+    log("  detections of the last batch (MultiBoxDetection, NMS 0.45 over "
+        "%d anchors x %d images): net.detections %.1f ms, the op alone on "
+        "the card %.1f ms (of it the suppression matrix %.1f ms and its "
+        "read of %d bytes %.1f ms, the rest the decode, sort and host "
+        "sweep), on the CPU %.1f ms; %d kept (%.1f an image); ids and kept "
+        "set equal to the CPU's, scores and boxes within %.3g"
+        % (SSD_ANCHORS, DET_BATCH, det_s * 1e3, op_s * 1e3, words_s * 1e3,
+           words.numel() * 4, read_s * 1e3, cpu_s * 1e3, kept,
+           kept / DET_BATCH, err))
+    return launches
+
+
+def detection_ops_phase(torch, args):
+    """Every case of `detection_op_cases` (full: SSD-512's and Faster
+    R-CNN's shapes, and examples/rcnn/train.py's) on the card against the
+    CPU: values and gradients within DET_TOL, the discrete parts exact."""
+    cases = detection_op_cases(args.seed + 41, full=True)
+    card, card_s = detection_op_run(torch, "cuda", cases, args.seed + 42)
+    cpu, cpu_s = detection_op_run(torch, "cpu", cases, args.seed + 42)
+    err = compare_detection("detection ops card vs CPU", cases, card, cpu)
+    log("detection ops on the card equal the CPU's (values and gradients "
+        "within %g, largest error %.3g; targets, ids, kept sets and ROI "
+        "order exact); card / CPU seconds, forward with its backward where "
+        "taken: %s" % (DET_TOL, err, "; ".join(
+            "%s %.4f / %.4f" % (k, card_s[k], cpu_s[k]) for k in card_s)))
+
+
+def rcnn_example(torch):
+    """examples/rcnn/train.py --steps 20 --image-size 64 on the card, run as
+    a script with each ``mxnet_tpu`` import answered by the port's module
+    of the same path: the FasterRCNN net, Proposal, the host-side target
+    sampling, ROIAlign and the four losses; the script's own gate is that
+    the loss falls over its 20 steps."""
+    import contextlib
+    import importlib
+    import importlib.abc
+    import importlib.util
+    import io
+    import runpy
+
+    class Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+        def find_spec(self, name, path, target=None):
+            if name == "mxnet_tpu" or name.startswith("mxnet_tpu."):
+                return importlib.util.spec_from_loader(name, self)
+            return None
+
+        def create_module(self, spec):
+            return importlib.import_module(
+                "mxnet_tpu_torch" + spec.name[len("mxnet_tpu"):])
+
+        def exec_module(self, module):
+            pass
+
+    import mxnet_tpu_torch as mx
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "rcnn", "train.py")
+    finder = Alias()
+    sys.meta_path.insert(0, finder)
+    argv, out = sys.argv, io.StringIO()
+    sys.argv = [script, "--steps", "20", "--image-size", "64"]
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out), mx.context.scope(mx.gpu(0)):
+            runpy.run_path(script, run_name="__main__")
+    finally:
+        sys.argv = argv
+        sys.meta_path.remove(finder)
+        for name in [n for n in sys.modules if n == "mxnet_tpu"
+                     or n.startswith("mxnet_tpu.")]:
+            del sys.modules[name]
+    lines = out.getvalue().strip().splitlines()
+    falls = [ln for ln in lines if "->" in ln]
+    if not falls:
+        raise AssertionError("rcnn: no loss line in %s" % lines[-3:])
+    log("rcnn: examples/rcnn/train.py --steps 20 --image-size 64 on the "
+        "card in %.1f s: %s; %s" % (time.monotonic() - t0, falls[-1],
+                                    lines[-1]))
+
+
+def detection_phase(torch, pk, args):
+    """The detection slice on the card: `train_ssd`, then
+    `detection_ops_phase` and `rcnn_example`. Returns the SSD training's
+    epilogue launches."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-det-") as workdir:
+        launches = train_ssd(torch, pk, args, workdir)
+    torch.cuda.empty_cache()
+    detection_ops_phase(torch, args)
+    rcnn_example(torch)
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5584,7 +6180,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
-    extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {}}
+    extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
+             "detection": {}}
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -5597,6 +6194,8 @@ def main(argv=None):
         predict_serving(torch, pk, args, prefix)
         torch.cuda.empty_cache()
         extra["predict_vision"] = predict_vision(torch, pk, args, ckpt)
+    torch.cuda.empty_cache()
+    extra["detection"] = detection_phase(torch, pk, args)
     torch.cuda.empty_cache()
     for k in KERNELS:
         if launches[k["name"]] < 1:
@@ -5619,8 +6218,9 @@ def main(argv=None):
             row["launches_train_vision"] = vision_launches[k["name"]]
         for phase, counts in extra.items():
             if counts.get(k["name"]):
-                # this slice's paths: ctc_ocr (training + decode), the
-                # dropout runs, the training run behind predict_vision
+                # later slices' paths: ctc_ocr (training + decode), the
+                # dropout runs, the training run behind predict_vision,
+                # the SSD training of the detection phase
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

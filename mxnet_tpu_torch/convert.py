@@ -338,47 +338,60 @@ def bert_params_from_jax(params):
 # the vision nets built as the JAX package builds them
 # ---------------------------------------------------------------------------
 
-def _net_prefix(names):
-    """The top block's prefix of a net's parameter names (its alias and
-    count, ``inception30_``): the part before the first "_", shared by
-    all."""
-    prefixes = {n.split("_", 1)[0] + "_" for n in names}
-    if len(prefixes) != 1:
+def _net_prefixes(names):
+    """The top blocks' prefixes of a net's parameter names (each an alias
+    and count, ``inception30_``: the part before the first "_") by alias
+    (``inception``): one a block. A net holds one top block, or, as SSD
+    does, its backbone's beside its own (``resnetv10_``, ``ssd0_``)."""
+    by_alias = {}
+    for n in names:
+        prefix = n.split("_", 1)[0] + "_"
+        by_alias.setdefault(prefix.rstrip("_0123456789"), set()).add(prefix)
+    clash = {a: sorted(p) for a, p in by_alias.items() if len(p) > 1}
+    if clash:
         raise MXNetError("not one network's parameters: prefixes %s"
-                         % sorted(prefixes))
-    return prefixes.pop()
+                         % clash)
+    return {a: p.pop() for a, p in by_alias.items()}
 
 
 def vision_params_from_jax(params, net):
     """The JAX package's parameters of a vision net -> the state dict of
     the port's ``net`` of the same family and configuration (ResNet v2,
-    AlexNet, VGG, SqueezeNet, DenseNet, Inception V3, MobileNet v1 / v2),
-    built under the same layout.
+    AlexNet, VGG, SqueezeNet, DenseNet, Inception V3, MobileNet v1 / v2,
+    SSD), built under the same layout.
 
     ``params``: name -> numpy array, as ``{k: p.data().asnumpy() for k, p
     in jnet.collect_params().items()}``, running statistics included. Both
     packages name a parameter by its block's prefix chain, which differs
-    between the two nets only in the top block's count
-    (``inception30_conv0_weight`` against ``inception31_conv0_weight``);
-    each array goes to the port parameter of that name, under its module
-    path (``features.0.0.weight``, the `state_dict` key). Both store a
-    conv weight as the layout gives it, (O, *k, I/g) channels-last, so no
-    array is transposed. Raises `MXNetError` on a name it cannot place, a
-    port parameter left without an array, or a shape that differs (a
-    dimension the port net has not inferred yet, 0, takes the array's).
-    Load the result with ``net.load_state_dict`` once the net's
-    parameters exist (after a first forward when a shape was deferred)."""
+    between the two nets only in the top blocks' counts
+    (``inception30_conv0_weight`` against ``inception31_conv0_weight``; an
+    SSD's backbone and its own block, ``resnetv10_`` and ``ssd0_``, each
+    matched by its alias); each array goes to the port parameter of that
+    name, under its module path (``features.0.0.weight``, the `state_dict`
+    key). Both store a conv weight as the layout gives it, (O, *k, I/g)
+    channels-last, so no array is transposed. Raises `MXNetError` on a
+    name it cannot place, a port parameter left without an array, or a
+    shape that differs (a dimension the port net has not inferred yet, 0,
+    takes the array's). Load the result with ``net.load_state_dict`` once
+    the net's parameters exist (after a first forward when a shape was
+    deferred)."""
     ours = net._collect_params_with_prefix()
     if not params or not ours:
         raise MXNetError("no parameters to place")
-    jprefix = _net_prefix(params)
-    tprefix = _net_prefix([p.name for p in ours.values()])
+    jprefix = _net_prefixes(params)
+    tprefix = _net_prefixes([p.name for p in ours.values()])
+    if set(jprefix) != set(tprefix):
+        raise MXNetError("not one network's parameters: the JAX top blocks "
+                         "%s, the port net's %s"
+                         % (sorted(jprefix.values()),
+                            sorted(tprefix.values())))
+    to_jax = {tprefix[a]: jprefix[a] for a in tprefix}
     by_name = {}
     for path, p in ours.items():
-        by_name.setdefault(p.name[len(tprefix):], []).append((path, p))
+        head, rest = p.name.split("_", 1)
+        by_name.setdefault(to_jax[head + "_"] + rest, []).append((path, p))
     state, missing = {}, []
-    for rest, places in by_name.items():
-        key = jprefix + rest
+    for key, places in by_name.items():
         if key not in params:
             missing.append(key)
             continue
@@ -390,7 +403,7 @@ def vision_params_from_jax(params, net):
                 raise MXNetError("%s: the JAX array has shape %s, the port "
                                  "parameter %s" % (key, arr.shape, shape))
             state[path] = _t(arr)
-    extra = sorted(set(params) - {jprefix + r for r in by_name})
+    extra = sorted(set(params) - set(by_name))
     if missing or extra:
         raise MXNetError("cannot place the parameters onto %s: missing %s, "
                          "not in the port net %s"

@@ -1,9 +1,9 @@
 """Vision models of the port (counterpart of
 `mxnet_tpu.gluon.model_zoo.vision`): ResNet v1 and v2, AlexNet, VGG,
-SqueezeNet, DenseNet, Inception V3 and MobileNet v1 / v2, and `get_model`
-over the JAX package's name table. The SSD family and the space-to-depth
-stem helpers are not ported yet (ROADMAP queue 1 item 9): `get_model`
-names them and raises."""
+SqueezeNet, DenseNet, Inception V3, MobileNet v1 / v2 and the SSD family,
+and `get_model` over the JAX package's name table. The space-to-depth stem
+helpers are not ported yet (ROADMAP queue 1 item 9): `get_model` names
+them and raises."""
 import sys as _sys
 
 from ....base import MXNetError
@@ -13,15 +13,14 @@ from .inception import *  # noqa: F401,F403
 from .mobilenet import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
 from .squeezenet import *  # noqa: F401,F403
+from .ssd import *  # noqa: F401,F403
 from .vgg import *  # noqa: F401,F403
 
 _FAMILIES = ("resnet", "alexnet", "vgg", "squeezenet", "densenet",
-             "inception", "mobilenet")
+             "inception", "mobilenet", "ssd")
 
 # the JAX table's entries the port has not ported
-_NOT_PORTED = ("get_ssd", "ssd_300_resnet50_v1", "ssd_512_mobilenet1_0",
-               "ssd_512_resnet50_v1", "ssd_test_tiny", "stem_weight_to_s2d",
-               "convert_stem_params")
+_NOT_PORTED = ("stem_weight_to_s2d", "convert_stem_params")
 
 # the factories by name, collected as the JAX package collects them: every
 # lower-case callable of a family module's __all__ (via sys.modules: `from
@@ -54,9 +53,8 @@ def get_model(name, **kwargs):
         if alt in _models or alt in _NOT_PORTED:
             name = alt
     if name in _NOT_PORTED:
-        raise MXNetError("Model %s is not ported yet (the SSD family and "
-                         "the space-to-depth stem: ROADMAP queue 1 item 9)"
-                         % name)
+        raise MXNetError("Model %s is not ported yet (the space-to-depth "
+                         "stem: ROADMAP queue 1 item 9)" % name)
     if name not in _models:
         raise MXNetError("Model %s not supported. Available: %s"
                          % (name, sorted(_models)))

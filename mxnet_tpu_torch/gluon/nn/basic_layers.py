@@ -94,10 +94,17 @@ class HybridSequential(HybridBlock, Sequential):
 
 class _TensorOps:
     """The registered ops as functions of tensors (``F.concat`` is the
-    ``concat`` op's torch function): the ``F`` of `_Layer.forward`."""
+    ``concat`` op's torch function): the ``F`` of `_Layer.forward`.
+    ``F.contrib.X`` is the op ``_contrib_X``, as in ``mx.nd`` and
+    ``mx.sym``."""
+
+    def __init__(self, prefix=""):
+        self._prefix = prefix
 
     def __getattr__(self, name):
-        return _registry.get(name).fn
+        if name == "contrib" and not self._prefix:
+            return _TensorOps("_contrib_")
+        return _registry.get(self._prefix + name).fn
 
 
 _TENSOR_F = _TensorOps()

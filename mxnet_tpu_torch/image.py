@@ -22,8 +22,9 @@ reference keeps them on the CPU:
 
 The iterators yield batches of host (CPU) NDArrays, NCHW float32;
 `data.DevicePrefetcher` or ``as_in_context`` moves them to the card. The
-detection pipeline (``ImageDetIter`` and the ``Det*`` augmenters) is not
-ported yet (ROADMAP queue 1 item 9): its names raise.
+detection pipeline (``ImageDetIter``, the ``Det*`` augmenters,
+``CreateDetAugmenter``) draws from the same ``rng`` or numpy's global
+generator, the same numbers in the same order as the JAX package's.
 """
 from __future__ import annotations
 
@@ -843,26 +844,416 @@ class ImageRecordIterPy(ImageIter):
 
 
 # ---------------------------------------------------------------------------
-# the detection pipeline: not ported yet (ROADMAP queue 1 item 9)
+# the detection pipeline (reference: python/mxnet/image/detection.py and
+# src/io/iter_image_det_recordio.cc). A label is (N, 5+) rows [cls, x1, y1,
+# x2, y2, ...] of normalized corners.
 # ---------------------------------------------------------------------------
 
-def _not_ported(name):
-    def make(*args, **kwargs):
-        raise MXNetError("image.%s (the detection pipeline) is not ported "
-                         "yet (ROADMAP queue 1 item 9)" % name)
+class DetAugmenter:
+    """Detection augmenter base (reference: detection.py:39): called with
+    (image HWC numpy, label (N, 5+)), returns both."""
 
-    make.__name__ = name
-    make.__doc__ = "Not ported yet: raises (ROADMAP queue 1 item 9)."
-    return make
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self):
+        return json.dumps([self.__class__.__name__, self._kwargs])
+
+    def __call__(self, src, label):
+        raise NotImplementedError
 
 
-DetAugmenter = _not_ported("DetAugmenter")
-DetBorrowAug = _not_ported("DetBorrowAug")
-DetRandomSelectAug = _not_ported("DetRandomSelectAug")
-DetHorizontalFlipAug = _not_ported("DetHorizontalFlipAug")
-DetRandomCropAug = _not_ported("DetRandomCropAug")
-DetRandomPadAug = _not_ported("DetRandomPadAug")
-DetResizeAug = _not_ported("DetResizeAug")
-CreateMultiRandCropAugmenter = _not_ported("CreateMultiRandCropAugmenter")
-CreateDetAugmenter = _not_ported("CreateDetAugmenter")
-ImageDetIter = _not_ported("ImageDetIter")
+class DetBorrowAug(DetAugmenter):
+    """An image-only `Augmenter` that keeps the geometry (color, cast,
+    normalize) applied to the image; the label passes through (reference:
+    detection.py:65)."""
+
+    def __init__(self, augmenter):
+        super().__init__(augmenter=augmenter.__class__.__name__)
+        self.augmenter = augmenter
+
+    def __call__(self, src, label):
+        return self.augmenter(src), label
+
+
+class DetRandomSelectAug(DetAugmenter):
+    """One augmenter of ``aug_list`` picked at random, or none with
+    probability ``skip_prob`` (reference: detection.py:90)."""
+
+    def __init__(self, aug_list, skip_prob=0.0, rng=None):
+        super().__init__(skip_prob=skip_prob)
+        self.aug_list = list(aug_list)
+        self.skip_prob = skip_prob
+        self.rng = rng
+
+    def __call__(self, src, label):
+        r = _rng(self.rng)
+        if not self.aug_list or r.random_sample() < self.skip_prob:
+            return src, label
+        return self.aug_list[r.randint(len(self.aug_list))](src, label)
+
+
+class DetHorizontalFlipAug(DetAugmenter):
+    """Mirror the image and its boxes with probability ``p`` (reference:
+    detection.py:126)."""
+
+    def __init__(self, p=0.5, rng=None):
+        super().__init__(p=p)
+        self.p = p
+        self.rng = rng
+
+    def __call__(self, src, label):
+        if _rng(self.rng).random_sample() < self.p:
+            src = _np.asarray(src)[:, ::-1]
+            label = label.copy()
+            label[:, 1], label[:, 3] = 1.0 - label[:, 3], \
+                1.0 - label[:, 1].copy()
+        return src, label
+
+
+def _box_coverage(boxes, crop):
+    """The share of each box's area (N, 4 normalized corners) inside
+    ``crop`` (x1, y1, x2, y2)."""
+    ix1 = _np.maximum(boxes[:, 0], crop[0])
+    iy1 = _np.maximum(boxes[:, 1], crop[1])
+    ix2 = _np.minimum(boxes[:, 2], crop[2])
+    iy2 = _np.minimum(boxes[:, 3], crop[3])
+    inter = _np.maximum(ix2 - ix1, 0) * _np.maximum(iy2 - iy1, 0)
+    area = _np.maximum((boxes[:, 2] - boxes[:, 0])
+                       * (boxes[:, 3] - boxes[:, 1]), 1e-12)
+    return inter / area
+
+
+class DetRandomCropAug(DetAugmenter):
+    """SSD's constrained random crop (reference: detection.py:152): up to
+    ``max_attempts`` crops drawn in the area and aspect ranges; the first
+    whose kept objects are each covered at least ``min_object_covered``
+    wins. An object whose centre falls outside, or whose coverage is below
+    ``min_eject_coverage``, leaves the label."""
+
+    def __init__(self, min_object_covered=0.1, aspect_ratio_range=(0.75, 1.33),
+                 area_range=(0.05, 1.0), min_eject_coverage=0.3,
+                 max_attempts=50, rng=None):
+        super().__init__(min_object_covered=min_object_covered,
+                         aspect_ratio_range=aspect_ratio_range,
+                         area_range=area_range,
+                         min_eject_coverage=min_eject_coverage,
+                         max_attempts=max_attempts)
+        self.min_object_covered = min_object_covered
+        self.aspect_ratio_range = aspect_ratio_range
+        self.area_range = area_range
+        self.min_eject_coverage = min_eject_coverage
+        self.max_attempts = max_attempts
+        self.rng = rng
+
+    def _try_crop(self, label):
+        r = _rng(self.rng)
+        area = r.uniform(*self.area_range)
+        ratio = r.uniform(*self.aspect_ratio_range)
+        w = min(_np.sqrt(area * ratio), 1.0)
+        h = min(_np.sqrt(area / ratio), 1.0)
+        x0 = r.uniform(0, 1 - w)
+        y0 = r.uniform(0, 1 - h)
+        crop = (x0, y0, x0 + w, y0 + h)
+        boxes = label[:, 1:5]
+        cov = _box_coverage(boxes, crop)
+        cx = (boxes[:, 0] + boxes[:, 2]) / 2
+        cy = (boxes[:, 1] + boxes[:, 3]) / 2
+        keep = ((cx >= crop[0]) & (cx <= crop[2]) & (cy >= crop[1])
+                & (cy <= crop[3]) & (cov >= self.min_eject_coverage))
+        if not keep.any() or cov[keep].min() < self.min_object_covered:
+            return None
+        new = label[keep].copy()
+        b = new[:, 1:5]
+        b[:, (0, 2)] = (b[:, (0, 2)] - crop[0]) / max(crop[2] - crop[0],
+                                                     1e-12)
+        b[:, (1, 3)] = (b[:, (1, 3)] - crop[1]) / max(crop[3] - crop[1],
+                                                     1e-12)
+        new[:, 1:5] = _np.clip(b, 0.0, 1.0)
+        return crop, new
+
+    def __call__(self, src, label):
+        for _ in range(self.max_attempts):
+            got = self._try_crop(label)
+            if got is None:
+                continue
+            crop, new_label = got
+            src = _np.asarray(src)
+            h, w = src.shape[:2]
+            x1 = int(round(crop[0] * w))
+            y1 = int(round(crop[1] * h))
+            x2 = max(int(round(crop[2] * w)), x1 + 1)
+            y2 = max(int(round(crop[3] * h)), y1 + 1)
+            return src[y1:y2, x1:x2], new_label
+        return src, label
+
+
+class DetRandomPadAug(DetAugmenter):
+    """Zoom out: the image placed at random on a canvas of ``pad_val``
+    whose area is drawn from ``area_range`` (reference: detection.py:323);
+    the boxes shrink with it."""
+
+    def __init__(self, aspect_ratio_range=(0.75, 1.33), area_range=(1.0, 3.0),
+                 max_attempts=50, pad_val=(127, 127, 127), rng=None):
+        super().__init__(aspect_ratio_range=aspect_ratio_range,
+                         area_range=area_range, max_attempts=max_attempts,
+                         pad_val=pad_val)
+        self.aspect_ratio_range = aspect_ratio_range
+        self.area_range = area_range
+        self.max_attempts = max_attempts
+        self.pad_val = pad_val
+        self.rng = rng
+
+    def __call__(self, src, label):
+        r = _rng(self.rng)
+        src = _np.asarray(src)
+        h, w = src.shape[:2]
+        for _ in range(self.max_attempts):
+            area = r.uniform(*self.area_range)
+            ratio = r.uniform(*self.aspect_ratio_range)
+            nw = _np.sqrt(area * ratio)
+            nh = _np.sqrt(area / ratio)
+            if nw < 1 or nh < 1:
+                continue
+            pw = int(round(w * nw))
+            ph = int(round(h * nh))
+            x0 = r.randint(0, pw - w + 1)
+            y0 = r.randint(0, ph - h + 1)
+            canvas = _np.empty((ph, pw, src.shape[2]), dtype=src.dtype)
+            canvas[:] = _np.asarray(self.pad_val, dtype=src.dtype)
+            canvas[y0:y0 + h, x0:x0 + w] = src
+            label = label.copy()
+            b = label[:, 1:5]
+            b[:, (0, 2)] = (b[:, (0, 2)] * w + x0) / pw
+            b[:, (1, 3)] = (b[:, (1, 3)] * h + y0) / ph
+            label[:, 1:5] = b
+            return canvas, label
+        return src, label
+
+
+class DetResizeAug(DetAugmenter):
+    """Resize to ``size`` (w, h); normalized boxes are unchanged."""
+
+    def __init__(self, size, interp=2):
+        super().__init__(size=size, interp=interp)
+        self.size = size
+        self.interp = interp
+
+    def __call__(self, src, label):
+        return imresize(src, self.size[0], self.size[1], self.interp), label
+
+
+def CreateMultiRandCropAugmenter(min_object_covered=0.1,
+                                 aspect_ratio_range=(0.75, 1.33),
+                                 area_range=(0.05, 1.0),
+                                 min_eject_coverage=0.3, max_attempts=50,
+                                 skip_prob=0.0, rng=None):
+    """One `DetRandomCropAug` a constraint set (lists cycle to the longest),
+    one picked at random a call (reference: detection.py:417)."""
+    def _as_list(v):
+        return v if isinstance(v, (list, tuple)) and v and \
+            isinstance(v[0], (list, tuple)) else [v]
+
+    def _listed(v):
+        return v if isinstance(v, (list, tuple)) else [v]
+
+    covered = _listed(min_object_covered)
+    aspects = _as_list(aspect_ratio_range)
+    areas = _as_list(area_range)
+    ejects = _listed(min_eject_coverage)
+    n = max(len(covered), len(aspects), len(areas), len(ejects))
+
+    def _at(seq, i):
+        return seq[i % len(seq)]
+
+    augs = [DetRandomCropAug(_at(covered, i), _at(aspects, i), _at(areas, i),
+                             _at(ejects, i), max_attempts, rng=rng)
+            for i in range(n)]
+    return DetRandomSelectAug(augs, skip_prob=skip_prob, rng=rng)
+
+
+def CreateDetAugmenter(data_shape, resize=0, rand_crop=0, rand_pad=0,
+                       rand_gray=0, rand_mirror=False, mean=None, std=None,
+                       brightness=0, contrast=0, saturation=0, pca_noise=0,
+                       hue=0, inter_method=2, min_object_covered=0.1,
+                       aspect_ratio_range=(0.75, 1.33), area_range=(0.05, 3.0),
+                       min_eject_coverage=0.3, max_attempts=50,
+                       pad_val=(127, 127, 127), rng=None):
+    """The detection augmentation chain (reference: detection.py:482): color
+    jitter, random crop (probability ``rand_crop``), random pad
+    (``rand_pad``), mirror, resize to ``data_shape``, cast and normalize."""
+    auglist = []
+    if resize > 0:
+        auglist.append(DetBorrowAug(ResizeAug(resize, inter_method)))
+    if brightness:
+        auglist.append(DetBorrowAug(BrightnessJitterAug(brightness, rng)))
+    if contrast:
+        auglist.append(DetBorrowAug(ContrastJitterAug(contrast, rng)))
+    if saturation:
+        auglist.append(DetBorrowAug(SaturationJitterAug(saturation, rng)))
+    if hue:
+        auglist.append(DetBorrowAug(HueJitterAug(hue, rng)))
+    if pca_noise:
+        auglist.append(DetBorrowAug(LightingAug(pca_noise, rng=rng)))
+    if rand_gray:
+        auglist.append(DetBorrowAug(RandomGrayAug(rand_gray, rng)))
+    if rand_crop > 0:
+        auglist.append(CreateMultiRandCropAugmenter(
+            min_object_covered, aspect_ratio_range,
+            (area_range[0], min(area_range[1], 1.0)), min_eject_coverage,
+            max_attempts, skip_prob=1 - rand_crop, rng=rng))
+    if rand_pad > 0:
+        pad = DetRandomPadAug(aspect_ratio_range,
+                              (1.0, max(area_range[1], 1.0)), max_attempts,
+                              pad_val, rng=rng)
+        auglist.append(DetRandomSelectAug([pad], skip_prob=1 - rand_pad,
+                                          rng=rng))
+    if rand_mirror:
+        auglist.append(DetHorizontalFlipAug(0.5, rng=rng))
+    auglist.append(DetResizeAug((data_shape[2], data_shape[1]), inter_method))
+    auglist.append(DetBorrowAug(CastAug()))
+    if mean is True:
+        mean = _np.array([123.68, 116.28, 103.53])
+    if std is True:
+        std = _np.array([58.395, 57.12, 57.375])
+    if mean is not None and (isinstance(mean, _np.ndarray) or mean):
+        auglist.append(DetBorrowAug(ColorNormalizeAug(mean, std)))
+    return auglist
+
+
+class ImageDetIter(ImageIter):
+    """Detection iterator over a ``.rec`` or an image list (reference:
+    detection.py:624, iter_image_det_recordio.cc). A label is in im2rec's
+    detection format, ``[header_width, obj_width, (extras...), obj0...,
+    obj1...]``, each object ``[cls, x1, y1, x2, y2, ...]`` normalized;
+    degenerate boxes are dropped, and a sample with none is skipped. The
+    batch's label is (N, max objects, width), padded with -1 rows to the
+    most objects of any sample, found at construction from the labels
+    alone (record headers; no image is decoded). Batches are host
+    NDArrays, as `ImageIter`'s."""
+
+    def __init__(self, batch_size, data_shape, path_imgrec=None,
+                 path_imglist=None, path_root="", shuffle=False,
+                 aug_list=None, imglist=None, data_name="data",
+                 label_name="label", rng=None, **kwargs):
+        super().__init__(batch_size, data_shape, label_width=1,
+                         path_imgrec=path_imgrec, path_imglist=path_imglist,
+                         path_root=path_root, shuffle=shuffle, aug_list=[],
+                         imglist=imglist, data_name=data_name,
+                         label_name=label_name, rng=rng)
+        self.auglist = aug_list if aug_list is not None else \
+            CreateDetAugmenter(data_shape, rng=rng, **kwargs)
+        self.label_shape = self._estimate_label_shape()
+
+    @staticmethod
+    def _parse_label(label):
+        """Strip the header, reshape to (N, obj_width), drop degenerate
+        boxes (reference: detection.py _parse_label)."""
+        raw = _np.asarray(label, dtype=_np.float32).ravel()
+        if raw.size < 7:
+            raise MXNetError("detection label too short: %d" % raw.size)
+        header_width = int(raw[0])
+        obj_width = int(raw[1])
+        if obj_width < 5 or (raw.size - header_width) % obj_width != 0:
+            raise MXNetError("label shape %s inconsistent with obj width %d"
+                             % (raw.shape, obj_width))
+        out = raw[header_width:].reshape(-1, obj_width)
+        valid = (out[:, 3] > out[:, 1]) & (out[:, 4] > out[:, 2])
+        if not valid.any():
+            raise MXNetError("sample with no valid box")
+        return out[valid]
+
+    def _raw_labels(self):
+        """Every sample's raw label, from the record headers or the list,
+        decoding no image; a sequential record is rewound after."""
+        from . import recordio
+
+        if self.seq is None:
+            try:
+                while True:
+                    s = self.record.read()
+                    if s is None:
+                        break
+                    yield recordio.unpack(s)[0].label
+            finally:
+                self.record.reset()
+            return
+        for idx in self.seq:
+            if self.record is not None:
+                yield recordio.unpack(self.record.read_idx(idx))[0].label
+            else:
+                yield _np.asarray(self.imglist[idx][1], dtype=_np.float32)
+
+    def _estimate_label_shape(self):
+        max_count, width = 0, 5
+        for label in self._raw_labels():
+            try:
+                lab = self._parse_label(label)
+            except MXNetError:
+                continue   # next() skips it too
+            max_count = max(max_count, lab.shape[0])
+            width = lab.shape[1]
+        return (max_count, width)
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self.label_name,
+                         (self.batch_size,) + self.label_shape)]
+
+    def reshape(self, data_shape=None, label_shape=None):
+        if data_shape is not None:
+            self.data_shape = tuple(data_shape)
+        if label_shape is not None:
+            self.label_shape = tuple(label_shape)
+
+    def _next_det(self):
+        """The next sample with a valid box: (label (N, 5+), HWC uint8
+        numpy), decoded on the host."""
+        while True:
+            kind, payload = self._next_raw()
+            if kind == "rec":
+                from . import recordio
+
+                header, buf = recordio.unpack(payload)
+                label = header.label
+            else:
+                fname, label = payload
+                with open(os.path.join(self.path_root, fname), "rb") as f:
+                    buf = f.read()
+            try:
+                lab = self._parse_label(label)
+            except MXNetError:
+                continue
+            return lab, imdecode(buf, to_ndarray=False)
+
+    def next(self):
+        batch_data, batch_label = [], []
+        pad = 0
+        while len(batch_data) < self.batch_size:
+            try:
+                lab, img = self._next_det()
+            except StopIteration:
+                if not batch_data:
+                    raise
+                pad = self.batch_size - len(batch_data)
+                k = 0
+                while len(batch_data) < self.batch_size:
+                    batch_data.append(batch_data[k])
+                    batch_label.append(batch_label[k])
+                    k += 1
+                break
+            for aug in self.auglist:
+                img, lab = aug(img, lab)
+            arr = img.asnumpy() if isinstance(img, NDArray) else \
+                _np.asarray(img)
+            batch_data.append(_np.transpose(arr.astype(_np.float32),
+                                            (2, 0, 1)))
+            padded = _np.full(self.label_shape, -1.0, _np.float32)
+            n = min(lab.shape[0], self.label_shape[0])
+            padded[:n, :lab.shape[1]] = lab[:n]
+            batch_label.append(padded)
+        return DataBatch(data=[NDArray(torch.from_numpy(
+                             _np.stack(batch_data)))],
+                         label=[NDArray(torch.from_numpy(
+                             _np.stack(batch_label)))],
+                         pad=pad)

@@ -161,9 +161,21 @@ _BINARY_FNS = {
     "logical_xor": _same_type(torch.logical_xor),
 }
 
+
+def _operands(lhs, rhs):
+    """A binary op's operands as tensors: a Python number beside a tensor
+    takes the tensor's dtype (``mx.nd.maximum(x, 1)``, as jnp's weak
+    scalars)."""
+    if not torch.is_tensor(rhs):
+        rhs = _scalar(lhs, rhs)
+    elif not torch.is_tensor(lhs):
+        lhs = _scalar(rhs, lhs)
+    return lhs, rhs
+
+
 for _n, _f in _BINARY_FNS.items():
     register("elemwise_" + _n, aliases=("_" + _n, "broadcast_" + _n, _n))(
-        (lambda f: lambda lhs, rhs: f(lhs, rhs))(_f)
+        (lambda f: lambda lhs, rhs: f(*_operands(lhs, rhs)))(_f)
     )
 
 # scalar variants (reference: elemwise_binary_scalar_op_basic.cc)

@@ -1,12 +1,15 @@
-"""Two of the JAX package's examples run through the port, and the port's
+"""Four of the JAX package's examples run through the port, and the port's
 ``train_imagenet --model-prefix`` export served by both packages, on the
 CPU.
 
 1. ``examples/ctc/lstm_ocr.py --steps 2 --batch 4`` (its short-run exit:
-   the accuracy gate applies from 300 steps) and
-   ``examples/serving/generate_lm.py --requests 2 --max-new 2`` end with
-   rc 0 with ``mxnet_tpu`` aliased to ``mxnet_tpu_torch`` by an import
-   hook, under ``context.scope(cpu())``, in a process of their own.
+   the accuracy gate applies from 300 steps),
+   ``examples/serving/generate_lm.py --requests 2 --max-new 2``,
+   ``examples/ssd/train.py --epochs 1 --batch-size 4 --samples 16`` and
+   ``examples/rcnn/train.py --steps 8 --image-size 48`` (the arguments
+   tests/test_examples.py gives them) end with rc 0 with ``mxnet_tpu``
+   aliased to ``mxnet_tpu_torch`` by an import hook, under
+   ``context.scope(cpu())``, in a process of their own.
 2. ``python -m mxnet_tpu_torch.train_imagenet --device cpu --model-prefix
    P`` (resnet18_v1, 2 steps, 32 x 32 images, 10 classes) writes
    ``P-symbol.json`` and ``P-0000.params``; the port's ``Predictor`` and
@@ -65,6 +68,9 @@ assert "jax" not in sys.modules, "the port imported jax"
 @pytest.mark.parametrize("script,args", [
     ("ctc/lstm_ocr.py", ["--steps", "2", "--batch", "4"]),
     ("serving/generate_lm.py", ["--requests", "2", "--max-new", "2"]),
+    ("ssd/train.py", ["--epochs", "1", "--batch-size", "4", "--samples",
+                      "16"]),
+    ("rcnn/train.py", ["--steps", "8", "--image-size", "48"]),
 ])
 def test_example_runs_through_the_port(script, args):
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -367,6 +367,26 @@ def test_image_iter_sequential_and_list_sources(tmp_path):
 
 
 def test_detection_pipeline_is_not_ported():
-    for name in ("ImageDetIter", "CreateDetAugmenter", "DetRandomCropAug"):
-        with pytest.raises(MXNetError, match="item 9"):
-            getattr(timage, name)()
+    """The detection pipeline's ten names are the port's, of the JAX
+    package's kinds (classes and functions); a flip and the default chain
+    act as the JAX package's (tests/test_torch_port_ssd.py holds them all
+    under one seed)."""
+    names = ("DetAugmenter", "DetBorrowAug", "DetRandomSelectAug",
+             "DetHorizontalFlipAug", "DetRandomCropAug", "DetRandomPadAug",
+             "DetResizeAug", "CreateMultiRandCropAugmenter",
+             "CreateDetAugmenter", "ImageDetIter")
+    for name in names:
+        assert name in timage.__all__
+        assert isinstance(getattr(timage, name), type) == \
+            isinstance(getattr(jimage, name), type), name
+    img = _rgb(3, (10, 12, 3))
+    lab = np.array([[1, 0.1, 0.2, 0.4, 0.6]], np.float32)
+    t_img, t_lab = timage.DetHorizontalFlipAug(1.0)(img, lab)
+    j_img, j_lab = jimage.DetHorizontalFlipAug(1.0)(img, lab)
+    np.testing.assert_array_equal(t_img, j_img)
+    np.testing.assert_array_equal(t_lab, j_lab)
+    assert [type(a).__name__ for a in timage.CreateDetAugmenter(
+        (3, 8, 8))] == [type(a).__name__ for a in
+                        jimage.CreateDetAugmenter((3, 8, 8))]
+    with pytest.raises(MXNetError, match="too short"):
+        timage.ImageDetIter._parse_label([2, 5, 0, 0.1])

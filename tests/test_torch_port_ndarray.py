@@ -442,7 +442,8 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     that `HybridBlock.export` writes, 3 of ops/rnn.py), and the 4 image
     ops of ops/image_ops.py under 8 names, and the 22 random ops of
     ops/random_ops.py under 40 names, the 15 of ops/linalg.py under 30,
-    CTCLoss under 4 and _contrib_flash_attention under 2; each alias
+    CTCLoss under 4, and ops/contrib.py's 22 ops but the two MoE ops
+    under 46 names (_contrib_flash_attention among them); each alias
     resolves to the op its JAX alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
@@ -468,9 +469,12 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     linalg = sorted(n for n, o in jops._REGISTRY.items()
                     if o.fn.__module__ == "mxnet_tpu.ops.linalg")
     assert (len(rand), len(linalg)) == (40, 30)
+    contrib = sorted(n for n, o in jops._REGISTRY.items()
+                     if o.fn.__module__ == "mxnet_tpu.ops.contrib"
+                     and not o.name.endswith("_moe"))
+    assert len(contrib) == 46
     slice17 = rand + linalg + ["CTCLoss", "ctc_loss", "_contrib_CTCLoss",
-                               "_contrib_ctc_loss", "_contrib_flash_attention",
-                               "flash_attention"]
+                               "_contrib_ctc_loss"] + contrib
     assert sorted(tops.list_ops()) == sorted(names + opt + layers + image + [
         "softmax", "log_softmax"] + slice17)
     for n in opt + layers + image + slice17:

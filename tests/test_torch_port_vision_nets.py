@@ -357,9 +357,9 @@ def test_vision_params_from_jax_raises_on_what_it_cannot_place():
 def test_get_model_resolves_every_name_of_the_jax_table():
     """Every name of the JAX package's table, and the reference's dotted
     spellings, resolves to the port's factory of that name, except the
-    SSD family and the space-to-depth stem helpers, which raise naming
-    the roadmap item; an unknown name raises naming the available
-    models, as in the JAX package."""
+    space-to-depth stem helpers, which raise naming the roadmap item; an
+    unknown name raises naming the available models, as in the JAX
+    package. The SSD factories build the JAX package's net."""
     names = sorted(jvision._models)
     assert len(names) == 43
     not_ported = set(tvision._NOT_PORTED)
@@ -384,7 +384,11 @@ def test_get_model_resolves_every_name_of_the_jax_table():
     with pytest.raises(MXNetError, match="Available"):
         tvision.get_model("resnet51_v1")
     with pytest.raises(MXNetError, match="not ported yet"):
-        tvision.get_model("ssd_512_resnet50_v1")
+        tvision.get_model("stem_weight_to_s2d")
+    ssd = tvision.get_model("ssd_512_resnet50_v1", num_classes=5)
+    jssd = jvision.get_model("ssd_512_resnet50_v1", num_classes=5)
+    assert type(ssd).__name__ == type(jssd).__name__ == "SSD"
+    assert ssd.num_classes == jssd.num_classes == 5
 
 # ---------------------------------------------------------------------------
 # every family at full width: its parameters' names and shapes against the
