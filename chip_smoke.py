@@ -297,6 +297,62 @@ Phases; each raises on failure, and the script then exits non-zero:
    (`EPI_SSD_SHAPES`: R = 2,097,152 at C 64, 8,192 at 2,048, 128 at 128
    and 256, 32 at 128).
 
+14. profiler (after symbolic, before predict_serving): the symbolic phase's
+   word LM (a fresh ``BucketingModule`` over FusedRNNCell(650, 2 layers),
+   f32, SGD lr 1.0, Xavier from ``--seed``, 2 warm-up batches) ``fit`` over
+   6 bucket-35 batches three times: under ``mx.profiler`` with
+   ``set_config(profile_all=True, profile_sync=True)`` and
+   ``set_state("run")``, the same without ``profile_sync``, then with the
+   profiler off. Gates: each ``dump`` parses and holds an
+   ``ExecutorForward`` and an ``ExecutorBackward`` event ("symbolic") a
+   batch, and ``dumps()`` lists both; the synced run's op events on the
+   fitting thread sum to no more than its wall time; each run launches
+   lstm_fwd and lstm_bwd 2 x 6 times and lstm_infer never. Then the
+   overhead A/B: 8 rounds, each a window of 24 batches (the 6 replayed,
+   ``forward_backward``, ``update``, ``update_metric`` as ``fit`` runs
+   them) off, on and on with sync, the order reversed every other round,
+   the profiler switched and its events cleared outside the clock; prints
+   each mode's median ms a batch, the on / off ratio of each round, lowest
+   to highest, and whether the cost is resolved (every round's ratio on
+   one side of 1). Then ``start_xla_trace`` / ``stop_xla_trace`` around
+   one batch: the torch.profiler trace must name the LSTM kernels. Then
+   examples/profiler/profile_training.py --steps 3 on the card through the
+   port, its trace parsed: each step's two Dense events, its
+   SoftmaxCrossEntropyLoss event and their ``_backward_*`` events
+   (imperative), a step marker a step and the task.
+15. quantization (after predict_vision, before detection): bench.py's
+   ``bench_score_int8`` flow through the port: ``resnet50_v1``
+   (channels-first, ``fuse_epilogue=False``: Convolution -> BatchNorm ->
+   Activation, a plain add; Xavier from ``--seed``) hybridized and run on
+   a batch of 32 x 3 x 224 x 224 from the seed, exported,
+   ``load_checkpoint``, ``fold_batch_norm``, ``quantize_model`` (naive
+   calibration over that batch, on the card), ``save_checkpoint`` and a
+   ``Predictor`` on the card. Gates: the quantized graph holds 53
+   quantized convolutions and 1 quantized FC, no float convolution or FC
+   and no BatchNorm, its 54 weights int8 in the file and in the
+   Predictor; the card's int8 logits equal a CPU ``Predictor``'s over the
+   same files and batch bit for bit; top-1 agreement with the folded f32
+   graph on the card at least 0.75. Prints int8 images/s and the folded
+   f32 graph's (TF32 off): 3 warm-up forwards each, then 6 rounds of 20
+   timed forwards each, the order reversed every other round, the median
+   and the rounds' range; and the peak allocated bytes of an int8
+   forward. Then fault F3 on the net's own activations: 64 batches from
+   the seed through the folded graph on the card up to the global average
+   pool, whose input is averaged on the card and on the CPU by PyTorch's
+   f32 ``mean`` and by the port's pool, each then quantized as the FC's
+   ``quantize_v2`` does; prints the values that differ and the int8 steps
+   that flip, and each pool's card ms; gate: the port's pool gives both
+   devices the same bits. ``--profile`` adds the int8 forward's device time
+   split into the im2col gathers, ``_int_mm`` (its zero padding
+   included), the quantize / requantize / dequantize passes and the rest
+   (each kernel under the ``record_function`` range of the call that
+   launched it), and the f32 forward's device time. Then the 9 ops
+   (`int8_op_cases`: 14 cases at ResNet-50's shapes at batch 32) on card
+   tensors against the CPU, every output bit for bit; then
+   examples/quantization/quantize_lenet.py --smoke through the port
+   (training and entropy calibration on the card; the script binds its
+   quantized Module on the CPU).
+
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
 limit, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Without
@@ -3839,23 +3895,24 @@ def symbolic_sentences(rng, succ, plan):
     return out
 
 
-def symbolic_iters(seed):
-    """`BucketSentenceIter`s (time-major, "TN") of the warm-up, timed and
-    score batches, over one chain drawn from the seed."""
+def bucket_iters(seed, plans):
+    """A `BucketSentenceIter` (time-major, "TN") a plan of bucket lengths,
+    over one chain drawn from the seed."""
     import mxnet_tpu_torch as mx
 
     rng = np.random.RandomState(seed + 12)
     succ = rng.randint(0, LM_VOCAB, (LM_VOCAB, FACADE_SUCCESSORS))
+    return [mx.rnn.BucketSentenceIter(
+        symbolic_sentences(rng, succ, plan), LM_BATCH,
+        buckets=list(SYM_BUCKETS), invalid_label=SYM_INVALID, layout="TN")
+        for plan in plans]
+
+
+def symbolic_iters(seed):
+    """`bucket_iters` of the warm-up, timed and score batches."""
     timed = tuple(b for b in SYM_BUCKETS
                   for _ in range(SYM_STEPS // len(SYM_BUCKETS)))
-
-    def it(plan):
-        return mx.rnn.BucketSentenceIter(
-            symbolic_sentences(rng, succ, plan), LM_BATCH,
-            buckets=list(SYM_BUCKETS), invalid_label=SYM_INVALID,
-            layout="TN")
-
-    return it(SYM_WARMUP_PLAN), it(timed), it((35,) * SYM_EVAL)
+    return bucket_iters(seed, (SYM_WARMUP_PLAN, timed, (35,) * SYM_EVAL))
 
 
 def symbolic_word_lm(torch, pk, args, ckpt_dir=None):
@@ -6024,12 +6081,12 @@ def detection_ops_phase(torch, args):
             "%s %.4f / %.4f" % (k, card_s[k], cpu_s[k]) for k in card_s)))
 
 
-def rcnn_example(torch):
-    """examples/rcnn/train.py --steps 20 --image-size 64 on the card, run as
-    a script with each ``mxnet_tpu`` import answered by the port's module
-    of the same path: the FasterRCNN net, Proposal, the host-side target
-    sampling, ROIAlign and the four losses; the script's own gate is that
-    the loss falls over its 20 steps."""
+def run_example(rel_script, argv, env=None):
+    """``examples/<rel_script>`` run as a script in this process on the card,
+    each ``mxnet_tpu`` import answered by the port's module of the same
+    path (an import hook), under ``context.scope(gpu(0))``, with ``env``
+    set for the run. Returns its standard output's lines and the seconds
+    it took."""
     import contextlib
     import importlib
     import importlib.abc
@@ -6053,28 +6110,43 @@ def rcnn_example(torch):
     import mxnet_tpu_torch as mx
 
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "examples", "rcnn", "train.py")
+                          "examples", rel_script)
     finder = Alias()
     sys.meta_path.insert(0, finder)
-    argv, out = sys.argv, io.StringIO()
-    sys.argv = [script, "--steps", "20", "--image-size", "64"]
+    argv_, out = sys.argv, io.StringIO()
+    sys.argv = [script] + list(argv)
+    saved_env = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
     t0 = time.monotonic()
     try:
         with contextlib.redirect_stdout(out), mx.context.scope(mx.gpu(0)):
             runpy.run_path(script, run_name="__main__")
     finally:
-        sys.argv = argv
+        sys.argv = argv_
         sys.meta_path.remove(finder)
         for name in [n for n in sys.modules if n == "mxnet_tpu"
                      or n.startswith("mxnet_tpu.")]:
             del sys.modules[name]
-    lines = out.getvalue().strip().splitlines()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out.getvalue().strip().splitlines(), time.monotonic() - t0
+
+
+def rcnn_example(torch):
+    """examples/rcnn/train.py --steps 20 --image-size 64 on the card
+    (`run_example`): the FasterRCNN net, Proposal, the host-side target
+    sampling, ROIAlign and the four losses; the script's own gate is that
+    the loss falls over its 20 steps."""
+    lines, secs = run_example(os.path.join("rcnn", "train.py"),
+                              ["--steps", "20", "--image-size", "64"])
     falls = [ln for ln in lines if "->" in ln]
     if not falls:
         raise AssertionError("rcnn: no loss line in %s" % lines[-3:])
     log("rcnn: examples/rcnn/train.py --steps 20 --image-size 64 on the "
-        "card in %.1f s: %s; %s" % (time.monotonic() - t0, falls[-1],
-                                    lines[-1]))
+        "card in %.1f s: %s; %s" % (secs, falls[-1], lines[-1]))
 
 
 def detection_phase(torch, pk, args):
@@ -6087,6 +6159,716 @@ def detection_phase(torch, pk, args):
     detection_ops_phase(torch, args)
     rcnn_example(torch)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# profiler: the symbolic word LM's fit under mx.profiler, on and off
+# ---------------------------------------------------------------------------
+
+PROF_BATCHES = 6      # bucket-35 batches a run (each run replays the same)
+PROF_OP_CATS = ("symbolic", "imperative")
+# the overhead A/B: rounds, each a window of PROF_WINDOW batches in each
+# mode, the modes' order reversed every other round
+PROF_MODES = ("off", "on", "on, profile_sync")
+PROF_ROUNDS, PROF_WINDOW = 8, 24
+PROF_EXAMPLE_STEPS = 3
+
+
+class _Replay:
+    """A data iterator over a fixed list of `DataBatch`es (each `fit` of the
+    profiler phase sees the same batches in the same order)."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+        self.provide_data = self.batches[0].provide_data
+        self.provide_label = self.batches[0].provide_label
+        self.default_bucket_key = self.batches[0].bucket_key
+
+    def reset(self):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def profiler_runs(torch, pk, bm, batches, workdir):
+    """`fit` over ``batches`` three times: under the profiler with
+    ``profile_sync``, under it without, and with it off. Returns, a run,
+    (wall seconds, the LSTM launch counts, the trace's events or None, the
+    `dumps` table)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+
+    data = _Replay(batches)
+    out = {}
+    for label, sync_on in (("on, profile_sync", True), ("on", False),
+                           ("off", None)):
+        path = os.path.join(workdir, "trace-%d.json" % len(out))
+        if sync_on is not None:
+            profiler.set_config(filename=path, profile_all=True,
+                                aggregate_stats=True, profile_sync=sync_on)
+        for k in LSTM_KERNELS:
+            getattr(pk, k).launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sync_on is not None:
+            profiler.set_state("run")
+        try:
+            bm.fit(data, eval_metric=mx.metric.Perplexity(SYM_INVALID),
+                   optimizer="sgd",
+                   optimizer_params={"learning_rate": SYM_LR}, num_epoch=1)
+            torch.cuda.synchronize()
+        finally:
+            profiler.set_state("stop")
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+        events, table = None, ""
+        if sync_on is not None:
+            table = profiler.dumps(reset=True)
+            profiler.dump(finished=True)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        out[label] = (wall, launches, events, table)
+    return out
+
+
+def check_profiler_runs(runs, n):
+    """The phase's gates over `profiler_runs`: each trace holds an
+    ExecutorForward and an ExecutorBackward event a batch (symbolic), the
+    synced run's op events on the fitting thread sum to no more than its
+    wall time, each run launches lstm_fwd / lstm_bwd once a layer a batch
+    and lstm_infer never, and each `dumps` table lists both events.
+    Returns the synced op events' share of that run's wall."""
+    want = {"lstm_infer": 0, "lstm_fwd": LM_LAYERS * n,
+            "lstm_bwd": LM_LAYERS * n}
+    share = None
+    for label, (wall, launches, events, table) in runs.items():
+        if launches != want:
+            raise AssertionError("profiler %s: launches %s, not %s"
+                                 % (label, launches, want))
+        if events is None:
+            continue
+        ops = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") in PROF_OP_CATS]
+        for name in ("ExecutorForward", "ExecutorBackward"):
+            got = [e for e in ops if e["name"] == name]
+            if len(got) != n or any(e["cat"] != "symbolic" for e in got):
+                raise AssertionError("profiler %s: %d %s events over %d "
+                                     "batches" % (label, len(got), name, n))
+            if name not in table:
+                raise AssertionError("profiler %s: dumps() lacks %s:\n%s"
+                                     % (label, name, table))
+        tid = [e for e in ops if e["name"] == "ExecutorForward"][0]["tid"]
+        total = 1e-6 * sum(e["dur"] for e in ops if e["tid"] == tid)
+        if label.endswith("profile_sync"):
+            if total > wall:
+                raise AssertionError("profiler %s: op events sum to %.4f s, "
+                                     "more than the %.4f s wall"
+                                     % (label, total, wall))
+            share = total / wall
+    return share
+
+
+def profiler_overhead(torch, bm, batches, workdir):
+    """ms a batch of `fit`'s work a batch (``forward_backward``,
+    ``update``, ``update_metric``) with the profiler off, on, and on with
+    ``profile_sync``: PROF_ROUNDS rounds, each a window of PROF_WINDOW
+    batches (``batches`` replayed) in each mode, the modes' order reversed
+    every other round; the profiler is switched, and its events written
+    and cleared, outside the clock. Returns each mode's ms a batch by
+    round."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+
+    metric = mx.metric.Perplexity(SYM_INVALID)
+    work = [batches[i % len(batches)] for i in range(PROF_WINDOW)]
+    out = {m: [] for m in PROF_MODES}
+    for r in range(PROF_ROUNDS):
+        for mode in PROF_MODES[::-1] if r % 2 else PROF_MODES:
+            if mode != "off":
+                profiler.set_config(
+                    filename=os.path.join(workdir, "ab.json"),
+                    profile_all=True, aggregate_stats=True,
+                    profile_sync=mode.endswith("profile_sync"))
+                profiler.set_state("run")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in work:
+                bm.forward_backward(b)
+                bm.update()
+                bm.update_metric(metric, b.label)
+            torch.cuda.synchronize()
+            out[mode].append(1e3 * (time.perf_counter() - t0) / len(work))
+            if mode != "off":
+                profiler.set_state("stop")
+                profiler.dump(finished=True)
+    return out
+
+
+def overhead_line(ms):
+    """Each profiled mode of `profiler_overhead` beside "off": the medians,
+    and the ratio to the same round's "off" window, lowest to highest; a
+    cost is "resolved" only where every round's ratio lies on one side of
+    1."""
+    off = ms["off"]
+    parts = ["off %.3f ms a batch (rounds %.3f-%.3f)"
+             % (float(np.median(off)), min(off), max(off))]
+    for mode in PROF_MODES[1:]:
+        ratio = [a / b for a, b in zip(ms[mode], off)]
+        parts.append(
+            "%s %.3f ms (rounds %.3f-%.3f), its ratio to the round's off "
+            "%.4f-%.4f, median %.4f: %s"
+            % (mode, float(np.median(ms[mode])), min(ms[mode]), max(ms[mode]),
+               min(ratio), max(ratio), float(np.median(ratio)),
+               "resolved" if min(ratio) > 1 or max(ratio) < 1
+               else "not resolved"))
+    return "; ".join(parts)
+
+
+def profile_training_example():
+    """examples/profiler/profile_training.py --steps PROF_EXAMPLE_STEPS on
+    the card (`run_example`), its trace parsed: each step's two Dense
+    events, its SoftmaxCrossEntropyLoss event and their ``_backward_*``
+    events (imperative), a step marker a step, the task."""
+    steps = PROF_EXAMPLE_STEPS
+    want = {("Dense", "X"): 2 * steps,
+            ("SoftmaxCrossEntropyLoss", "X"): steps,
+            ("_backward_SoftmaxCrossEntropyLoss", "X"): steps,
+            ("_backward_Dense", "X"): 2 * steps,
+            ("train-steps", "X"): 1}
+    want.update({("step-%d" % i, "i"): 1 for i in range(steps)})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-prof-") as workdir:
+        out = os.path.join(workdir, "profile.json")
+        lines, secs = run_example(os.path.join("profiler",
+                                               "profile_training.py"),
+                                  ["--steps", str(steps)],
+                                  env={"MXTPU_PROFILE_OUT": out})
+        with open(out) as f:
+            events = json.load(f)["traceEvents"]
+    got = {}
+    for e in events:
+        key = (e.get("name"), e.get("ph"))
+        if key in want:
+            got[key] = got.get(key, 0) + 1
+        if key[0] in ("Dense", "SoftmaxCrossEntropyLoss",
+                      "_backward_Dense", "_backward_SoftmaxCrossEntropyLoss") \
+                and e.get("cat") != "imperative":
+            raise AssertionError("profile_training: %s in category %s"
+                                 % (key[0], e.get("cat")))
+    if got != want or not any("chrome trace written" in ln for ln in lines):
+        raise AssertionError("profile_training: trace events %s, not %s; "
+                             "output %s" % (got, want, lines[-3:]))
+    log("profile_training: examples/profiler/profile_training.py --steps %d "
+        "on the card in %.1f s: %d trace events, of them %s"
+        % (steps, secs, len(events), ", ".join(
+            "%s %d" % (k[0], v) for k, v in sorted(got.items()))))
+
+
+def profiler_phase(torch, pk, args):
+    """The word LM of the symbolic phase (a fresh `BucketingModule` over
+    FusedRNNCell(650, 2 layers), f32, SGD lr SYM_LR, Xavier from the
+    seed, 2 warm-up batches) `fit` over PROF_BATCHES bucket-35 batches
+    under ``profiler.set_config(profile_all=True)`` / ``set_state("run")``
+    with
+    ``profile_sync``, then without, then with the profiler off
+    (`profiler_runs`, `check_profiler_runs`); then the overhead A/B
+    (`profiler_overhead`); then `start_xla_trace` / `stop_xla_trace`
+    around one batch, whose torch.profiler trace must name the LSTM
+    kernels; then `profile_training_example` with the profiler's config as
+    it was before the phase."""
+    import random
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.train_lstm_bucketing import lm_sym_gen
+
+    dev, n = mx.gpu(0), PROF_BATCHES
+    mx.random.seed(args.seed)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    saved = dict(profiler._config)
+    t0 = time.monotonic()
+    with mx.context.scope(dev), tempfile.TemporaryDirectory(
+            prefix="chip_smoke-prof-") as workdir:
+        warm_it, timed_it = bucket_iters(args.seed + 1,
+                                         (SYM_WARMUP_PLAN, (35,) * n))
+        bm = mx.mod.BucketingModule(
+            lm_sym_gen(LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, fused=True,
+                       layout="TNC"),
+            default_bucket_key=max(SYM_BUCKETS), context=dev)
+        bm.fit(warm_it, eval_metric=mx.metric.Perplexity(SYM_INVALID),
+               optimizer="sgd", optimizer_params={"learning_rate": SYM_LR},
+               initializer=mx.init.Xavier(), num_epoch=1)
+        batches = list(timed_it)
+        runs = profiler_runs(torch, pk, bm, batches, workdir)
+        share = check_profiler_runs(runs, n)
+        ab = profiler_overhead(torch, bm, batches, workdir)
+        xdir = os.path.join(workdir, "xla")
+        profiler.start_xla_trace(xdir)
+        try:
+            bm.fit(_Replay(batches[:1]),
+                   eval_metric=mx.metric.Perplexity(SYM_INVALID),
+                   optimizer="sgd",
+                   optimizer_params={"learning_rate": SYM_LR}, num_epoch=1)
+            torch.cuda.synchronize()
+        finally:
+            profiler.stop_xla_trace()
+        files = os.listdir(xdir)
+        with open(os.path.join(xdir, files[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    profiler._config.update(saved)
+    kernels = sorted({nm for nm in names if "lstm_forward_kernel" in nm
+                      or "lstm_backward" in nm})
+    if not any("lstm_forward_kernel" in k for k in kernels) or \
+            not any("lstm_backward" in k for k in kernels):
+        raise AssertionError("profiler: the torch.profiler trace names no "
+                             "LSTM kernel (%d names)" % len(names))
+    launches = {k: sum(r[1][k] for r in runs.values()) for k in LSTM_KERNELS}
+    log("profiler: symbolic word LM fit over %d bucket-35 batches (f32, 2 x "
+        "%d) with profile_sync, without, off: traces of %d / %d events, "
+        "ExecutorForward and ExecutorBackward %d each, the synced op events "
+        "%.1f %% of the wall; lstm_fwd / lstm_bwd %d each a run; "
+        "start_xla_trace around one batch names %s; %.1f s; %s"
+        % (n, LM_UNITS, len(runs["on"][2]), len(runs["on, profile_sync"][2]),
+           n, 100.0 * share, LM_LAYERS * n, kernels[:3],
+           time.monotonic() - t0, smi_line()))
+    log("  overhead A/B, %d rounds of %d batches in each mode: %s"
+        % (PROF_ROUNDS, PROF_WINDOW, overhead_line(ab)))
+    del bm
+    torch.cuda.empty_cache()
+    profile_training_example()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# quantization: int8 ResNet-50 v1 scored on the card, the 9 ops card vs CPU,
+# examples/quantization/quantize_lenet.py
+# ---------------------------------------------------------------------------
+
+# bench.py's `_SCORE_NETS["resnet50"]` and `bench_score_int8` flow: the
+# unfused channels-first graph (Convolution -> BatchNorm -> Activation, a
+# plain add), so every BatchNorm folds and every convolution quantizes
+INT8_NET, INT8_BATCH, INT8_SIDE = "resnet50_v1", 32, 224
+INT8_CONVS, INT8_FCS = 53, 1
+INT8_TOP1 = 0.75      # the JAX package's own bar, tests/test_contrib.py:354
+# the int8 / f32 A/B: warm-up forwards each, then rounds of INT8_ITERS
+# timed forwards each, the order reversed every other round
+INT8_WARMUP, INT8_ROUNDS, INT8_ITERS = 3, 6, 20
+INT8_PROFILE_STEPS = 2
+# the F3 check: batches of INT8_BATCH made on the card from the seed
+POOL_BATCHES = 64
+# the int8 forward's device time by part (`int8_profile`): the ranges put
+# around these functions of ops/quantization.py and registered ops
+INT8_RANGES = {"im2col gathers": ("im2col_int8", None),
+               "_int_mm (padding included)": ("int8_matmul", None),
+               "quantize / requantize / dequantize": (
+                   None, ("_contrib_quantize_v2", "_contrib_requantize",
+                          "_contrib_dequantize"))}
+
+
+def bits_equal(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def predictor_ips(torch, preds, xd):
+    """Images/s of each Predictor of ``preds`` (label -> Predictor) over
+    the card batch ``xd``: INT8_WARMUP forwards each, then INT8_ROUNDS
+    rounds of INT8_ITERS timed forwards each, the order reversed every
+    other round, the card synchronized at both ends of every window.
+    Returns each label's images/s by round."""
+    order = list(preds)
+    for label in order:
+        for _ in range(INT8_WARMUP):
+            preds[label].forward(data=xd)
+    out = {label: [] for label in order}
+    for r in range(INT8_ROUNDS):
+        for label in order[::-1] if r % 2 else order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(INT8_ITERS):
+                preds[label].forward(data=xd)
+            torch.cuda.synchronize()
+            out[label].append(xd.shape[0] * INT8_ITERS
+                              / (time.perf_counter() - t0))
+    return out
+
+
+def pool_check(torch, args, fsym, ffiles, qsym, shape):
+    """Fault F3 shown on ResNet-50's own activations: POOL_BATCHES batches
+    (uniform in [-1, 1) from the seed, made on the card) through the
+    folded f32 graph on the card up to the global average pool's input;
+    that input's mean over the spatial axes taken on the card and on the
+    CPU, by PyTorch's f32 ``mean`` (the pool before the repair) and by the
+    port's ``Pooling``; each mean then quantized as the int8 graph does it
+    (``quantize_v2`` with the calibrated range of the FC's input, on the
+    CPU). Gate: the port's pool gives the card and the CPU the same bits.
+    Returns the counts of values, of f32 means that differ, of int8 steps
+    they flip, the pool input's shape, and the card's ms
+    of each pool at this shape (`time_ms`)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.nn import pooling
+    from mxnet_tpu_torch.predict import Predictor
+
+    pool = [n for n in fsym._topo() if n.op == "Pooling"
+            and n.attrs.get("global_pool")]
+    if len(pool) != 1:
+        raise AssertionError("F3: %d global pools in the folded graph"
+                             % len(pool))
+    feat = pool[0].inputs[0][0].name + "_output"
+    fc = [n for n in qsym._topo()
+          if n.op == "_contrib_quantized_fully_connected"][0]
+    q = fc.inputs[0][0]
+    while q.op != "_contrib_quantize_v2":
+        q = q.inputs[0][0]
+    rng = {k: float(q.attrs[k]) for k in ("min_calib_range",
+                                          "max_calib_range")}
+    pred = Predictor(*ffiles, ctx=mx.gpu(0), input_shapes=shape,
+                     output_names=[feat])
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 41)
+
+    def quant(t):
+        return mx.nd.contrib.quantize_v2(mx.nd.array(t.numpy(), ctx=mx.cpu()),
+                                         **rng)[0].asnumpy()
+
+    values = diff_mean = flips = diff_pool = 0
+    for _ in range(POOL_BATCHES):
+        x = torch.rand(shape["data"], generator=gen, device="cuda") * 2 - 1
+        f = pred.forward(data=x).get_output(0)._data
+        host = f.cpu()
+        card, cpu = f.mean(dim=(2, 3)).cpu(), host.mean(dim=(2, 3))
+        values += cpu.numel()
+        diff_mean += int((card != cpu).sum())
+        flips += int((quant(card) != quant(cpu)).sum())
+        pc = pooling(f, global_pool=True, pool_type="avg").cpu()
+        pp = pooling(host, global_pool=True, pool_type="avg")
+        diff_pool += int((pc.view(torch.int32) != pp.view(torch.int32)).sum())
+    if diff_pool:
+        raise AssertionError("F3: the port's global average pool differs "
+                             "card vs CPU in %d of %d values"
+                             % (diff_pool, values))
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    ms_mean = time_ms(torch, lambda: f.mean(dim=(2, 3), keepdim=True), flush)
+    ms_pool = time_ms(torch, lambda: pooling(f, global_pool=True,
+                                             pool_type="avg"), flush)
+    return values, diff_mean, flips, tuple(f.shape), ms_mean, ms_pool
+
+
+def int8_profile(torch, pred, xd):
+    """Device time of INT8_PROFILE_STEPS forwards under `torch.profiler`,
+    split by the `INT8_RANGES` parts (each kernel counted under the
+    ``record_function`` range of the call that launched it) and the rest;
+    ms a forward, and the kernels launched a forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import quantization as qops
+
+    def ranged(label, fn):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+
+    saved = []
+    for label, (func, opnames) in INT8_RANGES.items():
+        if func is not None:
+            saved.append((qops, func, getattr(qops, func)))
+            setattr(qops, func, ranged(label, getattr(qops, func)))
+        for name in opnames or ():
+            od = ops.get(name)
+            saved.append((od, "fn", od.fn))
+            od.fn = ranged(label, od.fn)
+    steps = INT8_PROFILE_STEPS
+    try:
+        pred.forward(data=xd)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                pred.forward(data=xd)
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, fn in reversed(saved):
+            setattr(obj, attr, fn)
+    parts = dict.fromkeys(INT8_RANGES, 0.0)
+    for ev in prof.events():
+        if ev.name in parts and ev.device_type == DeviceType.CPU:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            parts[ev.name] += us / steps / 1e3
+    busy, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if is_annotation(ev) or not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        busy += us / steps / 1e3
+        kernels += ev.count
+    parts["rest"] = busy - sum(parts.values())
+    return busy, parts, kernels // steps
+
+
+def int8_resnet(torch, args, workdir):
+    """bench.py's ``bench_score_int8`` flow through the port: INT8_NET
+    (channels-first, ``fuse_epilogue=False``, Xavier from ``--seed``)
+    hybridized and run once on a batch from the seed, exported,
+    ``load_checkpoint``, `fold_batch_norm`, `quantize_model` with naive
+    calibration over that batch, ``save_checkpoint``, then a `Predictor`
+    on the card, at INT8_BATCH x 3 x INT8_SIDE^2. Gates: every
+    convolution and the FC quantized and no BatchNorm left (the census);
+    the card's int8 logits equal to a CPU `Predictor`'s over the same
+    files and batch bit for bit; top-1 agreement with the folded f32 graph
+    on the card at least INT8_TOP1; `pool_check`. Prints int8 and f32
+    (TF32 off) images/s (`predictor_ips`), peak allocated bytes, the F3
+    counts and, under ``--profile``, the int8 forward's device time by
+    part."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.model import load_checkpoint, save_checkpoint
+    from mxnet_tpu_torch.predict import Predictor
+
+    ctx, name, batch, convs = mx.gpu(0), INT8_NET, INT8_BATCH, INT8_CONVS
+    rng = np.random.RandomState(args.seed + 31)
+    x = rng.uniform(-1, 1, (batch, 3, INT8_SIDE, INT8_SIDE)).astype(
+        np.float32)
+    shape = {"data": x.shape}
+    prefix = os.path.join(workdir, name)
+    t0 = time.monotonic()
+    with mx.context.scope(ctx):
+        mx.random.seed(args.seed)
+        net = vision.get_model(name, fuse_epilogue=False)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        net.hybridize()
+        net(mx.nd.array(x))
+        net.export(prefix)
+        del net
+        sym, arg_params, aux_params = load_checkpoint(prefix, 0)
+        fsym, fargs, fauxs = q.fold_batch_norm(sym, arg_params, aux_params)
+        save_checkpoint(prefix + "-folded", 0, fsym, fargs, fauxs)
+        t1 = time.monotonic()
+        qsym, qargs, qauxs = q.quantize_model(
+            fsym, fargs, fauxs, calib_mode="naive",
+            calib_data=mx.io.NDArrayIter(x, batch_size=batch))
+        calib_s = time.monotonic() - t1
+        save_checkpoint(prefix + "-quant", 0, qsym, qargs, qauxs)
+    prep_s = time.monotonic() - t0
+    census = {}
+    for n in qsym._topo():
+        if not n.is_var:
+            census[n.op] = census.get(n.op, 0) + 1
+    folded_ops = {n.op for n in fsym._topo() if not n.is_var}
+    if "BatchNorm" in folded_ops or census.get("BatchNorm"):
+        raise AssertionError("int8: a BatchNorm was not folded: %s" % census)
+    if census.get("_contrib_quantized_conv") != convs \
+            or census.get("_contrib_quantized_fully_connected") != INT8_FCS \
+            or census.get("Convolution") or census.get("FullyConnected"):
+        raise AssertionError("int8: the quantized graph's census %s, not %d "
+                             "quantized convolutions and %d FC and no float "
+                             "one" % (census, convs, INT8_FCS))
+    qw = [k for k in qargs if k.endswith("_weight_quantize")]
+    if len(qw) != convs + INT8_FCS or any(
+            qargs[k].dtype != np.int8 for k in qw):
+        raise AssertionError("int8: %d offline-quantized weights, dtypes %s"
+                             % (len(qw), {str(qargs[k].dtype) for k in qw}))
+    files = (prefix + "-quant-symbol.json", prefix + "-quant-0000.params")
+    ffiles = (prefix + "-folded-symbol.json", prefix + "-folded-0000.params")
+    pred = Predictor(*files, ctx=ctx, input_shapes=shape)
+    if pred._args[qw[0]].dtype != np.int8:
+        raise AssertionError("int8: the Predictor bound %s as %s"
+                             % (qw[0], pred._args[qw[0]].dtype))
+    xd = mx.nd.array(x, ctx=ctx)
+    got = pred.forward(data=xd).get_output(0).asnumpy()
+    t0 = time.monotonic()
+    cpu = Predictor(*files, ctx=mx.cpu(), input_shapes=shape)
+    want = cpu.forward(data=x).get_output(0).asnumpy()
+    cpu_s = time.monotonic() - t0
+    del cpu
+    if not np.isfinite(got).all() or got.shape != (batch, 1000):
+        raise AssertionError("int8 logits: shape %s, finite %s"
+                             % (got.shape, np.isfinite(got).all()))
+    if not bits_equal(got, want):
+        diff = np.abs(got.astype(np.float64) - want)
+        raise AssertionError(
+            "int8: the card's logits differ from the CPU Predictor's in %d "
+            "of %d elements, by up to %g (logits' scale %g)"
+            % (int((diff > 0).sum()), diff.size, diff.max(),
+               np.abs(want).max()))
+    fpred = Predictor(*ffiles, ctx=ctx, input_shapes=shape)
+    fp = fpred.forward(data=xd).get_output(0).asnumpy()
+    agree = float((fp.argmax(1) == got.argmax(1)).mean())
+    if agree < INT8_TOP1:
+        raise AssertionError("int8: top-1 agreement with the folded f32 "
+                             "graph %.3f < %g" % (agree, INT8_TOP1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred.forward(data=xd)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ips = predictor_ips(torch, {"int8": pred, "f32": fpred}, xd)
+    int8_ips = float(np.median(ips["int8"]))
+    f32_ips = float(np.median(ips["f32"]))
+    ops_line = ", ".join("%s %d" % (k.replace("_contrib_", ""), v)
+                         for k, v in sorted(census.items()))
+    log("quantization: %s (channels-first, fuse_epilogue=False, Xavier from "
+        "the seed) at %d x 3 x %d^2: export, fold_batch_norm, quantize_model"
+        "(naive, one batch: %.2f s), save_checkpoint and the card Predictor "
+        "in %.1f s; graph: %s; int8 logits equal the CPU Predictor's bit for "
+        "bit (CPU forward %.1f s; logits' scale %.4g); top-1 agreement with "
+        "the folded f32 graph %.3f; images/s, median of %d rounds of %d "
+        "forwards after %d (rounds lowest-highest): int8 %.2f (%.2f-%.2f), "
+        "f32 (TF32 off) %.2f (%.2f-%.2f); peak allocated in an int8 forward "
+        "%d bytes; %s"
+        % (name, batch, INT8_SIDE, calib_s, prep_s, ops_line, cpu_s,
+           np.abs(want).max(), agree, INT8_ROUNDS, INT8_ITERS, INT8_WARMUP,
+           int8_ips, min(ips["int8"]), max(ips["int8"]), f32_ips,
+           min(ips["f32"]), max(ips["f32"]), peak, smi_line()))
+    values, diff_mean, flips, fshape, ms_mean, ms_pool = pool_check(
+        torch, args, fsym, ffiles, qsym, shape)
+    log("  F3: the global average pool's input over %d batches of %d from "
+        "the seed (%d means): PyTorch's f32 mean differs card vs CPU in %d "
+        "values and flips %d int8 steps of the FC's quantize_v2; the port's "
+        "pool (f64 sum, one division) gives the same bits on both; card ms "
+        "at %s: f32 mean %.4f, the port's pool %.4f"
+        % (POOL_BATCHES, batch, values, diff_mean, flips, fshape, ms_mean,
+           ms_pool))
+    if args.profile:
+        busy, parts, kernels = int8_profile(torch, pred, xd)
+        log("  profile int8 forward: device %.3f ms a forward (%.2f ms "
+            "timed without the profiler, %.1f %% busy), %d kernels; %s"
+            % (busy, 1e3 * batch / int8_ips, 100.0 * busy * int8_ips
+               / (1e3 * batch), kernels, "; ".join(
+                   "%s %.3f ms (%.1f %%)" % (k, v, 100.0 * v / max(busy,
+                                                                   1e-9))
+                   for k, v in parts.items())))
+        fbusy, _, fkernels = int8_profile(torch, fpred, xd)
+        log("  profile f32 forward: device %.3f ms a forward (%.2f ms timed "
+            "without the profiler), %d kernels"
+            % (fbusy, 1e3 * batch / f32_ips, fkernels))
+
+
+def int8_op_cases(seed):
+    """The 9 ops (and their calibrated variants) at ResNet-50's shapes at
+    batch 32: (op, arrays, attrs) a case."""
+    rng = np.random.RandomState(seed + 37)
+    b = 32
+
+    def i8(*shape):
+        return rng.randint(-127, 128, shape).astype(np.int8)
+
+    def r(lo, hi):
+        return np.array([lo], np.float32), np.array([hi], np.float32)
+
+    dmn, dmx = r(-2.5, 3.1)
+    wmn, wmx = r(-0.21, 0.19)
+    stem = rng.randn(b, 3, 224, 224).astype(np.float32)
+    acc = rng.randint(-3000000, 3000000, (b, 256, 56, 56)).astype(np.int32)
+    return {
+        "quantize_v2 (stem input)": ("quantize_v2", [stem], {}),
+        "quantize_v2 calibrated": ("quantize_v2", [stem],
+                                   {"min_calib_range": -2.2,
+                                    "max_calib_range": 2.4}),
+        "dequantize (stage 1 out)": ("dequantize", [acc, dmn, dmx], {}),
+        "requantize": ("requantize", [acc, dmn, dmx], {}),
+        "requantize calibrated": ("requantize", [acc, dmn, dmx],
+                                  {"min_calib_range": -1.5,
+                                   "max_calib_range": 1.7}),
+        "quantized_conv stem 7x7/2": (
+            "quantized_conv", [i8(b, 3, 224, 224), i8(64, 3, 7, 7),
+                               rng.randn(64).astype(np.float32), dmn, dmx,
+                               wmn, wmx],
+            {"kernel": (7, 7), "stride": (2, 2), "pad": (3, 3),
+             "num_filter": 64}),
+        "quantized_conv stage 1 3x3": (
+            "quantized_conv", [i8(b, 64, 56, 56), i8(64, 64, 3, 3),
+                               rng.randn(64).astype(np.float32), dmn, dmx,
+                               wmn, wmx],
+            {"kernel": (3, 3), "pad": (1, 1), "num_filter": 64}),
+        "quantized_conv stage 4 1x1/2 down": (
+            "quantized_conv", [i8(b, 1024, 14, 14),
+                               i8(2048, 1024, 1, 1),
+                               rng.randn(2048).astype(np.float32), dmn, dmx,
+                               wmn, wmx],
+            {"kernel": (1, 1), "stride": (2, 2), "num_filter": 2048}),
+        "quantized_fully_connected": (
+            "quantized_fully_connected", [i8(b, 2048), i8(1000, 2048),
+                                          rng.randn(1000).astype(np.float32),
+                                          dmn, dmx, wmn, wmx],
+            {"num_hidden": 1000}),
+        "quantized_pooling max 3x3/2": (
+            "quantized_pooling", [i8(b, 64, 112, 112), dmn, dmx],
+            {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+             "pool_type": "max"}),
+        "quantized_pooling global avg": (
+            "quantized_pooling", [i8(b, 2048, 7, 7), dmn, dmx],
+            {"global_pool": True, "pool_type": "avg"}),
+        "quantized_act": ("quantized_act", [i8(b, 64, 112, 112), dmn,
+                                            dmx], {}),
+        "quantized_flatten": ("quantized_flatten", [i8(b, 2048, 1, 1), dmn,
+                                                    dmx], {}),
+        "quantized_concat": ("quantized_concat",
+                             [i8(b, 64, 28, 28),
+                              i8(b, 128, 28, 28), dmn, dmx, wmn, wmx],
+                             {"num_args": 2, "dim": 1}),
+    }
+
+
+def int8_ops_phase(torch, args):
+    """Each case of `int8_op_cases` on card tensors against the CPU: int8
+    and int32 outputs exactly, ranges and f32 outputs bit for bit."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    t0 = time.monotonic()
+    cases = int8_op_cases(args.seed)
+    for label, (op, arrays, attrs) in cases.items():
+        fn = getattr(mx.nd.contrib, op)
+        got = fn(*[mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays],
+                 **attrs)
+        want = fn(*[mx.nd.array(a, ctx=mx.cpu(), dtype=a.dtype)
+                    for a in arrays], **attrs)
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not bits_equal(g.asnumpy(), w.asnumpy()):
+                raise AssertionError("int8 op %s output %d: the card's "
+                                     "differs from the CPU's" % (label, i))
+    log("quantization ops: %d cases of the 9 ops at ResNet-50's shapes at "
+        "batch 32 on the card equal the CPU's bit for bit (%.1f s)"
+        % (len(cases), time.monotonic() - t0))
+
+
+def lenet_example():
+    """examples/quantization/quantize_lenet.py --smoke on the card
+    (`run_example`): LeNet trained, exported, quantized with entropy (KL)
+    calibration over 128 samples, rebound in a Module (on the CPU, as the
+    script binds it); its own gate is the int8 accuracy within 6 % of the
+    f32 one."""
+    lines, secs = run_example(os.path.join("quantization",
+                                           "quantize_lenet.py"), ["--smoke"])
+    acc = [ln for ln in lines if "int8 accuracy" in ln]
+    if not acc:
+        raise AssertionError("quantize_lenet: no accuracy line in %s"
+                             % lines[-3:])
+    log("quantize_lenet: examples/quantization/quantize_lenet.py --smoke in "
+        "%.1f s (training and calibration on the card, the quantized Module "
+        "on the CPU as the script binds it): %s" % (secs, acc[-1]))
+
+
+def quantization_phase(torch, args):
+    """The int8 slice on the card: `int8_resnet`, `int8_ops_phase`,
+    `lenet_example`."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-int8-") as workdir:
+        int8_resnet(torch, args, workdir)
+    torch.cuda.empty_cache()
+    int8_ops_phase(torch, args)
+    torch.cuda.empty_cache()
+    lenet_example()
 
 
 def main(argv=None):
@@ -6181,7 +6963,7 @@ def main(argv=None):
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
     extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
-             "detection": {}}
+             "detection": {}, "profiler": {}}
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -6191,9 +6973,13 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as ckpt:
         prefix = symbolic_word_lm(torch, pk, args, ckpt)[2]
         torch.cuda.empty_cache()
+        extra["profiler"] = profiler_phase(torch, pk, args)
+        torch.cuda.empty_cache()
         predict_serving(torch, pk, args, prefix)
         torch.cuda.empty_cache()
         extra["predict_vision"] = predict_vision(torch, pk, args, ckpt)
+    torch.cuda.empty_cache()
+    quantization_phase(torch, args)
     torch.cuda.empty_cache()
     extra["detection"] = detection_phase(torch, pk, args)
     torch.cuda.empty_cache()
@@ -6220,7 +7006,8 @@ def main(argv=None):
             if counts.get(k["name"]):
                 # later slices' paths: ctc_ocr (training + decode), the
                 # dropout runs, the training run behind predict_vision,
-                # the SSD training of the detection phase
+                # the SSD training of the detection phase, the profiler
+                # phase's three fits
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

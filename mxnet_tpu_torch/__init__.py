@@ -32,7 +32,11 @@ prefetcher and sharded record streams), the file iterators of ``io`` and
 ``gluon.data``; and the op namespaces ``nd.random`` / ``sym.random``
 (the random ops, seeded by ``random.seed``), ``nd.linalg``,
 ``nd.contrib`` (``CTCLoss``, ``flash_attention``, and the control-flow
-``foreach`` / ``while_loop`` / ``cond``) behind ``gluon.loss.CTCLoss``.
+``foreach`` / ``while_loop`` / ``cond``) behind ``gluon.loss.CTCLoss``;
+and ``profiler`` (chrome traces of the ``mx.nd``, executor and autograd
+dispatch, torch.profiler traces of the card) and ``contrib`` (int8
+``quantization`` over ``torch._int_mm``, ``text``, ``io``,
+``svrg_optimization``, the legacy ``autograd``; not ``onnx``).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``) or runs them in a ``with
 context.scope(mx.cpu()):`` (or ``with mx.cpu():``) block; without a card
@@ -64,6 +68,8 @@ from . import module as mod
 from . import rnn
 from . import predict
 from . import recordio, image, data
+from . import profiler
+from . import contrib
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, cpu_pinned, current_context, gpu, num_gpus
@@ -75,4 +81,5 @@ __all__ = ["MXNetError", "cpu", "gpu", "cpu_pinned", "num_gpus",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
            "sym", "executor", "io", "model", "callback", "module", "mod",
-           "rnn", "predict", "recordio", "image", "data"]
+           "rnn", "predict", "recordio", "image", "data", "profiler",
+           "contrib"]

@@ -241,7 +241,9 @@ def _differentiate(outs, seeds, leaves, retain_graph, create_graph=False):
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to every variable, written into
     the variables' buffers by their ``grad_req`` (reference:
-    autograd.py:243)."""
+    autograd.py:243). While the profiler runs, each recorded op's node
+    records one ``_backward_<op>`` event as torch's engine runs it (the
+    hooks `profiler.hook_backward` put on it at record time)."""
     outs, seeds = _heads(heads, head_grads)
     if not outs:
         return

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["EnvVar", "registry", "names", "get"]
+__all__ = ["EnvVar", "registry", "names", "get", "raw"]
 
 
 class EnvVar:
@@ -74,6 +74,13 @@ def get(name):
         return var.parse(value)
     except ValueError:
         return var.default
+
+
+def raw(name):
+    """The variable's unparsed value, or None when it is unset (a
+    registered name only)."""
+    _check(name)
+    return os.environ.get(name)
 
 
 # -- training (same name as in mxnet_tpu/env.py) ------------------------------
@@ -141,3 +148,12 @@ _var("MXTPU_DATA_JOIN_TIMEOUT_S", "float", 30.0,
      "seconds the data pipeline's close()/reset() wait for producer and "
      "decode-worker threads to stop before raising (rewinding reader "
      "state under a live reader would corrupt the next epoch).")
+
+# -- profiler and launcher (same names and defaults as mxnet_tpu/env.py) ----
+_var("MXTPU_PROFILE_SYNC", "bool", False,
+     "Profiler records true device time by synchronizing the card after "
+     "each recorded op, instead of (async) dispatch time. Equivalent of the "
+     "reference engine's profiling stamps.")
+_var("MXTPU_PROCESS_ID", "int", None,
+     "this process's rank in the rendezvous protocol (alias: "
+     "`DMLC_WORKER_ID`); the profiler stamps it as its traces' pid.")

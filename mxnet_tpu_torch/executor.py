@@ -15,6 +15,9 @@ takes a gradient, and ``lstm_infer`` otherwise, including a training
 forward whose every ``grad_req`` is "null" (nothing to differentiate, as
 the JAX package's primal runs its residual-free kernel then).
 
+Each `forward` and `backward` is one "symbolic" profiler event,
+``ExecutorForward`` / ``ExecutorBackward``, as in the JAX package.
+
 `backward` writes (``grad_req`` "write") or adds ("add") each gradient into
 `grad_arrays` in place. Loss heads ignore their head gradient; an output
 given none gets ones. BatchNorm's moving statistics are written into
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from . import profiler as _profiler
 from . import random as _random
 from .base import MXNetError
 from .context import resolve_device
@@ -128,19 +132,25 @@ class Executor:
         for name, val in kwargs.items():
             self._feed(name, val)
         values, leaves = {}, {}
-        with torch.set_grad_enabled(bool(is_train)):
-            for i, (name, arr) in enumerate(zip(self._arg_names,
-                                                self.arg_arrays)):
-                t = arr._data
-                if is_train and self.grad_req.get(name, "null") != "null":
-                    t = t.detach().requires_grad_(True)
-                    leaves[i] = t
-                values[name] = t
-            values.update((n, a._data) for n, a in zip(self._aux_names,
-                                                       self.aux_arrays))
-            outs = self._symbol._interpret(
-                values, is_train=bool(is_train),
-                generator=_random.generator(self._ctx), device=self._ctx)
+
+        def run():
+            with torch.set_grad_enabled(bool(is_train)):
+                for i, (name, arr) in enumerate(zip(self._arg_names,
+                                                    self.arg_arrays)):
+                    t = arr._data
+                    if is_train and \
+                            self.grad_req.get(name, "null") != "null":
+                        t = t.detach().requires_grad_(True)
+                        leaves[i] = t
+                    values[name] = t
+                values.update((n, a._data) for n, a in zip(self._aux_names,
+                                                           self.aux_arrays))
+                return self._symbol._interpret(
+                    values, is_train=bool(is_train),
+                    generator=_random.generator(self._ctx), device=self._ctx)
+
+        outs = _profiler.timed_call("ExecutorForward", run, (),
+                                    cat="symbolic")
         self.outputs = [NDArray(o.detach().contiguous()) for o in outs]
         if leaves and any(o.requires_grad for o in outs):
             self._graph = (outs, leaves)
@@ -179,8 +189,11 @@ class Executor:
                 heads.append(o)
                 seeds.append(torch.ones_like(o) if c is None else c)
         order = sorted(leaves)
-        grads = torch.autograd.grad(heads, [leaves[i] for i in order],
-                                    seeds, allow_unused=True)
+        grads = _profiler.timed_call(
+            "ExecutorBackward",
+            lambda: torch.autograd.grad(heads, [leaves[i] for i in order],
+                                        seeds, allow_unused=True),
+            (), cat="symbolic")
         for i, g in zip(order, grads):
             dst = self.grad_arrays[i]
             if g is None:

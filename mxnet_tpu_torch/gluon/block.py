@@ -13,7 +13,11 @@ tensors it is a plain `torch.nn.Module` (the tensor-in, tensor-out calls
 of the trainers and serving).
 
 The port's layers compute on tensors (``_tensor_forward``): a façade call
-unwraps the NDArrays, runs the module, and wraps what comes out. A user's
+unwraps the NDArrays, runs the module, and wraps what comes out. Such a
+call of a layer with no child Block is one "imperative" `profiler` event
+named by its class (``Dense``, ``Conv2D``), its backward one
+``_backward_<class>`` event: the layer is the op here, where the JAX
+package records the ops inside it. A user's
 `Block` writes ``forward`` on NDArrays, and a user's `HybridBlock` writes
 ``hybrid_forward(F, x, *args, **params)`` with ``F`` the port's `nd` and
 each Parameter passed by attribute name as its NDArray.
@@ -43,6 +47,7 @@ import torch
 
 from .. import autograd
 from .. import ndarray as nd
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray import NDArray
@@ -321,8 +326,18 @@ class Block(torch.nn.Module):
             return super().__call__(*args, **kwargs)
         with autograd._facade():
             if self._tensor_forward:
-                return _wrap(super().__call__(*_unwrap(args),
-                                              **_unwrap(kwargs)))
+                call = super().__call__
+                args, kwargs = _unwrap(args), _unwrap(kwargs)
+                if self._children:
+                    return _wrap(call(*args, **kwargs))
+                name = type(self).__name__
+                out = _profiler.timed_call(
+                    name, lambda: call(*args, **kwargs), ())
+                if _profiler.backward_hooks_wanted():
+                    _profiler.hook_backward(
+                        name, out if isinstance(out, (tuple, list))
+                        else (out,))
+                return _wrap(out)
             return super().__call__(*args, **kwargs)
 
     def forward(self, *args):

@@ -152,7 +152,11 @@ class Module(BaseModule):
                     allow_missing=False, force_init=False, allow_extra=False):
         """Fill each parameter and aux state from ``arg_params`` /
         ``aux_params`` by name, else from ``initializer`` (reference:
-        module.py:259); a `load` checkpoint's values are the default."""
+        module.py:259); a `load` checkpoint's values are the default. An
+        integer parameter (the int8 weights of
+        `contrib.quantization.quantize_params`) is bound as it is: its
+        argument is rebound to an array of that dtype, never cast to the
+        bound float array's."""
         if self.params_initialized and not force_init:
             return
         assert self.binded, "call bind before init_params"
@@ -169,6 +173,11 @@ class Module(BaseModule):
                 arr = arrays[name]
                 if params is not None and name in params:
                     src = params[name]
+                    if isinstance(src, NDArray) and src.dtype != arr.dtype \
+                            and not src._data.is_floating_point() \
+                            and names is self._param_names:
+                        self._exec._feed(name, src)
+                        continue
                     arr._set_data(src._data if isinstance(src, NDArray)
                                   else nd.array(src, ctx=arr.context)._data)
                 elif initializer is not None:

@@ -47,6 +47,7 @@ import torch
 
 from .. import autograd as _autograd
 from .. import ops as _ops
+from .. import profiler as _profiler
 from .. import random as _random
 from ..base import MXNetError, atomic_writer, np_dtype, numeric_types, \
     torch_dtype
@@ -578,7 +579,10 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     of its own, never a view of an input. An op taking ``is_train`` gets
     autograd's training mode, one that ``needs_rng`` this thread's
     generator for the device, and an op's hidden trailing outputs (the
-    aux inputs it updated in place) are not returned."""
+    aux inputs it updated in place) are not returned. The op is one
+    "imperative" profiler event (`profiler.timed_call`, the reference's
+    ProfileOperator hook); recorded while profiling, its backward is one
+    ``_backward_<op>`` event too (`profiler.hook_backward`)."""
     opdef = _ops.get(op_name)
     attrs = {k: v._data if isinstance(v, NDArray) else v
              for k, v in attrs.items() if v is not None or k in ("axis",)}
@@ -594,9 +598,12 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     if opdef.needs_rng:
         attrs.setdefault("generator", _random.generator(dev))
     with _autograd._grad_mode():
-        results = _ops.invoke_torch(opdef.name, tensors, attrs)
+        results = _profiler.timed_call(op_name, _ops.invoke_torch,
+                                       (opdef.name, tensors, attrs))
         results = tuple(results) if isinstance(results, (tuple, list)) \
             else (results,)
+        if _profiler.backward_hooks_wanted():
+            _profiler.hook_backward(opdef.name, results)
         if opdef.num_outputs > 0:
             results = results[:opdef.visible_outputs]
         shared = {_storage(t) for t in arrays}

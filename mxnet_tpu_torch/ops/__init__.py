@@ -9,7 +9,8 @@ loss heads, ``softmax`` / ``log_softmax`` and ``Dropout`` of `nn`, the
 (`optimizer_ops`), the four image ops behind ``mx.nd.image``
 (`image_ops`), the 22 random ops behind ``mx.nd.random`` (`random_ops`),
 the 15 linear-algebra ops behind ``mx.nd.linalg`` (`linalg`), and
-``CTCLoss`` (`rnn`) and ``_contrib_flash_attention`` (`contrib`) behind
+``CTCLoss`` (`rnn`), ``_contrib_flash_attention`` and the detection ops
+(`contrib`) and the 9 int8 quantization ops (`quantization`) behind
 ``mx.nd.contrib``.
 
 A registered op is a plain function on torch tensors,
@@ -114,3 +115,4 @@ from . import image_ops as _image_ops  # noqa: E402,F401
 from . import random_ops as _random_ops  # noqa: E402,F401
 from . import linalg as _linalg  # noqa: E402,F401
 from . import contrib as _contrib  # noqa: E402,F401
+from . import quantization as _quantization  # noqa: E402,F401

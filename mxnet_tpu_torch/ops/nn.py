@@ -31,6 +31,8 @@ CUDA tensors.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -320,12 +322,25 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
     last window that starts in it). ``count_include_pad=False`` divides by
     the count of real elements. Window means and sums accumulate in f32 (see
     `_window_mean`), and so does the global average, a mean over the
-    spatial axes."""
+    spatial axes, but for an f32 input: that one sums in f64 and divides by
+    the count once, a tensor on the input's device (PyTorch's CUDA divide
+    by a Python number multiplies by its reciprocal), so it gives the same
+    bits on the card and on the CPU. PyTorch's f32 mean reduces in another
+    order on each, and an int8 graph quantizes the pool's output next,
+    where values a rounding apart can fall on the two sides of an int8
+    step."""
     nsp = _nspatial(data, "Pooling")
     ch_last = _channels_last(layout)
     if global_pool and pool_type == "avg":
         dims = tuple(range(1, 1 + nsp) if ch_last else range(2, 2 + nsp))
-        out = data.float().mean(dim=dims, keepdim=True)
+        if data.dtype == torch.float32:
+            n = math.prod(data.shape[d] for d in dims)
+            out = torch.sum(data, dim=dims, keepdim=True,
+                            dtype=torch.float64) / torch.full(
+                                (), n, dtype=torch.float64,
+                                device=data.device)
+        else:
+            out = data.float().mean(dim=dims, keepdim=True)
         return out.to(data.dtype if data.is_floating_point()
                       else torch.float32)
     x = _to_channels_first(data, ch_last)

@@ -37,11 +37,22 @@ _INPUT_SLOTS = {
     "LinearRegressionOutput": (["data", "label"], []),
     "LogisticRegressionOutput": (["data", "label"], []),
     "MAERegressionOutput": (["data", "label"], []),
+    # quantized compute ops (quantize_graph output): weight/bias vars sit
+    # behind _contrib_quantize_v2 nodes; min/max slots carry no var shapes
+    "_contrib_quantized_conv": (
+        ["data", "weight", "bias", "min_data", "max_data", "min_weight",
+         "max_weight"], []),
+    "_contrib_quantized_fully_connected": (
+        ["data", "weight", "bias", "min_data", "max_data", "min_weight",
+         "max_weight"], []),
 }
 
 # single-input ops whose output shape is their input's: shape assignment
-# walks through them from a rule op to the variable behind them
-_SHAPE_TRANSPARENT = {"Cast", "cast", "BlockGrad", "identity", "_copy"}
+# walks through them from a rule op to the variable behind them (quantized
+# graphs put _contrib_quantize_v2 between a variable and its conv / FC)
+_SHAPE_TRANSPARENT = {
+    "_contrib_quantize_v2", "quantize_v2", "_contrib_quantize", "quantize",
+    "Cast", "cast", "BlockGrad", "identity", "_copy"}
 
 # ops whose optional trailing array inputs are dropped by a flag
 _OPTIONAL_DROP = {
@@ -311,6 +322,10 @@ _ARG_SHAPE_RULES = {
     "Embedding": _embed_rule,
     "LeakyReLU": _prelu_rule,
     "RNN": _rnn_rule,
+    # quantized kernels keep the fp32 op's weight geometry (the int8 conv
+    # consumes the same OIHW weight the fp32 conv would)
+    "_contrib_quantized_conv": _conv_rule,
+    "_contrib_quantized_fully_connected": _fc_rule,
 }
 
 

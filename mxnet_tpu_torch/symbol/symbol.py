@@ -416,7 +416,10 @@ class Symbol:
         shapes on ``ctx`` (default `current_context`) and bind (reference:
         graph_executor.cc:1694 SimpleBind). Arrays of ``shared_exec`` (or
         ``shared_buffer``) whose name and shape match are used as they are,
-        gradient buffers included: one storage for both executors."""
+        gradient buffers included: one storage for both executors. An
+        argument whose variable is declared int8 (the offline-quantized
+        weights of `contrib.quantization.quantize_graph`) is allocated in
+        int8, every other array in float32."""
         from .. import context as ctx_mod
         from ..executor import Executor
         from ..ndarray import zeros
@@ -435,16 +438,19 @@ class Symbol:
         if shared_buffer is not None:
             shared.update(shared_buffer)
 
-        def take(pool, n, s):
+        int8 = {n.name for n in self._topo() if n.is_var
+                and n._dtype is not None and _np.dtype(n._dtype) == _np.int8}
+
+        def take(pool, n, s, dtype="float32"):
             """pool[n] where its shape is s, else a new zero array."""
             a = pool.get(n)
             if a is not None and tuple(a.shape) == tuple(s):
                 return a
-            return zeros(s, ctx=ctx)
+            return zeros(s, ctx=ctx, dtype=dtype)
 
         args = []
         for n, s in zip(arg_names, arg_shapes):
-            a = take(shared, n, s)
+            a = take(shared, n, s, "int8" if n in int8 else "float32")
             if shared_buffer is not None:
                 shared_buffer.setdefault(n, a)
             args.append(a)

@@ -5,18 +5,22 @@ Counterpart of `mxnet_tpu/telemetry/core.py` (and `record_event` of its
 gauges, histograms under the same metric names, a snapshot, and a bounded
 ring of events. Updates are lock-free attribute arithmetic (the GIL
 coalesces them; a sample that loses one increment under a thread race is
-accepted); creating a metric takes the registry lock once. Windowed views,
-SLOs, tracing spans, the JSONL flusher and the Prometheus endpoint are not
-ported yet.
+accepted); creating a metric takes the registry lock once. `rank` reads
+the launcher's rank as the JAX package does (the profiler stamps it on its
+traces). Windowed views, SLOs, tracing spans, the JSONL flusher and the
+Prometheus endpoint are not ported yet.
 """
 from __future__ import annotations
 
 import collections
+import os
 import threading
 import time
 
+from .. import env as _env
+
 __all__ = ["counter", "gauge", "histogram", "get_registry", "snapshot",
-           "record_event", "events", "LATENCY_BOUNDS"]
+           "record_event", "events", "rank", "LATENCY_BOUNDS"]
 
 # default histogram boundaries: latencies in SECONDS
 LATENCY_BOUNDS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
@@ -204,3 +208,20 @@ def events():
     """Snapshot of the ring, oldest first."""
     return [{"ts": ts, "event": kind, "fields": dict(fields)}
             for ts, kind, fields in list(_EVENTS)]
+
+
+def rank():
+    """This process's rank from the launcher env protocol (telemetry must
+    work before and without a process group)."""
+    for name in ("MXTPU_PROCESS_ID", "DMLC_WORKER_ID", "OMPI_COMM_WORLD_RANK",
+                 "PMI_RANK", "SLURM_PROCID"):
+        # MXTPU leg through the typed registry; scheduler vars stay raw
+        # (they're other systems' protocol, not ours to register)
+        v = _env.raw(name) if name.startswith("MXTPU_") \
+            else os.environ.get(name)
+        if v is not None:
+            try:
+                return int(v)
+            except ValueError:
+                pass
+    return 0

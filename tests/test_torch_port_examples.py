@@ -1,15 +1,21 @@
-"""Four of the JAX package's examples run through the port, and the port's
+"""Six of the JAX package's examples run through the port, and the port's
 ``train_imagenet --model-prefix`` export served by both packages, on the
 CPU.
 
 1. ``examples/ctc/lstm_ocr.py --steps 2 --batch 4`` (its short-run exit:
    the accuracy gate applies from 300 steps),
    ``examples/serving/generate_lm.py --requests 2 --max-new 2``,
-   ``examples/ssd/train.py --epochs 1 --batch-size 4 --samples 16`` and
+   ``examples/ssd/train.py --epochs 1 --batch-size 4 --samples 16``,
    ``examples/rcnn/train.py --steps 8 --image-size 48`` (the arguments
-   tests/test_examples.py gives them) end with rc 0 with ``mxnet_tpu``
-   aliased to ``mxnet_tpu_torch`` by an import hook, under
-   ``context.scope(cpu())``, in a process of their own.
+   tests/test_examples.py gives them),
+   ``examples/quantization/quantize_lenet.py --smoke`` (its own gate: the
+   int8 accuracy within 6 % of the f32 one, after entropy calibration)
+   and ``examples/profiler/profile_training.py --steps 2`` (its trace
+   written under the test's temporary directory) end with rc 0 with
+   ``mxnet_tpu`` aliased to ``mxnet_tpu_torch`` by an import hook, under
+   ``context.scope(cpu())``, in a process of their own. ``JAX_PLATFORMS``
+   is left out of their environment: two of the scripts import jax when
+   it is set, and the port must run them without it.
 2. ``python -m mxnet_tpu_torch.train_imagenet --device cpu --model-prefix
    P`` (resnet18_v1, 2 steps, 32 x 32 images, 10 classes) writes
    ``P-symbol.json`` and ``P-0000.params``; the port's ``Predictor`` and
@@ -71,9 +77,13 @@ assert "jax" not in sys.modules, "the port imported jax"
     ("ssd/train.py", ["--epochs", "1", "--batch-size", "4", "--samples",
                       "16"]),
     ("rcnn/train.py", ["--steps", "8", "--image-size", "48"]),
+    ("quantization/quantize_lenet.py", ["--smoke"]),
+    ("profiler/profile_training.py", ["--steps", "2"]),
 ])
-def test_example_runs_through_the_port(script, args):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+def test_example_runs_through_the_port(script, args, tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               MXTPU_PROFILE_OUT=str(tmp_path / "profile.json"))
+    env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(
         [sys.executable, "-c", _ALIASED,
          os.path.join(ROOT, "examples", script)] + args,
