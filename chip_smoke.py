@@ -352,6 +352,29 @@ Phases; each raises on failure, and the script then exits non-zero:
    examples/quantization/quantize_lenet.py --smoke through the port
    (training and entropy calibration on the card; the script binds its
    quantized Module on the CPU).
+16. sparse (after detection, before parity): sparse storage. First
+   examples/sparse/linear_classification.py at its own settings (150
+   steps, DIM 1000, batch 32, AdaGrad, ``kv.row_sparse_pull``) through
+   the port under ``context.scope(gpu(0))``; its own accuracy gate (above
+   0.8) stands. Then a logistic linear model over 1,000,000 features (f32
+   weight (1,000,000, 1), ``attach_grad(stype="row_sparse")``) on CSR
+   batches of 8,192 rows x 32 nonzeros made with numpy from the seed,
+   each step ``record`` -> ``sparse.dot`` -> the example's loss ->
+   ``backward`` -> AdaGrad's lazy update -> ``kv.push``: 60 steps, the
+   last 50 timed (a sync at each end); prints steps/s, rows/s, the
+   gradient's rows, one step's host syncs (torch's sync debug mode) and
+   the peak allocated bytes. Gates: the step-1 weights within 1e-6 of
+   their largest magnitude and the step-60 loss within 1e-4 relative of
+   the port's CPU run of the same batches, a second card run equal bit
+   for bit, and ``sparse.dot`` with its backward repeated bit for bit.
+   Then ``gluon.contrib.nn.SparseEmbedding(30522, 768)`` and
+   ``nn.Embedding(sparse_grad=False)`` from one weight under a gluon
+   Trainer with Adam over 8 x 512 tokens: the touched rows within 1e-6,
+   the lazy run's untouched rows and moments unchanged bit for bit, each
+   update's device time. Then ``KVStore("local")`` (init, push, pull,
+   row_sparse_pull, set_optimizer, 2-bit compression) on the card equal to
+   the CPU bit for bit, and a SyncBatchNorm training step, whose
+   conv-epilogue launches are the ``launches_sparse`` counts.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -6871,6 +6894,389 @@ def quantization_phase(torch, args):
     lenet_example()
 
 
+# ---------------------------------------------------------------------------
+# sparse: the example, a 1,000,000-feature linear model, lazy vs dense
+# embedding updates, the local kvstore, SyncBatchNorm
+# ---------------------------------------------------------------------------
+
+SPARSE_DIM = 1_000_000        # the linear model's features
+SPARSE_ROWS, SPARSE_NNZ = 8192, 32   # a batch: rows x nonzeros a row
+SPARSE_STEPS, SPARSE_WARM = 60, 10   # steps; the last 50 are timed
+SPARSE_LR = 0.5               # AdaGrad, as the example
+SPARSE_W1_TOL, SPARSE_LOSS_TOL = 1e-6, 1e-4
+EMB_SHAPE = (30522, 768)      # BERT-base's vocabulary and width
+EMB_TOKENS = (8, 512)
+EMB_TIMED = 5                 # timed updates after the first of each run
+EMB_TOL = 1e-6
+KV_SHAPE = (4096, 64)
+
+
+def sparse_batches(seed, steps, rows=SPARSE_ROWS, nnz=SPARSE_NNZ,
+                   dim=SPARSE_DIM):
+    """CSR batches of a hashed click log, made with numpy from ``seed``:
+    ``nnz`` columns a row drawn uniformly over ``dim`` (repeats within a
+    row are hash collisions, summed), standard normal values, and labels
+    from a hidden weight as examples/sparse/linear_classification.py makes
+    them. A list of (data, indices, indptr, labels), one a step."""
+    rng = np.random.default_rng(seed)
+    w_true = rng.standard_normal(dim).astype(np.float32)
+    indptr = np.arange(0, rows * nnz + 1, nnz, dtype=np.int64)
+    out = []
+    for _ in range(steps):
+        cols = rng.integers(0, dim, (rows, nnz))
+        vals = rng.standard_normal((rows, nnz)).astype(np.float32)
+        y = ((vals * w_true[cols]).sum(axis=1) > 0).astype(np.float32)
+        out.append((vals.ravel(), cols.ravel(), indptr, y))
+    return out
+
+
+def count_host_syncs(torch, fn):
+    """(fn's result, the host syncs it made on the card, each as the
+    ``file:line`` of the Python call that made it): torch's sync debug mode
+    warns at each synchronizing call, and the warnings are counted."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, ["%s:%d" % (os.path.basename(w.filename), w.lineno)
+                 for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def sparse_linear_run(torch, device, batches, dim=SPARSE_DIM, timed=False):
+    """The example's training loop at ``dim`` features on ``device``: a
+    (dim, 1) f32 weight with a row_sparse gradient, each step
+    ``autograd.record`` -> ``sparse.dot`` -> the logistic loss ->
+    ``backward`` -> AdaGrad's lazy update -> ``kv.push``. The batches are
+    on the device before the first step. Returns a dict: the losses, the
+    weights after step 1 and at the end, the last gradient's rows, and,
+    with ``timed``, the seconds of the steps after `SPARSE_WARM` (a sync at
+    each end), one step's host syncs and the peak allocated bytes."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray import sparse
+
+    rows = len(batches[0][3])
+    res = {}
+    with mx.context.scope(torch.device(device)):
+        xs = [sparse.csr_matrix((d, i, p), shape=(rows, dim))
+              for d, i, p, _ in batches]
+        ys = [mx.nd.array(y) for *_, y in batches]
+        weight = mx.nd.zeros((dim, 1))
+        weight.attach_grad(stype="row_sparse")
+        opt = mx.optimizer.create("adagrad", learning_rate=SPARSE_LR)
+        state = opt.create_state(0, weight)
+        kv = mx.kv.create("local")
+        kv.init(0, weight)
+
+        def step(i):
+            with autograd.record():
+                logits = sparse.dot(xs[i], weight).reshape((rows,))
+                loss = mx.nd.log(1 + mx.nd.exp(-(2 * ys[i] - 1)
+                                               * logits)).mean()
+            loss.backward()
+            opt.update(0, weight, weight.grad, state)
+            kv.push(0, weight)
+            return loss._data.detach()
+
+        if timed:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses = [step(0)]
+        res["w1"] = weight.asnumpy()
+        for i in range(1, len(batches)):
+            if timed and i == SPARSE_WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if timed and i == 2:
+                loss, res["syncs"] = count_host_syncs(torch,
+                                                      lambda: step(i))
+                losses.append(loss)
+                continue
+            losses.append(step(i))
+        if timed:
+            torch.cuda.synchronize()
+            res["seconds"] = time.perf_counter() - t0
+            res["peak"] = torch.cuda.max_memory_allocated()
+        res["losses"] = torch.stack(losses).cpu()
+        res["w"] = weight.asnumpy()
+        res["nnz_rows"] = weight.grad.num_rows
+    return res
+
+
+def sparse_dot_grad(torch, device, batch, dim):
+    """``sparse.dot(csr, w)`` and the gradient of its squares' sum with
+    respect to ``w`` (the transposed product) on ``device``, for a
+    (dim, 4) weight drawn from a seed of the batch's size."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray import sparse
+
+    d, i, p, _ = batch
+    w0 = np.random.default_rng(len(d)).standard_normal((dim, 4)) \
+        .astype(np.float32)
+    with mx.context.scope(torch.device(device)):
+        x = sparse.csr_matrix((d, i, p), shape=(len(p) - 1, dim))
+        w = mx.nd.array(w0)
+        w.attach_grad()
+        with autograd.record():
+            out = sparse.dot(x, w)
+            (out * out).sum().backward()
+        return out._data.detach().cpu(), w.grad._data.cpu()
+
+
+def sparse_embedding_run(torch, lazy, w0, tokens):
+    """`gluon.contrib.nn.SparseEmbedding` (``lazy``) or ``nn.Embedding``
+    over BERT-base's table from ``w0``, under a gluon Trainer with Adam:
+    one step over ``tokens`` (the weight and both moments after it), then
+    `EMB_TIMED` more steps, each update timed by CUDA events around
+    ``trainer.step`` (the card's idle time while the host enqueues counts,
+    as it does for the user). Returns (weight, mean, var, median ms)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    dev = torch.device("cuda")
+    if lazy:
+        emb = gluon.contrib.nn.SparseEmbedding(*EMB_SHAPE)
+    else:
+        emb = gluon.nn.Embedding(*EMB_SHAPE, sparse_grad=False)
+    emb.initialize(ctx=dev)
+    emb.weight.set_data(w0)
+    trainer = gluon.Trainer(emb.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+    x = nd.array(tokens, ctx=dev)
+    ms = []
+    for k in range(1 + EMB_TIMED):
+        with autograd.record():
+            out = emb(x)
+            (out * out).mean().backward()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        trainer.step(tokens.size)
+        e.record()
+        torch.cuda.synchronize()
+        if k == 0:
+            mean, var = trainer._updater.states[0]
+            first = (emb.weight.data()._data.detach().clone(), mean.clone(),
+                     var.clone())
+        else:
+            ms.append(s.elapsed_time(e))
+    return first + (float(np.median(ms)),)
+
+
+def kvstore_run(torch, device, seed):
+    """The local kvstore's calls on ``device``: dense and row_sparse pushes
+    summed, pull, row_sparse_pull into a row_sparse and a dense output,
+    set_optimizer (SGD with momentum and wd on dense and row_sparse
+    pushes) and 2-bit compression over four pushes. Returns the results
+    as numpy arrays, by name; raises unless the row_sparse output holds the
+    rows asked for."""
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.default_rng(seed)
+    vals = [rng.standard_normal(KV_SHAPE).astype(np.float32)
+            for _ in range(4)]
+    rows = [np.sort(rng.choice(KV_SHAPE[0], 300, replace=False))
+            for _ in range(3)]
+    asked = rng.choice(KV_SHAPE[0], 64)
+    out = {}
+    with mx.context.scope(torch.device(device)):
+        sp = mx.nd.sparse
+
+        def rsp(i):
+            return sp.row_sparse_array((vals[i][rows[i]], rows[i]),
+                                       shape=KV_SHAPE)
+
+        kv = mx.kv.create("local")
+        kv.init([0, 1], [mx.nd.array(vals[3]), mx.nd.zeros(KV_SHAPE)])
+        kv.push(0, [mx.nd.array(vals[0]), mx.nd.array(vals[1])])
+        kv.push(1, [rsp(0), rsp(1), rsp(2)])
+        for k in (0, 1):
+            o = mx.nd.zeros(KV_SHAPE)
+            kv.pull(k, out=o)
+            out["pull%d" % k] = o.asnumpy()
+        o = mx.nd.zeros(KV_SHAPE).tostype("row_sparse")
+        kv.row_sparse_pull(1, out=o, row_ids=mx.nd.array(asked))
+        out["rsp_pull_indices"] = o.indices.asnumpy()
+        out["rsp_pull_data"] = o.data.asnumpy()
+        o = mx.nd.zeros((len(asked), KV_SHAPE[1]))
+        kv.row_sparse_pull(1, out=o, row_ids=mx.nd.array(asked))
+        out["dense_rows"] = o.asnumpy()
+        kv = mx.kv.create("local")
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                             momentum=0.9, wd=1e-4))
+        kv.init(2, mx.nd.array(vals[3]))
+        for g in (mx.nd.array(vals[0]), rsp(1), rsp(2)):
+            kv.push(2, g)
+        o = mx.nd.zeros(KV_SHAPE)
+        kv.pull(2, out=o)
+        out["sgd"] = o.asnumpy()
+        kv = mx.kv.create("local")
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        kv.init(3, mx.nd.zeros(KV_SHAPE))
+        for i in range(4):
+            kv.push(3, [mx.nd.array(vals[i]), mx.nd.array(vals[3 - i])])
+            o = mx.nd.zeros(KV_SHAPE)
+            kv.pull(3, out=o)
+            out["2bit%d" % i] = o.asnumpy()
+    want = np.unique(asked)
+    if not (np.array_equal(out["rsp_pull_indices"], want)
+            and np.array_equal(out["rsp_pull_data"], out["pull1"][want])
+            and np.array_equal(out["dense_rows"], out["pull1"][asked])):
+        raise AssertionError("row_sparse_pull on %s did not return the rows "
+                             "asked for" % device)
+    return out
+
+
+def sync_bn_step(torch, pk, device, seed):
+    """`gluon.contrib.nn.SyncBatchNorm` (one device: BatchNorm over axis 1)
+    in training on a (32, 64, 28, 28) f32 batch: the output, the input's
+    gradient, and the conv-epilogue launches of the step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+
+    rng = np.random.default_rng(seed)
+    x_np = rng.standard_normal((32, 64, 28, 28)).astype(np.float32)
+    r_np = rng.standard_normal(x_np.shape).astype(np.float32)
+    with mx.context.scope(torch.device(device)):
+        bn = mx.gluon.contrib.nn.SyncBatchNorm(in_channels=64)
+        bn.initialize()
+        x, r = mx.nd.array(x_np), mx.nd.array(r_np)
+        x.attach_grad()
+        for k in EPI_KERNELS:
+            getattr(pk, k).launches = 0
+        with autograd.record():
+            y = bn(x)
+            (y * r).sum().backward()
+        y, dx = y.asnumpy(), x.grad.asnumpy()
+    return y, dx, {k: getattr(pk, k).launches for k in EPI_KERNELS}
+
+
+def sparse_phase(torch, pk, args):
+    """Sparse storage on the card (phase 16 of the module docstring).
+    Returns SyncBatchNorm's epilogue launches."""
+    card = smi_line()
+    lines, secs = run_example(os.path.join("sparse",
+                                           "linear_classification.py"), [])
+    acc = [ln for ln in lines if ln.startswith("final accuracy")]
+    if not acc:
+        raise AssertionError("sparse example: no accuracy line in %s"
+                             % lines[-3:])
+    log("sparse: examples/sparse/linear_classification.py (150 steps, DIM "
+        "1000, batch 32, AdaGrad, kv.row_sparse_pull) on the card in %.2f s, "
+        "%s; %s" % (secs, acc[-1], card))
+
+    batches = sparse_batches(args.seed + 61, SPARSE_STEPS)
+    card_a = sparse_linear_run(torch, "cuda", batches, timed=True)
+    card_b = sparse_linear_run(torch, "cuda", batches)
+    cpu = sparse_linear_run(torch, "cpu", batches)
+    if not (torch.equal(card_a["losses"], card_b["losses"])
+            and np.array_equal(card_a["w"], card_b["w"])):
+        raise AssertionError("sparse linear model: two card runs differ")
+    scale = float(np.abs(cpu["w1"]).max())
+    w1_err = float(np.abs(card_a["w1"] - cpu["w1"]).max()) / scale
+    loss_card = float(card_a["losses"][-1])
+    loss_cpu = float(cpu["losses"][-1])
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    if not (w1_err <= SPARSE_W1_TOL and loss_err <= SPARSE_LOSS_TOL
+            and np.isfinite(card_a["losses"].numpy()).all()):
+        raise AssertionError(
+            "sparse linear model card vs CPU: step-1 weights %.3g of their "
+            "largest magnitude (limit %g), step-%d loss %.9g vs %.9g (%.3g "
+            "relative, limit %g)" % (w1_err, SPARSE_W1_TOL, SPARSE_STEPS,
+                                     loss_card, loss_cpu, loss_err,
+                                     SPARSE_LOSS_TOL))
+    timed = SPARSE_STEPS - SPARSE_WARM
+    steps_s = timed / card_a["seconds"]
+    log("sparse: linear model, %d features (f32 weight (%d, 1), "
+        "row_sparse gradient), CSR batches %d rows x %d nonzeros, AdaGrad "
+        "lazy + kv.push: %.2f steps/s, %.0f rows/s (%d timed steps in %.4f "
+        "s after %d warm-up); gradient rows at the last step %d; host syncs "
+        "in one step %d (%s); peak allocated %.1f MiB; card vs CPU: step-1 "
+        "weights %.3g of their largest magnitude, step-%d loss %.9g vs "
+        "%.9g (%.3g relative); a second card run equal bit for bit; %s"
+        % (SPARSE_DIM, SPARSE_DIM, SPARSE_ROWS, SPARSE_NNZ, steps_s,
+           steps_s * SPARSE_ROWS, timed, card_a["seconds"], SPARSE_WARM,
+           card_a["nnz_rows"], len(card_a["syncs"]),
+           " | ".join(card_a["syncs"]) or "none",
+           card_a["peak"] / 2 ** 20, w1_err, SPARSE_STEPS, loss_card,
+           loss_cpu, loss_err, card))
+    dots = [sparse_dot_grad(torch, dev, batches[0], SPARSE_DIM)
+            for dev in ("cuda", "cuda", "cpu")]
+    if not all(torch.equal(a, b) for a, b in zip(dots[0], dots[1])):
+        raise AssertionError("sparse.dot or its backward differs between "
+                             "two card runs")
+    dot_err = [max_err(torch, a, b, 1e-5, "sparse.dot card vs CPU",
+                       float(b.abs().max())) for a, b in
+               zip(dots[0], dots[2])]
+    log("sparse: sparse.dot (%d x %d csr, %d nonzeros, by a (%d, 4) weight) "
+        "and its backward repeat bit for bit on the card; card vs CPU "
+        "largest differences %.3g / %.3g" % (
+            SPARSE_ROWS, SPARSE_DIM, SPARSE_ROWS * SPARSE_NNZ, SPARSE_DIM,
+            *dot_err))
+    del card_a, card_b, cpu, dots
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(args.seed + 62)
+    w0 = rng.uniform(-0.05, 0.05, EMB_SHAPE).astype(np.float32)
+    tokens = rng.integers(0, EMB_SHAPE[0], EMB_TOKENS).astype(np.float32)
+    lazy = sparse_embedding_run(torch, True, w0, tokens)
+    dense = sparse_embedding_run(torch, False, w0, tokens)
+    touched = np.unique(tokens).astype(np.int64)
+    mask = torch.zeros(EMB_SHAPE[0], dtype=torch.bool, device="cuda")
+    mask[torch.from_numpy(touched).cuda()] = True
+    scale = float(dense[0][mask].abs().max())
+    emb_err = float((lazy[0][mask] - dense[0][mask]).abs().max()) / scale
+    w0_t = torch.from_numpy(w0).cuda()
+    stale = (torch.equal(lazy[0][~mask], w0_t[~mask])
+             and not lazy[1][~mask].any() and not lazy[2][~mask].any())
+    if emb_err > EMB_TOL or not stale:
+        raise AssertionError(
+            "SparseEmbedding lazy Adam vs dense: touched rows %.3g (limit "
+            "%g); untouched rows and moments unchanged: %s"
+            % (emb_err, EMB_TOL, stale))
+    log("sparse: SparseEmbedding(%d, %d) + Trainer(adam), %d x %d tokens, "
+        "%d rows touched: lazy update %.4f ms, dense update "
+        "(Embedding(sparse_grad=False)) %.4f ms (CUDA events around "
+        "trainer.step, the card's waits for the host after the lazy "
+        "update's sync included; median of %d); touched rows agree within "
+        "%.3g of "
+        "their largest magnitude, the lazy run's %d untouched rows and "
+        "their moments unchanged bit for bit; %s"
+        % (EMB_SHAPE + EMB_TOKENS + (len(touched), lazy[3], dense[3],
+                                     EMB_TIMED, emb_err,
+                                     EMB_SHAPE[0] - len(touched), card)))
+    del lazy, dense, mask, w0_t
+    torch.cuda.empty_cache()
+
+    kv_card = kvstore_run(torch, "cuda", args.seed + 63)
+    kv_cpu = kvstore_run(torch, "cpu", args.seed + 63)
+    diff = [k for k in kv_cpu if not np.array_equal(kv_card[k], kv_cpu[k])]
+    if diff:
+        raise AssertionError("kvstore card vs CPU differ in %s" % diff)
+    log("sparse: KVStore('local') on the card: init, dense and row_sparse "
+        "push, pull, row_sparse_pull (the %d rows asked for), set_optimizer "
+        "(SGD momentum on dense and row_sparse pushes) and 2-bit "
+        "compression over 4 pushes equal the CPU's bit for bit (%d arrays, "
+        "%s); %s" % (len(kv_card["rsp_pull_indices"]), len(kv_card),
+                     KV_SHAPE, card))
+
+    y, dx, launches = sync_bn_step(torch, pk, "cuda", args.seed + 64)
+    y_cpu, dx_cpu, _ = sync_bn_step(torch, pk, "cpu", args.seed + 64)
+    bn_err = [max_err(torch, torch.from_numpy(a), torch.from_numpy(b), 1e-4,
+                      "SyncBatchNorm card vs CPU", float(np.abs(b).max()))
+              for a, b in ((y, y_cpu), (dx, dx_cpu))]
+    if min(launches.values()) < 1:
+        raise AssertionError("SyncBatchNorm in training launched %s"
+                             % launches)
+    log("sparse: SyncBatchNorm (one device) training step on (32, 64, 28, "
+        "28): epilogue launches %s; output and input gradient vs CPU "
+        "largest differences %.3g / %.3g" % (launches, *bn_err))
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -6963,7 +7369,7 @@ def main(argv=None):
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
     extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
-             "detection": {}, "profiler": {}}
+             "detection": {}, "profiler": {}, "sparse": {}}
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -6982,6 +7388,8 @@ def main(argv=None):
     quantization_phase(torch, args)
     torch.cuda.empty_cache()
     extra["detection"] = detection_phase(torch, pk, args)
+    torch.cuda.empty_cache()
+    extra["sparse"] = sparse_phase(torch, pk, args)
     torch.cuda.empty_cache()
     for k in KERNELS:
         if launches[k["name"]] < 1:
@@ -7007,7 +7415,7 @@ def main(argv=None):
                 # later slices' paths: ctc_ocr (training + decode), the
                 # dropout runs, the training run behind predict_vision,
                 # the SSD training of the detection phase, the profiler
-                # phase's three fits
+                # phase's three fits, the sparse phase's SyncBatchNorm
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

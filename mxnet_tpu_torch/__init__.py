@@ -36,7 +36,11 @@ prefetcher and sharded record streams), the file iterators of ``io`` and
 and ``profiler`` (chrome traces of the ``mx.nd``, executor and autograd
 dispatch, torch.profiler traces of the card) and ``contrib`` (int8
 ``quantization`` over ``torch._int_mm``, ``text``, ``io``,
-``svrg_optimization``, the legacy ``autograd``; not ``onnx``).
+``svrg_optimization``, the legacy ``autograd``; not ``onnx``); and sparse
+storage: ``nd.sparse`` (row_sparse and csr arrays, row-sparse gradients,
+the lazy updates of SGD, Adam and AdaGrad), ``kv`` (``kvstore``: the
+single-process store, with ``gradient_compression``), ``gluon.contrib.nn``
+and the DGL graph ops of ``nd.contrib``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``) or runs them in a ``with
 context.scope(mx.cpu()):`` (or ``with mx.cpu():``) block; without a card
@@ -70,6 +74,8 @@ from . import predict
 from . import recordio, image, data
 from . import profiler
 from . import contrib
+from . import gradient_compression, kvstore
+from . import kvstore as kv
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, cpu_pinned, current_context, gpu, num_gpus
@@ -82,4 +88,4 @@ __all__ = ["MXNetError", "cpu", "gpu", "cpu_pinned", "num_gpus",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
            "sym", "executor", "io", "model", "callback", "module", "mod",
            "rnn", "predict", "recordio", "image", "data", "profiler",
-           "contrib"]
+           "contrib", "kvstore", "kv", "gradient_compression"]

@@ -17,7 +17,11 @@ tape is torch's own graph:
   `torch.autograd.grad` of the heads with respect to every live variable
   (a weak registry) and writes (``write``) or adds (``add``) each
   gradient into the variable's buffer, in place, so a ``grad`` array
-  taken before the call sees the new values. A variable the heads do not
+  taken before the call sees the new values. A row_sparse buffer
+  (`NDArray.attach_grad` with ``stype="row_sparse"``, or one given to
+  `mark_variables`) gets the dense gradient cast to row_sparse (summed
+  with its earlier value first under ``add``), its components replaced in
+  the same object. A variable the heads do not
   reach keeps its old gradient and its stale flag (``_fresh_grad``), which
   `gluon.Trainer` checks.
 - A head that is not a scalar gets ones as its head gradient, as in MXNet.
@@ -266,12 +270,28 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         for v, g in totals.values():
             if v._grad is None:   # a Parameter's, made at first use
                 v._grad = _zeros_like(v._data)
-            buf = v._grad._data
-            if v._grad_req == "add":
+            if v._grad.stype == "row_sparse":
+                _write_row_sparse(v, g)
+            elif v._grad_req == "add":
+                buf = v._grad._data
                 buf.add_(g.to(buf.dtype))
             else:
-                buf.copy_(g)
+                v._grad._data.copy_(g)
             v._fresh_grad = True
+
+
+def _write_row_sparse(v, g):
+    """Cast the dense gradient ``g`` (plus the buffer's value under
+    ``add``) to row_sparse, into the buffer object itself, so an alias
+    taken before `backward` sees it."""
+    from .ndarray.ndarray import NDArray
+    from .ndarray.sparse import cast_storage
+
+    buf = v._grad
+    dense = g.to(buf._data["data"].dtype)
+    if v._grad_req == "add":
+        dense = dense + buf.tostype("default")._data
+    buf._assign(cast_storage(NDArray(dense), "row_sparse"))
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -346,20 +346,23 @@ class BatchNorm(_Layer):
 
 class Embedding(_Layer):
     """Lookup table: weight (input_dim, output_dim); indices are clipped to
-    [0, input_dim - 1]."""
+    [0, input_dim - 1]. ``sparse_grad=True`` makes the weight's
+    ``grad_stype`` row_sparse: `gluon.Trainer` casts its gradient to
+    row_sparse, and an optimizer with ``supports_sparse`` updates only the
+    looked-up rows (lazily: wd, momentum and Adam's moments of the other
+    rows stay as they were, as in the reference)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, device=None,
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True): row-sparse "
-                             "gradients are not ported yet")
         self._input_dim, self._output_dim = input_dim, output_dim
         with self.name_scope():
             self._param("weight", device=device,
                         shape=(input_dim, output_dim),
-                        init=weight_initializer, dtype=dtype)
+                        init=weight_initializer, dtype=dtype,
+                        grad_stype="row_sparse" if sparse_grad
+                        else "default")
 
     def forward(self, x):
         return _ops.embedding(x, self._held("weight"))

@@ -20,6 +20,10 @@ the Parameter makes a new tensor (a deferred shape becomes known, `cast`,
   default) otherwise.
 - One device a parameter: several contexts raise (the multi-card slice,
   ROADMAP queue 1 item 11).
+- ``stype`` and ``grad_stype`` are recorded as the JAX package records
+  them; the data and the tape's gradient stay dense. A ``grad_stype`` of
+  row_sparse makes `gluon.Trainer` cast the gradient to row_sparse for an
+  optimizer with ``supports_sparse`` (the lazy update).
 """
 from __future__ import annotations
 
@@ -63,10 +67,13 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError("Parameter %s: sparse storage is not ported yet"
-                             % name)
+        for st in (stype, grad_stype):
+            if st not in ("default", "row_sparse", "csr"):
+                raise MXNetError("Parameter %s: unknown stype %r"
+                                 % (name, st))
         self.name = name
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
@@ -109,6 +116,10 @@ class Parameter:
 
     def _shape_known(self):
         return self._shape is not None and all(s > 0 for s in self._shape)
+
+    @property
+    def grad_stype(self):
+        return self._grad_stype
 
     @property
     def grad_req(self):
@@ -288,6 +299,12 @@ class Parameter:
         if self._nd is None or not self.var.requires_grad:
             return []
         return [self.grad()]
+
+    def row_sparse_data(self, row_id):
+        raise MXNetError("Parameter %s: row_sparse_data needs a row_sparse "
+                         "weight held by a kvstore; the weight is dense here "
+                         "(only its gradient is row_sparse, grad_stype)"
+                         % self.name)
 
     def list_ctx(self):
         if self._nd is None:

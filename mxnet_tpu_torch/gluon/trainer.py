@@ -10,6 +10,14 @@ built before the first forward (deferred shapes) works. Each step feeds
 the port's telemetry (`telemetry.observe_step`, kind "train"), as the JAX
 package's does.
 
+A parameter whose ``grad_stype`` is row_sparse gets its gradient cast to
+row_sparse before the update when the optimizer ``supports_sparse``, so
+the optimizer takes its lazy row update (JAX `Trainer._update`); any
+other optimizer gets the dense gradient. ``kvstore`` ("device", "local",
+a ``local_*`` name or a single-process `kvstore.KVStore`) and
+``compression_params`` are accepted and, as in the JAX package, unused on
+one device: there is nothing to reduce.
+
 The states file of `save_states` is the port's own (pickled host arrays
 and the optimizer's attributes); `load_states` restores it. Several
 contexts, a distributed kvstore, ``sharded=True``, `step_batch`,
@@ -36,8 +44,7 @@ def _multi_card(what):
 
 class Trainer:
     """Applies an optimizer to a set of Parameters (reference:
-    trainer.py:27). ``kvstore`` may be "device", "local" or None (one
-    device: no reduction to do)."""
+    trainer.py:27)."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
@@ -49,13 +56,14 @@ class Trainer:
             raise MXNetError("params must be a list or dict of Parameters")
         if sharded:
             raise _multi_card("sharded=True (the fused sharded step)")
-        if isinstance(kvstore, str) and ("dist" in kvstore
-                                         or kvstore in ("horovod", "tpu")):
-            raise _multi_card("the %r kvstore" % kvstore)
-        if kvstore not in (None, "device", "local"):
-            raise _multi_card("kvstore %r" % (kvstore,))
-        if compression_params:
-            raise _multi_card("gradient compression")
+        from .. import kvstore as _kvs
+
+        if isinstance(kvstore, str):
+            _kvs.create(kvstore)   # raises for the multi-card names
+        elif kvstore is not None and not isinstance(kvstore, _kvs.KVStore):
+            raise MXNetError("kvstore must be a name or a KVStore, not %r"
+                             % (kvstore,))
+        self._compression_params = compression_params
         self._params = []
         self._param2idx = {}
         for i, p in enumerate(params):
@@ -127,7 +135,11 @@ class Trainer:
                     "updated by backward since last step. Set "
                     "ignore_stale_grad=True to suppress"
                     % (param.name, arr.context))
-            self._updater(i, param.grad(), arr)
+            grad = param.grad()
+            if param.grad_stype == "row_sparse" \
+                    and self._optimizer.supports_sparse:
+                grad = grad.tostype("row_sparse")
+            self._updater(i, grad, arr)
             arr._fresh_grad = False
 
     def step_batch(self, data, label=None):

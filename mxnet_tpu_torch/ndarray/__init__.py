@@ -1,8 +1,8 @@
 """mxnet_tpu_torch.ndarray — imperative array API (counterpart of
 `mxnet_tpu.ndarray`; reference: python/mxnet/ndarray), with the op
 namespaces ``contrib`` (the control-flow ops ``foreach`` / ``while_loop`` /
-``cond`` among them), ``linalg``, ``random`` and ``image``. Sparse storage
-is not ported yet."""
+``cond`` among them), ``linalg``, ``random`` and ``image``, and ``sparse``
+(row_sparse and csr storage, `ndarray.sparse`)."""
 from __future__ import annotations
 
 from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty, arange,
@@ -11,6 +11,10 @@ from .ndarray import (NDArray, invoke, array, zeros, ones, full, empty, arange,
 from . import register as _register
 
 _register.populate(globals())
+
+from . import sparse  # noqa: E402
+from .sparse import (BaseSparseNDArray, RowSparseNDArray,  # noqa: E402
+                     CSRNDArray)
 
 # control-flow ops live on nd.contrib (reference: ndarray/contrib.py)
 from . import control_flow as _control_flow  # noqa: E402

@@ -31,9 +31,12 @@ Every operator call goes through `invoke` — the equivalent of
 ``Imperative::Invoke`` (src/imperative/imperative.cc:89): resolve the
 `OpDef`, run its torch function, wrap the outputs, honour ``out=``.
 
-Not ported yet: sparse storage (and row-sparse gradients), and the JAX
-package's telemetry memory accounting and profiler hook. 64-bit arrays stay 64-bit, as in the reference, where the
-JAX package narrows them to 32 bits (README, "int64").
+Sparse storage is `ndarray.sparse` (row_sparse and csr arrays, row-sparse
+gradient buffers); an op without a sparse form densifies a sparse input,
+as the reference's storage fallback does. Not ported yet: the JAX
+package's telemetry memory accounting. 64-bit arrays stay 64-bit, as in
+the reference, where the JAX package narrows them to 32 bits (README,
+"int64").
 """
 from __future__ import annotations
 
@@ -210,12 +213,20 @@ class NDArray:
     def attach_grad(self, grad_req="write", stype=None):
         """Make this array a variable with a zero gradient buffer of its
         shape and dtype (reference: ndarray.py attach_grad); ``grad_req``
-        is write, add or null."""
-        if stype not in (None, "default"):
-            raise MXNetError("sparse gradients (%s) are not ported yet"
-                             % stype)
-        _autograd.mark_variables([self], [_autograd._zeros_like(self._data)],
-                                 grad_req)
+        is write, add or null. With ``stype="row_sparse"`` the buffer is
+        row_sparse from the start, so an alias taken before `backward` sees
+        the gradient, which the write-back casts to row_sparse."""
+        if stype not in (None, "default", "row_sparse"):
+            raise MXNetError("attach_grad: unsupported grad stype %r "
+                             "(default/row_sparse)" % (stype,))
+        if stype == "row_sparse":
+            from . import sparse as _sparse
+
+            buf = _sparse.zeros("row_sparse", self.shape, ctx=self.context,
+                                dtype=self._data.dtype)
+        else:
+            buf = _autograd._zeros_like(self._data)
+        _autograd.mark_variables([self], [buf], grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         """Gradients of this array into every variable's buffer; a
@@ -293,9 +304,13 @@ class NDArray:
         return invoke("one_hot", (self,), dict(depth=depth, **kw))
 
     def tostype(self, stype):
+        """This array in storage ``stype`` (default, row_sparse or csr;
+        reference: ndarray.py tostype -> cast_storage)."""
         if stype == "default":
             return self
-        raise MXNetError("sparse storage (%s) is not ported yet" % stype)
+        from . import sparse as _sparse
+
+        return _sparse.cast_storage(self, stype)
 
     # -- reductions -------------------------------------------------------
     def sum(self, axis=None, keepdims=False, **kw):
@@ -584,9 +599,17 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     ProfileOperator hook); recorded while profiling, its backward is one
     ``_backward_<op>`` event too (`profiler.hook_backward`)."""
     opdef = _ops.get(op_name)
+    if opdef.host:
+        return _invoke_host(opdef, op_name, inputs, attrs, out, ctx)
     attrs = {k: v._data if isinstance(v, NDArray) else v
              for k, v in attrs.items() if v is not None or k in ("axis",)}
     attrs.pop("name", None)
+    if any(isinstance(i, NDArray) and i.stype != "default" for i in inputs):
+        if opdef.sparse_fn is not None:
+            return _invoke_sparse(opdef, op_name, inputs, attrs, out)
+        # storage fallback: the op sees the dense values
+        inputs = tuple(i.tostype("default") if isinstance(i, NDArray)
+                       else i for i in inputs)
     tensors = tuple(i._data if isinstance(i, NDArray) else i for i in inputs)
     arrays = [t for t in tensors + tuple(attrs.values()) if torch.is_tensor(t)]
     if ctx is not None:
@@ -614,14 +637,48 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
                 r = r.clone(memory_format=torch.contiguous_format)
             out_nd.append(NDArray(r))
 
+    return _deliver(out_nd, out)
+
+
+def _deliver(out_nd, out):
+    """The op's output arrays, or, with ``out=``, those arrays written with
+    them."""
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(outs, out_nd):
             dst._set_data(src._data)
         return out
-    if len(out_nd) == 1:
-        return out_nd[0]
-    return out_nd
+    return out_nd[0] if len(out_nd) == 1 else out_nd
+
+
+def _invoke_sparse(opdef, op_name, inputs, attrs, out):
+    """An op with a sparse form (``sparse_fn``, the lazy optimizer updates)
+    given a sparse input: ``sparse_fn`` takes the NDArrays as they are and
+    returns new tensors, off the tape."""
+    with torch.no_grad():
+        results = _profiler.timed_call(
+            op_name, lambda: opdef.sparse_fn(*inputs, **attrs), ())
+    results = results if isinstance(results, (tuple, list)) else (results,)
+    return _deliver([NDArray(r) for r in results], out)
+
+
+def _invoke_host(opdef, op_name, inputs, attrs, out, ctx):
+    """A host op (``host``, the DGL graph ops): its function takes the
+    NDArrays (sparse ones included) and returns NDArrays, computed with
+    numpy on the host; one that ``needs_rng`` gets this thread's generator
+    for the inputs' device."""
+    attrs = {k: v for k, v in attrs.items() if v is not None}
+    attrs.pop("name", None)
+    if opdef.needs_rng:
+        dev = resolve_device(ctx) if ctx is not None else \
+            next((i.context for i in inputs if isinstance(i, NDArray)),
+                 current_context())
+        attrs.setdefault("generator", _random.generator(dev))
+    results = _profiler.timed_call(
+        op_name, lambda: opdef.fn(*inputs, **attrs), ())
+    results = list(results) if isinstance(results, (tuple, list)) \
+        else [results]
+    return _deliver(results, out)
 
 
 # --------------------------------------------------------------------------
@@ -702,6 +759,8 @@ _BF16_NPZ = _np.dtype("V2")
 def _to_npz(v):
     if not isinstance(v, NDArray):
         return _np.asarray(v)
+    if v.stype != "default":   # written dense, as the JAX package does
+        v = v.tostype("default")
     if v._data.dtype == torch.bfloat16:
         return v._data.view(torch.int16).cpu().numpy().view(_BF16_NPZ)
     return v.asnumpy()

@@ -10,8 +10,8 @@ loss heads, ``softmax`` / ``log_softmax`` and ``Dropout`` of `nn`, the
 (`image_ops`), the 22 random ops behind ``mx.nd.random`` (`random_ops`),
 the 15 linear-algebra ops behind ``mx.nd.linalg`` (`linalg`), and
 ``CTCLoss`` (`rnn`), ``_contrib_flash_attention`` and the detection ops
-(`contrib`) and the 9 int8 quantization ops (`quantization`) behind
-``mx.nd.contrib``.
+(`contrib`), the 9 int8 quantization ops (`quantization`) and the 6 DGL
+graph ops (`dgl`, host ops over csr arrays) behind ``mx.nd.contrib``.
 
 A registered op is a plain function on torch tensors,
 ``fn(*tensors, **attrs) -> tensor | tuple``, run eagerly by
@@ -19,7 +19,10 @@ A registered op is a plain function on torch tensors,
 random numbers (``needs_rng``) takes a ``generator`` keyword, the
 `torch.Generator` its caller chose; an op whose trailing outputs are
 hidden (``num_visible_outputs``, BatchNorm's moving statistics) writes
-them into its trailing inputs in place and returns them too.
+them into its trailing inputs in place and returns them too. A ``host``
+op takes and returns NDArrays instead (sparse ones included), and an op
+with a ``sparse_fn`` (the lazy optimizer updates) runs it when an input is
+sparse; any other op given a sparse input sees its dense values.
 """
 from __future__ import annotations
 
@@ -48,6 +51,10 @@ class OpDef:
                                   # space (Embedding input_dim, one_hot
                                   # depth); recorded as the JAX registry
                                   # does, read by no dispatch here
+    host: bool = False            # fn takes and returns NDArrays (sparse
+                                  # ones too) and computes on the host
+    sparse_fn: _t.Callable = None  # called with the NDArrays instead of fn
+                                   # when an input is sparse
 
     @property
     def visible_outputs(self):
@@ -59,12 +66,14 @@ _REGISTRY: dict = {}
 
 
 def register(name, num_outputs=1, aliases=(), num_outputs_fn=None,
-             needs_rng=False, num_visible_outputs=None, size_attrs=()):
+             needs_rng=False, num_visible_outputs=None, size_attrs=(),
+             host=False, sparse_fn=None):
     """Decorator registering a torch op function under `name`."""
 
     def deco(fn):
         op = OpDef(name, fn, num_outputs, tuple(aliases), num_outputs_fn,
-                   needs_rng, num_visible_outputs, tuple(size_attrs))
+                   needs_rng, num_visible_outputs, tuple(size_attrs), host,
+                   sparse_fn)
         _REGISTRY[name] = op
         for a in aliases:
             _REGISTRY[a] = op
@@ -116,3 +125,4 @@ from . import random_ops as _random_ops  # noqa: E402,F401
 from . import linalg as _linalg  # noqa: E402,F401
 from . import contrib as _contrib  # noqa: E402,F401
 from . import quantization as _quantization  # noqa: E402,F401
+from . import dgl as _dgl  # noqa: E402,F401

@@ -13,10 +13,18 @@ its inputs alone and returns the new values, so
 ``out=``, in place (off the tape for a gluon Parameter's array). The
 updates run one tensor at a time; the multi-tensor form is ROADMAP queue 1
 item 2.
+
+A row_sparse gradient: ``sgd_update``, ``sgd_mom_update`` and
+``adam_update`` with ``lazy_update=True``, and ``adagrad_update`` (alias
+``_sparse_adagrad_update``, the reference's row_sparse AdaGrad) always,
+take the lazy row update of `ndarray.sparse`; otherwise the gradient is
+densified and the update is the dense one (the JAX package's ops take
+dense gradients only).
 """
 from __future__ import annotations
 
 import functools
+import inspect
 
 import torch
 
@@ -70,16 +78,45 @@ def _functional(inplace, written):
     return op
 
 
-def _op(name, *positions, aliases=()):
+def _lazy_form(inplace, positions, lazy_name, always=False):
+    """The ``sparse_fn`` of a registered update: with a row_sparse gradient
+    and ``lazy_update`` (or ``always``), copies of the weight and states
+    take `ndarray.sparse`'s lazy update named ``lazy_name``; otherwise the
+    dense update runs on the densified arrays."""
+    defaults = {k: p.default
+                for k, p in inspect.signature(inplace).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+    defaults.pop("lazy_update", None)
+
+    def op(*arrays, lazy_update=False, **attrs):
+        from ..ndarray import sparse
+
+        grad = arrays[1]
+        if (lazy_update or always) and grad.stype == "row_sparse":
+            tensors = [grad if i == 1 else a.tostype("default")._data.clone()
+                       for i, a in enumerate(arrays)]
+            getattr(sparse, lazy_name)(*tensors, **dict(defaults, **attrs))
+            out = tuple(tensors[i] for i in positions)
+        else:
+            out = _functional(inplace, lambda n: positions)(
+                *[a.tostype("default")._data for a in arrays], **attrs)
+        return out
+
+    return op
+
+
+def _op(name, *positions, aliases=(), lazy=None, always=False):
     def deco(fn):
-        register(name, num_outputs=len(positions), aliases=aliases)(
+        register(name, num_outputs=len(positions), aliases=aliases,
+                 sparse_fn=None if lazy is None else
+                 _lazy_form(fn, positions, lazy, always))(
             _functional(fn, lambda n: positions))
         return fn
 
     return deco
 
 
-@_op("sgd_update", 0)
+@_op("sgd_update", 0, lazy="sgd_update")
 @torch.no_grad()
 def sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
                clip_gradient=-1.0, lazy_update=False):
@@ -89,7 +126,7 @@ def sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
     return weight
 
 
-@_op("sgd_mom_update", 0, 2)
+@_op("sgd_mom_update", 0, 2, lazy="sgd_mom_update")
 @torch.no_grad()
 def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0, lazy_update=False):
@@ -142,7 +179,7 @@ def nag_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     return weight, mom
 
 
-@_op("adam_update", 0, 2, 3)
+@_op("adam_update", 0, 2, 3, lazy="adam_update")
 @torch.no_grad()
 def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
@@ -272,7 +309,8 @@ def signum_update(weight, grad, mom, lr=0.01, momentum=0.9, wd=0.0,
     return weight, mom
 
 
-@_op("adagrad_update", 0, 2, aliases=("_sparse_adagrad_update",))
+@_op("adagrad_update", 0, 2, aliases=("_sparse_adagrad_update",),
+     lazy="adagrad_update", always=True)
 @torch.no_grad()
 def adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0):

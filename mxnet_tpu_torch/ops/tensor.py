@@ -103,9 +103,13 @@ def mx_reshape_shape(ishape, spec, reverse=False):
 
 
 def _scalar(data, value):
-    """``value`` as a 0-d tensor of ``data``'s dtype (jnp.asarray(value,
-    data.dtype)): the scalar-dtype rule of the ``_*_scalar`` ops."""
-    return torch.as_tensor(value, dtype=data.dtype, device=data.device)
+    """``value`` as a 0-d tensor of ``data``'s dtype on its device
+    (jnp.asarray(value, data.dtype)): the scalar-dtype rule of the
+    ``_*_scalar`` ops. Filled by a kernel: ``torch.as_tensor`` of a Python
+    number on the card is a blocking host-to-device copy (a host sync)
+    every op, and a 0-d host tensor as a CUDA divisor is turned into a
+    product with its reciprocal."""
+    return torch.full((), value, dtype=data.dtype, device=data.device)
 
 
 def _inexact(x):

@@ -9,8 +9,15 @@ The JAX package traces ``update`` into its fused step; here ``update``
 runs eagerly and changes the weight and its state in place (see
 `ops.optimizer_ops`), off the tape. The weight and gradient are tensors
 (`parallel.DistributedTrainer`) or NDArrays (`gluon.Trainer`); states are
-f32 tensors on the weight's device. Gradients are dense: row-sparse
-gradients and the lazy updates that take them are not ported.
+f32 tensors on the weight's device.
+
+A row_sparse gradient (`ndarray.sparse.RowSparseNDArray`) reaches the
+optimizers whose ``supports_sparse`` is set, as in the JAX package: SGD
+and Adam take the lazy row update of `ndarray.sparse` when
+``lazy_update`` (the default) and densify the gradient otherwise, AdaGrad
+always takes it. The lazy updates touch only the gradient's rows, so wd,
+momentum and Adam's moments of the other rows stay as they were. Any other
+optimizer refuses a sparse gradient.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 
 from . import random as _random
 from .base import MXNetError
+from .ndarray import sparse as _sparse
 from .ops import optimizer_ops as _ops
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "AdaGrad", "AdaDelta",
@@ -47,8 +55,22 @@ def create(name, **kwargs):
 
 
 def _t(x):
-    """The tensor of an NDArray (a tensor as it is)."""
-    return x._data if hasattr(x, "_data") else x
+    """The tensor of an NDArray (a tensor as it is); a sparse array has
+    none."""
+    t = x._data if hasattr(x, "_data") else x
+    if isinstance(t, dict):
+        raise MXNetError("a %s gradient reaches only the optimizers with "
+                         "supports_sparse (SGD, Adam, AdaGrad); densify it "
+                         "with tostype('default')" % x.stype)
+    if t.layout != torch.strided:
+        raise MXNetError("a torch sparse tensor (%s) is not a gradient the "
+                         "updates take: use ndarray.sparse's row_sparse "
+                         "arrays" % t.layout)
+    return t
+
+
+def _is_row_sparse(arr):
+    return getattr(arr, "stype", "default") == "row_sparse"
 
 
 def _zeros(weight):
@@ -86,6 +108,10 @@ class Optimizer:
         self.idx2name = dict(param_idx2name or {})
         self.param_dict = param_dict or {}
 
+    #: True where a lazy row_sparse update exists (reference: the Rsp
+    #: updates of src/operator/optimizer_op.cc)
+    supports_sparse = False
+
     @staticmethod
     def create_optimizer(name, **kwargs):
         return create(name, **kwargs)
@@ -113,7 +139,8 @@ class Optimizer:
         w = _t(weight)
         if self.multi_precision and self._is_half(w.dtype):
             s, w32 = state
-            self.update(index, w32, _t(grad).float(), s)
+            self.update(index, w32, grad.astype("float32")
+                        if _is_row_sparse(grad) else _t(grad).float(), s)
             with torch.no_grad():
                 w.copy_(w32)
         else:
@@ -178,18 +205,12 @@ class Optimizer:
         return d
 
 
-def _dense(grad, who):
-    if _t(grad).layout != torch.strided:
-        raise MXNetError("%s: sparse gradients (%s) are not ported; the "
-                         "update takes a dense gradient"
-                         % (who, _t(grad).layout))
-    return _t(grad)
-
-
 @register
 class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` > 0 (an f32 momentum buffer a
     parameter). ``lazy_update`` concerns row-sparse gradients only."""
+
+    supports_sparse = True
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -203,11 +224,19 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         kw = self._common(index)
-        grad = _dense(grad, "SGD")
+        if _is_row_sparse(grad):
+            if self.lazy_update:
+                if state is None:
+                    _sparse.sgd_update(weight, grad, **kw)
+                else:
+                    _sparse.sgd_mom_update(weight, grad, state,
+                                           momentum=self.momentum, **kw)
+                return
+            grad = grad.tostype("default")
         if state is None:
-            _ops.sgd_update(_t(weight), grad, **kw)
+            _ops.sgd_update(_t(weight), _t(grad), **kw)
         else:
-            _ops.sgd_mom_update(_t(weight), grad, state,
+            _ops.sgd_mom_update(_t(weight), _t(grad), state,
                                 momentum=self.momentum, **kw)
 
 
@@ -238,26 +267,35 @@ class Adam(Optimizer):
     """Adam with f32 first and second moments a parameter. The bias
     correction is folded into the step's learning rate, ``lr * sqrt(1 -
     beta2^t) / (1 - beta1^t)`` with ``t`` the parameter's own update
-    count, as in the JAX package. ``lazy_update`` (the row-sparse update)
-    is not taken."""
+    count, as in the JAX package. ``lazy_update`` concerns row-sparse
+    gradients only."""
+
+    supports_sparse = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return (_zeros(_t(weight)), _zeros(_t(weight)))
 
     def update(self, index, weight, grad, state):
-        grad = _dense(grad, "Adam")
         kw = self._common(index)
         t = self._index_update_count[index]
         coef1 = 1.0 - self.beta1 ** t
         coef2 = 1.0 - self.beta2 ** t
         kw["lr"] = kw["lr"] * coef2 ** 0.5 / coef1
         mean, var = state
-        _ops.adam_update(_t(weight), grad, mean, var, beta1=self.beta1,
+        if _is_row_sparse(grad):
+            if self.lazy_update:
+                _sparse.adam_update(weight, grad, mean, var,
+                                    beta1=self.beta1, beta2=self.beta2,
+                                    epsilon=self.epsilon, **kw)
+                return
+            grad = grad.tostype("default")
+        _ops.adam_update(_t(weight), _t(grad), mean, var, beta1=self.beta1,
                          beta2=self.beta2, epsilon=self.epsilon, **kw)
 
 
@@ -284,6 +322,10 @@ class AdamW(Optimizer):
 
 @register
 class AdaGrad(Optimizer):
+    """AdaGrad; a row_sparse gradient always takes the lazy update."""
+
+    supports_sparse = True
+
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
         self.float_stable_eps = eps
@@ -293,7 +335,11 @@ class AdaGrad(Optimizer):
 
     def update(self, index, weight, grad, state):
         kw = self._common(index)
-        _ops.adagrad_update(_t(weight), _dense(grad, "AdaGrad"), state,
+        if _is_row_sparse(grad):
+            _sparse.adagrad_update(weight, grad, state,
+                                   epsilon=self.float_stable_eps, **kw)
+            return
+        _ops.adagrad_update(_t(weight), _t(grad), state,
                             epsilon=self.float_stable_eps, **kw)
 
 
@@ -514,7 +560,10 @@ class Nadam(Optimizer):
 @register
 class LBSGD(SGD):
     """Large-batch SGD (reference: optimizer.py:782): the step's learning
-    rate scaled by ||w|| / ||g|| (at most 10x), layer by layer."""
+    rate scaled by ||w|| / ||g|| (at most 10x), layer by layer. Its update
+    is dense only."""
+
+    supports_sparse = False
 
     def __init__(self, momentum=0.0, warmup_strategy="linear",
                  warmup_epochs=5, batch_scale=1, updates_per_epoch=32,

@@ -166,8 +166,8 @@ def test_adam_update_matches_jax():
 
 def test_adam_optimizer_three_steps_match_jax():
     """Bias-corrected lr with the per-parameter update count, lr and wd
-    multipliers, f32 moments; a sparse gradient, or asking for the lazy
-    update, raises."""
+    multipliers, f32 moments; a torch sparse tensor as the gradient raises,
+    and ``lazy_update`` (the row_sparse update) is taken."""
     from mxnet_tpu import optimizer as jopt_mod
 
     rng = np.random.RandomState(8)
@@ -193,8 +193,7 @@ def test_adam_optimizer_three_steps_match_jax():
     assert to.num_update == jo.num_update == 3
     with pytest.raises(MXNetError, match="sparse"):
         to.update(0, tp, torch.eye(4, 3).to_sparse(), ts)
-    with pytest.raises(TypeError):
-        toptim.create("adam", lazy_update=True)
+    assert toptim.create("adam", lazy_update=False).lazy_update is False
 
 
 def _bert_pair(seed):

@@ -14,7 +14,9 @@ path (``ModelRepository`` -> ``DynamicBatcher`` -> bucketed
 the CPU, with its launch counts and its buckets' shared weights; and a
 bound graph's no-input ops on the card; and the CTC op, the random ops
 (by distribution), the spatial transformer ops, linalg and control flow
-on the card against the CPU.
+on the card against the CPU; and ``sparse.dot`` with its backward (two
+card runs bit for bit), a sparse linear model's steps and the local
+kvstore on the card against the CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -1476,3 +1478,79 @@ def test_random_linalg_control_flow_on_card():
                  linalg_run(mx, mx.cpu(), 1), LINALG_RTOL)
     compare_runs("control flow", control_flow_run(mx, mx.gpu(0), 1),
                  control_flow_run(mx, mx.cpu(), 1), CONTROL_FLOW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,nnz,dim", [(512, 16, 100_000),
+                                          (64, 3, 7)])
+def test_sparse_dot_and_backward_repeat_bit_for_bit_on_card(rows, nnz, dim):
+    """``sparse.dot(csr, w)`` and its backward (the transposed product)
+    sum in a fixed order: two card runs are equal bit for bit, and the card
+    agrees with the CPU within 1e-5 of the largest magnitude."""
+    _need_card()
+    from chip_smoke import sparse_batches, sparse_dot_grad
+
+    batch = sparse_batches(3, 1, rows=rows, nnz=nnz, dim=dim)[0]
+    runs = [sparse_dot_grad(torch, dev, batch, dim)
+            for dev in ("cuda", "cuda", "cpu")]
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(c.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sparse_linear_model_and_kvstore_on_card():
+    """A few steps of the sparse linear model (row_sparse gradient, lazy
+    AdaGrad, kv.push) twice on the card, equal bit for bit, and within the
+    smoke's limits of the CPU; the local kvstore's calls on the card equal
+    the CPU's bit for bit."""
+    _need_card()
+    from chip_smoke import (SPARSE_LOSS_TOL, SPARSE_W1_TOL, kvstore_run,
+                            sparse_batches, sparse_linear_run)
+
+    batches = sparse_batches(4, 6, rows=1024, nnz=16, dim=200_000)
+    a, b, c = (sparse_linear_run(torch, dev, batches, dim=200_000)
+               for dev in ("cuda", "cuda", "cpu"))
+    assert torch.equal(a["losses"], b["losses"])
+    assert np.array_equal(a["w"], b["w"])
+    np.testing.assert_allclose(a["w1"], c["w1"], rtol=0,
+                               atol=SPARSE_W1_TOL * np.abs(c["w1"]).max())
+    np.testing.assert_allclose(a["losses"].numpy(), c["losses"].numpy(),
+                               rtol=SPARSE_LOSS_TOL)
+    card, cpu = kvstore_run(torch, "cuda", 5), kvstore_run(torch, "cpu", 5)
+    for k in cpu:
+        assert np.array_equal(card[k], cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_scalar_ops_make_no_host_sync_on_card():
+    """Queue 3 fault F4: ``x + 1.0`` and the other ``_*_scalar`` ops made
+    their Python number a card tensor by a blocking host-to-device copy a
+    call. With torch's sync debug mode set to error, none of them may
+    synchronize. The correctly rounded ones (add, subtract, multiply,
+    divide, mod, maximum, compare) equal the CPU's results bit for bit (a
+    divide too: the divisor stays a card tensor, never a reciprocal); the
+    two powers, whose CUDA and CPU libraries round differently, within
+    1e-6."""
+    _need_card()
+    x_np = np.random.RandomState(0).uniform(0.5, 2.0, (64, 33)) \
+        .astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        x = nd.array(x_np, ctx=dev)
+        if dev == "cuda":
+            nd.waitall()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [x + 1.5, x - 0.25, 3.0 - x, x * 0.1, x / 7.0, 2.0 / x,
+                   x % 0.3, nd.maximum(x, 1.0), (x > 1.0) * x,
+                   x ** 1.7, 1.3 ** x]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs[dev] = [g.asnumpy() for g in got]
+    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        if i < 9:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-6)

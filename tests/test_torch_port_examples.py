@@ -1,4 +1,4 @@
-"""Six of the JAX package's examples run through the port, and the port's
+"""Seven of the JAX package's examples run through the port, and the port's
 ``train_imagenet --model-prefix`` export served by both packages, on the
 CPU.
 
@@ -9,9 +9,11 @@ CPU.
    ``examples/rcnn/train.py --steps 8 --image-size 48`` (the arguments
    tests/test_examples.py gives them),
    ``examples/quantization/quantize_lenet.py --smoke`` (its own gate: the
-   int8 accuracy within 6 % of the f32 one, after entropy calibration)
-   and ``examples/profiler/profile_training.py --steps 2`` (its trace
-   written under the test's temporary directory) end with rc 0 with
+   int8 accuracy within 6 % of the f32 one, after entropy calibration),
+   ``examples/profiler/profile_training.py --steps 2`` (its trace
+   written under the test's temporary directory) and
+   ``examples/sparse/linear_classification.py`` at its own 150 steps (its
+   own gate: accuracy above 0.8) end with rc 0 with
    ``mxnet_tpu`` aliased to ``mxnet_tpu_torch`` by an import hook, under
    ``context.scope(cpu())``, in a process of their own. ``JAX_PLATFORMS``
    is left out of their environment: two of the scripts import jax when
@@ -79,6 +81,7 @@ assert "jax" not in sys.modules, "the port imported jax"
     ("rcnn/train.py", ["--steps", "8", "--image-size", "48"]),
     ("quantization/quantize_lenet.py", ["--smoke"]),
     ("profiler/profile_training.py", ["--steps", "2"]),
+    ("sparse/linear_classification.py", []),
 ])
 def test_example_runs_through_the_port(script, args, tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT,

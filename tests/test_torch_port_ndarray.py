@@ -443,9 +443,10 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     ops of ops/image_ops.py under 8 names, and the 22 random ops of
     ops/random_ops.py under 40 names, the 15 of ops/linalg.py under 30,
     CTCLoss under 4, and ops/contrib.py's 22 ops but the two MoE ops
-    under 46 names (_contrib_flash_attention among them), and the 9 ops
-    of ops/quantization.py under 21 names; each alias resolves to the op
-    its JAX alias names."""
+    under 46 names (_contrib_flash_attention among them), the 9 ops of
+    ops/quantization.py under 21 names, and the 6 DGL graph ops of
+    ops/dgl.py under 12; each alias resolves to the op its JAX alias
+    names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
     opt = sorted(n for n, o in jops._REGISTRY.items()
@@ -477,8 +478,11 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     quant = sorted(n for n, o in jops._REGISTRY.items()
                    if o.fn.__module__ == "mxnet_tpu.ops.quantization")
     assert len(quant) == 21
+    dgl = sorted(n for n, o in jops._REGISTRY.items()
+                 if o.fn.__module__ == "mxnet_tpu.ops.dgl")
+    assert len(dgl) == 12
     slice17 = rand + linalg + ["CTCLoss", "ctc_loss", "_contrib_CTCLoss",
-                               "_contrib_ctc_loss"] + contrib + quant
+                               "_contrib_ctc_loss"] + contrib + quant + dgl
     assert sorted(tops.list_ops()) == sorted(names + opt + layers + image + [
         "softmax", "log_softmax"] + slice17)
     for n in opt + layers + image + slice17:
