@@ -375,6 +375,32 @@ Phases; each raises on failure, and the script then exits non-zero:
    row_sparse_pull, set_optimizer, 2-bit compression) on the card equal to
    the CPU bit for bit, and a SyncBatchNorm training step, whose
    conv-epilogue launches are the ``launches_sparse`` counts.
+17. mesh (after sparse, before parity): one mesh over
+   ``torch.distributed`` and expert-parallel MoE. A one-rank NCCL group
+   from a free local port; every in-graph collective of
+   `parallel.collectives` over each axis of a dp 1 x ep 1 mesh, their
+   gradients and the eager ones on card tensors, each equal to its input
+   bit for bit. Then the census's last three scripts through the port
+   (`run_example`, ``import jax`` answered by `jax_standin`) at their own
+   defaults and gates: examples/moe/train_moe.py (40 steps, loss below
+   2.0), examples/distributed/train_dist.py (30 steps, loss below 1.5)
+   and examples/image_classification/train_imagenet.py at
+   tests/test_examples.py's arguments (resnet18_v1, NHWC, 4 x 3 x 32 x
+   32), whose conv-epilogue launches are the ``launches_mesh`` counts.
+   Then train_moe.py's MoELM at bert_12_768_12's widths (vocab 30,522,
+   768 units, FFN 3,072) with 8 experts top-2, capacity factor 1.25 and
+   z-loss 1e-3, bf16 over f32 masters, Adam lr 1e-4, 8 x 512 tokens,
+   through `DistributedTrainer` over ``make_mesh([("dp", 1), ("ep",
+   1)])``: 3 warm-up and 20 timed steps; prints tokens/s, ms a step, peak
+   allocated bytes, the share of token choices dropped by capacity, and
+   one step's host syncs and collectives (``--profile``: the device busy
+   share, split into the dispatch / combine einsums, the expert GEMMs, the
+   router and the rest). Gates: a finite loss, lower at the last timed
+   step than the first; no collective and no host sync of the trainer or
+   the MoE op in a step at world size 1; and one f32 step (TF32 off) on
+   the card equal to the CPU's from the same weights: the loss within
+   1e-5 relative, the gate, expert and head parameters within 1e-5 of
+   each tensor's largest magnitude. The group is destroyed at the end.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -2306,7 +2332,7 @@ def train(torch, pk, args):
     for k in ("epi_stats", "epi_bwd_reduce"):
         getattr(pk, k).routes = dict.fromkeys(getattr(pk, k).routes, 0)
     t0 = time.monotonic()
-    losses = [trainer.step(x, y) for _ in range(steps)]
+    losses = [trainer.step(x, y)._data for _ in range(steps)]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
@@ -2503,7 +2529,7 @@ def train_rec(torch, pk, args, synthetic_ips):
                                        ProfilerActivity.CUDA])
 
         def on_batch(p):
-            state["losses"].append(p.locals["loss"])
+            state["losses"].append(p.locals["loss"]._data)
             if p.nbatch == TRAIN_WARMUP - 1:
                 torch.cuda.synchronize()
                 for k in EPI_KERNELS:   # the timed steps' counts start here
@@ -2776,7 +2802,7 @@ def train_vision(torch, pk, args):
     for k in EPI_KERNELS:   # the Inception path's counts start here
         getattr(pk, k).launches = 0
     t0 = time.monotonic()
-    losses = [trainer.step(x, y) for _ in range(TRAIN_STEPS)]
+    losses = [trainer.step(x, y)._data for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
@@ -2998,7 +3024,7 @@ def train_bert(torch, pk, args):
     for k in FLASH_KERNELS:   # the BERT path's counts start here
         getattr(pk, k).launches = 0
     t0 = time.monotonic()
-    losses = [trainer.step(x, y) for _ in range(BERT_STEPS)]
+    losses = [trainer.step(x, y)._data for _ in range(BERT_STEPS)]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: getattr(pk, k).launches for k in FLASH_KERNELS}
@@ -3168,7 +3194,7 @@ def train_word_lm(torch, pk, args):
     for k in LSTM_KERNELS:   # the word-LM training path's counts start here
         getattr(pk, k).launches = 0
     t0 = time.monotonic()
-    losses = [trainer.step(x, y) for _ in range(LM_STEPS)]
+    losses = [trainer.step(x, y)._data for _ in range(LM_STEPS)]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
@@ -5321,7 +5347,7 @@ def _dropout_steps(torch, pk, trainer, x, y, kernels, per_step, what):
     for k in kernels:
         getattr(pk, k).launches = 0
     with DropoutMeter(torch) as meter:
-        losses = [trainer.step(x, y) for _ in range(DROPOUT_STEPS)]
+        losses = [trainer.step(x, y)._data for _ in range(DROPOUT_STEPS)]
     launches = {k: getattr(pk, k).launches for k in kernels}
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all():
@@ -6104,12 +6130,33 @@ def detection_ops_phase(torch, args):
             "%s %.4f / %.4f" % (k, card_s[k], cpu_s[k]) for k in card_s)))
 
 
+def jax_standin():
+    """A module that answers ``import jax`` in the census scripts, which
+    call ``jax.devices()`` themselves (the card's machine has no JAX):
+    ``devices()`` / ``local_devices()`` give the port's mesh devices
+    (`parallel.devices`), ``config.update`` does nothing, and
+    ``process_count()`` is the process group's size."""
+    import types
+
+    from mxnet_tpu_torch import parallel
+
+    jax = types.ModuleType("jax")
+    jax.MXNET_TPU_TORCH_STANDIN = True
+    jax.devices = lambda backend=None: parallel.devices()
+    jax.local_devices = lambda *a, **k: parallel.local_devices()
+    jax.device_count = lambda: len(parallel.devices())
+    jax.process_count = parallel.num_workers
+    jax.process_index = parallel.rank
+    jax.config = types.SimpleNamespace(update=lambda *a, **k: None)
+    return jax
+
+
 def run_example(rel_script, argv, env=None):
     """``examples/<rel_script>`` run as a script in this process on the card,
     each ``mxnet_tpu`` import answered by the port's module of the same
-    path (an import hook), under ``context.scope(gpu(0))``, with ``env``
-    set for the run. Returns its standard output's lines and the seconds
-    it took."""
+    path (an import hook) and ``import jax`` by `jax_standin`, under
+    ``context.scope(gpu(0))``, with ``env`` set for the run. Returns its
+    standard output's lines and the seconds it took."""
     import contextlib
     import importlib
     import importlib.abc
@@ -6136,6 +6183,8 @@ def run_example(rel_script, argv, env=None):
                           "examples", rel_script)
     finder = Alias()
     sys.meta_path.insert(0, finder)
+    real_jax = sys.modules.get("jax")
+    sys.modules["jax"] = jax_standin()
     argv_, out = sys.argv, io.StringIO()
     sys.argv = [script] + list(argv)
     saved_env = {k: os.environ.get(k) for k in (env or {})}
@@ -6147,6 +6196,10 @@ def run_example(rel_script, argv, env=None):
     finally:
         sys.argv = argv_
         sys.meta_path.remove(finder)
+        if real_jax is None:
+            sys.modules.pop("jax", None)
+        else:
+            sys.modules["jax"] = real_jax
         for name in [n for n in sys.modules if n == "mxnet_tpu"
                      or n.startswith("mxnet_tpu.")]:
             del sys.modules[name]
@@ -7277,6 +7330,429 @@ def sparse_phase(torch, pk, args):
     return launches
 
 
+# -- phase 17: one mesh over torch.distributed, and expert-parallel MoE ------
+
+# train_moe.py's MoELM at bert_12_768_12's widths, with Mixtral 8x7B's 8
+# experts and top-2 routing (arXiv:2401.04088) and MoEFFN's default
+# capacity factor
+MOE_VOCAB, MOE_UNITS, MOE_HIDDEN = 30522, 768, 3072
+MOE_EXPERTS, MOE_TOPK, MOE_CF, MOE_ZCOEF = 8, 2, 1.25, 1e-3
+MOE_BATCH, MOE_SEQ = 8, 512
+MOE_WARMUP, MOE_STEPS = 3, 20
+MOE_TOL = 1e-5
+DIST_CALLS = ("all_gather", "all_reduce", "broadcast", "all_to_all_single",
+              "barrier")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class count_collectives:
+    """Counts the `torch.distributed` collectives made inside the block, by
+    name (the functions `parallel.collectives` calls, wrapped)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = dict.fromkeys(DIST_CALLS, 0)
+        self._saved = {n: getattr(dist, n) for n in DIST_CALLS}
+
+        def wrap(name, fn):
+            def call(*a, **k):
+                self.counts[name] += 1
+                return fn(*a, **k)
+            return call
+
+        for n, fn in self._saved.items():
+            setattr(dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self._saved.items():
+            setattr(dist, n, fn)
+
+    @property
+    def total(self):
+        return sum(self.counts.values())
+
+
+def nccl_collectives(torch, seed):
+    """Every in-graph collective over each axis of a dp 1 x ep 1 mesh on
+    the one-rank NCCL group, and the eager ones, on card tensors: each
+    equal to its input bit for bit (pbroadcast's and psum's gradients to
+    the incoming one). Returns the NCCL calls made."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import collectives as C
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError("the group's backend is %s, not nccl"
+                             % dist.get_backend())
+    mesh = parallel.make_mesh([("dp", 1), ("ep", 1)])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(64, 48, generator=gen, device="cuda")
+    bad = []
+
+    def same(what, got, want):
+        if got.shape != want.shape or not torch.equal(got, want):
+            bad.append(what)
+
+    with count_collectives() as calls, parallel.use_mesh(mesh):
+        for ax in ("dp", "ep"):
+            for what, got in (
+                    ("psum", C.psum(x, ax)), ("pmean", C.pmean(x, ax)),
+                    ("pmax", C.pmax(x, ax)), ("pmin", C.pmin(x, ax)),
+                    ("all_gather", C.all_gather(x, ax)),
+                    ("all_gather untiled", C.all_gather(x, ax,
+                                                        tiled=False)[0]),
+                    ("reduce_scatter", C.reduce_scatter(x, ax)),
+                    ("ppermute", C.ppermute(x, ax, [(0, 0)])),
+                    ("all_to_all", C.all_to_all(x, ax, 0, 1)),
+                    ("pbroadcast", C.pbroadcast(x, ax))):
+                same("%s over %s" % (what, ax), got, x)
+            for fn in (C.psum, C.pbroadcast):
+                w = x.clone().requires_grad_(True)
+                (fn(w, ax) * x).sum().backward()
+                same("%s's gradient over %s" % (fn.__name__, ax), w.grad, x)
+            if C.axis_index(ax) != 0 or C.axis_size(ax) != 1:
+                bad.append("axis_index / axis_size over " + ax)
+        same("all_reduce_arrays", C.all_reduce_arrays([x])[0], x)
+        same("broadcast_arrays", C.broadcast_arrays(
+            x, [torch.device("cuda", 0)])[0], x)
+        C.barrier()
+    torch.cuda.synchronize()
+    if bad or calls.counts["all_gather"] == 0:
+        raise AssertionError("one-rank NCCL collectives: %s differ from "
+                             "their inputs; calls %s" % (bad, calls.counts))
+    return calls.counts
+
+
+def census_scripts(torch, pk):
+    """The census's last three examples through the port on the card
+    (`run_example`, ``jax`` answered by `jax_standin`), at their own
+    defaults and gates; the conv-epilogue launches of train_imagenet.py's
+    run."""
+    lines, secs = run_example(os.path.join("moe", "train_moe.py"), [])
+    log("mesh: examples/moe/train_moe.py (40 steps, 4 experts top-2 over "
+        "%s; its gate: loss below 2.0) on the card in %.1f s: %s | %s"
+        % (lines[0], secs, lines[-2], lines[-1]))
+    lines, secs = run_example(os.path.join("distributed", "train_dist.py"),
+                              [])
+    log("mesh: examples/distributed/train_dist.py (30 steps, batch 64, SGD "
+        "momentum; its gate: loss below 1.5) on the card in %.1f s: %s | %s"
+        % (secs, lines[-2], lines[-1]))
+    for k in EPI_KERNELS:
+        getattr(pk, k).launches = 0
+    lines, secs = run_example(
+        os.path.join("image_classification", "train_imagenet.py"),
+        ["--network", "resnet18_v1", "--batch-size", "4", "--num-batches",
+         "4", "--num-classes", "10", "--image-shape", "3,32,32",
+         "--layout", "NHWC"])
+    torch.cuda.synchronize()
+    launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+    if min(launches.values()) < 1:
+        raise AssertionError("train_imagenet.py on the card launched %s"
+                             % launches)
+    log("mesh: examples/image_classification/train_imagenet.py (resnet18_v1, "
+        "NHWC, bf16, 4 x 3 x 32 x 32, 4 batches) on the card in %.1f s: %s; "
+        "epilogue launches %s" % (secs, lines[-1], launches))
+    return launches
+
+
+def moe_lm(mx, device, seed):
+    """train_moe.py's MoELM (Embedding -> Dense(relu) mixer + residual ->
+    MoEFFN -> Dense head) at MOE_* widths, Xavier from ``seed``, on
+    ``device``."""
+    from mxnet_tpu_torch.gluon.contrib.moe import MoEFFN
+
+    gluon, nn = mx.gluon, mx.gluon.nn
+
+    class MoELM(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embed = nn.Embedding(MOE_VOCAB, MOE_UNITS)
+                self.mix = nn.Dense(MOE_UNITS, flatten=False,
+                                    activation="relu", in_units=MOE_UNITS)
+                self.moe = MoEFFN(units=MOE_UNITS, hidden_size=MOE_HIDDEN,
+                                  num_experts=MOE_EXPERTS,
+                                  num_experts_per_token=MOE_TOPK,
+                                  z_loss_coef=MOE_ZCOEF,
+                                  capacity_factor=MOE_CF, return_aux=True)
+                self.head = nn.Dense(MOE_VOCAB, flatten=False,
+                                     in_units=MOE_UNITS)
+
+        def hybrid_forward(self, F, tokens):
+            h = self.embed(tokens)
+            h = h + self.mix(h)
+            ffn, aux = self.moe(h)
+            return self.head(h + ffn), aux
+
+    net = MoELM()
+    net.initialize(mx.init.Xavier(), ctx=device, seed=seed)
+    return net
+
+
+def moe_loss(mx):
+    """train_moe.py's ``lm_loss``, its logits taken in f32: from bf16
+    logits the loss near ln(30522) = 10.33 moves in steps of 0.0625, more
+    than 20 steps at lr 1e-4 move it."""
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def lm_loss(out, labels):
+        logits, aux = out
+        return sce(logits.float().reshape((-1, MOE_VOCAB)),
+                   labels.reshape((-1,))) + 0.01 * aux
+
+    return lm_loss
+
+
+def moe_batches(seed, n):
+    """train_moe.py's task at MOE_VOCAB: tok[t+1] = (3 tok[t] + 7) % V."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        seq = [rng.randint(0, MOE_VOCAB, (MOE_BATCH, 1))]
+        for _ in range(MOE_SEQ):
+            seq.append((3 * seq[-1] + 7) % MOE_VOCAB)
+        toks = np.concatenate(seq, axis=1)
+        # int32 ids: the trainer casts floating inputs to bf16, which holds
+        # integers only up to 256 exactly
+        out.append((toks[:, :MOE_SEQ].astype(np.int32),
+                    toks[:, 1:].astype(np.float32)))
+    return out
+
+
+def moe_dropped_share(torch, h, gate):
+    """The share of token choices past the capacity, by the routing rule of
+    `ops.contrib.topk_moe` on the MoE layer's input ``h`` and gate."""
+    logits = h.reshape(-1, h.shape[-1]).float() @ gate.float().t()
+    probs = torch.softmax(logits, -1)
+    order = torch.sort(-probs, dim=-1, stable=True).indices[:, :MOE_TOPK]
+    t = logits.shape[0]
+    cap = max(1, int(MOE_CF * MOE_TOPK * t / MOE_EXPERTS))
+    counts = torch.zeros(MOE_EXPERTS, device=h.device)
+    kept = 0
+    experts = torch.arange(MOE_EXPERTS, device=h.device)
+    for j in range(MOE_TOPK):
+        oh = (order[:, j, None] == experts).float()
+        pos = (torch.cumsum(oh, 0) - 1.0 + counts) * oh
+        kept += int(((pos < cap) & (oh > 0)).sum())
+        counts = counts + oh.sum(0)
+    return 1.0 - kept / float(t * MOE_TOPK), cap
+
+
+MOE_GROUPS = ("dispatch / combine einsums", "expert GEMMs", "router",
+              "rest")
+
+
+def profile_moe(torch, trainer, x, y, step_ms, steps=3):
+    """`torch.profiler` over ``steps`` MoE LM steps: the device busy share
+    against ``step_ms`` and device time by group, each kernel by the shapes
+    of the product that launched it: a dimension of E x C (the dense
+    dispatch / combine einsums, forward and backward), a batched product
+    over the E experts (the expert GEMMs), a dimension of E (the router);
+    the rest (the head, mixer and embedding, the routing masks, the loss,
+    the optimizer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cap = int(MOE_CF * MOE_TOPK * MOE_BATCH * MOE_SEQ / MOE_EXPERTS)
+    ec = MOE_EXPERTS * cap
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+    kernels, groups = {}, dict.fromkeys(MOE_GROUPS, 0.0)
+    for ev in prof.events():
+        if is_annotation(ev):
+            continue
+        if str(ev.device_type).endswith("CUDA"):
+            row = kernels.setdefault(ev.name, [0.0, 0])
+            row[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+            row[1] += 1
+            continue
+        launched = sum(k.duration for k in getattr(ev, "kernels", ()))
+        if not launched:
+            continue
+        dims = [d for s in (getattr(ev, "input_shapes", None) or [])
+                for d in (s or [])]
+        product = any(t in ev.name for t in ("mm", "matmul", "einsum"))
+        if product and ec in dims:
+            group = MOE_GROUPS[0]
+        elif product and "bmm" in ev.name and MOE_EXPERTS in dims:
+            group = MOE_GROUPS[1]
+        elif product and MOE_EXPERTS in dims:
+            group = MOE_GROUPS[2]
+        else:
+            group = "rest"
+        groups[group] += launched / 1e3 / steps
+    busy = sum(r[0] for r in kernels.values()) / steps
+    groups["rest"] += busy - sum(groups.values())
+    log("  profile MoE LM step (bf16, %d x %d tokens, %d steps): device busy "
+        "%.3f ms a step = %.1f%% of the %.2f ms step timed without the "
+        "profiler; %s" % (MOE_BATCH, MOE_SEQ, steps, busy,
+                          100.0 * busy / step_ms, step_ms,
+                          "; ".join("%s %.3f ms" % kv
+                                    for kv in groups.items())))
+    for key, (ms, count) in sorted(kernels.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+        log("    %8.3f ms  x%-4d %s" % (ms / steps, count // steps,
+                                         key[:110]))
+
+
+def moe_train(torch, args):
+    """The slice's full-width path: `moe_lm` in bf16 over f32 masters,
+    Adam lr 1e-4, train_moe.py's loss, through `DistributedTrainer` over
+    ``make_mesh([("dp", 1), ("ep", 1)])``: MOE_WARMUP steps, then
+    MOE_STEPS timed (a sync at each end). Prints tokens/s, ms a step, the
+    peak allocated bytes, the dropped share of token choices, one step's
+    host syncs and collectives. Gate: a finite loss, lower at the last
+    timed step than at the first."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+
+    card = smi_line()
+    net = moe_lm(mx, torch.device("cuda"), args.seed)
+    n_params = sum(p.numel() for p in net.parameters())
+    mesh = parallel.make_mesh([("dp", 1), ("ep", 1)])
+    trainer = parallel.DistributedTrainer(
+        net, "adam", {"learning_rate": 1e-4}, loss=moe_loss(mx), mesh=mesh,
+        amp_dtype="bfloat16")
+    batches = [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+               for x, y in moe_batches(args.seed + 71,
+                                       MOE_WARMUP + MOE_STEPS + 1)]
+    for x, y in batches[:MOE_WARMUP]:
+        trainer.step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [trainer.step(x, y)._data
+              for x, y in batches[MOE_WARMUP:MOE_WARMUP + MOE_STEPS]]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("MoE LM: losses %s (finite, falling)" % losses)
+    seen = {}
+    hook = net.moe.register_forward_pre_hook(
+        lambda mod, inp: seen.update(
+            h=getattr(inp[0], "_data", inp[0]).detach(),
+            gate=mod._held("gate_weight").detach()))
+    x, y = batches[-1]
+    with count_collectives() as calls:
+        _, syncs = count_host_syncs(torch, lambda: trainer.step(x, y))
+    hook.remove()
+    dropped, cap = moe_dropped_share(torch, seen["h"], seen["gate"])
+    ours = [w for w in syncs if w.split(":")[0] in (
+        "trainer.py", "contrib.py", "collectives.py", "mesh.py", "moe.py")]
+    if calls.total or ours:
+        raise AssertionError("MoE LM step at world size 1: collectives %s, "
+                             "host syncs of the trainer or the MoE op %s"
+                             % (calls.counts, ours))
+    ms = secs * 1e3 / MOE_STEPS
+    tokens = MOE_BATCH * MOE_SEQ
+    log("mesh: MoE LM (vocab %d, %d units, FFN %d, %d experts top-%d, "
+        "capacity factor %g -> %d slots an expert, z-loss %g; %d parameters), "
+        "bf16 over f32 masters, Adam lr 1e-4, %d x %d tokens, "
+        "DistributedTrainer over dp 1 x ep 1: %.1f tokens/s, %.2f ms a step "
+        "(%d steps after %d warm-up); loss %.4f -> %.4f; peak allocated "
+        "%.2f GiB; token choices dropped by capacity %.4f; one step: %d "
+        "host syncs (%s), %d collectives; %s"
+        % (MOE_VOCAB, MOE_UNITS, MOE_HIDDEN, MOE_EXPERTS, MOE_TOPK, MOE_CF,
+           cap, MOE_ZCOEF, n_params, MOE_BATCH, MOE_SEQ,
+           tokens * MOE_STEPS / secs, ms, MOE_STEPS, MOE_WARMUP, losses[0],
+           losses[-1], peak / 2 ** 30, dropped, len(syncs),
+           " | ".join(syncs) or "none", calls.total, card))
+    if args.profile:
+        profile_moe(torch, trainer, x, y, ms)
+    del trainer, net, batches
+    torch.cuda.empty_cache()
+
+
+def moe_parity(torch, args):
+    """One f32 step of `moe_lm` (TF32 off) on the card and on the CPU from
+    the same weights and batch, Adam lr 0.1 with epsilon 1e-2 (its update
+    then follows the gradient, not only its sign): the loss within
+    MOE_TOL relative, and the gate, expert and head parameters after the
+    step within MOE_TOL of each tensor's largest magnitude."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+
+    x, y = moe_batches(args.seed + 72, 1)[0]
+    nets = {"cpu": moe_lm(mx, torch.device("cpu"), args.seed)}
+    before = {k: v.clone() for k, v in nets["cpu"].state_dict().items()}
+    nets["cuda"] = moe_lm(mx, torch.device("cuda"), args.seed + 1)
+    nets["cuda"].load_state_dict(before)
+    losses, secs = {}, {}
+    for dev, net in nets.items():
+        tr = parallel.DistributedTrainer(
+            net, "adam", {"learning_rate": 0.1, "epsilon": 1e-2},
+            loss=moe_loss(mx))
+        t0 = time.perf_counter()
+        losses[dev] = float(tr.step(x, y).asnumpy())
+        secs[dev] = time.perf_counter() - t0
+    want = nets["cpu"].state_dict()
+    got = {k: v.cpu() for k, v in nets["cuda"].state_dict().items()}
+    errs = {}
+    for k in want:
+        if any(t in k for t in ("gate", "expert", "head")):
+            scale = float(want[k].abs().max())
+            errs[k] = float((got[k] - want[k]).abs().max()) / scale
+    big = max(float((want[k] - before[k]).abs().max()) for k in want)
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    if loss_err > MOE_TOL or max(errs.values()) > MOE_TOL:
+        raise AssertionError("MoE LM f32 step card vs CPU: loss %.8f vs "
+                             "%.8f, parameters %s (limit %g)"
+                             % (losses["cuda"], losses["cpu"], errs,
+                                MOE_TOL))
+    log("parity: one f32 Adam step of the full-width MoE LM on the card "
+        "equals the CPU step: loss %.8f vs %.8f (%.3g relative); %s (of "
+        "each tensor's largest magnitude); largest change %.3g; card %.2f "
+        "s, CPU %.2f s" % (losses["cuda"], losses["cpu"], loss_err,
+                           ", ".join("%s %.3g" % kv for kv in errs.items()),
+                           big, secs["cuda"], secs["cpu"]))
+    del nets
+    torch.cuda.empty_cache()
+
+
+def mesh_phase(torch, pk, args):
+    """Phase 17: a one-rank NCCL group from a free local port, its
+    collectives bit for bit, the census's last three scripts, and the MoE
+    LM at full width with its f32 parity step; the group is destroyed at
+    the end. Returns train_imagenet.py's epilogue launches."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % free_port(), world_size=1, rank=0)
+    try:
+        calls = nccl_collectives(torch, args.seed + 70)
+        log("mesh: one-rank NCCL group; psum, pmean, pmax, pmin, all_gather "
+            "(tiled and not), reduce_scatter, ppermute, all_to_all, "
+            "pbroadcast over dp and over ep, the psum / pbroadcast "
+            "gradients, all_reduce_arrays, broadcast_arrays and barrier on "
+            "card tensors equal their inputs bit for bit (NCCL calls %s)"
+            % calls)
+        launches = census_scripts(torch, pk)
+        torch.cuda.empty_cache()
+        moe_train(torch, args)
+        moe_parity(torch, args)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -7369,7 +7845,7 @@ def main(argv=None):
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
     extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
-             "detection": {}, "profiler": {}, "sparse": {}}
+             "detection": {}, "profiler": {}, "sparse": {}, "mesh": {}}
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -7390,6 +7866,8 @@ def main(argv=None):
     extra["detection"] = detection_phase(torch, pk, args)
     torch.cuda.empty_cache()
     extra["sparse"] = sparse_phase(torch, pk, args)
+    torch.cuda.empty_cache()
+    extra["mesh"] = mesh_phase(torch, pk, args)
     torch.cuda.empty_cache()
     for k in KERNELS:
         if launches[k["name"]] < 1:
@@ -7415,7 +7893,8 @@ def main(argv=None):
                 # later slices' paths: ctc_ocr (training + decode), the
                 # dropout runs, the training run behind predict_vision,
                 # the SSD training of the detection phase, the profiler
-                # phase's three fits, the sparse phase's SyncBatchNorm
+                # phase's three fits, the sparse phase's SyncBatchNorm,
+                # the mesh phase's train_imagenet.py
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

@@ -76,16 +76,17 @@ from . import profiler
 from . import contrib
 from . import gradient_compression, kvstore
 from . import kvstore as kv
+from . import parallel
 from .attribute import AttrScope
 from .base import MXNetError
-from .context import cpu, cpu_pinned, current_context, gpu, num_gpus
+from .context import cpu, cpu_pinned, current_context, gpu, num_gpus, tpu
 from .ndarray import NDArray
 
-__all__ = ["MXNetError", "cpu", "gpu", "cpu_pinned", "num_gpus",
+__all__ = ["MXNetError", "cpu", "gpu", "tpu", "cpu_pinned", "num_gpus",
            "current_context", "context", "env",
            "random", "telemetry", "ndarray", "nd", "NDArray", "rtc",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
            "sym", "executor", "io", "model", "callback", "module", "mod",
            "rnn", "predict", "recordio", "image", "data", "profiler",
-           "contrib", "kvstore", "kv", "gradient_compression"]
+           "contrib", "kvstore", "kv", "gradient_compression", "parallel"]

@@ -21,7 +21,8 @@ from torch.utils._device import DeviceContext
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "cpu_pinned", "resolve_device", "current_context",
+__all__ = ["cpu", "gpu", "tpu", "cpu_pinned", "resolve_device",
+           "current_context",
            "scope", "in_scope_of", "num_gpus", "gpu_memory_info"]
 
 _scopes = threading.local()
@@ -42,6 +43,12 @@ def cpu_pinned(device_id=0):
 
 def gpu(device_id=0):
     return torch.device("cuda", int(device_id))
+
+
+def tpu(device_id=0):
+    """The JAX package's accelerator context: in the port, the CUDA card
+    ``device_id`` (as `gpu`)."""
+    return gpu(device_id)
 
 
 def num_gpus():

@@ -358,7 +358,10 @@ def vision_params_from_jax(params, net):
     """The JAX package's parameters of a vision net -> the state dict of
     the port's ``net`` of the same family and configuration (ResNet v2,
     AlexNet, VGG, SqueezeNet, DenseNet, Inception V3, MobileNet v1 / v2,
-    SSD), built under the same layout.
+    SSD), built under the same layout; and so of any Gluon net the two
+    packages build alike, one holding a `gluon.contrib.moe.MoEFFN` among
+    them (its ``gate_weight`` (E, d), ``expert_w_in`` (E, d, h) and
+    ``expert_w_out`` (E, h, d) keep their layout).
 
     ``params``: name -> numpy array, as ``{k: p.data().asnumpy() for k, p
     in jnet.collect_params().items()}``, running statistics included. Both

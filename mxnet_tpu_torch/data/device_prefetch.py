@@ -41,16 +41,42 @@ __all__ = ["DevicePrefetcher", "place_batch"]
 
 
 def _device_of(mesh):
-    """The one device of ``mesh`` (None: `current_context`; a device; or a
-    sequence of one device, as `parallel.DistributedTrainer` takes)."""
+    """The device batches go to: None is `current_context`; a
+    `parallel.Mesh` this rank's device; else a device or a sequence of
+    one device."""
+    from ..parallel.mesh import Mesh, local_device
+
     if mesh is None:
         return current_context()
+    if isinstance(mesh, Mesh):
+        return local_device()
     if isinstance(mesh, (list, tuple)):
         if len(mesh) != 1:
-            raise MXNetError("a mesh of %d devices is not ported yet (one "
-                             "card; NCCL comes in a later slice)" % len(mesh))
+            raise MXNetError("a mesh of %d devices as a list: a mesh over "
+                             "several devices is a parallel.make_mesh over "
+                             "the process group" % len(mesh))
         mesh = mesh[0]
     return resolve_device(mesh)
+
+
+def _shard_of(mesh):
+    """None, or for a `parallel.Mesh` with dp > 1 the function that cuts
+    a batch leaf to this rank's dp rows (`DistributedTrainer`'s split) and
+    marks the placed shard so the trainer takes it as it is."""
+    from ..parallel.mesh import DP, Mesh
+
+    if not isinstance(mesh, Mesh) or mesh.axis_size(DP) == 1:
+        return None
+    ax = mesh.axis(DP)
+
+    def cut(t):
+        if t.shape[0] % ax.size:
+            raise MXNetError("a batch of %d rows does not split over dp=%d"
+                             % (t.shape[0], ax.size))
+        n = t.shape[0] // ax.size
+        return t[ax.index * n:(ax.index + 1) * n]
+
+    return cut
 
 
 def _map_leaves(batch, fn):
@@ -161,7 +187,10 @@ class DevicePrefetcher:
     the training loops use (``next`` / ``reset`` / ``provide_data`` /
     ``provide_label``), plus the cursor passthrough (``state`` /
     ``set_state``) when the inner iterator has one. ``mesh``: None (the
-    caller's `current_context`), a device, or a sequence of one device."""
+    caller's `current_context`), a device, a sequence of one device, or a
+    `parallel.Mesh` (this rank's device, and over dp > 1 this rank's dp
+    rows of each batch, marked as the shard `DistributedTrainer.step`
+    takes as it is)."""
 
     def __init__(self, it, depth=None, mesh=None, src="fit"):
         if depth is None:
@@ -169,6 +198,7 @@ class DevicePrefetcher:
         self._it = it
         self._depth = max(1, int(depth))
         self._dev = _device_of(mesh)
+        self._cut = _shard_of(mesh)
         self._src = src
         self.batch_size = getattr(it, "batch_size", 0)
         self._buf = None
@@ -186,10 +216,17 @@ class DevicePrefetcher:
     def _produce(self):
         batch = next(self._it)
         st = self._it.state() if hasattr(self._it, "state") else None
+        if self._cut is not None:
+            batch = _map_leaves(batch, self._cut)
+        event = None
         if self._stager is None:
             placed = _map_leaves(batch, lambda t: t.to(self._dev, copy=True))
-            return st, placed, None
-        placed, event = self._stager.stage(batch)
+        else:
+            placed, event = self._stager.stage(batch)
+        if self._cut is not None:
+            from ..parallel.mesh import mark_shard
+
+            _map_leaves(placed, mark_shard)
         return st, placed, event
 
     def __iter__(self):

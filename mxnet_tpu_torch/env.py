@@ -157,3 +157,16 @@ _var("MXTPU_PROFILE_SYNC", "bool", False,
 _var("MXTPU_PROCESS_ID", "int", None,
      "this process's rank in the rendezvous protocol (alias: "
      "`DMLC_WORKER_ID`); the profiler stamps it as its traces' pid.")
+
+# -- the rendezvous (same names and defaults as mxnet_tpu/env.py) -------------
+_var("MXTPU_COORDINATOR", "str", None,
+     "rendezvous address (``host:port``) that `parallel.collectives."
+     "init_process_group` dials over TCP.")
+_var("MXTPU_NUM_WORKERS", "int", None,
+     "process-group size for the rendezvous protocol (alias: "
+     "`DMLC_NUM_WORKER`).")
+_var("MXTPU_RENDEZVOUS_TIMEOUT", "int", 300,
+     "seconds `init_process_group` waits for the group to assemble before "
+     "raising a diagnosable `MXNetError`.")
+_var("MXTPU_RENDEZVOUS_RETRIES", "int", 0,
+     "redials (exponential backoff) of a failed rendezvous.")

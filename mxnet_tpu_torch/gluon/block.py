@@ -393,13 +393,25 @@ class HybridBlock(Block):
 
     def forward(self, *args, **kwargs):
         if not _has_nd(args, kwargs):
-            # called with tensors (inside a tensor-path module)
-            return _unwrap(self.forward(*_wrap(args), **_wrap(kwargs)))
+            # called with tensors (inside a tensor-path module, or by a
+            # trainer): outside a façade call the NDArray calls inside
+            # record while torch's grad mode is on, and train while the
+            # module does
+            if autograd._st().facade:
+                return _unwrap(self.forward(*_wrap(args), **_wrap(kwargs)))
+            with autograd._scope(recording=torch.is_grad_enabled(),
+                                 training=self.training):
+                return _unwrap(self.forward(*_wrap(args), **_wrap(kwargs)))
         params = {}
         for name, p in self._reg_params.items():
             if p._nd is None:
                 p._finish_deferred_init()
             params[name] = p.data()
+            held = self._held(name)
+            if held is not None and held is not params[name]._data:
+                # `torch.func.functional_call` put another tensor in the
+                # module's place (a trainer's cast or expert rows)
+                params[name] = NDArray(held)
         return self.hybrid_forward(nd, *args, **kwargs, **params)
 
     def _symbol_forward(self, *args, **kwargs):

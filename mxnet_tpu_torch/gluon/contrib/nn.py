@@ -3,8 +3,8 @@ reference: python/mxnet/gluon/contrib/nn/basic_layers.py).
 
 `SyncBatchNorm` on one device is `nn.BatchNorm` over axis 1, as the JAX
 package's is, and so it runs the conv-epilogue kernels in training;
-synchronizing the statistics across cards is the multi-card slice (ROADMAP
-queue 1 item 11) and raises. `SparseEmbedding` is ``nn.Embedding`` with
+synchronizing the statistics across cards is ROADMAP queue 1 item 11
+part 2 and raises. `SparseEmbedding` is ``nn.Embedding`` with
 ``sparse_grad=True``. The pixel shuffles are written with the reshape
 codes the JAX package uses, so the same ``hybrid_forward`` runs on
 NDArrays, on tensors and on Symbols.
@@ -30,8 +30,8 @@ class SyncBatchNorm(BatchNorm):
         if num_devices is not None and num_devices > 1:
             raise MXNetError(
                 "SyncBatchNorm over %d devices: statistics synchronized "
-                "across cards are not ported yet (the multi-card slice, "
-                "ROADMAP queue 1 item 11)" % num_devices)
+                "across cards are not ported yet (ROADMAP queue 1 item 11 "
+                "part 2)" % num_devices)
         super().__init__(axis=1, momentum=momentum, epsilon=epsilon,
                          center=center, scale=scale,
                          use_global_stats=use_global_stats,

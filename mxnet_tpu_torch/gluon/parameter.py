@@ -18,8 +18,8 @@ the Parameter makes a new tensor (a deferred shape becomes known, `cast`,
   ``ctx`` the tensor stays on the device it was made on when its module
   was given one, and goes to `context.current_context` (the card by
   default) otherwise.
-- One device a parameter: several contexts raise (the multi-card slice,
-  ROADMAP queue 1 item 11).
+- One device a parameter: several contexts raise (ROADMAP queue 1 item
+  11 part 2).
 - ``stype`` and ``grad_stype`` are recorded as the JAX package records
   them; the data and the tape's gradient stay dense. A ``grad_stype`` of
   row_sparse makes `gluon.Trainer` cast the gradient to row_sparse for an
@@ -54,8 +54,8 @@ def _one_ctx(ctx, what):
         if len(ctx) != 1:
             raise MXNetError(
                 "%s: %d contexts; the port keeps a parameter on one device "
-                "(several contexts come with the multi-card slice, ROADMAP "
-                "queue 1 item 11)" % (what, len(ctx)))
+                "(several contexts are ROADMAP queue 1 item 11 part 2)"
+                % (what, len(ctx)))
         ctx = ctx[0]
     return None if ctx is None else resolve_device(ctx)
 

@@ -21,8 +21,8 @@ one device: there is nothing to reduce.
 The states file of `save_states` is the port's own (pickled host arrays
 and the optimizer's attributes); `load_states` restores it. Several
 contexts, a distributed kvstore, ``sharded=True``, `step_batch`,
-`prefetch` and the sharded checkpoints raise: they are the multi-card
-slice (ROADMAP queue 1 item 11).
+`prefetch` and the sharded checkpoints raise: they are ROADMAP queue 1
+item 11 part 2.
 """
 from __future__ import annotations
 
@@ -38,8 +38,8 @@ __all__ = ["Trainer"]
 
 
 def _multi_card(what):
-    return MXNetError("Trainer: %s is not ported yet (the multi-card slice, "
-                      "ROADMAP queue 1 item 11)" % what)
+    return MXNetError("Trainer: %s is not ported yet (ROADMAP queue 1 item "
+                      "11 part 2)" % what)
 
 
 class Trainer:

@@ -130,7 +130,8 @@ class Initializer:
 
 
 def _fill(arr, val):
-    arr.copy_(torch.as_tensor(val).to(arr.device, arr.dtype))
+    src = val if torch.is_tensor(val) else torch.as_tensor(val, device="cpu")
+    arr.copy_(src.to(arr.device, arr.dtype))
 
 
 @register
@@ -142,7 +143,7 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, desc, arr, generator):
-        val = torch.empty(tuple(arr.shape), dtype=torch.float32)
+        val = torch.empty(tuple(arr.shape), dtype=torch.float32, device="cpu")
         _fill(arr, val.uniform_(-self.scale, self.scale, generator=generator))
 
 
@@ -155,7 +156,7 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, desc, arr, generator):
-        val = torch.empty(tuple(arr.shape), dtype=torch.float32)
+        val = torch.empty(tuple(arr.shape), dtype=torch.float32, device="cpu")
         _fill(arr, val.normal_(0.0, self.sigma, generator=generator))
 
 
@@ -228,7 +229,7 @@ class Xavier(Initializer):
     def _init_weight(self, desc, arr, generator):
         shape = tuple(arr.shape)
         scale = xavier_scale(shape, self.factor_type, self.magnitude)
-        val = torch.empty(shape, dtype=torch.float32)
+        val = torch.empty(shape, dtype=torch.float32, device="cpu")
         if self.rnd_type == "uniform":
             val.uniform_(-scale, scale, generator=generator)
         else:
@@ -262,7 +263,7 @@ class Orthogonal(Initializer):
     def _init_weight(self, desc, arr, generator):
         nout = arr.shape[0]
         nin = int(_np.prod(tuple(arr.shape[1:])))
-        tmp = torch.empty((nout, nin), dtype=torch.float64)
+        tmp = torch.empty((nout, nin), dtype=torch.float64, device="cpu")
         if self.rand_type == "uniform":
             tmp.uniform_(-1.0, 1.0, generator=generator)
         else:

@@ -230,6 +230,6 @@ def create(name="local"):
     if name.startswith("dist") or name in ("horovod", "tpu"):
         raise MXNetError(
             "kvstore %r spans processes or cards: the distributed kvstore "
-            "and its server are not ported yet (the multi-card slice, "
-            "ROADMAP queue 1 item 11)" % name)
+            "and its server are not ported yet (ROADMAP queue 1 item 11 "
+            "part 2)" % name)
     raise MXNetError("unknown kvstore type %r" % (name,))

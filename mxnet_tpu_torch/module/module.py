@@ -5,9 +5,9 @@ bind :364, init_params :259, init_optimizer :474, forward :575, backward
 
 One `Executor` on one device. ``context`` defaults to `current_context`
 (the card unless a ``scope`` chose the CPU); a list of more than one
-device, and the dist kvstores, raise (multi-card training is ROADMAP queue
-1 item 11). `update` applies the optimizer to each parameter in place
-through its `Updater`, one parameter at a time.
+device, and the dist kvstores, raise (multi-card Modules are ROADMAP
+queue 1 item 11 part 2). `update` applies the optimizer to each
+parameter in place through its `Updater`, one parameter at a time.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class Module(BaseModule):
             if len(context) != 1:
                 raise MXNetError("Module: one device only; %d devices need "
                                  "multi-card training, which is not ported "
-                                 "yet (ROADMAP queue 1 item 11)"
+                                 "yet (ROADMAP queue 1 item 11 part 2)"
                                  % len(context))
             context = context[0]
         self._context = ctx_mod.resolve_device(context) \
@@ -213,7 +213,8 @@ class Module(BaseModule):
                 and not (isinstance(kvstore, str)
                          and kvstore.startswith("local")):
             raise MXNetError("kvstore %r is not ported yet (ROADMAP queue 1 "
-                             "item 11); use 'local' or 'device'" % (kvstore,))
+                             "item 11 part 2); use 'local' or 'device'"
+                             % (kvstore,))
         if isinstance(optimizer, opt_mod.Optimizer):
             opt = optimizer
         else:

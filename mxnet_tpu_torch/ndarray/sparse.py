@@ -327,6 +327,19 @@ def row_sparse_array(arg1, shape=None, ctx=None, dtype=None):
     return cast_storage(dense, "row_sparse")
 
 
+def _check_columns(indices, shape, what):
+    """Refuse a column index outside ``shape`` while the indices are still
+    on the host (fault F5: the JAX package's densify drops such an entry
+    silently)."""
+    if indices.size:
+        lo, hi = int(indices.min()), int(indices.max())
+        if lo < 0 or hi >= shape[1]:
+            raise MXNetError("%s: column index %d lies outside the shape %s "
+                             "(%d columns)" % (what, hi if hi >= shape[1]
+                                               else lo, tuple(shape),
+                                               shape[1]))
+
+
 def csr_matrix(arg1, shape=None, ctx=None, dtype=None):
     """A CSRNDArray (reference: sparse.py csr_matrix) from ``(data,
     indices, indptr)`` (scipy's order), a scipy matrix, a dense source, or
@@ -341,6 +354,7 @@ def csr_matrix(arg1, shape=None, ctx=None, dtype=None):
         if shape is None:
             shape = (len(indptr) - 1,
                      int(indices.max()) + 1 if indices.size else 0)
+        _check_columns(indices, shape, "csr_matrix")
         return _make_csr(data, indptr, indices, shape, dev,
                          dtype or data.dtype)
     if hasattr(arg1, "tocsr"):   # a scipy.sparse matrix

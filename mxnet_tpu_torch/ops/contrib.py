@@ -6,8 +6,11 @@ R-CNN ops (``ROIAlign``, ``ROIPooling``, ``Proposal``); resize
 (``BilinearResize2D``, ``AdaptiveAvgPooling2D``), ``fft`` / ``ifft``,
 ``quadratic``, ``arange_like``, ``boolean_mask``, ``index_copy``,
 ``index_array``, ``count_sketch``, ``SVMOutput`` and
-``DeformableConvolution``. The two mixture-of-experts ops (``switch_moe``,
-``topk_moe``) are not ported yet (ROADMAP queue 1 item 11).
+``DeformableConvolution``; and the mixture-of-experts ops ``switch_moe`` /
+``topk_moe`` (the dense dispatch / combine formulation; inside a
+`parallel.DistributedTrainer` step they route the global batch over the
+mesh's ``dp`` ranks and run this rank's experts over ``ep``, see
+`topk_moe`).
 
 Every op here but flash attention is plain PyTorch, on the card as on the
 CPU: the JAX package computes them in jnp (no Pallas kernel). Shapes stay
@@ -41,7 +44,7 @@ __all__ = ["flash_attention", "div_sqrt_dim", "quadratic", "arange_like",
            "index_copy", "index_array", "fft", "ifft", "roi_align",
            "roi_pooling", "multibox_prior", "box_iou", "multibox_target",
            "multibox_detection", "box_nms", "count_sketch", "svm_output",
-           "proposal", "deformable_convolution"]
+           "proposal", "deformable_convolution", "switch_moe", "topk_moe"]
 
 
 @register("_contrib_div_sqrt_dim", aliases=("div_sqrt_dim",))
@@ -743,3 +746,165 @@ def deformable_convolution(data, offset, weight, bias=None, kernel=(),
         out = out + bias.reshape(1, -1, 1, 1)
     return out
 
+
+
+# --------------------------------------------------------------------------
+# Mixture of experts (not in the reference; the JAX package's expert-
+# parallel extension). Top-k routing with capacity, dense dispatch /
+# combine einsums. The products are plain torch.einsum: the JAX package
+# computes them outside any Pallas kernel.
+# --------------------------------------------------------------------------
+
+def _moe_axes():
+    """(dp, ep) axes of the enclosing `DistributedTrainer` step, or (None,
+    None) outside one."""
+    from ..parallel.mesh import DP, EP, step_mesh
+
+    mesh = step_mesh()
+    if mesh is None:
+        return None, None
+    return mesh.axis(DP), mesh.axis(EP)
+
+
+@register("_contrib_switch_moe", num_outputs=2, num_visible_outputs=2,
+          aliases=("switch_moe",))
+def switch_moe(data, gate_weight, expert_w_in, expert_w_out,
+               capacity_factor=1.25):
+    """data (..., d); gate_weight (E, d); expert tables (E, d, h)/(E, h, d).
+    Returns (output (..., d), aux_loss ()): `topk_moe` at k=1 with
+    unnormalized gates, its z-loss dropped (reference:
+    mxnet_tpu/ops/contrib.py:switch_moe)."""
+    out, lb, _z = topk_moe(data, gate_weight, expert_w_in, expert_w_out,
+                           k=1, capacity_factor=capacity_factor,
+                           normalize_gates=False)
+    return out, lb
+
+
+@register("_contrib_topk_moe", num_outputs=3, num_visible_outputs=3,
+          aliases=("topk_moe",))
+def topk_moe(data, gate_weight, expert_w_in, expert_w_out, k=2,
+             capacity_factor=1.25, normalize_gates=True):
+    """Top-k MoE routing (GShard / Mixtral; k=1 is Switch). data (..., d);
+    gate_weight (E, d); expert tables (E, d, h) / (E, h, d). Returns
+    (output (..., d), lb_loss (), z_loss ()), as the JAX package's:
+
+    - the router in f32: logits, softmax, and the top k of each token by a
+      stable sort of the negated probabilities (``lax.top_k``'s order: the
+      lower expert first among ties; never `torch.topk`), gates
+      renormalized over the k choices when ``normalize_gates`` and k > 1;
+    - capacity ``int(capacity_factor * k * T / E)`` slots an expert, shared
+      across choices in priority order (choice j queues after every
+      earlier choice's claims); a choice past the capacity is dropped;
+    - lb = E * sum_e(frac_tokens_e * frac_probs_e), frac_tokens counting
+      every choice (1/k each); z = mean_t(logsumexp(logits_t)^2).
+
+    Inside a `DistributedTrainer` step over a mesh (`mesh.step_scope`)
+    each rank holds its ``dp`` shard of the tokens, and T, the capacity,
+    the queue positions and the means are the global batch's: each
+    choice's positions start after every earlier choice's global count
+    and the same choice's counts on earlier ``dp`` ranks (an all-gather of
+    each rank's (k, E) counts), and the means are summed over ``dp``
+    (`psum` then `pbroadcast`: the per-rank losses' gradients reach every
+    rank's router). Expert tables of E/ep rows are this ``ep`` rank's
+    experts: the expert products run on them and the combine's partial
+    sums are summed over ``ep`` (`psum`, whose gradient passes through),
+    while the tokens and gates feeding them pass `pbroadcast`, whose
+    backward sums the experts' gradients over ``ep``."""
+    from ..parallel import collectives as coll
+
+    k = int(k)
+    if k < 1:
+        raise ValueError("topk_moe: k must be >= 1")
+    lead = tuple(data.shape[:-1])
+    d = data.shape[-1]
+    tokens = data.reshape(-1, d)
+    t_local = tokens.shape[0]
+    e = gate_weight.shape[0]
+    if k > e:
+        raise ValueError("topk_moe: k=%d > num_experts=%d" % (k, e))
+    dp_ax, ep_ax = _moe_axes()
+    ndp = dp_ax.size if dp_ax is not None else 1
+    t = t_local * ndp
+    cap = max(1, int(capacity_factor * k * t / e))
+    e_loc = expert_w_in.shape[0]
+    sharded = e_loc != e
+    if sharded:
+        nep = ep_ax.size if ep_ax is not None else 1
+        if e_loc * nep != e:
+            raise ValueError("topk_moe: expert tables of %d rows for %d "
+                             "experts over ep=%d" % (e_loc, e, nep))
+        e0 = ep_ax.index * e_loc
+    else:
+        e0 = 0
+
+    logits = tokens.float() @ gate_weight.float().t()          # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    order = torch.sort(-probs.detach(), dim=-1, stable=True).indices[:, :k]
+    gate_vals = probs.gather(1, order)                         # (T, k)
+    if normalize_gates and k > 1:
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(
+            1e-9)
+
+    with torch.no_grad():
+        # a comparison, not F.one_hot: its range check syncs the host
+        experts = torch.arange(e, device=data.device)
+        onehots = [(order[:, j, None] == experts).float() for j in range(k)]
+        local = torch.stack([oh.sum(0) for oh in onehots])     # (k, E)
+        if ndp > 1:
+            every = coll._gather(local, dp_ax)                 # rank order
+            before = torch.zeros_like(local)
+            for c in every[:dp_ax.index]:
+                before = before + c
+            total = before
+            for c in every[dp_ax.index:]:
+                total = total + c
+        else:
+            before, total = torch.zeros_like(local), local
+        counts = torch.zeros(e, device=data.device)
+        slots = torch.arange(cap, device=data.device, dtype=torch.float32)
+        dispatches = []
+        for j, oh in enumerate(onehots):
+            pos = (torch.cumsum(oh, 0) - 1.0 + counts + before[j]) * oh
+            keep = (pos < cap) & (oh > 0)
+            slot = (pos.sum(-1)[:, None] == slots).float()     # (T, C)
+            dispatches.append(keep[:, e0:e0 + e_loc].float()[:, :, None]
+                              * slot[:, None, :])
+            counts = counts + total[j]
+        dispatch = dispatches[0]
+        for dj in dispatches[1:]:
+            dispatch = dispatch + dj
+        onehot_sum = onehots[0]
+        for oh in onehots[1:]:
+            onehot_sum = onehot_sum + oh
+
+    expert_in, gates = tokens, gate_vals
+    if sharded and ep_ax.size > 1:
+        expert_in = coll.pbroadcast(tokens, "ep")
+        gates = coll.pbroadcast(gate_vals, "ep")
+    combine = dispatches[0] * gates[:, 0, None, None].float()
+    for j in range(1, k):
+        combine = combine + dispatches[j] * gates[:, j, None, None].float()
+
+    dt = data.dtype
+    xe = torch.einsum("tec,td->ecd", dispatch, expert_in.float()).to(dt)
+    ct = torch.promote_types(dt, expert_w_in.dtype)
+    he = torch.relu(torch.einsum("ecd,edh->ech", xe.to(ct),
+                                 expert_w_in.to(ct)).to(dt))
+    ct = torch.promote_types(dt, expert_w_out.dtype)
+    ye = torch.einsum("ech,ehd->ecd", he.to(ct), expert_w_out.to(ct)).to(dt)
+    out = torch.einsum("tec,ecd->td", combine, ye.float())
+    if sharded and ep_ax.size > 1:
+        out = coll.psum(out, "ep")
+    out = out.to(dt)
+
+    tok_sum, prob_sum = onehot_sum.sum(0), probs.sum(0)
+    z_sum = (torch.logsumexp(logits, dim=-1) ** 2).sum()
+    if ndp > 1:
+        tok_sum = coll._sum(tok_sum, dp_ax)
+        prob_sum = coll.pbroadcast(coll.psum(prob_sum, "dp"), "dp")
+        z_sum = coll.pbroadcast(coll.psum(z_sum, "dp"), "dp")
+    frac_tokens = tok_sum / t / k
+    frac_probs = prob_sum / t
+    lb = (frac_tokens * frac_probs).sum() * e
+    z = z_sum / t
+    return out.reshape(lead + (d,)), lb.float(), z.float()

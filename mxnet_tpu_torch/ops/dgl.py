@@ -127,6 +127,10 @@ def _pack_sample(verts, layer, edges, parent_dtype, max_num_vertices,
             vals.append(val)
     vals, indptr, cols = _csr_rows(rows, cols, vals, max_num_vertices,
                                    parent_dtype)
+    from ..ndarray.sparse import _check_columns
+
+    _check_columns(cols, (max_num_vertices, max_num_vertices),
+                   "a sampled subgraph")
     sub = _mk_csr(vals, indptr, cols,
                   (max_num_vertices, max_num_vertices), like)
     out_layer = _np.full(max_num_vertices, -1, _np.int64)

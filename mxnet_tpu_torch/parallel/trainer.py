@@ -1,5 +1,5 @@
 """DistributedTrainer: the training step of the port (counterpart of
-`mxnet_tpu/parallel/trainer.py`), on one card.
+`mxnet_tpu/parallel/trainer.py`), over a ``dp`` x ``ep`` mesh.
 
 One `step(data, label)` is: forward in the compute dtype, the loss
 ``mean(loss(pred, label))`` in f32, the gradients, and the optimizer's
@@ -12,12 +12,33 @@ update of every trainable parameter. As in the JAX package:
   (buffers) stay f32. `torch.autocast` is not used: its per-op rules are
   not the JAX package's cast;
 * the loss is a batch mean, so the gradients are batch means and
-  ``rescale_grad`` stays the optimizer's own value.
+  ``rescale_grad`` stays the optimizer's own value;
+* ``loss_inputs`` picks what a model with several outputs feeds the loss
+  (a gluon loss Block gets the first output, a plain callable all of
+  them), and `step` returns the loss as an `NDArray`.
 
-The step runs eagerly (the JAX package jit-compiles it into one
-executable); the parameters are the block's own tensors, updated in place.
-A mesh of more than one device is not ported yet (it needs the NCCL
-collectives of a later slice).
+Over a mesh (`parallel.make_mesh`, one process a device) a step gives
+what the JAX package's GSPMD step gives, the unsharded step on the global
+batch:
+
+* the global batch is split over ``dp`` in rank order (`batch_spec`'s data
+  axes); the ranks of one ``ep`` group hold the same rows;
+* an MoE expert table of shape (E, ...) whose spec is ``ep``
+  (`ShardingRules`: a name holding "expert") lives on its ``ep`` rank as
+  rows [q E/ep, (q+1) E/ep), and so do its optimizer states; the forward
+  runs on those rows (`torch.func.functional_call`) and the MoE ops
+  route over the mesh (`mesh.step_scope`);
+* each rank's loss is its shard's mean; the gradients and the loss are
+  summed over ``dp`` in rank order (one flat all-gather a step) and
+  divided by ``dp``, so replicated parameters and each expert slice get
+  the global gradient;
+* rank 0's parameters are broadcast when the trainer is built, and
+  `sync_params` gathers the expert rows back into every rank's block.
+
+``tp``, ``fsdp``, ``pp`` and ``sp`` axes, and BatchNorm at ``dp`` > 1
+(whose statistics are the global batch's under GSPMD), are ROADMAP queue
+1 item 11 part 2 and raise. At world size 1 the step launches what it
+launched before this layer existed: no collective and no host sync.
 """
 from __future__ import annotations
 
@@ -28,11 +49,16 @@ import torch
 from .. import optimizer as opt_mod
 from .. import telemetry
 from ..base import MXNetError
+from . import collectives as coll
+from .mesh import EP, DP, Mesh, current_mesh, is_shard, step_scope
+from .sharding import ShardingRules
 
 __all__ = ["DistributedTrainer"]
 
 _AMP = {None: None, "float32": None, torch.float32: None,
         "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+
+_PART2 = "ROADMAP queue 1 item 11 part 2"
 
 
 def _amp_dtype(amp):
@@ -42,25 +68,84 @@ def _amp_dtype(amp):
     return _AMP[amp]
 
 
+def _mesh_of(mesh):
+    """``mesh`` as a `Mesh`: None is the current mesh; a device or a
+    sequence of one device (this package's earlier form) is a one-device
+    mesh."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    if mesh is not None:
+        devices = list(mesh) if isinstance(mesh, (list, tuple)) else [mesh]
+        if len(devices) != 1:
+            raise MXNetError("DistributedTrainer: a mesh is a "
+                             "parallel.make_mesh over the process group, "
+                             "one device a process; got a list of %d "
+                             "devices" % len(devices))
+    return current_mesh()
+
+
+def _bucket_sum(tensors, ax, scale):
+    """``tensors`` summed over the mesh axis ``ax`` in rank order and
+    multiplied by ``scale``: one all-gather a dtype."""
+    out = [None] * len(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        t0 = time.perf_counter()
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        flat = coll._sum(flat, ax) * scale
+        coll._observe_collective("all_reduce", [flat],
+                                 time.perf_counter() - t0)
+        for i, part in zip(idx, flat.split([tensors[i].numel()
+                                            for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
 class DistributedTrainer:
-    """Training of ``block`` (a `torch.nn.Module` whose parameters are on
-    one device) with ``optimizer`` (a name such as ``"sgd"`` plus
-    ``optimizer_params``, or an `Optimizer`), ``loss`` (callable(pred,
-    label) -> per-sample loss) and optional ``amp_dtype``. ``mesh``: None
-    or a sequence of one device."""
+    """Training of ``block`` (a `torch.nn.Module`, such as a gluon Block,
+    whose parameters are on this rank's device) with ``optimizer`` (a name
+    such as ``"sgd"`` plus ``optimizer_params``, or an `Optimizer`),
+    ``loss`` (callable(pred, label) -> per-sample loss), optional
+    ``amp_dtype``, over ``mesh`` (default `current_mesh()`; see the module
+    docstring) with ``rules`` (a `ShardingRules`).
+
+    ``loss_inputs``: what a model with several outputs feeds the loss —
+    "pred" (the first output), "outputs" (the whole tuple, for auxiliary
+    terms such as MoE's load-balance and z-losses) or None (default:
+    gluon loss Blocks get "pred", plain callables "outputs")."""
 
     def __init__(self, block, optimizer, optimizer_params=None, loss=None,
-                 mesh=None, amp_dtype=None):
-        if mesh is not None:
-            devices = list(mesh) if isinstance(mesh, (list, tuple)) \
-                else [mesh]
-            if len(devices) != 1:
-                raise MXNetError("DistributedTrainer: a mesh of %d devices "
-                                 "is not ported yet (one card; NCCL comes "
-                                 "in a later slice)" % len(devices))
+                 mesh=None, rules=None, amp_dtype=None, loss_inputs=None):
+        if loss_inputs not in (None, "pred", "outputs"):
+            raise MXNetError("loss_inputs must be None, 'pred' or 'outputs'")
+        self._mesh = mesh = _mesh_of(mesh)
+        world = coll.num_workers()
+        if mesh.size != world:
+            raise MXNetError("DistributedTrainer: a mesh of %d devices over "
+                             "a world of %d processes (one device a "
+                             "process)" % (mesh.size, world))
+        for name, size in mesh.shape.items():
+            if name not in (DP, EP) and size > 1:
+                raise MXNetError("DistributedTrainer: mesh axis %s=%d is "
+                                 "not ported yet (dp and ep are; %s)"
+                                 % (name, size, _PART2))
+        self._dp, self._ep = mesh.axis(DP), mesh.axis(EP)
+        if self._dp.size > 1:
+            bns = sorted({type(m).__name__ for m in block.modules()
+                          if "BatchNorm" in type(m).__name__})
+            if bns:
+                raise MXNetError(
+                    "DistributedTrainer: %s at dp=%d: the JAX package's "
+                    "statistics are the global batch's there, and "
+                    "cross-rank BatchNorm is not ported yet (%s)"
+                    % (", ".join(bns), self._dp.size, _PART2))
         self._block = block
         self._loss = loss
+        self._loss_inputs = loss_inputs
         self._amp = _amp_dtype(amp_dtype)
+        rules = rules or ShardingRules()
         # sorted by name, as the JAX trainer orders its parameters
         items = sorted((n, p) for n, p in block.named_parameters()
                        if p.requires_grad)
@@ -72,16 +157,67 @@ class DistributedTrainer:
         if any(p.device != self._device for p in self._params):
             raise MXNetError("DistributedTrainer: the block's parameters "
                              "are on more than one device")
-        self._optimizer = opt_mod.create(optimizer,
-                                         **(optimizer_params or {}))
+        if world > 1:
+            self._broadcast_from_rank0()
+        # the gluon names (what the sharding rules match), else the
+        # module's own
+        gluon = {}
+        if hasattr(block, "collect_params"):
+            gluon = {id(p.var): n for n, p in block.collect_params().items()
+                     if p.var is not None}
+        self._param_names = [gluon.get(id(p), n)
+                             for n, p in zip(self._names, self._params)]
+        specs = [rules.spec_for(n, p.shape, mesh)
+                 for n, p in zip(self._param_names, self._params)]
+        # the values the step trains: the block's own tensors, but an
+        # expert table's rows of this rank over ep
+        self._arrays = []
+        self._experts = []
+        for i, (spec, p) in enumerate(zip(specs, self._params)):
+            if any(a is not None and a != EP for a in spec) \
+                    or EP in tuple(spec)[1:]:
+                raise MXNetError("DistributedTrainer: %s's spec %s is not "
+                                 "ported yet (ep on dimension 0 is; %s)"
+                                 % (self._param_names[i], spec, _PART2))
+            if tuple(spec[:1]) == (EP,) and self._ep.size > 1:
+                rows = p.shape[0] // self._ep.size
+                part = p.detach()[self._ep.index * rows:
+                                  (self._ep.index + 1) * rows]
+                self._arrays.append(part.clone().requires_grad_(True))
+                self._experts.append(i)
+            else:
+                self._arrays.append(p)
+        opt = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
+            else opt_mod.create(optimizer, **(optimizer_params or {}))
+        self._optimizer = opt
         self._optimizer.param_dict = dict(enumerate(self._params))
-        self._states = [self._optimizer.create_state(i, p)
-                        for i, p in enumerate(self._params)]
+        self._states = [self._optimizer.create_state(i, a)
+                        for i, a in enumerate(self._arrays)]
         self._step_count = 0
+
+    def _broadcast_from_rank0(self):
+        """Rank 0's parameters and buffers onto every rank (one broadcast a
+        dtype): replicated values start identical, as the JAX package's
+        one logical array."""
+        tensors = self._params + [b for b in self._block.buffers()
+                                  if b.is_floating_point()]
+        by_dtype = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        with torch.no_grad():
+            for ts in by_dtype.values():
+                flat = coll.broadcast_arrays(
+                    torch.cat([t.reshape(-1) for t in ts]), [self._device])[0]
+                for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                    t.copy_(part.view_as(t))
 
     @property
     def optimizer(self):
         return self._optimizer
+
+    @property
+    def mesh(self):
+        return self._mesh
 
     @property
     def learning_rate(self):
@@ -91,17 +227,62 @@ class DistributedTrainer:
         self._optimizer.set_learning_rate(lr)
 
     def _batch(self, a, cast):
-        t = torch.as_tensor(a).to(self._device, non_blocking=True)
+        """``a`` on the device: this rank's dp rows of the global batch
+        (a shard a mesh-bound prefetcher placed is taken as it is)."""
+        from ..ndarray import NDArray
+
+        if isinstance(a, NDArray):
+            a = a._data
+        t = torch.as_tensor(a)
+        dp = self._dp.size
+        if dp > 1 and not is_shard(t):
+            if t.shape[0] % dp:
+                raise MXNetError("DistributedTrainer: a global batch of %d "
+                                 "rows does not split over dp=%d"
+                                 % (t.shape[0], dp))
+            n = t.shape[0] // dp
+            t = t[self._dp.index * n:(self._dp.index + 1) * n]
+        t = t.to(self._device, non_blocking=True)
         if cast and self._amp is not None and t.is_floating_point():
             t = t.to(self._amp)
         return t
 
-    def step(self, data, label=None):
-        """One training step; returns the loss as a 0-d f32 tensor on the
-        device (no host sync). The recorded step seconds
+    def _call(self, x):
+        """The block's forward on ``x`` over the trained values."""
+        if self._amp is not None:
+            values = {n: a.to(self._amp)
+                      for n, a in zip(self._names, self._arrays)}
+        elif self._experts:
+            values = {self._names[i]: self._arrays[i]
+                      for i in self._experts}
+        else:
+            return self._block(x)
+        return torch.func.functional_call(self._block, values, (x,))
+
+    def _loss_of(self, out, y):
+        pred = out[0] if isinstance(out, (list, tuple)) else out
+        if self._loss is None:
+            return pred
+        mode = self._loss_inputs
+        if mode is None:
+            from ..gluon.loss import Loss
+
+            mode = "pred" if isinstance(self._loss, Loss) else "outputs"
+        if mode == "outputs" and isinstance(out, (list, tuple)) \
+                and len(out) > 1:
+            return self._loss(tuple(out), y)
+        return self._loss(pred, y)
+
+    def step(self, data, label=None, batch_size=None):
+        """One training step; returns the global batch's mean loss as an
+        `NDArray` of a 0-d f32 tensor on the device (no host sync).
+        ``batch_size`` is the JAX signature's and unused: the loss is
+        already a batch mean. The recorded step seconds
         (`telemetry.observe_step`, kind "dist") are host time of the call:
         without a sync they track the device only once its launch queue is
         full."""
+        from ..ndarray import NDArray
+
         t0 = time.perf_counter()
         if self._loss is not None and label is None:
             raise MXNetError("this trainer was built with a loss that takes "
@@ -113,51 +294,69 @@ class DistributedTrainer:
         o.num_update = max(self._step_count + o.begin_num_update,
                            o.num_update)
         self._block.train()
-        with torch.enable_grad():
-            if self._amp is None:
-                out = self._block(x)
-            else:
-                cast = {n: p.to(self._amp)
-                        for n, p in zip(self._names, self._params)}
-                out = torch.func.functional_call(self._block, cast, (x,))
-            pred = out[0] if isinstance(out, (list, tuple)) else out
-            per_sample = pred if self._loss is None else self._loss(pred, y)
-            loss = per_sample.float().mean()
-            grads = torch.autograd.grad(loss, self._params,
+        with torch.enable_grad(), step_scope(self._mesh):
+            out = self._call(x)
+            loss = self._loss_of(out, y).float().mean()
+            grads = torch.autograd.grad(loss, self._arrays,
                                         allow_unused=True)
+        # a parameter the loss does not reach (BERT's pooler under an MLM
+        # head) gets a zero gradient, as from jax.grad
+        grads = [torch.zeros_like(a) if g is None else g
+                 for a, g in zip(self._arrays, grads)]
+        loss = loss.detach()
+        dp = self._dp.size
+        if dp > 1:
+            *grads, loss = _bucket_sum(grads + [loss.reshape(1)],
+                                       self._dp, 1.0 / dp)
+            loss = loss.reshape(())
         # the range names the update's kernels in a torch.profiler trace
         with torch.profiler.record_function("trainer.optimizer"):
-            for i, (p, g, s) in enumerate(zip(self._params, grads,
+            for i, (a, g, s) in enumerate(zip(self._arrays, grads,
                                               self._states)):
-                # a parameter the loss does not reach (BERT's pooler under
-                # an MLM head) gets a zero gradient, as from jax.grad
-                o.update(i, p, torch.zeros_like(p) if g is None else g, s)
+                o.update(i, a, g, s)
         telemetry.observe_step(time.perf_counter() - t0,
-                               examples=int(x.shape[0]),
+                               examples=int(x.shape[0]) * dp,
                                step=self._step_count, kind="dist")
-        return loss.detach()
+        return NDArray(loss)
 
     def prefetch(self, it, depth=None):
-        """``it`` wrapped in a `data.DevicePrefetcher` onto this trainer's
-        device: the copy of batch N+1 overlaps step N."""
+        """``it`` wrapped in a `data.DevicePrefetcher` onto this rank's
+        device, each batch cut to the rank's dp rows: the copy of batch
+        N+1 overlaps step N."""
         from ..data import DevicePrefetcher
 
-        return DevicePrefetcher(it, depth=depth, mesh=self._device,
-                                src="sharded")
+        mesh = self._mesh if self._dp.size > 1 else self._device
+        return DevicePrefetcher(it, depth=depth, mesh=mesh, src="sharded")
 
     def forward(self, data, is_train=False):
-        """Forward of the block in f32 without gradients; in training mode
-        (``is_train``) BatchNorm uses batch statistics and advances its
-        running statistics."""
+        """Forward of the block over the trained values, in f32 without
+        gradients, on the global batch (each rank computes its dp rows and
+        the rows are gathered); in training mode (``is_train``) BatchNorm
+        uses batch statistics and advances its running statistics."""
         was = self._block.training
         self._block.train(is_train)
+        saved, self._amp = self._amp, None
         try:
-            with torch.no_grad():
-                return self._block(self._batch(data, cast=False))
+            with torch.no_grad(), step_scope(self._mesh):
+                out = self._call(self._batch(data, cast=False))
         finally:
+            self._amp = saved
             self._block.train(was)
+        if self._dp.size > 1:
+            def gather(t):
+                return torch.cat(coll._gather(t, self._dp)) \
+                    if torch.is_tensor(t) else t
+
+            out = type(out)(gather(t) for t in out) \
+                if isinstance(out, (list, tuple)) else gather(out)
+        return out
 
     def sync_params(self):
-        """Nothing to copy: the trainer updates the block's own parameters
-        in place (the JAX trainer keeps separate device arrays and copies
-        them back here)."""
+        """Every rank's block up to date: the expert tables' rows are
+        gathered over ep into each rank's full tables (the replicated
+        parameters are the block's own, updated in place)."""
+        with torch.no_grad():
+            for i in self._experts:
+                full = torch.cat(coll._gather(self._arrays[i].detach(),
+                                              self._ep))
+                self._params[i].copy_(full)

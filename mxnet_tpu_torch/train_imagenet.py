@@ -220,8 +220,6 @@ def main(argv=None, batch_end_callback=None, eval_end_callback=None):
             argv)
     logging.basicConfig(level=logging.INFO)
 
-    import torch
-
     from . import autograd, gluon, telemetry
     from . import metric as mx_metric
     from .context import resolve_device
@@ -312,8 +310,8 @@ def main(argv=None, batch_end_callback=None, eval_end_callback=None):
             batches.close()   # the prefetcher's thread before the reader's
             if it is not None:
                 it.close()
-        if isinstance(loss, torch.Tensor):
-            loss = float(loss)
+        if loss is not None and not isinstance(loss, float):
+            loss = float(loss.asnumpy())   # the step's NDArray
         logging.info("Epoch[%d] Train-samples/sec=%f", epoch,
                      n / (time.time() - tic))
         logging.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)

@@ -272,7 +272,7 @@ def test_bert_pretrain_trainer_step_matches_jax(amp):
     jl = float(jtr.step(mx.nd.array(tokens, dtype="int32"),
                         mx.nd.array(labels)).asnumpy())
     tl = ttr.step(torch.from_numpy(tokens), torch.from_numpy(labels))
-    assert tl.dtype == torch.float32 and tl.dim() == 0
+    assert tl.dtype == np.float32 and tl.shape == ()
     _close(float(tl), jl, TOL[amp or "float32"], "loss")
     state = tnet.state_dict()
     assert all(v.dtype == torch.float32 for v in state.values())

@@ -16,7 +16,10 @@ bound graph's no-input ops on the card; and the CTC op, the random ops
 (by distribution), the spatial transformer ops, linalg and control flow
 on the card against the CPU; and ``sparse.dot`` with its backward (two
 card runs bit for bit), a sparse linear model's steps and the local
-kvstore on the card against the CPU.
+kvstore on the card against the CPU; and ``topk_moe`` / ``switch_moe``
+with their gradients, and a ``DistributedTrainer`` step of an MoE net
+over a dp 1 x ep 1 mesh (no host sync in it), on the card against the
+CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -442,7 +445,7 @@ def test_trainer_step_on_card_matches_cpu():
     for d, net in nets.items():
         tr = DistributedTrainer(net, "sgd", dict(opt),
                                 loss=tloss.SoftmaxCrossEntropyLoss())
-        losses[d] = tr.step(x, y)
+        losses[d] = tr.step(x, y)._data
         assert losses[d].device.type == torch.device(d).type
     torch.cuda.synchronize()
     assert all(getattr(tpk, n).launches == before[n] + 8 for n in _EPI_NAMES)
@@ -634,7 +637,7 @@ def test_bert_mini_step_on_card_matches_cpu():
         tr = DistributedTrainer(net, "adam", {"learning_rate": 0.1,
                                               "epsilon": 1e-2},
                                 loss=tloss.SoftmaxCrossEntropyLoss())
-        losses[d] = tr.step(x, y)
+        losses[d] = tr.step(x, y)._data
     torch.cuda.synchronize()
     assert all(getattr(tpk, n).launches == launches[n] + 2
                for n in _FLASH_NAMES)
@@ -855,7 +858,7 @@ def test_word_lm_step_on_card_matches_cpu():
         tr = DistributedTrainer(
             net, "sgd", {"learning_rate": 1.0},
             loss=lambda p, y: ce(p.reshape(-1, 1000), y.reshape(-1)))
-        losses[d] = tr.step(x, y)
+        losses[d] = tr.step(x, y)._data
     torch.cuda.synchronize()
     assert {n: getattr(tpk, n).launches - launches[n]
             for n in _LSTM_NAMES} == {"lstm_infer": 0, "lstm_fwd": 2,
@@ -1554,3 +1557,95 @@ def test_scalar_ops_make_no_host_sync_on_card():
             np.testing.assert_array_equal(a, b)
         else:
             np.testing.assert_allclose(a, b, rtol=1e-6)
+
+
+def _moe_case(seed, t=64, d=32, h=48, e=8):
+    rng = np.random.RandomState(seed)
+    return [rng.normal(size=s).astype(np.float32) / np.sqrt(max(s[-2], 1))
+            for s in ((t, d), (e, d), (e, d, h), (e, h, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cf", [(1, 1.25), (2, 1.25), (2, 0.5), (3, 2.0)])
+def test_moe_ops_on_card_match_cpu(k, cf):
+    """`topk_moe` (and `switch_moe` at k = 1): outputs, lb, z and every
+    input's gradient on card tensors (TF32 off) against the CPU within
+    1e-5 of each one's largest magnitude; the routing (a stable sort) is
+    the CPU's."""
+    _need_card()
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            args = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                    for a in _moe_case(k)]
+            if k == 1:
+                out, lb = tc.switch_moe(*args, capacity_factor=cf)
+                z = lb
+            else:
+                out, lb, z = tc.topk_moe(*args, k=k, capacity_factor=cf)
+            (out.square().sum() + lb + z).backward()
+            res[dev] = [out, lb, z] + [a.grad for a in args]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for got, want in zip(res["cuda"], res["cpu"]):
+        want = want.detach()
+        scale = max(float(want.abs().max()), 1e-6)
+        assert float((got.detach().cpu() - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_moe_trainer_step_on_card_matches_cpu_without_host_sync():
+    """A small MoE LM (`chip_smoke.moe_lm`'s structure) through
+    `DistributedTrainer` over ``make_mesh([("dp", 1), ("ep", 1)])`` with a
+    plain-callable loss: the step returns an `NDArray`; in f32 (TF32 off)
+    its loss and parameters equal the CPU's within 1e-5; and with torch's
+    sync debug mode set to error the bf16 step synchronizes nowhere."""
+    _need_card()
+    import chip_smoke
+    import mxnet_tpu_torch as mx
+
+    saved = (chip_smoke.MOE_VOCAB, chip_smoke.MOE_UNITS,
+             chip_smoke.MOE_HIDDEN, chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ)
+    chip_smoke.MOE_VOCAB, chip_smoke.MOE_UNITS, chip_smoke.MOE_HIDDEN = \
+        500, 64, 128
+    chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ = 4, 32
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x, y = chip_smoke.moe_batches(5, 1)[0]
+        nets, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            nets[dev] = chip_smoke.moe_lm(mx, torch.device(dev), 5)
+            tr = DistributedTrainer(
+                nets[dev], "adam", {"learning_rate": 0.1, "epsilon": 1e-2},
+                loss=chip_smoke.moe_loss(mx),
+                mesh=mx.parallel.make_mesh([("dp", 1), ("ep", 1)]))
+            loss = tr.step(x, y)
+            assert isinstance(loss, mx.nd.NDArray)
+            losses[dev] = float(loss.asnumpy())
+        assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * losses["cpu"]
+        want = nets["cpu"].state_dict()
+        for name, v in nets["cuda"].state_dict().items():
+            scale = float(want[name].abs().max())
+            assert float((v.cpu() - want[name]).abs().max()) <= 1e-5 * scale
+        tr = DistributedTrainer(nets["cuda"], "adam",
+                                {"learning_rate": 1e-4},
+                                loss=chip_smoke.moe_loss(mx),
+                                amp_dtype="bfloat16")
+        xc, yc = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        tr.step(xc, yc)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tr.step(xc, yc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+        (chip_smoke.MOE_VOCAB, chip_smoke.MOE_UNITS, chip_smoke.MOE_HIDDEN,
+         chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ) = saved

@@ -22,6 +22,7 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu.ops import dgl as jdgl
 from mxnet_tpu_torch.ops import dgl as tdgl
+from mxnet_tpu_torch.base import MXNetError
 
 PKGS = (jmx, mx)
 
@@ -229,18 +230,18 @@ def test_neighbor_sample_equals_jax_on_one_numpy_stream(weighted):
 
 
 def test_sampled_csr_columns_beyond_its_shape_f5():
-    """Queue 3 fault F5, open in both packages: a sampler's subgraph holds
-    original vertex ids as columns in a (max_num_vertices,
-    max_num_vertices) shape, so a sampled vertex id at or past
-    max_num_vertices lies outside it. The JAX package's densify drops such
-    an entry silently (an XLA scatter drops out-of-range indices); the
-    port's raises. Input: the csr a sampler gives on K5 with
-    max_num_vertices=4 when vertex 4 is sampled."""
+    """Queue 3 fault F5: a sampler's subgraph holds original vertex ids as
+    columns in a (max_num_vertices, max_num_vertices) shape, so a sampled
+    vertex id at or past max_num_vertices lies outside it. The JAX
+    package's densify drops such an entry silently (an XLA scatter drops
+    out-of-range indices); the port refuses it where it is made, while
+    the column ids are on the host: `csr_matrix` raises an `MXNetError`
+    naming the column and the shape. Input: the csr a sampler gives on K5
+    with max_num_vertices=4 when vertex 4 is sampled."""
     args = (np.array([2, 9], np.int64), np.array([1, 4], np.int64),
             np.array([0, 1, 2, 2, 2], np.int64))
     want = jmx.nd.sparse.csr_matrix(args, shape=(4, 4))
     dense = _np(want.tostype("default"))
     assert dense[0, 1] == 2 and dense.sum() == 2     # the 9 at (1, 4) gone
-    got = mx.nd.sparse.csr_matrix(args, shape=(4, 4))
-    with pytest.raises(IndexError):
-        got.tostype("default")
+    with pytest.raises(MXNetError, match=r"column index 4 .*\(4, 4\)"):
+        mx.nd.sparse.csr_matrix(args, shape=(4, 4))

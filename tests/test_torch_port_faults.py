@@ -57,6 +57,21 @@ showed it, on the CPU:
     ``RNNModel`` (these two resolved the card at construction; they now
     take the device at ``initialize``, as the JAX package's do). Without
     a scope, the entry points still default to the card.
+17. F6: ``DistributedTrainer.step`` returns an `NDArray` (a bare tensor
+    before, so the census scripts' ``loss.asnumpy()`` raised), and a
+    plain callable loss gets a model's whole output tuple (``loss_inputs``
+    None: it got the first output only, so ``train_moe.py``'s ``lm_loss``
+    could not unpack ``(logits, aux)``). Held with a two-output MoE net
+    against the JAX package's trainer over a one-device mesh: the
+    callable sees the tuple, and each step's ``.asnumpy()`` equals the
+    JAX loss within 1e-5 relative; ``loss_inputs="pred"`` pins the first
+    output, as there.
+18. An initializer draws into a host buffer whatever torch's default
+    device: under ``with mx.gpu(0):`` (the block
+    ``examples/image_classification/train_imagenet.py:96`` initializes
+    its net in) the buffer was made on the card and the CPU generator
+    refused it. Held with torch's default device set to ``meta``: the
+    draws equal those made without the block.
 
 Float results within 1e-6 relative and absolute (both sides compute in f32
 from the same inputs); integer results and shapes exactly. A whole net's
@@ -687,3 +702,99 @@ def test_entry_points_take_the_scope_then_the_card(tmp_path):
     net = RNNModel(20, 8, 8, 1, dropout=0.0)
     net.initialize(ctx=CPU)
     assert all(p.device.type == "cpu" for p in net.parameters())
+
+
+# ---------------------------------------------------------------------------
+# 17. F6: the trainer's return type and loss inputs
+# ---------------------------------------------------------------------------
+
+def _two_output_net(gluon, MoEFFN):
+    class Net(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embed = gluon.nn.Dense(8, flatten=False)
+                self.moe = MoEFFN(units=8, hidden_size=16, num_experts=4,
+                                  num_experts_per_token=2, z_loss_coef=1e-3,
+                                  capacity_factor=2.0, return_aux=True)
+                self.out = gluon.nn.Dense(3, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            h, aux = self.moe(self.embed(x))
+            return self.out(h), aux
+
+    return Net(prefix="f6net_")
+
+
+def test_trainer_step_returns_ndarray_and_feeds_the_output_tuple_f6():
+    import jax
+
+    from mxnet_tpu.gluon.contrib.moe import MoEFFN as JMoE
+    from mxnet_tpu.parallel import DistributedTrainer as JTrainer
+    from mxnet_tpu.parallel import make_mesh as jmake_mesh
+    from mxnet_tpu_torch.gluon.contrib.moe import MoEFFN
+    from mxnet_tpu_torch.parallel import DistributedTrainer
+
+    rng = np.random.RandomState(17)
+    x = rng.normal(size=(4, 5, 6)).astype(np.float32)
+    y = rng.randint(0, 3, (4, 5)).astype(np.float32)
+    mx_j.random.seed(17)
+    jnet = _two_output_net(mx_j.gluon, JMoE)
+    jnet.initialize(mx_j.init.Xavier())
+    jnet(mx_j.nd.array(x))
+    tnet = _two_output_net(mx.gluon, MoEFFN)
+    tnet.initialize(ctx=CPU)
+    with CPU:
+        tnet(mx.nd.array(x))
+    for name, p in tnet.collect_params().items():
+        p.set_data(jnet.collect_params()[name].data().asnumpy())
+
+    def make_loss(gluon, seen):
+        sce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def lm_loss(out, label):
+            logits, aux = out
+            seen.append(len(out))
+            return sce(logits, label) + 0.01 * aux
+
+        return lm_loss
+
+    jseen, tseen = [], []
+    jtr = JTrainer(jnet, "adam", {"learning_rate": 1e-2},
+                   loss=make_loss(mx_j.gluon, jseen),
+                   mesh=jmake_mesh([("dp", 1)], devices=jax.devices()[:1]))
+    ttr = DistributedTrainer(tnet, "adam", {"learning_rate": 1e-2},
+                             loss=make_loss(mx.gluon, tseen))
+    for _ in range(3):
+        want = float(jtr.step(x, y).asnumpy())
+        got = ttr.step(x, y)
+        assert isinstance(got, mx.nd.NDArray) and got.shape == ()
+        np.testing.assert_allclose(float(got.asnumpy()), want, rtol=1e-5)
+    assert tseen == [2, 2, 2] and jseen
+    pinned = DistributedTrainer(tnet, "sgd",
+                                loss=tloss.SoftmaxCrossEntropyLoss(),
+                                loss_inputs="pred")
+    assert np.isfinite(pinned.step(x, y).asnumpy())
+    with pytest.raises(mx.MXNetError, match="loss_inputs"):
+        DistributedTrainer(tnet, "sgd", loss_inputs="all")
+
+
+# ---------------------------------------------------------------------------
+# 18. initializers draw on the host whatever torch's default device
+# ---------------------------------------------------------------------------
+
+def test_initializer_draws_on_the_host_under_a_device_block():
+    def draws(block):
+        net = tnn.HybridSequential()
+        net.add(tnn.Dense(8, in_units=6), tnn.Dense(3, in_units=8))
+        with block:
+            net.initialize(mx.init.Xavier(), ctx=CPU, seed=3)
+        return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+    import contextlib
+
+    want = draws(contextlib.nullcontext())
+    got = draws(torch.device("meta"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].device.type == "cpu" and torch.equal(got[k], want[k])

@@ -442,8 +442,8 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     that `HybridBlock.export` writes, 3 of ops/rnn.py), and the 4 image
     ops of ops/image_ops.py under 8 names, and the 22 random ops of
     ops/random_ops.py under 40 names, the 15 of ops/linalg.py under 30,
-    CTCLoss under 4, and ops/contrib.py's 22 ops but the two MoE ops
-    under 46 names (_contrib_flash_attention among them), the 9 ops of
+    CTCLoss under 4, and ops/contrib.py's 24 ops under 50 names
+    (_contrib_flash_attention and the two MoE ops among them), the 9 ops of
     ops/quantization.py under 21 names, and the 6 DGL graph ops of
     ops/dgl.py under 12; each alias resolves to the op its JAX alias
     names."""
@@ -472,9 +472,8 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
                     if o.fn.__module__ == "mxnet_tpu.ops.linalg")
     assert (len(rand), len(linalg)) == (40, 30)
     contrib = sorted(n for n, o in jops._REGISTRY.items()
-                     if o.fn.__module__ == "mxnet_tpu.ops.contrib"
-                     and not o.name.endswith("_moe"))
-    assert len(contrib) == 46
+                     if o.fn.__module__ == "mxnet_tpu.ops.contrib")
+    assert len(contrib) == 50
     quant = sorted(n for n, o in jops._REGISTRY.items()
                    if o.fn.__module__ == "mxnet_tpu.ops.quantization")
     assert len(quant) == 21

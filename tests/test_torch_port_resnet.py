@@ -322,7 +322,7 @@ def test_small_resnet_two_trainer_steps_match_jax(monkeypatch):
         jl = float(jtr.step(mx.nd.array(x),
                             mx.nd.array(y.astype(np.float32))).asnumpy())
         tl = ttr.step(torch.from_numpy(x), torch.from_numpy(y))
-        assert tl.dtype == torch.float32 and tl.dim() == 0
+        assert tl.dtype == np.float32 and tl.shape == ()
         _close(float(tl), jl, F32_TOL, "loss step %d" % step)
     jtr.sync_params()
     want = convert.resnet_params_from_jax(
