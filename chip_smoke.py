@@ -401,6 +401,41 @@ Phases; each raises on failure, and the script then exits non-zero:
    the card equal to the CPU's from the same weights: the loss within
    1e-5 relative, the gate, expert and head parameters within 1e-5 of
    each tensor's largest magnitude. The group is destroyed at the end.
+18. pipeline (after mesh, before parity): `bert_12_768_12(dropout=0.0)`
+   through `parallel.PipelineTrainer` over ``make_mesh([("pp", 1)])``,
+   8 x 512 tokens in 4 microbatches, Adam 1e-4, bf16 over f32 masters,
+   an L2Loss on the pooled output against seeded targets; once with
+   remat off and once on, each 2 warm-up steps, one step under torch's
+   sync debug mode and 8 timed steps: tokens/s, ms a step, peak allocated
+   bytes. Gates: a finite loss, falling; the flash launches 12 x 4 x 8
+   for dQ and dK/dV and as many forwards (twice as many under remat, the
+   stage run again in the backward); no collective and no host sync in a
+   step. Then, after ``sync_params``, the pipeline's f32 pooled output at
+   2 x 128 tokens against the model's own forward within 1e-4.
+19. ranks2 (after pipeline, before parity): two child processes of this
+   script (``--ranks2-child``), ranks 0 and 1 of a gloo group over a free
+   local port, share the card (NCCL takes one rank a device), each killed
+   at 480 s; a child's failure fails the phase. Each: ResNet-50 v1 NHWC
+   bf16 at 128 images over dp 2 (64 a rank), SGD with momentum as the
+   train phase, 2 warm-up and 10 timed steps; every BatchNorm's
+   statistics are the global batch's: the two reductions' raw mode, one
+   gather of the ranks' sums, `epi_stats_finish` / `epi_bwd_finish` (the
+   ``launches_ranks2`` counts, 53 x 10 each, and the finishing kernels'
+   ``launches``); prints images/s and the raw reductions' routes. Gates:
+   both ranks' losses alike, finite and falling; the raw mode on
+   (200,704, 256) bf16 rows against its plain version, bit for bit on a
+   rerun. Then f32 on the card (TF32 off), held to the same runs at one
+   rank made here meanwhile: `tests/test_parallel.py`'s SyncBatchNorm net
+   at dp 2 (losses, moving statistics, parameters within rtol 1e-4, atol
+   1e-5), examples/distributed/train_dist.py's MLP at dp 1 x tp 2 and at
+   fsdp 2 (5 steps; losses within 1e-5, parameters within rtol 2e-4,
+   atol 2e-5; fewer elements resident a rank), a 4-layer BERT through
+   `PipelineTrainer` at pp 2 (forward, 3 Adam steps); and ring attention
+   over sp 2 at B, L, H, D = 2, 8,192, 12, 64, causal and not, against
+   full attention on the rank's rows within 1e-4. In the kernel phase the
+   raw mode and the finishing kernels are held to their plain versions
+   at Inception v3's (8,192, 448), ResNet-50's (401,408, 256) and a
+   folded (1,000, 3), as two ranks' halves, bf16 and f32, and timed.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -444,6 +479,11 @@ KERNELS = [
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:807"},
     {"name": "epi_bwd_dx", "route": "cuda", "source": _EPI_SRC,
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:840"},
+    # the two reductions' finish over ranks (a batch split over dp)
+    {"name": "epi_stats_finish", "route": "cuda", "source": _EPI_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:769"},
+    {"name": "epi_bwd_finish", "route": "cuda", "source": _EPI_SRC,
+     "replaces": "mxnet_tpu/ops/pallas_kernels.py:807"},
     {"name": "flash_fwd", "route": "cuda", "source": _FLASH_SRC,
      "replaces": "mxnet_tpu/ops/pallas_kernels.py:57"},
     {"name": "flash_bwd_dq", "route": "cuda", "source": _FLASH_SRC,
@@ -7753,6 +7793,592 @@ def mesh_phase(torch, pk, args):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the conv epilogue over ranks (a batch split over dp): the two reductions'
+# raw mode and the finishing kernels, against their plain versions
+# ---------------------------------------------------------------------------
+
+EPI_SYNC_KERNELS = ["epi_stats_finish", "epi_bwd_finish"]
+# two ranks' halves of a batch, each with its own offset (so the ranks'
+# proxies differ): Inception v3's narrowest BatchNorm (the cluster route),
+# ResNet-50's stage-1 block output at batch 128 over dp 2 (streamed), and a
+# folded narrow C
+EPI_SYNC_SHAPES = [("inception-narrowest", 8192, 448),
+                   ("stage1-out", 401408, 256), ("odd", 1000, 3)]
+EPI_SYNC_ROW = ("stage1-out", "bfloat16")
+
+
+def finish_bound(k, c, n_in, n_out):
+    """Least time of a finishing kernel: k ranks' n_in f32 (C,) vectors,
+    gamma and beta read and n_out vectors written once, over the HBM
+    rate (its FLOPs, a few a rank and channel, are far below)."""
+    return (k * n_in + 2 + n_out) * c * 4 / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_epilogue_sync(torch, pk, seed, flush):
+    """The reductions' raw mode (the rank's sums) against its plain
+    version and bit for bit on a second run, and the finishing kernels
+    over two ranks' sums against the plain whole-batch statistics and
+    coefficients, at `EPI_SYNC_SHAPES` in bf16 and f32; the raw mode's
+    and the finishing kernels' times at the bf16 cases. Returns the
+    finishing kernels' rows and the raw mode's times."""
+    names = ("mean", "var", "inv", "scale", "shift")
+    worst = {"raw": 0.0, "epi_stats_finish": 0.0, "epi_bwd_finish": 0.0}
+    out, raw_rows = {}, []
+    for i, (label, r, c) in enumerate(EPI_SYNC_SHAPES):
+        for dtype in ("bfloat16", "float32"):
+            tdt = getattr(torch, dtype)
+            elem = torch.empty((), dtype=tdt).element_size()
+            tag = "%s 2 x (%d, %d) %s" % (label, r, c, dtype)
+            g = torch.Generator(device="cuda").manual_seed(seed + 90 + i)
+            xs = [(torch.randn(r, c, generator=g, device="cuda") * 2 + 3
+                   + 2 * k).to(tdt) for k in range(2)]
+            cts = [torch.randn(r, c, generator=g, device="cuda").to(tdt)
+                   for _ in range(2)]
+            gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+            beta = torch.randn(c, generator=g, device="cuda")
+            raws = []
+            for x in xs:
+                raw = pk.epi_stats(x, gamma, beta, EPI_EPS, False, raw=True)
+                if not torch.equal(raw, pk.epi_stats(x, gamma, beta, EPI_EPS,
+                                                     False, raw=True)):
+                    raise AssertionError("epi_stats raw %s: two runs "
+                                         "differ" % tag)
+                worst["raw"] = max(worst["raw"], max_err(
+                    torch, raw, pk.epi_stats_reference(
+                        x, gamma, beta, EPI_EPS, False, raw=True), 1e-4,
+                    "epi_stats raw " + tag))
+                raws.append(raw)
+            parts = torch.stack(raws)
+            got = pk.epi_stats_finish(parts, r, gamma, beta, EPI_EPS)
+            again = pk.epi_stats_finish(parts, r, gamma, beta, EPI_EPS)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("epi_stats_finish %s: two runs differ"
+                                     % tag)
+            whole, ct_whole = torch.cat(xs), torch.cat(cts)
+            want = pk.epi_stats_reference(whole, gamma, beta, EPI_EPS, False)
+            for name, a, b in zip(names, got, want):
+                worst["epi_stats_finish"] = max(
+                    worst["epi_stats_finish"], max_err(
+                        torch, a, b, 1e-4, "epi_stats_finish %s %s"
+                        % (name, tag)))
+            mean, _, inv, _, _ = got
+            sums = []
+            for x, ct in zip(xs, cts):
+                d = pk.epi_bwd_reduce(ct, x, None, mean, inv, gamma, False,
+                                      raw=True)
+                again = pk.epi_bwd_reduce(ct, x, None, mean, inv, gamma,
+                                          False, raw=True)
+                if not all(torch.equal(a, b) for a, b in zip(d, again)):
+                    raise AssertionError("epi_bwd_reduce raw %s: two runs "
+                                         "differ" % tag)
+                ref = pk.epi_bwd_reduce_reference(ct, x, None, mean, inv,
+                                                  gamma, False, raw=True)
+                for a, b in zip(d, ref):
+                    worst["raw"] = max(worst["raw"], max_err(
+                        torch, a, b, 1e-4, "epi_bwd_reduce raw " + tag))
+                sums.append(d[3])
+            bparts = torch.stack(sums)
+            cb, cg = pk.epi_bwd_finish(bparts, r)
+            want_b = pk.epi_bwd_reduce_reference(ct_whole, whole, None, mean,
+                                                 inv, gamma, False)[3:]
+            for name, a, b in zip(("cb", "cg"), (cb, cg), want_b):
+                worst["epi_bwd_finish"] = max(worst["epi_bwd_finish"], max_err(
+                    torch, a, b, 1e-4, "epi_bwd_finish %s %s" % (name, tag),
+                    scale=1e-3))
+            if dtype != "bfloat16" or label == "odd":
+                continue
+            x, ct = xs[0], cts[0]
+            times = {
+                "stats_raw": time_ms(torch, lambda: pk.epi_stats(
+                    x, gamma, beta, EPI_EPS, False, raw=True), flush, 50),
+                "stats": time_ms(torch, lambda: pk.epi_stats(
+                    x, gamma, beta, EPI_EPS, False), flush, 50),
+                "bwd_raw": time_ms(torch, lambda: pk.epi_bwd_reduce(
+                    ct, x, None, mean, inv, gamma, False, raw=True), flush,
+                    50),
+                "bwd": time_ms(torch, lambda: pk.epi_bwd_reduce(
+                    ct, x, None, mean, inv, gamma, False), flush, 50)}
+            lay = pk._epi_layout(r, c, elem)
+            row = {"case": label, "r": r, "c": c, "dtype": dtype,
+                   "route": lay["route"],
+                   "stats_bound_ms": epi_bound("epi_stats", r, c, elem, 1, 0,
+                                               5)[0],
+                   "bwd_bound_ms": epi_bound("epi_bwd_reduce", r, c, elem, 2,
+                                             0, 7)[0]}
+            row.update(times)
+            raw_rows.append(row)
+            log("  raw mode %s (%s): epi_stats %.4f ms (finished %.4f), "
+                "epi_bwd_reduce %.4f ms (finished %.4f); bounds %.4f / %.4f "
+                "ms (bytes)" % (tag, lay["route"], times["stats_raw"],
+                                times["stats"], times["bwd_raw"],
+                                times["bwd"], row["stats_bound_ms"],
+                                row["bwd_bound_ms"]))
+            if (label, dtype) != EPI_SYNC_ROW:
+                continue
+            for k, fn, plain, n_in, n_out in (
+                    ("epi_stats_finish",
+                     lambda: pk.epi_stats_finish(parts, r, gamma, beta,
+                                                 EPI_EPS),
+                     lambda: pk.epi_stats_finish_reference(
+                         parts, r, gamma, beta, EPI_EPS, False), 3, 5),
+                    ("epi_bwd_finish", lambda: pk.epi_bwd_finish(bparts, r),
+                     lambda: pk.epi_bwd_finish_reference(bparts, r), 2, 2)):
+                bound_ms, bound_by = finish_bound(2, c, n_in, n_out)
+                out[k] = {"ms": time_ms(torch, fn, flush, 50),
+                          "plain_ms": time_ms(torch, plain, flush, 50),
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": None}
+                log("  %s 2 x (%d,) f32 sums: kernel %.4f ms plain %.4f ms "
+                    "bound %.4f ms (bytes)" % (k, c, out[k]["ms"],
+                                               out[k]["plain_ms"], bound_ms))
+            torch.cuda.empty_cache()
+    for k in EPI_SYNC_KERNELS:
+        out[k]["max_abs_err"] = worst[k]
+    log("conv epilogue over 2 ranks' halves: the reductions' raw sums agree "
+        "with their plain versions (largest error %.3g) and repeat bit for "
+        "bit; epi_stats_finish / epi_bwd_finish over the two ranks' sums "
+        "agree with the whole batch's plain statistics and coefficients "
+        "(largest errors %.3g / %.3g) at %d shapes x 2 dtypes"
+        % (worst["raw"], worst["epi_stats_finish"], worst["epi_bwd_finish"],
+           len(EPI_SYNC_SHAPES)))
+    return out, raw_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 18, pipeline: BERT-base through PipelineTrainer over a pp 1 mesh
+# ---------------------------------------------------------------------------
+
+PIPE_MICRO, PIPE_WARMUP, PIPE_STEPS = 4, 2, 8
+PIPE_PARITY = (2, 128)
+PIPE_TOL = 1e-4
+
+
+def pipeline_phase(torch, pk, args):
+    """`bert_12_768_12(dropout=0.0)` through `PipelineTrainer` over a pp 1
+    mesh at 8 x 512 tokens, 4 microbatches, Adam 1e-4, bf16 over f32
+    masters, an L2Loss on the pooled output against seeded targets; once
+    with remat off and once on: tokens/s, ms a step, peak bytes; the loss
+    finite and falling; the flash launches 12 x 4 x steps each (forward
+    twice that under remat); 0 collectives and 0 host syncs a step. Then
+    the pipeline's f32 pooled output at 2 x 128 tokens against the model's
+    own forward. Returns the flash launches of the timed steps of both
+    runs."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as zoo
+
+    model = zoo.bert_12_768_12(dropout=0.0, device="cuda")
+    model.initialize(seed=args.seed + 80)
+    rng = np.random.RandomState(args.seed + 81)
+    tok = torch.from_numpy(rng.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ))
+                           ).cuda()
+    target = torch.from_numpy(rng.uniform(-1, 1, (BERT_BATCH, 768))
+                              .astype(np.float32)).cuda()
+    mesh = parallel.make_mesh([("pp", 1)])
+    total = dict.fromkeys(FLASH_KERNELS, 0)
+    layers = len(model.encoder.cells)
+    for remat in (False, True):
+        trainer = parallel.PipelineTrainer(
+            model, "adam", {"learning_rate": 1e-4}, loss=gloss.L2Loss(),
+            mesh=mesh, num_microbatches=PIPE_MICRO, remat=remat,
+            amp_dtype="bfloat16")
+        losses = [trainer.step(tok, target)._data
+                  for _ in range(PIPE_WARMUP)]
+        torch.cuda.synchronize()
+        step, syncs = count_host_syncs(torch,
+                                       lambda: trainer.step(tok, target))
+        losses.append(step._data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in FLASH_KERNELS:
+            getattr(pk, k).launches = 0
+        t0 = time.monotonic()
+        with count_collectives() as calls:
+            for _ in range(PIPE_STEPS):
+                losses.append(trainer.step(tok, target)._data)
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: getattr(pk, k).launches for k in FLASH_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        losses = torch.stack(losses).cpu().numpy()
+        per = layers * PIPE_MICRO * PIPE_STEPS
+        want = {"flash_fwd": per * (2 if remat else 1),
+                "flash_bwd_dq": per, "flash_bwd_dkv": per}
+        if launches != want:
+            raise AssertionError("pipeline remat=%s: flash launches %s, not "
+                                 "%s" % (remat, launches, want))
+        if calls.total or syncs:
+            raise AssertionError("pipeline remat=%s at pp 1: collectives %s, "
+                                 "host syncs %s" % (remat, calls.counts,
+                                                    syncs))
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError("pipeline remat=%s: losses not finite and "
+                                 "falling: %s" % (remat, losses))
+        for k, n in launches.items():
+            total[k] += n
+        log("pipeline: bert_12_768_12 over pp 1, %d x %d tokens, %d "
+            "microbatches, Adam 1e-4 bf16, remat=%s: %d timed steps %.1f "
+            "tokens/s, %.2f ms a step; peak allocated %d bytes; losses %s; "
+            "flash launches %s (12 x %d x %d%s); 0 collectives, 0 host "
+            "syncs a step"
+            % (BERT_BATCH, BERT_SEQ, PIPE_MICRO, remat, PIPE_STEPS,
+               BERT_BATCH * BERT_SEQ * PIPE_STEPS / wall,
+               wall / PIPE_STEPS * 1e3, peak,
+               ["%.5f" % v for v in losses], json.dumps(launches),
+               PIPE_MICRO, PIPE_STEPS, ", forward twice" if remat else ""))
+        trainer.sync_params()
+    # a pipeline over the synced cells, in 2 microbatches of 1
+    tok2 = tok[:PIPE_PARITY[0], :PIPE_PARITY[1]]
+    trainer = parallel.PipelineTrainer(model, "sgd", {"learning_rate": 0.0},
+                                       loss=gloss.L2Loss(), mesh=mesh,
+                                       num_microbatches=PIPE_PARITY[0])
+    with torch.no_grad():
+        want = model(tok2)[1]
+    err = max_err(torch, trainer.forward(tok2)._data, want, PIPE_TOL,
+                  "pipeline pooled output")
+    log("pipeline: the f32 pooled output at %d x %d tokens after "
+        "sync_params equals the model's own forward (largest error %.3g, "
+        "tolerance %g)" % (PIPE_PARITY + (err, PIPE_TOL)))
+    del trainer, model
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 19, ranks2: two child processes of this script share the card over
+# gloo (NCCL takes one rank a device)
+# ---------------------------------------------------------------------------
+
+RANKS2_TIMEOUT = 480
+RANKS2_BATCH = 128            # global: 64 a rank over dp 2
+RANKS2_WARMUP, RANKS2_STEPS = 2, 10
+RANKS2_RTOL, RANKS2_ATOL = 1e-4, 1e-5
+DIST_RTOL, DIST_ATOL = 2e-4, 2e-5
+RING_SHAPE = (2, 8192, 12, 64)    # B, L, H, D over sp 2
+MLP_STEPS, BERT_PP_STEPS = 5, 3
+
+
+def sync_bn_net(mx, seed):
+    """`tests/test_parallel.py`'s SyncBatchNorm net (NCHW: its BatchNorm
+    moves the channels last for the kernels), f32 on the card, from
+    ``seed``."""
+    net = mx.gluon.nn.HybridSequential(prefix="syncbn_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Conv2D(4, 3, padding=1, use_bias=False,
+                                   in_channels=3),
+                mx.gluon.contrib.nn.SyncBatchNorm(in_channels=4,
+                                                  num_devices=2),
+                mx.gluon.nn.Flatten(), mx.gluon.nn.Dense(3, in_units=256))
+    net.initialize(ctx=mx.gpu(0), seed=seed)
+    return net
+
+
+def sync_bn_batch(seed):
+    """Shards of wildly different scales: per-shard statistics would be far
+    from the global batch's."""
+    rng = np.random.RandomState(seed)
+    x = np.concatenate([rng.normal(loc=i - 1.5, scale=0.5 + i,
+                                   size=(2, 3, 8, 8)) for i in range(4)])
+    return x.astype(np.float32), rng.randint(0, 3, (8,)).astype(np.float32)
+
+
+def dist_mlp(mx, seed):
+    """examples/distributed/train_dist.py's net, f32 on the card."""
+    net = mx.gluon.nn.HybridSequential(prefix="dist_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(256, activation="relu", in_units=100),
+                mx.gluon.nn.Dense(256, activation="relu", in_units=256),
+                mx.gluon.nn.Dense(10, in_units=256))
+    net.initialize(ctx=mx.gpu(0), seed=seed)
+    return net
+
+
+def dist_batches(seed, n):
+    """train_dist.py's batches: 64 x 100, labels the argmax of x W."""
+    rng = np.random.RandomState(seed)
+    w = rng.randn(100, 10).astype(np.float32)
+    out = []
+    for _ in range(n):
+        x = rng.randn(64, 100).astype(np.float32)
+        out.append((x, (x @ w).argmax(1).astype(np.float32)))
+    return out
+
+
+def bert_pp_model(torch, seed):
+    """A 4-layer BERT (width 256, 4 heads) f32 on the card for pp 2
+    against pp 1."""
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as zoo
+
+    model = zoo.BERTModel(vocab_size=1000, units=256, hidden_size=1024,
+                          num_layers=4, num_heads=4, max_length=128,
+                          dropout=0.0, device="cuda", prefix="bertpp_")
+    model.initialize(seed=seed)
+    return model
+
+
+def bert_pp_data(torch, seed):
+    rng = np.random.RandomState(seed)
+    tok = torch.from_numpy(rng.randint(0, 1000, (4, 128))).cuda()
+    target = torch.from_numpy(rng.uniform(-1, 1, (4, 256))
+                              .astype(np.float32)).cuda()
+    return tok, target
+
+
+def small_runs(torch, mx, seed, mesh_of):
+    """The small f32 cases on the card, on meshes ``mesh_of(case)`` gives:
+    a SyncBatchNorm step's losses and moving statistics (2 SGD steps), the
+    train_dist.py MLP's losses and parameters (`MLP_STEPS` SGD momentum
+    steps, under ``tp`` and ``fsdp`` rules), the BERT pipeline's forward,
+    losses and parameters (`BERT_PP_STEPS` Adam steps). Returns numpy
+    arrays by name."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    out = {}
+    net = sync_bn_net(mx, seed + 1)
+    x, y = sync_bn_batch(seed + 2)
+    tr = mx.parallel.DistributedTrainer(
+        net, "sgd", {"learning_rate": 0.1},
+        loss=gloss.SoftmaxCrossEntropyLoss(), mesh=mesh_of("bn"))
+    out["bn_losses"] = np.array([float(tr.step(x, y)._data)
+                                 for _ in range(2)])
+    tr.sync_params()
+    for n, p in net.collect_params().items():
+        out["bn:" + n] = p.data().asnumpy()
+    for case, rules in (("tp", None), ("fsdp", mx.parallel.ShardingRules(
+            fsdp_min_size=64))):
+        net = dist_mlp(mx, seed + 3)
+        tr = mx.parallel.DistributedTrainer(
+            net, "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+            loss=gloss.SoftmaxCrossEntropyLoss(), mesh=mesh_of(case),
+            rules=rules)
+        out[case + "_losses"] = np.array([
+            float(tr.step(bx, by)._data)
+            for bx, by in dist_batches(seed + 4, MLP_STEPS)])
+        out[case + "_resident"] = np.array([a.numel() for a in tr._arrays])
+        tr.sync_params()
+        for n, p in net.collect_params().items():
+            out[case + ":" + n] = p.data().asnumpy()
+    model = bert_pp_model(torch, seed + 5)
+    tok, target = bert_pp_data(torch, seed + 6)
+    tr = mx.parallel.PipelineTrainer(
+        model, "adam", {"learning_rate": 1e-3}, loss=gloss.L2Loss(),
+        mesh=mesh_of("pp"), num_microbatches=2)
+    out["pp_forward"] = tr.forward(tok).asnumpy()
+    out["pp_losses"] = np.array([float(tr.step(tok, target)._data)
+                                 for _ in range(BERT_PP_STEPS)])
+    tr.sync_params()
+    for n, p in model.collect_params().items():
+        out["pp:" + n] = p.data().asnumpy()
+    return out
+
+
+def ring_case(torch, seed, causal, rank, n):
+    """Ring attention over sp = n on rank ``rank``'s shard of the
+    `RING_SHAPE` inputs, and the same rows of full attention in f32.
+    Returns (largest error, largest magnitude)."""
+    from mxnet_tpu_torch import parallel
+
+    b, length, h, d = RING_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+               for _ in range(3))
+    part = length // n
+    rows = slice(rank * part, (rank + 1) * part)
+    got = parallel.ring_attention(q[:, rows], k[:, rows], v[:, rows],
+                                  axis_name="sp", causal=causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows], k) / d ** 0.5
+    if causal:
+        qpos = torch.arange(rank * part, (rank + 1) * part,
+                            device="cuda")[:, None]
+        kpos = torch.arange(length, device="cuda")[None, :]
+        s = s.masked_fill(qpos < kpos, float("-inf"))
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+    del s
+    err = max_err(torch, got, want, 1e-4, "ring attention causal=%s rank %d"
+                  % (causal, rank))
+    return err, float(want.abs().max())
+
+
+def ranks2_child(rank, port, out_dir, seed):
+    """One of `ranks2_phase`'s two ranks: gloo over localhost, the card
+    shared. Writes ``<out_dir>/rank<r>.npz``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+
+    parallel.init_process_group(
+        num_processes=2, process_id=rank, backend="gloo",
+        init_method="tcp://localhost:%d" % port, timeout=RANKS2_TIMEOUT)
+    out = {}
+    # full width: ResNet-50 v1 NHWC bf16 at 128 images over dp 2
+    with gnn.layout_scope():
+        net = resnet50_v1(classes=1000, fuse_epilogue=True, device="cuda")
+    net.initialize(seed=seed)
+    mesh = parallel.make_mesh([("dp", 2)])
+    rng = np.random.RandomState(seed + 2)
+    x = torch.from_numpy(rng.uniform(-1, 1, (RANKS2_BATCH, 224, 224, 3))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, RANKS2_BATCH)).cuda()
+    trainer = parallel.DistributedTrainer(
+        net, "sgd", {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4},
+        loss=gloss.SoftmaxCrossEntropyLoss(), amp_dtype="bfloat16",
+        mesh=mesh)
+    losses = [trainer.step(x, y)._data for _ in range(RANKS2_WARMUP)]
+    torch.cuda.synchronize()
+    kernels = EPI_KERNELS + EPI_SYNC_KERNELS
+    for k in kernels:
+        getattr(pk, k).launches = 0
+    for k in ("epi_stats", "epi_bwd_reduce"):
+        getattr(pk, k).routes = dict.fromkeys(getattr(pk, k).routes, 0)
+    parallel.barrier()
+    t0 = time.monotonic()
+    for _ in range(RANKS2_STEPS):
+        losses.append(trainer.step(x, y)._data)
+    torch.cuda.synchronize()
+    out["wall"] = np.array(time.monotonic() - t0)
+    out["launches"] = np.array([getattr(pk, k).launches for k in kernels])
+    out["routes"] = np.array([getattr(pk, k).routes[r]
+                              for k in ("epi_stats", "epi_bwd_reduce")
+                              for r in ("cluster", "streamed", "folded")])
+    out["resnet_losses"] = torch.stack(losses).cpu().numpy()
+    out["peak"] = np.array(torch.cuda.max_memory_allocated())
+    # the raw mode on this rank's rows of the stage-1 output, bit for bit
+    g = torch.Generator(device="cuda").manual_seed(seed + 3 + rank)
+    xr = (torch.randn(200704, 256, generator=g, device="cuda") * 2
+          + 3).to(torch.bfloat16)
+    gamma = torch.rand(256, generator=g, device="cuda") + 0.5
+    beta = torch.randn(256, generator=g, device="cuda")
+    a = pk.epi_stats(xr, gamma, beta, EPI_EPS, False, raw=True)
+    if not torch.equal(a, pk.epi_stats(xr, gamma, beta, EPI_EPS, False,
+                                       raw=True)):
+        raise AssertionError("rank %d: the raw mode's two runs differ" % rank)
+    out["raw_err"] = np.array(max_err(torch, a, pk.epi_stats_reference(
+        xr, gamma, beta, EPI_EPS, False, raw=True), 1e-4, "raw mode"))
+    del trainer, net, x, xr
+    torch.cuda.empty_cache()
+    meshes = {"bn": [("dp", 2)], "tp": [("dp", 1), ("tp", 2)],
+              "fsdp": [("fsdp", 2)], "pp": [("pp", 2)]}
+    built = {k: parallel.make_mesh(v) for k, v in meshes.items()}
+    out.update(small_runs(torch, mx, seed + 10, built.__getitem__))
+    ring = parallel.make_mesh([("sp", 2)])
+    with parallel.use_mesh(ring):
+        for causal in (False, True):
+            err, top = ring_case(torch, seed + 20, causal, rank, 2)
+            out["ring_err_%d" % causal] = np.array([err, top])
+    torch.cuda.synchronize()
+    np.savez(os.path.join(out_dir, "rank%d.npz" % rank), **out)
+    parallel.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ranks2_phase(torch, pk, args):
+    """Phase 19: `ranks2_child` twice, ranks 0 and 1 of a gloo group on the
+    one card, each killed at `RANKS2_TIMEOUT`; a child's failure fails the
+    phase. The 1-rank references of the small cases run here meanwhile;
+    then their results are held to them. Returns the epilogue's launches
+    in the children's timed ResNet-50 steps (rank 0's)."""
+    import subprocess
+
+    from mxnet_tpu_torch import parallel
+
+    torch.cuda.empty_cache()
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ranks2-") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed",
+             str(args.seed), "--ranks2-child", str(r), str(port), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            one = {"pp": parallel.make_mesh([("pp", 1)])}
+            dp1 = parallel.make_mesh([("dp", 1)])
+            ref = small_runs(torch, __import__("mxnet_tpu_torch"),
+                             args.seed + 10, lambda case: one.get(case, dp1))
+            end = time.monotonic() + RANKS2_TIMEOUT
+            logs = [p.communicate(timeout=max(1.0, end - time.monotonic()))[0]
+                    for p in procs]
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        bad = [(r, p.returncode, log_[-3000:]) for r, (p, log_)
+               in enumerate(zip(procs, logs)) if p.returncode]
+        if bad:
+            raise AssertionError("ranks2: a child failed: %s" % bad)
+        got = [dict(np.load(os.path.join(tmp, "rank%d.npz" % r)))
+               for r in range(2)]
+    kernels = EPI_KERNELS + EPI_SYNC_KERNELS
+    n_bn = 53
+    for r, g in enumerate(got):
+        launches = dict(zip(kernels, g["launches"].tolist()))
+        if any(n != n_bn * RANKS2_STEPS for n in launches.values()):
+            raise AssertionError("ranks2 rank %d: epilogue launches %s, not "
+                                 "53 x %d each" % (r, launches, RANKS2_STEPS))
+        losses = g["resnet_losses"]
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError("ranks2 rank %d: ResNet-50 losses not finite "
+                                 "and falling: %s" % (r, losses))
+        np.testing.assert_array_equal(losses, got[0]["resnet_losses"])
+        for key, want in ref.items():
+            if key.endswith("_resident"):
+                continue
+            if key.endswith("_losses") and not key.startswith("bn"):
+                np.testing.assert_allclose(g[key], want, rtol=1e-5, atol=0,
+                                           err_msg="rank %d %s" % (r, key))
+                continue
+            rtol, atol = (RANKS2_RTOL, RANKS2_ATOL) \
+                if key.startswith(("bn", "pp")) else (DIST_RTOL, DIST_ATOL)
+            np.testing.assert_allclose(g[key], want, rtol=rtol, atol=atol,
+                                       err_msg="rank %d %s" % (r, key))
+        for case in ("tp", "fsdp"):
+            if not (g[case + "_resident"] < ref[case + "_resident"]).any():
+                raise AssertionError("ranks2 %s: no parameter is held as a "
+                                     "block: %s" % (case,
+                                                    g[case + "_resident"]))
+    g0 = got[0]
+    launches = dict(zip(kernels, g0["launches"].tolist()))
+    routes = g0["routes"].reshape(2, 3).tolist()
+    wall = max(float(g["wall"]) for g in got)
+    log("ranks2: 2 gloo ranks sharing the card; resnet50_v1 NHWC bf16, %d "
+        "images over dp 2 (64 a rank), SGD momentum, %d timed steps in %.3f "
+        "s: %.1f images/s; losses %s (both ranks alike); peak allocated %d / "
+        "%d bytes; epilogue launches a rank %s (53 x %d: every BatchNorm's "
+        "statistics the global batch's); the raw reductions' routes "
+        "(cluster, streamed, folded) stats %s, bwd %s; raw mode on (200704, "
+        "256) bf16 equals its plain version (largest error %.3g) and "
+        "repeats bit for bit"
+        % (RANKS2_BATCH, RANKS2_STEPS, wall, RANKS2_BATCH * RANKS2_STEPS
+           / wall, ["%.4f" % v for v in g0["resnet_losses"]],
+           int(got[0]["peak"]), int(got[1]["peak"]), json.dumps(launches),
+           RANKS2_STEPS, routes[0], routes[1],
+           max(float(g["raw_err"]) for g in got)))
+    log("ranks2: f32 on the card, 2 ranks against 1: SyncBatchNorm at dp 2 "
+        "(2 SGD steps: losses, moving statistics, parameters within rtol "
+        "%g, atol %g); train_dist.py's MLP at dp 1 x tp 2 and at fsdp 2 (%d "
+        "steps: losses within 1e-5, parameters within rtol %g, atol %g; "
+        "resident elements a rank %s / %s of %s); the 4-layer BERT "
+        "pipeline at pp 2 against pp 1 (forward, %d Adam steps); ring "
+        "attention over sp 2 at B, L, H, D = %s against full attention, "
+        "largest errors %.3g (not causal) and %.3g (causal)"
+        % (RANKS2_RTOL, RANKS2_ATOL, MLP_STEPS, DIST_RTOL, DIST_ATOL,
+           g0["tp_resident"].sum(), g0["fsdp_resident"].sum(),
+           ref["tp_resident"].sum(), BERT_PP_STEPS, RING_SHAPE,
+           max(float(g["ring_err_0"][0]) for g in got),
+           max(float(g["ring_err_1"][0]) for g in got)))
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -7763,6 +8389,9 @@ def main(argv=None):
     p.add_argument("--details", default=None,
                    help="write every conv-epilogue kernel case to this "
                         "JSON file")
+    # rank, port, output directory: one of the ranks2 phase's children
+    p.add_argument("--ranks2-child", nargs=3, default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
@@ -7772,6 +8401,9 @@ def main(argv=None):
               "card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.ranks2_child:
+        rank, port, out_dir = args.ranks2_child
+        return ranks2_child(int(rank), int(port), out_dir, args.seed)
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import pallas_kernels as pk
 
@@ -7819,6 +8451,10 @@ def main(argv=None):
     rows = {"paged_attention": check_paged_attention(torch, pk, args.seed,
                                                      flush)}
     rows.update(check_epilogue(torch, pk, args.seed, flush, args.details))
+    sync_rows, raw_rows = check_epilogue_sync(torch, pk, args.seed, flush)
+    rows.update(sync_rows)
+    for k in ("epi_stats", "epi_bwd_reduce"):
+        rows[k]["raw_mode"] = raw_rows
     rows.update(check_flash(torch, pk, args.seed, flush))
     rows.update(check_lstm(torch, pk, args.seed, flush))
     rows["rtc"], rtc_launches = rtc_phase(torch, args.seed, flush)
@@ -7845,7 +8481,8 @@ def main(argv=None):
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
     extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
-             "detection": {}, "profiler": {}, "sparse": {}, "mesh": {}}
+             "detection": {}, "profiler": {}, "sparse": {}, "mesh": {},
+             "pipeline": {}, "ranks2": {}}
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -7869,6 +8506,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     extra["mesh"] = mesh_phase(torch, pk, args)
     torch.cuda.empty_cache()
+    extra["pipeline"] = pipeline_phase(torch, pk, args)
+    torch.cuda.empty_cache()
+    extra["ranks2"] = ranks2_phase(torch, pk, args)
+    torch.cuda.empty_cache()
+    # the finishing kernels' path is the ranks2 phase's (a batch over dp)
+    for k in EPI_SYNC_KERNELS:
+        launches[k] = extra["ranks2"].pop(k)
     for k in KERNELS:
         if launches[k["name"]] < 1:
             raise AssertionError("%s never launched on its main path"
@@ -7894,7 +8538,8 @@ def main(argv=None):
                 # dropout runs, the training run behind predict_vision,
                 # the SSD training of the detection phase, the profiler
                 # phase's three fits, the sparse phase's SyncBatchNorm,
-                # the mesh phase's train_imagenet.py
+                # the mesh phase's train_imagenet.py, the pipeline phase's
+                # BERT-base, the ranks2 phase's ResNet-50 over dp 2
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

@@ -361,7 +361,10 @@ def vision_params_from_jax(params, net):
     SSD), built under the same layout; and so of any Gluon net the two
     packages build alike, one holding a `gluon.contrib.moe.MoEFFN` among
     them (its ``gate_weight`` (E, d), ``expert_w_in`` (E, d, h) and
-    ``expert_w_out`` (E, h, d) keep their layout).
+    ``expert_w_out`` (E, h, d) keep their layout), a `BERTModel` whose
+    cells a `parallel.PipelineTrainer` pipelines, or a net whose
+    parameters a `parallel.DistributedTrainer` splits over tp or fsdp
+    (each rank loads the whole arrays; the trainer cuts its blocks).
 
     ``params``: name -> numpy array, as ``{k: p.data().asnumpy() for k, p
     in jnet.collect_params().items()}``, running statistics included. Both

@@ -18,6 +18,17 @@
 //   epi_bwd_dx      <- _epi_bwd_dx_kernel (:840, pallas_call :954)
 //       dx = coef * (g - cb - xhat * cg), dres = g
 //
+// BatchNorm whose batch is split over several ranks (the global batch's
+// statistics, as the JAX package's are under GSPMD): the two reductions
+// take a raw mode that writes the rank's f32 (C,) sums in place of the
+// finished vectors, epi_stats (proxy, sum d, sum d^2) and epi_bwd_reduce
+// (coef, sum g, sum g * xhat) with dgamma / dbeta the rank's own; the
+// caller gathers the ranks' sums into (k, 3, C) / (k, 2, C), and
+//   epi_stats_finish  mean, var, inv, scale, shift of the k ranks' rows,
+//                     their proxies combined exactly, in rank order
+//   epi_bwd_finish    cb = sum_r sum g / N, cg = sum_r sum g xhat / N
+// finish them: one thread a channel, the ranks added in rank order.
+//
 // Element types: float and __nv_bfloat16 for the (R, C) tensors; gamma,
 // beta, dgamma and dbeta in float or bfloat16 (the trainer casts them to
 // the compute type); every per-channel vector and every sum in float.
@@ -217,6 +228,7 @@ struct Red {
   float* o[5];  // stats: mean var inv scale shift; bwd: coef cb cg
   void* dgamma;  // bwd
   void* dbeta;   // bwd
+  int raw;  // the rank's sums: stats proxy s1 s2; bwd coef s1 s2
 };
 
 // One folded row's terms added into this thread's sums of its V columns.
@@ -416,6 +428,12 @@ __device__ __forceinline__ void finish_channel(const Red& a, int c, float s1,
         s2 += d * d;
       }
     }
+    if (a.raw) {
+      a.o[0][c] = p;
+      a.o[1][c] = s1;
+      a.o[2][c] = s2;
+      return;
+    }
     s1 /= rows;
     s2 /= rows;
     const float m = p + s1;
@@ -451,8 +469,8 @@ __device__ __forceinline__ void finish_channel(const Red& a, int c, float s1,
       }
     }
     a.o[0][c] = g1 * iv;
-    a.o[1][c] = s1 / rows;
-    a.o[2][c] = s2 / rows;
+    a.o[1][c] = a.raw ? s1 : s1 / rows;
+    a.o[2][c] = a.raw ? s2 : s2 / rows;
     param_put(a.dgamma, a.params_bf16, c, a.fix_gamma ? 0.f : s2);
     param_put(a.dbeta, a.params_bf16, c, s1);
   }
@@ -589,6 +607,65 @@ __global__ void __launch_bounds__(kThreads) reduce_cluster(Red a) {
   const int c0 = blockIdx.y * w;
   for (int t = tid; t < nch && c0 + t < a.C; t += nthreads)
     finish_channel<T, M>(a, c0 + t, t1[t], t2[t], M == kStats ? prox[t] : 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// The cross-rank finish of the raw mode: k ranks of `rows` rows each, their
+// sums gathered in rank order. Stats: parts (k, 3, C) of (proxy p_r, S1_r =
+// sum d, S2_r = sum d^2), d = x - p_r. With q_r = p_r - p_0 (rank 0's proxy
+// as the reference, so the sums stay small) the mean over N = k rows is
+// m = p_0 + u, u = sum_r (rows q_r + S1_r) / N, and with e_r = m - p_r =
+// u - q_r the biased variance is max(sum_r (S2_r - 2 e_r S1_r + rows
+// e_r^2) / N, 0): exact, whatever the proxies.
+// ---------------------------------------------------------------------------
+__global__ void stats_finish_kernel(const float* __restrict__ parts, int k,
+                                    long long rows, int C, const void* gamma,
+                                    const void* beta, int params_bf16,
+                                    float eps, int fix_gamma, float* mean,
+                                    float* var, float* inv, float* scale,
+                                    float* shift) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const long long step = 3LL * C;
+  const float n = static_cast<float>(rows);
+  const float total = static_cast<float>(rows * k);
+  const float p0 = parts[c];
+  float u = 0.f;
+  for (int r = 0; r < k; ++r)
+    u += n * (parts[r * step + c] - p0) + parts[r * step + C + c];
+  u /= total;
+  float q = 0.f;
+  for (int r = 0; r < k; ++r) {
+    const float e = u - (parts[r * step + c] - p0);
+    q += parts[r * step + 2 * C + c] - 2.f * e * parts[r * step + C + c] +
+         n * e * e;
+  }
+  const float m = p0 + u;
+  const float v = fmaxf(q / total, 0.f);
+  const float iv = 1.f / sqrtf(v + eps);
+  const float sc = (fix_gamma ? 1.f : param_at(gamma, params_bf16, c)) * iv;
+  mean[c] = m;
+  var[c] = v;
+  inv[c] = iv;
+  scale[c] = sc;
+  shift[c] = param_at(beta, params_bf16, c) - m * sc;
+}
+
+// Backward: parts (k, 2, C) of (sum g, sum g * xhat), xhat from the global
+// mean and inv; cb and cg are their sums over the ranks over N.
+__global__ void bwd_finish_kernel(const float* __restrict__ parts, int k,
+                                  long long rows, int C, float* cb,
+                                  float* cg) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const float total = static_cast<float>(rows * k);
+  float s1 = 0.f, s2 = 0.f;
+  for (int r = 0; r < k; ++r) {
+    s1 += parts[2LL * r * C + c];
+    s2 += parts[(2LL * r + 1) * C + c];
+  }
+  cb[c] = s1 / total;
+  cg[c] = s2 / total;
 }
 
 // ---------------------------------------------------------------------------
@@ -890,8 +967,10 @@ template <typename T>
 int launch_stats(const void* x, long long R, int C, const void* gamma,
                  const void* beta, int params_bf16, float eps, int fix_gamma,
                  float* part, int n_chunks, float* mean, float* var,
-                 float* inv, float* scale, float* shift, cudaStream_t s) {
+                 float* inv, float* scale, float* shift, int raw,
+                 cudaStream_t s) {
   Red a = {};
+  a.raw = raw;
   a.x = x;
   a.R = R;
   a.C = C;
@@ -913,8 +992,10 @@ int launch_bwd_reduce(const void* ct, const void* x, const void* out,
                       const float* mean, const float* inv, long long R, int C,
                       const void* gamma, int params_bf16, int fix_gamma,
                       float* part, int n_chunks, void* dgamma, void* dbeta,
-                      float* coef, float* cb, float* cg, cudaStream_t s) {
+                      float* coef, float* cb, float* cg, int raw,
+                      cudaStream_t s) {
   Red a = {};
+  a.raw = raw;
   a.x = x;
   a.ct = ct;
   a.out = out;
@@ -1028,23 +1109,25 @@ int launch_bwd_dx(const void* ct_, const void* x_, const void* out_,
 // gamma / beta (and dgamma / dbeta) are bfloat16 instead of float32.
 // A null `res`, `out` or `dres` pointer switches that input or output off.
 // The reductions take `part` (2, n_chunks, C floats, with the layout's
-// n_chunks) on the streamed route and a null `part` on the cluster route.
+// n_chunks) on the streamed route and a null `part` on the cluster route,
+// and `raw` (1: the rank's sums in the first three vectors; see the top).
 
 extern "C" int epi_stats(const void* x, int dtype, long long R, int C,
                          const void* gamma, const void* beta, int params_bf16,
                          float eps, int fix_gamma, void* part, int n_chunks,
                          void* mean, void* var, void* inv, void* scale,
-                         void* shift, void* stream) {
+                         void* shift, int raw, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0)
     return launch_stats<float>(x, R, C, gamma, beta, params_bf16, eps,
                                fix_gamma, f(part), n_chunks, f(mean), f(var),
-                               f(inv), f(scale), f(shift), s);
+                               f(inv), f(scale), f(shift), raw, s);
   if (dtype == 1)
     return launch_stats<__nv_bfloat16>(x, R, C, gamma, beta, params_bf16, eps,
                                        fix_gamma, f(part), n_chunks, f(mean),
-                                       f(var), f(inv), f(scale), f(shift), s);
+                                       f(var), f(inv), f(scale), f(shift), raw,
+                                       s);
   return cudaErrorInvalidValue;
 }
 
@@ -1090,18 +1173,20 @@ extern "C" int epi_bwd_reduce(const void* ct, const void* x, const void* out,
                               const void* inv, const void* gamma,
                               int params_bf16, int fix_gamma, void* part,
                               int n_chunks, void* dgamma, void* dbeta,
-                              void* coef, void* cb, void* cg, void* stream) {
+                              void* coef, void* cb, void* cg, int raw,
+                              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto cf = [](const void* p) { return static_cast<const float*>(p); };
   auto f = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0)
     return launch_bwd_reduce<float>(ct, x, out, cf(mean), cf(inv), R, C, gamma,
                                     params_bf16, fix_gamma, f(part), n_chunks,
-                                    dgamma, dbeta, f(coef), f(cb), f(cg), s);
+                                    dgamma, dbeta, f(coef), f(cb), f(cg), raw,
+                                    s);
   if (dtype == 1)
     return launch_bwd_reduce<__nv_bfloat16>(
         ct, x, out, cf(mean), cf(inv), R, C, gamma, params_bf16, fix_gamma,
-        f(part), n_chunks, dgamma, dbeta, f(coef), f(cb), f(cg), s);
+        f(part), n_chunks, dgamma, dbeta, f(coef), f(cb), f(cg), raw, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1119,4 +1204,30 @@ extern "C" int epi_bwd_dx(const void* ct, const void* x, const void* out,
                                         cf(coef), cf(cb), cf(cg), dx, dres, R,
                                         C, s);
   return cudaErrorInvalidValue;
+}
+
+// The raw mode's finish over k ranks of `rows` rows each: `parts` (k, 3, C)
+// floats gives mean var inv scale shift (C,) floats; (k, 2, C) gives cb cg.
+extern "C" int epi_stats_finish(const void* parts, int k, long long rows,
+                                int C, const void* gamma, const void* beta,
+                                int params_bf16, float eps, int fix_gamma,
+                                void* mean, void* var, void* inv, void* scale,
+                                void* shift, void* stream) {
+  if (k < 1 || rows < 1 || C < 1) return cudaErrorInvalidValue;
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  stats_finish_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), k, rows, C, gamma, beta, params_bf16,
+      eps, fix_gamma, f(mean), f(var), f(inv), f(scale), f(shift));
+  return cudaGetLastError();
+}
+
+extern "C" int epi_bwd_finish(const void* parts, int k, long long rows, int C,
+                              void* cb, void* cg, void* stream) {
+  if (k < 1 || rows < 1 || C < 1) return cudaErrorInvalidValue;
+  bwd_finish_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), k, rows, C, static_cast<float*>(cb),
+      static_cast<float*>(cg));
+  return cudaGetLastError();
 }

@@ -60,19 +60,19 @@ def _device_of(mesh):
 
 
 def _shard_of(mesh):
-    """None, or for a `parallel.Mesh` with dp > 1 the function that cuts
-    a batch leaf to this rank's dp rows (`DistributedTrainer`'s split) and
-    marks the placed shard so the trainer takes it as it is."""
-    from ..parallel.mesh import DP, Mesh
+    """None, or for a `parallel.Mesh` with dp x fsdp > 1 the function
+    that cuts a batch leaf to this rank's rows (`DistributedTrainer`'s
+    split) and marks the placed shard so the trainer takes it as it is."""
+    from ..parallel.mesh import DATA, Mesh
 
-    if not isinstance(mesh, Mesh) or mesh.axis_size(DP) == 1:
+    if not isinstance(mesh, Mesh) or mesh.axis(DATA).size == 1:
         return None
-    ax = mesh.axis(DP)
+    ax = mesh.axis(DATA)
 
     def cut(t):
         if t.shape[0] % ax.size:
-            raise MXNetError("a batch of %d rows does not split over dp=%d"
-                             % (t.shape[0], ax.size))
+            raise MXNetError("a batch of %d rows does not split over "
+                             "dp x fsdp=%d" % (t.shape[0], ax.size))
         n = t.shape[0] // ax.size
         return t[ax.index * n:(ax.index + 1) * n]
 

@@ -1,10 +1,11 @@
 """Contrib layers (counterpart of `mxnet_tpu/gluon/contrib/nn.py`;
 reference: python/mxnet/gluon/contrib/nn/basic_layers.py).
 
-`SyncBatchNorm` on one device is `nn.BatchNorm` over axis 1, as the JAX
-package's is, and so it runs the conv-epilogue kernels in training;
-synchronizing the statistics across cards is ROADMAP queue 1 item 11
-part 2 and raises. `SparseEmbedding` is ``nn.Embedding`` with
+`SyncBatchNorm` is `nn.BatchNorm` over axis 1, as the JAX package's is,
+and so it runs the conv-epilogue kernels in training; inside a
+`parallel.DistributedTrainer` step whose batch is split over ranks its
+statistics are the global batch's (`ops.nn._bn_act`), as under the JAX
+package's GSPMD step. `SparseEmbedding` is ``nn.Embedding`` with
 ``sparse_grad=True``. The pixel shuffles are written with the reshape
 codes the JAX package uses, so the same ``hybrid_forward`` runs on
 NDArrays, on tensors and on Symbols.
@@ -21,17 +22,15 @@ __all__ = ["SyncBatchNorm", "Concurrent", "HybridConcurrent", "Identity",
 
 
 class SyncBatchNorm(BatchNorm):
-    """Cross-device BatchNorm (reference: contrib sync_batch_norm.cc). On
-    one device it is `BatchNorm` over axis 1."""
+    """Cross-device BatchNorm (reference: contrib sync_batch_norm.cc):
+    `BatchNorm` over axis 1, whose statistics inside a
+    `parallel.DistributedTrainer` step are those of the batch over every
+    rank it is split over (``num_devices`` is the reference's and is not
+    needed: the mesh names the ranks)."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,
                  use_global_stats=False, **kwargs):
-        if num_devices is not None and num_devices > 1:
-            raise MXNetError(
-                "SyncBatchNorm over %d devices: statistics synchronized "
-                "across cards are not ported yet (ROADMAP queue 1 item 11 "
-                "part 2)" % num_devices)
         super().__init__(axis=1, momentum=momentum, epsilon=epsilon,
                          center=center, scale=scale,
                          use_global_stats=use_global_stats,

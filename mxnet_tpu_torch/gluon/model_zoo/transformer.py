@@ -218,12 +218,26 @@ class BERTModel(_Layer):
             mask = keep[:, None, :].expand(b, length, length)
         return x, mask
 
+    def _pool_postlude(self, seq):
+        """The CLS-token pooler (the back end of the pipeline
+        decomposition)."""
+        return self.pooler(seq[:, 0])
+
     def forward(self, inputs, token_types=None, valid_length=None):
         """inputs: (B, L) int token ids. Returns (sequence_out (B, L, C),
         pooled_out (B, C))."""
         x, mask = self._embed_prelude(inputs, token_types, valid_length)
         seq = self.encoder(x, mask)
-        return seq, self.pooler(seq[:, 0])
+        return seq, self._pool_postlude(seq)
+
+    def pipeline_stages(self):
+        """The decomposition `parallel.PipelineTrainer` runs: (prelude,
+        cells, postlude). The prelude embeds the tokens (replicated), the
+        cells are the homogeneous encoder layers (pipelined over ``pp``),
+        the postlude pools; the pooled vector is the prediction (the
+        sequence output stays the model's own forward's)."""
+        return self._embed_prelude, list(self.encoder.cells), \
+            self._pool_postlude
 
 
 class TransformerLM(_Layer):

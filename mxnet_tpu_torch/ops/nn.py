@@ -444,6 +444,18 @@ def _bn_frozen(data, gamma, beta, mean, var, ax, eps, fix_gamma):
         + shift.to(dt).reshape(bshape)
 
 
+def _batch_axis():
+    """The mesh axis the batch is split over inside a trainer's step
+    (`parallel.mesh.step_scope`), or None (one rank holds the batch)."""
+    from ..parallel.mesh import DATA, step_mesh
+
+    mesh = step_mesh()
+    if mesh is None:
+        return None
+    ax = mesh.axis(DATA)
+    return ax if ax.size > 1 else None
+
+
 def _bn_act(data, addend, gamma, beta, moving_mean, moving_var, eps,
             momentum, fix_gamma, use_global_stats, axis, act, is_train):
     """Shared BatchNorm(+add)(+ReLU) core behind `batch_norm`,
@@ -458,7 +470,11 @@ def _bn_act(data, addend, gamma, beta, moving_mean, moving_var, eps,
     channel axis last, as in the channels-last models, the (R, C) view is
     free; another channel axis is moved last first, which costs a copy in
     and out (the JAX package's channels-first path ran plain jnp
-    instead)."""
+    instead). Inside a `DistributedTrainer` step whose batch is split over
+    dp x fsdp (`parallel.mesh.step_scope`) the statistics are the global
+    batch's, as the JAX package's are under GSPMD: the epilogue combines
+    every rank's sums over that axis (the JAX package takes its jnp
+    BatchNorm there; the port keeps its kernels)."""
     ax = axis % data.dim()
     eps = float(eps)
     fix_gamma = bool(fix_gamma)
@@ -482,7 +498,8 @@ def _bn_act(data, addend, gamma, beta, moving_mean, moving_var, eps,
             res = addend.contiguous() if last \
                 else addend.movedim(ax, -1).contiguous()
         out, mean, var = pallas_kernels.conv_epilogue(
-            x, gamma, beta, res, eps=eps, fix_gamma=fix_gamma, relu=relu)
+            x, gamma, beta, res, eps=eps, fix_gamma=fix_gamma, relu=relu,
+            sync=_batch_axis())
         if not last:
             out = out.movedim(-1, ax)
         with torch.no_grad():

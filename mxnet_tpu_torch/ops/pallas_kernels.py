@@ -10,7 +10,9 @@ it holds no Pallas. Ported so far:
   BatchNorm (+ residual) (+ ReLU) over a channels-last activation, with a
   kernel backward) runs the four kernels of ``csrc/conv_epilogue.cu``
   through the wrappers `epi_stats`, `epi_apply`, `epi_bwd_reduce` and
-  `epi_bwd_dx`;
+  `epi_bwd_dx`; over a batch split between ranks the two reductions'
+  raw mode and `epi_stats_finish` / `epi_bwd_finish` give the global
+  batch's statistics;
 * flash attention (:40-373): `flash_attention` (differentiable, over
   (..., L, D)) runs the three kernels of ``csrc/flash_attention.cu``
   through the wrappers `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv`;
@@ -40,6 +42,8 @@ __all__ = ["paged_attention", "paged_attention_reference", "conv_epilogue",
            "conv_epilogue_reference", "epi_stats", "epi_stats_reference",
            "epi_apply", "epi_apply_reference", "epi_bwd_reduce",
            "epi_bwd_reduce_reference", "epi_bwd_dx", "epi_bwd_dx_reference",
+           "epi_stats_finish", "epi_stats_finish_reference", "epi_bwd_finish",
+           "epi_bwd_finish_reference",
            "flash_attention", "flash_attention_reference", "flash_fwd",
            "flash_fwd_reference", "flash_bwd_dq", "flash_bwd_dq_reference",
            "flash_bwd_dkv", "flash_bwd_dkv_reference", "lstm_layer",
@@ -203,11 +207,14 @@ _EPI_CHUNK_ROWS = 128
 _EPI_MAX_CHUNKS = 1024
 
 _EPI_ARGTYPES = {
-    "epi_stats": [_P, _I, _L, _I, _P, _P, _I, _F, _I, _P, _I] + [_P] * 5,
+    "epi_stats": [_P, _I, _L, _I, _P, _P, _I, _F, _I, _P, _I] + [_P] * 5
+                 + [_I],
     "epi_apply": [_P, _P, _I, _L, _I, _P, _P, _I, _P],
     "epi_bwd_reduce": [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _I, _P, _I]
-                      + [_P] * 5,
+                      + [_P] * 5 + [_I],
     "epi_bwd_dx": [_P, _P, _P, _I, _L, _I] + [_P] * 7,
+    "epi_stats_finish": [_P, _I, _L, _I, _P, _P, _I, _F, _I] + [_P] * 5,
+    "epi_bwd_finish": [_P, _I, _L, _I, _P, _P],
 }
 
 
@@ -337,11 +344,20 @@ def _epi_check(name, x2d, rows=(), vecs=(), params=()):
                                  % (name, c, t.dtype, tuple(t.shape)))
 
 
-def epi_stats_reference(x2d, gamma, beta, eps, fix_gamma):
+def epi_stats_reference(x2d, gamma, beta, eps, fix_gamma, raw=False):
     """Plain version of `epi_stats`."""
-    from .nn import _bn_stats
+    from .nn import _BN_PROXY_ROWS, _bn_stats
 
+    if raw:
+        xf = x2d.float()
+        proxy = xf[:_BN_PROXY_ROWS].mean(dim=0)
+        d = xf - proxy
+        return torch.stack([proxy, d.sum(dim=0), d.square().sum(dim=0)])
     mean, var = _bn_stats(x2d)
+    return _stats_vectors(mean, var, gamma, beta, eps, fix_gamma)
+
+
+def _stats_vectors(mean, var, gamma, beta, eps, fix_gamma):
     inv = torch.rsqrt(var + eps)
     g1 = torch.ones_like(inv) if fix_gamma else gamma.float()
     scale = g1 * inv
@@ -349,39 +365,96 @@ def epi_stats_reference(x2d, gamma, beta, eps, fix_gamma):
     return mean, var, inv, scale, shift
 
 
-def epi_stats(x2d, gamma, beta, eps=1e-3, fix_gamma=False):
+def epi_stats(x2d, gamma, beta, eps=1e-3, fix_gamma=False, raw=False):
     """Batch statistics of rows ``x2d`` (R, C), float32 or bfloat16, and
     the normalize they give: f32 (C,) ``(mean, var, inv, scale, shift)``
     with the biased ``var = max(E[d^2] - E[d]^2, 0)`` of ``d = x - proxy``
     (the proxy: the mean of the first 8 rows), ``inv = 1/sqrt(var + eps)``,
     ``scale = gamma * inv`` (gamma taken as 1 under ``fix_gamma``) and
-    ``shift = beta - mean * scale``. CUDA: ``epi_stats`` of
+    ``shift = beta - mean * scale``. With ``raw``, the rank's sums that a
+    batch split over ranks combines (`epi_stats_finish`): one f32 (3, C)
+    tensor of ``(proxy, sum d, sum d^2)``. CUDA: ``epi_stats`` of
     ``csrc/conv_epilogue.cu`` on the route `_epi_layout` names (one
     cluster launch for small R, else two streamed passes; deterministic
     either way), counted in ``epi_stats.routes`` beside ``launches`` (and
     under "folded" when a narrow C is read as folded rows); CPU:
     `epi_stats_reference`."""
     if _plain(x2d):
-        return epi_stats_reference(x2d, gamma, beta, eps, fix_gamma)
+        return epi_stats_reference(x2d, gamma, beta, eps, fix_gamma, raw)
     _epi_check("epi_stats", x2d, params=(("gamma", gamma), ("beta", beta)))
     r, c = x2d.shape
     lay = _epi_layout(r, c, x2d.element_size(), _epi_aligned(x2d))
     part, n = _epi_part(lay, x2d.device)
-    vecs = torch.empty((5, c), dtype=torch.float32, device=x2d.device)
+    vecs = torch.empty((3 if raw else 5, c), dtype=torch.float32,
+                       device=x2d.device)
+    outs = [v.data_ptr() for v in vecs] + [None] * (5 - len(vecs))
     _epi_call("epi_stats", x2d.device, x2d.data_ptr(),
               _EPI_DTYPES[x2d.dtype], r, c, gamma.data_ptr(),
               beta.data_ptr(), int(gamma.dtype == torch.bfloat16),
-              float(eps), int(bool(fix_gamma)), _ptr(part), n,
-              *(v.data_ptr() for v in vecs))
+              float(eps), int(bool(fix_gamma)), _ptr(part), n, *outs,
+              int(bool(raw)))
     epi_stats.launches += 1
     epi_stats.routes[lay["route"]] += 1
     if lay["l"] > 1:
         epi_stats.routes["folded"] += 1
-    return tuple(vecs)
+    return vecs if raw else tuple(vecs)
 
 
 epi_stats.launches = 0
 epi_stats.routes = dict.fromkeys(("cluster", "streamed", "folded"), 0)
+
+
+def _finish_check(name, parts, rows, n_vecs):
+    if parts.device.type != "cuda" or parts.dtype != torch.float32 \
+            or parts.dim() != 3 or parts.shape[1] != n_vecs \
+            or not parts.is_contiguous() or rows < 1:
+        raise MXNetError("%s: parts must be a contiguous float32 (k, %d, C) "
+                         "CUDA tensor and rows >= 1, got %s %s on %s, rows "
+                         "%d" % (name, n_vecs, parts.dtype,
+                                 tuple(parts.shape), parts.device, rows))
+
+
+def epi_stats_finish_reference(parts, rows, gamma, beta, eps, fix_gamma):
+    """Plain version of `epi_stats_finish`."""
+    k = parts.shape[0]
+    total = float(rows * k)
+    p0 = parts[0, 0]
+    u = torch.zeros_like(p0)
+    for r in range(k):
+        u = u + (float(rows) * (parts[r, 0] - p0) + parts[r, 1])
+    u = u / total
+    q = torch.zeros_like(p0)
+    for r in range(k):
+        e = u - (parts[r, 0] - p0)
+        q = q + (parts[r, 2] - 2.0 * e * parts[r, 1] + float(rows) * e * e)
+    var = torch.clamp(q / total, min=0.0)
+    return _stats_vectors(p0 + u, var, gamma, beta, eps, fix_gamma)
+
+
+def epi_stats_finish(parts, rows, gamma, beta, eps=1e-3, fix_gamma=False):
+    """`epi_stats`' five vectors over the rows of k ranks, from their raw
+    sums gathered in rank order, ``parts`` f32 (k, 3, C), each rank
+    holding ``rows`` rows: the proxies are combined exactly (rank 0's as
+    the reference), the ranks added in rank order. CUDA: the
+    ``epi_stats_finish`` kernel (a thread a channel); CPU:
+    `epi_stats_finish_reference`."""
+    if _plain(parts):
+        return epi_stats_finish_reference(parts, rows, gamma, beta, eps,
+                                          fix_gamma)
+    _finish_check("epi_stats_finish", parts, rows, 3)
+    k, _, c = parts.shape
+    _epi_check("epi_stats_finish", parts[0], params=(("gamma", gamma),
+                                                     ("beta", beta)))
+    vecs = torch.empty((5, c), dtype=torch.float32, device=parts.device)
+    _epi_call("epi_stats_finish", parts.device, parts.data_ptr(), k,
+              int(rows), c, gamma.data_ptr(), beta.data_ptr(),
+              int(gamma.dtype == torch.bfloat16), float(eps),
+              int(bool(fix_gamma)), *(v.data_ptr() for v in vecs))
+    epi_stats_finish.launches += 1
+    return tuple(vecs)
+
+
+epi_stats_finish.launches = 0
 
 
 def epi_apply_reference(x2d, res2d, scale, shift, relu):
@@ -421,7 +494,8 @@ def _masked_ct(ct, out):
     return g
 
 
-def epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma, fix_gamma):
+def epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma, fix_gamma,
+                             raw=False):
     """Plain version of `epi_bwd_reduce`."""
     g = _masked_ct(ct, out)
     xhat = (x2d.float() - mean) * inv
@@ -430,22 +504,28 @@ def epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma, fix_gamma):
     r = x2d.shape[0]
     g1 = torch.ones_like(inv) if fix_gamma else gamma.float()
     dgamma = torch.zeros_like(gamma) if fix_gamma else dg.to(gamma.dtype)
+    if raw:
+        return dgamma, db.to(gamma.dtype), g1 * inv, torch.stack([db, dg])
     return dgamma, db.to(gamma.dtype), g1 * inv, db / r, dg / r
 
 
-def epi_bwd_reduce(ct, x2d, out, mean, inv, gamma, fix_gamma=False):
+def epi_bwd_reduce(ct, x2d, out, mean, inv, gamma, fix_gamma=False,
+                   raw=False):
     """The backward's per-channel sums over rows (R, C): with ``g = ct``
     masked by ``out > 0`` (``out`` is the saved forward output when relu
     was on, else None) and ``xhat = (x - mean) * inv``, returns
     ``(dgamma, dbeta, coef, cb, cg)``: dgamma = sum(g * xhat) (zeros under
     ``fix_gamma``) and dbeta = sum(g) in gamma's dtype, and the f32 (C,)
     dx coefficients coef = gamma * inv, cb = sum(g) / R, cg =
-    sum(g * xhat) / R. CUDA: ``epi_bwd_reduce`` on the route `_epi_layout`
-    names, counted as `epi_stats` counts (deterministic); CPU:
-    `epi_bwd_reduce_reference`."""
+    sum(g * xhat) / R. With ``raw`` (a batch split over ranks), ``(dgamma,
+    dbeta, coef, sums)``: dgamma and dbeta the rank's own, and in place of
+    cb and cg the rank's f32 (2, C) ``(sum g, sum g * xhat)`` that
+    `epi_bwd_finish` combines. CUDA: ``epi_bwd_reduce`` on the route
+    `_epi_layout` names, counted as `epi_stats` counts (deterministic);
+    CPU: `epi_bwd_reduce_reference`."""
     if _plain(x2d):
         return epi_bwd_reduce_reference(ct, x2d, out, mean, inv, gamma,
-                                        fix_gamma)
+                                        fix_gamma, raw)
     _epi_check("epi_bwd_reduce", x2d, rows=(("ct", ct), ("out", out)),
                vecs=(("mean", mean), ("inv", inv)),
                params=(("gamma", gamma),))
@@ -459,16 +539,47 @@ def epi_bwd_reduce(ct, x2d, out, mean, inv, gamma, fix_gamma=False):
               inv.data_ptr(), gamma.data_ptr(),
               int(gamma.dtype == torch.bfloat16), int(bool(fix_gamma)),
               _ptr(part), n, grads[0].data_ptr(), grads[1].data_ptr(),
-              *(v.data_ptr() for v in vecs))
+              *(v.data_ptr() for v in vecs), int(bool(raw)))
     epi_bwd_reduce.launches += 1
     epi_bwd_reduce.routes[lay["route"]] += 1
     if lay["l"] > 1:
         epi_bwd_reduce.routes["folded"] += 1
+    if raw:
+        return grads[0], grads[1], vecs[0], vecs[1:]
     return (grads[0], grads[1]) + tuple(vecs)
 
 
 epi_bwd_reduce.launches = 0
 epi_bwd_reduce.routes = dict.fromkeys(("cluster", "streamed", "folded"), 0)
+
+
+def epi_bwd_finish_reference(parts, rows):
+    """Plain version of `epi_bwd_finish`."""
+    total = float(rows * parts.shape[0])
+    s1, s2 = parts[0, 0], parts[0, 1]
+    for r in range(1, parts.shape[0]):
+        s1, s2 = s1 + parts[r, 0], s2 + parts[r, 1]
+    return s1 / total, s2 / total
+
+
+def epi_bwd_finish(parts, rows):
+    """``(cb, cg)`` over the rows of k ranks, from their raw backward sums
+    gathered in rank order, ``parts`` f32 (k, 2, C), each rank holding
+    ``rows`` rows: the sums added in rank order over k rows. CUDA: the
+    ``epi_bwd_finish`` kernel (a thread a channel); CPU:
+    `epi_bwd_finish_reference`."""
+    if _plain(parts):
+        return epi_bwd_finish_reference(parts, rows)
+    _finish_check("epi_bwd_finish", parts, rows, 2)
+    k, _, c = parts.shape
+    vecs = torch.empty((2, c), dtype=torch.float32, device=parts.device)
+    _epi_call("epi_bwd_finish", parts.device, parts.data_ptr(), k, int(rows),
+              c, vecs[0].data_ptr(), vecs[1].data_ptr())
+    epi_bwd_finish.launches += 1
+    return vecs[0], vecs[1]
+
+
+epi_bwd_finish.launches = 0
 
 
 def epi_bwd_dx_reference(ct, x2d, out, mean, inv, coef, cb, cg, has_res):
@@ -504,21 +615,43 @@ def epi_bwd_dx(ct, x2d, out, mean, inv, coef, cb, cg, has_res=False):
 epi_bwd_dx.launches = 0
 
 
+def _gathered(t, sync):
+    """Every rank's ``t`` over the mesh axis ``sync``, stacked in rank
+    order (one all-gather)."""
+    from ..parallel import collectives
+
+    return torch.stack(collectives._gather(t, sync))
+
+
 class _ConvEpilogue(torch.autograd.Function):
     """The JAX package's custom_vjp pair `epi3` / `epi4`: forward through
     `epi_stats` + `epi_apply`, backward through `epi_bwd_reduce` +
     `epi_bwd_dx`. The mean / var outputs are not differentiable (their
     cotangents are ignored, as in the JAX package: they feed the moving
-    statistics). ``out`` is saved only when relu is on (`_epi_save`)."""
+    statistics). ``out`` is saved only when relu is on (`_epi_save`).
+
+    With ``sync`` (the mesh axis a batch is split over) the statistics and
+    the dx coefficients are the global batch's: the two reductions write
+    the rank's raw sums, one all-gather each brings every rank's, and
+    `epi_stats_finish` / `epi_bwd_finish` finish them. dgamma and dbeta
+    stay the rank's own: the trainer sums parameter gradients over the
+    ranks itself."""
 
     @staticmethod
-    def forward(ctx, x2d, gamma, beta, res2d, eps, fix_gamma, relu):
-        mean, var, inv, scale, shift = epi_stats(x2d, gamma, beta, eps,
-                                                 fix_gamma)
+    def forward(ctx, x2d, gamma, beta, res2d, eps, fix_gamma, relu, sync):
+        if sync is None:
+            mean, var, inv, scale, shift = epi_stats(x2d, gamma, beta, eps,
+                                                     fix_gamma)
+        else:
+            raw = epi_stats(x2d, gamma, beta, eps, fix_gamma, raw=True)
+            mean, var, inv, scale, shift = epi_stats_finish(
+                _gathered(raw, sync), x2d.shape[0], gamma, beta, eps,
+                fix_gamma)
         out = epi_apply(x2d, res2d, scale, shift, relu)
         ctx.save_for_backward(x2d, gamma, mean, inv, out if relu else None)
         ctx.fix_gamma = fix_gamma
         ctx.has_res = res2d is not None
+        ctx.sync = sync
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -529,11 +662,16 @@ class _ConvEpilogue(torch.autograd.Function):
         # average pool); the kernels take dense rows, so it is made dense
         # here, once, as the JAX package's cotangent is
         ct = ct.contiguous()
-        dgamma, dbeta, coef, cb, cg = epi_bwd_reduce(ct, x2d, out, mean, inv,
-                                                     gamma, ctx.fix_gamma)
+        if ctx.sync is None:
+            dgamma, dbeta, coef, cb, cg = epi_bwd_reduce(
+                ct, x2d, out, mean, inv, gamma, ctx.fix_gamma)
+        else:
+            dgamma, dbeta, coef, sums = epi_bwd_reduce(
+                ct, x2d, out, mean, inv, gamma, ctx.fix_gamma, raw=True)
+            cb, cg = epi_bwd_finish(_gathered(sums, ctx.sync), x2d.shape[0])
         dx, dres = epi_bwd_dx(ct, x2d, out, mean, inv, coef, cb, cg,
                               ctx.has_res)
-        return dx, dgamma, dbeta, dres, None, None, None
+        return dx, dgamma, dbeta, dres, None, None, None, None
 
 
 def _epi_rows(x, c, label):
@@ -545,7 +683,7 @@ def _epi_rows(x, c, label):
 
 
 def conv_epilogue(x, gamma, beta, residual=None, eps=1e-3, fix_gamma=False,
-                  relu=True):
+                  relu=True, sync=None):
     """Fused training-mode BatchNorm (batch statistics) + normalize
     (+ residual add) (+ ReLU) over a channels-last activation ``x`` (..., C).
 
@@ -555,13 +693,16 @@ def conv_epilogue(x, gamma, beta, residual=None, eps=1e-3, fix_gamma=False,
     mean and var are not differentiable. CUDA tensors go through the four
     kernels of ``csrc/conv_epilogue.cu``; CPU tensors through their plain
     versions. On the card x (and residual) must be contiguous: the (R, C)
-    view is then free, and the wrapper raises rather than copy."""
+    view is then free, and the wrapper raises rather than copy. ``sync``:
+    None, or the mesh axis (`parallel.Mesh.axis`) whose ranks each hold R
+    rows of the batch, whose statistics are then the global batch's
+    (`_ConvEpilogue`)."""
     shape = x.shape
     c = shape[-1]
     x2d = _epi_rows(x, c, "x")
     res2d = None if residual is None else _epi_rows(residual, c, "residual")
     out, mean, var = _ConvEpilogue.apply(x2d, gamma, beta, res2d, float(eps),
-                                         bool(fix_gamma), bool(relu))
+                                         bool(fix_gamma), bool(relu), sync)
     return out.reshape(shape), mean, var
 
 
@@ -794,9 +935,10 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     """Flash attention over (..., L, D) tensors, leading dims batched:
     ``softmax(q k^T * sm_scale) v`` (sm_scale defaults to 1/sqrt(D)),
     causal keeping key col <= query row. Differentiable (the kernels'
-    backward). The leading dims are flattened to BH as in the JAX package;
-    a view that cannot be flattened in place (as the (B, H, L, D) split of
-    attention heads) is copied. CUDA tensors go through the three kernels of
+    backward). The leading dims are flattened to BH as in the JAX package,
+    and made contiguous: the (B, H, L, D) split of attention heads is
+    copied, and at B = 1 its flattening is a strided view, which is copied
+    too (fault F8). CUDA tensors go through the three kernels of
     ``csrc/flash_attention.cu`` (which raise on a non-contiguous input);
     CPU tensors through their plain versions."""
     sm_scale = float(1.0 / math.sqrt(q.shape[-1]) if sm_scale is None
@@ -804,8 +946,10 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     lead = q.shape[:-2]
     lq, d = q.shape[-2:]
     lk = k.shape[-2]
-    out = _FlashAttention.apply(q.reshape(-1, lq, d), k.reshape(-1, lk, d),
-                                v.reshape(-1, lk, d), bool(causal), sm_scale)
+    out = _FlashAttention.apply(q.reshape(-1, lq, d).contiguous(),
+                                k.reshape(-1, lk, d).contiguous(),
+                                v.reshape(-1, lk, d).contiguous(),
+                                bool(causal), sm_scale)
     return out.reshape(lead + (lq, d))
 
 

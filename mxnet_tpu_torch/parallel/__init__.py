@@ -1,33 +1,50 @@
 """mxnet_tpu_torch.parallel — training over devices (counterpart of
 `mxnet_tpu.parallel`), one process a device over `torch.distributed`:
 
-  mesh        — named-axis meshes over the process group's ranks
-                (dp/fsdp/tp/pp/sp/ep) and `devices()`, the counterpart of
-                ``jax.devices()``
-  sharding    — parameter / data PartitionSpec rules
-  collectives — the in-graph collectives over one mesh axis, the eager
-                reduce, and the rendezvous (NCCL on the card, gloo on the
-                host)
-  trainer     — DistributedTrainer over a dp x ep mesh
+  mesh             — named-axis meshes over the process group's ranks
+                     (dp/fsdp/tp/pp/sp/ep) and `devices()`, the
+                     counterpart of ``jax.devices()``
+  sharding         — parameter / data PartitionSpec rules, and the
+                     placement: a rank's block of a tensor, gathered back
+  collectives      — the in-graph collectives over one mesh axis, the
+                     eager reduce, and the rendezvous (NCCL on the card,
+                     gloo on the host)
+  trainer          — DistributedTrainer over every axis: dp, fsdp and tp
+                     parameters held as the rank's block, ep expert rows,
+                     BatchNorm over the global batch
+  ring_attention   — sequence parallelism over sp
+  pipeline         — the GPipe schedule over pp
+  pipeline_trainer — PipelineTrainer: a model's uniform cells over pp
   (expert parallelism: gluon.contrib.moe.MoEFFN + the `ep` sharding rule)
 
-The JAX package's ShardedTrainer, ring attention, the pipeline trainer,
-resilience and tp / fsdp / pp / sp are ROADMAP queue 1 item 11 part 2.
+The JAX package's ShardedTrainer (its persistent compile tier), the
+distributed kvstore and its server, a launcher, Module's and
+gluon.Trainer's several contexts and the sharded checkpoints are ROADMAP
+queue 1 item 11 part 2; resilience is item 13.
 """
 from .mesh import (make_mesh, default_mesh, current_mesh, use_mesh,
                    local_devices, devices, mesh_fingerprint, Mesh, Device,
                    DP, FSDP, TP, PP, SP, EP)
-from .sharding import PartitionSpec, ShardingRules, batch_spec, param_spec
+from .sharding import (PartitionSpec, ShardingRules, NamedSharding,
+                       batch_spec, param_spec, named_sharding, shard_array,
+                       gather_array, constraint)
 from . import collectives
 from .collectives import (init_process_group, rank, num_workers, barrier,
                           all_reduce_arrays)
 from .trainer import DistributedTrainer
+from .ring_attention import (ring_attention, ring_attention_sharded,
+                             local_attention_block)
+from .pipeline import pipeline_apply, pipeline_stack_params
+from .pipeline_trainer import PipelineTrainer
 
 __all__ = [
     "make_mesh", "default_mesh", "current_mesh", "use_mesh", "local_devices",
     "devices", "mesh_fingerprint", "Mesh", "Device",
     "DP", "FSDP", "TP", "PP", "SP", "EP",
-    "PartitionSpec", "ShardingRules", "batch_spec", "param_spec",
-    "collectives", "init_process_group", "rank", "num_workers", "barrier",
-    "all_reduce_arrays", "DistributedTrainer",
+    "PartitionSpec", "ShardingRules", "NamedSharding", "batch_spec",
+    "param_spec", "named_sharding", "shard_array", "gather_array",
+    "constraint", "collectives", "init_process_group", "rank",
+    "num_workers", "barrier", "all_reduce_arrays", "DistributedTrainer",
+    "ring_attention", "ring_attention_sharded", "local_attention_block",
+    "pipeline_apply", "pipeline_stack_params", "PipelineTrainer",
 ]

@@ -49,22 +49,35 @@ __all__ = [
 
 
 def _axis(axis_name, mesh=None):
+    """The mesh's `_Axis` of ``axis_name``: one name, or a tuple of names
+    taken together (`Mesh.axis`)."""
     mesh = mesh if mesh is not None else current_mesh()
     if not isinstance(axis_name, str):
-        names = tuple(axis_name)
-        if len(names) != 1:
-            raise MXNetError("a collective over the axes %s: one axis at a "
-                             "time in the port" % (names,))
-        axis_name = names[0]
+        axis_name = tuple(axis_name)
+        if len(axis_name) == 1:
+            axis_name = axis_name[0]
     return mesh.axis(axis_name)
 
 
 # -- the primitives (no autograd)
 
+def _host_staged(x, ax):
+    """Whether a collective over ``ax`` moves ``x`` through the host: gloo
+    between processes that share a card takes host tensors, so a card
+    tensor is copied out and back (chosen before the call, from the
+    group's backend)."""
+    return x.is_cuda and _dist().get_backend(ax.group) == "gloo"
+
+
 def _gather(x, ax):
     """Every rank's ``x`` along the axis, in axis order."""
     if ax.group is None:
         return [x]
+    if x.dtype == torch.bool:
+        return [p.view(torch.bool) for p in _gather(x.view(torch.uint8),
+                                                    ax)]
+    if _host_staged(x, ax):
+        return [p.to(x.device) for p in _gather(x.cpu(), ax)]
     parts = [torch.empty_like(x) for _ in range(ax.size)]
     _dist().all_gather(parts, x.contiguous(), group=ax.group)
     return parts
@@ -103,11 +116,40 @@ def _all_to_all(x, ax, split_axis, concat_axis):
 
 
 def _ppermute(x, ax, perm):
-    parts = _gather(x, ax)
-    for src, dst in perm:
-        if dst == ax.index:
-            return parts[src]
-    return torch.zeros_like(x)
+    """``x`` sent along the (source, destination) pairs of ``perm``; a rank
+    no pair sends to gets zeros. Point to point (`batch_isend_irecv`: each
+    hop moves one shard) over NCCL and over gloo for host tensors; a card
+    tensor over gloo, whose point to point takes host tensors only, takes
+    the all-gather form (every rank's ``x`` gathered, the source's kept)."""
+    me = ax.index
+    src = [s for s, d in perm if d == me]
+    dst = [d for s, d in perm if s == me]
+    if ax.group is None or ax.size == 1:
+        return x.view_as(x) if src else torch.zeros_like(x)
+    if x.dtype == torch.bool:
+        return _ppermute(x.view(torch.uint8), ax, perm).view(torch.bool)
+    if _host_staged(x, ax):
+        parts = _gather(x, ax)
+        return parts[src[0]] if src else torch.zeros_like(x)
+    dist = _dist()
+    x = x.contiguous()
+    out = torch.empty_like(x) if src else torch.zeros_like(x)
+    ops = []
+    for d in dst:
+        if d == me:
+            continue
+        ops.append(dist.P2POp(dist.isend, x,
+                              dist.get_global_rank(ax.group, d), ax.group))
+    for s in src:
+        if s == me:
+            out.copy_(x)
+            continue
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(ax.group, s), ax.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
 
 
 # -- autograd
@@ -312,7 +354,9 @@ def broadcast_arrays(src, devices):
     x = _data(src)
     dist = _dist()
     if dist is not None:
-        x = x.clone()
+        # gloo between processes that share a card takes host tensors
+        x = x.cpu() if x.is_cuda and dist.get_backend() == "gloo" \
+            else x.clone()
         dist.broadcast(x, src=0)
     out = [x.to(getattr(d, "device", d), copy=True) for d in devices]
     _observe_collective("broadcast", [x] * len(out),

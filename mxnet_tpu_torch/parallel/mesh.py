@@ -17,19 +17,21 @@ Conventional axis names, as in the JAX package:
     sp — sequence parallel
     ep — expert parallel (MoE)
 
-`parallel.DistributedTrainer` runs ``dp`` and ``ep``; the other four are
-ROADMAP queue 1 item 11 part 2.
+`parallel.DistributedTrainer` runs every axis (``sp`` and ``pp``
+replicate there); `parallel.PipelineTrainer` runs ``pp`` and
+`parallel.ring_attention` ``sp``.
 
 A mesh over more than one rank builds, when it is made, one process group
 for each (axis, coordinate of the other axes) with more than one and fewer
-than all ranks (an axis over the whole world uses the world's group):
+than all ranks (an axis over the whole world uses the world's group), and
+one over ``dp`` x ``fsdp`` together when both are split (`DATA`, the
+axes a batch splits over):
 `torch.distributed.new_group` is collective, so every rank makes every
 mesh in the same order, as every JAX process builds the same mesh.
 """
 from __future__ import annotations
 
 import contextlib
-import itertools
 import math
 import os
 import threading
@@ -43,10 +45,12 @@ from ..base import MXNetError
 __all__ = [
     "Device", "Mesh", "devices", "make_mesh", "default_mesh",
     "current_mesh", "use_mesh", "local_devices", "mesh_fingerprint",
-    "DP", "FSDP", "TP", "PP", "SP", "EP",
+    "DP", "FSDP", "TP", "PP", "SP", "EP", "DATA",
 ]
 
 DP, FSDP, TP, PP, SP, EP = "dp", "fsdp", "tp", "pp", "sp", "ep"
+# the axes a batch splits over, dp-major (`sharding.batch_spec`)
+DATA = (DP, FSDP)
 
 _state = threading.local()
 
@@ -166,8 +170,10 @@ class Mesh:
                                       for kv in self.shape.items())
 
     def _build_groups(self):
-        """One group a (axis, coordinate of the other axes), made by every
-        rank in the same order (`new_group` is collective)."""
+        """One group a (axis, coordinate of the other axes), and one a
+        coordinate of the non-data axes over the data axes ``dp`` x
+        ``fsdp`` when both hold more than one rank, made by every rank in
+        the same order (`new_group` is collective)."""
         dist = _dist()
         world = dist.get_world_size() if dist is not None else 1
         ranks = np.vectorize(lambda d: d.rank, otypes=[int])(self.devices)
@@ -177,14 +183,19 @@ class Mesh:
                 "whole process group (ROADMAP queue 1 item 11 part 2)"
                 % (ranks.size, world))
         me = dist.get_rank() if dist is not None else int(ranks.flat[0])
-        shape = ranks.shape
-        for ax, name in enumerate(self.axis_names):
-            others = [range(s) for i, s in enumerate(shape) if i != ax]
+        lines = [(name, (name,)) for name in self.axis_names]
+        sizes = self.shape
+        if sizes.get(DP, 1) > 1 and sizes.get(FSDP, 1) > 1:
+            lines.append((DATA, DATA))
+        for key, names in lines:
+            ax = [self.axis_names.index(n) for n in names]
+            rest = [i for i in range(ranks.ndim) if i not in ax]
+            n = math.prod(ranks.shape[i] for i in ax)
             mine = None
-            for rest in itertools.product(*others):
-                idx = list(rest)
-                idx.insert(ax, slice(None))
-                line = [int(r) for r in ranks[tuple(idx)]]
+            # each row: the ranks that share every other coordinate, in
+            # the named axes' row-major order
+            for row in ranks.transpose(rest + ax).reshape(-1, n):
+                line = [int(r) for r in row]
                 if dist is None or len(line) == 1 and world > 1:
                     group = None
                 elif len(line) == world:
@@ -193,14 +204,24 @@ class Mesh:
                     group = dist.new_group(line)
                 if me in line:
                     mine = _Axis(len(line), line.index(me), group)
-            self._axes[name] = mine
+            self._axes[key] = mine
 
     def axis(self, name):
         """This rank's `_Axis` of ``name`` (an axis the mesh lacks is one
-        of size 1)."""
+        of size 1). A tuple of names is the axes taken together, in the
+        tuple's row-major order: their axes of more than one rank, which
+        may be at most one, or ``DATA`` (dp x fsdp)."""
+        if not isinstance(name, str):
+            names = tuple(n for n in name if self.axis_size(n) > 1)
+            if not names:
+                return _Axis(1, 0, None)
+            if len(names) > 1 and names != DATA:
+                raise MXNetError("mesh axes %s taken together: only dp x "
+                                 "fsdp has a group" % (names,))
+            name = names[0] if len(names) == 1 else DATA
         ax = self._axes.get(name)
         if ax is None:
-            if name in self.axis_names:
+            if name == DATA or name in self.axis_names:
                 raise MXNetError("mesh axis %r: this mesh of %d devices was "
                                  "not made over the process group"
                                  % (name, self.size))

@@ -1,5 +1,5 @@
 """DistributedTrainer: the training step of the port (counterpart of
-`mxnet_tpu/parallel/trainer.py`), over a ``dp`` x ``ep`` mesh.
+`mxnet_tpu/parallel/trainer.py`), over a mesh of every axis.
 
 One `step(data, label)` is: forward in the compute dtype, the loss
 ``mean(loss(pred, label))`` in f32, the gradients, and the optimizer's
@@ -21,24 +21,30 @@ Over a mesh (`parallel.make_mesh`, one process a device) a step gives
 what the JAX package's GSPMD step gives, the unsharded step on the global
 batch:
 
-* the global batch is split over ``dp`` in rank order (`batch_spec`'s data
-  axes); the ranks of one ``ep`` group hold the same rows;
-* an MoE expert table of shape (E, ...) whose spec is ``ep``
-  (`ShardingRules`: a name holding "expert") lives on its ``ep`` rank as
-  rows [q E/ep, (q+1) E/ep), and so do its optimizer states; the forward
-  runs on those rows (`torch.func.functional_call`) and the MoE ops
-  route over the mesh (`mesh.step_scope`);
+* the global batch is split over ``dp`` x ``fsdp`` (dp-major, as
+  `batch_spec`); the ranks that differ only on ``tp``, ``sp``, ``pp`` or
+  ``ep`` hold the same rows;
+* a parameter whose spec (`ShardingRules`) names ``tp`` or ``fsdp`` lives
+  on its rank as its block (`sharding.shard_array`), and so do its
+  optimizer states; the forward gathers the block in the graph
+  (`sharding.unshard`: over fsdp the gradient is then reduce-scattered,
+  summed in rank order; over tp, where the ranks compute the same thing,
+  each keeps its own block of it);
+* an MoE expert table of shape (E, ...) whose spec is ``ep`` lives on its
+  ``ep`` rank as rows [q E/ep, (q+1) E/ep), and the forward runs on those
+  rows; the MoE ops route over the mesh (`mesh.step_scope`);
+* BatchNorm's statistics are the global batch's: inside the step scope
+  the conv-epilogue kernels gather each rank's raw sums over dp x fsdp
+  (`ops.pallas_kernels.conv_epilogue`);
 * each rank's loss is its shard's mean; the gradients and the loss are
-  summed over ``dp`` in rank order (one flat all-gather a step) and
-  divided by ``dp``, so replicated parameters and each expert slice get
-  the global gradient;
+  summed over dp x fsdp in rank order (one flat all-gather a dtype; dp
+  alone for an fsdp block, already summed over fsdp) and divided by
+  dp x fsdp, so every parameter gets the global gradient;
 * rank 0's parameters are broadcast when the trainer is built, and
-  `sync_params` gathers the expert rows back into every rank's block.
+  `sync_params` gathers every block back into each rank's block.
 
-``tp``, ``fsdp``, ``pp`` and ``sp`` axes, and BatchNorm at ``dp`` > 1
-(whose statistics are the global batch's under GSPMD), are ROADMAP queue
-1 item 11 part 2 and raise. At world size 1 the step launches what it
-launched before this layer existed: no collective and no host sync.
+At world size 1 the step launches what it launched before this layer
+existed: no collective and no host sync.
 """
 from __future__ import annotations
 
@@ -50,16 +56,14 @@ from .. import optimizer as opt_mod
 from .. import telemetry
 from ..base import MXNetError
 from . import collectives as coll
-from .mesh import EP, DP, Mesh, current_mesh, is_shard, step_scope
-from .sharding import ShardingRules
+from .mesh import (DATA, DP, EP, FSDP, TP, Mesh, current_mesh, is_shard,
+                   step_scope)
+from .sharding import ShardingRules, gather_array, shard_array, unshard
 
 __all__ = ["DistributedTrainer"]
 
 _AMP = {None: None, "float32": None, torch.float32: None,
         "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
-
-_PART2 = "ROADMAP queue 1 item 11 part 2"
-
 
 def _amp_dtype(amp):
     if amp not in _AMP:
@@ -103,6 +107,23 @@ def _bucket_sum(tensors, ax, scale):
     return out
 
 
+def broadcast_from_rank0(block, params, device):
+    """Rank 0's ``params`` and ``block``'s floating buffers onto every rank
+    (one broadcast a dtype): replicated values start identical, as the JAX
+    package's one logical array."""
+    tensors = list(params) + [b for b in block.buffers()
+                              if b.is_floating_point()]
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    with torch.no_grad():
+        for ts in by_dtype.values():
+            flat = coll.broadcast_arrays(
+                torch.cat([t.reshape(-1) for t in ts]), [device])[0]
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view_as(t))
+
+
 class DistributedTrainer:
     """Training of ``block`` (a `torch.nn.Module`, such as a gluon Block,
     whose parameters are on this rank's device) with ``optimizer`` (a name
@@ -126,21 +147,7 @@ class DistributedTrainer:
             raise MXNetError("DistributedTrainer: a mesh of %d devices over "
                              "a world of %d processes (one device a "
                              "process)" % (mesh.size, world))
-        for name, size in mesh.shape.items():
-            if name not in (DP, EP) and size > 1:
-                raise MXNetError("DistributedTrainer: mesh axis %s=%d is "
-                                 "not ported yet (dp and ep are; %s)"
-                                 % (name, size, _PART2))
-        self._dp, self._ep = mesh.axis(DP), mesh.axis(EP)
-        if self._dp.size > 1:
-            bns = sorted({type(m).__name__ for m in block.modules()
-                          if "BatchNorm" in type(m).__name__})
-            if bns:
-                raise MXNetError(
-                    "DistributedTrainer: %s at dp=%d: the JAX package's "
-                    "statistics are the global batch's there, and "
-                    "cross-rank BatchNorm is not ported yet (%s)"
-                    % (", ".join(bns), self._dp.size, _PART2))
+        self._data = mesh.axis(DATA)
         self._block = block
         self._loss = loss
         self._loss_inputs = loss_inputs
@@ -158,7 +165,7 @@ class DistributedTrainer:
             raise MXNetError("DistributedTrainer: the block's parameters "
                              "are on more than one device")
         if world > 1:
-            self._broadcast_from_rank0()
+            broadcast_from_rank0(block, self._params, self._device)
         # the gluon names (what the sharding rules match), else the
         # module's own
         gluon = {}
@@ -167,26 +174,39 @@ class DistributedTrainer:
                      if p.var is not None}
         self._param_names = [gluon.get(id(p), n)
                              for n, p in zip(self._names, self._params)]
-        specs = [rules.spec_for(n, p.shape, mesh)
-                 for n, p in zip(self._param_names, self._params)]
-        # the values the step trains: the block's own tensors, but an
-        # expert table's rows of this rank over ep
+        self._specs = [rules.spec_for(n, p.shape, mesh)
+                       for n, p in zip(self._param_names, self._params)]
+        # the values the step trains: the block's own tensors, but this
+        # rank's block of a tensor split over ep, tp or fsdp
         self._arrays = []
-        self._experts = []
-        for i, (spec, p) in enumerate(zip(specs, self._params)):
-            if any(a is not None and a != EP for a in spec) \
-                    or EP in tuple(spec)[1:]:
-                raise MXNetError("DistributedTrainer: %s's spec %s is not "
-                                 "ported yet (ep on dimension 0 is; %s)"
-                                 % (self._param_names[i], spec, _PART2))
-            if tuple(spec[:1]) == (EP,) and self._ep.size > 1:
-                rows = p.shape[0] // self._ep.size
-                part = p.detach()[self._ep.index * rows:
-                                  (self._ep.index + 1) * rows]
-                self._arrays.append(part.clone().requires_grad_(True))
-                self._experts.append(i)
-            else:
+        self._experts = []   # split over ep (the forward keeps the rows)
+        self._sharded = []   # split over any axis
+        self._gathered = []  # split over tp or fsdp (gathered in forward)
+        for i, (spec, p) in enumerate(zip(self._specs, self._params)):
+            for d, entry in enumerate(spec):
+                if entry is not None and (entry not in (EP, TP, FSDP)
+                                          or entry == EP and d > 0):
+                    raise MXNetError(
+                        "DistributedTrainer: %s's spec %s: a dimension "
+                        "splits over tp or fsdp, or ep on dimension 0"
+                        % (self._param_names[i], spec))
+            split = [e for e in spec if e is not None
+                     and mesh.axis(e).size > 1]
+            if not split:
                 self._arrays.append(p)
+                continue
+            part = shard_array(p.detach(), mesh, spec)
+            self._arrays.append(part.clone().requires_grad_(True))
+            self._sharded.append(i)
+            if EP in split:
+                self._experts.append(i)
+            if TP in split or FSDP in split:
+                self._gathered.append(i)
+        # the axis each gradient is summed over: dp x fsdp, or dp for a
+        # block over fsdp, whose gather's conjugate summed it over fsdp
+        self._grad_axes = [
+            DP if FSDP in tuple(spec) and mesh.axis(FSDP).size > 1 else DATA
+            for spec in self._specs]
         opt = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
             else opt_mod.create(optimizer, **(optimizer_params or {}))
         self._optimizer = opt
@@ -194,22 +214,6 @@ class DistributedTrainer:
         self._states = [self._optimizer.create_state(i, a)
                         for i, a in enumerate(self._arrays)]
         self._step_count = 0
-
-    def _broadcast_from_rank0(self):
-        """Rank 0's parameters and buffers onto every rank (one broadcast a
-        dtype): replicated values start identical, as the JAX package's
-        one logical array."""
-        tensors = self._params + [b for b in self._block.buffers()
-                                  if b.is_floating_point()]
-        by_dtype = {}
-        for t in tensors:
-            by_dtype.setdefault(t.dtype, []).append(t)
-        with torch.no_grad():
-            for ts in by_dtype.values():
-                flat = coll.broadcast_arrays(
-                    torch.cat([t.reshape(-1) for t in ts]), [self._device])[0]
-                for t, part in zip(ts, flat.split([t.numel() for t in ts])):
-                    t.copy_(part.view_as(t))
 
     @property
     def optimizer(self):
@@ -227,35 +231,40 @@ class DistributedTrainer:
         self._optimizer.set_learning_rate(lr)
 
     def _batch(self, a, cast):
-        """``a`` on the device: this rank's dp rows of the global batch
-        (a shard a mesh-bound prefetcher placed is taken as it is)."""
+        """``a`` on the device: this rank's dp x fsdp rows of the global
+        batch (a shard a mesh-bound prefetcher placed is taken as it
+        is)."""
         from ..ndarray import NDArray
 
         if isinstance(a, NDArray):
             a = a._data
         t = torch.as_tensor(a)
-        dp = self._dp.size
-        if dp > 1 and not is_shard(t):
-            if t.shape[0] % dp:
+        ax = self._data
+        if ax.size > 1 and not is_shard(t):
+            if t.shape[0] % ax.size:
                 raise MXNetError("DistributedTrainer: a global batch of %d "
-                                 "rows does not split over dp=%d"
-                                 % (t.shape[0], dp))
-            n = t.shape[0] // dp
-            t = t[self._dp.index * n:(self._dp.index + 1) * n]
+                                 "rows does not split over dp x fsdp=%d"
+                                 % (t.shape[0], ax.size))
+            n = t.shape[0] // ax.size
+            t = t[ax.index * n:(ax.index + 1) * n]
         t = t.to(self._device, non_blocking=True)
         if cast and self._amp is not None and t.is_floating_point():
             t = t.to(self._amp)
         return t
 
     def _call(self, x):
-        """The block's forward on ``x`` over the trained values."""
-        if self._amp is not None:
-            values = {n: a.to(self._amp)
-                      for n, a in zip(self._names, self._arrays)}
-        elif self._experts:
-            values = {self._names[i]: self._arrays[i]
-                      for i in self._experts}
-        else:
+        """The block's forward on ``x`` over the trained values (blocks
+        gathered over tp / fsdp, cast to the compute dtype first)."""
+        values = {}
+        for i, (n, a) in enumerate(zip(self._names, self._arrays)):
+            if self._amp is not None:
+                a = a.to(self._amp)
+            elif i not in self._sharded:
+                continue
+            if i in self._gathered:
+                a = unshard(a, self._mesh, self._specs[i])
+            values[n] = a
+        if not values:
             return self._block(x)
         return torch.func.functional_call(self._block, values, (x,))
 
@@ -304,35 +313,52 @@ class DistributedTrainer:
         grads = [torch.zeros_like(a) if g is None else g
                  for a, g in zip(self._arrays, grads)]
         loss = loss.detach()
-        dp = self._dp.size
-        if dp > 1:
-            *grads, loss = _bucket_sum(grads + [loss.reshape(1)],
-                                       self._dp, 1.0 / dp)
-            loss = loss.reshape(())
+        n = self._data.size
+        if n > 1:
+            grads = self._sum_grads(grads, loss.reshape(1), 1.0 / n)
+            loss = grads.pop().reshape(())
         # the range names the update's kernels in a torch.profiler trace
         with torch.profiler.record_function("trainer.optimizer"):
             for i, (a, g, s) in enumerate(zip(self._arrays, grads,
                                               self._states)):
                 o.update(i, a, g, s)
         telemetry.observe_step(time.perf_counter() - t0,
-                               examples=int(x.shape[0]) * dp,
+                               examples=int(x.shape[0]) * n,
                                step=self._step_count, kind="dist")
         return NDArray(loss)
 
+    def _sum_grads(self, grads, loss, scale):
+        """``grads`` each summed over its axis (`_grad_axes`), then
+        ``loss`` over dp x fsdp, times ``scale``: one flat all-gather a
+        (axis, dtype). Returns the gradients and the loss, in order."""
+        tensors = list(grads) + [loss]
+        axes = self._grad_axes + [DATA]
+        out = [None] * len(tensors)
+        for key in dict.fromkeys(axes):
+            idx = [i for i, a in enumerate(axes) if a == key]
+            ax = self._mesh.axis(key)
+            parts = [tensors[i] for i in idx]
+            parts = _bucket_sum(parts, ax, scale) if ax.size > 1 \
+                else [t * scale for t in parts]
+            for i, t in zip(idx, parts):
+                out[i] = t
+        return out
+
     def prefetch(self, it, depth=None):
         """``it`` wrapped in a `data.DevicePrefetcher` onto this rank's
-        device, each batch cut to the rank's dp rows: the copy of batch
-        N+1 overlaps step N."""
+        device, each batch cut to the rank's dp x fsdp rows: the copy of
+        batch N+1 overlaps step N."""
         from ..data import DevicePrefetcher
 
-        mesh = self._mesh if self._dp.size > 1 else self._device
+        mesh = self._mesh if self._data.size > 1 else self._device
         return DevicePrefetcher(it, depth=depth, mesh=mesh, src="sharded")
 
     def forward(self, data, is_train=False):
         """Forward of the block over the trained values, in f32 without
-        gradients, on the global batch (each rank computes its dp rows and
-        the rows are gathered); in training mode (``is_train``) BatchNorm
-        uses batch statistics and advances its running statistics."""
+        gradients, on the global batch (each rank computes its dp x fsdp
+        rows and the rows are gathered); in training mode (``is_train``)
+        BatchNorm uses batch statistics and advances its running
+        statistics."""
         was = self._block.training
         self._block.train(is_train)
         saved, self._amp = self._amp, None
@@ -342,9 +368,9 @@ class DistributedTrainer:
         finally:
             self._amp = saved
             self._block.train(was)
-        if self._dp.size > 1:
+        if self._data.size > 1:
             def gather(t):
-                return torch.cat(coll._gather(t, self._dp)) \
+                return torch.cat(coll._gather(t, self._data)) \
                     if torch.is_tensor(t) else t
 
             out = type(out)(gather(t) for t in out) \
@@ -352,11 +378,10 @@ class DistributedTrainer:
         return out
 
     def sync_params(self):
-        """Every rank's block up to date: the expert tables' rows are
-        gathered over ep into each rank's full tables (the replicated
+        """Every rank's block up to date: each parameter split over ep, tp
+        or fsdp is gathered into each rank's full tensor (the replicated
         parameters are the block's own, updated in place)."""
         with torch.no_grad():
-            for i in self._experts:
-                full = torch.cat(coll._gather(self._arrays[i].detach(),
-                                              self._ep))
-                self._params[i].copy_(full)
+            for i in self._sharded:
+                self._params[i].copy_(gather_array(
+                    self._arrays[i].detach(), self._mesh, self._specs[i]))

@@ -19,6 +19,9 @@ card runs bit for bit), a sparse linear model's steps and the local
 kvstore on the card against the CPU; and ``topk_moe`` / ``switch_moe``
 with their gradients, and a ``DistributedTrainer`` step of an MoE net
 over a dp 1 x ep 1 mesh (no host sync in it), on the card against the
+CPU; and the conv epilogue's raw mode and finishing kernels (a batch
+split over ranks) against their plain versions, attention at batch 1
+(fault F8), and a `PipelineTrainer` step at pp 1 on the card against the
 CPU.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
@@ -401,6 +404,56 @@ def test_epilogue_wrappers_raise_on_bad_inputs():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,c", [(1003, 3), (8192, 448), (401408, 64)])
+def test_raw_mode_and_finish_kernels_match_plain_on_card(dtype, r, c):
+    """The reductions' raw mode (a batch split over ranks) against its
+    plain version and bit for bit on a second run, and the finishing
+    kernels over two ranks' sums against the plain whole-batch statistics
+    and dx coefficients: the folded cluster route, the cluster route and
+    the streamed route."""
+    _need_card()
+    tdt = getattr(torch, dtype)
+    xs, cts = [], []
+    for k in range(2):
+        x, _, gamma, beta, ct = _epi_case(11 + k, r, c, tdt)
+        xs.append((x.float() + 2 * k).to(tdt))
+        cts.append(ct)
+    raws = []
+    for x in xs:
+        raw = tpk.epi_stats(x, gamma, beta, 1e-5, False, raw=True)
+        assert torch.equal(raw, tpk.epi_stats(x, gamma, beta, 1e-5, False,
+                                              raw=True))
+        _close(raw, tpk.epi_stats_reference(x, gamma, beta, 1e-5, False,
+                                            raw=True), 1e-4, "raw")
+        raws.append(raw)
+    before = tpk.epi_stats_finish.launches
+    got = tpk.epi_stats_finish(torch.stack(raws), r, gamma, beta, 1e-5)
+    assert tpk.epi_stats_finish.launches == before + 1
+    whole = torch.cat(xs)
+    want = tpk.epi_stats_reference(whole, gamma, beta, 1e-5, False)
+    for name, a, b in zip(("mean", "var", "inv", "scale", "shift"), got,
+                          want):
+        _close(a, b, 1e-4, name)
+    mean, _, inv, _, _ = got
+    sums = []
+    for x, ct in zip(xs, cts):
+        d = tpk.epi_bwd_reduce(ct, x, None, mean, inv, gamma, False, raw=True)
+        again = tpk.epi_bwd_reduce(ct, x, None, mean, inv, gamma, False,
+                                   raw=True)
+        assert all(torch.equal(a, b) for a, b in zip(d, again))
+        for a, b in zip(d, tpk.epi_bwd_reduce_reference(
+                ct, x, None, mean, inv, gamma, False, raw=True)):
+            _close(a, b, 1e-4, "bwd raw")
+        sums.append(d[3])
+    cb, cg = tpk.epi_bwd_finish(torch.stack(sums), r)
+    wcb, wcg = tpk.epi_bwd_reduce_reference(torch.cat(cts), whole, None, mean,
+                                            inv, gamma, False)[3:]
+    _close(cb, wcb, 1e-4, "cb", scale=1e-3)
+    _close(cg, wcg, 1e-4, "cg", scale=1e-3)
+
+
+@pytest.mark.cuda
 def test_cuda_epilogue_never_takes_plain_version(monkeypatch):
     _need_card()
 
@@ -611,6 +664,60 @@ class _BertPretrain(torch.nn.Module):
 
     def forward(self, tokens):
         return self.mlm(self.bert(tokens)[0])
+
+
+@pytest.mark.cuda
+def test_attention_at_batch_one_on_card_matches_cpu_f8():
+    """F8: `MultiHeadAttention` at batch 1 (a pipeline's microbatch of one
+    sequence) runs the flash kernels on the card (they raised on its
+    strided heads) and equals the CPU layer on the same weights."""
+    _need_card()
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        MultiHeadAttention
+
+    att = MultiHeadAttention(64, 4, prefix="att_")
+    att.initialize(ctx="cpu", seed=3)
+    x = torch.from_numpy(np.random.RandomState(3).normal(
+        size=(1, 128, 64)).astype(np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        want = att(x)
+        att.to("cuda")
+        before = tpk.flash_fwd.launches
+        got = att(x.cuda())
+    torch.cuda.synchronize()
+    assert tpk.flash_fwd.launches == before + 1
+    _close(got.cpu(), want, 1e-4, "attention at batch 1")
+
+
+@pytest.mark.cuda
+def test_pipeline_trainer_step_on_card_matches_cpu():
+    """`PipelineTrainer` over bert_mini's stages at pp 1, 2 microbatches of
+    2 (f32, SGD, TF32 off): the forward and two steps' losses on the card
+    against the CPU from the same weights, the flash kernels launched."""
+    _need_card()
+    from mxnet_tpu_torch.gluon.loss import L2Loss
+    from mxnet_tpu_torch.parallel import PipelineTrainer, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(5)
+    tok = rng.randint(0, 1000, (4, 32))
+    target = rng.uniform(-1, 1, (4, 64)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = bert_mini(dropout=0.0, device=dev)
+        model.initialize(seed=5)
+        tr = PipelineTrainer(model, "sgd", {"learning_rate": 0.1},
+                             loss=L2Loss(), mesh=make_mesh([("pp", 1)]),
+                             num_microbatches=2)
+        before = tpk.flash_bwd_dkv.launches
+        fwd = tr.forward(tok).asnumpy()
+        losses = [float(tr.step(tok, target).asnumpy()) for _ in range(2)]
+        got[dev] = (fwd, losses, tpk.flash_bwd_dkv.launches - before)
+    np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], rtol=1e-4)
+    assert got["cpu"][2] == 0 and got["cuda"][2] == 2 * 2 * 2
 
 
 @pytest.mark.cuda

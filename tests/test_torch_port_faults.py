@@ -72,6 +72,12 @@ showed it, on the CPU:
     its net in) the buffer was made on the card and the CPU generator
     refused it. Held with torch's default device set to ``meta``: the
     draws equal those made without the block.
+19. F8: ``MultiHeadAttention`` at batch 1 (a pipeline's microbatch of one
+    sequence) flattened its (1, H, L, D) heads into a strided view, and
+    the flash kernels raised on the card ("q must be contiguous"). Held
+    with `pallas_kernels._FlashAttention` recording what it is handed:
+    contiguous (BH, L, D) tensors, and the layer's output equal to the
+    JAX layer's on the same weights.
 
 Float results within 1e-6 relative and absolute (both sides compute in f32
 from the same inputs); integer results and shapes exactly. A whole net's
@@ -798,3 +804,38 @@ def test_initializer_draws_on_the_host_under_a_device_block():
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].device.type == "cpu" and torch.equal(got[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# 19. F8: flash attention is handed contiguous heads at batch 1
+# ---------------------------------------------------------------------------
+
+def test_attention_at_batch_one_hands_the_kernels_contiguous_heads_f8(
+        monkeypatch):
+    from mxnet_tpu.gluon.model_zoo import transformer as jzoo
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as tzoo
+    from mxnet_tpu_torch.ops import pallas_kernels as tpk
+
+    seen = []
+    apply = tpk._FlashAttention.apply
+
+    def recording(q, k, v, *rest):
+        seen.append([t.is_contiguous() for t in (q, k, v)])
+        return apply(q, k, v, *rest)
+
+    monkeypatch.setattr(tpk._FlashAttention, "apply", recording)
+    x = np.random.RandomState(8).normal(size=(1, 6, 8)).astype(np.float32)
+    mx_j.random.seed(8)
+    jatt = jzoo.MultiHeadAttention(8, 2, prefix="att_")
+    jatt.initialize()
+    want = jatt(mx_j.nd.array(x)).asnumpy()
+    tatt = tzoo.MultiHeadAttention(8, 2, prefix="att_")
+    tatt.initialize(ctx=CPU)
+    for (n, a), (_, b) in zip(sorted(jatt.collect_params().items()),
+                              sorted(tatt.collect_params().items())):
+        b.set_data(a.data().asnumpy())
+    with torch.no_grad():
+        got = tatt(torch.from_numpy(x)).numpy()
+    assert seen == [[True, True, True]]
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())

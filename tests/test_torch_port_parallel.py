@@ -25,7 +25,8 @@ devices=jax.devices()[:4])``), from the same weights and batches:
 * 2 ranks: an MoE layer routed over the global batch inside a trainer's
   step scope equals the JAX layer on the whole batch, and the same layer
   routing each rank's shard alone differs (the global capacity and queue
-  order are what is held); BatchNorm at dp = 2 and a ``tp`` axis raise.
+  order are what is held); a BatchNorm net's step at dp = 2 and the MoE
+  layer's over tp = 2 equal the JAX trainer's.
 """
 import os
 import subprocess
@@ -161,8 +162,8 @@ def _child_train(kind, rank, world, mx, torch, init):
 
 def _child_control(rank, world, mx, torch, init):
     """An MoE layer on this rank's dp shard, routed over the global batch
-    (inside a trainer's step scope) and alone."""
-    from mxnet_tpu_torch.base import MXNetError
+    (inside a trainer's step scope) and alone; then a trainer's step of a
+    BatchNorm net at dp 2 and of the MoE layer over tp 2."""
     from mxnet_tpu_torch.gluon.contrib.moe import MoEFFN
     from mxnet_tpu_torch.parallel.mesh import step_scope
 
@@ -188,21 +189,28 @@ def _child_control(rank, world, mx, torch, init):
                                       mesh=mesh))
     assert is_shard(placed)
     out["prefetched"] = placed.numpy()
-    bn = mx.gluon.nn.HybridSequential()
-    bn.add(mx.gluon.nn.Dense(4, in_units=3), mx.gluon.nn.BatchNorm(
-        in_channels=4))
+    bn = _control_bn(mx.gluon)
     bn.initialize(ctx=mx.cpu())
-    for what, make in (
-            ("bn", lambda: mx.parallel.DistributedTrainer(
-                bn, "sgd", mesh=mesh)),
-            ("tp", lambda: mx.parallel.DistributedTrainer(
-                moe, "sgd", mesh=mx.parallel.make_mesh([("tp", 2)])))):
-        try:
-            make()
-            out["err_" + what] = np.array("")
-        except MXNetError as e:
-            out["err_" + what] = np.array(str(e))
+    for name, p in bn.collect_params().items():
+        p.set_data(init["bn:" + name])
+    for what, net, axes, x in (("bn", bn, [("dp", 2)], init["x_bn"]),
+                               ("tp", moe, [("tp", 2)], init["x"])):
+        trainer = mx.parallel.DistributedTrainer(
+            net, "sgd", mesh=mx.parallel.make_mesh(axes))
+        out["loss_" + what] = np.array(float(trainer.step(x).asnumpy()))
+        trainer.sync_params()
+        for name, p in net.collect_params().items():
+            out[what + ":" + name] = p.data().asnumpy()
     return out
+
+
+def _control_bn(gluon):
+    """A Dense + BatchNorm net, prefixes fixed, in either package."""
+    net = gluon.nn.HybridSequential(prefix="ctlbn_")
+    with net.name_scope():
+        net.add(gluon.nn.Dense(4, in_units=3, prefix="d_"),
+                gluon.nn.BatchNorm(in_channels=4, prefix="bn_"))
+    return net
 
 
 def _child_main(argv):
@@ -350,16 +358,34 @@ def runs(tmp_path_factory):
     ctl.initialize(jmx.init.Xavier())
     xc = np.random.RandomState(15).normal(size=(4, 8, 8)).astype(np.float32)
     out, aux = ctl(jmx.nd.array(xc))
-    ref["control"] = (out.asnumpy(), float(aux.asnumpy()))
+    ref["control"] = (np.array(out.asnumpy()), float(aux.asnumpy()))
     ref["control_x"] = xc
-    np.savez(os.path.join(tmp, "init_control.npz"), x=xc,
+    jmx.random.seed(16)
+    jbn = _control_bn(jmx.gluon)
+    jbn.initialize(jmx.init.Xavier())
+    x_bn = np.random.RandomState(17).normal(size=(4, 3)).astype(np.float32)
+    jbn(jmx.nd.array(x_bn))
+    init_bn = {"bn:" + n: p.data().asnumpy()
+               for n, p in jbn.collect_params().items()}
+    np.savez(os.path.join(tmp, "init_control.npz"), x=xc, x_bn=x_bn,
              **{"param:" + n: p.data().asnumpy()
-                for n, p in ctl.collect_params().items()})
+                for n, p in ctl.collect_params().items()}, **init_bn)
     four = _spawn("four", 4, tmp)
     two = _spawn("two", 2, tmp)
     try:
         for kind, (net, x, y) in nets.items():
             ref[kind] = _jax_train(kind, net, x, y)
+        jax = _jax()[0]
+        for what, net, axes, x in (("bn", jbn, [("dp", 2)], x_bn),
+                                   ("tp", ctl, [("tp", 2)], xc)):
+            tr = jmx.parallel.DistributedTrainer(
+                net, "sgd", mesh=jmx.parallel.make_mesh(
+                    axes, devices=jax.devices()[:2]))
+            loss = float(tr.step(x).asnumpy())
+            tr.sync_params()
+            ref["control_" + what] = (loss, {
+                n: p.data().asnumpy()
+                for n, p in net.collect_params().items()})
     finally:
         _join(four)
         _join(two)
@@ -482,16 +508,23 @@ def test_global_routing_is_held_and_per_shard_routing_differs(runs):
 
 
 def test_batchnorm_at_dp2_and_a_tp_axis_raise(runs):
-    """BatchNorm at dp = 2 and a tp axis raise, citing ROADMAP; and a
-    `DevicePrefetcher` bound to the dp = 2 mesh places each rank's rows."""
+    """BatchNorm at dp = 2 and a tp axis no longer raise: a trainer's step
+    of a BatchNorm net at dp 2 (statistics over the global batch) and of
+    the MoE layer over tp 2 give the JAX trainer's loss and parameters on
+    the same mesh shape; and a `DevicePrefetcher` bound to the dp = 2 mesh
+    places each rank's rows."""
     ref, got = runs
     for r, g in enumerate(got["control"]):
         np.testing.assert_array_equal(g["prefetched"],
                                       ref["control_x"][r * 2:(r + 1) * 2])
-        assert "BatchNorm at dp=2" in str(g["err_bn"])
-        assert "item 11 part 2" in str(g["err_bn"])
-        assert "tp=2" in str(g["err_tp"])
-        assert "item 11 part 2" in str(g["err_tp"])
+        for what in ("bn", "tp"):
+            loss, params = ref["control_" + what]
+            np.testing.assert_allclose(float(g["loss_" + what]), loss,
+                                       rtol=1e-5, atol=1e-7)
+            for name, want in params.items():
+                np.testing.assert_allclose(g[what + ":" + name], want,
+                                           rtol=RTOL, atol=ATOL,
+                                           err_msg=name)
 
 
 # -- single process

@@ -680,18 +680,21 @@ def test_concurrent_identity_and_sync_batchnorm():
     """Concurrent of a Dense layer and an Identity, and SyncBatchNorm (one
     device: BatchNorm over axis 1) in training, forward and input gradient
     against the JAX package's from the same weights, within 1e-4 (the
-    batch statistics sum in other orders)."""
+    batch statistics sum in other orders); with ``num_devices=2`` outside
+    a trainer's step over a split batch it is the same layer in both
+    packages (the cross-rank statistics are held in
+    tests/test_torch_port_model_parallel.py)."""
     x_np = np.random.RandomState(4).uniform(-1, 1, (4, 3, 5, 5)) \
         .astype(np.float32)
     r_np = np.random.RandomState(7).uniform(-1, 1, x_np.shape) \
         .astype(np.float32)
     wd = np.random.RandomState(5).uniform(-1, 1, (2, 3)).astype(np.float32)
 
-    def run(pkg):
+    def run(pkg, num_devices=None):
         cnn, nn = pkg.gluon.contrib.nn, pkg.gluon.nn
         net = cnn.HybridConcurrent(axis=1)
         net.add(nn.Dense(2, in_units=3), cnn.Identity())
-        bn = cnn.SyncBatchNorm(in_channels=3)
+        bn = cnn.SyncBatchNorm(in_channels=3, num_devices=num_devices)
         net.initialize(ctx=pkg.cpu())
         bn.initialize(ctx=pkg.cpu())
         dense = list(net._children.values())[0]
@@ -707,8 +710,8 @@ def test_concurrent_identity_and_sync_batchnorm():
 
     got = _both(run, tol=1e-4)
     assert got["concat"].shape == (4, 5)
-    with pytest.raises(MXNetError, match="item 11"):
-        mx.gluon.contrib.nn.SyncBatchNorm(num_devices=2)
+    two = _both(run, 2, tol=1e-4)
+    np.testing.assert_array_equal(two["bn"], got["bn"])
 
 
 # --------------------------------------------------------------------------
