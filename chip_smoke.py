@@ -436,6 +436,23 @@ Phases; each raises on failure, and the script then exits non-zero:
    raw mode and the finishing kernels are held to their plain versions
    at Inception v3's (8,192, 448), ResNet-50's (401,408, 256) and a
    folded (1,000, 3), as two ranks' halves, bf16 and f32, and timed.
+20. dist_kv (after ranks2, before parity): ``python -m
+   mxnet_tpu_torch.launch -n 2 --launcher local`` starts this script twice
+   (``--dist-kv-child``); the ranks join one gloo group from the
+   launcher's environment and share the card; the launcher is stopped at
+   600 s, and a rank's failure fails the phase. Each rank: the JAX
+   package's kvstore worker (dense, list, row_sparse and 2-bit pushes over
+   a ``dist_sync`` store) on card arrays; its dist-Trainer regression
+   (ranks equal, within 0.05 of the truth); then ResNet-50 v1 NHWC f32 at
+   64 images (128 over the two), 1,000 classes, initialised on
+   ``mx.gpu(0)`` from a seed of its own, ``gluon.Trainer(..., kvstore=
+   'dist_sync')``, SGD momentum 0.9, wd 1e-4, ``record()`` /
+   ``backward()`` / ``step(64)``, 2 warm-up and 10 timed steps. Gates: the
+   ranks' trained weights equal bit for bit (sha-256); losses finite and
+   falling; each epilogue kernel launched 53 x 10 a rank (the net's
+   BatchNorms counted; the ``launches_dist_kv`` counts). Prints images/s
+   over the two ranks, push/pull ms a step, the collectives a step and
+   the peak bytes a rank, with the card's name and power limit.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -4796,7 +4813,7 @@ def check_random(mx, ctx, n, seed):
                 raise AssertionError("%s: one seed gave two draws" % op)
         if torch.equal(outs[0]._data, other[0]._data):
             raise AssertionError("%s: two seeds gave one draw" % op)
-        if outs[0].context != torch.device(ctx):
+        if outs[0]._data.device != mx.context.resolve_device(ctx):
             raise AssertionError("%s: drawn on %s, not %s"
                                  % (op, outs[0].context, ctx))
         if isinstance(rows, str):
@@ -8379,6 +8396,296 @@ def ranks2_phase(torch, pk, args):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20, dist_kv: data parallelism the reference's way, two ranks of the
+# port's launcher sharing the card over gloo through the dist_sync kvstore
+# ---------------------------------------------------------------------------
+
+DIST_KV_TIMEOUT = 600
+DIST_KV_BATCH = 64              # a rank; 128 over the two ranks
+DIST_KV_WARMUP, DIST_KV_STEPS = 2, 10
+DIST_KV_BN = 53                 # ResNet-50 v1's BatchNorms
+
+
+def dist_kv_checks(mx, ctx):
+    """The JAX package's tests/dist_sync_kvstore_worker.py, on ``ctx``'s
+    arrays: a dense push, a list push, row_sparse_pull and 2-bit
+    compression with error feedback across the ranks of a ``dist_sync``
+    store; then an optimizer on the store (SGD on the ranks' summed push)
+    and a barrier. Returns (rank, number of ranks)."""
+    nd = mx.nd
+    kv = mx.kv.create("dist_sync")
+    n, r = kv.num_workers, kv.rank
+    kv.init("dense", nd.zeros((4, 3), ctx=ctx))
+    kv.push("dense", nd.full((4, 3), r + 1.0, ctx=ctx))
+    out = nd.zeros((4, 3), ctx=ctx)
+    kv.pull("dense", out=out)
+    expect = sum(i + 1.0 for i in range(n))
+    np.testing.assert_allclose(out.asnumpy(), expect, rtol=1e-6)
+    kv.init("grp", nd.zeros((2,), ctx=ctx))
+    kv.push("grp", [nd.full((2,), r + 1.0, ctx=ctx),
+                    nd.full((2,), r + 1.0, ctx=ctx)])
+    out = nd.zeros((2,), ctx=ctx)
+    kv.pull("grp", out=out)
+    np.testing.assert_allclose(out.asnumpy(), 2 * expect, rtol=1e-6)
+    kv.init("rsp", nd.zeros((6, 2), ctx=ctx))
+    grad = np.zeros((6, 2), np.float32)
+    grad[r::2] = r + 1.0   # rows of their own a rank (2 ranks)
+    kv.push("rsp", nd.array(grad, ctx=ctx))
+    rows = nd.array(np.array([0, 1, 5], np.int64), ctx=ctx, dtype="int64")
+    sparse_out = nd.zeros((3, 2), ctx=ctx)
+    kv.row_sparse_pull("rsp", out=sparse_out, row_ids=rows)
+    got = sparse_out.asnumpy()
+    dense = np.zeros((6, 2), np.float32)
+    for i in range(n):
+        dense[i::2] += i + 1.0
+    np.testing.assert_allclose(got[0], dense[0], rtol=1e-6)
+    np.testing.assert_allclose(got[2], dense[5], rtol=1e-6)
+    kv2 = mx.kv.create("dist_sync")
+    kv2.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kv2.init("c", nd.zeros((3,), ctx=ctx))
+    # 0.3 a rank: nothing sent at the first push; the residual makes 0.6
+    # at the second, and 0.5 a rank is sent
+    kv2.push("c", nd.full((3,), 0.3, ctx=ctx))
+    out = nd.zeros((3,), ctx=ctx)
+    kv2.pull("c", out=out)
+    np.testing.assert_allclose(out.asnumpy(), 0.0, atol=1e-7)
+    kv2.push("c", nd.full((3,), 0.3, ctx=ctx))
+    kv2.pull("c", out=out)
+    np.testing.assert_allclose(out.asnumpy(), 0.5 * n, rtol=1e-6)
+    # the optimizer on the store updates with the sum over the ranks
+    kv3 = mx.kv.create("dist_sync")
+    kv3.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1))
+    kv3.init("w", nd.ones((2,), ctx=ctx))
+    kv3.push("w", nd.full((2,), r + 1.0, ctx=ctx))
+    out = nd.zeros((2,), ctx=ctx)
+    kv3.pull("w", out=out)
+    np.testing.assert_allclose(out.asnumpy(), 1.0 - 0.1 * expect, rtol=1e-6)
+    kv.barrier()
+    return r, n
+
+
+def dist_trainer_run(mx, ctx, steps=60):
+    """The JAX package's tests/dist_trainer_worker.py on ``ctx``: linear
+    regression through `gluon.Trainer` over a ``dist_sync`` store, one
+    context a rank, each rank its own rows and its own initial draw (the
+    store's `init` must make them rank 0's). Returns the weight and its
+    distance from the true one."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    kv = mx.kv.create("dist_sync")
+    r, n = kv.rank, kv.num_workers
+    rng = np.random.RandomState(42)   # the same data on every rank
+    w_true = rng.normal(size=(8, 1)).astype(np.float32)
+    x_all = rng.normal(size=(128, 8)).astype(np.float32)
+    y_all = x_all @ w_true
+    xr, yr = x_all[r::n], y_all[r::n]
+    net = gluon.nn.Dense(1, in_units=8, use_bias=False)
+    net.initialize(mx.init.Normal(0.5), ctx=ctx, seed=1000 + r)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1}, kvstore=kv)
+    loss_fn = gluon.loss.L2Loss()
+    x, y = mx.nd.array(xr, ctx=ctx), mx.nd.array(yr, ctx=ctx)
+    for _ in range(steps):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(len(xr) * n)
+    w = net.weight.data().asnumpy()
+    return w, float(np.abs(w.flatten() - w_true.flatten()).max())
+
+
+def weight_digest(net):
+    """The sha-256 of every trained parameter's bytes in name order (equal
+    digests: equal weights bit for bit) and their sum. BatchNorm's moving
+    statistics are left out: each rank keeps its own batch's, as in the
+    reference's dist_sync training."""
+    import hashlib
+
+    h, total = hashlib.sha256(), 0.0
+    for name, p in sorted(net.collect_params().items()):
+        if p.grad_req == "null":
+            continue
+        a = np.ascontiguousarray(p.data().asnumpy())
+        h.update(name.encode())
+        h.update(a.tobytes())
+        total += float(a.astype(np.float64).sum())
+    return h.hexdigest(), total
+
+
+def dist_kv_child(out_dir, seed):
+    """One rank of `dist_kv_phase`, started by the port's launcher (which
+    gives it its rank and the rendezvous): the JAX worker's kvstore checks
+    on card arrays, then ResNet-50 v1 NHWC f32 at 64 images a rank through
+    `gluon.Trainer(kvstore="dist_sync")`. Writes ``<out_dir>/rank<r>.npz``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+
+    ctx = mx.gpu(0)
+    rank, n = dist_kv_checks(mx, ctx)
+    out = {"rank": np.array(rank), "n": np.array(n)}
+    w, err = dist_trainer_run(mx, ctx)
+    out["lin_w"], out["lin_err"] = w, np.array(err)
+    torch.cuda.reset_peak_memory_stats()
+    with gnn.layout_scope():
+        net = resnet50_v1(classes=1000, fuse_epilogue=True)
+    out["n_bn"] = np.array(sum(isinstance(m, gnn.BatchNorm)
+                               for m in net.modules()))
+    # the ranks draw apart: the store's init makes them rank 0's
+    net.initialize(ctx=ctx, seed=seed + 100 + rank)
+    rng = np.random.RandomState(seed + 2 + rank)
+    x = mx.nd.array(rng.uniform(-1, 1, (DIST_KV_BATCH, 224, 224, 3)),
+                    ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 1000, DIST_KV_BATCH), ctx=ctx)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.01, "momentum": 0.9,
+                             "wd": 1e-4}, kvstore="dist_sync")
+    losses = []
+
+    def forward_backward():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()   # the batch's sum; step(64) takes the mean
+        losses.append(loss._data.detach().mean())
+
+    for _ in range(DIST_KV_WARMUP):
+        forward_backward()
+        trainer.step(DIST_KV_BATCH)
+    torch.cuda.synchronize()
+    for k in EPI_KERNELS:
+        getattr(pk, k).launches = 0
+    kv = trainer._kvstore
+    kv.barrier()
+    push_pull = 0.0
+    t0 = time.monotonic()
+    with count_collectives() as calls:
+        for _ in range(DIST_KV_STEPS):
+            forward_backward()
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            trainer.allreduce_grads()
+            torch.cuda.synchronize()
+            push_pull += time.monotonic() - t1
+            trainer.update(DIST_KV_BATCH)
+        torch.cuda.synchronize()
+    out["wall"] = np.array(time.monotonic() - t0)
+    out["push_pull"] = np.array(push_pull)
+    out["calls"] = np.array([calls.counts[c] for c in DIST_CALLS])
+    out["launches"] = np.array([getattr(pk, k).launches
+                                for k in EPI_KERNELS])
+    out["losses"] = torch.stack(losses).cpu().numpy()
+    out["peak"] = np.array(torch.cuda.max_memory_allocated())
+    digest, total = weight_digest(net)
+    out["digest"], out["wsum"] = np.array(digest), np.array(total)
+    out["keys"] = np.array(sum(p.grad_req != "null"
+                               for p in net.collect_params().values()))
+    np.savez(os.path.join(out_dir, "rank%d.npz" % rank), **out)
+    kv.barrier()
+    print("DIST_KV_OK rank=%d/%d" % (rank, n), flush=True)
+    return 0
+
+
+def dist_kv_phase(torch, pk, args):
+    """Phase 20: `dist_kv_child` at two ranks through ``python -m
+    mxnet_tpu_torch.launch -n 2 --launcher local`` on the one card (the
+    ranks share it over gloo), the launcher stopped at `DIST_KV_TIMEOUT`.
+    Gates: both ranks' ResNet-50 weights equal bit for bit after the last
+    step; losses finite and falling; each epilogue kernel launched once a
+    training BatchNorm a step (the net's BatchNorms counted: 53); the JAX
+    kvstore worker's numerics and the dist Trainer's linear regression
+    (rank-identical weights, within 0.05 of the truth). Returns the
+    epilogue's launches in the timed steps (rank 0's)."""
+    import signal
+    import subprocess
+
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-dist_kv-") as tmp:
+        env = dict(os.environ, MXTPU_RENDEZVOUS_TIMEOUT="120")
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+             "--launcher", "local", "--", sys.executable,
+             os.path.abspath(__file__), "--seed", str(args.seed),
+             "--dist-kv-child", tmp],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            logs = launcher.communicate(timeout=DIST_KV_TIMEOUT)[0]
+        except BaseException:
+            # the launcher takes its ranks down on SIGTERM
+            launcher.send_signal(signal.SIGTERM)
+            try:
+                launcher.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                launcher.kill()
+                launcher.wait()
+            raise
+        if launcher.returncode:
+            raise AssertionError("dist_kv: the launch failed (rc %d): %s"
+                                 % (launcher.returncode, logs[-4000:]))
+        got = [dict(np.load(os.path.join(tmp, "rank%d.npz" % r)))
+               for r in range(2)]
+    for r, g in enumerate(got):
+        if int(g["rank"]) != r or int(g["n"]) != 2:
+            raise AssertionError("dist_kv: rank file %d says rank %s of %s"
+                                 % (r, g["rank"], g["n"]))
+        if int(g["n_bn"]) != DIST_KV_BN:
+            raise AssertionError("dist_kv: resnet50_v1 has %d BatchNorms, "
+                                 "not %d" % (int(g["n_bn"]), DIST_KV_BN))
+        launches = dict(zip(EPI_KERNELS, g["launches"].tolist()))
+        if any(v != DIST_KV_BN * DIST_KV_STEPS for v in launches.values()):
+            raise AssertionError("dist_kv rank %d: epilogue launches %s, not "
+                                 "%d x %d each" % (r, launches, DIST_KV_BN,
+                                                   DIST_KV_STEPS))
+        losses = g["losses"]
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError("dist_kv rank %d: losses not finite and "
+                                 "falling: %s" % (r, losses))
+        if float(g["lin_err"]) >= 0.05:
+            raise AssertionError("dist_kv rank %d: the dist Trainer's "
+                                 "regression did not converge: %g"
+                                 % (r, float(g["lin_err"])))
+    if str(got[0]["digest"]) != str(got[1]["digest"]):
+        raise AssertionError("dist_kv: the ranks' ResNet-50 weights differ "
+                             "(sums %r, %r)" % (float(got[0]["wsum"]),
+                                                float(got[1]["wsum"])))
+    np.testing.assert_array_equal(got[0]["lin_w"], got[1]["lin_w"])
+    g0 = got[0]
+    wall = max(float(g["wall"]) for g in got)
+    calls = dict(zip(DIST_CALLS, (g0["calls"] // DIST_KV_STEPS).tolist()))
+    card = smi_line()
+    log("dist_kv: 2 ranks of `python -m mxnet_tpu_torch.launch -n 2` "
+        "sharing the card over gloo; the JAX kvstore worker's dense, list, "
+        "row_sparse and 2-bit numerics on card arrays hold; the dist "
+        "Trainer's regression ranks equal, %.3g from the truth"
+        % max(float(g["lin_err"]) for g in got))
+    log("dist_kv: resnet50_v1 NHWC f32, %d images a rank (%d over 2), "
+        "gluon.Trainer(kvstore='dist_sync'), SGD momentum 0.9, wd 1e-4, %d "
+        "timed steps in %.3f s: %.1f images/s over the two ranks; push/pull "
+        "%.1f ms a step (%d keys); collectives a step %s; peak allocated %d "
+        "/ %d bytes a rank; losses %s; weights equal bit for bit (sha-256 "
+        "%s...); epilogue launches a rank %s (53 x %d); card %s"
+        % (DIST_KV_BATCH, 2 * DIST_KV_BATCH, DIST_KV_STEPS, wall,
+           2 * DIST_KV_BATCH * DIST_KV_STEPS / wall,
+           1e3 * max(float(g["push_pull"]) for g in got) / DIST_KV_STEPS,
+           int(g0["keys"]), json.dumps(calls), int(got[0]["peak"]),
+           int(got[1]["peak"]), ["%.4f" % v for v in g0["losses"]],
+           str(g0["digest"])[:16],
+           json.dumps(dict(zip(EPI_KERNELS, g0["launches"].tolist()))),
+           DIST_KV_STEPS, card))
+    return dict(zip(EPI_KERNELS, g0["launches"].tolist()))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -8392,6 +8699,9 @@ def main(argv=None):
     # rank, port, output directory: one of the ranks2 phase's children
     p.add_argument("--ranks2-child", nargs=3, default=None,
                    help=argparse.SUPPRESS)
+    # output directory: one of the dist_kv phase's ranks (the launcher
+    # gives the rank)
+    p.add_argument("--dist-kv-child", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
@@ -8404,6 +8714,8 @@ def main(argv=None):
     if args.ranks2_child:
         rank, port, out_dir = args.ranks2_child
         return ranks2_child(int(rank), int(port), out_dir, args.seed)
+    if args.dist_kv_child:
+        return dist_kv_child(args.dist_kv_child, args.seed)
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import pallas_kernels as pk
 
@@ -8482,7 +8794,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
              "detection": {}, "profiler": {}, "sparse": {}, "mesh": {},
-             "pipeline": {}, "ranks2": {}}
+             "pipeline": {}, "ranks2": {}, "dist_kv": {}}
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -8509,6 +8821,8 @@ def main(argv=None):
     extra["pipeline"] = pipeline_phase(torch, pk, args)
     torch.cuda.empty_cache()
     extra["ranks2"] = ranks2_phase(torch, pk, args)
+    torch.cuda.empty_cache()
+    extra["dist_kv"] = dist_kv_phase(torch, pk, args)
     torch.cuda.empty_cache()
     # the finishing kernels' path is the ranks2 phase's (a batch over dp)
     for k in EPI_SYNC_KERNELS:
@@ -8539,7 +8853,8 @@ def main(argv=None):
                 # the SSD training of the detection phase, the profiler
                 # phase's three fits, the sparse phase's SyncBatchNorm,
                 # the mesh phase's train_imagenet.py, the pipeline phase's
-                # BERT-base, the ranks2 phase's ResNet-50 over dp 2
+                # BERT-base, the ranks2 phase's ResNet-50 over dp 2, the
+                # dist_kv phase's ResNet-50 through the dist_sync kvstore
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

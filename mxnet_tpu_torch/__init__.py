@@ -40,12 +40,19 @@ dispatch, torch.profiler traces of the card) and ``contrib`` (int8
 storage: ``nd.sparse`` (row_sparse and csr arrays, row-sparse gradients,
 the lazy updates of SGD, Adam and AdaGrad), ``kv`` (``kvstore``: the
 single-process store, with ``gradient_compression``), ``gluon.contrib.nn``
-and the DGL graph ops of ``nd.contrib``.
+and the DGL graph ops of ``nd.contrib``; and data parallelism the
+reference's way: ``Context`` (``cpu(0)`` and ``cpu(1)`` are two
+contexts), parameters, ``gluon.Trainer`` and ``Module`` over several
+contexts, the ``dist_sync`` kvstore over ``torch.distributed`` with the
+server roles (``kvstore_server``), ``executor_manager``, and the
+launcher, ``python -m mxnet_tpu_torch.launch``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``) or runs them in a ``with
 context.scope(mx.cpu()):`` (or ``with mx.cpu():``) block; without a card
 they raise.
 """
+import os as _os
+
 from . import context, env, random, telemetry
 from . import ndarray
 from . import ndarray as nd
@@ -74,19 +81,28 @@ from . import predict
 from . import recordio, image, data
 from . import profiler
 from . import contrib
-from . import gradient_compression, kvstore
+from . import gradient_compression, kvstore, kvstore_server
 from . import kvstore as kv
 from . import parallel
+from . import executor_manager
 from .attribute import AttrScope
 from .base import MXNetError
-from .context import cpu, cpu_pinned, current_context, gpu, num_gpus, tpu
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_gpus, tpu)
 from .ndarray import NDArray
 
-__all__ = ["MXNetError", "cpu", "gpu", "tpu", "cpu_pinned", "num_gpus",
-           "current_context", "context", "env",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
+           "num_gpus", "current_context", "context", "env",
            "random", "telemetry", "ndarray", "nd", "NDArray", "rtc",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
            "sym", "executor", "io", "model", "callback", "module", "mod",
            "rnn", "predict", "recordio", "image", "data", "profiler",
-           "contrib", "kvstore", "kv", "gradient_compression", "parallel"]
+           "contrib", "kvstore", "kv", "kvstore_server",
+           "gradient_compression", "parallel", "executor_manager"]
+
+if _os.environ.get("DMLC_ROLE") in ("server", "scheduler"):
+    # a reference launch script's server and scheduler processes exit
+    # here, as the reference's import runs the server loop, so the
+    # workers' group keeps its size
+    kvstore_server._maybe_exit_non_worker()

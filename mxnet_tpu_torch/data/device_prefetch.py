@@ -33,7 +33,7 @@ import torch
 
 from .. import env as _env
 from ..base import MXNetError
-from ..context import current_context, in_scope_of, resolve_device
+from ..context import in_scope_of, resolve_device
 from ..ndarray import NDArray
 from .core import PrefetchBuffer
 
@@ -47,7 +47,7 @@ def _device_of(mesh):
     from ..parallel.mesh import Mesh, local_device
 
     if mesh is None:
-        return current_context()
+        return resolve_device(None)
     if isinstance(mesh, Mesh):
         return local_device()
     if isinstance(mesh, (list, tuple)):

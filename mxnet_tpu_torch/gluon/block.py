@@ -52,6 +52,7 @@ from ..base import MXNetError
 from ..context import cpu
 from ..ndarray import NDArray
 from ..symbol import Symbol
+from . import parameter as _param_mod
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
@@ -138,6 +139,29 @@ def _has_nd(args, kwargs):
 def _has_sym(args, kwargs):
     return any(isinstance(a, Symbol) for a in list(args) + list(
         kwargs.values()))
+
+
+def _first_nd(args, kwargs):
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, NDArray):
+            return a
+        if isinstance(a, (list, tuple)):
+            for b in a:
+                if isinstance(b, NDArray):
+                    return b
+    return None
+
+
+def _tag(out, ctx):
+    """``out``'s arrays placed on ``ctx`` (the arrays a façade call made
+    from an input on that context)."""
+    if isinstance(out, NDArray):
+        if out._ctx is None:
+            out._ctx = ctx
+    elif isinstance(out, (list, tuple)):
+        for o in out:
+            _tag(o, ctx)
+    return out
 
 
 def _unwrap(x):
@@ -324,6 +348,16 @@ class Block(torch.nn.Module):
             return self._symbol_forward(*args, **kwargs)
         if not _has_nd(args, kwargs):
             return super().__call__(*args, **kwargs)
+        if _param_mod._MULTI and not autograd._st().facade:
+            # parameters over several contexts: the call computes with the
+            # copies of its input's context, and its outputs are there
+            ctx = _first_nd(args, kwargs).context
+            with _param_mod._use_context(
+                    self.collect_params().values(), ctx):
+                return _tag(self._facade_call(args, kwargs), ctx)
+        return self._facade_call(args, kwargs)
+
+    def _facade_call(self, args, kwargs):
         with autograd._facade():
             if self._tensor_forward:
                 call = super().__call__

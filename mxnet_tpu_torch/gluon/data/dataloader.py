@@ -172,7 +172,7 @@ def _worker_initializer(dataset_bytes, batchify_bytes):
 
 def _on_card(x):
     if isinstance(x, NDArray):
-        return x.context.type != "cpu"
+        return x.context.device_type in ("gpu", "tpu")
     if isinstance(x, torch.Tensor):
         return x.device.type != "cpu"
     if isinstance(x, (tuple, list)):
@@ -280,7 +280,7 @@ class _MultiWorkerIter:
                 "DataLoader worker batch did not arrive within %.0fs "
                 "(worker died or is stuck; raise the timeout for very slow "
                 "pipelines): %r" % (self._timeout, e)) from e
-        out = _from_shm(desc, _context.current_context())
+        out = _from_shm(desc, _context.resolve_device(None))
         return out[0] if single else out
 
     def close(self):

@@ -30,7 +30,7 @@ import torch
 
 from ... import initializer as _init
 from ...base import MXNetError
-from ...context import cpu, resolve_device
+from ...context import checked_context, cpu
 from ...ops import contrib as _contrib
 from ..nn import Dense, Dropout, Embedding, GELU, LayerNorm
 from ..nn.basic_layers import _Layer
@@ -172,7 +172,7 @@ class BERTModel(_Layer):
                  num_layers=12, num_heads=12, max_length=512, token_types=2,
                  dropout=0.1, device=None, **kwargs):
         super().__init__(**kwargs)
-        self._device = None if device is None else resolve_device(device)
+        self._device = checked_context(device)
         device = self._device
         with self.name_scope():
             self.word_embed = Embedding(vocab_size, units, device=device,
@@ -260,7 +260,7 @@ class TransformerLM(_Layer):
                             num_heads=int(num_heads),
                             max_length=int(max_length),
                             dropout=float(dropout))
-        self._device = None if device is None else resolve_device(device)
+        self._device = checked_context(device)
         device = self._device
         with self.name_scope():
             self._param("word_weight", device=device,

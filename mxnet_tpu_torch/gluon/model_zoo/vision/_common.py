@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 from ....base import MXNetError
-from ....context import resolve_device
+from ....context import checked_context
 from ...nn.basic_layers import _Layer
 
 __all__ = []
@@ -33,7 +33,7 @@ class _Net(_Layer):
 
     def __init__(self, device=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        self._device = None if device is None else resolve_device(device)
+        self._device = checked_context(device)
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False, seed=None):

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ...context import resolve_device
+from ...context import checked_context
 from .. import rnn
 from ..nn import Dense, Dropout, Embedding
 from ..nn.basic_layers import _Layer
@@ -34,7 +34,7 @@ class RNNModel(_Layer):
                  num_layers=2, dropout=0.5, tie_weights=False, device=None,
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        device = None if device is None else resolve_device(device)
+        device = checked_context(device)
         if tie_weights and embed_size != hidden_size:
             raise ValueError("tie_weights requires embed_size == hidden_size "
                              "(as in reference)")

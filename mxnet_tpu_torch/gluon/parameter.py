@@ -1,25 +1,26 @@
 """Gluon Parameter and ParameterDict (counterpart of
 `mxnet_tpu/gluon/parameter.py`; reference: python/mxnet/gluon/parameter.py).
 
-A `Parameter` owns one `torch.nn.Parameter` (a plain tensor for a
-parameter without gradient that a module holds as a buffer, such as
-BatchNorm's running statistics) and an NDArray over it, on one device. The
-modules that use it (`Block`s, and layers that are `torch.nn.Module`s) hold
-the same tensor, registered under their attribute name, so ``state_dict``,
-``named_parameters`` and the tensor-in, tensor-out calls see it too; when
-the Parameter makes a new tensor (a deferred shape becomes known, `cast`,
-`reset_ctx`, `initialize` on another device) it rebinds every such module.
+A `Parameter` keeps one copy a context (`Context`), in the order given to
+`initialize` (or `reset_ctx`); copies on two host contexts (``cpu(0)``,
+``cpu(1)``) are two tensors. The first copy is the one the modules that
+use it hold (`Block`s, and layers that are `torch.nn.Module`s), registered
+under their attribute name, so ``state_dict``, ``named_parameters`` and
+the tensor-in, tensor-out calls see it; when the Parameter makes a new
+first copy (a deferred shape becomes known, `cast`, `reset_ctx`,
+`initialize` on another device) it rebinds every such module. A façade
+call of a Block on an array of another context holds that context's
+copies in the modules for the call (`_use_context`), so the copy takes
+the gradient of the batch it computed.
 
 - Shapes may hold 0s, filled at the first forward (deferred
   initialisation, `DeferredInitializationError` until then).
-- ``grad_req`` (write, add or null) and the gradient buffer are the
-  autograd variable's (`mxnet_tpu_torch.autograd.mark_variables`).
-- `initialize` draws from an explicit CPU `torch.Generator`. With no
-  ``ctx`` the tensor stays on the device it was made on when its module
-  was given one, and goes to `context.current_context` (the card by
-  default) otherwise.
-- One device a parameter: several contexts raise (ROADMAP queue 1 item
-  11 part 2).
+- ``grad_req`` (write, add or null) and each copy's gradient buffer are
+  the autograd variable's (`mxnet_tpu_torch.autograd.mark_variables`).
+- `initialize` draws from an explicit CPU `torch.Generator` into the first
+  copy, and the other copies are copies of it. With no ``ctx`` the tensor
+  stays on the device it was made on when its module was given one, and
+  goes to `context.current_context` (the card by default) otherwise.
 - ``stype`` and ``grad_stype`` are recorded as the JAX package records
   them; the data and the tape's gradient stay dense. A ``grad_stype`` of
   row_sparse makes `gluon.Trainer` cast the gradient to row_sparse for an
@@ -27,6 +28,8 @@ the Parameter makes a new tensor (a deferred shape becomes known, `cast`,
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import weakref
 from collections import OrderedDict
 
@@ -37,11 +40,16 @@ from .. import autograd
 from .. import initializer
 from .. import ndarray as nd
 from ..base import MXNetError, np_dtype, torch_dtype
-from ..context import cpu, current_context, resolve_device
+from ..context import (_innermost, _unchecked_device, as_context, cpu,
+                       current_context, resolve_device)
 from ..ndarray import NDArray
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
            "ParameterDict"]
+
+# the live parameters that hold more than one copy: a façade call looks
+# for copies to hold only while one exists
+_MULTI = weakref.WeakSet()
 
 
 class DeferredInitializationError(MXNetError):
@@ -49,15 +57,47 @@ class DeferredInitializationError(MXNetError):
     parameter.py:38)."""
 
 
-def _one_ctx(ctx, what):
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError(
-                "%s: %d contexts; the port keeps a parameter on one device "
-                "(several contexts are ROADMAP queue 1 item 11 part 2)"
-                % (what, len(ctx)))
-        ctx = ctx[0]
-    return None if ctx is None else resolve_device(ctx)
+def _ctx_list(ctx):
+    """None, a context or a list of them as a list of `Context`s (None
+    stays None)."""
+    if ctx is None:
+        return None
+    ctxs = [as_context(c) for c in ctx] if isinstance(ctx, (list, tuple)) \
+        else [as_context(ctx)]
+    if not ctxs:
+        raise MXNetError("an empty list of contexts")
+    # a context named twice holds one copy, as in the JAX package
+    return list(OrderedDict.fromkeys(ctxs))
+
+
+@contextlib.contextmanager
+def _use_context(params, ctx):
+    """Hold ``ctx``'s copy of each of ``params`` in its modules for the
+    block, and make it the copy `Parameter.data` and `Parameter.var`
+    give; a parameter whose deferred shape becomes known inside the block
+    joins it."""
+    held = []
+    stack = _using_stack()
+    stack.append((ctx, held))
+    try:
+        for p in params:
+            p._hold(ctx, held)
+        yield
+    finally:
+        stack.pop()
+        for p in held:
+            p._hold(None, None)
+
+
+_using = threading.local()
+
+
+def _using_stack():
+    """The calling thread's `_use_context` blocks under way, each (context,
+    the parameters it holds)."""
+    if not hasattr(_using, "stack"):
+        _using.stack = []
+    return _using.stack
 
 
 class Parameter:
@@ -84,11 +124,13 @@ class Parameter:
         self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self._nd = None            # NDArray over the tensor
+        self._nd = None            # NDArray over the first copy's tensor
+        self._copies = None        # OrderedDict Context -> NDArray
+        self._active = None        # the context whose copy the modules hold
         self._owners = []          # (weakref to module, attribute, kind)
         self._placed = False       # the tensor's device was chosen
         self._initialized = False
-        self._deferred_init = ()   # (init, ctx, generator)
+        self._deferred_init = ()   # (init, contexts, generator)
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
@@ -134,18 +176,23 @@ class Parameter:
         if req == self._grad_req:
             return
         self._grad_req = req
-        if self._nd is not None:   # a new, zero gradient buffer
-            self._nd._grad = None
+        if self._nd is not None:   # new, zero gradient buffers
+            for arr in self._copies.values():
+                arr._grad = None
             self._set_tensor(self._nd._data)
+            self._mark_copies()
 
-    # -- the tensor -------------------------------------------------------
+    # -- the tensors ------------------------------------------------------
     @property
     def var(self):
-        """The tensor the modules hold (None until it exists). A buffer is
+        """The tensor the modules hold (None until it exists): the first
+        copy's, or the held context's inside a façade call. A buffer is
         read back from its module, which may have replaced it
         (``module.to(...)``)."""
         if self._nd is None:
             return None
+        if self._active is not None:
+            return self._copies[self._active]._data
         for ref, attr, kind in self._owners:
             module = ref()
             if kind == "buffer" and module is not None:
@@ -170,77 +217,152 @@ class Parameter:
             self._set_tensor(fill(
                 self._shape, dtype=torch_dtype(self.dtype),
                 device=resolve_device(device) if device is not None
-                else None))
+                else None), as_context(device))
         else:
             self._rebind(module, attr, kind)
 
-    def _rebind(self, module, attr, kind):
-        t = None if self._nd is None else self._nd._data
+    def _rebind(self, module, attr, kind, t=None):
+        if t is None:
+            t = None if self._nd is None else self._nd._data
         if kind == "buffer":
             module._buffers[attr] = t
         elif kind == "parameter":
             module._parameters[attr] = t
 
-    def _set_tensor(self, t):
-        """Make ``t``'s values this parameter's tensor, a leaf that requires
-        grad unless ``grad_req`` is null, and rebind every module."""
-        buffer = any(k == "buffer" for _, _, k in self._owners)
-        trainable = self._grad_req != "null" and not buffer
+    def _trainable(self):
+        return self._grad_req != "null" \
+            and not any(k == "buffer" for _, _, k in self._owners)
+
+    def _leaf(self, t):
+        """``t``'s values as a tensor of this parameter: a leaf that
+        requires grad unless ``grad_req`` is null, a plain tensor for a
+        buffer."""
         t = t.detach()
-        var = torch.nn.Parameter(t, requires_grad=True) if trainable \
-            else (t if buffer else torch.nn.Parameter(t, requires_grad=False))
-        if self._nd is None:
-            self._nd = NDArray(var)
-            self._nd._pinned = True
-        else:
-            self._nd._data = var
-        if trainable:
+        if self._trainable():
+            return torch.nn.Parameter(t, requires_grad=True)
+        buffer = any(k == "buffer" for _, _, k in self._owners)
+        return t if buffer else torch.nn.Parameter(t, requires_grad=False)
+
+    def _mark(self, arr):
+        """Make ``arr`` (a copy) a variable by ``grad_req``."""
+        if self._trainable():
             # the gradient buffer is made at the first backward or grad()
             # (a module trained on the tensor path never needs one)
-            grad = self._nd._grad
-            if grad is not None and (grad.shape != tuple(var.shape)
-                                     or grad._data.dtype != var.dtype
-                                     or grad._data.device != var.device):
+            grad = arr._grad
+            t = arr._data
+            if grad is not None and (grad.shape != tuple(t.shape)
+                                     or grad._data.dtype != t.dtype
+                                     or grad._data.device != t.device):
                 grad = None
-            autograd.mark_variables([self._nd], [grad], self._grad_req)
+            autograd.mark_variables([arr], [grad], self._grad_req)
         else:
-            self._nd._grad, self._nd._grad_req = None, "null"
+            arr._grad, arr._grad_req = None, "null"
+
+    def _set_tensor(self, t, ctx=None):
+        """Make ``t``'s values the first copy's tensor (on context ``ctx``
+        when given) and rebind every module."""
+        var = self._leaf(t)
+        if self._nd is None:
+            self._nd = NDArray(var, ctx)
+            self._nd._pinned = True
+            # (a tensor on the meta device, made for its shape only, has
+            # no context)
+            key = self._nd.context if var.device.type in ("cpu", "cuda") \
+                else None
+            self._copies = OrderedDict([(key, self._nd)])
+        else:
+            self._nd._data = var
+            if ctx is not None:
+                self._nd._ctx = ctx
+        self._mark(self._nd)
         for ref, attr, kind in self._owners:
             if ref() is not None:
                 self._rebind(ref(), attr, kind)
+
+    def _set_copies(self, ctxs):
+        """One copy a context of ``ctxs``: the first copy placed on
+        ``ctxs[0]`` (see `_set_tensor`), each other one a copy of its
+        values, a variable of its own."""
+        self._nd._ctx = ctxs[0]
+        copies = OrderedDict([(ctxs[0], self._nd)])
+        for c in ctxs[1:]:
+            arr = NDArray(self._leaf(self._nd._data.detach().to(
+                resolve_device(c), copy=True)), c)
+            arr._pinned = True
+            self._mark(arr)
+            copies[c] = arr
+        self._copies = copies
+        if len(copies) > 1:
+            _MULTI.add(self)
+        else:
+            _MULTI.discard(self)
+        for ctx, held in _using_stack()[-1:]:
+            # made inside a façade call on another context's batch
+            self._hold(ctx, held)
+
+    def _mark_copies(self):
+        for arr in list(self._copies.values())[1:]:
+            arr._data = self._leaf(arr._data)
+            self._mark(arr)
+
+    def _hold(self, ctx, held):
+        """Hold ``ctx``'s copy in the modules (None: the first copy
+        again); ``held`` collects the parameters to give back."""
+        if ctx is None:
+            self._active = None
+            for ref, attr, kind in self._owners:
+                if ref() is not None:
+                    self._rebind(ref(), attr, kind)
+            return
+        if self._copies is None or len(self._copies) < 2:
+            return
+        arr = self._copies.get(ctx)
+        if arr is None:
+            raise MXNetError("Parameter %s not initialized on context %s "
+                             "(has %s)" % (self.name, ctx,
+                                           list(self._copies)))
+        if arr is self._nd:
+            return
+        self._active = ctx
+        held.append(self)
+        for ref, attr, kind in self._owners:
+            if ref() is not None:
+                self._rebind(ref(), attr, kind, arr._data)
 
     # -- init -------------------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False, generator=None):
         """Fill the parameter (reference: parameter.py Parameter.initialize):
         with ``init``, else its own initializer, else ``default_init``, else
-        `initializer.Uniform`. An unknown shape defers to the first forward
-        when ``allow_deferred_init``."""
+        `initializer.Uniform`, one copy a context of ``ctx`` (a context or
+        a list). An unknown shape defers to the first forward when
+        ``allow_deferred_init``."""
         if self._initialized and not force_reinit:
             return
-        ctx = _one_ctx(ctx, "Parameter %s" % self.name)
+        ctxs = _ctx_list(ctx)
         if init is None:
             init = self.init if self.init is not None \
                 else (default_init if default_init is not None
                       else initializer.Uniform())
         if not self._shape_known():
             if self.allow_deferred_init:
-                self._deferred_init = (init, ctx, generator)
+                self._deferred_init = (init, ctxs, generator)
                 return
             raise MXNetError("cannot initialize %s: shape %s unknown; set "
                              "allow_deferred_init or give the full shape"
                              % (self.name, self._shape))
-        self._init_impl(init, ctx, generator)
+        self._init_impl(init, ctxs, generator)
 
-    def _device(self, ctx):
-        if ctx is not None:
-            return ctx
+    def _contexts(self, ctxs):
+        if ctxs is not None:
+            return ctxs
         if self._nd is not None and self._placed:
-            return self.var.device
-        return current_context()
+            return list(self._copies)
+        return [current_context()]
 
-    def _init_impl(self, init, ctx, generator):
-        dev = self._device(ctx)
+    def _init_impl(self, init, ctxs, generator):
+        ctxs = self._contexts(ctxs)
+        dev = resolve_device(ctxs[0])
         t = self.var
         if t is None or tuple(t.shape) != self._shape or t.device != dev \
                 or t.dtype != torch_dtype(self.dtype):
@@ -248,8 +370,9 @@ class Parameter:
                                          dtype=torch_dtype(self.dtype),
                                          device=dev))
         self._placed = True
-        initializer.create(init)(initializer.InitDesc(self.name), self.var,
-                                 generator)
+        initializer.create(init)(initializer.InitDesc(self.name),
+                                 self._nd._data, generator)
+        self._set_copies(ctxs)
         self._deferred_init = ()
         self._initialized = True
 
@@ -261,11 +384,11 @@ class Parameter:
             raise DeferredInitializationError(
                 "Parameter %s has unknown shape %s" % (self.name,
                                                        self._shape))
-        init, ctx, generator = self._deferred_init
-        self._init_impl(init, ctx, generator)
+        init, ctxs, generator = self._deferred_init
+        self._init_impl(init, ctxs, generator)
 
     # -- access -----------------------------------------------------------
-    def _check(self, ctx):
+    def _check(self):
         if self._nd is None:
             if self._deferred_init:
                 raise DeferredInitializationError(
@@ -273,32 +396,53 @@ class Parameter:
                     "is known at the first forward" % self.name)
             raise MXNetError("Parameter %s has not been initialized. Call "
                              ".initialize() first" % self.name)
-        if ctx is not None and resolve_device(_one_ctx(ctx, self.name)) \
-                != self.var.device:
-            raise MXNetError("Parameter %s is on %s, not %s"
-                             % (self.name, self.var.device, ctx))
+
+    def _copy(self, ctx):
+        """The copy on ``ctx``; None: the held context's, else the
+        innermost ``with ctx:`` block's if it has one, else the first."""
+        self._check()
+        if ctx is None:
+            if self._active is not None:
+                return self._copies[self._active]
+            if len(self._copies) > 1:
+                inner = _innermost()
+                arr = self._copies.get(as_context(inner)) \
+                    if inner is not None else None
+                if arr is not None:
+                    return arr
+            return self._nd
+        want = as_context(ctx)
+        arr = self._copies.get(want)
+        if arr is not None:
+            return arr
+        if len(self._copies) == 1 \
+                and _unchecked_device(want) == self._nd._data.device:
+            return self._nd   # one copy: any context of its device
+        raise MXNetError("Parameter %s not initialized on context %s (has "
+                         "%s)" % (self.name, want, list(self._copies)))
 
     def data(self, ctx=None):
-        """The parameter's NDArray (the same object every call)."""
-        self._check(ctx)
-        return self._nd
+        """The parameter's NDArray on ``ctx`` (the same object every
+        call)."""
+        return self._copy(ctx)
 
     def list_data(self):
-        self._check(None)
-        return [self._nd]
+        self._check()
+        return list(self._copies.values())
 
     def grad(self, ctx=None):
-        self._check(ctx)
-        if self._grad_req == "null" or not self.var.requires_grad:
+        arr = self._copy(ctx)
+        if self._grad_req == "null" or not arr._data.requires_grad:
             raise MXNetError("Parameter %s has grad_req='null'" % self.name)
-        if self._nd._grad is None:
-            self._nd._grad = autograd._zeros_like(self.var)
-        return self._nd._grad
+        if arr._grad is None:
+            arr._grad = autograd._zeros_like(arr._data)
+            arr._grad._ctx = arr._ctx
+        return arr._grad
 
     def list_grad(self):
         if self._nd is None or not self.var.requires_grad:
             return []
-        return [self.grad()]
+        return [self.grad(c) for c in self._copies]
 
     def row_sparse_data(self, row_id):
         raise MXNetError("Parameter %s: row_sparse_data needs a row_sparse "
@@ -309,47 +453,59 @@ class Parameter:
     def list_ctx(self):
         if self._nd is None:
             if self._deferred_init:
-                return [self._device(self._deferred_init[1])]
+                return self._contexts(self._deferred_init[1])
             return []
-        return [self.var.device]
+        return list(self._copies)
 
     def zero_grad(self):
         for g in self.list_grad():
             g._data.zero_()
 
     def set_data(self, data):
-        """Write ``data`` (an NDArray, tensor or array) into the parameter,
+        """Write ``data`` (an NDArray, tensor or array) into every copy,
         off the tape; a deferred parameter takes its shape from it."""
         src = data._data if isinstance(data, NDArray) \
             else torch.from_numpy(_np.array(data)) \
             if not torch.is_tensor(data) else data
         self.shape = tuple(src.shape)
         if self._nd is None or tuple(self.var.shape) != self._shape:
-            init, ctx, generator = self._deferred_init or (None, None, None)
-            self._init_impl(initializer.Zero(), ctx, generator)
+            init, ctxs, generator = self._deferred_init or (None, None, None)
+            self._init_impl(initializer.Zero(), ctxs, generator)
         with torch.no_grad():
-            self.var.copy_(src)
+            for arr in self._copies.values():
+                arr._data.copy_(src)
         self._initialized = True
 
     def reset_ctx(self, ctx):
-        """Move the parameter (and its gradient buffer) to ``ctx``."""
-        dev = _one_ctx(ctx, "Parameter %s" % self.name)
+        """Move the parameter to ``ctx`` (a context or a list): one copy a
+        context, each the first copy's values, with new gradient
+        buffers."""
+        ctxs = _ctx_list(ctx)
         if self._nd is not None:
             self._placed = True
-            self._set_tensor(self.var.to(dev))
+            for arr in self._copies.values():
+                arr._grad = None
+            self._set_tensor(self.var.to(resolve_device(ctxs[0])))
+            self._set_copies(ctxs)
         elif self._deferred_init:
             init, _, generator = self._deferred_init
-            self._deferred_init = (init, dev, generator)
+            self._deferred_init = (init, ctxs, generator)
 
     def cast(self, dtype):
-        """Cast the parameter and its gradient buffer to ``dtype``."""
+        """Cast every copy and its gradient buffer to ``dtype``."""
         self.dtype = np_dtype(dtype)
         if self._nd is not None:
+            ctxs = list(self._copies)
             self._set_tensor(self.var.to(torch_dtype(dtype)))
+            self._set_copies(ctxs)
 
     def _reduce(self):
-        """A host copy (what `save` writes)."""
-        return self.data().copyto(cpu())
+        """A host copy (what `save` writes): the copies' mean, as the JAX
+        package's ``save`` takes it (one copy: that copy)."""
+        arrays = self.list_data()
+        if len(arrays) == 1:
+            return arrays[0].copyto(cpu())
+        return sum(a.copyto(cpu()) for a in arrays) / len(arrays)
 
 
 class Constant(Parameter):

@@ -19,7 +19,7 @@ import torch
 
 from ...autograd import layer_training
 from ...base import MXNetError
-from ...context import resolve_device
+from ...context import checked_context, resolve_device
 from ...ops import rnn as _rnn
 from ..nn.basic_layers import _Layer, _materialize
 
@@ -45,7 +45,7 @@ class _RNNLayer(_Layer):
         if layout not in ("TNC", "NTC"):
             raise MXNetError("Invalid layout %s; must be TNC or NTC"
                              % (layout,))
-        device = None if device is None else resolve_device(device)
+        device = checked_context(device)
         self._hidden_size = int(hidden_size)
         self._num_layers = int(num_layers)
         self._mode = mode
@@ -84,7 +84,7 @@ class _RNNLayer(_Layer):
             return [func(shape=info["shape"], ctx=ctx)
                     for info in self.state_info(batch_size)]
         func = func or torch.zeros
-        device = device if device is not None \
+        device = resolve_device(device) if device is not None \
             else self._reg_params["l0_h2h_weight"].var.device
         return [func(info["shape"], dtype=dtype, device=device)
                 for info in self.state_info(batch_size)]

@@ -1,28 +1,41 @@
 """Gluon Trainer (counterpart of `mxnet_tpu/gluon/trainer.py:32`;
-reference: python/mxnet/gluon/trainer.py), on one device.
+reference: python/mxnet/gluon/trainer.py), over one or several contexts
+and kvstores.
 
 `step(batch_size)` sets the optimizer's ``rescale_grad`` to ``scale /
-batch_size``, refuses a parameter whose gradient no backward has written
-since the last step (unless ``ignore_stale_grad``), and applies the
-optimizer to every parameter whose ``grad_req`` is not null, in place and
-off the tape. It reads each Parameter's arrays at every step, so a trainer
-built before the first forward (deferred shapes) works. Each step feeds
-the port's telemetry (`telemetry.observe_step`, kind "train"), as the JAX
-package's does.
+batch_size``, sums each parameter's gradients over its copies
+(`allreduce_grads`), refuses a copy whose gradient no backward has
+written since the last step (unless ``ignore_stale_grad``), and applies
+the optimizer to every copy of every parameter whose ``grad_req`` is not
+null, in place and off the tape, with one updater (and so one set of
+optimizer states) a context. It reads each Parameter's arrays at every
+step, so a trainer built before the first forward (deferred shapes)
+works. Each step feeds the port's telemetry (`telemetry.observe_step`,
+kind "train"), as the JAX package's does.
+
+The kvstore is made at the first step, as the JAX package's
+``_init_kvstore`` makes it: none on one context with a single-process
+store (nothing to reduce); with several contexts and no store the
+gradients are summed in context order (JAX `Trainer._allreduce_grads`);
+with a store (``device``, ``local``, a ``dist_*`` name or a `KVStore`)
+each parameter's gradients are pushed and pulled one key at a time. A
+distributed store with one context a process is the reference's usual
+multi-card run (one process a card, `mxnet_tpu_torch.launch`): its
+`init` hands every rank rank 0's values, and every push sums over ranks.
+``compression_params`` sets the store's 2-bit compression.
+``update_on_kvstore`` is recorded and, as in the JAX package, the update
+stays with the trainer (the same numbers as an update in the store).
 
 A parameter whose ``grad_stype`` is row_sparse gets its gradient cast to
 row_sparse before the update when the optimizer ``supports_sparse``, so
 the optimizer takes its lazy row update (JAX `Trainer._update`); any
-other optimizer gets the dense gradient. ``kvstore`` ("device", "local",
-a ``local_*`` name or a single-process `kvstore.KVStore`) and
-``compression_params`` are accepted and, as in the JAX package, unused on
-one device: there is nothing to reduce.
+other optimizer gets the dense gradient.
 
 The states file of `save_states` is the port's own (pickled host arrays
-and the optimizer's attributes); `load_states` restores it. Several
-contexts, a distributed kvstore, ``sharded=True``, `step_batch`,
-`prefetch` and the sharded checkpoints raise: they are ROADMAP queue 1
-item 11 part 2.
+and the optimizer's attributes); `load_states` restores it.
+``sharded=True``, `step_batch`, `prefetch` and the sharded checkpoints
+raise: the fused sharded step is ROADMAP queue 1 item 2, its persistent
+tier and the checkpoints item 13.
 """
 from __future__ import annotations
 
@@ -37,9 +50,10 @@ from .parameter import Parameter, ParameterDict
 __all__ = ["Trainer"]
 
 
-def _multi_card(what):
-    return MXNetError("Trainer: %s is not ported yet (ROADMAP queue 1 item "
-                      "11 part 2)" % what)
+def _not_ported(what):
+    return MXNetError("Trainer: %s is not ported yet (the fused sharded "
+                      "step is ROADMAP queue 1 item 2; its persistent tier "
+                      "and the sharded checkpoints are item 13)" % what)
 
 
 class Trainer:
@@ -55,12 +69,11 @@ class Trainer:
         if not isinstance(params, (list, tuple)):
             raise MXNetError("params must be a list or dict of Parameters")
         if sharded:
-            raise _multi_card("sharded=True (the fused sharded step)")
+            raise _not_ported("sharded=True (the fused sharded step)")
         from .. import kvstore as _kvs
 
-        if isinstance(kvstore, str):
-            _kvs.create(kvstore)   # raises for the multi-card names
-        elif kvstore is not None and not isinstance(kvstore, _kvs.KVStore):
+        if kvstore is not None and not isinstance(kvstore, (str,
+                                                            _kvs.KVStore)):
             raise MXNetError("kvstore must be a name or a KVStore, not %r"
                              % (kvstore,))
         self._compression_params = compression_params
@@ -71,9 +84,7 @@ class Trainer:
                 raise MXNetError("invalid parameter %r" % (p,))
             self._params.append(p)
             self._param2idx[p.name] = i
-        for p in self._params:
-            if len(p.list_ctx()) > 1:
-                raise _multi_card("a parameter on several contexts")
+        self._contexts = self._check_contexts()
         optimizer_params = optimizer_params or {}
         param_dict = dict(enumerate(self._params))
         if isinstance(optimizer, opt.Optimizer):
@@ -86,7 +97,11 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._scale = self._optimizer.rescale_grad
-        self._updater = opt.get_updater(self._optimizer)
+        self._updaters = [opt.get_updater(self._optimizer)]
+        self._kvstore_type = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
+        self._update_on_kvstore = update_on_kvstore
         self._step_count = 0
 
     @property
@@ -106,71 +121,168 @@ class Trainer:
         """Completed `step` calls (kept by `save_states`)."""
         return self._step_count
 
+    @property
+    def _updater(self):
+        return self._updaters[0]
+
+    def _check_contexts(self):
+        """The parameters' contexts, which must be one list for all of
+        them (a parameter not made yet is skipped)."""
+        contexts = None
+        for param in self._params:
+            ctx = param.list_ctx()
+            if not ctx:
+                continue
+            if contexts is not None and contexts != ctx:
+                raise MXNetError("All Parameters must be initialized on the "
+                                 "same set of contexts: %s has %s, not %s"
+                                 % (param.name, ctx, contexts))
+            contexts = ctx
+        return contexts or []
+
+    def _is_dist_kvstore(self):
+        """Whether the store spans processes, which needs the sums even on
+        one context a process (reference: trainer.py:169, ``'dist' in
+        kvstore.type``)."""
+        kt = self._kvstore_type
+        if isinstance(kt, str):
+            return "dist" in kt or kt in ("horovod", "tpu")
+        return getattr(kt, "num_workers", 1) > 1
+
+    def _init_kvstore(self):
+        """Make the kvstore at the first step (reference: trainer.py:169):
+        only with several contexts or a distributed store. A distributed
+        store's `init` gives every rank rank 0's values, pulled into every
+        copy."""
+        from .. import kvstore as _kvs
+
+        self._kv_initialized = True
+        self._contexts = self._check_contexts()
+        kt = self._kvstore_type
+        if not kt or (len(self._contexts) < 2
+                      and not self._is_dist_kvstore()):
+            self._kvstore = None
+            return
+        kv = _kvs.create(kt) if isinstance(kt, str) else kt
+        self._kvstore = kv
+        if self._compression_params:
+            kv.set_gradient_compression(self._compression_params)
+        for i, param in enumerate(self._params):
+            if param._nd is not None:
+                self._init_key(i, param)
+
+    def _init_key(self, i, param):
+        self._kvstore.init(i, param.list_data()[0])
+        if self._is_dist_kvstore():
+            # every rank trains rank 0's replica
+            self._kvstore.pull(i, out=param.list_data())
+
+    def _ensure_updaters(self):
+        while len(self._updaters) < max(1, len(self._contexts)):
+            self._updaters.append(opt.get_updater(self._optimizer))
+
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale by ``1 / batch_size`` and update every parameter
-        (reference: trainer.py:298)."""
+        """Sum the gradients over the copies (and ranks), rescale by ``1 /
+        batch_size`` and update every copy (reference: trainer.py:298)."""
         t0 = time.perf_counter()
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
         self._step_count += 1
         telemetry.observe_step(time.perf_counter() - t0,
                                examples=batch_size, step=self._step_count)
 
     def allreduce_grads(self):
-        """Nothing to reduce: one device holds every gradient."""
+        """Sum each parameter's gradients over its copies (and ranks),
+        into every copy's gradient (reference: trainer.py:327)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        if len(self._contexts) < 2 and self._kvstore is None:
+            return
+        kv = self._kvstore
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null":
+                continue
+            grads = param.list_grad()
+            if kv is not None:
+                if i not in kv._store:   # made after the store (deferred)
+                    self._init_key(i, param)
+                kv.push(i, grads)
+                kv.pull(i, out=grads)
+            else:
+                # context order, as the JAX package adds them
+                total = grads[0]
+                for g in grads[1:]:
+                    total = total + g.as_in_context(total.context)
+                for g in grads:
+                    g._set_data(total._data.to(g._data.device))
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update half of `step`, after `allreduce_grads`."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        self._ensure_updaters()
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
-            arr = param.data()
-            if not arr._fresh_grad and not ignore_stale_grad:
-                raise MXNetError(
-                    "Gradient of Parameter `%s` on context %s has not been "
-                    "updated by backward since last step. Set "
-                    "ignore_stale_grad=True to suppress"
-                    % (param.name, arr.context))
-            grad = param.grad()
-            if param.grad_stype == "row_sparse" \
-                    and self._optimizer.supports_sparse:
-                grad = grad.tostype("row_sparse")
-            self._updater(i, grad, arr)
-            arr._fresh_grad = False
+            arrays = param.list_data()
+            if not ignore_stale_grad:
+                for arr in arrays:
+                    if not arr._fresh_grad:
+                        raise MXNetError(
+                            "Gradient of Parameter `%s` on context %s has "
+                            "not been updated by backward since last step. "
+                            "Set ignore_stale_grad=True to suppress"
+                            % (param.name, arr.context))
+            for upd, arr, grad in zip(self._updaters, arrays,
+                                      param.list_grad()):
+                if param.grad_stype == "row_sparse" \
+                        and self._optimizer.supports_sparse:
+                    grad = grad.tostype("row_sparse")
+                upd(i, grad, arr)
+                arr._fresh_grad = False
 
     def step_batch(self, data, label=None):
-        raise _multi_card("step_batch (the promoted sharded step)")
+        raise _not_ported("step_batch (the promoted sharded step)")
 
     def prefetch(self, it, depth=None):
-        raise _multi_card("prefetch (the promoted sharded step)")
+        raise _not_ported("prefetch (the promoted sharded step)")
 
     def sync_params(self):
         """Nothing to copy: the Parameters are the training copies."""
 
     def save_sharded_checkpoint(self, manager, step=None, meta=None):
-        raise _multi_card("save_sharded_checkpoint")
+        raise _not_ported("save_sharded_checkpoint")
 
     def emergency_sharded_checkpoint(self, manager, meta=None):
-        raise _multi_card("emergency_sharded_checkpoint")
+        raise _not_ported("emergency_sharded_checkpoint")
 
     def restore_sharded_checkpoint(self, manager, step=None):
-        raise _multi_card("restore_sharded_checkpoint")
+        raise _not_ported("restore_sharded_checkpoint")
 
     def save_states(self, fname):
-        """Write the optimizer's states, its attributes and the step count
-        to ``fname``, atomically (reference: trainer.py:429)."""
+        """Write the optimizer's states (the first context's, as the JAX
+        package writes them), its attributes and the step count to
+        ``fname``, atomically (reference: trainer.py:429)."""
         blob = {"__mxtpu_torch_trainer_states__": 1,
-                "updater": self._updater.get_states(dump_optimizer=True),
+                "updater": self._updaters[0].get_states(
+                    dump_optimizer=True),
                 "step_count": self._step_count}
         with atomic_writer(fname, "wb") as f:
             pickle.dump(blob, f)
 
     def load_states(self, fname):
-        """Restore a file of `save_states` (reference: trainer.py:458)."""
+        """Restore a file of `save_states` into every context's updater
+        (reference: trainer.py:458)."""
         with open(fname, "rb") as f:
             blob = pickle.load(f)
         if not (isinstance(blob, dict)
@@ -178,7 +290,9 @@ class Trainer:
             raise MXNetError("%s is not a states file of this package's "
                              "Trainer" % fname)
         param_dict = self._optimizer.param_dict
-        self._updater.set_states(blob["updater"])
-        self._optimizer.param_dict = param_dict
-        self._updater.optimizer = self._optimizer
+        self._ensure_updaters()
+        for updater in self._updaters:
+            updater.set_states(blob["updater"])
+            self._optimizer.param_dict = param_dict
+            updater.optimizer = self._optimizer
         self._step_count = int(blob.get("step_count", 0))

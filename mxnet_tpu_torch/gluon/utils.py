@@ -53,7 +53,8 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
     if not arrays:
         raise MXNetError("clip_global_norm: no arrays")
     with torch.no_grad():
-        total = torch.stack([a._data.float().square().sum()
+        dev = arrays[0]._data.device
+        total = torch.stack([a._data.float().square().sum().to(dev)
                              for a in arrays]).sum()
         total_norm = float(total.sqrt())
         if check_isfinite and not _np.isfinite(total_norm):

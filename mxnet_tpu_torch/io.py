@@ -169,8 +169,8 @@ class NDArrayIter(DataIter):
                                    self.idx[:end - self.num_data]])
         out = []
         for v in arrs.values():
-            pos = torch.from_numpy(sel).to(v.context)
-            out.append(NDArray(v._data.index_select(0, pos)))
+            pos = torch.from_numpy(sel).to(v._data.device)
+            out.append(NDArray(v._data.index_select(0, pos), v._ctx))
         return out
 
     def getdata(self):

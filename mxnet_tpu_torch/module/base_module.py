@@ -189,8 +189,11 @@ class BaseModule(object):
             if use_prefetch:
                 from ..data import DevicePrefetcher
 
-                batches = DevicePrefetcher(
-                    batches, mesh=getattr(self, "_context", None), src="fit")
+                # the one executor's device: the first context's
+                ctx = getattr(self, "_context", None)
+                if isinstance(ctx, (list, tuple)):
+                    ctx = ctx[0]
+                batches = DevicePrefetcher(batches, mesh=ctx, src="fit")
             try:
                 for nbatch, data_batch in enumerate(batches):
                     self.forward_backward(data_batch)

@@ -3,11 +3,20 @@
 bind :364, init_params :259, init_optimizer :474, forward :575, backward
 :629, update :646).
 
-One `Executor` on one device. ``context`` defaults to `current_context`
-(the card unless a ``scope`` chose the CPU); a list of more than one
-device, and the dist kvstores, raise (multi-card Modules are ROADMAP
-queue 1 item 11 part 2). `update` applies the optimizer to each
-parameter in place through its `Updater`, one parameter at a time.
+One `Executor` over the whole batch, on the first context, whatever
+the number of contexts: the JAX package binds one executor over a ``dp``
+mesh of the contexts (module.py:7-12), whose graph is the whole batch, so
+a training BatchNorm takes the whole batch's moments and the loss heads
+normalise over it; one executor on contexts that share a torch device
+(``[cpu(0), cpu(1)]``, or one card) is exactly that computation.
+``context`` defaults to `current_context` (the card unless a ``scope``
+chose the CPU). Contexts on distinct cards raise: one process over
+several cards is ROADMAP queue 1 item 11 (distinct cards in one process
+are not run). `init_optimizer` takes every kvstore name the JAX `Module`
+takes and, as it does, runs every one as the synchronous ``device`` store
+of one process (no sum over ranks; ROADMAP "Not queued"). `update`
+applies the optimizer to each parameter in place through its `Updater`,
+one parameter at a time.
 """
 from __future__ import annotations
 
@@ -47,15 +56,21 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None, group2ctxs=None, compression_params=None):
         super().__init__(logger=logger)
-        if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise MXNetError("Module: one device only; %d devices need "
-                                 "multi-card training, which is not ported "
-                                 "yet (ROADMAP queue 1 item 11 part 2)"
-                                 % len(context))
-            context = context[0]
-        self._context = ctx_mod.resolve_device(context) \
-            if context is not None else ctx_mod.current_context()
+        if context is None:
+            context = ctx_mod.current_context()
+        if not isinstance(context, (list, tuple)):
+            context = [context]
+        self._context = [ctx_mod.as_context(c) for c in context]
+        if not self._context:
+            raise MXNetError("Module: an empty list of contexts")
+        devices = {ctx_mod.resolve_device(c) for c in self._context}
+        if len(devices) > 1:
+            raise MXNetError(
+                "Module: contexts %s lie on %d devices; one executor over the "
+                "whole batch runs on one device, and one process over "
+                "several cards is not ported yet (ROADMAP queue 1 item 11; "
+                "run one process a card with kvstore='dist_sync' through "
+                "gluon.Trainer)" % (self._context, len(devices)))
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -143,7 +158,7 @@ class Module(BaseModule):
                 req[n] = grad_req if for_training else "null"
         shared = shared_module._exec if shared_module is not None else None
         self._exec = self._symbol.simple_bind(
-            ctx=self._context, grad_req=req, shared_exec=shared,
+            ctx=self._context[0], grad_req=req, shared_exec=shared,
             **shape_kwargs)
         self.binded = True
 
@@ -204,17 +219,13 @@ class Module(BaseModule):
                        force_init=False):
         """The optimizer and its updater (reference: module.py:474), with
         the default ``rescale_grad = 1 / data_shapes[0][1][0]`` (the loss
-        heads' gradients are sums over the batch). kvstore "local" and
-        "device" are the same here: one device."""
+        heads' gradients are sums over the batch). Every kvstore is taken
+        and runs as the synchronous ``device`` store: the one executor's
+        gradients are already the whole batch's (the JAX package's
+        divergence from the reference, kept)."""
         if self.optimizer_initialized and not force_init:
             return
         assert self.binded and self.params_initialized
-        if kvstore not in (None, "local", "device") \
-                and not (isinstance(kvstore, str)
-                         and kvstore.startswith("local")):
-            raise MXNetError("kvstore %r is not ported yet (ROADMAP queue 1 "
-                             "item 11 part 2); use 'local' or 'device'"
-                             % (kvstore,))
         if isinstance(optimizer, opt_mod.Optimizer):
             opt = optimizer
         else:

@@ -4,9 +4,11 @@ Counterpart of `mxnet_tpu/ndarray/ndarray.py` (reference:
 include/mxnet/ndarray.h:82 and python/mxnet/ndarray/ndarray.py). Design
 mapping:
 
-- Storage → a contiguous `torch.Tensor`; its device is the array's
-  context (`torch.device`). PyTorch's caching allocator owns memory and
-  its streams order the work.
+- Storage → a contiguous `torch.Tensor`. The array's context is the
+  `Context` it was placed with (``ctx=``, `copyto`, `as_in_context`;
+  an op's outputs take their first input's), else its tensor's device as
+  a `Context`: ``cpu(1)`` runs on the host and stays ``cpu(1)``.
+  PyTorch's caching allocator owns memory and its streams order the work.
 - In-place mutation is real, as in the reference: ``+=``, ``x[k] = v``,
   `copyto`, ``out=`` and `_set_data` write into the tensor's storage
   (``copy_``), so a view (``x[1:3]``, ``x.reshape(...)``, `detach`) and a
@@ -54,7 +56,8 @@ from .. import profiler as _profiler
 from .. import random as _random
 from ..base import MXNetError, atomic_writer, np_dtype, numeric_types, \
     torch_dtype
-from ..context import current_context, resolve_device
+from ..context import Context, _innermost, _unchecked_device, \
+    as_context, resolve_device
 from ..ops.tensor import mx_reshape_shape
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
@@ -66,10 +69,11 @@ class NDArray:
     """Multi-dimensional array on a device (reference: ndarray.h:82)."""
 
     __slots__ = ("_data", "_grad", "_grad_req", "_fresh_grad", "_leaves",
-                 "_pinned", "__weakref__")
+                 "_pinned", "_ctx", "__weakref__")
 
-    def __init__(self, data):
+    def __init__(self, data, ctx=None):
         self._data = data  # torch.Tensor, contiguous
+        self._ctx = ctx         # the Context it was placed with, or None
         self._grad = None       # gradient buffer (an NDArray) of a variable
         self._grad_req = "null"
         self._fresh_grad = False  # written by a backward since the last step
@@ -118,7 +122,12 @@ class NDArray:
 
     @property
     def context(self):
-        return self._data.device
+        """The `Context` this array was placed with, else its device's."""
+        ctx = self._ctx
+        if ctx is not None and _unchecked_device(ctx).type \
+                == self._data.device.type:
+            return ctx
+        return Context(self._data.device)
 
     ctx = context
 
@@ -176,14 +185,16 @@ class NDArray:
         if isinstance(other, NDArray):
             other._set_data(self._data)
             return other
-        if isinstance(other, (torch.device, str)):
+        if isinstance(other, (Context, torch.device, str)):
             with _autograd._grad_mode():
                 return NDArray(self._data.to(resolve_device(other),
-                                             copy=True))
+                                             copy=True), as_context(other))
         raise TypeError("copyto: expected NDArray or device")
 
     def as_in_context(self, ctx):
-        if resolve_device(ctx) == self.context:
+        """This array when it is on ``ctx``, else a copy there (two host
+        contexts are two arrays, as in the JAX package)."""
+        if as_context(ctx) == self.context:
             return self
         return self.copyto(ctx)
 
@@ -194,7 +205,7 @@ class NDArray:
 
     def detach(self):
         """The same values, cut from the graph (shares the storage)."""
-        return NDArray(self._data.detach())
+        return NDArray(self._data.detach(), self._ctx)
 
     def astype(self, dtype, copy=True):
         return invoke("Cast", (self,), {"dtype": str(np_dtype(dtype))})
@@ -246,7 +257,7 @@ class NDArray:
             shape = tuple(shape[0])
         with _autograd._grad_mode():
             return NDArray(self._data.view(mx_reshape_shape(
-                self.shape, shape, kwargs.get("reverse", False))))
+                self.shape, shape, kwargs.get("reverse", False))), self._ctx)
 
     def reshape_like(self, other):
         return self.reshape(other.shape)
@@ -507,7 +518,7 @@ class NDArray:
             out = src[key]
             if not out.is_contiguous():
                 out = out.contiguous()
-        return NDArray(out)
+        return NDArray(out, self._ctx)
 
     def __setitem__(self, key, value):
         if isinstance(value, NDArray):
@@ -590,14 +601,15 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     """Invoke a registered op on NDArrays (reference call path:
     MXImperativeInvokeEx c_api_ndarray.cc:132 -> Imperative::Invoke
     imperative.cc:89). Outputs go to ``ctx`` if given, else to the first
-    input's device, else to `current_context`; each is a contiguous tensor
-    of its own, never a view of an input. An op taking ``is_train`` gets
-    autograd's training mode, one that ``needs_rng`` this thread's
-    generator for the device, and an op's hidden trailing outputs (the
-    aux inputs it updated in place) are not returned. The op is one
-    "imperative" profiler event (`profiler.timed_call`, the reference's
-    ProfileOperator hook); recorded while profiling, its backward is one
-    ``_backward_<op>`` event too (`profiler.hook_backward`)."""
+    input's device (and context), else to `current_context`; each is a
+    contiguous tensor of its own, never a view of an input. An op taking
+    ``is_train`` gets autograd's training mode, one that ``needs_rng``
+    this thread's generator for the device, and an op's hidden trailing
+    outputs (the aux inputs it updated in place) are not returned. The op
+    is one "imperative" profiler event (`profiler.timed_call`, the
+    reference's ProfileOperator hook); recorded while profiling, its
+    backward is one ``_backward_<op>`` event too
+    (`profiler.hook_backward`)."""
     opdef = _ops.get(op_name)
     if opdef.host:
         return _invoke_host(opdef, op_name, inputs, attrs, out, ctx)
@@ -613,9 +625,10 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     tensors = tuple(i._data if isinstance(i, NDArray) else i for i in inputs)
     arrays = [t for t in tensors + tuple(attrs.values()) if torch.is_tensor(t)]
     if ctx is not None:
-        dev = resolve_device(ctx)
+        dev, ctx = resolve_device(ctx), as_context(ctx)
     else:
-        dev = arrays[0].device if arrays else current_context()
+        dev = arrays[0].device if arrays else resolve_device(None)
+        ctx = next((i._ctx for i in inputs if isinstance(i, NDArray)), None)
     if _ops.takes_is_train(opdef):
         attrs.setdefault("is_train", _autograd.is_training())
     if opdef.needs_rng:
@@ -635,7 +648,7 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
             r = r.to(dev)
             if _storage(r) in shared or not r.is_contiguous():
                 r = r.clone(memory_format=torch.contiguous_format)
-            out_nd.append(NDArray(r))
+            out_nd.append(NDArray(r, ctx))
 
     return _deliver(out_nd, out)
 
@@ -670,10 +683,10 @@ def _invoke_host(opdef, op_name, inputs, attrs, out, ctx):
     attrs = {k: v for k, v in attrs.items() if v is not None}
     attrs.pop("name", None)
     if opdef.needs_rng:
-        dev = resolve_device(ctx) if ctx is not None else \
-            next((i.context for i in inputs if isinstance(i, NDArray)),
-                 current_context())
-        attrs.setdefault("generator", _random.generator(dev))
+        dev = next((i.context for i in inputs if isinstance(i, NDArray)),
+                   None) if ctx is None else ctx
+        attrs.setdefault("generator",
+                         _random.generator(resolve_device(dev)))
     results = _profiler.timed_call(
         op_name, lambda: opdef.fn(*inputs, **attrs), ())
     results = list(results) if isinstance(results, (tuple, list)) \
@@ -685,8 +698,13 @@ def _invoke_host(opdef, op_name, inputs, attrs, out, ctx):
 # creation / io functions (reference: python/mxnet/ndarray/ndarray.py + utils)
 # --------------------------------------------------------------------------
 
-def _device(ctx):
-    return current_context() if ctx is None else resolve_device(ctx)
+def _placed(ctx):
+    """The `Context` a new array is placed with: ``ctx``, else the
+    innermost ``with ctx:`` block's (None: its device's)."""
+    if ctx is None:
+        ctx = _innermost()
+        return ctx if isinstance(ctx, Context) else None
+    return as_context(ctx)
 
 
 def _shape(shape):
@@ -697,7 +715,7 @@ def array(source, ctx=None, dtype=None):
     """A new array holding a copy of ``source`` (an NDArray, a tensor or
     anything numpy takes); float32 unless ``dtype`` is given or the source
     is an NDArray (reference: python/mxnet/ndarray/ndarray.py `array`)."""
-    dev = _device(ctx)
+    dev = resolve_device(ctx)
     if isinstance(source, NDArray):
         if dtype is None:
             dtype = source.dtype
@@ -705,26 +723,27 @@ def array(source, ctx=None, dtype=None):
     dtype = "float32" if dtype is None else dtype
     tdt = torch_dtype(dtype)
     if torch.is_tensor(source):
-        return NDArray(source.detach().to(dev, tdt, copy=True))
+        return NDArray(source.detach().to(dev, tdt, copy=True),
+                       _placed(ctx))
     # np.array copies, so the new tensor owns its memory
     npa = _np.array(source, order="C", dtype=_np.float32
                     if tdt == torch.bfloat16 else np_dtype(dtype))
-    return NDArray(torch.from_numpy(npa).to(dev, tdt))
+    return NDArray(torch.from_numpy(npa).to(dev, tdt), _placed(ctx))
 
 
 def zeros(shape, ctx=None, dtype="float32", **kwargs):
     return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
-                               device=_device(ctx)))
+                               device=resolve_device(ctx)), _placed(ctx))
 
 
 def ones(shape, ctx=None, dtype="float32", **kwargs):
     return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
-                              device=_device(ctx)))
+                              device=resolve_device(ctx)), _placed(ctx))
 
 
 def full(shape, val, ctx=None, dtype="float32", **kwargs):
     return NDArray(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
-                              device=_device(ctx)))
+                              device=resolve_device(ctx)), _placed(ctx))
 
 
 def empty(shape, ctx=None, dtype="float32"):
@@ -782,11 +801,12 @@ def save(fname, data):
         _np.savez(f, **arrays)
 
 
-def _from_npz(a, dev):
+def _from_npz(a, ctx):
     if a.dtype == _BF16_NPZ:
         bits = torch.from_numpy(_np.ascontiguousarray(a).view(_np.int16))
-        return NDArray(bits.view(torch.bfloat16).to(dev, copy=True))
-    return array(a, ctx=dev, dtype=a.dtype)
+        return NDArray(bits.view(torch.bfloat16).to(resolve_device(ctx),
+                                                    copy=True), ctx)
+    return array(a, ctx=ctx, dtype=a.dtype)
 
 
 def load(fname, ctx=None):
@@ -797,10 +817,11 @@ def load(fname, ctx=None):
     if isinstance(fname, (bytes, bytearray)):
         src = io.BytesIO(bytes(fname))
         fname = "<bytes>"
-    dev = _device(ctx)
+    ctx = as_context(ctx) if ctx is not None \
+        else Context(resolve_device(None))
     try:
         with _np.load(src, allow_pickle=False) as f:
-            out = {k: _from_npz(f[k], dev) for k in f.files}
+            out = {k: _from_npz(f[k], ctx) for k in f.files}
     except (zipfile.BadZipFile, EOFError, zlib.error) as e:
         raise MXNetError(
             "failed to load NDArrays from %r: file is truncated or corrupt "

@@ -36,7 +36,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError, np_dtype, torch_dtype
-from ..context import current_context, resolve_device
+from ..context import Context, resolve_device
 from .ndarray import NDArray, array as _dense_array
 
 __all__ = ["BaseSparseNDArray", "RowSparseNDArray", "CSRNDArray",
@@ -94,13 +94,17 @@ class BaseSparseNDArray(NDArray):
 
     @property
     def context(self):
-        return self._data["data"].device
+        return Context(self._device)
 
     ctx = context
 
+    @property
+    def _device(self):
+        return self._data["data"].device
+
     def wait_to_read(self):
-        if self.context.type == "cuda":
-            torch.cuda.current_stream(self.context).synchronize()
+        if self._device.type == "cuda":
+            torch.cuda.current_stream(self._device).synchronize()
         return self
 
     wait_to_write = wait_to_read
@@ -133,7 +137,7 @@ class BaseSparseNDArray(NDArray):
         """Write a dense ``value`` (a tensor of this shape) into this array,
         cast to its storage type."""
         dense = NDArray(torch.as_tensor(value).to(
-            self.context, self._data["data"].dtype).expand(self._shape)
+            self._device, self._data["data"].dtype).expand(self._shape)
             .contiguous())
         self._assign(cast_storage(dense, self.stype))
 
@@ -141,7 +145,7 @@ class BaseSparseNDArray(NDArray):
         """Sparse-aware copy (reference: sparse.py copyto): to a device, the
         same stype there; to a sparse array of the same stype, its
         components; to a dense NDArray, the dense values."""
-        if isinstance(other, (torch.device, str)):
+        if isinstance(other, (Context, torch.device, str)):
             dev = resolve_device(other)
             return type(self)._new({k: v.to(dev, copy=True)
                                     for k, v in self._data.items()},
@@ -150,7 +154,7 @@ class BaseSparseNDArray(NDArray):
             if type(other) is not type(self):
                 raise MXNetError("copyto: stype mismatch (%s -> %s)"
                                  % (self.stype, other.stype))
-            dev = other.context
+            dev = other._device
             return other._assign(type(self)._new(
                 {k: v.to(dev, copy=True) for k, v in self._data.items()},
                 self._shape))
@@ -302,7 +306,7 @@ def _host(a, dtype):
 
 
 def _dev(ctx):
-    return current_context() if ctx is None else resolve_device(ctx)
+    return resolve_device(ctx)
 
 
 def row_sparse_array(arg1, shape=None, ctx=None, dtype=None):
@@ -543,7 +547,7 @@ def add(lhs, rhs):
     if isinstance(lhs, RowSparseNDArray) and isinstance(rhs, RowSparseNDArray):
         if lhs.shape != rhs.shape:
             raise MXNetError("shape mismatch in sparse add")
-        dev, dt = lhs.context, lhs._data["data"].dtype
+        dev, dt = lhs._device, lhs._data["data"].dtype
         idx = torch.cat([lhs._data["indices"],
                          rhs._data["indices"].to(dev)]).long()
         vals = torch.cat([lhs._data["data"], rhs._data["data"].to(dev, dt)])

@@ -46,9 +46,9 @@ def _gen(generator, like=None):
         return generator
     if like is not None:
         return _random.generator(like.device)
-    from ..context import current_context
+    from ..context import resolve_device
 
-    return _random.generator(current_context())
+    return _random.generator(resolve_device(None))
 
 
 def _shape(shape):

@@ -17,10 +17,11 @@
   pipeline_trainer — PipelineTrainer: a model's uniform cells over pp
   (expert parallelism: gluon.contrib.moe.MoEFFN + the `ep` sharding rule)
 
-The JAX package's ShardedTrainer (its persistent compile tier), the
-distributed kvstore and its server, a launcher, Module's and
-gluon.Trainer's several contexts and the sharded checkpoints are ROADMAP
-queue 1 item 11 part 2; resilience is item 13.
+The distributed kvstore (`kvstore._DistKVStore`) is the reference's way
+over the same group, one process a card (`mxnet_tpu_torch.launch`). The
+JAX package's ShardedTrainer, with the fused step (ROADMAP queue 1 item
+2) and its persistent compile tier, and the sharded checkpoints are item
+13's, as is resilience.
 """
 from .mesh import (make_mesh, default_mesh, current_mesh, use_mesh,
                    local_devices, devices, mesh_fingerprint, Mesh, Device,

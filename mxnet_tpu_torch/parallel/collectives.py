@@ -389,9 +389,10 @@ _RANK_NAMES = ("MXTPU_PROCESS_ID", "DMLC_WORKER_ID", "OMPI_COMM_WORLD_RANK",
 def init_process_group(coordinator_address=None, num_processes=None,
                        process_id=None, timeout=None, retries=None,
                        init_method=None, backend=None):
-    """Join the process group: NCCL when a card is present, gloo
-    otherwise (or ``backend``). A no-op in one process and when the group
-    is already up.
+    """Join the process group: NCCL when each of this host's ranks has a
+    card of its own, gloo otherwise (ranks sharing a card, or no card; a
+    card tensor then goes through the host), or ``backend``. A no-op in
+    one process and when the group is already up.
 
     The size and rank come from the same environment as the JAX
     package's, in its order (``MXTPU_NUM_WORKERS``, ``DMLC_*``,
@@ -403,7 +404,8 @@ def init_process_group(coordinator_address=None, num_processes=None,
     (``MXTPU_RENDEZVOUS_TIMEOUT``, 300) and redials ``retries`` times
     (``MXTPU_RENDEZVOUS_RETRIES``, 0) before it raises an `MXNetError`
     that names what failed. On the card, rank r takes ``cuda:<local
-    rank>`` (``LOCAL_RANK``, else r modulo the cards)."""
+    rank>`` (``LOCAL_RANK``, else r modulo the cards). This host's ranks
+    are ``LOCAL_WORLD_SIZE``, else the whole group."""
     import torch.distributed as dist
 
     if num_processes is None:
@@ -436,7 +438,9 @@ def init_process_group(coordinator_address=None, num_processes=None,
     if retries is None:
         retries = _env.get("MXTPU_RENDEZVOUS_RETRIES")
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        local = _env_int("LOCAL_WORLD_SIZE") or num_processes
+        backend = "nccl" if torch.cuda.is_available() \
+            and local <= torch.cuda.device_count() else "gloo"
     if backend == "nccl":
         local = os.environ.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None

@@ -108,11 +108,12 @@ def local_device():
     dist = _dist()
     if dist is not None:
         return _rank_device(dist.get_rank())
-    from ..context import _innermost
+    from ..context import Context, _innermost, _unchecked_device
 
     dev = _innermost()
     if dev is not None:
-        return torch.device(dev)
+        return _unchecked_device(dev) if isinstance(dev, Context) \
+            else torch.device(dev)
     return torch.device("cuda", 0) if torch.cuda.is_available() \
         else torch.device("cpu")
 

@@ -71,8 +71,7 @@ class Predictor:
 
     def __init__(self, symbol_file, param_file=None, ctx=None,
                  input_shapes=None, output_names=None, input_dtypes=None):
-        self._ctx = _context.current_context() if ctx is None \
-            else _context.resolve_device(ctx)
+        self._ctx = _context.resolve_device(ctx)
         if isinstance(symbol_file, sym_mod.Symbol):
             symbol = symbol_file
         elif isinstance(symbol_file, str) \

@@ -18,6 +18,8 @@ import threading
 
 import torch
 
+from .context import Context, resolve_device
+
 __all__ = ["seed", "current_seed", "generator", "get_state", "set_state",
            "worker_seed"]
 
@@ -41,9 +43,10 @@ def seed(seed_state, ctx="all"):
         st.seed_val = int(seed_state)
         st.generators = {}
         return
-    gen = torch.Generator(device=torch.device(ctx))
+    dev = resolve_device(ctx)
+    gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed_state))
-    st.generators[torch.device(ctx)] = gen
+    st.generators[dev] = gen
 
 
 def current_seed():
@@ -54,7 +57,8 @@ def generator(device):
     """This thread's generator for ``device``, seeded from `current_seed`
     at first use."""
     st = _get()
-    dev = torch.device(device)
+    dev = device.torch_device() if isinstance(device, Context) \
+        else torch.device(device)
     gen = st.generators.get(dev)
     if gen is None:
         gen = torch.Generator(device=dev)

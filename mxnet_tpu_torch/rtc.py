@@ -65,7 +65,7 @@ import numpy as _np
 import torch
 
 from .base import MXNetError
-from .context import resolve_device
+from .context import as_context, resolve_device
 from .ndarray import NDArray
 from .ops import _build
 
@@ -140,11 +140,11 @@ def _dims(dims, what):
 def _cuda_device(ctx):
     """``ctx`` as a CUDA `torch.device`; a CPU context, or any context
     without a card, raises."""
-    dev = torch.device(ctx)
-    if dev.type != "cuda":
+    ctx = as_context(ctx)
+    if ctx.device_type not in ("gpu", "tpu"):
         raise MXNetError("mx.rtc launches CUDA kernels and has no CPU path; "
-                         "ctx %s is not a CUDA device" % dev)
-    return resolve_device(dev)
+                         "ctx %s is not a CUDA device" % ctx)
+    return resolve_device(ctx)
 
 
 # --------------------------------------------------------------------------
@@ -453,7 +453,7 @@ class CudaKernel:
             if val.dtype != dtype and str(val.dtype) != str(dtype):
                 raise MXNetError("arg '%s' expects dtype %s, got %s"
                                  % (aname, dtype, val.dtype))
-            if val.context != dev:
+            if val._data.device != dev:
                 raise MXNetError("arg '%s' is on %s, not on the launch's "
                                  "ctx %s" % (aname, val.context, dev))
             if not val._data.is_contiguous():

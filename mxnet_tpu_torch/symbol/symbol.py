@@ -424,8 +424,7 @@ class Symbol:
         from ..executor import Executor
         from ..ndarray import zeros
 
-        ctx = ctx_mod.resolve_device(ctx) if ctx is not None \
-            else ctx_mod.current_context()
+        ctx = ctx_mod.resolve_device(ctx)
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         arg_names = self.list_arguments()
         aux_names = self.list_auxiliary_states()

@@ -22,7 +22,8 @@ over a dp 1 x ep 1 mesh (no host sync in it), on the card against the
 CPU; and the conv epilogue's raw mode and finishing kernels (a batch
 split over ranks) against their plain versions, attention at batch 1
 (fault F8), and a `PipelineTrainer` step at pp 1 on the card against the
-CPU.
+CPU; and a Parameter over ``[cpu(0), gpu(0)]`` trained through
+`gluon.Trainer` against the same run over ``[cpu(0), cpu(1)]``.
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -43,6 +44,7 @@ from chip_smoke import (RTC_CASES, RTC_SOFTMAX, RTC_SOFTMAX_EXPORTS,
                         facade_step_errors, module_step_errors, rtc_close,
                         rtc_kernels, rtc_planted_faults, rtc_scale,
                         rtc_softmax, softmax_bwd_plain, softmax_plain)
+from mxnet_tpu_torch import context as mx_context
 from mxnet_tpu_torch import initializer
 from mxnet_tpu_torch import nd, rtc
 from mxnet_tpu_torch.base import MXNetError
@@ -1327,7 +1329,7 @@ def test_nd_on_card_matches_cpu(tmp_path):
         res[ctx] = [z, nd.dot(x, y.T), nd.softmax(x), x.argmax(axis=1),
                     nd.arange(0, 6, ctx=ctx).reshape((2, 3)), x.sum(axis=0),
                     nd.array(np.arange(6), ctx=ctx, dtype="int32") + 0.7]
-        assert res[ctx][0].context.type == ctx
+        assert res[ctx][0].context == mx_context.Context(ctx)
     for c, g in zip(res["cpu"], res["cuda"]):
         assert c.dtype == g.dtype and c.shape == g.shape
         np.testing.assert_allclose(g.asnumpy(), c.asnumpy(), rtol=1e-5,
@@ -1756,3 +1758,59 @@ def test_moe_trainer_step_on_card_matches_cpu_without_host_sync():
         torch.backends.cuda.matmul.allow_tf32 = prev
         (chip_smoke.MOE_VOCAB, chip_smoke.MOE_UNITS, chip_smoke.MOE_HIDDEN,
          chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ) = saved
+
+
+@pytest.mark.cuda
+def test_parameters_over_host_and_card_train_as_over_two_host_contexts():
+    """An MLP's parameters over ``[cpu(0), gpu(0)]`` (a copy on the host and
+    one on the card) trained through `gluon.Trainer` (split_and_load, a
+    forward and backward a context, the gradients summed by the local
+    store, SGD with momentum, 3 steps) equal the same run over ``[cpu(0),
+    cpu(1)]``: f32 with TF32 off, within 1e-6 of each tensor's largest
+    magnitude; each copy on its own device."""
+    _need_card()
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(4)
+    ws = [rng.uniform(-0.5, 0.5, s).astype(np.float32)
+          for s in ((8, 5), (8,), (3, 8), (3,))]
+    xs = rng.uniform(-1, 1, (3, 8, 5)).astype(np.float32)
+    ys = rng.randint(0, 3, (3, 8)).astype(np.float32)
+
+    def run(ctxs):
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(8, activation="relu", in_units=5),
+                mx.gluon.nn.Dense(3, in_units=8))
+        net.initialize(ctx=ctxs)
+        for p, w in zip(net.collect_params().values(), ws):
+            p.set_data(mx.nd.array(w, ctx=mx.cpu()))
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        for x, y in zip(xs, ys):
+            parts = mx.gluon.utils.split_and_load(
+                mx.nd.array(x, ctx=mx.cpu()), ctxs)
+            labels = mx.gluon.utils.split_and_load(
+                mx.nd.array(y, ctx=mx.cpu()), ctxs)
+            with mx.autograd.record():
+                losses = [loss_fn(net(a), b) for a, b in zip(parts, labels)]
+            mx.autograd.backward(losses)
+            trainer.step(x.shape[0])
+        return net
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = run([mx.cpu(0), mx.gpu(0)])
+        host = run([mx.cpu(0), mx.cpu(1)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for (name, p), q in zip(card.collect_params().items(),
+                            host.collect_params().values()):
+        assert p.data(mx.gpu(0))._data.is_cuda
+        for got, c in ((p.data(mx.cpu(0)), mx.cpu(0)),
+                       (p.data(mx.gpu(0)), mx.cpu(1))):
+            want = q.data(c).asnumpy()
+            scale = max(float(np.abs(want).max()), 1e-6)
+            assert float(np.abs(got.asnumpy() - want).max()) \
+                <= 1e-6 * scale, name

@@ -410,10 +410,12 @@ def test_creation_ops_take_the_executors_device():
 # ---------------------------------------------------------------------------
 
 def test_cpu_takes_the_reference_device_id():
-    assert mx.cpu(0) == mx.cpu() == torch.device("cpu")
-    assert str(mx_j.cpu(0)) == "cpu(0)"
+    assert mx.cpu(0) == mx.cpu() != mx.cpu(1)
+    assert str(mx.cpu(0)) == str(mx_j.cpu(0)) == "cpu(0)"
+    assert mx.context.resolve_device(mx.cpu(1)) == torch.device("cpu")
     a = nd.zeros((2,), ctx=mx.cpu(0))
-    assert a.context == torch.device("cpu")
+    assert a.context == mx.cpu(0)
+    assert a._data.device == torch.device("cpu")
 
 
 def test_with_device_sets_current_context_as_jax():
@@ -421,21 +423,23 @@ def test_with_device_sets_current_context_as_jax():
 
     with mx.cpu():
         got = nd.zeros((2,))
-        assert mx.current_context() == torch.device("cpu")
+        assert mx.current_context() == mx.cpu()
     with mx_j.cpu():
         want = mx_j.nd.zeros((2,))
-    assert got.context.type == "cpu" and str(want.context) == "cpu(0)"
+    assert str(got.context) == str(want.context) == "cpu(0)"
     np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
     # the inner block wins, a scope or a device block (devices not
     # resolved: the card need not be present)
     with context.scope(mx.gpu(0)):
         with mx.cpu():
-            assert context._innermost() == torch.device("cpu")
-        assert context._innermost() == torch.device("cuda", 0)
+            assert context._innermost() == mx.cpu()
+        assert context._innermost() == mx.gpu(0)
     with mx.gpu(0):
         with context.scope(mx.cpu()):
+            assert context._innermost() == mx.cpu()
+        assert context._innermost() == mx.gpu(0)
+        with torch.device("cpu"):
             assert context._innermost() == torch.device("cpu")
-        assert context._innermost() == torch.device("cuda", 0)
     assert context._innermost() is None
 
 
@@ -453,7 +457,7 @@ def test_zoo_builds_on_the_ctx_it_is_given(name):
     net.initialize()
     params = net.collect_params()
     assert [p.list_ctx() for p in params.values()] == \
-        [[torch.device("cpu")]] * len(params)
+        [[mx.cpu()]] * len(params)
     assert sorted(k.split("_", 1)[1] for k in params) == \
         sorted(k.split("_", 1)[1] for k in jnet.collect_params())
 
@@ -695,7 +699,7 @@ def test_entry_points_take_the_scope_then_the_card(tmp_path):
         assert next(lm.parameters()).device.type == "cpu"
         layer = mx.gluon.rnn.LSTM(4, num_layers=1, input_size=3)
         layer.initialize()
-        assert layer.l0_i2h_weight.data().context == torch.device("cpu")
+        assert layer.l0_i2h_weight.data().context == mx.cpu()
     if not torch.cuda.is_available():
         with pytest.raises(mx.MXNetError, match="no CUDA device"):
             mx.context.resolve_device(None)

@@ -227,9 +227,15 @@ def test_create_names_and_single_process_info():
         assert kv.type == name.lower() and kv.rank == 0 \
             and kv.num_workers == 1
     for name in ("dist_sync", "dist_device_sync", "dist_sync_device",
-                 "dist_async", "horovod", "tpu"):
-        with pytest.raises(MXNetError, match="queue 1 item 11"):
-            mx.kv.create(name)
+                 "horovod", "tpu"):
+        # one process: the distributed store is rank 0 of 1, as the JAX
+        # package's
+        kv, jkv = mx.kv.create(name), jmx.kv.create(name)
+        assert isinstance(kv, mx.kvstore._DistKVStore)
+        assert (kv.type, kv.rank, kv.num_workers) == \
+            (jkv.type, jkv.rank, jkv.num_workers) == (name, 0, 1)
+    with pytest.raises(MXNetError, match="dist_async is not supported"):
+        mx.kv.create("dist_async")
     with pytest.raises(MXNetError, match="unknown kvstore"):
         mx.kv.create("bogus")
     with pytest.raises(MXNetError, match="must be str"):
@@ -239,13 +245,13 @@ def test_create_names_and_single_process_info():
 def test_trainer_accepts_compression_params_on_one_device():
     """As the JAX Trainer: on one device the kvstore and its compression
     are unused, and the step is the plain update."""
-    def run(pkg):
+    def run(pkg, kvstore="local"):
         net = pkg.gluon.nn.Dense(2, in_units=3)
         net.initialize(ctx=pkg.cpu())
         net.weight.set_data(pkg.nd.array(_W[:2]))
         net.bias.set_data(pkg.nd.zeros((2,)))
         tr = pkg.gluon.Trainer(net.collect_params(), "sgd",
-                               {"learning_rate": 0.1}, kvstore="local",
+                               {"learning_rate": 0.1}, kvstore=kvstore,
                                compression_params={"type": "2bit",
                                                    "threshold": 0.5})
         with pkg.autograd.record():
@@ -259,5 +265,6 @@ def test_trainer_accepts_compression_params_on_one_device():
     net.initialize(ctx=mx.cpu())
     mx.gluon.Trainer(net.collect_params(), "sgd",
                      kvstore=mx.kv.create("local"))
-    with pytest.raises(MXNetError, match="queue 1 item 11"):
-        mx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    # a dist store in one process (rank 0 of 1) takes the gradients
+    # through the store, 2-bit compressed, in both packages
+    _both(lambda pkg: run(pkg, "dist_sync"))

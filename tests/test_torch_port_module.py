@@ -289,10 +289,12 @@ def test_unported_parts_raise(cpu, tmp_path):
         mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(mx.init.Xavier())
-    with pytest.raises(MXNetError, match="item 11"):
-        mod.init_optimizer(kvstore="dist_sync")
-    with pytest.raises(MXNetError, match="item 11"):
-        mx.mod.Module(_build(mx, "mlp"), context=[mx.cpu(), mx.cpu()])
+    # every kvstore name of the JAX Module is taken (run as "device")
+    mod.init_optimizer(kvstore="dist_sync")
+    mod.init_optimizer(kvstore="dist_async", force_init=True)
+    assert mx.mod.Module(_build(mx, "mlp"), context=[mx.cpu(0),
+                                                      mx.cpu(1)])._context \
+        == [mx.cpu(0), mx.cpu(1)]
 
 
 def test_module_defaults_to_the_card():
@@ -300,7 +302,7 @@ def test_module_defaults_to_the_card():
     chose the CPU; without a card it raises."""
     sym = _build(mx, "mlp")
     with mx.context.scope(mx.cpu()):
-        assert mx.mod.Module(sym)._context == mx.cpu()
+        assert mx.mod.Module(sym)._context == [mx.cpu()]
     with pytest.raises(MXNetError, match="no CUDA device"):
         mx.mod.Module(sym)
     with pytest.raises(MXNetError, match="no CUDA device"):

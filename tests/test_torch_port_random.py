@@ -258,7 +258,8 @@ def test_symbol_random_op_draws_on_the_bound_device():
 def test_context_functions():
     assert mx.num_gpus() == mx.context.num_gpus() == (
         torch.cuda.device_count() if torch.cuda.is_available() else 0)
-    assert mx.cpu_pinned() == mx.cpu_pinned(0) == torch.device("cpu")
+    assert mx.cpu_pinned() == mx.cpu_pinned(0) != mx.cpu()
+    assert mx.context.resolve_device(mx.cpu_pinned()) == torch.device("cpu")
     if torch.cuda.is_available():
         free, total = mx.context.gpu_memory_info(0)
         assert 0 < free <= total

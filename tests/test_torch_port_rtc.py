@@ -94,8 +94,10 @@ def fake(monkeypatch):
     whose arrays live on the host and whose current stream is 0xBEEF."""
     drv = FakeDriver()
     monkeypatch.setattr(rtc, "_driver", lambda: drv)
-    monkeypatch.setattr(rtc, "_cuda_device", lambda ctx: CPU)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: CPU.index)
+    monkeypatch.setattr(rtc, "_cuda_device",
+                        lambda ctx: mx.context.resolve_device(CPU))
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: mx.context.resolve_device(CPU).index)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(
                             cuda_stream=0xBEEF))
