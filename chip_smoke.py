@@ -453,6 +453,39 @@ Phases; each raises on failure, and the script then exits non-zero:
    BatchNorms counted; the ``launches_dist_kv`` counts). Prints images/s
    over the two ranks, push/pull ms a step, the collectives a step and
    the peak bytes a rank, with the card's name and power limit.
+21. replica_pool (after predict_vision, in its directory): the serve
+   phase's LM (`bert_base_lm`, 108,890,112 parameters, f32 KV, page 16,
+   256 pages), written by ``save_lm`` and loaded by
+   ``ModelRepository.load("poollm", prefix, generate=True, replicas=2)``
+   on the card: two replica processes (``python -m
+   mxnet_tpu_torch.serving.replica_worker --device cuda:0``) share it,
+   each with its own CUDA context and copy of the weights, behind
+   ``ServingServer(port=0)``. 24 concurrent greedy requests (the serve
+   phase's prompts and budgets) go first through an in-process engine
+   (``replicas=0``, unloaded before the pool loads), then through the
+   pool in a timed clean run, then again with replica 0's process group
+   SIGKILLed at the first reply. Gates: every reply 200 and equal to the
+   full-sequence greedy oracle (one whole forward a token, on the card)
+   in all three runs; after the clean run each replica's
+   ``stats_result`` shows paged-kernel launches > 0 since it reported
+   ready (its warm-up apart; the ``launches_replica_pool`` count sums
+   them); no failover in the clean run, at least one and exactly one
+   restart (replica 0's) in the chaos run, the pool back at 2 healthy;
+   after the drain each replica shows no KV page used, nothing pending
+   and no kernel built after warm-up. Then predict_vision's
+   ResNet-50 v1 export through ``replicas=2`` with
+   ``MXTPU_FAULT_INJECT=kill_replica@batch=3,replica=0`` (and
+   ``NVIDIA_TF32_OVERRIDE=0``: the replicas compute in full f32, as this
+   process does): 4 clients send 64 one-image requests; codes within
+   {200, 429, 503, 504} and at least 48 at 200, every 200 equal to an
+   in-process `Predictor` on the card within 1e-3 of the logits' largest
+   magnitude, one ejection and one respawn in the counters and events,
+   the pool back at full health. Prints requests/s and generated tokens/s
+   through the pool beside the in-process engine's at the same load,
+   request p50 /
+   p99, seconds from the kill to healthy, each replica's peak allocated
+   bytes (``torch.cuda.max_memory_allocated`` in the worker) and predict
+   requests/s under the fault, with the card's name and power limit.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -464,6 +497,7 @@ import argparse
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -691,11 +725,14 @@ def make_requests(seed, n, vocab, max_prompt, max_new):
     return reqs
 
 
-def post_all(url, bodies):
+def post_all(url, bodies, on_first=None):
     """POST every body at once, one thread each. Returns per request
-    (status, reply, t_sent, t_answered)."""
+    (status, reply, t_sent, t_answered). ``on_first()`` runs once, in the
+    thread that got the first answer, before any other thread goes on."""
     results = [None] * len(bodies)
     gate = threading.Barrier(len(bodies))
+    first = threading.Lock()
+    fired = []
 
     def one(i):
         data = json.dumps(bodies[i]).encode()
@@ -710,6 +747,11 @@ def post_all(url, bodies):
         except Exception as e:
             results[i] = (getattr(e, "code", None), repr(e), t0,
                           time.monotonic())
+        if on_first is not None:
+            with first:
+                if not fired:
+                    fired.append(i)
+                    on_first()
 
     threads = [threading.Thread(target=one, args=(i,), name="smoke-%d" % i)
                for i in range(len(bodies))]
@@ -5658,6 +5700,284 @@ def predict_vision(torch, pk, args, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# replica_pool: the serving paths through supervised replica processes
+# ---------------------------------------------------------------------------
+
+POOL_REQUESTS = 24          # concurrent greedy generation requests a run
+POOL_PREDICT = (4, 64)      # clients, one-image predict requests
+POOL_IMAGES = 16            # distinct images the predict requests cycle
+POOL_SPAWN_S = 300.0        # a replica's budget from spawn to ready
+
+
+def pool_events(telemetry, model, since):
+    """The telemetry events of ``model`` recorded at or after ``since``."""
+    return [dict(e["fields"], event=e["event"], ts=e["ts"])
+            for e in telemetry.events()
+            if e["fields"].get("model") == model and e["ts"] >= since]
+
+
+def wait_healthy(pool, n, timeout):
+    deadline = time.monotonic() + timeout
+    while pool.healthy_count < n and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return pool.healthy_count >= n
+
+
+def replica_pool_phase(torch, args, workdir):
+    """Generation and predict through `ModelRepository.load(...,
+    replicas=2)` on the card: two replica processes sharing it, each with
+    its own CUDA context and copy of the weights. Returns the paged
+    kernel's launches summed over the generation replicas' own counts."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch import context as mx_context
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_base_lm
+    from mxnet_tpu_torch.predict import Predictor
+    from mxnet_tpu_torch.serving import (ModelRepository, ServingServer,
+                                         load_lm, save_lm)
+
+    t_phase = time.monotonic()
+    card = smi_line()
+    device = mx_context.resolve_device()   # the card (no scope is open)
+    # -- (a) generation: the serve phase's LM through a pool of 2 --------
+    lm = bert_base_lm(device="cpu").initialize(args.seed)
+    prefix = save_lm(lm, os.path.join(workdir, "pool_lm"))
+    del lm
+    reg = telemetry.get_registry()
+    labels = {"model": "poollm/1"}
+    failovers = reg.counter("mxtpu_serve_failover_total", labels)
+    restarts = reg.counter("mxtpu_serve_replica_restart_total", labels)
+    repo = ModelRepository()
+    # the same 24 greedy requests through one in-process engine first
+    # (replicas=0, the same default geometry), so that the pool's rates
+    # have a comparison at equal load in this run
+    inproc = repo.load("inproclm", prefix, generate=True)
+    geo = inproc.generate_info
+    oracle_lm = load_lm(prefix, device=device)
+    bodies = make_requests(args.seed + 1, POOL_REQUESTS,
+                           oracle_lm.config["vocab_size"],
+                           geo["max_prompt"], geo["max_new_tokens"])
+    for b in bodies:   # the serve phase's prompts and budgets, all greedy
+        for k in ("temperature", "top_k", "top_p"):
+            b.pop(k, None)
+    t0 = time.monotonic()
+    oracle = [greedy(torch, oracle_lm, b["tokens"], b["max_new_tokens"])
+              for b in bodies]
+    oracle_s = time.monotonic() - t0
+    del oracle_lm
+    torch.cuda.empty_cache()
+    srv = ServingServer(repo, port=0, addr="127.0.0.1").start()
+    base_url = "http://127.0.0.1:%d/v1/models/%%s:generate" % srv.port
+    url = base_url % "poollm"
+    kill = {}
+
+    def kill_replica0():
+        kill["pid"] = pool.replica_pid(0)
+        kill["ts"] = time.time()
+        os.killpg(kill["pid"], signal.SIGKILL)
+
+    def check(name, res):
+        bad = [(i, r[0], r[1] if r[0] != 200 else r[1]["tokens"])
+               for i, r in enumerate(res)
+               if r[0] != 200 or r[1]["tokens"] != oracle[i]]
+        if bad:
+            raise AssertionError(
+                "replica_pool %s run: %d of %d replies not 200 and equal "
+                "to the greedy oracle, e.g. %s"
+                % (name, len(bad), len(res), bad[:2]))
+
+    try:
+        inproc_res = post_all(base_url % "inproclm", bodies)
+        check("in-process", inproc_res)
+        if not repo.unload("inproclm", timeout=60):
+            raise AssertionError("replica_pool: the in-process LM did not "
+                                 "drain")
+        del inproc
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        model = repo.load("poollm", prefix, generate=True, replicas=2,
+                          spawn_timeout_s=POOL_SPAWN_S)
+        load_s = time.monotonic() - t0
+        pool = model.pool
+        if model.meta["device"] != str(device) or \
+                dict(model.generate_info, device=None) != dict(geo,
+                                                              device=None):
+            raise AssertionError("replica_pool: the pool runs on %s with "
+                                 "%s" % (model.meta["device"],
+                                         model.generate_info))
+        runs = {}
+        for name, hook in (("clean", None), ("chaos", kill_replica0)):
+            base = (failovers.value, restarts.value)
+            res = post_all(url, bodies, on_first=hook)
+            check(name, res)
+            runs[name] = (res, failovers.value - base[0],
+                          restarts.value - base[1])
+            if name == "clean":
+                # each replica's paged launches since it reported ready
+                # (its warm-up apart): the clean run is all it served,
+                # and replica 0's count dies with it in the chaos run
+                served = {rid: pool.replica_stats(rid, timeout=60)
+                          for rid in pool.replica_ids()}
+                for rid, st in served.items():
+                    # (a CPU rehearsal launches no kernel: a CPU tensor
+                    # takes the plain version)
+                    if st is None or (device.type == "cuda"
+                                      and st["launches"] < 1):
+                        raise AssertionError(
+                            "replica_pool: replica %d served no paged "
+                            "launch in the clean run: %s" % (rid, st))
+        _, chaos_failovers, chaos_restarts = runs["chaos"]
+        if not wait_healthy(pool, 2, 180):
+            raise AssertionError("replica_pool: %s after the kill"
+                                 % pool.describe())
+        ejects = [e for e in pool_events(telemetry, "poollm/1", kill["ts"])
+                  if e["event"] == "serve_replica_eject"]
+        ready = [e for e in pool_events(telemetry, "poollm/1", kill["ts"])
+                 if e["event"] == "serve_replica_ready"]
+        if runs["clean"][1:] != (0, 0) or chaos_failovers < 1 \
+                or chaos_restarts != 1 or [e["replica"] for e in ejects] \
+                != [0] or pool.describe()["generations"] != {0: 1, 1: 0}:
+            raise AssertionError(
+                "replica_pool: clean failovers/restarts %s, chaos %d/%d, "
+                "ejections %s, %s" % (runs["clean"][1:], chaos_failovers,
+                                      chaos_restarts, ejects,
+                                      pool.describe()))
+        recovered_s = ready[-1]["ts"] - kill["ts"]
+        if not model.drain(60):
+            raise AssertionError("replica_pool: the LM pool did not drain")
+        # each replica's stats_result after the drain: its KV pages,
+        # pending requests, kernel builds after warm-up and peak
+        # allocated bytes, read in its own process
+        stats = {rid: pool.replica_stats(rid, timeout=60)
+                 for rid in pool.replica_ids()}
+        for rid, st in stats.items():
+            if st is None:
+                raise AssertionError("replica_pool: replica %d answered no "
+                                     "stats" % rid)
+            if st["kv_pages_used"] or st["pending"] or st["jit_after_warm"]:
+                raise AssertionError("replica_pool: replica %d after the "
+                                     "drain: %s" % (rid, st))
+    finally:
+        srv.shutdown()
+        for name in repo.names():
+            repo.unload(name, timeout=60)
+
+    def rates(res):
+        wall = max(r[3] for r in res) - min(r[2] for r in res)
+        lat = np.asarray([r[3] - r[2] for r in res])
+        tokens = sum(r[1]["num_generated"] for r in res)
+        return (len(res) / wall, tokens / wall, np.percentile(lat, 50),
+                np.percentile(lat, 99))
+
+    clean = rates(runs["clean"][0])
+    alone = rates(inproc_res)
+    chaos = runs["chaos"][0]
+    chaos_wall = max(r[3] for r in chaos) - min(r[2] for r in chaos)
+    # the launches of the clean run alone: counted from each replica's
+    # ready report, read before the chaos run
+    launches = sum(st["launches"] for st in served.values())
+    log("replica_pool generate: bert_base_lm (%s) through "
+        "ModelRepository.load(replicas=2) on the card, loaded in %.1f s "
+        "(every replica warmed); %d greedy requests (the serve phase's "
+        "prompts and budgets), oracle %.1f s. In-process engine "
+        "(replicas=0), the same requests first: all 200 and equal to the "
+        "oracle, %.2f requests/s, %.1f generated tokens/s, request p50 "
+        "%.3f s p99 %.3f s. Clean run through the pool: all 200 and equal "
+        "to the full-sequence greedy oracle, %.2f requests/s, %.1f "
+        "generated tokens/s (%.3fx the in-process run), request p50 %.3f s "
+        "p99 %.3f s; paged launches served a replica %s (warm-up apart). "
+        "Chaos run (replica 0's process group SIGKILLed at the first "
+        "reply): all 200 and equal to the oracle in %.3f s, %d "
+        "failover(s), 1 restart, healthy again %.2f s after the kill. "
+        "After the drain each replica: %s; %s"
+        % (json.dumps(geo, sort_keys=True), load_s, len(bodies), oracle_s,
+           alone[0], alone[1], alone[2], alone[3], clean[0], clean[1],
+           clean[1] / alone[1], clean[2], clean[3],
+           json.dumps({r: st["launches"] for r, st in served.items()}),
+           chaos_wall, chaos_failovers, recovered_s,
+           json.dumps({r: {k: st[k] for k in
+                           ("kv_pages_used", "pending", "jit_after_warm",
+                            "launches", "warm_launches",
+                            "max_memory_allocated")}
+                       for r, st in stats.items()}), card))
+
+    # -- (b) predict: predict_vision's ResNet-50 export under kill_replica
+    vprefix = os.path.join(workdir, "resnet50_v1")
+    shape = (224, 224, 3)
+    rng = np.random.RandomState(args.seed + 24)
+    images = (rng.randint(-2, 3, (POOL_IMAGES,) + shape) / 2.0).astype(
+        np.float32)
+    ref = Predictor(vprefix + "-symbol.json", vprefix + "-0000.params",
+                    ctx=device, input_shapes={"data": (POOL_IMAGES,) + shape})
+    want = ref.forward(data=images).get_output(0).asnumpy()
+    del ref
+    torch.cuda.empty_cache()
+    clients, n_req = POOL_PREDICT
+    plabels = {"model": "poolrn/1"}
+    pfail = reg.counter("mxtpu_serve_failover_total", plabels)
+    prestart = reg.counter("mxtpu_serve_replica_restart_total", plabels)
+    t_load = time.time()
+    repo = ModelRepository()
+    model = repo.load(
+        "poolrn", vprefix, input_shapes={"data": shape},
+        max_batch=VISION_SERVE_BATCH, replicas=2,
+        spawn_timeout_s=POOL_SPAWN_S,
+        # replica 0 dies at its third batch; the replicas' cuDNN and
+        # cuBLAS compute in full f32, as this process does (TF32 off)
+        extra_env={"MXTPU_FAULT_INJECT": "kill_replica@batch=3,replica=0",
+                   "NVIDIA_TF32_OVERRIDE": "0"})
+    server = ServingServer(repo, port=0, addr="127.0.0.1").start()
+    try:
+        pbodies = [json.dumps({"inputs": {"data": images[[i % POOL_IMAGES]]
+                                          .tolist()},
+                               "timeout_ms": 120000})
+                   for i in range(n_req)]
+        replies, pwall = serve_clients(server.port, pbodies, clients,
+                                       model="poolrn")
+        if not wait_healthy(model.pool, 2, 180):
+            raise AssertionError("replica_pool predict: %s"
+                                 % model.pool.describe())
+        pev = pool_events(telemetry, "poolrn/1", t_load)
+        pdesc = model.pool.describe()
+    finally:
+        server.shutdown()
+        repo.unload("poolrn", timeout=60)
+    codes = {}
+    err = 0.0
+    scale = float(np.abs(want).max())
+    for i, (code, reply, _) in enumerate(replies):
+        codes[code] = codes.get(code, 0) + 1
+        if code == 200:
+            got = np.asarray(reply["outputs"][0], np.float32)
+            want_i = want[[i % POOL_IMAGES]]
+            err = max(err, float(np.abs(got - want_i).max())
+                      if got.shape == want_i.shape and np.isfinite(got).all()
+                      else float("inf"))
+    ejects = [e for e in pev if e["event"] == "serve_replica_eject"]
+    respawns = [e for e in pev if e["event"] == "serve_replica_ready"
+                and e["generation"] >= 1]
+    if not set(codes) <= {200, 429, 503, 504} or codes.get(200, 0) < 48 \
+            or err > VISION_RTOL * scale or pfail.value < 1 \
+            or prestart.value != 1 or [e["replica"] for e in ejects] != [0] \
+            or len(respawns) != 1 or pdesc["healthy"] != 2:
+        raise AssertionError(
+            "replica_pool predict: codes %s, max error %g (scale %g), "
+            "failovers %d, restarts %d, ejections %s, respawns %d, %s"
+            % (codes, err, scale, pfail.value, prestart.value, ejects,
+               len(respawns), pdesc))
+    log("replica_pool predict: resnet50_v1 export through "
+        "ModelRepository.load(replicas=2) on the card under "
+        "kill_replica@batch=3,replica=0: %d clients, %d one-image requests "
+        "in %.3f s = %.2f requests/s, codes %s, every 200 equal to the "
+        "in-process Predictor within %.3g (logits' scale %.4g, rtol %g); "
+        "%d failover(s), 1 ejection (%s), 1 respawn, back to 2 healthy; "
+        "phase %.1f s; %s"
+        % (clients, n_req, pwall, n_req / pwall, json.dumps(codes), err,
+           scale, VISION_RTOL, pfail.value, ejects[0]["reason"],
+           time.monotonic() - t_phase, card))
+    return {"paged_attention": launches}
+
+
 def f1_scope_check(torch):
     """Fault F1 on the card: ``generate_lm``'s load under ``scope(cpu())``
     builds its engine on the CPU, and without a scope on the card."""
@@ -8793,8 +9113,9 @@ def main(argv=None):
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
     extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
-             "detection": {}, "profiler": {}, "sparse": {}, "mesh": {},
-             "pipeline": {}, "ranks2": {}, "dist_kv": {}}
+             "replica_pool": {}, "detection": {}, "profiler": {},
+             "sparse": {}, "mesh": {}, "pipeline": {}, "ranks2": {},
+             "dist_kv": {}}
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -8809,6 +9130,8 @@ def main(argv=None):
         predict_serving(torch, pk, args, prefix)
         torch.cuda.empty_cache()
         extra["predict_vision"] = predict_vision(torch, pk, args, ckpt)
+        torch.cuda.empty_cache()
+        extra["replica_pool"] = replica_pool_phase(torch, args, ckpt)
     torch.cuda.empty_cache()
     quantization_phase(torch, args)
     torch.cuda.empty_cache()
@@ -8850,7 +9173,9 @@ def main(argv=None):
             if counts.get(k["name"]):
                 # later slices' paths: ctc_ocr (training + decode), the
                 # dropout runs, the training run behind predict_vision,
-                # the SSD training of the detection phase, the profiler
+                # the replica_pool phase's generation replicas (their own
+                # processes' counts, read from each replica's stats), the
+                # SSD training of the detection phase, the profiler
                 # phase's three fits, the sparse phase's SyncBatchNorm,
                 # the mesh phase's train_imagenet.py, the pipeline phase's
                 # BERT-base, the ranks2 phase's ResNet-50 over dp 2, the

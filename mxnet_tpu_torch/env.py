@@ -1,8 +1,8 @@
 """Typed registry of the ``MXTPU_*`` environment variables the port reads.
 
 Counterpart of `mxnet_tpu/env.py`, holding only the variables of the
-paths ported so far (generation serving, ResNet training, the input
-pipeline), under the same
+paths ported so far (serving and its replica pools, tracing, ResNet
+training, the input pipeline, the launcher), under the same
 names and, but for the one noted at its entry, the same defaults, so one
 deployment's settings mean the same thing to both packages. There is no kernel gate: a CUDA tensor always goes through
 the port's kernel.
@@ -125,6 +125,71 @@ _var("MXTPU_SERVE_MAX_NEW_TOKENS", "int", 128,
 _var("MXTPU_SERVE_MAX_PROMPT", "int", 64,
      "generation serving: longest admissible prompt in tokens; prompts pad "
      "to power-of-two prefill buckets up to this length.")
+
+# -- the replica pools (same names and defaults as mxnet_tpu/env.py) --------
+_var("MXTPU_SERVE_REPLICAS", "int", 0,
+     "serving: replica worker processes per served model (`python -m "
+     "mxnet_tpu_torch.serving --replicas`). 0 runs the model in-process (no "
+     "pool); N >= 1 runs N supervised replica processes with health-checked "
+     "failover.")
+_var("MXTPU_SERVE_HEARTBEAT_MS", "float", 1000.0,
+     "serving replica pool: health-check heartbeat deadline. An idle "
+     "replica that misses a ping/pong round trip by this much, or a busy "
+     "one silent past its batch deadline plus this grace, is declared "
+     "wedged, ejected (process-group teardown) and respawned.")
+_var("MXTPU_SERVE_RESTART_BACKOFF_MS", "float", 200.0,
+     "serving replica pool: initial delay before respawning an ejected "
+     "replica (doubles per consecutive restart of the same replica, "
+     "capped at 60s; resets once a generation serves a batch cleanly).")
+_var("MXTPU_SERVE_WEDGE_TIMEOUT_MS", "float", 10000.0,
+     "serving replica pool: compute-budget floor for busy-replica wedge "
+     "detection. A busy replica is ejected only after staying silent past "
+     "max(batch deadline budget, this floor) plus the heartbeat grace, so "
+     "a forward that legitimately outlasts a request budget is not "
+     "SIGKILLed mid-compute (deadline-less batches use the floor alone).")
+_var("MXTPU_SERVE_POOL_TOKEN", "str", None,
+     "serving replica pool: internal per-pool handshake secret. Set by the "
+     "pool in each replica worker's environment; a connecting worker must "
+     "present it before any pickled frame is read. Not meant to be set by "
+     "operators.")
+_var("MXTPU_TEARDOWN_GRACE", "float", 10.0,
+     "escalation window of the launcher and the replica pools: seconds "
+     "between a process group's SIGTERM and its SIGKILL.")
+_var("MXTPU_FAULT_INJECT", "str", None,
+     "deterministic fault injection. The port fires the serving actions at "
+     "a replica worker's batch boundary: `kill_replica@batch=3,replica=0`, "
+     "`wedge_replica@batch=5,replica=1`, `slow_reply@batch=1,ms=300`; the "
+     "training, checkpoint, data and load-surge actions parse as in the "
+     "JAX package and are not fired here.")
+_var("MXTPU_RESTART_GENERATION", "int", 0,
+     "set by a supervisor (the launcher's restarts, a replica pool's "
+     "respawns): which generation this process belongs to; fault "
+     "injection defaults to generation 0 only.")
+
+# -- tracing and the telemetry files (same names and defaults) ----------------
+_var("MXTPU_TRACE_SAMPLE", "float", 0.0,
+     "distributed tracing: fraction of new root traces (serving requests) "
+     "that record spans, 0.0..1.0. Default 0: spans cost nothing unless "
+     "sampled in; an incoming `x-mxtpu-trace` header or wire context with "
+     "the sampled flag is always honored.")
+_var("MXTPU_TRACE_SLOW_MS", "float", None,
+     "always-sample-on-slow escape hatch: when set, unsampled root spans "
+     "are buffered locally and emitted after the fact if the root runs "
+     "longer than this many milliseconds (local-process spans only).")
+_var("MXTPU_TRACE_CONTEXT", "str", None,
+     "inherited trace context, `<trace_id>-<span_id>-<flags>` (the "
+     "`x-mxtpu-trace` header format), honored as the ambient parent of "
+     "root spans minted in this process.")
+_var("MXTPU_TELEMETRY_DIR", "str", None,
+     "directory for the per-process `telemetry-rank<R>-pid<P>.jsonl` "
+     "files (metrics snapshots, events, spans; `tools/trace_merge.py` reads "
+     "them) and the launcher's `launcher-events.jsonl`. Read at first use.")
+_var("MXTPU_TELEMETRY_FLUSH_S", "float", 10.0,
+     "period of the JSONL flusher thread (a final flush always runs at "
+     "exit).")
+_var("MXTPU_TELEMETRY_PORT", "int", None,
+     "base port of the Prometheus endpoint (not served by the port yet); a "
+     "replica pool drops it from its workers' environment.")
 
 # -- data loading (same names and defaults as mxnet_tpu/env.py) --------------
 _var("MXTPU_DATALOADER_CTX", "str", "fork",

@@ -20,7 +20,7 @@ import time
 
 from ..base import MXNetError
 
-__all__ = ["NVCC_FLAGS", "build", "build_all", "cuda_tool", "load",
+__all__ = ["NVCC_FLAGS", "build", "build_all", "builds", "cuda_tool", "load",
            "source_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,6 +93,14 @@ def build_all(names):
         if failed:
             raise MXNetError("nvcc failed for " + "\n".join(failed))
         return {name: dict(_build_info[name]) for name in names}
+
+
+def builds():
+    """How many kernel libraries this process compiled (a library found
+    already built does not count): a replica reports the builds after its
+    warm-up, which a warm replica keeps at 0."""
+    return sum(1 for info in _build_info.values()
+               if info["seconds"] is not None)
 
 
 def build(name):

@@ -21,7 +21,8 @@ The distributed kvstore (`kvstore._DistKVStore`) is the reference's way
 over the same group, one process a card (`mxnet_tpu_torch.launch`). The
 JAX package's ShardedTrainer, with the fused step (ROADMAP queue 1 item
 2) and its persistent compile tier, and the sharded checkpoints are item
-13's, as is resilience.
+13's, as is resilience but for its serving fault injection
+(`parallel.resilience`, which the replica workers fire).
 """
 from .mesh import (make_mesh, default_mesh, current_mesh, use_mesh,
                    local_devices, devices, mesh_fingerprint, Mesh, Device,

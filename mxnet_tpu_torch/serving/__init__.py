@@ -1,6 +1,7 @@
 """Serving (counterpart of `mxnet_tpu.serving`): predict serving (a
 dynamic micro-batcher over bucketed `Predictor`s) and generation serving
-(paged-KV continuous batching), behind one HTTP server."""
+(paged-KV continuous batching), behind one HTTP server, in process or
+through a supervised `ReplicaPool` of worker processes."""
 from .batcher import (DeadlineExceededError, DrainingError, DynamicBatcher,
                       MemoryBudgetError, ModelUnavailableError,
                       OverloadedError, QueueFullError, ServingError,
@@ -9,6 +10,7 @@ from .batcher import (DeadlineExceededError, DrainingError, DynamicBatcher,
 from .generate import (GenerateScheduler, GenRequest, KVPageAllocator,
                        ServedLM, TransformerLMEngine, load_lm, save_lm)
 from .model_repository import ModelRepository, ServedModel, build_runner
+from .replica_pool import ReplicaPool
 from .server import ServingServer
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
@@ -17,4 +19,4 @@ __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
            "bucket_for", "pad_batch", "DynamicBatcher", "KVPageAllocator",
            "GenRequest", "GenerateScheduler", "TransformerLMEngine",
            "ServedLM", "save_lm", "load_lm", "ServedModel", "build_runner",
-           "ModelRepository", "ServingServer"]
+           "ModelRepository", "ReplicaPool", "ServingServer"]

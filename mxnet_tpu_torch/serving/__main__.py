@@ -19,10 +19,17 @@ Model specs (repeatable ``--model``):
     python -m mxnet_tpu_torch.serving \\
         --model lm=/models/lm/model@data=35:int32,label=35:int32 \\
         --model gen=/models/gen/model@generate --port 8500
+    python -m mxnet_tpu_torch.serving --model lm=/models/lm/model@generate \\
+        --replicas 2
 
 Knobs default to the ``MXTPU_SERVE_*`` variables; flags override them.
 ``--device cpu`` serves on the host (there is no silent fallback to it).
-Compiled ``.mxc`` artifacts and replica pools are not ported yet.
+``--replicas N`` (default ``MXTPU_SERVE_REPLICAS``) serves every model
+through a supervised pool of N replica processes on that device; SIGTERM
+drains the pools and tears every replica's process group down before the
+server exits. Not ported yet: compiled ``.mxc`` artifacts, and the
+autoscaler's ``--min-replicas`` / ``--max-replicas`` / ``--pin``, which
+parse and raise (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -78,6 +85,18 @@ def main(argv=None):
                    help="KV cache dtype of generation models")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA card)")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="replica worker processes per model (default "
+                        "MXTPU_SERVE_REPLICAS; 0 = in-process, no pool). "
+                        "N >= 1 serves through a supervised pool with "
+                        "health-checked failover")
+    p.add_argument("--min-replicas", type=int, default=None,
+                   help="per-model autoscaling floor (not ported yet)")
+    p.add_argument("--max-replicas", type=int, default=None,
+                   help="per-model autoscaling ceiling (not ported yet)")
+    p.add_argument("--pin", action="store_true",
+                   help="exempt the models from budget-pressure eviction "
+                        "(not ported yet)")
     args = p.parse_args(argv)
 
     logging.basicConfig(
@@ -85,18 +104,53 @@ def main(argv=None):
         format="[serve] %(asctime)s %(levelname)s %(message)s")
     log = logging.getLogger("mxnet_tpu_torch.serving")
 
+    from .. import env as _env
     from . import ModelRepository, ServingServer
 
+    replicas = args.replicas
+    if replicas is None:
+        replicas = _env.get("MXTPU_SERVE_REPLICAS")
+    scale_kw = dict(min_replicas=args.min_replicas,
+                    max_replicas=args.max_replicas, pinned=args.pin)
     repo = ModelRepository()
+    try:
+        _load_all(repo, args, replicas, scale_kw, log)
+        server = ServingServer(repo, port=args.port, addr=args.addr)
+    except BaseException:
+        _close_all(repo)
+        raise
+    server.install_signal_handlers()
+    log.info("serving %s on %s:%d (SIGTERM drains and exits 0)",
+             repo.names(), args.addr, server.port)
+    try:
+        server.serve_forever()  # returns after the SIGTERM drain
+    finally:
+        # no replica process group outlives the server
+        _close_all(repo)
+    if server.drain_failed:
+        log.error("drain timed out; stranded requests were 503ed")
+        return 1
+    log.info("drained; bye")
+    return 0
+
+
+def _close_all(repo):
+    for model in repo.models():
+        model.close(drain=False, timeout=0)
+
+
+def _load_all(repo, args, replicas, scale_kw, log):
     for spec in args.model:
         name, prefix, shapes, dtypes = parse_model_spec(spec)
-        log.info("loading %s from %s ...", name, prefix)
+        log.info("loading %s from %s%s ...", name, prefix,
+                 " (%d replicas)" % replicas if replicas else "")
         if shapes == "generate":
             model = repo.load(name, prefix, generate=True,
                               generate_opts={"kv_dtype": args.kv_dtype},
                               max_batch=args.max_batch,
                               queue_depth=args.queue_depth,
-                              device=args.device)
+                              device=args.device, replicas=replicas,
+                              **scale_kw)
             log.info("loaded %s/%d (generate) on %s buckets=%s warm=%.2fs",
                      model.name, model.version,
                      model.generate_info.get("device"),
@@ -106,21 +160,11 @@ def main(argv=None):
         model = repo.load(name, prefix, input_shapes=shapes,
                           input_dtypes=dtypes, max_batch=args.max_batch,
                           max_delay_ms=args.delay_ms,
-                          queue_depth=args.queue_depth, device=args.device)
+                          queue_depth=args.queue_depth, device=args.device,
+                          replicas=replicas, **scale_kw)
         log.info("loaded %s/%d (predict) on %s buckets=%s warm=%.2fs",
                  model.name, model.version, model.meta.get("device"),
                  model.buckets, model.warm_seconds or 0.0)
-
-    server = ServingServer(repo, port=args.port, addr=args.addr)
-    server.install_signal_handlers()
-    log.info("serving %s on %s:%d (SIGTERM drains and exits 0)",
-             repo.names(), args.addr, server.port)
-    server.serve_forever()  # returns after the SIGTERM drain
-    if server.drain_failed:
-        log.error("drain timed out; stranded requests were 503ed")
-        return 1
-    log.info("drained; bye")
-    return 0
 
 
 if __name__ == "__main__":

@@ -16,11 +16,14 @@ of predict serving:
     request by the shared `base.unpad_outputs`.
 
 The ``runner`` owns the model (numpy in, numpy out) and is only ever
-called from the worker thread. Telemetry goes under the JAX package's
-metric names. Not ported yet: the replica pools' hooks (``dispatcher=``,
-``admission_gate=``, `DynamicBatcher.requeue`: ROADMAP queue 1 item 12),
-the SLO objectives and the trace spans (``telemetry/slo.py`` and
-``telemetry/tracing.py``, item 13).
+called from the worker thread. A replica pool takes the batches over
+instead (``dispatcher=``), sheds load at admission (``admission_gate=``)
+and puts a dead replica's batch back at the front of the queue
+(`DynamicBatcher.requeue`, exactly once a request). Each request carries
+the trace context of the thread that admitted it, and its phases emit
+spans under it (``serve.assembly``, ``serve.queue``, ``serve.compute``,
+``serve.unpad``). Telemetry goes under the JAX package's metric names; the
+SLO objectives wait for ``telemetry/slo.py`` (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import numpy as _np
 from .. import env as _env
 from .. import telemetry
 from ..base import MXNetError, unpad_outputs
+from ..telemetry import tracing as _tracing
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
            "ModelUnavailableError", "DrainingError", "OverloadedError",
@@ -81,8 +85,7 @@ class DrainingError(ServingError):
 class OverloadedError(ServingError):
     """Deterministic load shedding: a degraded replica pool refuses work it
     could only queue into a black hole (``Retry-After`` scales with the
-    healthy-replica count). Raised by the replica pools, which are not
-    ported yet."""
+    healthy-replica count). Raised by the replica pools."""
 
     status = 503
 
@@ -149,7 +152,7 @@ class ServeRequest:
 
     __slots__ = ("arrays", "n", "deadline", "outputs", "error", "bucket",
                  "_event", "_rlock", "_t_submit", "queue_seconds",
-                 "compute_seconds")
+                 "compute_seconds", "retried", "trace")
 
     def __init__(self, arrays, n, deadline):
         self.arrays = arrays
@@ -160,6 +163,11 @@ class ServeRequest:
         self.bucket = None
         self.queue_seconds = None
         self.compute_seconds = None
+        self.retried = False  # failed over once already (exactly once)
+        # the admitting thread's span context (the HTTP handler's request
+        # span): every later phase, in whichever thread or process, parents
+        # its spans here
+        self.trace = _tracing.capture()
         self._event = threading.Event()
         self._rlock = threading.Lock()
         self._t_submit = time.monotonic()
@@ -191,11 +199,6 @@ class ServeRequest:
             self._event.set()
 
 
-def _pools_unported(what):
-    return MXNetError("DynamicBatcher %s serves the replica pools, which "
-                      "are not ported yet (ROADMAP queue 1 item 12)" % what)
-
-
 class DynamicBatcher:
     """Coalesce concurrent requests into padded, bucketed batches.
 
@@ -211,17 +214,23 @@ class DynamicBatcher:
         Default to ``MXTPU_SERVE_MAX_DELAY_MS`` / ``MXTPU_SERVE_QUEUE_DEPTH``.
     name : str
         Telemetry label (``model="<name>"`` on every serving metric).
-    dispatcher, admission_gate : the replica pools' hooks; not ported yet
-        (anything but None raises).
+    dispatcher : callable(batch, total), optional
+        Takes batch execution over (the replica pool's hook): called from
+        the worker thread with an assembled batch whose expired members
+        were pruned; it must route every request through `resolve_batch`,
+        `fail_batch` or `requeue`, so the in-flight accounting closes.
+        None (default) runs batches inline on ``runner``.
+    admission_gate : callable(queued_len) -> ServingError or None, optional
+        Consulted under the queue lock on every submit before the depth
+        check: the replica pool sheds load here when degraded (an error
+        is raised to the caller; the request never queues).
     """
 
     def __init__(self, runner, buckets, max_delay_ms=None, queue_depth=None,
                  name="default", dispatcher=None, admission_gate=None):
-        if dispatcher is not None:
-            raise _pools_unported("dispatcher=")
-        if admission_gate is not None:
-            raise _pools_unported("admission_gate=")
         self._runner = runner
+        self._dispatcher = dispatcher
+        self._admission_gate = admission_gate
         self.buckets = sorted(int(b) for b in buckets)
         if not self.buckets:
             raise MXNetError("need at least one bucket")
@@ -255,6 +264,8 @@ class DynamicBatcher:
         self._m_rej_dead = telemetry.counter(
             "mxtpu_serve_rejected_total",
             {"model": name, "reason": "deadline"})
+        self._m_rej_shed = telemetry.counter(
+            "mxtpu_serve_rejected_total", {"model": name, "reason": "shed"})
         # how full each dispatched bucket was (n / bucket)
         self._m_occupancy = telemetry.histogram(
             "mxtpu_serve_batch_occupancy", labels,
@@ -295,6 +306,11 @@ class DynamicBatcher:
         with self._cv:
             if self._stop or self._draining:
                 raise DrainingError("model %r is draining" % self.name)
+            if self._admission_gate is not None:
+                err = self._admission_gate(len(self._queue))
+                if err is not None:
+                    self._m_rej_shed.inc()
+                    raise err
             if len(self._queue) >= self.queue_depth:
                 self._m_rej_full.inc()
                 raise QueueFullError(
@@ -360,7 +376,48 @@ class DynamicBatcher:
         return drained
 
     def requeue(self, batch):
-        raise _pools_unported("requeue")
+        """Failover: put a dead replica's in-flight batch back at the
+        FRONT of the queue, exactly once a request (predict is idempotent,
+        so one retry is safe; more could double work without bound).
+        Expired members answer 504; members that already failed over once
+        get a retryable 503. Returns how many requests went back."""
+        now = time.monotonic()
+        requeued = 0
+        # the requests THIS call put back: `retried` alone cannot tell them
+        # from those whose one retry was spent earlier (503 below)
+        taken = set()
+        with self._cv:
+            self._inflight.difference_update(batch)
+            accept = not (self._stop or self._draining)
+            for req in reversed(batch):
+                if req.done():
+                    continue
+                if req.deadline is not None and now >= req.deadline:
+                    continue  # expired: resolved below, outside the lock
+                if req.retried or not accept:
+                    continue
+                req.retried = True
+                taken.add(req)
+                self._queue.appendleft(req)
+                requeued += 1
+            self._m_queue.set(len(self._queue))
+            if requeued:
+                self._cv.notify()
+        for req in batch:
+            if req in taken or req.done():
+                continue
+            if req.deadline is not None and now >= req.deadline:
+                self._expire(req, now)
+            elif req.retried:
+                # a second replica death under the same request
+                req._resolve(error=OverloadedError(
+                    "request already failed over once on model %r"
+                    % self.name))
+            else:
+                req._resolve(error=OverloadedError(
+                    "model %r is draining; in-flight request not retried"
+                    % self.name))
+        return requeued
 
     # -- the worker --------------------------------------------------------
     def _pop_live(self, max_n=None):
@@ -426,7 +483,8 @@ class DynamicBatcher:
                 continue
             batch = [first]
             total = first.n
-            close_at = time.monotonic() + self.max_delay_s
+            t_assembly = time.monotonic()
+            close_at = t_assembly + self.max_delay_s
             # coalesce until the largest bucket is full or the delay window
             # closes; a draining batcher takes what is queued, no waiting
             while total < self.max_batch:
@@ -448,8 +506,19 @@ class DynamicBatcher:
             total = sum(r.n for r in batch)
             if not batch:
                 continue
+            # the coalescing window, a span a traced request (emitted after
+            # the fact: only the window's end knows the batch)
+            assembly_s = time.monotonic() - t_assembly
+            assembly_wall = time.time() - assembly_s
+            for req in batch:
+                _tracing.emit_span("serve.assembly", assembly_wall,
+                                   assembly_s, req.trace, component="router",
+                                   attrs={"batch": len(batch), "n": total})
             try:
-                self._dispatch(batch, total)
+                if self._dispatcher is not None:
+                    self._dispatcher(batch, total)
+                else:
+                    self._dispatch(batch, total)
             except Exception as e:  # the lone worker must never die
                 telemetry.record_event("serve_batcher_error",
                                        model=self.name, error=repr(e))
@@ -462,6 +531,8 @@ class DynamicBatcher:
         request in ``batch`` order, resolve every request, and close the
         in-flight accounting."""
         now = time.monotonic()
+        t_unpad = time.perf_counter()
+        unpad_wall = time.time()
         outs = unpad_outputs(outputs, bucket - total)
         offset = 0
         splits = []
@@ -471,10 +542,20 @@ class DynamicBatcher:
             req.compute_seconds = compute_s
             self._m_queue_s.observe(req.queue_seconds)
             self._m_request_s.observe(max(0.0, now - req._t_submit))
+            # the queue phase, its start the request's submit time on the
+            # wall clock
+            _tracing.emit_span(
+                "serve.queue", unpad_wall - (now - req._t_submit),
+                req.queue_seconds, req.trace, component="router")
             splits.append((req, [o[offset:offset + req.n].copy()
                                  for o in outs]))
             offset += req.n
+        unpad_s = time.perf_counter() - t_unpad
         for req, per_req in splits:
+            _tracing.emit_span("serve.unpad", unpad_wall, unpad_s,
+                               req.trace, component="router",
+                               attrs={"bucket": bucket,
+                                      "pad": bucket - total})
             req._resolve(outputs=per_req)
         with self._cv:
             self._inflight.difference_update(batch)
@@ -502,7 +583,14 @@ class DynamicBatcher:
         t0 = time.monotonic()
         try:
             padded, bucket = pad_batch(batch, total, self.buckets)
+            t_run = time.monotonic()
+            run_wall = time.time()
             outs = self._runner(padded, bucket, total)
+            compute_s = time.monotonic() - t_run
+            for req in batch:
+                _tracing.emit_span("serve.compute", run_wall, compute_s,
+                                   req.trace, component="worker",
+                                   attrs={"bucket": bucket, "n": total})
             self.resolve_batch(batch, outs, bucket, total,
                                time.monotonic() - t0)
         except ServingError as e:

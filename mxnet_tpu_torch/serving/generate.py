@@ -13,8 +13,12 @@ Counterpart of `mxnet_tpu/serving/generate.py`:
     into the sequence's pages; each decode step feeds one token per
     sequence, appends its K/V and attends over the page table through
     `ops.pallas_kernels.paged_attention` (the CUDA kernel on the card).
-  * `ServedLM` is the repository-facing model, in-process. The pooled
-    replica path of the JAX package is not ported yet.
+  * `ServedLM` is the repository-facing model: in-process it owns a
+    scheduler; pooled (``replicas >= 1``) it routes each request to a
+    replica worker process (`replica_pool.ReplicaPool` in generate mode),
+    each running its own scheduler and engine, so continuous batching
+    happens replica-side while routing, failover and health checks stay
+    router-side.
 
 The port runs eagerly: there is no compile registry. Float32 matrix
 products run in full float32 (TF32 is switched off for the card), so
@@ -43,6 +47,7 @@ from ..context import resolve_device
 from ..gluon.model_zoo.transformer import TransformerLM
 from ..ops.pallas_kernels import _NEG_INF, paged_attention
 from ..ops.random_ops import sample_token_logits
+from ..telemetry import tracing as _tracing
 from .batcher import (DeadlineExceededError, DrainingError, QueueFullError,
                       ServingError, bucket_for, drain_timeout_s,
                       power_of_two_buckets)
@@ -138,10 +143,11 @@ class GenRequest:
 
     __slots__ = ("tokens", "max_new_tokens", "temperature", "top_k",
                  "top_p", "deadline", "outputs", "finish_reason", "error",
+                 "trace", "retried", "tag", "on_complete", "queue_seconds",
                  "_event", "_rlock", "_t_submit")
 
     def __init__(self, tokens, max_new_tokens, temperature=0.0, top_k=0,
-                 top_p=1.0, deadline=None):
+                 top_p=1.0, deadline=None, trace=None):
         self.tokens = [int(t) for t in tokens]
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -151,6 +157,11 @@ class GenRequest:
         self.outputs = None
         self.finish_reason = None
         self.error = None
+        self.queue_seconds = None
+        self.retried = False     # pooled failover: one retry a request
+        self.tag = None          # wire id (pooled mode)
+        self.on_complete = None  # worker-side completion hook
+        self.trace = trace if trace is not None else _tracing.capture()
         self._event = threading.Event()
         self._rlock = threading.Lock()
         self._t_submit = time.monotonic()
@@ -169,8 +180,8 @@ class GenRequest:
         return self.outputs
 
     def _resolve(self, outputs=None, finish_reason=None, error=None):
-        # first resolution wins, atomically (scheduler thread, abort paths
-        # and deadline expiry can race)
+        # first resolution wins, atomically (scheduler thread, a pool's
+        # dispatch thread, abort paths and deadline expiry can race)
         with self._rlock:
             if self._event.is_set():
                 return
@@ -178,6 +189,12 @@ class GenRequest:
             self.finish_reason = finish_reason
             self.error = error
             self._event.set()
+            cb = self.on_complete
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception as e:  # a dead socket must not kill the
+                _LOG.warning("generate completion hook failed: %r", e)
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +204,8 @@ class GenRequest:
 class _Sequence:
     """Scheduler-internal state of one RUNNING sequence."""
 
-    __slots__ = ("req", "pages", "page_row", "pos", "generated", "t_last")
+    __slots__ = ("req", "pages", "page_row", "pos", "generated", "t_last",
+                 "n_steps")
 
     def __init__(self, req, pages, page_row, pos, first_token):
         self.req = req
@@ -196,6 +214,7 @@ class _Sequence:
         self.pos = pos            # position of the NEXT token to feed
         self.generated = [first_token]
         self.t_last = time.monotonic()
+        self.n_steps = 0
 
 
 _SCHED_SEQ = itertools.count()
@@ -275,8 +294,10 @@ class GenerateScheduler:
 
     # -- admission ---------------------------------------------------------
     def submit(self, tokens, max_new_tokens=None, temperature=0.0, top_k=0,
-               top_p=1.0, deadline=None):
-        """Admit one generation request; returns a `GenRequest`."""
+               top_p=1.0, deadline=None, trace=None, on_complete=None):
+        """Admit one generation request; returns a `GenRequest`.
+        ``on_complete`` (optional) fires on every resolution: success,
+        expiry or abort (the replica worker's reply hook)."""
         tokens = [int(t) for t in tokens]
         if not tokens:
             raise MXNetError("generation needs at least one prompt token")
@@ -297,7 +318,9 @@ class GenerateScheduler:
                 "max_new_tokens must be in 1..%d (MXTPU_SERVE_MAX_NEW_"
                 "TOKENS), got %d" % (cap, max_new_tokens))
         req = GenRequest(tokens, max_new_tokens, temperature=temperature,
-                         top_k=top_k, top_p=top_p, deadline=deadline)
+                         top_k=top_k, top_p=top_p, deadline=deadline,
+                         trace=trace)
+        req.on_complete = on_complete
         with self._cv:
             if self._stop or self._draining:
                 raise DrainingError("model %r is draining" % self.name)
@@ -426,9 +449,11 @@ class GenerateScheduler:
                     break            # pool pressure: stays queued
                 self._queue.popleft()
                 self._m_queue.set(len(self._queue))
+            req.queue_seconds = time.monotonic() - req._t_submit
             page_row = _np.zeros(self.engine.max_pages_per_seq, _np.int32)
             page_row[:len(pages)] = pages
             t0 = time.monotonic()
+            t0_wall = time.time()
             try:
                 first = self.engine.prefill(
                     req.tokens, page_row,
@@ -442,7 +467,15 @@ class GenerateScheduler:
                                        model=self.name, error=repr(e))
                 req._resolve(error=err)
                 continue
-            self._m_prefill.observe(time.monotonic() - t0)
+            prefill_s = time.monotonic() - t0
+            self._m_prefill.observe(prefill_s)
+            _tracing.emit_span(
+                "serve.queue", t0_wall - req.queue_seconds,
+                req.queue_seconds, req.trace, component="decode")
+            _tracing.emit_span(
+                "decode.prefill", t0_wall, prefill_s, req.trace,
+                component="decode",
+                attrs={"prompt": len(req.tokens), "pages": len(pages)})
             self._m_tokens.inc()
             seq = _Sequence(req, pages, page_row, len(req.tokens), first)
             if not self._finish_if_done(seq):
@@ -470,7 +503,8 @@ class GenerateScheduler:
             self._m_active.set(len(live))
         if not live:
             return
-        bucket = bucket_for(len(live), self.buckets)
+        n = len(live)
+        bucket = bucket_for(n, self.buckets)
         ps = self.engine.page_size
         tokens = _np.zeros(bucket, _np.int32)
         positions = _np.zeros(bucket, _np.int32)
@@ -492,18 +526,26 @@ class GenerateScheduler:
             temps[i] = seq.req.temperature
             top_ks[i] = seq.req.top_k
             top_ps[i] = seq.req.top_p
+        t0 = time.monotonic()
+        t0_wall = time.time()
         nxt = self.engine.decode_step(tokens, positions, dest_pages,
                                       dest_slots, tables, lengths, temps,
                                       top_ks, top_ps, gen)
+        step_s = time.monotonic() - t0
         self._m_steps.inc()
         now = time.monotonic()
         still = []
         for i, seq in enumerate(live):
             seq.pos += 1
+            seq.n_steps += 1
             seq.generated.append(int(nxt[i]))
             self._m_tokens.inc()
             self._m_intertoken.observe(now - seq.t_last)
             seq.t_last = now
+            _tracing.emit_span(
+                "decode.step", t0_wall, step_s, seq.req.trace,
+                component="decode",
+                attrs={"bucket": bucket, "n": n, "step": seq.n_steps})
             if not self._finish_if_done(seq):
                 still.append(seq)
         with self._cv:
@@ -833,45 +875,124 @@ def load_lm(prefix, device=None):
 # ---------------------------------------------------------------------------
 
 class ServedLM:
-    """One served generation model (`ModelRepository` duck type), owning
-    an in-process `GenerateScheduler`."""
+    """One served generation model (`ModelRepository` duck type).
 
-    def __init__(self, name, version, scheduler, meta=None):
+    In-process it owns a `GenerateScheduler`; pooled (``replicas >= 1``)
+    it routes each request to a replica worker over the supervisor's wire
+    protocol: every worker runs its own scheduler, so continuous batching
+    happens replica-side, while routing, failover (one re-dispatch a
+    request, recomputed from its prompt) and health checks stay
+    router-side.
+    """
+
+    # engine keywords a pool forwards to its workers as argv, so the
+    # router and the replicas agree on the geometry
+    _WORKER_FLAGS = {"num_pages": "--kv-pages", "page_size": "--kv-page-size",
+                     "max_prompt": "--max-prompt",
+                     "max_new_tokens": "--max-new-tokens",
+                     "max_batch": "--max-batch", "kv_dtype": "--kv-dtype"}
+
+    def __init__(self, name, version, scheduler=None, pool=None, info=None,
+                 meta=None):
         self.name = str(name)
         self.version = int(version)
         self._scheduler = scheduler
+        self._pool = pool
         self.meta = dict(meta or {})
         self.loaded_at = time.time()
-        self.generate_info = dict(scheduler.engine.geometry())
-        self.warm_seconds = scheduler.warm_seconds
+        self.warmed = True
+        if scheduler is not None:
+            self.generate_info = dict(scheduler.engine.geometry())
+            self.warm_seconds = scheduler.warm_seconds
+        else:
+            self.generate_info = dict((info or {}).get("generate") or {})
+            self.warm_seconds = (info or {}).get("warm_seconds")
         self.memory_bytes = (
             (self.generate_info.get("kv_bytes") or 0)
             + (self.generate_info.get("param_bytes") or 0)) or None
         if self.memory_bytes:
             telemetry.gauge("mxtpu_serve_model_memory_bytes",
                             {"model": "%s/%d" % (self.name, self.version)}
-                            ).set(self.memory_bytes)
+                            ).set(self.memory_bytes * self.resident_copies)
 
     @staticmethod
-    def load(name, version, prefix, queue_depth=None, device=None,
+    def load(name, version, prefix, replicas=0, queue_depth=None,
+             worker_args=None, pool_kwargs=None, device=None,
              **engine_kwargs):
         """Load a ``save_lm`` artifact as a served generation model on
         ``device`` (default: the calling thread's innermost
-        `context.scope`, else the CUDA card), in this process (the JAX
-        package's pooled replicas are not ported yet). ``engine_kwargs`` go
-        to `TransformerLMEngine`."""
+        `context.scope`, else the CUDA card).
+
+        ``replicas`` = 0 runs the scheduler in this process, with
+        ``engine_kwargs`` going to `TransformerLMEngine`. N >= 1 starts a
+        supervised `ReplicaPool` of N worker processes in generate mode on
+        that device: the engine's geometry keywords (``num_pages``,
+        ``page_size``, ``max_prompt``, ``max_new_tokens``, ``max_batch``,
+        ``kv_dtype``) are forwarded to the workers as argv, any other keyword raises,
+        ``worker_args`` replaces the argv entirely, and ``pool_kwargs`` go
+        to the pool."""
+        version = int(version)
+        if replicas and replicas > 0:
+            from .replica_pool import ReplicaPool
+
+            if worker_args is None:
+                if prefix is None:
+                    raise MXNetError("pooled ServedLM.load needs an "
+                                     "artifact prefix (or worker_args)")
+                other = sorted(set(engine_kwargs) -
+                               set(ServedLM._WORKER_FLAGS))
+                if other:
+                    raise MXNetError(
+                        "%s apply to an in-process engine only; a replica "
+                        "pool takes %s" % (other,
+                                           sorted(ServedLM._WORKER_FLAGS)))
+                worker_args = ["--generate", os.fspath(prefix)]
+                for k, flag in ServedLM._WORKER_FLAGS.items():
+                    if engine_kwargs.get(k) is not None:
+                        worker_args += [flag, str(engine_kwargs[k])]
+            pool = ReplicaPool("%s/%d" % (name, version), worker_args,
+                               replicas, generate=True,
+                               gen_queue_depth=queue_depth, device=device,
+                               **(pool_kwargs or {}))
+            try:
+                info = pool.wait_ready()
+            except Exception:
+                pool.close()
+                raise
+            # the router-side SLO objectives of a pooled LM
+            # (`_slo.wire_serving_objectives` in the JAX package) wait for
+            # telemetry/slo.py: ROADMAP queue 1 item 12
+            return ServedLM(name, version, pool=pool, info=info,
+                            meta={"artifact": "generate",
+                                  "path": None if prefix is None
+                                  else os.fspath(prefix),
+                                  "replicas": int(replicas),
+                                  "device": str(pool.device)})
         device = resolve_device(device)
         engine = TransformerLMEngine(lm=load_lm(prefix, device=device),
                                      device=device, **engine_kwargs)
         sched = GenerateScheduler(engine, name="%s/%d" % (name, version),
                                   queue_depth=queue_depth)
-        return ServedLM(name, version, sched,
+        return ServedLM(name, version, scheduler=sched,
                         meta={"artifact": "generate",
                               "path": os.fspath(prefix)})
+
+    # -- serving surface ---------------------------------------------------
+    @property
+    def pool(self):
+        """The model's `ReplicaPool` (None when served in-process)."""
+        return self._pool
 
     @property
     def scheduler(self):
         return self._scheduler
+
+    @property
+    def resident_copies(self):
+        """Copies of the weights and KV pool: one a replica."""
+        if self._pool is not None:
+            return max(1, int(self._pool.size))
+        return 1
 
     def generate(self, tokens, max_new_tokens=None, temperature=0.0,
                  top_k=0, top_p=1.0, timeout_ms=None):
@@ -883,40 +1004,86 @@ class ServedLM:
         deadline = None
         if timeout_ms and timeout_ms > 0:
             deadline = time.monotonic() + float(timeout_ms) / 1e3
-        req = self._scheduler.submit(
-            tokens, max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, top_p=top_p, deadline=deadline)
+        if self._pool is not None:
+            req = self._make_pool_request(tokens, max_new_tokens,
+                                          temperature, top_k, top_p,
+                                          deadline)
+            self._pool.submit_generate(req)
+        else:
+            req = self._scheduler.submit(
+                tokens, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                deadline=deadline)
         timeout = None if deadline is None \
             else max(0.0, deadline - time.monotonic())
         out = req.wait(timeout)
         return {"tokens": out, "finish_reason": req.finish_reason}
 
+    def _make_pool_request(self, tokens, max_new_tokens, temperature,
+                           top_k, top_p, deadline):
+        """The router validates as the scheduler does (the worker checks
+        again, but a malformed request answers 400 here, off the
+        wire)."""
+        tokens = [int(t) for t in tokens]
+        gi = self.generate_info
+        if not tokens:
+            raise MXNetError("generation needs at least one prompt token")
+        if gi.get("max_prompt") and len(tokens) > gi["max_prompt"]:
+            raise MXNetError(
+                "prompt has %d tokens; this model admits up to %d"
+                % (len(tokens), gi["max_prompt"]))
+        cap = gi.get("max_new_tokens") \
+            or _env.get("MXTPU_SERVE_MAX_NEW_TOKENS")
+        if max_new_tokens is None:
+            max_new_tokens = cap
+        if int(max_new_tokens) < 1 or int(max_new_tokens) > cap:
+            raise MXNetError("max_new_tokens must be in 1..%d, got %s"
+                             % (cap, max_new_tokens))
+        return GenRequest(tokens, max_new_tokens, temperature=temperature,
+                          top_k=top_k, top_p=top_p, deadline=deadline)
+
+    # -- repository lifecycle ---------------------------------------------
     def pending(self):
-        return self._scheduler.pending()
+        if self._scheduler is not None:
+            return self._scheduler.pending()
+        return self._pool.generate_pending()
 
     def drain(self, timeout=None):
-        return self._scheduler.drain(timeout)
+        if self._scheduler is not None:
+            return self._scheduler.drain(timeout)
+        return self._pool.drain_generate(timeout)
 
     def abort_pending(self, error=None):
-        return self._scheduler.abort_pending(error)
+        if self._scheduler is not None:
+            return self._scheduler.abort_pending(error)
+        return self._pool.abort_generate(error)
 
     def close(self, drain=True, timeout=None):
-        return self._scheduler.close(drain=drain, timeout=timeout)
+        if self._scheduler is not None:
+            return self._scheduler.close(drain=drain, timeout=timeout)
+        drained = self._pool.drain_generate(timeout) if drain else False
+        self._pool.close()
+        return drained
 
     def describe(self):
-        alloc = self._scheduler.allocator
-        return {
+        out = {
             "name": self.name,
             "version": self.version,
             "kind": "generate",
             "generate": dict(self.generate_info),
-            "warmed": True,
+            "warmed": self.warmed,
             "warm_seconds": self.warm_seconds,
             "pending": self.pending(),
             "loaded_at": self.loaded_at,
             "meta": self.meta,
-            "memory": {"total_bytes": self.memory_bytes},
-            "kv": {"pages_total": alloc.num_pages,
-                   "pages_used": alloc.used_pages,
-                   "page_size": alloc.page_size},
+            "memory": {"total_bytes": self.memory_bytes,
+                       "copies": self.resident_copies},
         }
+        if self._scheduler is not None:
+            alloc = self._scheduler.allocator
+            out["kv"] = {"pages_total": alloc.num_pages,
+                         "pages_used": alloc.used_pages,
+                         "page_size": alloc.page_size}
+        if self._pool is not None:
+            out["pool"] = self._pool.describe()
+        return out

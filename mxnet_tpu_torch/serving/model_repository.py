@@ -11,13 +11,19 @@ Counterpart of `mxnet_tpu/serving/model_repository.py`. Two kinds load:
   * a generation LM (``generate=True``: a ``save_lm`` prefix) as a
     `ServedLM` over the continuous-batching decode scheduler.
 
+With ``replicas=N`` either kind is served by a supervised
+`replica_pool.ReplicaPool` of N worker processes instead
+(`ServedModel.pooled`, `ServedLM.load`), on the device the caller's scope
+names, else the card.
+
 A load warms every bucket (one forward of zeros each) before it publishes,
-so a half-warm model never serves; an unload drains queued and running
-work, then drops the model.
+so a half-warm model never serves (a pool's replicas warm before they
+report ready); an unload drains queued and running work, then drops the
+model (and closes its pool).
 
 Not ported yet, and raising where asked for: compiled ``.mxc`` artifacts
-(ROADMAP queue 1 items 2 and 13), replica pools (``replicas > 0``) and the
-autoscaler's ``min_replicas`` / ``max_replicas`` / ``pinned`` (item 12),
+(ROADMAP queue 1 items 2 and 13), the autoscaler's ``min_replicas`` /
+``max_replicas`` / ``pinned`` (item 12, with ``telemetry/slo.py``),
 ``MXTPU_SERVE_MEMORY_BUDGET`` admission with `reclaim_memory`, which need
 ``telemetry/memory.py``, and the compile manifest (item 13).
 """
@@ -50,14 +56,14 @@ class ServedModel:
 
     ``runner(batch_arrays, bucket, n) -> [numpy outputs]`` owns the model;
     `from_path` builds it from a deployment artifact, and tests may inject
-    a stub (the repository needs only this interface).
+    a stub (the repository needs only this interface). With ``pool`` (a
+    `ReplicaPool`), the batcher hands its batches to the pool's replica
+    processes and admits through the pool's load-shedding gate.
     """
 
     def __init__(self, name, version, runner, buckets, example_shapes,
                  input_dtypes=None, meta=None, max_delay_ms=None,
                  queue_depth=None, pool=None):
-        if pool is not None:
-            raise _unported("a replica pool", 12)
         self.name = str(name)
         self.version = int(version)
         self.example_shapes = {k: tuple(v) for k, v in example_shapes.items()}
@@ -70,11 +76,71 @@ class ServedModel:
         self.warmed = False
         self.warm_seconds = None
         self._runner = runner
-        self._batcher = DynamicBatcher(
-            runner, buckets, max_delay_ms=max_delay_ms,
-            queue_depth=queue_depth, name="%s/%d" % (self.name, self.version))
+        self._pool = pool
+        if pool is not None:
+            self._batcher = DynamicBatcher(
+                None, buckets, max_delay_ms=max_delay_ms,
+                queue_depth=queue_depth,
+                name="%s/%d" % (self.name, self.version),
+                dispatcher=pool.dispatch_batch,
+                admission_gate=pool.admission_gate)
+            pool.bind(self._batcher)
+        else:
+            self._batcher = DynamicBatcher(
+                runner, buckets, max_delay_ms=max_delay_ms,
+                queue_depth=queue_depth,
+                name="%s/%d" % (self.name, self.version))
 
     # -- construction from artifacts --------------------------------------
+    @staticmethod
+    def pooled(name, version, path, replicas, input_shapes=None,
+               input_dtypes=None, max_batch=None, max_delay_ms=None,
+               queue_depth=None, heartbeat_ms=None, backoff_ms=None,
+               extra_env=None, spawn_timeout_s=120.0, teardown_grace=None,
+               worker_args=None, wedge_timeout_ms=None, device=None):
+        """Serve an export ``prefix`` through a supervised `ReplicaPool` of
+        ``replicas`` worker processes on ``device`` (default: the calling
+        thread's innermost `context.scope`, else the card).
+        ``worker_args`` replaces the artifact argv (tests pass ``--stub``
+        specs). Every replica loads and warms before the model returns: a
+        half-warm pool never publishes."""
+        from .replica_pool import ReplicaPool
+
+        if worker_args is None:
+            if path is None:
+                raise MXNetError("pooled() needs an artifact path (or "
+                                 "explicit worker_args)")
+            worker_args = ["--artifact", os.fspath(path)]
+            for iname, dims in (input_shapes or {}).items():
+                spec = "%s=%s" % (iname, "x".join(str(d) for d in dims))
+                if input_dtypes and iname in input_dtypes:
+                    spec += ":%s" % input_dtypes[iname]
+                worker_args += ["--input", spec]
+            if max_batch is not None:
+                worker_args += ["--max-batch", str(max_batch)]
+        pool = ReplicaPool("%s/%d" % (name, int(version)), worker_args,
+                           replicas, heartbeat_ms=heartbeat_ms,
+                           backoff_ms=backoff_ms, extra_env=extra_env,
+                           spawn_timeout_s=spawn_timeout_s,
+                           teardown_grace=teardown_grace,
+                           wedge_timeout_ms=wedge_timeout_ms, device=device)
+        try:
+            info = pool.wait_ready(spawn_timeout_s)
+        except Exception:
+            pool.close()
+            raise
+        model = ServedModel(
+            name, version, None, info["buckets"], info["example_shapes"],
+            input_dtypes=info.get("input_dtypes"),
+            meta={"artifact": "pooled", "path": None if path is None
+                  else os.fspath(path), "replicas": int(replicas),
+                  "device": str(pool.device)},
+            max_delay_ms=max_delay_ms, queue_depth=queue_depth, pool=pool)
+        # every replica warmed its buckets before it reported ready
+        model.warmed = True
+        model.warm_seconds = info.get("warm_seconds")
+        return model
+
     @staticmethod
     def from_path(name, version, path, input_shapes=None, input_dtypes=None,
                   ctx=None, max_batch=None, max_delay_ms=None,
@@ -102,6 +168,11 @@ class ServedModel:
                            queue_depth=queue_depth)
 
     # -- serving surface ---------------------------------------------------
+    @property
+    def pool(self):
+        """The model's `ReplicaPool` (None when served in-process)."""
+        return self._pool
+
     @property
     def buckets(self):
         return list(self._batcher.buckets)
@@ -148,7 +219,11 @@ class ServedModel:
         """One forward of zeros per bucket before the model publishes, so
         the first request of each bucket pays no first-launch cost (kernel
         builds, allocator growth). Emits one ``serve_bucket_warm`` event
-        per bucket; returns the seconds taken."""
+        per bucket; returns the seconds taken. A pooled model's replicas
+        warmed before they reported ready: nothing to do here."""
+        if self._pool is not None:
+            self.warmed = True
+            return self.warm_seconds
         t_all = time.monotonic()
         for b in self._batcher.buckets:
             zeros = {k: _np.zeros((b,) + s, dtype=self.input_dtypes[k])
@@ -174,10 +249,13 @@ class ServedModel:
         return self._batcher.abort_pending(error)
 
     def close(self, drain=True, timeout=None):
-        return self._batcher.close(drain=drain, timeout=timeout)
+        drained = self._batcher.close(drain=drain, timeout=timeout)
+        if self._pool is not None:
+            self._pool.close()
+        return drained
 
     def describe(self):
-        return {
+        out = {
             "name": self.name,
             "version": self.version,
             "kind": "predict",
@@ -192,6 +270,9 @@ class ServedModel:
             "loaded_at": self.loaded_at,
             "meta": self.meta,
         }
+        if self._pool is not None:
+            out["pool"] = self._pool.describe()
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +385,7 @@ class ModelRepository:
              input_dtypes=None, ctx=None, max_batch=None, max_delay_ms=None,
              queue_depth=None, warm=True, replicas=0, generate=False,
              generate_opts=None, min_replicas=None, max_replicas=None,
-             pinned=False, device=None):
+             pinned=False, device=None, **pool_kwargs):
         """Load an artifact as ``name/version`` (auto-increment when
         ``version`` is None) and publish it after warm-up. The version is
         reserved for the whole load, and a failed load tears its half-built
@@ -317,15 +398,23 @@ class ModelRepository:
         it), buckets the powers of two up to ``max_batch``.
         ``generate=True`` loads a ``save_lm`` prefix instead, its geometry
         through ``generate_opts`` (to `TransformerLMEngine`); the
-        predict-only knobs raise there."""
-        if replicas:
-            raise _unported("serving through replica pools (replicas > 0)",
-                            12)
+        predict-only knobs raise there.
+
+        ``replicas`` > 0 serves either kind through a supervised replica
+        pool of that many worker processes (`ServedModel.pooled`,
+        `ServedLM.load`) on ``ctx`` / ``device`` (default: the calling
+        thread's innermost `context.scope`, else the card); ``pool_kwargs``
+        (heartbeat_ms, backoff_ms, extra_env, spawn_timeout_s,
+        teardown_grace, wedge_timeout_ms) pass through to the pool."""
         if min_replicas is not None or max_replicas is not None or pinned:
             raise _unported("the autoscaler (min_replicas / max_replicas / "
-                            "pinned)", 12)
+                            "pinned), with telemetry/slo.py", 12)
         if os.environ.get("MXTPU_SERVE_MEMORY_BUDGET"):
-            raise _unported("MXTPU_SERVE_MEMORY_BUDGET admission", 13)
+            raise _unported("MXTPU_SERVE_MEMORY_BUDGET admission "
+                            "(telemetry/memory.py)", 13)
+        if pool_kwargs and not replicas:
+            raise MXNetError("%s only apply to a replica pool (replicas > 0)"
+                             % sorted(pool_kwargs))
         if ctx is not None and device is not None:
             raise MXNetError("pass the device as ctx or device, not both")
         if generate and (input_shapes or input_dtypes or ctx is not None
@@ -352,8 +441,17 @@ class ModelRepository:
                 if max_batch is not None:
                     opts.setdefault("max_batch", max_batch)
                 model = ServedLM.load(name, version, path,
+                                      replicas=int(replicas or 0),
                                       queue_depth=queue_depth,
-                                      device=device, **opts)
+                                      device=device, pool_kwargs=pool_kwargs,
+                                      **opts)
+            elif replicas and replicas > 0:
+                model = ServedModel.pooled(
+                    name, version, path, replicas,
+                    input_shapes=input_shapes, input_dtypes=input_dtypes,
+                    max_batch=max_batch, max_delay_ms=max_delay_ms,
+                    queue_depth=queue_depth,
+                    device=ctx if ctx is not None else device, **pool_kwargs)
             else:
                 model = ServedModel.from_path(
                     name, version, path, input_shapes=input_shapes,
@@ -374,7 +472,8 @@ class ModelRepository:
 
     def reclaim_memory(self, needed_bytes, exclude=None, reason="load",
                        dry_run=False):
-        raise _unported("reclaim_memory (memory-budget residency)", 13)
+        raise _unported("reclaim_memory (memory-budget residency, "
+                        "telemetry/memory.py)", 13)
 
     def add(self, model):
         """Publish an already-built served model."""

@@ -24,10 +24,16 @@ Routes:
 
 Admission is deterministic: a full queue answers 429, an expired deadline
 504, draining 503, an unknown model 404, a malformed request (or the
-other kind's verb) 400. SIGTERM (via `install_signal_handlers`) drains
-queued and running requests, then stops the server. Not ported yet: the
-trace header and spans of the JAX package's ``_tracing``, which wait for
-``telemetry/tracing.py`` (ROADMAP queue 1 item 13).
+other kind's verb) 400; a degraded replica pool sheds with 503 and a
+``Retry-After`` scaled to its healthy replicas. SIGTERM (via
+`install_signal_handlers`) drains queued and running requests, then stops
+the server.
+
+Tracing: a predict or generate request is admitted under a
+``serve.request`` root span (``component="server"``), its context read
+from an incoming ``x-mxtpu-trace`` header or minted (sampled at
+``MXTPU_TRACE_SAMPLE``); the reply always carries the header, so any
+outcome names its trace.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import numpy as _np
 from .. import env as _env
 from .. import telemetry
 from ..base import MXNetError
+from ..telemetry import tracing as _tracing
 from .batcher import DrainingError, ServingError, drain_timeout_s
 
 __all__ = ["ServingServer"]
@@ -209,6 +216,7 @@ class ServingServer:
 
     # -- routing -----------------------------------------------------------
     def _route(self, handler, method):
+        handler._mxtpu_trace = None  # a keep-alive handler serves many
         try:
             path = handler.path.split("?", 1)[0]
             query = handler.path[len(path) + 1:] if "?" in handler.path else ""
@@ -310,8 +318,22 @@ class ServingServer:
             with self._inflight_lock:
                 self._inflight -= 1
 
+    @staticmethod
+    def _admit_trace(handler, name, verb):
+        """The request's root span: the incoming ``x-mxtpu-trace`` context
+        honored, else a minted one; the reply echoes its header."""
+        ref = _tracing.mint(_tracing.parse_header(
+            handler.headers.get(_tracing.HEADER) or ""))
+        handler._mxtpu_trace = _tracing.header_value(ref)
+        return _tracing.root("serve.request", component="server", ref=ref,
+                             attrs={"model": name, "verb": verb})
+
     # -- predict -----------------------------------------------------------
     def _predict(self, handler, name, version):
+        with self._admit_trace(handler, name, "predict"):
+            self._predict_traced(handler, name, version)
+
+    def _predict_traced(self, handler, name, version):
         model, body = self._body(handler, name, version, "predict")
         if "inputs" in body:
             raw = body["inputs"]
@@ -343,6 +365,10 @@ class ServingServer:
 
     # -- generate ----------------------------------------------------------
     def _generate(self, handler, name, version):
+        with self._admit_trace(handler, name, "generate"):
+            self._generate_traced(handler, name, version)
+
+    def _generate_traced(self, handler, name, version):
         model, body = self._body(handler, name, version, "generate")
         tokens = body.get("tokens")
         if not isinstance(tokens, list) or not tokens \
@@ -396,6 +422,9 @@ class ServingServer:
         handler.send_response(code)
         handler.send_header("Content-Type", "application/json")
         handler.send_header("Content-Length", str(len(body)))
+        trace = getattr(handler, "_mxtpu_trace", None)
+        if trace is not None:
+            handler.send_header(_tracing.HEADER, trace)
         if retry_after is None and code == 429:
             retry_after = 1
         if retry_after is not None:

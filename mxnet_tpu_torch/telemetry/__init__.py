@@ -1,9 +1,13 @@
-"""Metrics and events (counterpart of `mxnet_tpu.telemetry`)."""
-from .core import (LATENCY_BOUNDS, counter, events, gauge, get_registry,
-                   histogram, record_event, snapshot)
+"""Metrics, events, spans and their JSONL files (counterpart of
+`mxnet_tpu.telemetry`)."""
+from . import tracing
+from .core import (LATENCY_BOUNDS, counter, events, flush, gauge,
+                   get_registry, histogram, record_event, snapshot,
+                   telemetry_dir)
 
 __all__ = ["counter", "gauge", "histogram", "get_registry", "snapshot",
-           "record_event", "events", "LATENCY_BOUNDS", "observe_step"]
+           "record_event", "events", "flush", "telemetry_dir", "tracing",
+           "LATENCY_BOUNDS", "observe_step"]
 
 
 def observe_step(duration_s, examples=None, step=None, kind="train"):

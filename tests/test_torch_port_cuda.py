@@ -12,6 +12,8 @@ the card against the CPU, and a scoring word LM served by the predict
 path (``ModelRepository`` -> ``DynamicBatcher`` -> bucketed
 ``Predictor``s -> ``lstm_infer``) on the card against a ``Predictor`` on
 the CPU, with its launch counts and its buckets' shared weights; and a
+2-replica generation pool on the card against the in-process engine, each
+replica's paged-kernel launches read from its stats; and a
 bound graph's no-input ops on the card; and the CTC op, the random ops
 (by distribution), the spatial transformer ops, linalg and control flow
 on the card against the CPU; and ``sparse.dot`` with its backward (two
@@ -181,6 +183,67 @@ def test_engine_on_card_greedy_and_kernel_launches(kv_dtype):
         assert sched.allocator.used_pages == 0
     finally:
         sched.close(drain=False, timeout=0)
+
+
+@pytest.mark.cuda
+def test_replica_pool_on_card_matches_in_process_engine(tmp_path):
+    """A 2-replica generation pool on ``cuda:0`` (two worker processes
+    sharing the card, each with its own CUDA context and copy of the
+    weights) gives the in-process card engine's tokens, and each replica
+    launched the paged kernel in its own process while serving them (its
+    warm-up's launches apart)."""
+    _need_card()
+    from mxnet_tpu_torch.serving import ModelRepository, save_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm = lm_mini(vocab_size=96, device="cuda").initialize(0, std=0.3)
+    prefix = save_lm(lm, str(tmp_path / "lm"))
+    geom = dict(num_pages=32, page_size=4, max_prompt=8, max_new_tokens=12,
+                max_batch=4)
+    prompts = [[3, 5, 7], [2], [9, 4, 6, 1, 8], [1, 2, 3, 4], [8, 8], [5]]
+    budgets = [5, 9, 3, 7, 4, 8]
+    sched = GenerateScheduler(TransformerLMEngine(lm=lm, device="cuda",
+                                                  **geom),
+                              name="cuda-inproc/1", queue_depth=16)
+    try:
+        want = [r.wait(120) for r in [sched.submit(p, max_new_tokens=n)
+                                      for p, n in zip(prompts, budgets)]]
+    finally:
+        sched.close(drain=False, timeout=0)
+    repo = ModelRepository()
+    model = repo.load("cudapool", prefix, generate=True, replicas=2,
+                      generate_opts=geom, heartbeat_ms=2000,
+                      teardown_grace=2.0, spawn_timeout_s=300,
+                      # two requests in flight a replica: the six spread
+                      # over both
+                      gen_outstanding=2)
+    try:
+        assert model.describe()["meta"]["device"] == "cuda:%d" % \
+            torch.cuda.current_device()
+        got = [None] * len(prompts)
+
+        def one(i):
+            got[i] = model.generate(prompts[i], max_new_tokens=budgets[i],
+                                    timeout_ms=120000)["tokens"]
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+        assert not any(t.is_alive() for t in threads)
+        assert got == want
+        for rid in model.pool.replica_ids():
+            st = model.pool.replica_stats(rid, timeout=30)
+            assert st is not None, rid
+            # launches since the replica reported ready: the requests'
+            assert st["launches"] > 0 and st["warm_launches"] > 0, st
+            assert st["kv_pages_used"] == 0, st
+            assert st["jit_after_warm"] == 0 and st["pending"] == 0, st
+            assert st["max_memory_allocated"] > 0, st
+    finally:
+        assert repo.unload("cudapool", timeout=60)
 
 
 # ---------------------------------------------------------------------------

@@ -99,10 +99,19 @@ def test_launch_restarts_preemptions_and_events(tmp_path):
     """A failed generation restarts on a fresh port (the generation in
     MXTPU_RESTART_GENERATION), a preemption code restarts without using
     the budget, and the events land in launcher-events.jsonl."""
-    script = ("import os, sys\n"
+    # each rank waits for both ranks' marks before it ends its generation,
+    # so a rank that exits first cannot have the other torn down before it
+    # printed its line
+    script = ("import os, sys, time\n"
               "g = int(os.environ['MXTPU_RESTART_GENERATION'])\n"
               "print('GEN', g, os.environ['MXTPU_COORDINATOR'], flush=True)\n"
-              "sys.exit({0: 83, 1: 4}.get(g, 0))\n")
+              "mark = os.path.join(%r, 'g%%d-r%%s')\n"
+              "open(mark %% (g, os.environ['MXTPU_PROCESS_ID']), 'w').close()\n"
+              "t0 = time.time()\n"
+              "while time.time() - t0 < 60 and not all(\n"
+              "        os.path.exists(mark %% (g, r)) for r in (0, 1)):\n"
+              "    time.sleep(0.01)\n"
+              "sys.exit({0: 83, 1: 4}.get(g, 0))\n" % str(tmp_path))
     rc, out = _launch(["-n", "2", "--max-restarts", "1",
                        "--restart-backoff", "0"],
                       [sys.executable, "-c", script], timeout=120,
