@@ -486,6 +486,34 @@ Phases; each raises on failure, and the script then exits non-zero:
    p99, seconds from the kill to healthy, each replica's peak allocated
    bytes (``torch.cuda.max_memory_allocated`` in the worker) and predict
    requests/s under the fault, with the card's name and power limit.
+22. autoscale (after replica_pool, in its directory): that phase's LM
+   loaded by ``ModelRepository.load("autolm", prefix, generate=True,
+   replicas=1, min_replicas=1, max_replicas=3)`` behind
+   ``ServingServer(port=0)`` with an `Autoscaler` attached (laps of 250
+   ms, up after 2 breached laps, a 20 s cooldown that outlasts a
+   replica's spawn, down after 5 s idle), ``MXTPU_SLO`` windows of 250 ms
+   with fast windows of 4 and 8 s, the pooled LM's p99 objective at
+   2,500 ms and ``MXTPU_SERVE_MEMORY_BUDGET`` at 2.5 copies of its
+   ``memory_bytes`` (room for two replicas, not three). Waves of 48
+   concurrent greedy requests (replica_pool's 24 bodies twice, so its
+   oracle replies serve again) until the pool holds 2 healthy replicas
+   (at most 90 s); one wave at 2; then the 24 bodies once a wave until
+   the p99 verdict is healthy on data; then idle. Gates: every reply 200
+   and equal to the oracle; the decision trail holds one ``up`` (1 -> 2)
+   and, if the breach held at 2, ``blocked`` for ``memory_budget``, never
+   a third replica, then one idle ``down`` back to 1 (drained); the added
+   replica's ``stats_result`` shows paged launches > 0 since it reported
+   ready (``launches_autoscale`` on the paged row); after the drain no KV
+   page used, nothing pending, no kernel built after warm-up; the
+   model's ``memory_bytes`` equals its ``param_bytes + kv_bytes`` and
+   each replica's ``max_memory_allocated`` lies within 1.0-1.3 times it;
+   ``GET /statusz`` carries ``autolm/1``'s verdicts and the trail, and
+   the telemetry endpoint's ``/metrics`` ``mxtpu_serve_replicas`` and
+   ``mxtpu_autoscale_decisions_total{action="up"}`` >= 1. Prints the
+   seconds from the first breach to 2 healthy, from there to the
+   verdict's recovery and from the last request to the scale-down;
+   generated tokens/s at 1 and at 2 replicas; peak bytes a replica; with
+   the card's name and power limit.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -5876,6 +5904,8 @@ def replica_pool_phase(torch, args, workdir):
     # the launches of the clean run alone: counted from each replica's
     # ready report, read before the chaos run
     launches = sum(st["launches"] for st in served.values())
+    lm_run = {"prefix": prefix, "bodies": bodies, "oracle": oracle,
+              "geometry": geo}
     log("replica_pool generate: bert_base_lm (%s) through "
         "ModelRepository.load(replicas=2) on the card, loaded in %.1f s "
         "(every replica warmed); %d greedy requests (the serve phase's "
@@ -5974,6 +6004,217 @@ def replica_pool_phase(torch, args, workdir):
         "phase %.1f s; %s"
         % (clients, n_req, pwall, n_req / pwall, json.dumps(codes), err,
            scale, VISION_RTOL, pfail.value, ejects[0]["reason"],
+           time.monotonic() - t_phase, card))
+    return {"paged_attention": launches}, lm_run
+
+
+# ---------------------------------------------------------------------------
+# autoscale: an LM pool that grows and drains on its SLO verdicts
+# ---------------------------------------------------------------------------
+
+AUTOSCALE_SURGE_S = 90.0    # the surge's budget to reach 2 healthy
+AUTOSCALE_SETTINGS = {
+    "MXTPU_SLO": "1",
+    "MXTPU_SLO_WINDOW_MS": "250",
+    "MXTPU_SLO_EVAL_MS": "250",
+    "MXTPU_SLO_FAST_WINDOWS": "4,8",
+    "MXTPU_SLO_SLOW_WINDOW_S": "60",
+    "MXTPU_SLO_SERVE_P99_MS": "2500",
+}
+
+
+def autoscale_phase(torch, args, lm_run):
+    """`ModelRepository.load(..., replicas=1, min_replicas=1,
+    max_replicas=3)` of replica_pool's LM behind a server with an
+    `Autoscaler`: a surge grows the pool to 2 within the memory budget, a
+    light load recovers the p99 verdict, idle drains it back to 1. Returns
+    the paged kernel's launches in the added replica since it reported
+    ready."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import (Autoscaler, ModelRepository,
+                                         ServingServer)
+    from mxnet_tpu_torch.telemetry import slo
+
+    t_phase = time.monotonic()
+    card = smi_line()
+    bodies, oracle = lm_run["bodies"], lm_run["oracle"]
+    geo = lm_run["geometry"]
+    per_copy = geo["param_bytes"] + geo["kv_bytes"]
+    budget = int(2.5 * per_copy)
+    settings = dict(AUTOSCALE_SETTINGS,
+                    MXTPU_SERVE_MEMORY_BUDGET=str(budget))
+    saved = {k: os.environ.get(k) for k in settings}
+    os.environ.update(settings)
+    log("autoscale: %s" % json.dumps(settings, sort_keys=True))
+    slo.stop()   # the next registration starts an evaluator at this cadence
+    label = "autolm/1"
+    repo = ModelRepository()
+    srv = None
+    metrics_port = None
+    t_load = time.time()
+    try:
+        model = repo.load("autolm", lm_run["prefix"], generate=True,
+                          replicas=1, min_replicas=1, max_replicas=3,
+                          spawn_timeout_s=POOL_SPAWN_S)
+        pool = model.pool
+        srv = ServingServer(repo, port=0, addr="127.0.0.1").start()
+        asc = srv.attach_autoscaler(Autoscaler(
+            repo, interval_ms=250, up_windows=2, idle_s=5.0,
+            cooldown_s=20.0))
+        metrics_port = telemetry.start_http_server(port=0, addr="127.0.0.1")
+        url = "http://127.0.0.1:%d/v1/models/autolm:generate" % srv.port
+        replies = []
+
+        def run(reqs):
+            """POST ``reqs`` (the bodies once or twice) at once; keeps each
+            reply beside its oracle; returns generated tokens/s."""
+            res = post_all(url, reqs)
+            replies.extend(zip(res, oracle * (len(reqs) // len(oracle))))
+            tokens = sum(r[1]["num_generated"] for r in res if r[0] == 200)
+            return tokens / (max(r[3] for r in res) - min(r[2] for r in res))
+
+        # -- surge: waves of 48 until 2 healthy ---------------------------
+        rates_1 = []
+        deadline = time.monotonic() + AUTOSCALE_SURGE_S
+        while time.monotonic() < deadline and not (
+                pool.size == 2 and pool.healthy_count == 2):
+            at_one = pool.size == 1
+            rate = run(bodies + bodies)
+            if at_one and pool.size == 1:
+                rates_1.append(rate)
+        t_two = time.time()
+        if pool.size != 2 or pool.healthy_count != 2:
+            raise AssertionError("autoscale: the pool is not at 2 healthy "
+                                 "after %.0f s of surge: %s, decisions %s"
+                                 % (AUTOSCALE_SURGE_S, pool.describe(),
+                                    asc.describe()["decisions"]))
+        rate_2 = run(bodies + bodies)
+        # both replicas' own figures while the pool is at 2
+        added = max(pool.replica_ids())
+        at_two = {rid: pool.replica_stats(rid, timeout=60)
+                  for rid in pool.replica_ids()}
+
+        # -- recovery: the 24 bodies until the p99 verdict is healthy ------
+        def verdict():
+            return next((v for v in slo.verdicts()
+                         if v["slo"] == "serve-p99:" + label), None)
+
+        recovered = None
+        for _ in range(8):
+            run(bodies)
+            v = verdict()
+            if v is not None and v["healthy"] and not v["no_data"]:
+                recovered = time.time()
+                break
+        if recovered is None:
+            raise AssertionError("autoscale: the p99 verdict did not "
+                                 "recover at 2 replicas: %s" % verdict())
+        last_answer = max(r[0][3] for r in replies)
+        t_last = time.time() - (time.monotonic() - last_answer)
+        added_stats = pool.replica_stats(added, timeout=60)
+
+        # -- idle: the autoscaler drains back to 1 -------------------------
+        # (the pool's size drops as the drain starts, the decision lands
+        # when it ends)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not any(
+                d["action"] == "down" for d in asc.describe()["decisions"]):
+            time.sleep(0.1)
+        trail = asc.describe()["decisions"]
+        with urllib.request.urlopen("http://127.0.0.1:%d/statusz" % srv.port,
+                                    timeout=30) as r:
+            statusz = json.loads(r.read())
+        with urllib.request.urlopen("http://127.0.0.1:%d/metrics"
+                                    % metrics_port, timeout=30) as r:
+            metrics = r.read().decode()
+        if not wait_healthy(pool, 1, 60):
+            raise AssertionError("autoscale: %s" % pool.describe())
+        left = {rid: pool.replica_stats(rid, timeout=60)
+                for rid in pool.replica_ids()}
+        breaches = [e for e in telemetry.events()
+                    if e["event"] == "slo_breach" and e["ts"] >= t_load
+                    and e["fields"].get("slo") == "serve-p99:" + label]
+        ready = [e for e in pool_events(telemetry, label, t_load)
+                 if e["event"] == "serve_replica_ready"
+                 and e["replica"] == added]
+    finally:
+        if srv is not None:
+            srv.shutdown()   # stops and joins the autoscaler
+        if metrics_port is not None:
+            telemetry.stop_http_server()
+        for name in repo.names():
+            repo.unload(name, timeout=60)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        slo.stop()
+
+    bad = [(i, r[0], r[1] if r[0] != 200 else r[1]["tokens"])
+           for i, (r, want) in enumerate(replies)
+           if r[0] != 200 or r[1]["tokens"] != want]
+    if bad:
+        raise AssertionError("autoscale: %d of %d replies not 200 and equal "
+                             "to the greedy oracle, e.g. %s"
+                             % (len(bad), len(replies), bad[:2]))
+    acts = [(d["action"], d.get("reason"), d.get("size")) for d in trail]
+    ups = [a for a in acts if a[0] == "up"]
+    downs = [a for a in acts if a[0] == "down"]
+    others = [a for a in acts if a[0] not in ("up", "down")]
+    if ups != [("up", None, 2)] or downs != [("down", "idle", 1)] \
+            or any(a[:2] != ("blocked", "memory_budget") for a in others):
+        raise AssertionError("autoscale: decision trail %s" % trail)
+    for rid, st in left.items():
+        if st is None or st["kv_pages_used"] or st["pending"] \
+                or st["jit_after_warm"]:
+            raise AssertionError("autoscale: replica %d after the drain: %s"
+                                 % (rid, st))
+    if model.memory_bytes != per_copy:
+        raise AssertionError("autoscale: memory_bytes %s != param_bytes + "
+                             "kv_bytes %d" % (model.memory_bytes, per_copy))
+    verdicts = [v for v in statusz["slo"]["verdicts"]
+                if (v.get("labels") or {}).get("model") == label]
+    if not verdicts or [d["action"] for d in
+                        statusz["autoscaler"]["decisions"]] \
+            != [d["action"] for d in trail]:
+        raise AssertionError("autoscale: /statusz %s"
+                             % json.dumps(statusz)[:2000])
+    m_up = re.search(r'^mxtpu_autoscale_decisions_total\{action="up"\} '
+                     r'(\d+)', metrics, re.M)
+    if 'mxtpu_serve_replicas{model="%s"} 1' % label not in metrics \
+            or m_up is None or int(m_up.group(1)) < 1:
+        raise AssertionError("autoscale: /metrics lacks the replica gauge "
+                             "or the up counter")
+    if not breaches or not ready:
+        raise AssertionError("autoscale: breach events %s, ready events %s"
+                             % (breaches, ready))
+    # what only the card shows: the kernel in the added replica, and each
+    # replica's peak allocated bytes
+    launches = added_stats["launches"] if added_stats else 0
+    if launches < 1:
+        raise AssertionError("autoscale: the added replica %d launched no "
+                             "paged kernel since it reported ready: %s"
+                             % (added, added_stats))
+    peaks = {rid: st["max_memory_allocated"] for rid, st in at_two.items()}
+    if any(not 1.0 <= p / per_copy <= 1.3 for p in peaks.values()):
+        raise AssertionError("autoscale: peak bytes a replica %s against "
+                             "memory_bytes %d" % (peaks, per_copy))
+    down_ts = next(d["ts"] for d in trail if d["action"] == "down")
+    log("autoscale: bert_base_lm through ModelRepository.load(replicas=1, "
+        "min_replicas=1, max_replicas=3) with an Autoscaler, budget %d "
+        "bytes (2.5 x memory_bytes %d = param_bytes + kv_bytes); %d "
+        "replies all 200 and equal to the greedy oracle; trail %s; first "
+        "breach to 2 healthy %.2f s, to the p99 verdict's recovery %.2f s "
+        "more, last request to the scale-down %.2f s; generated tokens/s "
+        "at 1 replica %s, at 2 %.1f; peak allocated bytes a replica %s "
+        "(%.3f-%.3fx memory_bytes); the added replica's paged launches "
+        "since ready %d; phase %.1f s; %s"
+        % (budget, per_copy, len(replies), json.dumps(acts),
+           ready[0]["ts"] - breaches[0]["ts"], recovered - t_two,
+           down_ts - t_last, json.dumps([round(r, 1) for r in rates_1]),
+           rate_2, json.dumps(peaks), min(peaks.values()) / per_copy,
+           max(peaks.values()) / per_copy, launches,
            time.monotonic() - t_phase, card))
     return {"paged_attention": launches}
 
@@ -9038,6 +9279,11 @@ def main(argv=None):
         return dist_kv_child(args.dist_kv_child, args.seed)
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.telemetry import recorder
+
+    # the flight recorder's SIGUSR1 dump handler installs from the main
+    # thread only: before any thread starts
+    recorder.install_signal_handler()
 
     # full-f32 matrix products everywhere: greedy parity with the full
     # forward must not be lost to TF32
@@ -9096,6 +9342,11 @@ def main(argv=None):
     launches = serve(torch, pk, args)
     launches["rtc"] = rtc_launches
     f1_scope_check(torch)
+    # the serving phases' models registered SLO objectives, which started
+    # the process-wide SLO evaluator thread; it is no pipeline thread, and
+    # train_rec's thread checks start from none
+    from mxnet_tpu_torch.telemetry import slo
+    slo.stop()
     train_launches, train_ips = train(torch, pk, args)
     launches.update(train_launches)
     torch.cuda.empty_cache()
@@ -9113,7 +9364,8 @@ def main(argv=None):
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
     extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
-             "replica_pool": {}, "detection": {}, "profiler": {},
+             "replica_pool": {}, "autoscale": {}, "detection": {},
+             "profiler": {},
              "sparse": {}, "mesh": {}, "pipeline": {}, "ranks2": {},
              "dist_kv": {}}
     for part in ctc_ocr(torch, pk, args):
@@ -9131,7 +9383,11 @@ def main(argv=None):
         torch.cuda.empty_cache()
         extra["predict_vision"] = predict_vision(torch, pk, args, ckpt)
         torch.cuda.empty_cache()
-        extra["replica_pool"] = replica_pool_phase(torch, args, ckpt)
+        extra["replica_pool"], lm_run = replica_pool_phase(torch, args,
+                                                            ckpt)
+        torch.cuda.empty_cache()
+        extra["autoscale"] = autoscale_phase(torch, args, lm_run)
+        del lm_run
     torch.cuda.empty_cache()
     quantization_phase(torch, args)
     torch.cuda.empty_cache()
@@ -9175,7 +9431,8 @@ def main(argv=None):
                 # dropout runs, the training run behind predict_vision,
                 # the replica_pool phase's generation replicas (their own
                 # processes' counts, read from each replica's stats), the
-                # SSD training of the detection phase, the profiler
+                # autoscale phase's added replica (its own count since it
+                # reported ready), the SSD training of the detection phase, the profiler
                 # phase's three fits, the sparse phase's SyncBatchNorm,
                 # the mesh phase's train_imagenet.py, the pipeline phase's
                 # BERT-base, the ranks2 phase's ResNet-50 over dp 2, the

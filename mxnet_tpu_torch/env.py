@@ -1,7 +1,8 @@
 """Typed registry of the ``MXTPU_*`` environment variables the port reads.
 
 Counterpart of `mxnet_tpu/env.py`, holding only the variables of the
-paths ported so far (serving and its replica pools, tracing, ResNet
+paths ported so far (serving, its replica pools and their autoscaler,
+telemetry with its SLO engine and flight recorder, tracing, ResNet
 training, the input pipeline, the launcher), under the same
 names and, but for the one noted at its entry, the same defaults, so one
 deployment's settings mean the same thing to both packages. There is no kernel gate: a CUDA tensor always goes through
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["EnvVar", "registry", "names", "get", "raw"]
+__all__ = ["EnvVar", "registry", "names", "get", "raw", "is_set"]
 
 
 class EnvVar:
@@ -81,6 +82,12 @@ def raw(name):
     registered name only)."""
     _check(name)
     return os.environ.get(name)
+
+
+def is_set(name):
+    """A registered name set to a non-empty string."""
+    _check(name)
+    return bool(os.environ.get(name))
 
 
 # -- training (same name as in mxnet_tpu/env.py) ------------------------------
@@ -188,8 +195,150 @@ _var("MXTPU_TELEMETRY_FLUSH_S", "float", 10.0,
      "period of the JSONL flusher thread (a final flush always runs at "
      "exit).")
 _var("MXTPU_TELEMETRY_PORT", "int", None,
-     "base port of the Prometheus endpoint (not served by the port yet); a "
-     "replica pool drops it from its workers' environment.")
+     "base port of the Prometheus text endpoint: each rank serves "
+     "`/metrics` and `/statusz` on `port + rank` (stdlib http.server; "
+     "default off). A replica pool drops it from its workers' "
+     "environment.")
+_var("MXTPU_TELEMETRY", "bool", True,
+     "master switch of the metrics and flight-recorder layer; `0` turns "
+     "every counter, gauge, histogram and event into a no-op.")
+_var("MXTPU_WATCHDOG_TIMEOUT", "float", None,
+     "hang watchdog: seconds without a completed training step (armed by "
+     "the first completed step) before the flight recorder dumps every "
+     "thread's stack and the recent events.")
+_var("MXTPU_WATCHDOG_ACTION", "str", "abort",
+     "what follows a watchdog dump: `abort` exits the process (code "
+     "`MXTPU_WATCHDOG_EXIT_CODE`) so the launcher tears the group down and "
+     "restarts it; `dump` keeps the process alive and re-arms.")
+_var("MXTPU_WATCHDOG_EXIT_CODE", "int", 43,
+     "exit status of a watchdog abort (apart from the fault-injection "
+     "code 42).")
+_var("MXTPU_FLIGHTREC_EVENTS", "int", 512,
+     "flight-recorder ring size: the recent telemetry events a process "
+     "keeps for its dumps.")
+_var("MXTPU_DUMP_GRACE", "float", 1.0,
+     "launcher teardown: seconds between the SIGUSR1 (flight-recorder "
+     "dump) broadcast and SIGTERM, when `MXTPU_TELEMETRY_DIR` is set.")
+_var("MXTPU_MEMORY_POLL_MS", "float", None,
+     "period of the background memory-gauge poller (`telemetry.memory."
+     "sample`: the card's `torch.cuda` memory figures, process RSS / "
+     "VmHWM). Default off: the gauges refresh at every JSONL flush, "
+     "Prometheus scrape and training step anyway.")
+_var("MXTPU_SERVE_MEMORY_BUDGET", "str", None,
+     "serving memory budget in bytes (suffixes K/M/G/T, e.g. `24G`): "
+     "`ModelRepository.load` prices each model's device footprint (its "
+     "buckets' warm-up figures; a generation LM's weights plus KV pool; "
+     "times its replicas) and rejects a load that would exceed the budget "
+     "(`MemoryBudgetError`, HTTP 507) after trying to reclaim room from "
+     "cold models. A `warn:` prefix logs and records an event instead. "
+     "Unset disables the check; a load of unknown footprint is never "
+     "rejected.")
+_var("MXTPU_STEP_FLOPS", "float", None,
+     "model FLOPs per training step, for the achieved-MFU gauge "
+     "(`mxtpu_step_mfu`); overrides the automatic accounting "
+     "(`MXTPU_TRACE_FLOPS`).")
+_var("MXTPU_TRACE_FLOPS", "bool", True,
+     "automatic FLOP accounting (`telemetry.flops`): a callable's FLOPs "
+     "are counted once a shape signature by `torch.utils.flop_counter."
+     "FlopCounterMode` over one call, plus the port's CUDA kernels by "
+     "formula, and each later call adds them; the serving buckets are "
+     "priced so at warm-up. `0` turns it off.")
+_var("MXTPU_GOODPUT", "bool", True,
+     "per-step goodput attribution: a step's wall time split into "
+     "`data_wait` / `host_dispatch` / `compile` / `compute` / "
+     "`checkpoint_stall` / `collective` / `other`, published as "
+     "`mxtpu_step_phase_seconds{phase=}` and the rolling "
+     "`mxtpu_goodput_fraction` gauge. `0` turns the accountant off.")
+_var("MXTPU_GOODPUT_WINDOW_STEPS", "int", 128,
+     "steps in the rolling window behind `mxtpu_goodput_fraction` and the "
+     "`/statusz` `training` block.")
+
+# -- the SLO engine (same names and defaults as mxnet_tpu/env.py) -------------
+_var("MXTPU_SLO", "bool", True,
+     "master switch of the SLO engine: objective registration, the "
+     "burn-rate evaluator thread and the `mxtpu_slo_*` gauges. `0` keeps "
+     "only the windowed views (their rings still roll at each flush).")
+_var("MXTPU_SLO_SPEC", "str", None,
+     "path of a JSON SLO spec file (`{\"objectives\": [...]}`) whose "
+     "objectives register beside the built-in ones; malformed JSON, an "
+     "unknown kind or an unknown metric raise `SLOSpecError` at once.")
+_var("MXTPU_SLO_WINDOW_MS", "float", 5000.0,
+     "resolution of the windowed-telemetry rings: how often "
+     "`roll_windows` appends one snapshot a metric (at each flush and "
+     "each evaluator lap, throttled to this period).")
+_var("MXTPU_SLO_EVAL_MS", "float", None,
+     "period of the SLO evaluator's laps. Default: "
+     "`MXTPU_SLO_WINDOW_MS`.")
+_var("MXTPU_SLO_FAST_WINDOWS", "str", "60,300",
+     "comma-separated fast (page-level) burn-rate windows in seconds: an "
+     "objective pages only when every fast window burns.")
+_var("MXTPU_SLO_SLOW_WINDOW_S", "float", 1800.0,
+     "slow (ticket-level) burn-rate window in seconds; it also sizes the "
+     "rings (slow window / resolution, at most 4096 entries).")
+_var("MXTPU_SLO_BURN_PAGE", "float", 1.0,
+     "fast-window burn-rate threshold of the page-level (breaching) "
+     "verdict.")
+_var("MXTPU_SLO_BURN_TICKET", "float", 1.0,
+     "slow-window burn-rate threshold of the ticket-level verdict.")
+_var("MXTPU_SLO_ALERTS", "int", 64,
+     "size of the alerts ring (the last `slo_breach` / `slo_recovered` "
+     "transitions) that flight-recorder dumps and `/statusz` carry.")
+_var("MXTPU_SLO_SERVE_P99_MS", "float", 1000.0,
+     "built-in serving objective: p99 of `mxtpu_serve_request_seconds` "
+     "(admission to resolution, a model) under this many ms.")
+_var("MXTPU_SLO_SERVE_AVAILABILITY", "float", 0.999,
+     "built-in serving objective: the fraction of requests not rejected "
+     "(429 / 504 / 503 sheds) at or above this target.")
+_var("MXTPU_SLO_SERVE_QUEUE_FRAC", "float", 0.8,
+     "built-in serving objective: `mxtpu_serve_queue_depth` under this "
+     "fraction of `MXTPU_SERVE_QUEUE_DEPTH`.")
+_var("MXTPU_SLO_INTERTOKEN_P99_MS", "float", 250.0,
+     "built-in generation objective: p99 of "
+     "`mxtpu_serve_intertoken_seconds` under this many ms.")
+_var("MXTPU_SLO_KV_OCCUPANCY", "float", 0.95,
+     "built-in generation objective: the ceiling of "
+     "`mxtpu_serve_kv_occupancy` (used / total KV pages).")
+_var("MXTPU_SLO_STEP_SECONDS", "float", None,
+     "optional training objective: p99 step time in seconds a trainer "
+     "kind.")
+_var("MXTPU_SLO_MFU_FLOOR", "float", None,
+     "optional training objective: the floor of `mxtpu_step_mfu`, 0..1.")
+_var("MXTPU_SLO_GOODPUT_FLOOR", "float", None,
+     "optional training objective: the floor of "
+     "`mxtpu_goodput_fraction`, 0..1.")
+_var("MXTPU_SLO_STEP_STALENESS_S", "float", None,
+     "optional training objective: seconds `mxtpu_steps_total` may sit "
+     "still before the objective burns.")
+
+# -- the autoscaler (same names and defaults as mxnet_tpu/env.py) -------------
+_var("MXTPU_AUTOSCALE", "bool", False,
+     "arm the autoscaler in `python -m mxnet_tpu_torch.serving`: one "
+     "controller thread a server (`serving.Autoscaler`) that reads "
+     "`slo.verdicts()` and resizes the replica pools in place: up on a "
+     "sustained breach (within `MXTPU_SERVE_MEMORY_BUDGET`), down with a "
+     "drain when idle.")
+_var("MXTPU_AUTOSCALE_INTERVAL_MS", "float", 1000.0,
+     "autoscaler lap period; a lap takes at most one action a model.")
+_var("MXTPU_AUTOSCALE_UP_WINDOWS", "int", 2,
+     "consecutive breached laps (any paging objective of the model) "
+     "before a scale-up.")
+_var("MXTPU_AUTOSCALE_IDLE_S", "float", 60.0,
+     "seconds since the model's request counters last moved before the "
+     "autoscaler drains one replica away (never below `min_replicas`); "
+     "also the \"cold\" threshold of budget-pressure shrinking.")
+_var("MXTPU_AUTOSCALE_COOLDOWN_S", "float", 5.0,
+     "least seconds between two scaling actions on one model.")
+_var("MXTPU_AUTOSCALE_MIN_REPLICAS", "int", 1,
+     "default replica floor a model (`ModelRepository.load(min_replicas=)` "
+     "overrides it).")
+_var("MXTPU_AUTOSCALE_MAX_REPLICAS", "int", 8,
+     "default replica ceiling a model (`ModelRepository.load("
+     "max_replicas=)` overrides it); a breach at the ceiling records an "
+     "`autoscale_blocked` decision.")
+_var("MXTPU_AUTOSCALE_EVICT_TTL_S", "float", 300.0,
+     "a model idle longer than this, and not `pinned`, may be unloaded by "
+     "`ModelRepository.reclaim_memory` when a load or a scale-up needs "
+     "room (after cold pools have shrunk to their floors).")
 
 # -- data loading (same names and defaults as mxnet_tpu/env.py) --------------
 _var("MXTPU_DATALOADER_CTX", "str", "fork",

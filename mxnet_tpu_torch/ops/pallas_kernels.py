@@ -36,6 +36,7 @@ import math
 import torch
 
 from ..base import MXNetError
+from ..telemetry import flops as _tm_flops
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_reference", "conv_epilogue",
@@ -156,8 +157,10 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths,
     inert padding row, which returns zeros. Returns (B, H, D) float32.
 
     A CUDA tensor goes through the CUDA kernel (built at first use), and
-    each launch adds one to ``paged_attention.launches``; a CPU tensor goes
-    through `paged_attention_reference`.
+    each launch adds one to ``paged_attention.launches`` and reports
+    ``4 * B * H * L * D`` FLOPs to `telemetry.flops` (L = max_pages x
+    page_size, the count `FlopCounterMode` gives the plain version); a CPU
+    tensor goes through `paged_attention_reference`.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -178,6 +181,7 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths,
           d, k_pages.shape[0], k_pages.shape[2], page_tables.shape[1],
           sm_scale)
     paged_attention.launches += 1
+    _tm_flops.kernel(4 * b * h * d * page_tables.shape[1] * k_pages.shape[2])
     return out
 
 

@@ -10,24 +10,36 @@ the replica worker's batch-boundary hook fires the serving actions:
                                                           forever mid-batch
     MXTPU_FAULT_INJECT="slow_reply@batch=2,ms=500"        delay one reply
 
-Conditions: ``batch`` (required for serving actions), ``replica`` (default
-any), ``gen`` (the replica's respawn generation, default 0, so a respawned
-replica does not fire again), ``code`` (exit status of ``kill_replica``,
-default 42), ``ms`` (``slow_reply``'s delay, default 1000); the training,
-checkpoint, data and load-surge actions and their conditions parse too.
+and the repository fires the load surge at a model's publish
+(`maybe_inject_load_surge`, the autoscaler's chaos vector):
+
+    MXTPU_FAULT_INJECT="load_surge@after=0,rps=200,duration=3"
+        a synthetic open-loop burst of single-example requests into the
+        model's admission queue, ``rps`` a second for ``duration`` s,
+        starting ``after`` s into serving
+
+Conditions: ``batch`` (required for serving actions), ``after`` (required
+for ``load_surge``), ``replica`` (default any), ``gen`` (the replica's
+respawn generation, default 0, so a respawned replica does not fire
+again), ``code`` (exit status of ``kill_replica``, default 42), ``ms``
+(``slow_reply``'s delay, default 1000), ``rps`` / ``duration`` (default
+100 / 2); the training, checkpoint and data actions and their conditions
+parse too.
 
 The checkpoint manager, the training-step and data-stall hooks and the
-preemption handler are ROADMAP queue 1 item 13's; the load surge is the
-autoscaler's (item 12). Each raises here, naming its item.
+preemption handler are ROADMAP queue 1 item 13's. Each raises here,
+naming its item.
 """
 from __future__ import annotations
 
 import logging
 import os
 import sys
+import threading
 import time
 
 from .. import env as _env
+from .. import telemetry
 from ..base import MXNetError
 
 __all__ = ["CheckpointManager", "maybe_inject_fault",
@@ -148,6 +160,77 @@ def _fire_serving(entry, batch, replica):
         time.sleep(entry["ms"] / 1e3)
 
 
+def maybe_inject_load_surge(model):
+    """Server-side chaos hook (`ModelRepository.add`): arm one synthetic
+    open-loop burst thread (``mxtpu-fault-load-surge``) a matching
+    ``load_surge@after=,rps=,duration=`` entry against the just-published
+    model's admission queue. The burst submits fire-and-forget
+    single-example requests at ``rps`` for ``duration`` s: real
+    admissions, so the queue depth, ``mxtpu_serve_request_seconds`` and
+    the SLO burn rates move as under real traffic. Sheds (429 / 503) are
+    counted, not raised. Predict models only (a model without
+    ``example_shapes`` is skipped). Returns the threads armed."""
+    if not _entries():
+        return []
+    shapes = getattr(model, "example_shapes", None)
+    if not shapes:
+        return []
+    gen = restart_generation()
+    threads = []
+    for e in _entries():
+        if e["action"] not in _SURGE_ACTIONS or e["gen"] != gen:
+            continue
+        t = threading.Thread(target=_surge_worker, args=(model, dict(e)),
+                             name="mxtpu-fault-load-surge", daemon=True)
+        t.start()
+        threads.append(t)
+    return threads
+
+
+def _surge_worker(model, entry):
+    import numpy as _np
+
+    from ..serving.batcher import DrainingError, ModelUnavailableError
+
+    time.sleep(max(0, entry["after"]))
+    rps = max(1, entry["rps"])
+    duration = max(0, entry["duration"])
+    timeout_s = _env.get("MXTPU_SERVE_TIMEOUT_MS") / 1e3
+    dtypes = getattr(model, "input_dtypes", None) or {}
+    arrays = {k: _np.zeros((1,) + tuple(s), dtype=dtypes.get(k, "float32"))
+              for k, s in model.example_shapes.items()}
+    telemetry.record_event("fault_load_surge", model=model.name,
+                           version=model.version, rps=rps,
+                           duration_s=duration)
+    _LOG.warning("MXTPU_FAULT_INJECT firing: load_surge on %s/%s "
+                 "(%d rps for %ds)", model.name, model.version, rps,
+                 duration)
+    fired = shed = 0
+    period = 1.0 / rps
+    end = time.monotonic() + duration
+    next_t = time.monotonic()
+    while time.monotonic() < end:
+        try:
+            # open loop: submit and walk away; the resolution (or 504)
+            # lands on a request nobody waits on
+            model._batcher.submit(arrays,
+                                  deadline=time.monotonic() + timeout_s)
+            fired += 1
+        except (DrainingError, ModelUnavailableError):
+            break  # the model is draining or gone: stop, so the shed and
+            #        availability series the surge exercises stay clean
+        except MXNetError:
+            shed += 1  # a 429 / 503 shed: admission doing its job
+        except Exception:
+            break  # the model was torn down under the surge
+        next_t += period
+        delay = next_t - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+    telemetry.record_event("fault_load_surge_done", model=model.name,
+                           version=model.version, fired=fired, shed=shed)
+
+
 # ---------------------------------------------------------------------------
 # not ported yet
 # ---------------------------------------------------------------------------
@@ -175,9 +258,6 @@ def maybe_inject_data_stall(batch):
                     13)
 
 
-def maybe_inject_load_surge(model):
-    """The load-surge chaos hook serves the autoscaler: item 12."""
-    raise _unported("the load-surge fault hook (the autoscaler's)", 12)
 
 
 def install_preemption_handler(grace_s=None):

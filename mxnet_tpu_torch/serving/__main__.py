@@ -27,9 +27,14 @@ Knobs default to the ``MXTPU_SERVE_*`` variables; flags override them.
 ``--replicas N`` (default ``MXTPU_SERVE_REPLICAS``) serves every model
 through a supervised pool of N replica processes on that device; SIGTERM
 drains the pools and tears every replica's process group down before the
-server exits. Not ported yet: compiled ``.mxc`` artifacts, and the
-autoscaler's ``--min-replicas`` / ``--max-replicas`` / ``--pin``, which
-parse and raise (ROADMAP queue 1 item 12).
+server exits. ``--autoscale`` (default ``MXTPU_AUTOSCALE``) arms the
+autoscaler over the pools, within ``--min-replicas`` / ``--max-replicas``
+a model; ``--pin`` exempts the models from budget-pressure eviction
+(``MXTPU_SERVE_MEMORY_BUDGET``). Not ported yet: compiled ``.mxc``
+artifacts (ROADMAP queue 1 items 2 and 13).
+
+    python -m mxnet_tpu_torch.serving --model lm=/models/lm/model@generate \\
+        --replicas 1 --autoscale --min-replicas 1 --max-replicas 3
 """
 from __future__ import annotations
 
@@ -90,13 +95,19 @@ def main(argv=None):
                         "MXTPU_SERVE_REPLICAS; 0 = in-process, no pool). "
                         "N >= 1 serves through a supervised pool with "
                         "health-checked failover")
+    p.add_argument("--autoscale", action="store_true", default=None,
+                   help="arm the autoscaler (default MXTPU_AUTOSCALE): "
+                        "SLO-breach scale-up and idle scale-down of every "
+                        "pooled model, in place")
     p.add_argument("--min-replicas", type=int, default=None,
-                   help="per-model autoscaling floor (not ported yet)")
+                   help="per-model autoscaling floor (default "
+                        "MXTPU_AUTOSCALE_MIN_REPLICAS)")
     p.add_argument("--max-replicas", type=int, default=None,
-                   help="per-model autoscaling ceiling (not ported yet)")
+                   help="per-model autoscaling ceiling (default "
+                        "MXTPU_AUTOSCALE_MAX_REPLICAS)")
     p.add_argument("--pin", action="store_true",
-                   help="exempt the models from budget-pressure eviction "
-                        "(not ported yet)")
+                   help="pin the loaded models: exempt from "
+                        "budget-pressure eviction")
     args = p.parse_args(argv)
 
     logging.basicConfig(
@@ -105,7 +116,7 @@ def main(argv=None):
     log = logging.getLogger("mxnet_tpu_torch.serving")
 
     from .. import env as _env
-    from . import ModelRepository, ServingServer
+    from . import Autoscaler, ModelRepository, ServingServer
 
     replicas = args.replicas
     if replicas is None:
@@ -119,13 +130,26 @@ def main(argv=None):
     except BaseException:
         _close_all(repo)
         raise
+    autoscale = args.autoscale
+    if autoscale is None:
+        autoscale = _env.get("MXTPU_AUTOSCALE")
+    if autoscale:
+        server.attach_autoscaler(Autoscaler(repo))
+        log.info("autoscaler armed (interval %.0fms, up after %d breached "
+                 "windows, idle scale-down after %.0fs)",
+                 _env.get("MXTPU_AUTOSCALE_INTERVAL_MS"),
+                 _env.get("MXTPU_AUTOSCALE_UP_WINDOWS"),
+                 _env.get("MXTPU_AUTOSCALE_IDLE_S"))
     server.install_signal_handlers()
     log.info("serving %s on %s:%d (SIGTERM drains and exits 0)",
              repo.names(), args.addr, server.port)
     try:
         server.serve_forever()  # returns after the SIGTERM drain
     finally:
-        # no replica process group outlives the server
+        # no controller thread or replica process group outlives the
+        # server
+        if server.autoscaler is not None:
+            server.autoscaler.stop()
         _close_all(repo)
     if server.drain_failed:
         log.error("drain timed out; stranded requests were 503ed")

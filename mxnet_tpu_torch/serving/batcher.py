@@ -22,8 +22,9 @@ and puts a dead replica's batch back at the front of the queue
 (`DynamicBatcher.requeue`, exactly once a request). Each request carries
 the trace context of the thread that admitted it, and its phases emit
 spans under it (``serve.assembly``, ``serve.queue``, ``serve.compute``,
-``serve.unpad``). Telemetry goes under the JAX package's metric names; the
-SLO objectives wait for ``telemetry/slo.py`` (ROADMAP queue 1 item 12).
+``serve.unpad``). Telemetry goes under the JAX package's metric names, and
+each batcher registers its model's built-in SLO objectives (p99 latency,
+availability, queue-depth ceiling; `telemetry.slo`) until it closes.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import numpy as _np
 from .. import env as _env
 from .. import telemetry
 from ..base import MXNetError, unpad_outputs
+from ..telemetry import slo as _slo
 from ..telemetry import tracing as _tracing
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
@@ -96,9 +98,10 @@ class OverloadedError(ServingError):
 
 class MemoryBudgetError(ServingError):
     """A load whose device footprint exceeds ``MXTPU_SERVE_MEMORY_BUDGET``
-    is rejected before it publishes: 507 Insufficient Storage. ``details``
-    carries the footprint breakdown. Raised by the memory-budget
-    admission, which is not ported yet."""
+    is rejected before it publishes (`ModelRepository.load` / `add`): 507
+    Insufficient Storage. ``details`` carries the machine-readable
+    footprint breakdown (requested bytes, each resident model's effective
+    bytes, budget, headroom, shortfall), which the HTTP 507 body ships."""
 
     status = 507
 
@@ -280,6 +283,8 @@ class DynamicBatcher:
             "mxtpu_serve_compute_seconds", labels)
         self._m_request_s = telemetry.histogram(
             "mxtpu_serve_request_seconds", labels)
+        # the model's built-in SLOs, dropped again in close()
+        _slo.wire_serving_objectives(name, queue_depth=self.queue_depth)
 
         self._worker = threading.Thread(
             target=self._loop, name="mxtpu-serve-batcher-%s" % name,
@@ -373,6 +378,8 @@ class DynamicBatcher:
         self._worker.join(timeout=5.0)
         self.abort_pending(DrainingError(
             "model %r shut down before this request ran" % self.name))
+        # verdicts for a gone model are noise on /statusz
+        _slo.unregister_model(self.name)
         return drained
 
     def requeue(self, batch):

@@ -47,6 +47,9 @@ from ..context import resolve_device
 from ..gluon.model_zoo.transformer import TransformerLM
 from ..ops.pallas_kernels import _NEG_INF, paged_attention
 from ..ops.random_ops import sample_token_logits
+from ..telemetry import flops as _tm_flops
+from ..telemetry import memory as _tm_memory
+from ..telemetry import slo as _slo
 from ..telemetry import tracing as _tracing
 from .batcher import (DeadlineExceededError, DrainingError, QueueFullError,
                       ServingError, bucket_for, drain_timeout_s,
@@ -279,6 +282,10 @@ class GenerateScheduler:
             bounds=(.001, .0025, .005, .01, .025, .05, .1, .25, .5, 1., 2.5))
         self._m_prefill = telemetry.histogram("mxtpu_serve_prefill_seconds",
                                               labels)
+        # built-in generation SLOs (inter-token p99, KV occupancy, queue
+        # depth), dropped again in close()
+        _slo.wire_generate_objectives(self.name,
+                                      queue_depth=self.queue_depth)
         # the worker thread's sampling generator is seeded from the
         # constructing thread's seed, the pid and a per-process index
         self._rng_seed = _random.worker_seed(
@@ -387,6 +394,8 @@ class GenerateScheduler:
             for seq in leftovers:
                 self.allocator.free(seq.pages)
             self._m_active.set(0)
+        # verdicts for a gone model are noise on /statusz
+        _slo.unregister_model(self.name)
         return drained
 
     # -- the worker --------------------------------------------------------
@@ -666,6 +675,13 @@ class TransformerLMEngine:
             (self.num_layers, 2, self.num_pages, self.num_heads,
              self.page_size, self.head_dim),
             dtype=_KV_DTYPES[self.kv_dtype], device=self.device)
+        # FLOPs counted once a shape signature (a prefill or decode
+        # bucket), the paged kernel's by its formula; `warm` prices each
+        # decode bucket's FLOPs and memory figures
+        self._prefill_fn = _tm_flops.instrument(self._prefill_padded)
+        self._decode_fn = _tm_flops.instrument(self._decode_step)
+        self.bucket_flops = {}
+        self.bucket_memory = {}
 
     # -- sizing ------------------------------------------------------------
     def kv_bytes(self):
@@ -726,6 +742,10 @@ class TransformerLMEngine:
         self._check_pages(page_row)
         padded = _np.zeros(lp, _np.int64)
         padded[:n] = tokens
+        return self._prefill_fn(padded, n, page_row, sampling, generator)
+
+    def _prefill_padded(self, padded, n, page_row, sampling, generator):
+        lp = len(padded)
         t_idx = _np.arange(n)
         dev = self.device
         lm = self.lm
@@ -763,6 +783,12 @@ class TransformerLMEngine:
         its destination page is out of range (``num_pages``), so its K/V
         write is dropped, and its sampled token is discarded by the caller.
         Returns an int32 numpy array of next tokens."""
+        return self._decode_fn(tokens, positions, dest_pages, dest_slots,
+                               tables, lengths, temps, top_ks, top_ps,
+                               generator)
+
+    def _decode_step(self, tokens, positions, dest_pages, dest_slots,
+                     tables, lengths, temps, top_ks, top_ps, generator):
         tables = _np.ascontiguousarray(tables, _np.int32)
         self._check_pages(tables)
         dest_pages = _np.asarray(dest_pages, _np.int64)
@@ -810,21 +836,33 @@ class TransformerLMEngine:
         first-launched before any request is timed. Warm-up samples at
         temperature 1: that path runs the greedy argmax too, while an
         all-greedy batch skips the sampling kernels, and the first sampled
-        request would load them. Returns seconds."""
+        request would load them. Each decode bucket's call is priced:
+        ``bucket_flops`` (`telemetry.flops`) and ``bucket_memory``
+        (`telemetry.memory.from_call`: the weights and KV pool it reads,
+        its output, its peak above the baseline on the card). Returns
+        seconds."""
         t0 = time.monotonic()
         maxp = self.max_pages_per_seq
         for lp in self.prefill_buckets:
             self.prefill([1] * lp, _np.zeros(maxp, _np.int32),
                          (1.0, 0, 1.0), None)
+        resident = self.param_bytes() + self.kv_bytes()
         for b in self.buckets:
-            self.decode_step(
-                _np.zeros(b, _np.int32), _np.zeros(b, _np.int32),
-                _np.full(b, self.num_pages, _np.int32),
-                _np.zeros(b, _np.int32), _np.zeros((b, maxp), _np.int32),
-                _np.zeros(b, _np.int32), _np.ones(b, _np.float32),
-                _np.zeros(b, _np.int32), _np.ones(b, _np.float32), None)
-            telemetry.record_event("serve_decode_warm", model="engine",
-                                   bucket=b)
+            args = (_np.zeros(b, _np.int32), _np.zeros(b, _np.int32),
+                    _np.full(b, self.num_pages, _np.int32),
+                    _np.zeros(b, _np.int32), _np.zeros((b, maxp), _np.int32),
+                    _np.zeros(b, _np.int32), _np.ones(b, _np.float32),
+                    _np.zeros(b, _np.int32), _np.ones(b, _np.float32), None)
+            f0 = _tm_flops.total()
+            _, self.bucket_memory[b] = _tm_memory.from_call(
+                lambda: self.decode_step(*args), resident, self.device,
+                label="decode:b%d" % b)
+            self.bucket_flops[b] = _tm_flops.total() - f0
+            telemetry.record_event(
+                "serve_decode_warm", model="engine", bucket=b,
+                flops=self.bucket_flops[b] or None,
+                memory_bytes=_tm_memory.footprint_bytes(
+                    self.bucket_memory[b]) or None)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.monotonic() - t0
@@ -900,20 +938,33 @@ class ServedLM:
         self._pool = pool
         self.meta = dict(meta or {})
         self.loaded_at = time.time()
+        # autoscaling policy: None defers to the
+        # MXTPU_AUTOSCALE_{MIN,MAX}_REPLICAS defaults; `pinned` exempts the
+        # model from budget-pressure eviction
+        self.min_replicas = None
+        self.max_replicas = None
+        self.pinned = False
         self.warmed = True
         if scheduler is not None:
-            self.generate_info = dict(scheduler.engine.geometry())
+            engine = scheduler.engine
+            self.generate_info = dict(engine.geometry())
             self.warm_seconds = scheduler.warm_seconds
+            self.bucket_flops = dict(engine.bucket_flops)
+            self.bucket_memory = dict(engine.bucket_memory)
         else:
-            self.generate_info = dict((info or {}).get("generate") or {})
-            self.warm_seconds = (info or {}).get("warm_seconds")
+            info = info or {}
+            self.generate_info = dict(info.get("generate") or {})
+            self.warm_seconds = info.get("warm_seconds")
+            self.bucket_flops = dict(info.get("bucket_flops") or {})
+            self.bucket_memory = dict(info.get("bucket_memory") or {})
+        # one copy of the weights and of the KV pool a replica
         self.memory_bytes = (
             (self.generate_info.get("kv_bytes") or 0)
             + (self.generate_info.get("param_bytes") or 0)) or None
-        if self.memory_bytes:
+        if self.effective_memory_bytes:
             telemetry.gauge("mxtpu_serve_model_memory_bytes",
                             {"model": "%s/%d" % (self.name, self.version)}
-                            ).set(self.memory_bytes * self.resident_copies)
+                            ).set(self.effective_memory_bytes)
 
     @staticmethod
     def load(name, version, prefix, replicas=0, queue_depth=None,
@@ -959,9 +1010,12 @@ class ServedLM:
             except Exception:
                 pool.close()
                 raise
-            # the router-side SLO objectives of a pooled LM
-            # (`_slo.wire_serving_objectives` in the JAX package) wait for
-            # telemetry/slo.py: ROADMAP queue 1 item 12
+            # router-side SLOs over the pool's own admission-to-resolution
+            # latency and volume series (the workers' scheduler objectives
+            # live in their processes): the breach signal the autoscaler
+            # reads for a pooled LM. No queue-depth objective: the router
+            # has no queue-depth gauge
+            _slo.wire_serving_objectives("%s/%d" % (name, version))
             return ServedLM(name, version, pool=pool, info=info,
                             meta={"artifact": "generate",
                                   "path": None if prefix is None
@@ -989,10 +1043,19 @@ class ServedLM:
 
     @property
     def resident_copies(self):
-        """Copies of the weights and KV pool: one a replica."""
+        """Copies of the weights and KV pool: one a replica, read live
+        from the pool so the budget follows the autoscaler's resizes."""
         if self._pool is not None:
             return max(1, int(self._pool.size))
         return 1
+
+    @property
+    def effective_memory_bytes(self):
+        """``memory_bytes`` times the resident copies: what the
+        ``MXTPU_SERVE_MEMORY_BUDGET`` admission charges."""
+        if not self.memory_bytes:
+            return None
+        return self.memory_bytes * self.resident_copies
 
     def generate(self, tokens, max_new_tokens=None, temperature=0.0,
                  top_k=0, top_p=1.0, timeout_ms=None):
@@ -1063,6 +1126,8 @@ class ServedLM:
             return self._scheduler.close(drain=drain, timeout=timeout)
         drained = self._pool.drain_generate(timeout) if drain else False
         self._pool.close()
+        # the router-side objectives wired at load go with the model
+        _slo.unregister_model("%s/%d" % (self.name, self.version))
         return drained
 
     def describe(self):
@@ -1077,7 +1142,8 @@ class ServedLM:
             "loaded_at": self.loaded_at,
             "meta": self.meta,
             "memory": {"total_bytes": self.memory_bytes,
-                       "copies": self.resident_copies},
+                       "copies": self.resident_copies,
+                       "effective_bytes": self.effective_memory_bytes},
         }
         if self._scheduler is not None:
             alloc = self._scheduler.allocator

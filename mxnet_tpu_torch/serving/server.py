@@ -20,12 +20,17 @@ Routes:
   * ``GET /v1/models``        repository listing (both kinds)
   * ``GET /v1/models/<name>`` one model (``?version=``)
   * ``GET /healthz``          200 ``ok`` / 503 ``draining``
+  * ``GET /statusz``          the SLO verdicts, windowed rates, pool and
+                              memory state and, with an attached
+                              `Autoscaler`, its decision trail (JSON;
+                              ``?format=text`` for a terminal)
   * ``GET|POST /drainz``      start draining (idempotent)
 
 Admission is deterministic: a full queue answers 429, an expired deadline
 504, draining 503, an unknown model 404, a malformed request (or the
 other kind's verb) 400; a degraded replica pool sheds with 503 and a
-``Retry-After`` scaled to its healthy replicas. SIGTERM (via
+``Retry-After`` scaled to its healthy replicas; a load over the memory
+budget answers 507 with the footprint breakdown in ``details``. SIGTERM (via
 `install_signal_handlers`) drains queued and running requests, then stops
 the server.
 
@@ -49,6 +54,7 @@ import numpy as _np
 from .. import env as _env
 from .. import telemetry
 from ..base import MXNetError
+from ..telemetry import slo as _slo
 from ..telemetry import tracing as _tracing
 from .batcher import DrainingError, ServingError, drain_timeout_s
 
@@ -86,6 +92,7 @@ class ServingServer:
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         self.repository = repository
+        self._autoscaler = None
         self._draining = False
         self._drain_failed = False
         self._inflight = 0
@@ -145,9 +152,23 @@ class ServingServer:
         self._serve_thread.start()
         return self
 
+    def attach_autoscaler(self, autoscaler):
+        """Adopt this server's autoscaling controller: its decision trail
+        joins ``/statusz``, and `drain` / `shutdown` stop (and join) its
+        thread. Returns the autoscaler."""
+        self._autoscaler = autoscaler
+        return autoscaler
+
+    @property
+    def autoscaler(self):
+        return self._autoscaler
+
     def shutdown(self):
         self._closed = True
         self._drain_event.set()  # release an idle drain waiter
+        if self._autoscaler is not None:
+            # scaling decisions stop before models start dropping
+            self._autoscaler.stop()
         self._http.shutdown()
         self._http.server_close()
         if self._serve_thread is not None:
@@ -168,6 +189,11 @@ class ServingServer:
         a 503 and `drain_failed` is set. Returns True when everything
         completed within ``timeout``."""
         self._draining = True
+        if self._autoscaler is not None:
+            # no replica is spawned into (or drained out of) a server that
+            # is shutting down: stop() joins the controller, so no lap is
+            # in flight when the drain starts
+            self._autoscaler.stop()
         if timeout is None:
             timeout = drain_timeout_s()
         telemetry.record_event("serve_drain_start",
@@ -225,6 +251,24 @@ class ServingServer:
                     self._text(handler, 503, "draining\n")
                 else:
                     self._text(handler, 200, "ok\n")
+            elif path.rstrip("/") == "/statusz" and method == "GET":
+                # lock-free snapshots only: the page answers while a
+                # model's batcher is wedged and while draining
+                extra = {"server": {"port": self.port,
+                                    "draining": self._draining,
+                                    "drain_failed": self._drain_failed,
+                                    "inflight": self._inflight}}
+                if self._autoscaler is not None:
+                    extra["autoscaler"] = self._autoscaler.describe()
+                ctype, body = _slo.render_statusz(
+                    "text" if "format=text" in query else "json",
+                    extra=extra)
+                self._count(200)
+                handler.send_response(200)
+                handler.send_header("Content-Type", ctype)
+                handler.send_header("Content-Length", str(len(body)))
+                handler.end_headers()
+                handler.wfile.write(body)
             elif path.rstrip("/") == "/drainz":
                 self._drain_event.set()  # idempotent: wakes the waiter
                 self._json(handler, 200, {
@@ -243,7 +287,12 @@ class ServingServer:
         except BrokenPipeError:
             pass  # client went away mid-reply
         except ServingError as e:
-            self._json(handler, e.status, {"error": str(e)},
+            payload = {"error": str(e)}
+            details = getattr(e, "details", None)
+            if details:
+                # a 507 carries the footprint breakdown (what to evict)
+                payload["details"] = details
+            self._json(handler, e.status, payload,
                        retry_after=e.retry_after)
         except MXNetError as e:
             self._json(handler, 400, {"error": str(e)})

@@ -40,6 +40,7 @@ answering pings, so liveness stays on the heartbeat clock under long
 generations; ``gen_result`` replies go out of order as sequences finish.
 Their ``stats_result`` carries the JAX keys (``pending``, ``kv_pages_used``,
 ``jit_after_warm``: here the port's kernel builds after warm-up), the
+``requests`` the replica took since it reported ready, the
 paged-attention kernel's ``launches`` in this process since it reported
 ready (``warm_launches`` are those of its warm-up), and
 ``max_memory_allocated`` on the card.
@@ -47,10 +48,12 @@ ready (``warm_launches`` are those of its warm-up), and
 ``remaining`` is the batch's deadline budget in seconds (deadlines are
 process-local monotonic times, so the router converts them): a replica
 that wakes past it answers ``expired`` instead of running the forward.
-The port has no compile cache (``compile/``, ROADMAP queue 1 item 13): the
-ready frame carries ``compile_digests: None``, ``compile_prefetched: 0``,
-and ``bucket_flops`` / ``bucket_memory`` None (``telemetry/flops.py`` and
-``memory.py``, item 13).
+The ready frame carries each bucket's warm-up price, ``bucket_flops`` and
+``bucket_memory`` (`model_repository.warm_bucket`; a generation worker's
+are its decode buckets', `TransformerLMEngine.warm`), from which the
+router prices the pool's footprint. The port has no compile cache
+(``compile/``, ROADMAP queue 1 item 13): the ready frame carries
+``compile_digests: None`` and ``compile_prefetched: 0``.
 
 SIGTERM asks the worker to finish its current batch and exit 0; the
 handler (`_on_term`) only sets a flag.
@@ -347,11 +350,15 @@ def _generate_worker_main(args, device):
         with send_lock:     # the completion hook and this loop share it
             send_msg(sock, obj)
 
+    served = [0]   # generate frames admitted since ready
+
     def stats():
         # seen from the router (pool.replica_stats): no kernel build after
-        # warm-up, the KV pages reclaimed, and the paged kernel launched
-        # in this process while serving, apart from its warm-up
-        return {"kv_pages_total": sched.allocator.num_pages,
+        # warm-up, the KV pages reclaimed, the requests this replica took,
+        # and the paged kernel launched in this process while serving,
+        # apart from its warm-up
+        return {"requests": served[0],
+                "kv_pages_total": sched.allocator.num_pages,
                 "kv_pages_used": sched.allocator.used_pages,
                 "jit_after_warm": _build.builds() - builds_at_warm,
                 "pending": sched.pending(),
@@ -366,7 +373,8 @@ def _generate_worker_main(args, device):
            "warm_seconds": sched.warm_seconds,
            "buckets": list(engine.buckets),
            "example_shapes": {}, "input_dtypes": None,
-           "bucket_flops": None, "bucket_memory": None,
+           "bucket_flops": dict(engine.bucket_flops) or None,
+           "bucket_memory": dict(engine.bucket_memory) or None,
            "generate": engine.geometry(),
            "compile_digests": None, "compile_prefetched": 0})
     _LOG.info("generate replica %d gen %d ready on %s (warm %.2fs, buckets "
@@ -385,7 +393,6 @@ def _generate_worker_main(args, device):
                    "tokens": list(req.outputs or []),
                    "finish_reason": req.finish_reason})
 
-    served = 0
     try:
         while not _STOP[0]:
             try:
@@ -408,7 +415,7 @@ def _generate_worker_main(args, device):
                 _LOG.warning("generate replica %d: unknown message "
                              "kind %r", args.replica, kind)
                 continue
-            served += 1
+            served[0] += 1
             deadline = None if msg.get("remaining") is None \
                 else time.monotonic() + float(msg["remaining"])
             ref = tracing.from_wire(msg["trace"]) \
@@ -439,7 +446,7 @@ def _generate_worker_main(args, device):
         except OSError:
             pass
     _LOG.info("generate replica %d gen %d exiting after %d requests",
-              args.replica, args.generation, served)
+              args.replica, args.generation, served[0])
     return 0
 
 
@@ -513,19 +520,29 @@ def worker_main(argv=None):
     # a first launch still ahead of it (the in-process publish-after-warm
     # rule)
     warm_s = 0.0
+    bucket_flops = {}
+    bucket_memory = {}
     if not args.no_warm:
         import numpy as np
+
+        from .model_repository import warm_bucket
 
         t0 = time.monotonic()
         for b in buckets:
             zeros = {k: np.zeros((b,) + tuple(s),
                                  dtype=(input_dtypes or {}).get(k, "float32"))
                      for k, s in example_shapes.items()}
-            runner(zeros, b, b)
+            # priced in this process: the router reads the pool's
+            # footprint from the ready frame
+            f, bucket_memory[int(b)] = warm_bucket(
+                runner, zeros, b, label="replica%d:b%d" % (args.replica, b))
+            if f:
+                bucket_flops[int(b)] = f
         warm_s = time.monotonic() - t0
     send_msg(sock, {"kind": "ready", "replica": args.replica,
                     "generation": args.generation, "warm_seconds": warm_s,
-                    "bucket_flops": None, "bucket_memory": None,
+                    "bucket_flops": bucket_flops or None,
+                    "bucket_memory": bucket_memory or None,
                     "buckets": list(buckets),
                     "example_shapes": {k: tuple(v)
                                        for k, v in example_shapes.items()},

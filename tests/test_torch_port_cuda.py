@@ -13,7 +13,9 @@ path (``ModelRepository`` -> ``DynamicBatcher`` -> bucketed
 ``Predictor``s -> ``lstm_infer``) on the card against a ``Predictor`` on
 the CPU, with its launch counts and its buckets' shared weights; and a
 2-replica generation pool on the card against the in-process engine, each
-replica's paged-kernel launches read from its stats; and a
+replica's paged-kernel launches read from its stats; each serving bucket's
+warm-up price on the card (its peak bytes and FLOPs, the paged kernel's
+by formula) without a new host sync on a request's path; and a
 bound graph's no-input ops on the card; and the CTC op, the random ops
 (by distribution), the spatial transformer ops, linalg and control flow
 on the card against the CPU; and ``sparse.dot`` with its backward (two
@@ -244,6 +246,93 @@ def test_replica_pool_on_card_matches_in_process_engine(tmp_path):
             assert st["max_memory_allocated"] > 0, st
     finally:
         assert repo.unload("cudapool", timeout=60)
+
+
+@pytest.mark.cuda
+def test_bucket_prices_on_card_and_no_new_host_sync(tmp_path):
+    """Each bucket's warm-up is priced on the card: a predict
+    `ServedModel`'s and an in-process LM engine's ``bucket_memory``
+    ``temp`` > 0 (the peak above the baseline), the predict buckets'
+    ``arguments`` their parameter bytes and ``bucket_flops`` their matrix
+    products; the paged kernel's FLOPs come from its formula (the card
+    engine's decode buckets count what the CPU engine's `FlopCounterMode`
+    counts over the plain version). A decode step whose FLOPs are already
+    priced makes exactly the host syncs of the bare step (torch's sync
+    debug mode, counted as warnings)."""
+    _need_card()
+    import warnings
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import ModelRepository, load_lm, save_lm
+    from mxnet_tpu_torch.telemetry import flops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = tnn.HybridSequential()
+    net.add(tnn.Dense(256, activation="relu"), tnn.Dense(64))
+    net.initialize(ctx=mx.cpu())
+    net(nd.zeros((2, 128), ctx=mx.cpu()))
+    prefix = str(tmp_path / "mlp")
+    net.export(prefix, epoch=0)
+    repo = ModelRepository()
+    model = repo.load("mlp", prefix, input_shapes={"data": (128,)},
+                      max_batch=8, ctx=mx.gpu(0))
+    try:
+        params = (128 * 256 + 256 + 256 * 64 + 64) * 4
+        assert sorted(model.bucket_memory) == [1, 2, 4, 8]
+        for b, fig in model.bucket_memory.items():
+            assert fig["temp"] > 0 and fig["arguments"] == params, (b, fig)
+            assert model.bucket_flops[b] == 2 * b * (128 * 256 + 256 * 64)
+        assert model.memory_bytes > params
+    finally:
+        repo.unload("mlp", timeout=30)
+
+    lm = lm_mini(vocab_size=64).initialize(0, std=0.3)
+    lm_prefix = save_lm(lm, str(tmp_path / "lm"))
+    geom = dict(num_pages=16, page_size=4, max_prompt=8, max_new_tokens=8,
+                max_batch=4)
+    engines = {dev: TransformerLMEngine(lm=load_lm(lm_prefix, device=dev),
+                                        device=dev, **geom)
+               for dev in ("cuda", "cpu")}
+    for e in engines.values():
+        e.warm()
+    card, host = engines["cuda"], engines["cpu"]
+    assert sorted(card.bucket_memory) == [1, 2, 4]
+    for b, fig in card.bucket_memory.items():
+        assert fig["temp"] > 0, (b, fig)
+        assert fig["arguments"] == card.param_bytes() + card.kv_bytes()
+    assert card.bucket_flops == host.bucket_flops
+    assert all(f > 0 for f in card.bucket_flops.values())
+    # the kernel alone: invisible to the counter, counted by formula
+    q, kp, vp, tbl, lens = _inputs(3, 4, 2, 16, 16, 4, 3, [5, 12, 0, 9])
+    args = [torch.from_numpy(a).cuda() for a in (q, kp, vp, tbl, lens)]
+    _, f = flops.counted_call(tpk.paged_attention, *args)
+    assert f == 4 * 4 * 2 * 16 * (3 * 4)
+
+    b = 4
+    step = (np.zeros(b, np.int32), np.arange(b, dtype=np.int32),
+            np.full(b, geom["num_pages"], np.int32), np.zeros(b, np.int32),
+            np.zeros((b, 4), np.int32), np.zeros(b, np.int32),
+            np.zeros(b, np.float32), np.zeros(b, np.int32),
+            np.ones(b, np.float32), None)
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(*step)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # (the mode's first use also warns that it is a prototype)
+        return [str(w.message) for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    card.decode_step(*step)   # this step's first call, e.g. greedy-only
+    card._decode_step(*step)
+    priced = syncs(card.decode_step)
+    bare = syncs(card._decode_step)
+    assert len(priced) == len(bare) >= 1, (priced, bare)
 
 
 # ---------------------------------------------------------------------------

@@ -159,17 +159,17 @@ def test_serving_fault_hook_gates_on_batch_replica_and_gen(monkeypatch):
     monkeypatch.setenv("MXTPU_RESTART_GENERATION", "1")
     resilience.maybe_inject_serving_fault(3, 0)
     assert len(fired) == 3
-    # inert without the variable; the unported hooks name their item
+    # inert without the variable (the load surge too); the unported hooks
+    # name their item
     monkeypatch.delenv("MXTPU_FAULT_INJECT")
     monkeypatch.setattr(resilience, "_fault_cache", resilience._UNPARSED)
     resilience.maybe_inject_serving_fault(3, 0)
     assert len(fired) == 3
+    assert resilience.maybe_inject_load_surge(None) == []
     with pytest.raises(MXNetError, match="item 13"):
         resilience.maybe_inject_fault(1)
     with pytest.raises(MXNetError, match="item 13"):
         resilience.CheckpointManager("/nowhere")
-    with pytest.raises(MXNetError, match="item 12"):
-        resilience.maybe_inject_load_surge(None)
 
 
 # ---------------------------------------------------------------------------
@@ -425,14 +425,29 @@ def test_pool_needs_a_replica():
 
 @pytest.mark.parametrize("flag", [["--min-replicas", "1"],
                                   ["--max-replicas", "3"], ["--pin"]])
-def test_serving_module_autoscaler_flags_parse_and_raise(flag):
+def test_serving_module_autoscaler_flags_parse_and_raise(flag, monkeypatch):
     """``--min-replicas`` / ``--max-replicas`` / ``--pin`` parse as in
-    ``tools/serve.py`` and raise at load, naming the autoscaler's item."""
+    ``tools/serve.py`` and reach `ModelRepository.load` as its autoscaling
+    knobs (the stand-in load raises, so no pool starts)."""
+    from mxnet_tpu_torch.serving import ModelRepository
     from mxnet_tpu_torch.serving.__main__ import main
 
-    with pytest.raises(MXNetError, match="autoscaler.*item 12"):
+    seen = []
+
+    def load(self, name, path, **kw):
+        seen.append(kw)
+        raise MXNetError("stand-in load")
+
+    monkeypatch.setattr(ModelRepository, "load", load)
+    with pytest.raises(MXNetError, match="stand-in load"):
         main(["--model", "lm=/nowhere/lm@generate", "--device", "cpu",
               "--replicas", "2"] + flag)
+    want = {"min_replicas": None, "max_replicas": None, "pinned": False}
+    want.update({"--min-replicas": {"min_replicas": 1},
+                 "--max-replicas": {"max_replicas": 3},
+                 "--pin": {"pinned": True}}[flag[0]])
+    assert [{k: kw[k] for k in want} for kw in seen] == [want]
+    assert seen[0]["replicas"] == 2 and seen[0]["generate"]
 
 
 @pytest.mark.parametrize("opts", [{}, {"kv_dtype": "bfloat16"},

@@ -39,9 +39,10 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.serving import (DeadlineExceededError, DrainingError,
-                                     DynamicBatcher, ModelRepository,
-                                     QueueFullError, ServedModel,
-                                     ServingServer, power_of_two_buckets)
+                                     DynamicBatcher, MemoryBudgetError,
+                                     ModelRepository, QueueFullError,
+                                     ServedModel, ServingServer,
+                                     power_of_two_buckets)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
@@ -336,8 +337,10 @@ def test_scoring_lm_served_in_both_packages(monkeypatch, lm_artifacts):
 def test_repository_predict_load_knobs(monkeypatch, lm_artifacts,
                                        tmp_path):
     """Versions auto-increment; the newest ``-NNNN.params`` is served; the
-    parts that are not ported raise naming their queue item; a failed load
-    publishes nothing; predict-only knobs refuse a generate load."""
+    autoscaling knobs land on the model; the memory budget admits what
+    fits and answers 507 otherwise; the parts that are not ported raise
+    naming their queue item; a failed load publishes nothing; predict-only
+    knobs refuse a generate load."""
     import shutil
 
     prefix = str(tmp_path / "lm")
@@ -355,10 +358,9 @@ def test_repository_predict_load_knobs(monkeypatch, lm_artifacts,
         b = repo.load("lm", prefix, **kw)
         assert (a.version, b.version) == (1, 2)
         assert repo.get("lm").version == 2
-        for bad, match in (({"max_replicas": 2}, "item 12"),
-                           ({"heartbeat_ms": 5}, "replica pool"),
-                           ({"min_replicas": 1}, "item 12"),
-                           ({"pinned": True}, "item 12"),
+        assert (b.min_replicas, b.max_replicas, b.pinned) == (None, None,
+                                                               False)
+        for bad, match in (({"heartbeat_ms": 5}, "replica pool"),
                            ({"ctx": mx.cpu()}, "not both")):
             with pytest.raises(MXNetError, match=match):
                 repo.load("lm", prefix, **dict(kw, **bad))
@@ -370,12 +372,19 @@ def test_repository_predict_load_knobs(monkeypatch, lm_artifacts,
             f.write(b"MXTPUAOT1\n")
         with pytest.raises(MXNetError, match="not ported"):
             repo.load("x", str(tmp_path / "m.mxc"), **kw)
-        with pytest.raises(MXNetError, match="item 13"):
-            repo.reclaim_memory(1)
+        # nothing idle past the thresholds: nothing to reclaim
+        assert repo.reclaim_memory(1) == 0
         with monkeypatch.context() as mp:
-            mp.setenv("MXTPU_SERVE_MEMORY_BUDGET", "1000000")
-            with pytest.raises(MXNetError, match="item 13"):
-                repo.load("lm", prefix, **kw)
+            mp.setenv("MXTPU_SERVE_MEMORY_BUDGET", "1")
+            with pytest.raises(MemoryBudgetError) as ei:
+                repo.load("over", prefix, **kw)
+            assert ei.value.status == 507
+            assert ei.value.details["requested_bytes"] > 1
+            mp.setenv("MXTPU_SERVE_MEMORY_BUDGET", "1G")
+            c = repo.load("lm", prefix, min_replicas=1, max_replicas=2,
+                          pinned=True, **kw)
+            assert (c.min_replicas, c.max_replicas, c.pinned) == (1, 2, True)
+            assert c.effective_memory_bytes == c.memory_bytes > 0
         assert repo.names() == ["lm"]
     finally:
         repo.drain_all(5.0)
