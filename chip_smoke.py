@@ -2417,6 +2417,160 @@ def profile_train(torch, trainer, x, y, step_ms, steps=3):
         log("  %8.3f ms  x%-4d %s" % (ms, count, key[:100]))
 
 
+# ---------------------------------------------------------------------------
+# the training side of telemetry, read in the train, train_bert and word-LM
+# phases: the automatic step FLOPs (telemetry.flops: FlopCounterMode once a
+# signature, the flash and LSTM kernels by formula), the MFU gauge, the
+# goodput brackets, host syncs and the instrumentation's host cost
+# ---------------------------------------------------------------------------
+
+# the automatic count against PERF.md's hand count, and the MFU gauge
+# against the MFU of the phase's own throughput: each within 10 %
+AUTO_FLOPS_TOL = 0.10
+MFU_GAUGE_TOL = 0.10
+# the instrumentation's host cost a step, against the step
+INSTRUMENT_MAX_SHARE = 0.02
+
+
+class StepTelemetry:
+    """Reads a trainer's telemetry over a phase's timed steps: call
+    `start` after the warm-up steps (the first of which the FLOP counter
+    priced), `after_step` after each timed step, `finish` with the timed
+    steps' wall seconds."""
+
+    def __init__(self, kind):
+        from mxnet_tpu_torch import telemetry
+
+        self.tm = telemetry
+        self.kind = kind
+        self.gauge = telemetry.gauge("mxtpu_step_mfu", {"kind": kind})
+        self.mfus = []
+
+    def start(self):
+        self.step_flops = self.tm.flops.last_step_flops()
+        self.good0 = self.tm.goodput.totals()
+        self.mfus = []
+
+    def after_step(self):
+        self.mfus.append(self.gauge.value)
+
+    def finish(self):
+        good1 = self.tm.goodput.totals()
+        wall = good1["wall"] - self.good0["wall"]
+        compute = good1["phases"].get("compute", 0.0) - \
+            self.good0["phases"].get("compute", 0.0)
+        self.compute_share = compute / wall if wall > 0 else float("nan")
+        # the harmonic mean of the per-step gauge: the MFU over the steps'
+        # summed host seconds
+        self.gauge_mfu = len(self.mfus) / sum(1.0 / m for m in self.mfus) \
+            if self.mfus and all(m > 0 for m in self.mfus) else 0.0
+
+    def check(self, what, units_a_step, unit, hand_per_unit, units_per_s):
+        """Print and gate the automatic FLOPs a unit against the hand count
+        and the gauge's MFU against the MFU of ``units_per_s`` (both with
+        the automatic count over 989 TFLOP/s)."""
+        auto = (self.step_flops or 0.0) / units_a_step
+        want_mfu = units_per_s * auto / BF16_FLOPS_PER_S
+        log("  %s telemetry: automatic step FLOPs %.6g a step = %.6g a %s "
+            "(PERF.md's hand count %.6g: %+.2f%%); MFU gauge "
+            "mxtpu_step_mfu{kind=\"%s\"} %.4f over the timed steps (last "
+            "%.4f) against %.4f from the phase's %.1f %ss/s (%+.2f%%); "
+            "goodput's compute share %.4f of the bracketed wall; %s"
+            % (what, self.step_flops or 0.0, auto, unit, hand_per_unit,
+               100.0 * (auto / hand_per_unit - 1.0), self.kind,
+               self.gauge_mfu, self.mfus[-1] if self.mfus else 0.0,
+               want_mfu, units_per_s, unit,
+               100.0 * (self.gauge_mfu / want_mfu - 1.0) if want_mfu
+               else float("nan"), self.compute_share, smi_line()))
+        if not abs(auto / hand_per_unit - 1.0) <= AUTO_FLOPS_TOL:
+            raise AssertionError("%s: automatic FLOPs a %s %.6g, not within "
+                                 "%d%% of %.6g" % (what, unit, auto,
+                                                   100 * AUTO_FLOPS_TOL,
+                                                   hand_per_unit))
+        if not abs(self.gauge_mfu / want_mfu - 1.0) <= MFU_GAUGE_TOL:
+            raise AssertionError("%s: MFU gauge %.4f, not within %d%% of "
+                                 "%.4f" % (what, self.gauge_mfu,
+                                           100 * MFU_GAUGE_TOL, want_mfu))
+
+
+def step_syncs(torch, telemetry, step):
+    """Host syncs of one ``step()`` with telemetry on, then one with it
+    off: (on sites, off sites). The instrumentation may add none."""
+    on = count_host_syncs(torch, step)[1]
+    telemetry.set_enabled(False)
+    try:
+        off = count_host_syncs(torch, step)[1]
+    finally:
+        telemetry.set_enabled(True)
+    return on, off
+
+
+def instrumentation_cost_s(telemetry, batch, kind, chunks=20, inner=100):
+    """Host seconds a step that the step instrumentation costs: every call
+    a trainer's step makes around its body (the goodput bracket and
+    phases, the trace root and span, the FLOP memo's priced lookup on the
+    step's inputs, `observe_step`), with an empty body, against the empty
+    body alone; each the min over ``chunks`` chunks of ``inner`` steps, as
+    tests/test_telemetry.py measures `observe_step`'s."""
+    memo = telemetry.flops.PerShapeFlops(lambda *a: None)
+    memo(*batch)
+
+    def body(*a):
+        return None
+
+    def instrumented(i):
+        t0 = time.perf_counter()
+        telemetry.goodput.step_start(kind=kind, t0=t0)
+        with telemetry.goodput.phase("data_wait"):
+            pass
+        with telemetry.tracing.root("train.step", component="train",
+                                    attrs={"step": i, "kind": kind}):
+            telemetry.goodput.mark_launch()
+            with telemetry.tracing.span("train.fused_step"), \
+                    telemetry.goodput.phase("compute"):
+                memo(*batch)
+            telemetry.observe_step(time.perf_counter() - t0, examples=1,
+                                   step=i, kind=kind)
+            telemetry.goodput.step_end(step=i)
+
+    def bare(i):
+        body(*batch)
+
+    def per_step(fn):
+        best = float("inf")
+        for _ in range(chunks):
+            t0 = time.perf_counter()
+            for i in range(inner):
+                fn(i)
+            best = min(best, (time.perf_counter() - t0) / inner)
+        return best
+
+    return max(0.0, per_step(instrumented) - per_step(bare))
+
+
+def check_instrumentation(torch, what, trainer, x, y, step_s):
+    """The timed phase's host syncs and instrumentation cost: printed, and
+    gated (no sync the instrumentation adds; its cost under 2 % of the
+    step)."""
+    from mxnet_tpu_torch import telemetry
+
+    on, off = step_syncs(torch, telemetry, lambda: trainer.step(x, y))
+    cost = instrumentation_cost_s(telemetry, (x, y), "overhead")
+    log("  %s instrumentation: host syncs a step %d with telemetry on %s, "
+        "%d off %s; host cost %.2f us a step = %.4f%% of the %.2f ms step "
+        "(min over chunks, on against off); %s"
+        % (what, len(on), on, len(off), off, cost * 1e6,
+           100.0 * cost / step_s, step_s * 1e3, smi_line()))
+    if len(on) > len(off):
+        raise AssertionError("%s: the instrumentation adds host syncs: %s "
+                             "against %s" % (what, on, off))
+    if not cost / step_s < INSTRUMENT_MAX_SHARE:
+        raise AssertionError("%s: instrumentation %.2f us a step, not under "
+                             "%d%% of the %.2f ms step"
+                             % (what, cost * 1e6, 100 * INSTRUMENT_MAX_SHARE,
+                                step_s * 1e3))
+
+
 def train(torch, pk, args):
     from mxnet_tpu_torch.gluon import loss as gloss
     from mxnet_tpu_torch.gluon import nn as gnn
@@ -2458,10 +2612,16 @@ def train(torch, pk, args):
         getattr(pk, k).launches = 0
     for k in ("epi_stats", "epi_bwd_reduce"):
         getattr(pk, k).routes = dict.fromkeys(getattr(pk, k).routes, 0)
+    tel = StepTelemetry("dist")
+    tel.start()
     t0 = time.monotonic()
-    losses = [trainer.step(x, y)._data for _ in range(steps)]
+    losses = []
+    for _ in range(steps):
+        losses.append(trainer.step(x, y)._data)
+        tel.after_step()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    tel.finish()
     launches = {k: getattr(pk, k).launches for k in EPI_KERNELS}
     routes = {k: dict(getattr(pk, k).routes)
               for k in ("epi_stats", "epi_bwd_reduce")}
@@ -2485,8 +2645,12 @@ def train(torch, pk, args):
            ips * train_flops / BF16_FLOPS_PER_S, train_flops, peak,
            ["%.4f" % v for v in losses], json.dumps(launches), steps,
            json.dumps(routes)))
+    tel.check("ResNet-50", batch, "image", train_flops, ips)
+    check_instrumentation(torch, "ResNet-50", trainer, x, y, wall / steps)
     if args.profile:
         profile_train(torch, trainer, x, y, wall / steps * 1e3)
+        log("  (goodput's compute share of the timed steps: %.4f)"
+            % tel.compute_share)
     return launches, ips
 
 
@@ -3150,10 +3314,16 @@ def train_bert(torch, pk, args):
     torch.cuda.reset_peak_memory_stats()
     for k in FLASH_KERNELS:   # the BERT path's counts start here
         getattr(pk, k).launches = 0
+    tel = StepTelemetry("dist")
+    tel.start()
     t0 = time.monotonic()
-    losses = [trainer.step(x, y)._data for _ in range(BERT_STEPS)]
+    losses = []
+    for _ in range(BERT_STEPS):
+        losses.append(trainer.step(x, y)._data)
+        tel.after_step()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    tel.finish()
     launches = {k: getattr(pk, k).launches for k in FLASH_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).cpu().numpy()
@@ -3174,8 +3344,15 @@ def train_bert(torch, pk, args):
            tps * flops_token / BF16_FLOPS_PER_S, flops_token, peak,
            ["%.4f" % v for v in losses], json.dumps(launches), layers,
            BERT_STEPS))
+    # the flash kernels report their FLOPs: without them the count would
+    # miss attention
+    tel.check("BERT-base", BERT_BATCH * BERT_SEQ, "token", flops_token, tps)
+    check_instrumentation(torch, "BERT-base", trainer, x, y,
+                          wall / BERT_STEPS)
     if args.profile:
         profile_bert(torch, trainer, x, y, wall / BERT_STEPS * 1e3)
+        log("  (goodput's compute share of the timed steps: %.4f)"
+            % tel.compute_share)
     return launches
 
 
@@ -3320,10 +3497,16 @@ def train_word_lm(torch, pk, args):
     torch.cuda.reset_peak_memory_stats()
     for k in LSTM_KERNELS:   # the word-LM training path's counts start here
         getattr(pk, k).launches = 0
+    tel = StepTelemetry("dist")
+    tel.start()
     t0 = time.monotonic()
-    losses = [trainer.step(x, y)._data for _ in range(LM_STEPS)]
+    losses = []
+    for _ in range(LM_STEPS):
+        losses.append(trainer.step(x, y)._data)
+        tel.after_step()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    tel.finish()
     launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).cpu().numpy()
@@ -3344,8 +3527,14 @@ def train_word_lm(torch, pk, args):
         % (LM_STEPS, wall, tps, wall / LM_STEPS * 1e3,
            tps * LM_FLOPS_TOKEN / BF16_FLOPS_PER_S, LM_FLOPS_TOKEN, peak,
            ["%.4f" % v for v in losses], json.dumps(launches)))
+    # the LSTM kernels report their FLOPs: without them the count would
+    # miss the recurrence
+    tel.check("word LM", LM_BPTT * LM_BATCH, "token", LM_FLOPS_TOKEN, tps)
+    check_instrumentation(torch, "word LM", trainer, x, y, wall / LM_STEPS)
     if args.profile:
         profile_word_lm(torch, trainer, x, y, wall / LM_STEPS * 1e3)
+        log("  (goodput's compute share of the timed steps: %.4f)"
+            % tel.compute_share)
     return {k: launches[k] for k in ("lstm_fwd", "lstm_bwd")}, net
 
 
@@ -3566,6 +3755,270 @@ def facade_word_lm(torch, pk, args):
         % (FACADE_EVAL, eval_wall, name, value, LM_VOCAB,
            json.dumps(eval_launches)))
     return train_launches, eval_launches
+
+
+# ---------------------------------------------------------------------------
+# the rnn_cells phase: the Gluon recurrent cells at the word LM's width (2 x
+# 650 LSTM, 35 x 32, f32, TF32 off), each held against the fused layer it
+# unrolls: a SequentialRNNCell of LSTMCells against gluon.rnn.LSTM (the
+# LSTM kernels: lstm_infer without a gradient, lstm_fwd and lstm_bwd with
+# one), a bidirectional mx.rnn.FusedRNNCell against its unfuse(), and a
+# Conv2DLSTMCell step on the card against the CPU's
+# ---------------------------------------------------------------------------
+
+# f32 on both sides, in other summation orders: each difference within
+# 1e-4 of the reference's largest |value|
+RNN_CELL_TOL = 1e-4
+CONV_CELL_SHAPE = (16, 32, 32)    # (C, H, W) of the Conv2DLSTMCell's input
+CONV_CELL_HIDDEN, CONV_CELL_BATCH = 32, 8
+
+
+def _nd_rand(mx, ctx, rng, shape, scale=1.0):
+    return mx.nd.array(rng.uniform(-scale, scale, shape).astype(np.float32),
+                       ctx=ctx)
+
+
+def lstm_cell_stack(mx, ctx, seed, h, layers):
+    """A `SequentialRNNCell` of ``layers`` `LSTMCell`(h)s, initialized on
+    ``ctx`` from ``seed``."""
+    from mxnet_tpu_torch.gluon import rnn
+
+    stack = rnn.SequentialRNNCell()
+    with stack.name_scope():
+        for _ in range(layers):
+            stack.add(rnn.LSTMCell(h, input_size=h))
+    stack.initialize(mx.init.Uniform(0.08), ctx=ctx, seed=seed)
+    return stack
+
+
+def fused_from_cells(mx, ctx, stack, h, layers):
+    """The fused `gluon.rnn.LSTM`(h, layers) holding ``stack``'s weights
+    (`convert.fused_rnn_params_from_cells`)."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.gluon import rnn
+
+    fused = rnn.LSTM(h, layers, input_size=h)
+    fused.initialize(ctx=ctx)
+    cells = {n: p.data().asnumpy()
+             for n, p in stack.collect_params().items()}
+    params = fused.collect_params()
+    for n, a in convert.fused_rnn_params_from_cells(cells, fused).items():
+        params[n].set_data(mx.nd.array(a, ctx=ctx))
+    return fused
+
+
+def _errors(pairs):
+    """{what: (max |got - want|, max |want|)} of numpy pairs."""
+    out = {}
+    for what, (got, want) in pairs.items():
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if got.shape != want.shape:
+            raise AssertionError("%s: shape %s, not %s"
+                                 % (what, got.shape, want.shape))
+        out[what] = (float(np.abs(got - want).max()),
+                     float(np.abs(want).max()))
+    return out
+
+
+def cells_vs_fused(mx, ctx, seed, t, b, h, layers, grad):
+    """A `SequentialRNNCell` of `LSTMCell`s unrolled over (t, b, h) in TNC
+    against the fused `gluon.rnn.LSTM` with its weights, from the same
+    begin states: outputs and final states and, with ``grad``, every
+    weight's and the input's gradient of a random linear loss on the
+    outputs and final states. Returns `_errors`, the fused layer the
+    reference."""
+    from functools import reduce
+
+    from mxnet_tpu_torch import autograd, convert
+
+    rng = np.random.RandomState(seed + 1)
+    stack = lstm_cell_stack(mx, ctx, seed, h, layers)
+    fused = fused_from_cells(mx, ctx, stack, h, layers)
+    x = rng.uniform(-1, 1, (t, b, h)).astype(np.float32)
+    begin = [_nd_rand(mx, ctx, rng, (b, h), 0.5) for _ in range(2 * layers)]
+    dy = _nd_rand(mx, ctx, rng, (t, b, h))
+    dst = [_nd_rand(mx, ctx, rng, (b, h)) for _ in range(2 * layers)]
+
+    def cells(xx):
+        return stack.unroll(t, xx, begin_state=begin, layout="TNC",
+                            merge_outputs=True)
+
+    def fused_run(xx):
+        out, (hs, cs) = fused(xx, [mx.nd.stack(*begin[0::2], axis=0),
+                                   mx.nd.stack(*begin[1::2], axis=0)])
+        return out, [s for i in range(layers) for s in (hs[i], cs[i])]
+
+    def run(fn):
+        xx = mx.nd.array(x, ctx=ctx)
+        if not grad:
+            out, st = fn(xx)
+            return out, st, None
+        xx.attach_grad()
+        with autograd.record():
+            out, st = fn(xx)
+            loss = reduce(lambda a, c: a + c,
+                          [(s * d).sum() for s, d in zip(st, dst)],
+                          (out * dy).sum())
+        loss.backward()
+        return out, st, xx.grad
+
+    out_c, st_c, dx_c = run(cells)
+    out_f, st_f, dx_f = run(fused_run)
+    pairs = {"outputs": (out_c.asnumpy(), out_f.asnumpy())}
+    for i in range(layers):
+        pairs["h%d" % i] = (st_c[2 * i].asnumpy(), st_f[2 * i].asnumpy())
+        pairs["c%d" % i] = (st_c[2 * i + 1].asnumpy(),
+                            st_f[2 * i + 1].asnumpy())
+    if grad:
+        pairs["d_input"] = (dx_c.asnumpy(), dx_f.asnumpy())
+        grads = convert.fused_rnn_params_from_cells(
+            {n: p.grad().asnumpy()
+             for n, p in stack.collect_params().items()}, fused)
+        for n, p in fused.collect_params().items():
+            pairs["d_" + n[len(fused.prefix):]] = (grads[n],
+                                                   p.grad().asnumpy())
+    return _errors(pairs)
+
+
+def unfuse_vs_fused(mx, ctx, seed, t, b, h, layers):
+    """A bidirectional `mx.rnn.FusedRNNCell` (LSTM, ``layers`` layers)
+    against its `unfuse()` stack, both unrolled over (t, b, h) in TNC and
+    evaluated on ``ctx`` with one random parameter vector. Returns
+    `_errors`, the fused cell the reference."""
+    rng = np.random.RandomState(seed + 2)
+    cell = mx.rnn.FusedRNNCell(h, num_layers=layers, mode="lstm",
+                               bidirectional=True, prefix="bi_")
+    data = mx.sym.var("data")
+    fused_out, _ = cell.unroll(t, data, layout="TNC", merge_outputs=True)
+    stack = cell.unfuse()
+    stack_out, _ = stack.unroll(t, data, layout="TNC", merge_outputs=True)
+    shapes = dict(zip(fused_out.list_arguments(),
+                      fused_out.infer_shape(data=(t, b, h))[0]))
+    flat = mx.nd.array(rng.uniform(-0.08, 0.08, shapes["bi_parameters"])
+                       .astype(np.float32), ctx=ctx)
+    args = stack.pack_weights(cell.unpack_weights({"bi_parameters": flat}))
+    x = _nd_rand(mx, ctx, rng, (t, b, h))
+    got = stack_out.eval(ctx=ctx, data=x, **args)[0]
+    want = fused_out.eval(ctx=ctx, data=x, bi_parameters=flat)[0]
+    return _errors({"bidirectional outputs": (got.asnumpy(),
+                                              want.asnumpy())})
+
+
+def conv_lstm_step(mx, ctx, seed, shape=CONV_CELL_SHAPE,
+                   hidden=CONV_CELL_HIDDEN, batch=CONV_CELL_BATCH):
+    """One `Conv2DLSTMCell` step (3 x 3 kernels, 'same' padding) on ``ctx``
+    from ``seed``'s weights, input and states: numpy (output, h, c)."""
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+
+    rng = np.random.RandomState(seed + 3)
+    cell = crnn.Conv2DLSTMCell(shape, hidden, 3, 3, i2h_pad=1)
+    cell.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    x = _nd_rand(mx, ctx, rng, (batch,) + tuple(shape))
+    states = [_nd_rand(mx, ctx, rng, (batch, hidden) + tuple(shape[1:]),
+                       0.5) for _ in range(2)]
+    out, new = cell(x, states)
+    return out.asnumpy(), new[0].asnumpy(), new[1].asnumpy()
+
+
+def nd_op_host_us(mx, ctx, telemetry, chunks=20, inner=500):
+    """Host µs of one small `mx.nd` op (``a + b`` on 16 floats, min over
+    chunks) with telemetry on (NDArray live accounting counts each output)
+    and off."""
+    a = mx.nd.ones((16,), ctx=ctx)
+    b = mx.nd.ones((16,), ctx=ctx)
+
+    def per_op():
+        best = float("inf")
+        for _ in range(chunks):
+            t0 = time.perf_counter()
+            for _ in range(inner):
+                a + b
+            best = min(best, (time.perf_counter() - t0) / inner)
+        return best * 1e6
+
+    on = per_op()
+    telemetry.set_enabled(False)
+    try:
+        off = per_op()
+    finally:
+        telemetry.set_enabled(True)
+    return on, off
+
+
+def check_rnn_errors(what, errors, tol=RNN_CELL_TOL):
+    """Gate `_errors` at ``tol`` of each reference's largest |value|."""
+    worst = max(errors.items(), key=lambda kv: kv[1][0] / max(kv[1][1],
+                                                              1e-30))
+    log("  %s: largest difference %s %.3g of max |ref| %.4g (tolerance "
+        "%.0e of it); %d quantities; %s"
+        % (what, worst[0], worst[1][0], worst[1][1], tol, len(errors),
+           smi_line()))
+    bad = {k: v for k, v in errors.items() if not v[0] <= tol * v[1]}
+    if bad:
+        raise AssertionError("%s: beyond %.0e of the reference: %s"
+                             % (what, tol, bad))
+
+
+def rnn_cells_phase(torch, pk, args):
+    """The rnn_cells phase; returns its LSTM kernels' launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+
+    t0 = time.monotonic()
+    ctx = mx.gpu(0)
+    log("rnn_cells: the Gluon cells at the word LM's width (%d x %d LSTM, "
+        "%d x %d, f32, TF32 off); %s" % (LM_LAYERS, LM_UNITS, LM_BPTT,
+                                         LM_BATCH, smi_line()))
+    for k in LSTM_KERNELS:   # this phase's counts start here
+        getattr(pk, k).launches = 0
+
+    def launched():
+        return {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+
+    check_rnn_errors("SequentialRNNCell of 2 LSTMCells, unrolled, against "
+                     "the fused gluon.rnn.LSTM(650, 2), no gradient",
+                     cells_vs_fused(mx, ctx, args.seed, LM_BPTT, LM_BATCH,
+                                    LM_UNITS, LM_LAYERS, grad=False))
+    after_infer = launched()
+    check_rnn_errors("the same with a gradient (outputs, states, the input's "
+                     "and every weight's gradient)",
+                     cells_vs_fused(mx, ctx, args.seed, LM_BPTT, LM_BATCH,
+                                    LM_UNITS, LM_LAYERS, grad=True))
+    after_grad = launched()
+    want = {"lstm_infer": LM_LAYERS, "lstm_fwd": 0, "lstm_bwd": 0}
+    if after_infer != want:
+        raise AssertionError("rnn_cells: the fused side without a gradient "
+                             "launched %s, not %s" % (after_infer, want))
+    want = {"lstm_infer": LM_LAYERS, "lstm_fwd": LM_LAYERS,
+            "lstm_bwd": LM_LAYERS}
+    if after_grad != want:
+        raise AssertionError("rnn_cells: the fused side with a gradient "
+                             "launched %s in all, not %s" % (after_grad,
+                                                             want))
+    check_rnn_errors("bidirectional mx.rnn.FusedRNNCell(650, 2) against its "
+                     "unfuse()", unfuse_vs_fused(mx, ctx, args.seed,
+                                                 LM_BPTT, LM_BATCH, LM_UNITS,
+                                                 LM_LAYERS))
+    launches = launched()
+    if launches["lstm_infer"] != after_grad["lstm_infer"] + 2 * LM_LAYERS:
+        raise AssertionError("rnn_cells: the bidirectional fused cell "
+                             "launched lstm_infer %d times, not %d"
+                             % (launches["lstm_infer"]
+                                - after_grad["lstm_infer"], 2 * LM_LAYERS))
+    card = conv_lstm_step(mx, ctx, args.seed)
+    with mx.context.scope(mx.cpu()):
+        host = conv_lstm_step(mx, mx.cpu(), args.seed)
+    check_rnn_errors("Conv2DLSTMCell(%s, %d) step, card against CPU"
+                     % (CONV_CELL_SHAPE, CONV_CELL_HIDDEN),
+                     _errors(dict(zip(("output", "h", "c"),
+                                      zip(card, host)))))
+    on, off = nd_op_host_us(mx, ctx, telemetry)
+    log("  mx.nd host time of one op (a + b, 16 floats on the card, min "
+        "over chunks): %.2f us with telemetry on (NDArray live accounting), "
+        "%.2f us off; LSTM launches %s; the phase %.1f s; %s"
+        % (on, off, json.dumps(launches), time.monotonic() - t0,
+           smi_line()))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -9363,11 +9816,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     facade_word_lm(torch, pk, args)
     torch.cuda.empty_cache()
-    extra = {"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
+    extra = {"rnn_cells": rnn_cells_phase(torch, pk, args)}
+    torch.cuda.empty_cache()
+    extra.update({"ctc_ocr": {}, "dropout": {}, "predict_vision": {},
              "replica_pool": {}, "autoscale": {}, "detection": {},
              "profiler": {},
              "sparse": {}, "mesh": {}, "pipeline": {}, "ranks2": {},
-             "dist_kv": {}}
+             "dist_kv": {}})
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -9427,7 +9882,8 @@ def main(argv=None):
             row["launches_train_vision"] = vision_launches[k["name"]]
         for phase, counts in extra.items():
             if counts.get(k["name"]):
-                # later slices' paths: ctc_ocr (training + decode), the
+                # later slices' paths: rnn_cells (the fused side of the
+                # cells' checks), ctc_ocr (training + decode), the
                 # dropout runs, the training run behind predict_vision,
                 # the replica_pool phase's generation replicas (their own
                 # processes' counts, read from each replica's stats), the

@@ -73,6 +73,7 @@ from . import gluon
 from . import attribute, name
 from . import symbol
 from . import symbol as sym
+from .symbol import Symbol
 from . import executor, io, model, callback
 from . import module
 from . import module as mod
@@ -96,10 +97,17 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "random", "telemetry", "ndarray", "nd", "NDArray", "rtc",
            "autograd", "initializer", "init", "lr_scheduler", "metric",
            "optimizer", "gluon", "attribute", "name", "AttrScope", "symbol",
-           "sym", "executor", "io", "model", "callback", "module", "mod",
+           "sym", "Symbol", "executor", "io", "model", "callback", "module", "mod",
            "rnn", "predict", "recordio", "image", "data", "profiler",
            "contrib", "kvstore", "kv", "kvstore_server",
            "gradient_compression", "parallel", "executor_manager"]
+
+# a process with telemetry output (MXTPU_TELEMETRY_DIR, as a launched
+# job has) gets the flight recorder's SIGUSR1 dump handler at import, so a
+# hang before the first step (rendezvous, the first kernel build) leaves
+# a dump behind the launcher's SIGUSR1-then-SIGTERM teardown
+if env.is_set("MXTPU_TELEMETRY_DIR"):
+    telemetry.install_signal_handler()
 
 if _os.environ.get("DMLC_ROLE") in ("server", "scheduler"):
     # a reference launch script's server and scheduler processes exit

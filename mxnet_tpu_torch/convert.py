@@ -31,7 +31,13 @@ does), and
 head) onto the port's `BERTModel`, and `word_lm_params_from_jax` a word-LM
 `RNNModel`'s onto the port's `RNNModel`. A symbolic `Module`'s
 ``get_params()`` needs no renaming: `module_params_from_jax` turns its
-numpy arrays into the port's NDArrays on a device.
+numpy arrays into the port's NDArrays on a device. A Gluon recurrent
+cell's or cell stack's parameters (``lstm0_i2h_weight`` ...) come from the
+JAX cell's ``collect_params()`` as numpy arrays:
+`gluon_cell_params_from_jax` pairs them with the port cell of the same
+structure, and `fused_rnn_params_from_cells` lays a stack of cells'
+parameters (either package's) onto a fused `gluon.rnn` layer of the same
+widths, which holds them a layer and direction under the same four names.
 
 Every function but `module_params_from_jax` returns plain data (a
 ``state_dict`` of CPU tensors, or a dict of numpy arrays); the caller loads
@@ -51,7 +57,8 @@ from .base import MXNetError
 __all__ = ["params_from_jax", "state_from_npz", "npz_from_state",
            "resnet_params_from_jax", "bert_params_from_jax",
            "word_lm_params_from_jax", "module_params_from_jax",
-           "vision_params_from_jax"]
+           "vision_params_from_jax", "gluon_cell_params_from_jax",
+           "fused_rnn_params_from_cells"]
 
 _DENSE = {"q": "attention.proj_query", "k": "attention.proj_key",
           "v": "attention.proj_value", "o": "attention.proj_out",
@@ -492,3 +499,63 @@ def module_params_from_jax(arg_params, aux_params, device):
 
     return move(arg_params), move(aux_params)
 
+
+_CELL_FIELD = re.compile(r"(i2h|h2h|h2r)_(weight|bias)$")
+
+
+def _cell_field(name):
+    m = _CELL_FIELD.search(name)
+    if m is None:
+        raise MXNetError("%s is not a recurrent cell's parameter" % name)
+    return m
+
+
+def gluon_cell_params_from_jax(params, cell):
+    """A JAX Gluon cell's (or cell stack's) ``collect_params()`` as numpy
+    arrays, in its order, onto the port cell ``cell`` of the same
+    structure: ``{port name: array}``. The two packages register a cell's
+    parameters in the same order, so they pair in order; each pair must
+    be the same field (``i2h_weight`` ...) and, where the port's shape is
+    known, the same shape."""
+    ours = list(cell.collect_params().items())
+    theirs = list(params.items())
+    if len(ours) != len(theirs):
+        raise MXNetError("the JAX cell has %d parameters, the port's %d"
+                         % (len(theirs), len(ours)))
+    out = {}
+    for (name, p), (jname, arr) in zip(ours, theirs):
+        arr = _np.asarray(arr)
+        if _cell_field(name).group(0) != _cell_field(jname).group(0):
+            raise MXNetError("%s does not pair with %s" % (jname, name))
+        shape = tuple(p.shape or ())
+        if shape and all(shape) and shape != arr.shape:
+            raise MXNetError("%s: shape %s, the port's %s is %s"
+                             % (jname, arr.shape, name, shape))
+        out[name] = arr
+    return out
+
+
+def fused_rnn_params_from_cells(params, fused):
+    """A stack of cells' parameters (``{name: array}`` in registration
+    order: a layer's cell, or a `BidirectionalCell`'s left then right
+    cell, then the next layer's; `DropoutCell`s hold none) onto the fused
+    layer ``fused`` (`gluon.rnn.RNN` / `LSTM` / `GRU` of the same widths
+    and gate type): ``{fused name: array}``, the cell of layer i and
+    direction l or r giving ``l<i>_*`` / ``r<i>_*``."""
+    groups = {}
+    for name, arr in params.items():
+        m = _cell_field(name)
+        groups.setdefault(name[:m.start()], {})[m.group(0)] = \
+            _np.asarray(arr)
+    dirs = "lr"[:fused._dir]
+    slots = ["%s%d_" % (j, i) for i in range(fused._num_layers)
+             for j in dirs]
+    if len(groups) != len(slots):
+        raise MXNetError("%d cells for a fused layer of %d layers x %d "
+                         "directions" % (len(groups), fused._num_layers,
+                                         len(dirs)))
+    out = {}
+    for slot, fields in zip(slots, groups.values()):
+        for field in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+            out[fused._reg_params[slot + field].name] = fields[field]
+    return out

@@ -10,8 +10,14 @@ the optimizer to every copy of every parameter whose ``grad_req`` is not
 null, in place and off the tape, with one updater (and so one set of
 optimizer states) a context. It reads each Parameter's arrays at every
 step, so a trainer built before the first forward (deferred shapes)
-works. Each step feeds the port's telemetry (`telemetry.observe_step`,
-kind "train"), as the JAX package's does.
+works. Each step is instrumented as the JAX package's is: a goodput
+bracket (kind "train": the sum over copies and ranks is ``collective``,
+the update ``compute``), a ``train.step`` trace root with
+``train.allreduce`` and ``train.optimizer`` spans, and
+`telemetry.observe_step` (kind "train"). The forward and backward run
+before `step`, outside the trainer, so the step's automatic FLOP count
+holds only what the port's kernels report; `telemetry.set_step_flops`
+declares the model's.
 
 The kvstore is made at the first step, as the JAX package's
 ``_init_kvstore`` makes it: none on one context with a single-process
@@ -185,14 +191,25 @@ class Trainer:
         """Sum the gradients over the copies (and ranks), rescale by ``1 /
         batch_size`` and update every copy (reference: trainer.py:298)."""
         t0 = time.perf_counter()
-        if not self._kv_initialized:
-            self._init_kvstore()
-        self._optimizer.rescale_grad = self._scale / batch_size
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
-        self._step_count += 1
-        telemetry.observe_step(time.perf_counter() - t0,
-                               examples=batch_size, step=self._step_count)
+        telemetry.goodput.step_start(kind="train", t0=t0)
+        # a traced step records its reduce and update as spans (a no-op
+        # span when tracing is not armed)
+        with telemetry.tracing.root("train.step", component="train",
+                                    attrs={"step": self._step_count + 1}):
+            if not self._kv_initialized:
+                self._init_kvstore()
+            self._optimizer.rescale_grad = self._scale / batch_size
+            with telemetry.tracing.span("train.allreduce"), \
+                    telemetry.goodput.phase("collective"):
+                self._allreduce_grads()
+            telemetry.goodput.mark_launch()
+            with telemetry.tracing.span("train.optimizer"), \
+                    telemetry.goodput.phase("compute"):
+                self._update(ignore_stale_grad)
+            self._step_count += 1
+            telemetry.observe_step(time.perf_counter() - t0,
+                                   examples=batch_size, step=self._step_count)
+            telemetry.goodput.step_end(step=self._step_count)
 
     def allreduce_grads(self):
         """Sum each parameter's gradients over its copies (and ranks),

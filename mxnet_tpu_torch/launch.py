@@ -28,23 +28,32 @@ Every mode gives the workers this environment, which
   DMLC_ROLE                  worker
 
 Supervision: the first rank that fails (a nonzero exit, or a spawn that
-fails) takes the others down, SIGTERM to each worker's process group and
-SIGKILL after ``MXTPU_TEARDOWN_GRACE`` seconds (10), and its exit code is
-the launcher's. With ``--max-restarts N`` the whole group is started
-again up to N times, after ``--restart-backoff`` seconds doubling to 60,
+fails) takes the others down, and its exit code is the launcher's. The
+teardown sends each worker's process group SIGUSR1 first when
+``MXTPU_TELEMETRY_DIR`` is set (the port installs the flight recorder's
+dump handler at import there, so every live rank writes its dump and
+goes on) and waits ``MXTPU_DUMP_GRACE`` seconds (1) for the dumps, then
+SIGTERM, then SIGKILL after ``MXTPU_TEARDOWN_GRACE`` seconds (10).
+With ``--max-restarts N`` the whole group is started again up to N
+times, after ``--restart-backoff`` seconds doubling to 60,
 on a fresh rendezvous port. A worker that exits with the preemption code
 (``MXTPU_PREEMPT_EXIT_CODE``, 83) restarts the group without using the
 budget, the backoff reset. A SIGTERM to the launcher tears its workers
 down the same way. Local and ssh workers' output is prefixed with
 their rank. With ``MXTPU_TELEMETRY_DIR`` set, the launcher appends its
 events (``launcher_generation_start`` / ``_exit``, ``launcher_restart``,
-``preempt``, ``launcher_downtime``, ``launcher_teardown``,
-``launcher_restarts_exhausted``) to ``launcher-events.jsonl`` there.
+``preempt``, ``launcher_downtime``, ``launcher_teardown`` with
+``dump_first``, ``launcher_restarts_exhausted``) to
+``launcher-events.jsonl`` there. The launch is one trace: each
+generation is a ``launch.generation`` span (component "launcher",
+written to that file when the generation exits), and the workers get
+its context as ``MXTPU_TRACE_CONTEXT``, so their ``train.step`` roots
+join the trace (recorded when ``MXTPU_TRACE_SAMPLE`` >= 1 in the
+launcher's environment).
 
 Not ported: ``--compile-cache`` (the persistent compile tier, ROADMAP
-queue 1 item 13), ``--sharded-step`` (the fused sharded step, item 2), the
-flight-recorder dump before teardown and the launch's trace spans (item
-13's telemetry); the first two raise.
+queue 1 item 13) and ``--sharded-step`` (the fused sharded step, item
+2); both raise.
 
 The launcher's own code is the standard library's: it supervises
 processes only.
@@ -85,6 +94,9 @@ def _protocol_env(n, coord, extra, rank=None, generation=0):
         "MXTPU_COORDINATOR": coord,
         "MXTPU_NUM_WORKERS": str(n),
         "MXTPU_RESTART_GENERATION": str(generation),
+        # the workers' step spans join the launch trace under this
+        # generation's span
+        "MXTPU_TRACE_CONTEXT": _generation_trace_context(generation),
         "DMLC_NUM_WORKER": str(n),
         "DMLC_ROLE": "worker",
     }
@@ -135,6 +147,42 @@ def _emit_event(kind, **fields):
 _PUMP_LOCK = threading.Lock()
 
 
+# -- the launch trace: one trace id a launcher run, a span a generation,
+# written as the `{"kind": "event", "event": "span"}` record that
+# tools/trace_merge.py reads (the launcher imports nothing of the port)
+_LAUNCH_TRACE = "%032x" % random.getrandbits(128)
+_GEN_SPANS = {}   # generation -> (span_id, start_wall)
+
+
+def _launch_sampled():
+    """Whether the launcher's environment samples the run (the workers
+    read the flag and record their step spans)."""
+    try:
+        return float(os.environ.get("MXTPU_TRACE_SAMPLE") or 0) >= 1.0
+    except ValueError:
+        return False
+
+
+def _generation_trace_context(generation):
+    span_id, _ = _GEN_SPANS.get(generation) or (None, None)
+    if span_id is None:
+        span_id = "%016x" % random.getrandbits(64)
+        _GEN_SPANS[generation] = (span_id, time.time())
+    return "%s-%s-%02d" % (_LAUNCH_TRACE, span_id,
+                           1 if _launch_sampled() else 0)
+
+
+def _emit_generation_span(generation, rc):
+    """Close ``generation``'s span, now that its duration is known."""
+    span_id, start = _GEN_SPANS.get(generation) or (None, None)
+    if span_id is None:
+        return
+    _emit_event("span", name="launch.generation", trace=_LAUNCH_TRACE,
+                span=span_id, parent=None, component="launcher",
+                ts=start, dur_us=(time.time() - start) * 1e6,
+                attrs={"generation": generation, "rc": rc})
+
+
 def _pump(stream, label):
     """Copy one worker's merged output to ours, each line prefixed with
     its rank."""
@@ -166,18 +214,36 @@ def _signal_group(procs, sig):
 
 
 def _teardown(procs, grace=None, generation=None):
-    """SIGTERM to every live worker, SIGKILL to those alive ``grace``
-    seconds later (``MXTPU_TEARDOWN_GRACE``, 10): a rank stuck in a
-    collective with a dead peer never blocks the launcher."""
+    """With ``MXTPU_TELEMETRY_DIR`` set, SIGUSR1 to every live worker
+    first (each writes its flight-recorder dump and lives on) and
+    ``MXTPU_DUMP_GRACE`` seconds (1) for the dumps; then SIGTERM, and
+    SIGKILL to those alive ``grace`` seconds later
+    (``MXTPU_TEARDOWN_GRACE``, 10): a rank stuck in a collective with a
+    dead peer never blocks the launcher, and leaves a dump that says
+    where it was stuck. Without the directory SIGUSR1's default action
+    would kill a worker at once and rob it of its SIGTERM grace, so it is
+    not sent."""
     survivors = [p for p in procs if p.poll() is None]
     if not survivors:
         return
     if grace is None:
         grace = float(os.environ.get("MXTPU_TEARDOWN_GRACE", "10"))
-    _log("tearing down %d live worker(s): SIGTERM, SIGKILL after %.0fs"
-         % (len(survivors), grace))
+    dump_first = hasattr(signal, "SIGUSR1") and \
+        bool(os.environ.get("MXTPU_TELEMETRY_DIR"))
+    _log("tearing down %d live worker(s): %sSIGTERM, SIGKILL after %.0fs"
+         % (len(survivors),
+            "SIGUSR1 (flight-recorder dump), then " if dump_first else "",
+            grace))
     _emit_event("launcher_teardown", live=len(survivors), grace_s=grace,
-                generation=generation)
+                dump_first=dump_first, generation=generation)
+    if dump_first:
+        _signal_group(procs, signal.SIGUSR1)
+        # the handlers write their dumps before SIGTERM lands
+        deadline = time.time() + float(
+            os.environ.get("MXTPU_DUMP_GRACE", "1.0"))
+        while time.time() < deadline and any(p.poll() is None
+                                             for p in procs):
+            time.sleep(0.05)
     _signal_group(procs, signal.SIGTERM)
     deadline = time.time() + grace
     while time.time() < deadline and any(p.poll() is None for p in procs):
@@ -265,6 +331,7 @@ def _spawn_and_wait(make_cmds, max_restarts=0, backoff=1.0):
         prev_exit = (time.time(), rc, preempted)
         _emit_event("launcher_generation_exit", generation=generation, rc=rc,
                     preempted=preempted)
+        _emit_generation_span(generation, rc)
         if rc == 0:
             return 0
         if preempted and max_restarts > 0:

@@ -4,7 +4,12 @@ python/mxnet/module/base_module.py — fit :409, forward_backward :193).
 
 `fit` is the reference's epoch loop of `forward_backward`, `update`,
 `update_metric` and the callbacks, with `score` on the evaluation data.
-Not ported yet: ``checkpoint_dir=`` / ``resume=`` and the preemption
+Each step is instrumented as the JAX package's is: a goodput bracket
+(kind "fit") back-dated to the wait on the data iterator, a
+``train.step`` trace root with the wait as a child span, the step's
+FLOPs counted once a batch signature, `telemetry.observe_step`, and the
+``mxtpu_data_wait_seconds_total`` / ``mxtpu_data_compute_seconds_total``
+counters (``src="fit"``). Not ported yet: ``checkpoint_dir=`` / ``resume=`` and the preemption
 handler (they need ``parallel/resilience.py``, ROADMAP queue 1 item 13),
 a ``monitor`` (``monitor.py``, item 8), and the fused one-step path (the
 captured step, item 2): those arguments raise.
@@ -178,9 +183,21 @@ class BaseModule(object):
             validation_metric = eval_metric
         eval_metric = _as_metric(eval_metric)
 
+        from .. import telemetry
+
+        # the input pipeline's starvation: seconds waiting on the data
+        # iterator against seconds in forward, backward and update
+        tm_wait = telemetry.counter("mxtpu_data_wait_seconds_total",
+                                    {"src": "fit"})
+        tm_compute = telemetry.counter("mxtpu_data_compute_seconds_total",
+                                       {"src": "fit"})
+        # the step's FLOPs, counted once a batch signature
+        counted = telemetry.flops.instrument(self._fit_compute)
+
         # MXTPU_DATA_PREFETCH: batch N+1's host work and its copy to this
         # module's device overlap batch N's compute
         use_prefetch = _env.get("MXTPU_DATA_PREFETCH")
+        fit_updates = 0
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -195,14 +212,49 @@ class BaseModule(object):
                     ctx = ctx[0]
                 batches = DevicePrefetcher(batches, mesh=ctx, src="fit")
             try:
-                for nbatch, data_batch in enumerate(batches):
-                    self.forward_backward(data_batch)
-                    self.update()
+                nbatch = 0
+                while True:
+                    t_wait = time.perf_counter()
+                    try:
+                        data_batch = next(batches)
+                    except StopIteration:
+                        break
+                    t_step = time.perf_counter()
+                    tm_wait.inc(t_step - t_wait)
+                    # the goodput bracket opens back-dated to the wait
+                    # (which belongs to the step), after a successful
+                    # next(), so StopIteration leaves no bracket open
+                    telemetry.goodput.step_start(kind="fit", t0=t_wait)
+                    telemetry.goodput.add("data_wait", t_step - t_wait)
+                    # one root span a step; the wait predates the root and
+                    # is emitted as a child with its measured times
+                    with telemetry.tracing.root(
+                            "train.step", component="train",
+                            attrs={"step": fit_updates + 1,
+                                   "kind": "fit"}) as t_span:
+                        telemetry.tracing.emit_span(
+                            "train.data_wait",
+                            time.time() - (t_step - t_wait), t_step - t_wait,
+                            t_span, component="train")
+                        telemetry.goodput.mark_launch()
+                        counted(_batch_arrays(data_batch), data_batch)
+                        fit_updates += 1
+                        examples = None
+                        try:
+                            examples = int(data_batch.data[0].shape[0])
+                        except (AttributeError, IndexError, TypeError):
+                            pass
+                        telemetry.observe_step(time.perf_counter() - t_step,
+                                               examples=examples,
+                                               step=fit_updates, kind="fit")
+                        telemetry.goodput.step_end(step=fit_updates)
                     self.update_metric(eval_metric, data_batch.label)
                     for cb in _as_list(batch_end_callback):
                         cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                          eval_metric=eval_metric,
                                          locals=locals()))
+                    nbatch += 1
+                    tm_compute.inc(time.perf_counter() - t_step)
             finally:
                 if use_prefetch:
                     batches.close()
@@ -224,6 +276,18 @@ class BaseModule(object):
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
 
+    def _fit_compute(self, arrays, data_batch):
+        """One `fit` step's forward, backward and update (``arrays``, the
+        batch's, give `telemetry.flops.instrument` its signature)."""
+        from .. import telemetry
+
+        with telemetry.tracing.span("train.fwd_bwd"), \
+                telemetry.goodput.phase("compute"):
+            self.forward_backward(data_batch)
+        with telemetry.tracing.span("train.optimizer"), \
+                telemetry.goodput.phase("compute"):
+            self.update()
+
     # -- misc --------------------------------------------------------------
     @property
     def symbol(self):
@@ -244,6 +308,12 @@ class BaseModule(object):
 
     def get_input_grads(self, merge_multi_context=True):
         raise NotImplementedError()
+
+
+def _batch_arrays(data_batch):
+    """A batch's data and label arrays, in order (its FLOP signature)."""
+    return list(data_batch.data or []) + list(
+        getattr(data_batch, "label", None) or [])
 
 
 class BatchEndParam(object):

@@ -35,8 +35,12 @@ Every operator call goes through `invoke` — the equivalent of
 
 Sparse storage is `ndarray.sparse` (row_sparse and csr arrays, row-sparse
 gradient buffers); an op without a sparse form densifies a sparse input,
-as the reference's storage fallback does. Not ported yet: the JAX
-package's telemetry memory accounting. 64-bit arrays stay 64-bit, as in
+as the reference's storage fallback does. Live accounting
+(`telemetry.memory.ndarray_live`): the constructor counts a handle and
+its tensor's bytes, ``__del__`` takes them off, and `_set_data` of a
+value of another size (which swaps the buffer, as the JAX package's
+does) moves the bytes; an array made while telemetry is off is never
+counted. 64-bit arrays stay 64-bit, as in
 the reference, where the JAX package narrows them to 32 bits (README,
 "int64").
 """
@@ -59,17 +63,26 @@ from ..base import MXNetError, atomic_writer, np_dtype, numeric_types, \
 from ..context import Context, _innermost, _unchecked_device, \
     as_context, resolve_device
 from ..ops.tensor import mx_reshape_shape
+from ..telemetry import memory as _tm_memory
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "full", "empty",
            "arange", "concat", "stack", "save", "load", "waitall",
            "from_dlpack", "to_dlpack_for_read", "to_dlpack_for_write"]
 
 
+def _broadcasts(src, dst):
+    """Whether a tensor of shape ``src`` broadcasts to shape ``dst``."""
+    try:
+        return tuple(torch.broadcast_shapes(src, dst)) == tuple(dst)
+    except RuntimeError:
+        return False
+
+
 class NDArray:
     """Multi-dimensional array on a device (reference: ndarray.h:82)."""
 
     __slots__ = ("_data", "_grad", "_grad_req", "_fresh_grad", "_leaves",
-                 "_pinned", "_ctx", "__weakref__")
+                 "_pinned", "_ctx", "_live_bytes", "__weakref__")
 
     def __init__(self, data, ctx=None):
         self._data = data  # torch.Tensor, contiguous
@@ -79,6 +92,24 @@ class NDArray:
         self._fresh_grad = False  # written by a backward since the last step
         self._leaves = None     # weakrefs to tensors a write replaced
         self._pinned = False    # a gluon Parameter's: written in place
+        # live accounting: handles made minus handles collected, in counts
+        # and bytes (plain list adds: this is the hot path); an array made
+        # while telemetry is off carries None, so a later switch never
+        # takes the gauge below zero
+        if _tm_memory.enabled():
+            nb = int(getattr(data, "nbytes", 0) or 0)
+            self._live_bytes = nb
+            _tm_memory.ndarray_created(nb)
+        else:
+            self._live_bytes = None
+
+    def __del__(self):
+        # interpreter shutdown may have torn the module down: never raise
+        try:
+            if self._live_bytes is not None:
+                _tm_memory.ndarray_freed(self._live_bytes)
+        except Exception:
+            pass
 
     def _write(self, fn):
         """Apply ``fn`` (an in-place write) to this array's value. An array
@@ -141,7 +172,18 @@ class NDArray:
 
     def _set_data(self, value):
         """Write ``value`` (a tensor, broadcast to the shape) into this
-        array (see `_write`)."""
+        array (see `_write`). A tensor that does not broadcast to the
+        shape replaces the buffer instead, as the JAX package's swap
+        does; the live bytes follow."""
+        if torch.is_tensor(value) and value.shape != self._data.shape and \
+                not _broadcasts(value.shape, self._data.shape):
+            self._data = value.contiguous()
+            if self._live_bytes is not None:
+                nb = int(self._data.nbytes)
+                if nb != self._live_bytes:
+                    _tm_memory.ndarray_resized(nb - self._live_bytes)
+                    self._live_bytes = nb
+            return
         self._write(lambda t: t.copy_(value))
 
     # -- sync / transfer --------------------------------------------------

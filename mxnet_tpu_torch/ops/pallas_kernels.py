@@ -23,7 +23,11 @@ it holds no Pallas. Ported so far:
 
 Every wrapper launches its hand-written CUDA kernel (sm_90a) for CUDA
 tensors, and adds one to its ``launches`` count where it does; it runs its
-plain PyTorch version (``*_reference``) only for tensors on the CPU. The
+plain PyTorch version (``*_reference``) only for tensors on the CPU.
+Where it launches, a kernel that does products also reports its FLOPs to
+`telemetry.flops` (`flash_flops`, `lstm_flops`, the paged formula): the
+count `FlopCounterMode` gives its plain version, which on the CPU the
+counter sees itself. The
 conv-epilogue and LSTM wrappers, which the symbolic path's shape inference
 reaches, run it for ``meta`` tensors too (shapes only: nothing is
 launched or built). Nothing sends a CUDA tensor to a plain version.
@@ -50,7 +54,7 @@ __all__ = ["paged_attention", "paged_attention_reference", "conv_epilogue",
            "flash_bwd_dkv", "flash_bwd_dkv_reference", "lstm_layer",
            "lstm_layer_reference", "lstm_layer_fits", "lstm_infer",
            "lstm_infer_reference", "lstm_fwd", "lstm_fwd_reference",
-           "lstm_bwd", "lstm_bwd_reference"]
+           "lstm_bwd", "lstm_bwd_reference", "flash_flops", "lstm_flops"]
 
 # finite mask value: a fully masked row stays NaN-free
 _NEG_INF = -1e30
@@ -798,6 +802,21 @@ def _flash_call(symbol, q, k, tensors, sm_scale, causal):
           k.shape[1], d, sm_scale, int(bool(causal)))
 
 
+# FLOPs a flash kernel reports (`telemetry.flops.kernel`): what
+# `FlopCounterMode` gives its plain version at the same shapes, in units
+# of BH * Lq * Lk * D (two products forward; dQ recomputes the scores and
+# dP then takes dS k; dK/dV recomputes both and takes dS^T q and P^T dO).
+# A causal mask changes neither count.
+_FLASH_FLOP_UNITS = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+
+
+def flash_flops(name, q, k):
+    """FLOPs of one launch of flash kernel ``name`` on q (BH, Lq, D) and
+    k (BH, Lk, D)."""
+    bh, lq, d = q.shape
+    return _FLASH_FLOP_UNITS[name] * bh * lq * k.shape[1] * d
+
+
 def _flash_scores(q, k, causal, sm_scale):
     """f32 scores ``q k^T * sm_scale`` (BH, Lq, Lk), the entries above a
     causal diagonal set to the finite mask value."""
@@ -835,6 +854,7 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _flash_call("flash_fwd", q, k, (q, k, v, out, lse), sm_scale, causal)
     flash_fwd.launches += 1
+    _tm_flops.kernel(flash_flops("flash_fwd", q, k))
     return out, lse
 
 
@@ -871,6 +891,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
     _flash_call("flash_bwd_dq", q, k, (q, k, v, dout, lse, delta, dq),
                 sm_scale, causal)
     flash_bwd_dq.launches += 1
+    _tm_flops.kernel(flash_flops("flash_bwd_dq", q, k))
     return dq
 
 
@@ -901,6 +922,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
     _flash_call("flash_bwd_dkv", q, k, (q, k, v, dout, lse, delta, dk, dv),
                 sm_scale, causal)
     flash_bwd_dkv.launches += 1
+    _tm_flops.kernel(flash_flops("flash_bwd_dkv", q, k))
     return dk, dv
 
 
@@ -919,6 +941,7 @@ class _FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.sm_scale = sm_scale
+        ctx.flops_sink = _tm_flops.sink()
         return out
 
     @staticmethod
@@ -928,10 +951,11 @@ class _FlashAttention(torch.autograd.Function):
         # dense: autograd may hand a strided view
         dout = g.to(q.dtype).contiguous()
         delta = (dout.float() * out.float()).sum(dim=-1)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal,
-                          ctx.sm_scale)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
-                               ctx.sm_scale)
+        with _tm_flops.reporting_to(ctx.flops_sink):
+            dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal,
+                              ctx.sm_scale)
+            dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
+                                   ctx.sm_scale)
         return dq, dk, dv, None, None
 
 
@@ -1168,6 +1192,14 @@ def _lstm_fwd_args(name, gx, wh, h0, c0):
         ("gx", gx, (t, b, 4 * h)), ("h0", h0, (b, h)), ("c0", c0, (b, h))])
 
 
+def lstm_flops(t, b, h):
+    """FLOPs of one launch of any LSTM kernel at (T, B, H): the
+    recurrent product, (B, H) by (H, 4H) (backward: (B, 4H) by (4H, H)) a
+    step, as `FlopCounterMode` counts the plain versions. The gate math is
+    elementwise and counted by neither."""
+    return 8 * t * b * h * h
+
+
 def _lstm_forward_reference(gx, wh, h0, c0, save):
     """The step loop both forward kernels run, in torch: the product takes
     h in the dtype with f32 sums, the carries are f32, ys (and the gates)
@@ -1224,6 +1256,7 @@ def lstm_infer(gx, wh, h0, c0):
           wh.data_ptr(), h0.data_ptr(), c0.data_ptr(), hx.data_ptr(),
           ys.data_ptr(), ct.data_ptr(), _LSTM_DTYPES[gx.dtype], t, b, h)
     lstm_infer.launches += 1
+    _tm_flops.kernel(lstm_flops(t, b, h))
     return ys, ct
 
 
@@ -1252,6 +1285,7 @@ def lstm_fwd(gx, wh, h0, c0):
           ys.data_ptr(), c_all.data_ptr(), gates.data_ptr(),
           _LSTM_DTYPES[gx.dtype], t, b, h)
     lstm_fwd.launches += 1
+    _tm_flops.kernel(lstm_flops(t, b, h))
     return ys, c_all, gates
 
 
@@ -1317,6 +1351,7 @@ def lstm_bwd(dy, gates, c_all, c0, dct, wh):
           xb.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
           _LSTM_DTYPES[dy.dtype], t, b, h)
     lstm_bwd.launches += 1
+    _tm_flops.kernel(lstm_flops(t, b, h))
     return dgx, dh0, dc0
 
 
@@ -1336,14 +1371,16 @@ class _LSTMLayer(torch.autograd.Function):
     def forward(ctx, gx, wh, h0, c0):
         ys, c_all, gates = lstm_fwd(gx, wh, h0, c0)
         ctx.save_for_backward(wh, gates, c_all, h0, c0, ys)
+        ctx.flops_sink = _tm_flops.sink()
         return ys, c_all[-1].to(gx.dtype, copy=True)
 
     @staticmethod
     def backward(ctx, dys, dct):
         wh, gates, c_all, h0, c0, ys = ctx.saved_tensors
         dt = ys.dtype
-        dgx, dh0, dc0 = lstm_bwd(dys.to(dt).contiguous(), gates, c_all, c0,
-                                 dct.to(dt).contiguous(), wh)
+        with _tm_flops.reporting_to(ctx.flops_sink):
+            dgx, dh0, dc0 = lstm_bwd(dys.to(dt).contiguous(), gates, c_all,
+                                     c0, dct.to(dt).contiguous(), wh)
         h_units = ys.shape[-1]
         h_prev = torch.cat([h0[None], ys[:-1]], dim=0).reshape(-1, h_units)
         dwh = torch.matmul(dgx.reshape(-1, 4 * h_units).t(), h_prev)

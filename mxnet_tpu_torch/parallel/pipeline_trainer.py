@@ -162,6 +162,7 @@ class PipelineTrainer:
         self._states = [opt.create_state(i, a)
                         for i, a in enumerate(self._arrays)]
         self._step_count = 0
+        self._counted = None   # the step, FLOP-counted once a signature
 
     @property
     def optimizer(self):
@@ -241,21 +242,41 @@ class PipelineTrainer:
     def step(self, *batch):
         """One pipelined training step over (inputs..., label); returns the
         global batch's mean loss as an `NDArray` of a 0-d f32 tensor on
-        the device (no host sync)."""
+        the device (no host sync). Instrumented as `DistributedTrainer.step`
+        is, with goodput kind "pipeline" and no trace root, as in the JAX
+        package."""
         from ..ndarray import NDArray
 
         t0 = time.perf_counter()
+        telemetry.goodput.step_start(kind="pipeline", t0=t0)
         if self._loss is not None and len(batch) < 2:
             raise MXNetError("step(*inputs, label) needs a label for the "
                              "configured loss")
-        inputs = batch[:-1] if self._loss is not None else batch
-        inputs = [self._rows(a, cast=True) for a in inputs]
-        label = self._rows(batch[-1], cast=False) \
-            if self._loss is not None else None
+        with telemetry.goodput.phase("data_wait"):
+            inputs = batch[:-1] if self._loss is not None else batch
+            inputs = [self._rows(a, cast=True) for a in inputs]
+            label = self._rows(batch[-1], cast=False) \
+                if self._loss is not None else None
         self._step_count += 1
         o = self._optimizer
         o.num_update = max(self._step_count + o.begin_num_update,
                            o.num_update)
+        if self._counted is None:
+            self._counted = telemetry.flops.instrument(self._train_step)
+        telemetry.goodput.mark_launch()
+        with telemetry.goodput.phase("compute"):
+            loss = self._counted(inputs, label)
+        telemetry.observe_step(time.perf_counter() - t0,
+                               examples=int(inputs[0].shape[0])
+                               * self._data.size,
+                               step=self._step_count, kind="pipeline")
+        telemetry.goodput.step_end(step=self._step_count)
+        return NDArray(loss)
+
+    def _train_step(self, inputs, label):
+        """Forward, backward, the sums over dp and the update of one step
+        on the placed rows; returns the mean loss (0-d f32)."""
+        o = self._optimizer
         self._block.train()
         with torch.enable_grad():
             pred = self._run(inputs, self._remat)
@@ -275,10 +296,7 @@ class PipelineTrainer:
             for i, (a, g, s) in enumerate(zip(self._arrays, grads,
                                               self._states)):
                 o.update(i, a, g, s)
-        telemetry.observe_step(time.perf_counter() - t0,
-                               examples=int(inputs[0].shape[0]) * n,
-                               step=self._step_count, kind="pipeline")
-        return NDArray(loss)
+        return loss
 
     def forward(self, *batch, is_train=False):
         """The pipelined forward in f32 without gradients on the global

@@ -214,6 +214,7 @@ class DistributedTrainer:
         self._states = [self._optimizer.create_state(i, a)
                         for i, a in enumerate(self._arrays)]
         self._step_count = 0
+        self._counted = None   # the step, FLOP-counted once a signature
 
     @property
     def optimizer(self):
@@ -286,22 +287,47 @@ class DistributedTrainer:
         """One training step; returns the global batch's mean loss as an
         `NDArray` of a 0-d f32 tensor on the device (no host sync).
         ``batch_size`` is the JAX signature's and unused: the loss is
-        already a batch mean. The recorded step seconds
-        (`telemetry.observe_step`, kind "dist") are host time of the call:
-        without a sync they track the device only once its launch queue is
-        full."""
+        already a batch mean. The step is instrumented as the JAX
+        package's is, on host clocks only: a goodput bracket (kind
+        "dist": the batch's placement is ``data_wait``, the launch of the
+        step ``compute``), a ``train.step`` trace root (component
+        "train"), `telemetry.observe_step` (kind "dist"; its seconds are
+        host time of the call, which tracks the device only once its
+        launch queue is full), and the step's FLOPs, counted once a shape
+        signature (`telemetry.flops.instrument`)."""
         from ..ndarray import NDArray
 
         t0 = time.perf_counter()
+        telemetry.goodput.step_start(kind="dist", t0=t0)
         if self._loss is not None and label is None:
             raise MXNetError("this trainer was built with a loss that takes "
                              "(pred, label); step() needs a label argument")
-        x = self._batch(data, cast=True)
-        y = None if label is None else self._batch(label, cast=False)
+        with telemetry.goodput.phase("data_wait"):
+            x = self._batch(data, cast=True)
+            y = None if label is None else self._batch(label, cast=False)
         self._step_count += 1
         o = self._optimizer
         o.num_update = max(self._step_count + o.begin_num_update,
                            o.num_update)
+        if self._counted is None:
+            self._counted = telemetry.flops.instrument(self._train_step)
+        with telemetry.tracing.root("train.step", component="train",
+                                    attrs={"step": self._step_count,
+                                           "kind": "dist"}):
+            telemetry.goodput.mark_launch()
+            with telemetry.tracing.span("train.fused_step"), \
+                    telemetry.goodput.phase("compute"):
+                loss = self._counted(x, y)
+            telemetry.observe_step(time.perf_counter() - t0,
+                                   examples=int(x.shape[0]) * self._data.size,
+                                   step=self._step_count, kind="dist")
+            telemetry.goodput.step_end(step=self._step_count)
+        return NDArray(loss)
+
+    def _train_step(self, x, y):
+        """Forward, backward, the sums over ranks and the update of one
+        step on the placed batch; returns the mean loss (0-d f32)."""
+        o = self._optimizer
         self._block.train()
         with torch.enable_grad(), step_scope(self._mesh):
             out = self._call(x)
@@ -322,10 +348,7 @@ class DistributedTrainer:
             for i, (a, g, s) in enumerate(zip(self._arrays, grads,
                                               self._states)):
                 o.update(i, a, g, s)
-        telemetry.observe_step(time.perf_counter() - t0,
-                               examples=int(x.shape[0]) * n,
-                               step=self._step_count, kind="dist")
-        return NDArray(loss)
+        return loss
 
     def _sum_grads(self, grads, loss, scale):
         """``grads`` each summed over its axis (`_grad_axes`), then

@@ -11,10 +11,11 @@ LSTM layers run the LSTM kernels on the card.
 As in the JAX package, `begin_state`'s default zero state is a
 ``_rnn_state_zeros`` (``_rnn_fused_state_zeros``) node whose batch size
 comes from the unroll input, so it needs `unroll`; ``func=symbol.var``
-feeds the states as graph inputs instead. Not ported yet (ROADMAP queue 1
-item 9): ``DropoutCell``, ``ModifierCell``, ``ZoneoutCell``,
-``ResidualCell`` and ``BidirectionalCell``, so `FusedRNNCell.unfuse` of a
-bidirectional cell or one with dropout raises.
+feeds the states as graph inputs instead. The modifier cells
+(``DropoutCell``, ``ZoneoutCell``, ``ResidualCell``) and
+``BidirectionalCell`` are the JAX package's; `FusedRNNCell.unfuse` gives
+the equal stack of cells, bidirectional and with dropout between layers
+too.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from ..base import MXNetError
 from .. import symbol
 
 __all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
-           "FusedRNNCell", "SequentialRNNCell"]
+           "FusedRNNCell", "SequentialRNNCell", "DropoutCell", "ModifierCell",
+           "ZoneoutCell", "ResidualCell", "BidirectionalCell"]
 
 
 def _cells_state_info(cells):
@@ -521,13 +523,10 @@ class FusedRNNCell(BaseRNNCell):
         return args
 
     def unfuse(self):
-        """The equivalent `SequentialRNNCell` of unfused cells (reference:
-        rnn_cell.py unfuse); bidirectional or dropout stacks need cells not
-        ported yet and raise."""
-        if self._bidirectional or self._dropout > 0:
-            raise MXNetError("FusedRNNCell.unfuse: BidirectionalCell and "
-                             "DropoutCell are not ported yet (ROADMAP queue "
-                             "1 item 9)")
+        """The equivalent `SequentialRNNCell` of unfused cells, a
+        `BidirectionalCell` a layer when bidirectional and a `DropoutCell`
+        between layers when the fused cell has dropout (reference:
+        rnn_cell.py unfuse)."""
         stack = SequentialRNNCell()
         make = {"rnn_relu": lambda p: RNNCell(self._num_hidden,
                                               activation="relu", prefix=p),
@@ -538,7 +537,17 @@ class FusedRNNCell(BaseRNNCell):
                 "gru": lambda p: GRUCell(self._num_hidden, prefix=p)}[
                     self._mode]
         for i in range(self._num_layers):
-            stack.add(make("%sl%d_" % (self._prefix, i)))
+            if self._bidirectional:
+                stack.add(BidirectionalCell(
+                    make("%sl%d_" % (self._prefix, i)),
+                    make("%sr%d_" % (self._prefix, i)),
+                    output_prefix="%sbi_%d_" % (self._prefix, i)))
+            else:
+                stack.add(make("%sl%d_" % (self._prefix, i)))
+            if self._dropout > 0 and i != self._num_layers - 1:
+                stack.add(DropoutCell(self._dropout,
+                                      prefix="%s_dropout%d_"
+                                      % (self._prefix, i)))
         return stack
 
 
@@ -606,3 +615,175 @@ class SequentialRNNCell(BaseRNNCell):
                 merge_outputs=None if i < num_cells - 1 else merge_outputs)
             next_states.extend(states)
         return inputs, next_states
+
+
+class DropoutCell(BaseRNNCell):
+    """Dropout on cell outputs (reference: rnn_cell.py:827)."""
+
+    def __init__(self, dropout, prefix="dropout_", params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.dropout = dropout
+
+    @property
+    def state_info(self):
+        return []
+
+    def __call__(self, inputs, states):
+        if self.dropout > 0:
+            inputs = symbol.Dropout(inputs, p=self.dropout)
+        return inputs, states
+
+
+class ModifierCell(BaseRNNCell):
+    """Base for cells wrapping another cell (reference: rnn_cell.py:867)."""
+
+    def __init__(self, base_cell):
+        super().__init__()
+        base_cell._modified = True
+        self.base_cell = base_cell
+
+    @property
+    def params(self):
+        self._own_params = False
+        return self.base_cell.params
+
+    @property
+    def state_info(self):
+        return self.base_cell.state_info
+
+    def begin_state(self, func=None, **kwargs):
+        assert not self._modified
+        self.base_cell._modified = False
+        begin = self.base_cell.begin_state(func=func, **kwargs)
+        self.base_cell._modified = True
+        return begin
+
+    def unpack_weights(self, args):
+        return self.base_cell.unpack_weights(args)
+
+    def pack_weights(self, args):
+        return self.base_cell.pack_weights(args)
+
+    def __call__(self, inputs, states):
+        raise NotImplementedError()
+
+
+class ZoneoutCell(ModifierCell):
+    """Zoneout regularization (reference: rnn_cell.py:909): randomly
+    keeps previous states in place of new ones during training."""
+
+    def __init__(self, base_cell, zoneout_outputs=0.0, zoneout_states=0.0):
+        assert not isinstance(base_cell, FusedRNNCell), (
+            "FusedRNNCell does not support zoneout; unfuse() first.")
+        assert not isinstance(base_cell, BidirectionalCell), (
+            "BidirectionalCell does not support zoneout; apply zoneout to "
+            "the inner cells instead.")
+        super().__init__(base_cell)
+        self.zoneout_outputs = zoneout_outputs
+        self.zoneout_states = zoneout_states
+        self.prev_output = None
+
+    def reset(self):
+        super().reset()
+        self.prev_output = None
+
+    def __call__(self, inputs, states):
+        cell = self.base_cell
+        next_output, next_states = cell(inputs, states)
+        po, ps = self.zoneout_outputs, self.zoneout_states
+
+        def mask(p, like):
+            # Dropout emits a (scaled) Bernoulli keep-mask of `like`'s
+            # shape — the reference builds the mask the same way
+            return symbol.Dropout(symbol.ones_like(like), p=p)
+
+        prev_output = self.prev_output if self.prev_output is not None \
+            else symbol.zeros_like(next_output)
+        output = symbol.where(mask(po, next_output), next_output,
+                              prev_output) if po > 0 else next_output
+        states = [symbol.where(mask(ps, ns), ns, s)
+                  for ns, s in zip(next_states, states)] if ps > 0 \
+            else next_states
+        self.prev_output = output
+        return output, states
+
+
+class ResidualCell(ModifierCell):
+    """Adds the input to the cell output (reference: rnn_cell.py:957)."""
+
+    def __call__(self, inputs, states):
+        output, states = self.base_cell(inputs, states)
+        return symbol.elemwise_add(output, inputs), states
+
+    def unroll(self, length, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        self.reset()
+        self.base_cell._modified = False
+        outputs, states = self.base_cell.unroll(
+            length, inputs=inputs, begin_state=begin_state, layout=layout,
+            merge_outputs=merge_outputs)
+        self.base_cell._modified = True
+        merge = isinstance(outputs, symbol.Symbol) \
+            if merge_outputs is None else merge_outputs
+        inputs, _ = _normalize_sequence(length, inputs, layout, merge)
+        if merge:
+            outputs = symbol.elemwise_add(outputs, inputs)
+        else:
+            outputs = [symbol.elemwise_add(o, i)
+                       for o, i in zip(outputs, inputs)]
+        return outputs, states
+
+
+class BidirectionalCell(BaseRNNCell):
+    """Forward + backward cells over the sequence (reference:
+    rnn_cell.py:998). Only usable through unroll()."""
+
+    def __init__(self, l_cell, r_cell, params=None, output_prefix="bi_"):
+        super().__init__(prefix="", params=params)
+        self._output_prefix = output_prefix
+        self._cells = [l_cell, r_cell]
+
+    def unpack_weights(self, args):
+        return _cells_unpack_weights(self._cells, args)
+
+    def pack_weights(self, args):
+        return _cells_pack_weights(self._cells, args)
+
+    def __call__(self, inputs, states):
+        raise MXNetError("BidirectionalCell cannot be stepped: use "
+                         "unroll() (the reference's behaviour)")
+
+    @property
+    def state_info(self):
+        return _cells_state_info(self._cells)
+
+    def begin_state(self, **kwargs):
+        assert not self._modified
+        return _cells_begin_state(self._cells, **kwargs)
+
+    def unroll(self, length, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        self.reset()
+        inputs, axis = _normalize_sequence(length, inputs, layout, False)
+        self._set_begin_ref(inputs[0])
+        if begin_state is None:
+            begin_state = self.begin_state()
+        l_cell, r_cell = self._cells
+        n_l = len(l_cell.state_info)
+        l_outputs, l_states = l_cell.unroll(
+            length, inputs=inputs, begin_state=begin_state[:n_l],
+            layout=layout, merge_outputs=merge_outputs)
+        r_outputs, r_states = r_cell.unroll(
+            length, inputs=list(reversed(inputs)),
+            begin_state=begin_state[n_l:], layout=layout,
+            merge_outputs=False)
+        r_outputs = list(reversed(r_outputs))
+        if merge_outputs is None:
+            merge_outputs = isinstance(l_outputs, symbol.Symbol)
+        l_list, _ = _normalize_sequence(length, l_outputs, layout, False)
+        outputs = [symbol.Concat(l, r, dim=1,
+                                 name="%st%d" % (self._output_prefix, i))
+                   for i, (l, r) in enumerate(zip(l_list, r_outputs))]
+        outputs, _ = _normalize_sequence(length, outputs, layout,
+                                         merge_outputs)
+        return outputs, l_states + r_states

@@ -6,8 +6,8 @@ count an `Autoscaler` can steer from the SLO verdicts."""
 from .autoscaler import Autoscaler
 from .batcher import (DeadlineExceededError, DrainingError, DynamicBatcher,
                       MemoryBudgetError, ModelUnavailableError,
-                      OverloadedError, QueueFullError, ServingError,
-                      bucket_for, drain_timeout_s, pad_batch,
+                      OverloadedError, QueueFullError, ServeRequest,
+                      ServingError, bucket_for, drain_timeout_s, pad_batch,
                       power_of_two_buckets)
 from .generate import (GenerateScheduler, GenRequest, KVPageAllocator,
                        ServedLM, TransformerLMEngine, load_lm, save_lm)
@@ -19,7 +19,7 @@ __all__ = ["Autoscaler", "ServingError", "QueueFullError",
            "DeadlineExceededError",
            "ModelUnavailableError", "DrainingError", "OverloadedError",
            "MemoryBudgetError", "drain_timeout_s", "power_of_two_buckets",
-           "bucket_for", "pad_batch", "DynamicBatcher", "KVPageAllocator",
+           "bucket_for", "pad_batch", "ServeRequest", "DynamicBatcher", "KVPageAllocator",
            "GenRequest", "GenerateScheduler", "TransformerLMEngine",
            "ServedLM", "save_lm", "load_lm", "ServedModel", "build_runner",
            "ModelRepository", "ReplicaPool", "ServingServer"]

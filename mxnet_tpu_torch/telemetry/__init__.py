@@ -6,7 +6,9 @@
     endpoint with ``/statusz`` (``MXTPU_TELEMETRY_PORT``): `core.py`;
   * `record_event` / `record_step` / `dump`: the event ring, the hang
     watchdog and the SIGUSR1 dumps: `recorder.py`;
-  * `observe_step`: the call a training step makes.
+  * `observe_step`: the call every trainer's step makes: step seconds,
+    examples/s, the achieved MFU (`set_step_flops`, ``MXTPU_STEP_FLOPS``,
+    or the automatic count of `flops`) and the watchdog's heartbeat.
 
 The SLO engine (`slo`), FLOP accounting (`flops`), memory attribution
 (`memory`), goodput accounting (`goodput`) and tracing (`tracing`) are
@@ -14,6 +16,7 @@ submodules, as in the JAX package.
 """
 from __future__ import annotations
 
+from .. import env as _env
 from .core import (  # noqa: F401
     BYTE_BOUNDS, LATENCY_BOUNDS, counter, enabled, flush, gauge,
     get_registry, histogram, prometheus_text, rank, restart_generation,
@@ -30,7 +33,6 @@ from . import goodput  # noqa: F401
 from . import memory  # noqa: F401
 from . import slo  # noqa: F401
 from . import tracing
-from ..base import MXNetError
 
 __all__ = [
     "counter", "gauge", "histogram", "enabled", "set_enabled", "snapshot",
@@ -43,15 +45,45 @@ __all__ = [
 ]
 
 
+# ---------------------------------------------------------------------------
+# step-level instrumentation (shared by gluon.Trainer, DistributedTrainer,
+# PipelineTrainer and the Module.fit loop)
+# ---------------------------------------------------------------------------
+
+_STEP_FLOPS = [None]     # model FLOPs an optimizer step (fwd + bwd), if set
+_PEAK_FLOPS = [False]    # False = not resolved yet; None = unknown card
+
+
 def set_step_flops(flops):
-    """The achieved-MFU gauge is not ported (ROADMAP queue 1 item 13, with
-    `slo.wire_training`'s MFU floor)."""
-    raise MXNetError("telemetry.set_step_flops feeds the MFU gauge, which "
-                     "is not ported yet (ROADMAP queue 1 item 13)")
+    """Declare the model's FLOPs a training step, so `observe_step`
+    publishes the achieved MFU against `runtime.chip_peak_tflops`.
+    ``MXTPU_STEP_FLOPS`` is the environment's spelling; 0 or None clears
+    it, and the automatic count (`flops`) takes over."""
+    _STEP_FLOPS[0] = float(flops) if flops else None
 
 
-_STEP_METRICS = {}  # kind -> (hist, steps, examples, eps): the per-step
-                    # path pays no registry lookups
+if _env.is_set("MXTPU_STEP_FLOPS"):
+    _step_flops_env = _env.get("MXTPU_STEP_FLOPS")
+    if _step_flops_env is not None:  # a malformed value leaves it unset
+        set_step_flops(_step_flops_env)
+
+
+def _peak_flops():
+    """Summed peak bf16 FLOP/s of the visible CUDA cards (resolved once;
+    None on the CPU or for a card the peak table lacks)."""
+    if _PEAK_FLOPS[0] is False:
+        import torch
+
+        from .. import runtime
+
+        per_card = runtime.chip_peak_tflops()
+        _PEAK_FLOPS[0] = per_card * 1e12 * torch.cuda.device_count() \
+            if per_card else None
+    return _PEAK_FLOPS[0]
+
+
+_STEP_METRICS = {}  # kind -> (hist, steps, examples, eps, mfu, auto): the
+                    # per-step path pays no registry lookups
 
 
 def _step_metrics(kind):
@@ -61,7 +93,9 @@ def _step_metrics(kind):
         m = (_core._REGISTRY.histogram("mxtpu_step_seconds", labels),
              _core._REGISTRY.counter("mxtpu_steps_total", labels),
              _core._REGISTRY.counter("mxtpu_examples_total", labels),
-             _core._REGISTRY.gauge("mxtpu_examples_per_sec", labels))
+             _core._REGISTRY.gauge("mxtpu_examples_per_sec", labels),
+             _core._REGISTRY.gauge("mxtpu_step_mfu", labels),
+             _core._REGISTRY.gauge("mxtpu_step_flops_auto", labels))
         _STEP_METRICS[kind] = m
     return m
 
@@ -69,18 +103,34 @@ def _step_metrics(kind):
 def observe_step(duration_s, examples=None, step=None, kind="train"):
     """Record one training step under the JAX package's names, labelled
     ``kind``: the ``mxtpu_step_seconds`` histogram (with the step's trace
-    id as exemplar when it is traced), the ``mxtpu_steps_total`` and
-    ``mxtpu_examples_total`` counters, the ``mxtpu_examples_per_sec``
-    gauge, and the flight recorder's heartbeat (`record_step`, which feeds
-    the watchdog). The MFU gauge, the training SLO objectives and the
-    per-step memory probe wait with the trainers' goodput hooks (ROADMAP
-    queue 1 item 13)."""
+    id as exemplar when it is traced), the per-step peak-memory growth,
+    the ``mxtpu_steps_total`` and ``mxtpu_examples_total`` counters, the
+    ``mxtpu_examples_per_sec`` gauge, the achieved-MFU gauge
+    ``mxtpu_step_mfu`` (FLOPs from `set_step_flops` when declared, else
+    the automatic count since the last step, also published as
+    ``mxtpu_step_flops_auto``), and the flight recorder's heartbeat
+    (`record_step`, which feeds the watchdog). The first step of each
+    ``kind`` registers its optional SLO objectives (`slo.wire_training`).
+    Host clocks and counters only: nothing here waits for the card."""
     if not _core._STATE.enabled:
         return
-    hist, c_steps, c_examples, g_eps = _step_metrics(kind)
-    hist.observe(duration_s, exemplar=tracing.current_trace_id())
+    if kind not in slo._STATE.wired_train:
+        slo.wire_training(kind)
+    hist, c_steps, c_examples, g_eps, g_mfu, g_auto = _step_metrics(kind)
+    trace_id = tracing.current_trace_id()
+    hist.observe(duration_s, exemplar=trace_id)
+    memory.observe_step_delta(exemplar=trace_id)
+    memory.ensure_poller()
     c_steps.inc()
     if examples is not None and duration_s > 0:
         c_examples.inc(int(examples))
         g_eps.set(examples / duration_s)
+    auto = flops.take_step_delta() if flops.enabled() else 0.0
+    step_flops = _STEP_FLOPS[0] or auto
+    if step_flops and duration_s > 0:
+        if auto and not _STEP_FLOPS[0]:
+            g_auto.set(auto)
+        peak = _peak_flops()
+        if peak:
+            g_mfu.set((step_flops / duration_s) / peak)
     record_step(step)

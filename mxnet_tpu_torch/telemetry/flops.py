@@ -11,12 +11,26 @@ prices each padding bucket the same way at warm-up (`counted_call`).
 
 The port's own CUDA kernels run outside PyTorch's dispatcher and are
 invisible to that counter, so each one that does arithmetic reports its
-FLOPs by formula from its shapes where it launches (`kernel`): the paged
-decode attention adds ``4 * B * H * L * D`` (L the page table's token
-capacity), the count the counter gives its plain version on the CPU.
-Inside a counted call the figure joins the count; inside an instrumented
-call already priced it is part of the remembered figure; anywhere else
-it accumulates directly.
+FLOPs by formula from its shapes where it launches (`kernel`): the count
+the counter gives its plain version on the CPU at the same shapes (the
+paged decode attention ``4 * B * H * L * D``, L the page table's token
+capacity; flash attention ``4``, ``6`` and ``8 * BH * Lq * Lk * D`` for
+the forward, dQ and dK/dV; each LSTM kernel ``8 * T * B * H^2``). The
+conv-epilogue kernels do elementwise work, which neither XLA's count nor
+the counter's includes, and report nothing. Inside a counted call the
+figure joins the count; inside an instrumented call already priced it is
+part of the remembered figure; anywhere else it accumulates directly. A
+kernel's backward runs on the autograd engine's device thread, so the
+autograd Functions carry their forward's accumulator to it (`sink`,
+`reporting_to`): the plain version on the CPU is counted by the counter
+alone, and no kernel is counted twice.
+
+The trainers' eager step is counted once a shape signature by
+`instrument` (the counterpart of the JAX package instrumenting its step
+executable): the step's first call at a signature runs under the counter,
+which the smoke's warm-up steps absorb, and every later step adds the
+remembered figure. `observe_step` takes the FLOPs since the previous step
+(`take_step_delta`), and `last_step_flops` keeps the last nonzero one.
 
 ``MXTPU_TRACE_FLOPS=0`` (or ``MXTPU_TELEMETRY=0``) turns all of it off.
 """
@@ -27,7 +41,8 @@ import threading
 from .. import env as _env
 from . import core
 
-__all__ = ["enabled", "accumulate", "total", "take_step_delta", "kernel",
+__all__ = ["enabled", "accumulate", "total", "take_step_delta",
+           "last_step_flops", "kernel", "sink", "reporting_to",
            "counted_call", "measure", "PerShapeFlops", "instrument"]
 
 
@@ -36,6 +51,7 @@ class _FlopState:
         self.enabled = None     # None = read env lazily, cache after
         self.total = 0.0        # FLOPs executed since process start
         self.step_mark = 0.0    # total at the last observe_step
+        self.last_step = None   # FLOPs attributed to the last step
 
 
 _STATE = _FlopState()
@@ -72,7 +88,15 @@ def take_step_delta():
     t = _STATE.total
     delta = t - _STATE.step_mark
     _STATE.step_mark = t
+    if delta > 0:
+        _STATE.last_step = delta
     return delta
+
+
+def last_step_flops():
+    """The most recent nonzero per-step FLOP count (the smoke prints it
+    beside PERF.md's hand count)."""
+    return _STATE.last_step
 
 
 def kernel(flops):
@@ -87,13 +111,54 @@ def kernel(flops):
         acc[0] += flops
 
 
-def _flop_counter_mode():
-    """`FlopCounterMode`, without the import its first use pays. torch
-    guards a dispatch mode's handler against dynamo tracing with a wrapper
-    that imports ``torch._dynamo`` the first time it runs: seconds, once
-    in every process, and so in every replica's warm-up. The port traces
-    nothing with dynamo, so the handler is marked as guarded already; a
-    torch without the wrapper is left as it is."""
+def sink():
+    """Where a kernel launched on this thread now reports: the counted
+    call's accumulator, the priced mark, or None. An autograd Function
+    keeps its forward's and hands it to its backward (`reporting_to`)."""
+    return getattr(_TLS, "acc", None)
+
+
+class reporting_to:
+    """``with reporting_to(s):`` kernels launched on this thread report to
+    ``s`` (a value of `sink`), as they did where ``s`` was taken."""
+
+    __slots__ = ("_acc", "_prev")
+
+    def __init__(self, acc):
+        self._acc = acc
+
+    def __enter__(self):
+        self._prev = getattr(_TLS, "acc", None)
+        _TLS.acc = self._acc
+        return self
+
+    def __exit__(self, *exc):
+        _TLS.acc = self._prev
+
+
+class _NoModules:
+    """Stands in for `FlopCounterMode`'s module tracker: every count goes
+    to the total ("Global") alone."""
+
+    parents = ("Global",)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _flop_counter():
+    """A `FlopCounterMode` without the import its first use pays and
+    without its module tracker. torch guards a dispatch mode's handler
+    against dynamo tracing with a wrapper that imports ``torch._dynamo``
+    the first time it runs: seconds, once in every process, and so in
+    every replica's warm-up; the port traces nothing with dynamo, so the
+    handler is marked as guarded already (a torch without the wrapper is
+    left as it is). The tracker attributes counts to modules through
+    backward hooks that `torch.autograd.grad` refuses (the trainers'
+    step takes its gradients so), and the port reads only the total."""
     from torch.utils import flop_counter
 
     handler = getattr(flop_counter, "_FlopCounterMode", None)
@@ -101,7 +166,9 @@ def _flop_counter_mode():
                   "__wrapped__", None)
     if raw is not None and getattr(raw, "__dynamo_disable", None) is None:
         setattr(raw, "__dynamo_disable", raw)
-    return flop_counter.FlopCounterMode
+    counter = flop_counter.FlopCounterMode(display=False)
+    counter.mod_tracker = _NoModules()
+    return counter
 
 
 def counted_call(fn, *args, **kwargs):
@@ -111,13 +178,11 @@ def counted_call(fn, *args, **kwargs):
     intercepts every op of the call but never synchronises the device."""
     if not enabled():
         return fn(*args, **kwargs), None
-    FlopCounterMode = _flop_counter_mode()
-
     prev = getattr(_TLS, "acc", None)
     acc = [0.0]
     _TLS.acc = acc
     try:
-        with FlopCounterMode(display=False) as counter:
+        with _flop_counter() as counter:
             out = fn(*args, **kwargs)
     finally:
         _TLS.acc = prev

@@ -15,9 +15,10 @@ of the last ``MXTPU_GOODPUT_WINDOW_STEPS`` steps feeds the
 ``/statusz`` ``training`` block; time between steps accumulates in the
 cumulative-only ``between_steps`` phase.
 
-The port's trainers do not bracket their steps yet (ROADMAP queue 1
-item 13, the trainers' goodput hooks): the block reads empty until they
-do, and the flight recorder's dump carries it as it is. Accounting state
+The port's trainers bracket their steps as the JAX package's do:
+`DistributedTrainer.step` (kind "dist"), `gluon.Trainer.step` ("train"),
+`Module.fit` ("fit", back-dated to the data wait) and
+`PipelineTrainer.step` ("pipeline"). Accounting state
 is thread-local; the read paths used by signal handlers (:func:`snapshot`,
 :func:`statusz_block`) are lock-free.
 """

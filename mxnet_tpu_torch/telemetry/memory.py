@@ -26,11 +26,14 @@ Counterpart of `mxnet_tpu/telemetry/memory.py`, under its names:
     signal-safe (plain dict reads, one /proc read, the last device sample,
     no locks).
 
-Not ported, and queued: the NDArray live accounting (ROADMAP queue 1 item
-13): the hooks ``ndarray_created`` / ``_freed`` / ``_resized`` do nothing,
-``ndarray_live`` reads ``(0, 0)`` and the dump's ``ndarray`` block is
-None; and `verify_donation`, which checks XLA buffer donation (the port
-updates in place; captured graphs are item 2): it raises.
+The NDArray live accounting: the port's `NDArray` calls
+``ndarray_created`` / ``_freed`` / ``_resized`` from its constructor,
+``__del__`` and a resizing `_set_data`; ``ndarray_live`` reads the count
+and bytes, which `sample` publishes as ``mxtpu_ndarray_live`` /
+``_live_bytes`` and the dump carries as its ``ndarray`` block. Not
+ported, and queued: `verify_donation`, which checks XLA buffer donation
+(the port updates in place; captured graphs are ROADMAP queue 1 item 2):
+it raises.
 """
 from __future__ import annotations
 
@@ -100,6 +103,7 @@ class _MemState:
         self.last_donation = None
         self.poller = None
         self.poller_decided = False
+        self.nd_live = [0, 0]    # [count, bytes]: the NDArray hooks
 
 
 _STATE = _MemState()
@@ -113,6 +117,9 @@ _DECIDE_LOCK = threading.Lock()
 def _reset_after_fork():
     st = _MemState()
     st.executables = dict(_STATE.executables)  # attribution is still true
+    # the arrays a child inherits are alive there, and their __del__
+    # takes them off: the counts carry over, or the gauges go negative
+    st.nd_live = list(_STATE.nd_live)
     globals()["_STATE"] = st
 
 
@@ -398,22 +405,33 @@ def sample_devices():
 
 
 def ndarray_created(nbytes):
-    """NDArray live accounting is not ported (ROADMAP queue 1 item 13):
-    a no-op."""
+    """NDArray constructor hook (ndarray.py): plain list adds, since this
+    is the imperative hot path."""
+    st = _STATE.nd_live
+    st[0] += 1
+    st[1] += nbytes
 
 
 def ndarray_freed(nbytes):
-    """Not ported (item 13): a no-op."""
+    """NDArray ``__del__`` hook. Never raises: interpreter shutdown may
+    have torn half the module down already."""
+    try:
+        st = _STATE.nd_live
+        st[0] -= 1
+        st[1] -= nbytes
+    except Exception:
+        pass
 
 
 def ndarray_resized(delta):
-    """Not ported (item 13): a no-op."""
+    """`NDArray._set_data` swapped in a buffer of another size."""
+    _STATE.nd_live[1] += delta
 
 
 def ndarray_live():
-    """(live_count, live_bytes): (0, 0) until the NDArray accounting is
-    ported (item 13)."""
-    return 0, 0
+    """(live_count, live_bytes) of the NDArray handles this process
+    holds."""
+    return _STATE.nd_live[0], _STATE.nd_live[1]
 
 
 def sample(devices=True):
@@ -430,6 +448,9 @@ def sample(devices=True):
             core.gauge("mxtpu_process_rss_bytes").set(proc["rss"])
         if "vmhwm" in proc:
             core.gauge("mxtpu_process_vmhwm_bytes").set(proc["vmhwm"])
+    live, live_bytes = ndarray_live()
+    core.gauge("mxtpu_ndarray_live").set(live)
+    core.gauge("mxtpu_ndarray_live_bytes").set(live_bytes)
     if devices:
         sample_devices()
     return proc
@@ -539,7 +560,8 @@ def snapshot(top_n=10):
         "devices_sampled_ago_s":
             None if _STATE.devices_ts is None
             else round(time.time() - _STATE.devices_ts, 1),
-        "ndarray": None,   # the NDArray accounting: item 13
+        "ndarray": {"live": _STATE.nd_live[0],
+                    "live_bytes": _STATE.nd_live[1]},
         "executables_by_temp": executables_top(top_n),
         "donation": _STATE.last_donation,
     }

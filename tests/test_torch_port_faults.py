@@ -78,6 +78,9 @@ showed it, on the CPU:
     with `pallas_kernels._FlashAttention` recording what it is handed:
     contiguous (BH, L, D) tensors, and the layer's output equal to the
     JAX layer's on the same weights.
+20. F9: three names the JAX package exports were missing: ``mx.Symbol``,
+    ``gluon.nn.SymbolBlock`` and ``serving.ServeRequest``. Each is now the
+    port's own object of that role, as the JAX package binds its own.
 
 Float results within 1e-6 relative and absolute (both sides compute in f32
 from the same inputs); integer results and shapes exactly. A whole net's
@@ -843,3 +846,18 @@ def test_attention_at_batch_one_hands_the_kernels_contiguous_heads_f8(
     assert seen == [[True, True, True]]
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
+
+
+def test_f9_exports_name_the_jax_packages_objects():
+    from mxnet_tpu.gluon import nn as jnn
+    from mxnet_tpu import serving as jserving
+    from mxnet_tpu_torch import gluon, serving
+    from mxnet_tpu_torch.serving import batcher
+
+    assert mx.Symbol is mx.sym.Symbol
+    assert tnn.SymbolBlock is gluon.SymbolBlock
+    assert serving.ServeRequest is batcher.ServeRequest
+    assert "Symbol" in mx.__all__ and mx_j.Symbol is mx_j.sym.Symbol
+    assert "SymbolBlock" in tnn.__all__ and hasattr(jnn, "SymbolBlock")
+    assert "ServeRequest" in serving.__all__ and \
+        hasattr(jserving, "ServeRequest")

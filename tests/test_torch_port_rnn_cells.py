@@ -233,8 +233,14 @@ def test_fused_cell_unpack_pack_and_unfuse_match_jax(cpu, mode):
     np.testing.assert_allclose(unf_ex.forward(data=x)[0].asnumpy(),
                                fused_ex.forward(data=x)[0].asnumpy(),
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(MXNetError, match="item 9"):
-        _fused_pair(mode, bidirectional=True)[1].unfuse()
+    # a bidirectional stack unfuses into the JAX package's graph too
+    bi = []
+    for m, cell in zip((jmx, mx), _fused_pair(mode, bidirectional=True)):
+        with m.name.NameManager():
+            bi.append(cell.unfuse().unroll(5, m.sym.var("data"),
+                                           layout="NTC",
+                                           merge_outputs=True)[0])
+    assert json.loads(bi[1].tojson()) == json.loads(bi[0].tojson())
 
 
 @pytest.mark.parametrize("cell", ["RNNCell", "LSTMCell", "GRUCell"])
