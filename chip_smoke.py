@@ -514,6 +514,37 @@ Phases; each raises on failure, and the script then exits non-zero:
    verdict's recovery and from the last request to the scale-down;
    generated tokens/s at 1 and at 2 replicas; peak bytes a replica; with
    the card's name and power limit.
+23. resilience (after dist_kv; cuDNN's deterministic algorithms and no
+   TF32 in every process of it): (a) ``python -m mxnet_tpu_torch.launch
+   -n 1 --max-restarts 1`` of this script (``--resilience-child DIR``):
+   ResNet-50 v1 NHWC bf16 at 128 images through `DistributedTrainer`
+   (SGD momentum 0.9, wd 1e-4, lr 0.02), an async checkpoint every 2
+   steps (`CheckpointManager.maybe_save_async` of the trainer's
+   snapshots), preempted at step 4 by ``MXTPU_FAULT_INJECT=preempt@step=
+   4,grace=60``; generation 0 lands an emergency checkpoint and exits 83,
+   the launcher restarts it without using its budget, generation 1
+   restores and reaches step 8. Gates: the launcher's free restart; the
+   emergency checkpoint at step 4; the parameters, buffers and momentum
+   equal to an uninterrupted run in this process bit for bit (else within
+   two reference runs' difference); each generation's epilogue launches >
+   0. (b) the word LM (`RNNModel`'s width as a `BucketingModule` over
+   FusedRNNCell, f32) through ``fit(checkpoint_dir=, num_epoch=2)`` with a
+   `Monitor`, then ``corrupt_ckpt`` on the newest checkpoint and a fresh
+   module's ``fit(resume="auto")``: it falls back to the verified older
+   one and ends equal to the uninterrupted fit bit for bit; the monitor's
+   first row equals a CPU forward's within 1e-5 of the statistic;
+   lstm_fwd, lstm_bwd and (in each epoch's `score`) lstm_infer launched. (c) ResNet-50 f32 at 32 images over
+   ``fsdp`` 2 (two gloo ranks of the launcher sharing the card), a
+   sharded checkpoint every 2 steps, rank 1 preempted at step 3 (its
+   emergency checkpoint refused: its shard cannot restore the model);
+   one rank restores elastically and reaches step 6: the restore equals
+   the two ranks' model bit for bit, their first loss the one-rank run's
+   within ``ranks2``'s rtol 1e-5 of losses, the end one rank resuming
+   here bit for bit (the weights' drift from the one-rank run printed). Prints SIGTERM to rc 83, the restart to the first resumed
+   step, a checkpoint's bytes and seconds (sync, and the async save's
+   share on the training thread), steps/s with and without saves, the
+   phase's seconds, with the card's name and power limit; its launches
+   are the ``launches_resilience`` counts.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -9700,6 +9731,786 @@ def dist_kv_phase(torch, pk, args):
     return dict(zip(EPI_KERNELS, g0["launches"].tolist()))
 
 
+# ---------------------------------------------------------------------------
+# phase 23, resilience: checkpoints, preemption and elastic resume of the
+# ResNet-50 trainer through the port's launcher, and checkpoints during the
+# word LM's fit
+# ---------------------------------------------------------------------------
+
+RES_BATCH, RES_STEPS, RES_PREEMPT, RES_EVERY = 128, 8, 4, 2
+RES_TIMED = 6                   # steps timed with and without saves
+RES_TIMEOUT = 300               # each launch
+RES_FSDP_BATCH, RES_FSDP_STEPS, RES_FSDP_PREEMPT = 32, 6, 3
+RES_LM_PLAN = (35, 10, 20)      # an epoch's buckets, in order
+RES_LM_EPOCHS = 2
+RES_MON_TOL = 1e-5              # of each statistic's scale
+
+
+def deterministic(torch):
+    """Full-f32 products and cuDNN's deterministic algorithms: two runs of
+    a step give the same bits, so a resumed run can be held to an
+    uninterrupted one bit for bit. Returns the settings it replaced."""
+    cud = torch.backends.cudnn
+    prev = (torch.backends.cuda.matmul.allow_tf32, cud.allow_tf32,
+            cud.benchmark, cud.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cud.allow_tf32, cud.benchmark, cud.deterministic = False, False, True
+    return prev
+
+
+def restore_flags(torch, prev):
+    cud = torch.backends.cudnn
+    (torch.backends.cuda.matmul.allow_tf32, cud.allow_tf32, cud.benchmark,
+     cud.deterministic) = prev
+
+
+def resilience_trainer(torch, seed, batch=RES_BATCH, amp="bfloat16",
+                       mesh=None):
+    """ResNet-50 v1 NHWC with the fused epilogue on the card, initialised
+    from ``seed``, trained by `DistributedTrainer` (SGD momentum 0.9, wd
+    1e-4, lr 0.02, ``amp`` over f32 masters) on ``mesh``; and its batch of
+    ``batch`` images from the seed. Returns (net, trainer, x, y)."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    with gnn.layout_scope():
+        net = resnet50_v1(classes=1000, fuse_epilogue=True, device="cuda")
+    net.initialize(seed=seed)
+    trainer = parallel.DistributedTrainer(
+        net, "sgd", {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4},
+        loss=gloss.SoftmaxCrossEntropyLoss(), amp_dtype=amp, mesh=mesh)
+    rng = np.random.RandomState(seed + 2)
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, 224, 224, 3))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, batch)).cuda()
+    return net, trainer, x, y
+
+
+def model_arrays(net):
+    """The block's parameters and buffers as host arrays by name."""
+    return {"param:" + k: v.detach().float().cpu().numpy()
+            for k, v in net.state_dict().items()}
+
+
+def trained_arrays(net, trainer, workdir):
+    """The block's parameters and buffers and the optimizer's states as
+    host arrays by name (the states through `save_states`' blob)."""
+    import pickle
+
+    out = model_arrays(net)
+    path = os.path.join(workdir, "states-%d.pkl" % os.getpid())
+    trainer.save_states(path)
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    os.unlink(path)
+    for i, st in enumerate(blob["states"]):
+        leaves = st if isinstance(st, (list, tuple)) else [st]
+        for j, leaf in enumerate(leaves):
+            if leaf is not None:
+                out["state:%d:%d" % (i, j)] = np.asarray(leaf)
+    return out
+
+
+def digest(arrays, prefix):
+    """sha-256 over the arrays named ``prefix...``, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        if k.startswith(prefix):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+def max_diff(a, b):
+    """The largest |a - b| over the arrays both hold."""
+    return max(float(np.abs(a[k].astype(np.float64)
+                            - b[k].astype(np.float64)).max()) for k in a)
+
+
+def equal_or_within(what, got, ref, second_ref):
+    """``got`` equal to ``ref`` bit for bit; else a second reference run
+    (``second_ref()``) must differ from the first, and ``got`` must lie
+    within that difference. Returns a description."""
+    assert sorted(got) == sorted(ref), what
+    bad = [k for k in ref if not np.array_equal(got[k], ref[k])]
+    if not bad:
+        return "bit for bit"
+    spread = max_diff(second_ref(), ref)
+    err = max_diff(got, ref)
+    if spread == 0.0 or err > spread:
+        raise AssertionError(
+            "%s: %d arrays differ from the reference (largest %r) and two "
+            "reference runs differ by %r" % (what, len(bad), err, spread))
+    return "within two reference runs' difference (%r <= %r)" % (err, spread)
+
+
+class LineLog:
+    """A command's merged output, read line by line on a thread with the
+    wall time each line arrived."""
+
+    def __init__(self, argv, env):
+        self.lines = []
+        self.proc = subprocess.Popen(
+            argv, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.time(), line.rstrip("\n")))
+
+    def wait(self, timeout):
+        try:
+            self.proc.wait(timeout=timeout)
+        except BaseException:
+            # the launcher takes its workers down on SIGTERM
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            raise
+        self._t.join(timeout=10)
+        return self.proc.returncode
+
+    def text(self):
+        return "\n".join(line for _, line in self.lines)
+
+    def first(self, pattern):
+        """(time, match) of the first line matching ``pattern``."""
+        for t, line in self.lines:
+            m = re.search(pattern, line)
+            if m:
+                return t, m
+        raise AssertionError("no line matches %r in:\n%s"
+                             % (pattern, self.text()[-4000:]))
+
+
+def resilience_launch(args, n, out_dir, mode, fault=None, restarts=0):
+    """``python -m mxnet_tpu_torch.launch -n n`` of `resilience_child`."""
+    env = dict(os.environ, MXTPU_RENDEZVOUS_TIMEOUT="120",
+               MXTPU_TEARDOWN_GRACE="5")
+    env.pop("MXTPU_FAULT_INJECT", None)
+    if fault:
+        env["MXTPU_FAULT_INJECT"] = fault
+    if mode == "fsdp":
+        # the periodic sharded saves are synchronous: a rank that dies
+        # never leaves its peer's manifest unpublished
+        env["MXTPU_CKPT_ASYNC"] = "0"
+    argv = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", str(n),
+            "--launcher", "local"]
+    if restarts:
+        argv += ["--max-restarts", str(restarts), "--restart-backoff", "0"]
+    return LineLog(argv + ["--", sys.executable, os.path.abspath(__file__),
+                           "--seed", str(args.seed), "--resilience-child",
+                           out_dir, "--resilience-mode", mode], env)
+
+
+def resilience_child(out_dir, seed, mode):
+    """One process of the resilience phase, started by the port's launcher.
+    ``single``: ResNet-50 bf16 at 128 images, `RES_STEPS` steps, an async
+    checkpoint every `RES_EVERY` (`CheckpointManager.maybe_save_async`),
+    the preemption handler armed, a restore at start. ``fsdp``: ResNet-50
+    f32 at `RES_FSDP_BATCH` images over ``fsdp`` = the world size (gloo
+    ranks sharing the card), `RES_FSDP_STEPS` steps, a sharded checkpoint
+    every `RES_EVERY`, the elastic restore at start; over two ranks, rank
+    0 writes the whole model at the first checkpoint (`sync_params`), and
+    a resumed process writes what it restored. Each process writes its
+    epilogue launch counts and losses; the last generation's rank 0 its
+    trained arrays."""
+    import torch
+
+    deterministic(torch)
+    torch.cuda.set_device(0)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.parallel import resilience
+
+    gen = resilience.restart_generation()
+    fsdp = mode == "fsdp"
+    if fsdp:
+        parallel.init_process_group(backend="gloo")
+        rank, world = parallel.rank(), parallel.num_workers()
+        net, tr, x, y = resilience_trainer(
+            torch, seed, RES_FSDP_BATCH, amp=None,
+            mesh=parallel.make_mesh([("fsdp", world)]))
+        steps = RES_FSDP_STEPS
+    else:
+        rank, world = 0, 1
+        net, tr, x, y = resilience_trainer(torch, seed)
+        steps = RES_STEPS
+    tag = "%s-w%d-g%d-r%d" % (mode, world, gen, rank)
+    kernels = EPI_KERNELS + EPI_SYNC_KERNELS
+    for k in kernels:
+        getattr(pk, k).launches = 0
+    mgr = resilience.CheckpointManager(os.path.join(out_dir, "ckpt"),
+                                       keep_last=3, save_every=RES_EVERY)
+    resilience.install_preemption_handler()
+    t0 = time.time()
+    if fsdp:
+        header = tr.restore_sharded_checkpoint(mgr)
+    else:
+        header = mgr.restore(load_params=tr.load_params,
+                             load_states=tr.load_states)
+    start = tr.step_count
+    if header is not None and fsdp:
+        if world > 1:
+            tr.sync_params()
+        np.savez(os.path.join(out_dir, "restored-%s.npz" % tag),
+                 **model_arrays(net))
+    if header is not None:
+        print("RESILIENCE_RESUMED mode=%s gen=%d rank=%d/%d from_step=%d "
+              "shards=%s restore_s=%.3f" % (
+                  mode, gen, rank, world, start, header.get("shards"),
+                  time.time() - t0), flush=True)
+
+    def write(name, obj):
+        with open(os.path.join(out_dir, "%s-%s.json" % (tag, name)),
+                  "w") as f:
+            json.dump(obj, f)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: getattr(pk, k).launches for k in kernels}
+
+    losses = []
+
+    def emergency():
+        write("counts", counts())   # the exit follows the save
+        write("losses", [float(v) for v in losses])
+        if fsdp:
+            tr.emergency_sharded_checkpoint(mgr)
+        else:
+            mgr.flush()
+            mgr.save(tr.step_count, save_params=tr.save_params,
+                     save_states=tr.save_states, meta={"preempt": True})
+        print("RESILIENCE_EMERGENCY step=%d t=%.6f"
+              % (tr.step_count, time.time()), flush=True)
+
+    for step in range(start + 1, steps + 1):
+        losses.append(tr.step(x, y)._data)
+        if step == start + 1 and header is not None:
+            torch.cuda.synchronize()
+            print("RESILIENCE_FIRST_STEP step=%d t=%.6f"
+                  % (step, time.time()), flush=True)
+        if fsdp:
+            if step % RES_EVERY == 0:
+                tr.save_sharded_checkpoint(mgr)
+            if world > 1 and step == RES_EVERY:
+                # the whole model at the first checkpoint, for the check of
+                # the elastic restore
+                tr.sync_params()
+                if rank == 0:
+                    np.savez(os.path.join(out_dir, "at-ckpt-%s.npz" % tag),
+                             **model_arrays(net))
+        else:
+            mgr.maybe_save_async(step, snapshot_params=tr.snapshot_params,
+                                 snapshot_states=tr.snapshot_states)
+        if resilience.preemption_requested():
+            # the fault's SIGTERM lands at the end of the step's call
+            print("RESILIENCE_SIGTERM step=%d t=%.6f" % (step, time.time()),
+                  flush=True)
+        resilience.maybe_preempt_exit(emergency_save=emergency, rank=rank)
+    mgr.close()
+    if fsdp:
+        tr.sync_params()
+    write("counts", counts())
+    write("losses", [float(v) for v in losses])
+    if rank == 0:
+        arrays = trained_arrays(net, tr, out_dir)
+        np.savez(os.path.join(out_dir, "final-%s.npz" % tag), **arrays)
+        print("RESILIENCE_DONE mode=%s gen=%d steps=%d params=%s states=%s"
+              % (mode, gen, tr.step_count, digest(arrays, "param:")[:16],
+                 digest(arrays, "state:")[:16]), flush=True)
+    if fsdp and world > 1:
+        parallel.barrier()
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def read_counts(out_dir, tag, what="counts"):
+    with open(os.path.join(out_dir, "%s-%s.json" % (tag, what))) as f:
+        return json.load(f)
+
+
+class ListIter:
+    """The same batches every epoch, in order (a fit's data that a resumed
+    fit sees again exactly), with the first batch's descriptions."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.provide_data = batches[0].provide_data
+        self.provide_label = batches[0].provide_label
+        self.batch_size = LM_BATCH
+        self._i = 0
+
+    def reset(self):
+        self._i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._i >= len(self.batches):
+            raise StopIteration
+        self._i += 1
+        return self.batches[self._i - 1]
+
+    next = __next__
+
+
+def resilience_lm(torch, pk, args, workdir):
+    """Part (b): the word LM at bench_lstm's width as a `BucketingModule`
+    (FusedRNNCell, f32, buckets 35 / 10 / 20, SGD lr 0.1 momentum 0.9)
+    through ``fit(checkpoint_dir=, num_epoch=2)`` with a `Monitor`
+    (interval 1, the largest |x| of each output) and `score` on one
+    bucket-35 batch at each epoch's end, from one set of initial
+    parameters (Xavier, drawn on the host). Then ``corrupt_ckpt`` flips a
+    byte of the newest checkpoint, and a fresh module's ``fit(resume=
+    "auto")`` falls back to the verified older one (epoch 0) and trains
+    epoch 1 again. Gates: its parameters equal the uninterrupted fit's
+    bit for bit (or within two uninterrupted fits' difference); the
+    monitor's first row equals a CPU forward's within `RES_MON_TOL` of
+    the statistic; lstm_fwd and lstm_bwd (training) and lstm_infer
+    (scoring) launched. Returns the LSTM launches of the two fits."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.parallel import resilience
+    from mxnet_tpu_torch.train_lstm_bucketing import lm_sym_gen
+
+    dev = mx.gpu(0)
+    gen = lm_sym_gen(LM_VOCAB, LM_UNITS, LM_UNITS, LM_LAYERS, fused=True,
+                     layout="TNC")
+    t0 = time.monotonic()
+    with mx.context.scope(mx.cpu()):
+        mx.random.seed(args.seed)
+        it = bucket_iters(args.seed + 30, [RES_LM_PLAN])[0]
+        it.reset()
+        by_key = {}
+        for b in it:
+            by_key.setdefault(b.bucket_key, b)
+        host = [by_key[k] for k in RES_LM_PLAN]
+        cpu_mod = mx.mod.BucketingModule(gen, default_bucket_key=35,
+                                         context=mx.cpu())
+        cpu_mod.bind(host[0].provide_data, host[0].provide_label,
+                     for_training=False)
+        cpu_mod.init_params(mx.init.Xavier())
+        arg0, aux0 = cpu_mod.get_params()
+        cpu_rows = []
+
+        def stat(a):
+            return a.abs().max()
+
+        mon = mx.monitor.Monitor(1, stat_func=stat)
+        cpu_mod.install_monitor(mon)
+        mon.tic()
+        cpu_mod.forward(host[0], is_train=False)
+        cpu_rows = mon.toc()
+        del cpu_mod
+    batches = [DataBatch([mx.nd.array(b.data[0].asnumpy(), ctx=dev)],
+                         [mx.nd.array(b.label[0].asnumpy(), ctx=dev)],
+                         bucket_key=b.bucket_key,
+                         provide_data=b.provide_data,
+                         provide_label=b.provide_label) for b in host]
+
+    def fit(ckpt, resume=None, monitor=None):
+        bm = mx.mod.BucketingModule(gen, default_bucket_key=35, context=dev)
+        bm.fit(ListIter(batches), eval_data=ListIter(batches[:1]),
+               eval_metric=mx.metric.Perplexity(SYM_INVALID),
+               optimizer="sgd",
+               optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+               arg_params=arg0, aux_params=aux0, num_epoch=RES_LM_EPOCHS,
+               checkpoint_dir=ckpt, resume=resume, monitor=monitor)
+        torch.cuda.synchronize()
+        return {k: v.asnumpy() for k, v in bm.get_params()[0].items()}
+
+    for k in LSTM_KERNELS:
+        getattr(pk, k).launches = 0
+    card_rows = []
+    mon = mx.monitor.Monitor(1, stat_func=stat)
+    toc = mon.toc
+
+    def keep_toc():
+        rows = toc()
+        card_rows.extend(rows)
+        return rows
+
+    mon.toc = keep_toc   # toc_print logs the rows and keeps them here
+    ckpt = os.path.join(workdir, "lm")
+    t_fit = time.monotonic()
+    ref = fit(ckpt, monitor=mon)
+    fit_s = time.monotonic() - t_fit
+    if not all(np.isfinite(v).all() for v in ref.values()):
+        raise AssertionError("resilience LM: non-finite parameters")
+    mgr = resilience.CheckpointManager(ckpt)
+    newest = mgr.latest()
+    os.environ["MXTPU_FAULT_INJECT"] = "corrupt_ckpt@step=%d,dir=%s" % (
+        RES_LM_EPOCHS, ckpt)
+    # the spec is parsed once a process: parse this one afresh, and after
+    resilience._fault_cache = resilience._UNPARSED
+    try:
+        resilience.maybe_inject_fault(RES_LM_EPOCHS)
+    finally:
+        del os.environ["MXTPU_FAULT_INJECT"]
+        resilience._fault_cache = resilience._UNPARSED
+    fallback = mgr.latest()
+    if newest[0] != RES_LM_EPOCHS - 1 or fallback[0] != RES_LM_EPOCHS - 2:
+        raise AssertionError("resilience LM: newest checkpoint %s, after "
+                             "the corruption %s" % (newest, fallback))
+    t_fit = time.monotonic()
+    got = fit(ckpt, resume="auto")
+    resume_s = time.monotonic() - t_fit
+    how = equal_or_within("resilience LM", got, ref,
+                          lambda: fit(os.path.join(workdir, "lm2")))
+    launches = {k: getattr(pk, k).launches for k in LSTM_KERNELS}
+    if min(launches.values()) < 1:
+        raise AssertionError("resilience LM: LSTM launches %s" % launches)
+    # the monitor: the default bucket's batches (the others' modules are
+    # made after install_monitor, as in the JAX BucketingModule)
+    names = [r[1] for r in card_rows]
+    if not card_rows or names != ["softmax_output"] * len(names) \
+            or [r[0] for r in card_rows] != list(range(
+                1, RES_LM_EPOCHS * len(RES_LM_PLAN) + 1,
+                len(RES_LM_PLAN))):
+        raise AssertionError("resilience LM: monitor rows %s"
+                             % [(r[0], r[1]) for r in card_rows])
+    want = np.asarray(json.loads(cpu_rows[0][2]))
+    have = np.asarray(json.loads(card_rows[0][2]))
+    mon_err = float(np.abs(have - want).max())
+    if cpu_rows[0][:2] != card_rows[0][:2] or \
+            mon_err > RES_MON_TOL * float(np.abs(want).max()):
+        raise AssertionError("resilience LM: the monitor's first row %s, "
+                             "the CPU's %s" % (card_rows[0], cpu_rows[0]))
+    log("resilience (b): word LM BucketingModule(FusedRNNCell(%d, %d "
+        "layers)) f32 on the card, buckets %s an epoch, SGD momentum; "
+        "fit(checkpoint_dir=, num_epoch=%d) with one score an epoch and a "
+        "Monitor (%d rows, the "
+        "first %s, the CPU's %s, error %.3g) in %.2f s; corrupt_ckpt on "
+        "epoch %d, latest() falls back to epoch %d; a fresh module's "
+        "fit(resume='auto') in %.2f s ends equal to the uninterrupted fit "
+        "%s; LSTM launches %s; %.1f s in all"
+        % (LM_UNITS, LM_LAYERS, list(RES_LM_PLAN), RES_LM_EPOCHS,
+           len(card_rows), card_rows[0][2], cpu_rows[0][2], mon_err, fit_s,
+           newest[0], fallback[0], resume_s, how, json.dumps(launches),
+           time.monotonic() - t0))
+    return launches
+
+
+def resilience_phase(torch, pk, args):
+    """Phase 23: (a) ResNet-50 bf16 at 128 images through
+    `DistributedTrainer`, an async checkpoint every 2 steps, preempted at
+    step 4 (``MXTPU_FAULT_INJECT=preempt@step=4,grace=60``) under ``python
+    -m mxnet_tpu_torch.launch -n 1 --max-restarts 1``: the launcher's free
+    restart, generation 0's emergency checkpoint at step 4, generation 1's
+    resume to step 8, its parameters and states equal to an uninterrupted
+    run in this process bit for bit (cuDNN's deterministic algorithms in
+    both; else within two reference runs' difference), each generation's
+    epilogue launches > 0. (b) `resilience_lm`. (c) ResNet-50 f32 at 32
+    images over ``make_mesh([("fsdp", 2)])``, two gloo ranks of the
+    launcher sharing the card, a sharded checkpoint every 2 steps, rank 1
+    preempted at step 3: its shard alone cannot restore the model, so its
+    emergency checkpoint is refused and it exits 84; then one rank
+    restores the step-2 checkpoint elastically (both shards handed to the
+    loader) and reaches step 6. Gates: what it restored equals the two
+    ranks' model at the checkpoint bit for bit; the two ranks' first loss
+    lies within ranks2's tolerance of losses (rtol 1e-5) of a one-rank
+    run's in this process; the resumed rank ends equal, bit for bit, to
+    one rank that restores the same checkpoint here. The weights' drift
+    from the one-rank run is printed, not held: a deep ReLU + BatchNorm
+    net's f32 gradients move with the summation order (one step moves a
+    convolution's weights by up to 1.6 % of their magnitude,
+    `tools/fsdp_rank_probe.py`). Prints the seconds from SIGTERM
+    to rc 83 and from the restart to the first resumed step, one
+    checkpoint's bytes and seconds (sync, and the async save's share on
+    the training thread) and steps/s with and without saves. Returns the
+    launch counts (the epilogue's of (a)'s two generations and (c)'s
+    ranks, the LSTM's of (b))."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import resilience
+
+    t_phase = time.monotonic()
+    prev = deterministic(torch)
+    card = smi_line()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-resil-") as tmp:
+            a_dir = os.path.join(tmp, "a")
+            os.makedirs(a_dir)
+            launch_a = resilience_launch(
+                args, 1, a_dir, "single", restarts=1,
+                fault="preempt@step=%d,grace=60" % RES_PREEMPT)
+            try:
+                out.update(resilience_lm(torch, pk, args, tmp))
+                torch.cuda.empty_cache()
+            finally:
+                rc = launch_a.wait(RES_TIMEOUT)
+            text = launch_a.text()
+            if rc:
+                raise AssertionError("resilience (a): the launch failed (rc "
+                                     "%d): %s" % (rc, text[-4000:]))
+            t_pre, _ = launch_a.first(r"group preempted \(rc=83\).*restart "
+                                      r"budget untouched: 0/1 used")
+            t_sig = float(launch_a.first(
+                r"RESILIENCE_SIGTERM step=%d t=(\S+)" % RES_PREEMPT)[1]
+                .group(1))
+            t_emg = float(launch_a.first(
+                r"RESILIENCE_EMERGENCY step=%d t=(\S+)" % RES_PREEMPT)[1]
+                .group(1))
+            t_spawn, _ = launch_a.first(r"spawning generation 1")
+            launch_a.first(r"RESILIENCE_RESUMED mode=single gen=1 rank=0/1 "
+                           r"from_step=%d " % RES_PREEMPT)
+            t_first = float(launch_a.first(
+                r"RESILIENCE_FIRST_STEP step=%d t=(\S+)" % (RES_PREEMPT + 1))
+                [1].group(1))
+            launch_a.first(r"RESILIENCE_DONE mode=single gen=1 steps=%d "
+                           % RES_STEPS)
+            a_losses = read_counts(a_dir, "single-w1-g0-r0", "losses") \
+                + read_counts(a_dir, "single-w1-g1-r0", "losses")
+            if len(a_losses) != RES_STEPS or \
+                    not np.isfinite(a_losses).all():
+                raise AssertionError("resilience (a): losses %s" % a_losses)
+            meta = resilience.CheckpointManager(
+                os.path.join(a_dir, "ckpt")).read_meta(
+                os.path.join(a_dir, "ckpt", "ckpt-%08d" % RES_PREEMPT))
+            if meta["meta"] != {"preempt": True}:
+                raise AssertionError("resilience (a): step %d's checkpoint "
+                                     "is %s, not the emergency one"
+                                     % (RES_PREEMPT, meta["meta"]))
+            a_counts = [read_counts(a_dir, "single-w1-g%d-r0" % g)
+                        for g in (0, 1)]
+            for g, c in enumerate(a_counts):
+                if any(c[k] < 1 for k in EPI_KERNELS):
+                    raise AssertionError("resilience (a): generation %d's "
+                                         "epilogue launches %s" % (g, c))
+            got_a = dict(np.load(os.path.join(a_dir,
+                                              "final-single-w1-g1-r0.npz")))
+            out.update({k: sum(c[k] for c in a_counts) for k in EPI_KERNELS})
+
+            def reference():
+                net, tr, x, y = resilience_trainer(torch, args.seed)
+                t0 = time.perf_counter()
+                for _ in range(RES_STEPS):
+                    tr.step(x, y)
+                torch.cuda.synchronize()
+                return net, tr, x, y, time.perf_counter() - t0
+
+            def second():
+                n2, t2 = reference()[:2]
+                return trained_arrays(n2, t2, tmp)
+
+            # (c): two gloo ranks over fsdp, rank 1 preempted; meanwhile the
+            # references of (a) and (c) in this process
+            c_dir = os.path.join(tmp, "c")
+            os.makedirs(c_dir)
+            launch_c = resilience_launch(
+                args, 2, c_dir, "fsdp",
+                fault="preempt@step=%d,rank=1,grace=60" % RES_FSDP_PREEMPT)
+            one = parallel.make_mesh([("fsdp", 1)])
+            try:
+                net_a, tr_a, x_a, y_a, ref_s = reference()
+                how_a = equal_or_within("resilience (a)", got_a,
+                                        trained_arrays(net_a, tr_a, tmp),
+                                        second)
+                del got_a
+                # the one-rank run of (c) from the start: its state at the
+                # first checkpoint's step, and at the end
+                net, tr, x, y = resilience_trainer(torch, args.seed,
+                                                   RES_FSDP_BATCH, amp=None,
+                                                   mesh=one)
+                ref_losses = []
+                for step in range(1, RES_FSDP_STEPS + 1):
+                    ref_losses.append(float(tr.step(x, y)._data))
+                    if step == RES_EVERY:
+                        ref_ckpt = model_arrays(net)
+                ref_end = trained_arrays(net, tr, tmp)
+                del net, tr, x, y
+                torch.cuda.empty_cache()
+            finally:
+                rc_c0 = launch_c.wait(RES_TIMEOUT)
+            text = launch_c.text()
+            if not rc_c0:
+                raise AssertionError("resilience (c): the 2-rank launch "
+                                     "ended 0: %s" % text[-4000:])
+            launch_c.first(r"\[rank 1\].*emergency checkpoint FAILED; "
+                           r"exiting rc=%d" % (
+                               resilience.preempt_exit_code() + 1))
+            c_mgr = resilience.CheckpointManager(os.path.join(c_dir, "ckpt"))
+            step, path = c_mgr.latest()
+            shards = c_mgr.read_meta(path)["shards"]
+            if (step, shards) != (RES_EVERY, 2):
+                raise AssertionError("resilience (c): the newest checkpoint "
+                                     "is step %d with %d shards" % (step,
+                                                                    shards))
+            # the preempted rank's, written before its exit (rank 0 is torn
+            # down)
+            c0 = read_counts(c_dir, "fsdp-w2-g0-r1")
+            c0_losses = read_counts(c_dir, "fsdp-w2-g0-r1", "losses")
+            at_ckpt = dict(np.load(os.path.join(c_dir,
+                                                "at-ckpt-fsdp-w2-g0-r0.npz")))
+            launch_c1 = resilience_launch(args, 1, c_dir, "fsdp")
+            try:
+                # one rank restoring the same checkpoint in this process
+                net, tr, x, y = resilience_trainer(torch, args.seed,
+                                                   RES_FSDP_BATCH, amp=None,
+                                                   mesh=one)
+                tr.restore_sharded_checkpoint(c_mgr, step=RES_EVERY)
+                for _ in range(RES_EVERY + 1, RES_FSDP_STEPS + 1):
+                    tr.step(x, y)
+                cont = trained_arrays(net, tr, tmp)
+                del net, tr, x, y
+                torch.cuda.empty_cache()
+            finally:
+                rc = launch_c1.wait(RES_TIMEOUT)
+            if rc:
+                raise AssertionError("resilience (c): the 1-rank launch "
+                                     "failed (rc %d): %s"
+                                     % (rc, launch_c1.text()[-4000:]))
+            launch_c1.first(r"RESILIENCE_RESUMED mode=fsdp gen=0 rank=0/1 "
+                            r"from_step=%d shards=2 " % RES_EVERY)
+            launch_c1.first(r"RESILIENCE_DONE mode=fsdp gen=0 steps=%d "
+                            % RES_FSDP_STEPS)
+            c1 = read_counts(c_dir, "fsdp-w1-g0-r0")
+            c1_losses = read_counts(c_dir, "fsdp-w1-g0-r0", "losses")
+            restored = dict(np.load(os.path.join(
+                c_dir, "restored-fsdp-w1-g0-r0.npz")))
+            got = dict(np.load(os.path.join(c_dir,
+                                            "final-fsdp-w1-g0-r0.npz")))
+            # 1: the elastic restore gives one rank the two ranks' model at
+            # the checkpoint, bit for bit
+            assert sorted(restored) == sorted(at_ckpt)
+            for k in at_ckpt:
+                np.testing.assert_array_equal(restored[k], at_ckpt[k],
+                                              err_msg=k)
+            # 2: rank order alone: the first step's loss (the same weights,
+            # the batch over two ranks or one) within ranks2's tolerance of
+            # losses; the weights after it are not held elementwise (a deep
+            # ReLU + BatchNorm net's f32 gradients move with the summation
+            # order: tools/fsdp_rank_probe.py), their drift is printed
+            np.testing.assert_allclose(c0_losses[0], ref_losses[0],
+                                       rtol=1e-5, atol=0)
+            worst = max(float(np.abs(at_ckpt[k] - ref_ckpt[k]).max()
+                              / max(float(np.abs(ref_ckpt[k]).max()), 1e-30))
+                        for k in ref_ckpt)
+            # 3: the resumed rank ends where one rank restoring the same
+            # checkpoint in this process ends, bit for bit
+            bad = [k for k in cont if not np.array_equal(got[k], cont[k])]
+            if sorted(got) != sorted(cont) or bad:
+                raise AssertionError("resilience (c): the resumed rank's "
+                                     "%s differ from one rank resuming here"
+                                     % bad[:5])
+            drift = max_diff(got, ref_end)
+            losses = c0_losses[:RES_EVERY] + c1_losses
+            if not np.isfinite(losses + ref_losses).all():
+                raise AssertionError("resilience (c): losses %s, one rank "
+                                     "%s" % (losses, ref_losses))
+            for k in EPI_KERNELS:
+                if c0[k] < 1 or c1[k] < 1:
+                    raise AssertionError("resilience (c): epilogue launches "
+                                         "%s, %s" % (c0, c1))
+            out.update({k: c0[k] for k in EPI_SYNC_KERNELS if c0[k]})
+            # (a)'s checkpoint costs on its trainer, no other process on
+            # the card: one sync save, one async save with the writer idle
+            # (the training thread's share: the snapshots and the submit;
+            # then the writer's rest), steps/s without saves and with an
+            # async save every RES_EVERY steps (a submit waits while the
+            # writer's slot is taken; the last save's flush counts)
+            mgr = resilience.CheckpointManager(os.path.join(tmp, "timing"),
+                                               keep_last=2)
+            t0 = time.perf_counter()
+            path = mgr.save(tr_a.step_count, save_params=tr_a.save_params,
+                            save_states=tr_a.save_states)
+            sync_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(path, n))
+                         for n in os.listdir(path))
+            t0 = time.perf_counter()
+            mgr.save_async(tr_a.step_count,
+                           snapshot_params=tr_a.snapshot_params,
+                           snapshot_states=tr_a.snapshot_states)
+            async_share = time.perf_counter() - t0
+            mgr.flush()
+            async_rest = time.perf_counter() - t0 - async_share
+            rates, stalls = {}, []
+            for label, every in (("no saves", None),
+                                 ("save_every=%d" % RES_EVERY, RES_EVERY)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(RES_TIMED):
+                    tr_a.step(x_a, y_a)
+                    if every and (i + 1) % every == 0:
+                        t1 = time.perf_counter()
+                        mgr.save_async(tr_a.step_count,
+                                       snapshot_params=tr_a.snapshot_params,
+                                       snapshot_states=tr_a.snapshot_states)
+                        stalls.append(time.perf_counter() - t1)
+                torch.cuda.synchronize()
+                mgr.flush()
+                rates[label] = RES_TIMED / (time.perf_counter() - t0)
+            mgr.close()
+            del net_a, tr_a, x_a, y_a
+            torch.cuda.empty_cache()
+            log("resilience (a): resnet50_v1 NHWC bf16, %d images, SGD "
+                "momentum, %d steps, an async checkpoint every %d, "
+                "preempted at step %d under `launch -n 1 --max-restarts 1`: "
+                "free restart (budget untouched), emergency checkpoint at "
+                "step %d, generation 1 resumed and reached step %d, equal "
+                "to the uninterrupted run (%d steps in %.3f s in this "
+                "process) %s; SIGTERM to the emergency checkpoint's end "
+                "%.3f s, SIGTERM to the launcher's 'group preempted' (rc 83) "
+                "%.3f s; restart spawned to the first resumed step done "
+                "%.3f s; losses %s; epilogue launches gen 0 %s, gen 1 %s; "
+                "card %s"
+                % (RES_BATCH, RES_STEPS, RES_EVERY, RES_PREEMPT, RES_PREEMPT,
+                   RES_STEPS, RES_STEPS, ref_s, how_a, t_emg - t_sig,
+                   t_pre - t_sig, t_first - t_spawn,
+                   ["%.4f" % v for v in a_losses],
+                   json.dumps({k: a_counts[0][k] for k in EPI_KERNELS}),
+                   json.dumps({k: a_counts[1][k] for k in EPI_KERNELS}),
+                   card))
+            log("resilience (a): one ResNet-50 checkpoint (parameters, "
+                "buffers, momentum): %d bytes, sync save %.3f s; an async "
+                "save with the writer idle: %.4f s on the training thread, "
+                "%.3f s more on the writer; steps/s %s (the save_every "
+                "run's save_async calls %s s, a submit waiting while the "
+                "writer's slot is taken); card %s"
+                % (nbytes, sync_s, async_share, async_rest,
+                   json.dumps({k: round(v, 3) for k, v in rates.items()}),
+                   ["%.4f" % s for s in stalls], card))
+            log("resilience (c): resnet50_v1 NHWC f32, %d images over fsdp "
+                "2 (two gloo ranks sharing the card), a sharded checkpoint "
+                "every %d steps; rank 1 preempted at step %d: its shard alone "
+                "cannot restore the model, so its emergency checkpoint is "
+                "refused (it exits %d) and the launch ends rc %d; one rank "
+                "restored step %d elastically (2 shards handed to the "
+                "loader): the two ranks' model at that checkpoint bit for "
+                "bit; step 1's loss of 2 ranks within rtol 1e-5 of one "
+                "rank's; the two ranks' model at step %d against the one-rank "
+                "run's: largest difference %.3g of a tensor's largest "
+                "magnitude; the resumed rank reached step %d equal to one "
+                "rank resuming the same checkpoint here, bit for bit "
+                "(against the one-rank run from the start: largest "
+                "difference %.3g); losses 2 ranks then 1 %s, one rank %s; "
+                "epilogue launches at 2 ranks (rank 1, to its preemption) "
+                "%s, at 1 rank %s; card %s"
+                % (RES_FSDP_BATCH, RES_EVERY, RES_FSDP_PREEMPT,
+                   resilience.preempt_exit_code() + 1, rc_c0, RES_EVERY,
+                   RES_EVERY, worst, RES_FSDP_STEPS, drift,
+                   ["%.4f" % v for v in losses],
+                   ["%.4f" % v for v in ref_losses], json.dumps(c0),
+                   json.dumps(c1), card))
+    finally:
+        restore_flags(torch, prev)
+    log("resilience: the phase took %.1f s" % (time.monotonic() - t_phase))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -9716,6 +10527,12 @@ def main(argv=None):
     # output directory: one of the dist_kv phase's ranks (the launcher
     # gives the rank)
     p.add_argument("--dist-kv-child", default=None, help=argparse.SUPPRESS)
+    # output directory: a process of the resilience phase (the launcher
+    # gives its rank and generation); its mode, single or fsdp
+    p.add_argument("--resilience-child", default=None,
+                   help="run one process of the resilience phase into DIR")
+    p.add_argument("--resilience-mode", default="single",
+                   choices=("single", "fsdp"), help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
@@ -9730,6 +10547,9 @@ def main(argv=None):
         return ranks2_child(int(rank), int(port), out_dir, args.seed)
     if args.dist_kv_child:
         return dist_kv_child(args.dist_kv_child, args.seed)
+    if args.resilience_child:
+        return resilience_child(args.resilience_child, args.seed,
+                                args.resilience_mode)
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import pallas_kernels as pk
     from mxnet_tpu_torch.telemetry import recorder
@@ -9822,7 +10642,7 @@ def main(argv=None):
              "replica_pool": {}, "autoscale": {}, "detection": {},
              "profiler": {},
              "sparse": {}, "mesh": {}, "pipeline": {}, "ranks2": {},
-             "dist_kv": {}})
+             "dist_kv": {}, "resilience": {}})
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -9858,6 +10678,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     extra["dist_kv"] = dist_kv_phase(torch, pk, args)
     torch.cuda.empty_cache()
+    extra["resilience"] = resilience_phase(torch, pk, args)
+    torch.cuda.empty_cache()
     # the finishing kernels' path is the ranks2 phase's (a batch over dp)
     for k in EPI_SYNC_KERNELS:
         launches[k] = extra["ranks2"].pop(k)
@@ -9892,7 +10714,10 @@ def main(argv=None):
                 # phase's three fits, the sparse phase's SyncBatchNorm,
                 # the mesh phase's train_imagenet.py, the pipeline phase's
                 # BERT-base, the ranks2 phase's ResNet-50 over dp 2, the
-                # dist_kv phase's ResNet-50 through the dist_sync kvstore
+                # dist_kv phase's ResNet-50 through the dist_sync kvstore,
+                # the resilience phase's preempted ResNet-50 (both
+                # generations), its fsdp ranks' finishing kernels and its
+                # checkpointed word LM fits
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

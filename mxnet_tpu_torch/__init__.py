@@ -45,7 +45,13 @@ reference's way: ``Context`` (``cpu(0)`` and ``cpu(1)`` are two
 contexts), parameters, ``gluon.Trainer`` and ``Module`` over several
 contexts, the ``dist_sync`` kvstore over ``torch.distributed`` with the
 server roles (``kvstore_server``), ``executor_manager``, and the
-launcher, ``python -m mxnet_tpu_torch.launch``.
+launcher, ``python -m mxnet_tpu_torch.launch``; and training
+resilience: ``parallel.resilience`` (crash-consistent, async and per-rank
+sharded checkpoints, auto-resume, graceful preemption, fault injection)
+behind ``DistributedTrainer``'s checkpoints and ``Module.fit(checkpoint_dir=,
+resume=)``; and the rest of the symbolic façade: ``monitor`` (``Monitor``),
+``log``, ``viz`` (``visualization``), ``mod.SequentialModule``,
+``mod.PythonModule`` / ``PythonLossModule`` and ``model.FeedForward``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``) or runs them in a ``with
 context.scope(mx.cpu()):`` (or ``with mx.cpu():``) block; without a card
@@ -86,6 +92,8 @@ from . import gradient_compression, kvstore, kvstore_server
 from . import kvstore as kv
 from . import parallel
 from . import executor_manager
+from . import log, monitor, visualization
+from . import visualization as viz
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -100,7 +108,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "sym", "Symbol", "executor", "io", "model", "callback", "module", "mod",
            "rnn", "predict", "recordio", "image", "data", "profiler",
            "contrib", "kvstore", "kv", "kvstore_server",
-           "gradient_compression", "parallel", "executor_manager"]
+           "gradient_compression", "parallel", "executor_manager", "log",
+           "monitor", "visualization", "viz"]
 
 # a process with telemetry output (MXTPU_TELEMETRY_DIR, as a launched
 # job has) gets the flight recorder's SIGUSR1 dump handler at import, so a

@@ -16,9 +16,9 @@ Two primitives:
   worker that outlives a timed-out close must never feed a successor
   generation's queue, and a cleared live Event must never resurrect its
   loop. Errors travel the queue as data and re-raise at the consumer.
-  The JAX package's producer also calls a fault-injection hook
-  (``resilience.maybe_inject_data_stall``); the port has no resilience
-  module yet (ROADMAP queue 1 item 13), so there is no hook.
+  The producer calls the fault-injection hook
+  (``resilience.maybe_inject_data_stall``, ``slow_batch@step=,ms=``)
+  with the ordinal of each batch it made.
 
 * ``DecodePool`` — a pipelined decode/augment stage: one feeder thread
   pulls the (not thread-safe) source sequentially, N ``mxtpu-data-worker``
@@ -120,6 +120,9 @@ class PrefetchBuffer:
         produce = self._produce
 
         def run():
+            from ..parallel import resilience
+
+            n = 0
             while not stop.is_set():
                 try:
                     item = produce()
@@ -129,6 +132,11 @@ class PrefetchBuffer:
                 except Exception as e:
                     _put_bounded(q, _Raised(e), stop)
                     return
+                n += 1
+                # the producer-side chaos hook (one cached check unless
+                # MXTPU_FAULT_INJECT is set): a stall of production that a
+                # buffer of depth x step time absorbs
+                resilience.maybe_inject_data_stall(n)
                 if not _put_bounded(q, item, stop):
                     return
 

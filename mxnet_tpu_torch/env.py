@@ -3,10 +3,11 @@
 Counterpart of `mxnet_tpu/env.py`, holding only the variables of the
 paths ported so far (serving, its replica pools and their autoscaler,
 telemetry with its SLO engine and flight recorder, tracing, ResNet
-training, the input pipeline, the launcher), under the same
-names and, but for the one noted at its entry, the same defaults, so one
-deployment's settings mean the same thing to both packages. There is no kernel gate: a CUDA tensor always goes through
-the port's kernel.
+training, the input pipeline, the launcher, checkpoints and preemption),
+under the same names and, but for the one noted at its entry, the same
+defaults, so one deployment's settings mean the same thing to both
+packages. There is no kernel gate: a CUDA tensor always goes through the
+port's kernel.
 
 ``get(name)`` takes registered names only (an unregistered name raises
 ``KeyError``) and returns the value parsed per the registered type, or the
@@ -163,15 +164,49 @@ _var("MXTPU_TEARDOWN_GRACE", "float", 10.0,
      "escalation window of the launcher and the replica pools: seconds "
      "between a process group's SIGTERM and its SIGKILL.")
 _var("MXTPU_FAULT_INJECT", "str", None,
-     "deterministic fault injection. The port fires the serving actions at "
-     "a replica worker's batch boundary: `kill_replica@batch=3,replica=0`, "
-     "`wedge_replica@batch=5,replica=1`, `slow_reply@batch=1,ms=300`; the "
-     "training, checkpoint, data and load-surge actions parse as in the "
-     "JAX package and are not fired here.")
+     "deterministic fault injection at the trainer step boundary, e.g. "
+     "`kill@step=7,rank=1`, `exc@step=3`, `hang@step=5,rank=1` (park the "
+     "rank forever — watchdog/flight-recorder test vector), "
+     "`corrupt_ckpt@step=5,dir=/ckpts`, `preempt@step=7,rank=1,grace=30` "
+     "(SIGTERM-with-grace — the cloud preemption notice), "
+     "`kill_during_ckpt@step=4,rank=0` (die mid-save, pre-publish — the "
+     "torn-write window); at a replica worker's batch boundary "
+     "`kill_replica@batch=3,replica=0`, `wedge_replica@batch=5,replica=1`, "
+     "`slow_reply@batch=1,ms=300`; in the input pipeline's producer "
+     "`slow_batch@step=3,ms=200`; at a model's publish "
+     "`load_surge@after=0,rps=200,duration=3` (docs/fault_tolerance.md "
+     "§5).")
 _var("MXTPU_RESTART_GENERATION", "int", 0,
      "set by a supervisor (the launcher's restarts, a replica pool's "
      "respawns): which generation this process belongs to; fault "
      "injection defaults to generation 0 only.")
+_var("MXTPU_CKPT_DIR", "str", None,
+     "default checkpoint directory for the `corrupt_ckpt` injection "
+     "action (tests' resilience workers also read it).")
+_var("MXTPU_CKPT_ASYNC", "bool", True,
+     "route `CheckpointManager.save_async`/`save_sharded_async` through "
+     "the named background writer thread (`mxtpu-ckpt-writer`): the "
+     "training thread pays only the host snapshot, serialize+fsync+"
+     "atomic-rename happen off-thread (at-most-one in flight, honest "
+     "backpressure). `0` degrades both to the synchronous save path — "
+     "the escape hatch when the extra host copy is the scarcer resource "
+     "(docs/fault_tolerance.md §Preemption & elastic resume).")
+_var("MXTPU_CKPT_SHARD_TIMEOUT_S", "float", 120.0,
+     "sharded checkpoints: how long rank 0 waits for every peer rank's "
+     "staged shard before abandoning the manifest publish (the staging "
+     "dir stays invisible to `latest()`, so a peer death mid-save can "
+     "never tear a checkpoint).")
+_var("MXTPU_PREEMPT_GRACE_S", "float", 15.0,
+     "graceful-preemption budget: seconds between the SIGTERM notice and "
+     "the expected SIGKILL. `maybe_preempt_exit` finishes the in-flight "
+     "step and emergency-checkpoints inside this window; a fault entry's "
+     "`grace=` or `install_preemption_handler(grace_s=)` overrides it.")
+_var("MXTPU_PREEMPT_EXIT_CODE", "int", 83,
+     "rc a gracefully-preempted worker exits with after its emergency "
+     "checkpoint. `python -m mxnet_tpu_torch.launch` treats a generation "
+     "where any rank exited with this rc as a preemption: free restart "
+     "(no `--max-restarts` budget consumed) and backoff reset. rc+1 (84) "
+     "means preempted WITHOUT a checkpoint — budget-consuming.")
 
 # -- tracing and the telemetry files (same names and defaults) ----------------
 _var("MXTPU_TRACE_SAMPLE", "float", 0.0,

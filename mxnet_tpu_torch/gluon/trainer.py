@@ -38,16 +38,21 @@ the optimizer takes its lazy row update (JAX `Trainer._update`); any
 other optimizer gets the dense gradient.
 
 The states file of `save_states` is the port's own (pickled host arrays
-and the optimizer's attributes); `load_states` restores it.
-``sharded=True``, `step_batch`, `prefetch` and the sharded checkpoints
-raise: the fused sharded step is ROADMAP queue 1 item 2, its persistent
-tier and the checkpoints item 13.
+and the optimizer's attributes); `load_states` restores it. After each
+step the step-boundary fault hook runs when ``MXTPU_FAULT_INJECT`` is
+set (`parallel.resilience.maybe_inject_fault`).
+``sharded=True``, `step_batch` and `prefetch` raise: the fused sharded
+step is ROADMAP queue 1 item 2 (its persistent tier item 13). The sharded
+checkpoints need it, as in the JAX package, and raise with the JAX
+package's message; an op-by-op Trainer checkpoints through `save_states`
+and `load_states`.
 """
 from __future__ import annotations
 
 import pickle
 import time
 
+from .. import env as _env
 from .. import optimizer as opt
 from .. import telemetry
 from ..base import MXNetError, atomic_writer
@@ -58,8 +63,8 @@ __all__ = ["Trainer"]
 
 def _not_ported(what):
     return MXNetError("Trainer: %s is not ported yet (the fused sharded "
-                      "step is ROADMAP queue 1 item 2; its persistent tier "
-                      "and the sharded checkpoints are item 13)" % what)
+                      "step is ROADMAP queue 1 item 2; its persistent "
+                      "compile tier item 13)" % what)
 
 
 class Trainer:
@@ -210,6 +215,12 @@ class Trainer:
             telemetry.observe_step(time.perf_counter() - t0,
                                    examples=batch_size, step=self._step_count)
             telemetry.goodput.step_end(step=self._step_count)
+        # the step-boundary fault hook; the guard keeps even the import off
+        # the step's path when injection is not armed
+        if _env.is_set("MXTPU_FAULT_INJECT"):
+            from ..parallel import resilience
+
+            resilience.maybe_inject_fault(self._step_count)
 
     def allreduce_grads(self):
         """Sum each parameter's gradients over its copies (and ranks),
@@ -277,14 +288,22 @@ class Trainer:
     def sync_params(self):
         """Nothing to copy: the Parameters are the training copies."""
 
+    @staticmethod
+    def _require_sharded(what):
+        raise MXNetError(
+            "%s needs the promoted sharded trainer (sharded=True + "
+            "block=, or MXTPU_SHARDED_STEP=1); op-by-op trainers "
+            "checkpoint via save_states/load_states (the promoted sharded "
+            "trainer is not ported yet: ROADMAP queue 1 item 2)" % what)
+
     def save_sharded_checkpoint(self, manager, step=None, meta=None):
-        raise _not_ported("save_sharded_checkpoint")
+        self._require_sharded("save_sharded_checkpoint")
 
     def emergency_sharded_checkpoint(self, manager, meta=None):
-        raise _not_ported("emergency_sharded_checkpoint")
+        self._require_sharded("emergency_sharded_checkpoint")
 
     def restore_sharded_checkpoint(self, manager, step=None):
-        raise _not_ported("restore_sharded_checkpoint")
+        self._require_sharded("restore_sharded_checkpoint")
 
     def save_states(self, fname):
         """Write the optimizer's states (the first context's, as the JAX

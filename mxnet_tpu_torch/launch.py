@@ -55,8 +55,8 @@ Not ported: ``--compile-cache`` (the persistent compile tier, ROADMAP
 queue 1 item 13) and ``--sharded-step`` (the fused sharded step, item
 2); both raise.
 
-The launcher's own code is the standard library's: it supervises
-processes only.
+The launcher's own code is the standard library's and the variable
+registry (`env`): it supervises processes only.
 """
 from __future__ import annotations
 
@@ -71,6 +71,25 @@ import subprocess
 import sys
 import threading
 import time
+
+
+def _load_env():
+    """The package's variable registry (`env`, which imports only `os`),
+    also when this file runs as a script outside its package."""
+    if __package__:
+        from . import env
+        return env
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_mxtpu_torch_env",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "env.py"))
+    env = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(env)
+    return env
+
+
+_env = _load_env()
 
 
 def _free_port():
@@ -261,10 +280,7 @@ def _teardown(procs, grace=None, generation=None):
 
 
 def _preempt_exit_code():
-    try:
-        return int(os.environ.get("MXTPU_PREEMPT_EXIT_CODE", "83"))
-    except ValueError:
-        return 83
+    return _env.get("MXTPU_PREEMPT_EXIT_CODE")
 
 
 def _run_generation(cmds, preempt_rc=None, generation=None):

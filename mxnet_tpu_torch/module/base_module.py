@@ -9,10 +9,14 @@ Each step is instrumented as the JAX package's is: a goodput bracket
 ``train.step`` trace root with the wait as a child span, the step's
 FLOPs counted once a batch signature, `telemetry.observe_step`, and the
 ``mxtpu_data_wait_seconds_total`` / ``mxtpu_data_compute_seconds_total``
-counters (``src="fit"``). Not ported yet: ``checkpoint_dir=`` / ``resume=`` and the preemption
-handler (they need ``parallel/resilience.py``, ROADMAP queue 1 item 13),
-a ``monitor`` (``monitor.py``, item 8), and the fused one-step path (the
-captured step, item 2): those arguments raise.
+counters (``src="fit"``). ``checkpoint_dir`` / ``checkpoint_period`` /
+``resume`` give crash-consistent checkpoints and auto-resume through
+`parallel.resilience.CheckpointManager`, with graceful preemption (an
+emergency checkpoint mid-epoch that carries the batch cursor) and the
+step-boundary fault hook; ``monitor`` installs a `Monitor` and prints its
+rows every batch. The fused one-step path (the captured step, ROADMAP
+queue 1 item 2) is not ported: `fit` always runs `forward_backward` and
+`update`.
 """
 from __future__ import annotations
 
@@ -159,31 +163,84 @@ class BaseModule(object):
         epoch's end ``epoch_end_callback(epoch, symbol, arg_params,
         aux_params)`` and `score` on ``eval_data``. With
         ``MXTPU_DATA_PREFETCH`` set the batches come through a
-        `data.DevicePrefetcher` onto the module's device."""
+        `data.DevicePrefetcher` onto the module's device.
+
+        Fault tolerance (docs/fault_tolerance.md): ``checkpoint_dir``
+        saves a crash-consistent checkpoint (parameters, optimizer states,
+        the random state, the epoch) every ``checkpoint_period`` epochs
+        through `parallel.resilience.CheckpointManager`; ``resume="auto"``
+        restores the newest complete one, so a restarted generation goes
+        on from there, and ``resume=<epoch>`` pins one (`MXNetError` if
+        it does not verify). With ``checkpoint_dir`` a SIGTERM no longer
+        kills the step: the step finishes, an emergency checkpoint lands
+        within ``MXTPU_PREEMPT_GRACE_S`` with the batches done in the epoch
+        (and the iterator's ``state()`` where it has one), and the process
+        exits ``MXTPU_PREEMPT_EXIT_CODE``; the resumed `fit` skips those
+        batches (or restores the cursor) and ends where an uninterrupted
+        run would. ``monitor``: a `Monitor` installed on the module, its
+        ``tic`` before and ``toc_print`` after every batch."""
         assert num_epoch is not None, "please specify number of epochs"
-        if checkpoint_dir is not None or resume is not None:
-            raise MXNetError("fit(checkpoint_dir=, resume=) needs "
-                             "parallel/resilience.py, which is not ported "
-                             "yet (ROADMAP queue 1 item 13)")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=) needs monitor.py, which is not "
-                             "ported yet (ROADMAP queue 1 item 8)")
         from ..initializer import Uniform
 
         initializer = initializer or Uniform(0.01)
+        mgr = None
+        if checkpoint_dir is not None:
+            from ..parallel.resilience import CheckpointManager
+
+            mgr = CheckpointManager(checkpoint_dir)
+        elif resume is not None:
+            raise MXNetError("fit(resume=...) needs checkpoint_dir=")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        resume_skip = 0
+        data_restored = False
+        if mgr is not None and resume is not None:
+            header = mgr.restore(
+                load_params=self.load_params,
+                load_states=self.load_optimizer_states,
+                step=None if resume == "auto" else int(resume))
+            # None only for resume="auto" without a complete checkpoint (a
+            # fresh start); an explicit epoch that does not verify raised
+            if header is not None:
+                begin_epoch = int(header["meta"].get(
+                    "epoch", header["step"])) + 1
+                # a preemption checkpoint lands mid-epoch: its weights hold
+                # the first `batches_done` updates of that epoch, which the
+                # resumed epoch skips instead of applying again
+                resume_skip = int(header["meta"].get("batches_done", 0))
+                # an iterator with a cursor restores it exactly; its
+                # set_state arms a one-shot skip of the epoch's reset
+                data_state = header["meta"].get("data_state")
+                if data_state is not None and \
+                        hasattr(train_data, "set_state"):
+                    train_data.set_state(data_state)
+                    data_restored = True
+                self.logger.info(
+                    "resumed from checkpoint step %d (%s); continuing at "
+                    "epoch %d%s%s", header["step"], mgr.directory,
+                    begin_epoch,
+                    " batch %d" % resume_skip if resume_skip else "",
+                    " (exact data cursor)" if data_restored else "")
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = _as_metric(eval_metric)
 
         from .. import telemetry
+        from ..parallel import resilience
+
+        # with checkpoints configured, SIGTERM raises a flag instead of
+        # killing the step; the step boundary below lands the emergency
+        # checkpoint and exits with the preemption code
+        if mgr is not None:
+            resilience.install_preemption_handler()
 
         # the input pipeline's starvation: seconds waiting on the data
         # iterator against seconds in forward, backward and update
@@ -203,6 +260,20 @@ class BaseModule(object):
             eval_metric.reset()
             train_data.reset()
             batches = iter(train_data)
+            nbatch = 0
+            if epoch == begin_epoch and resume_skip:
+                if data_restored:
+                    # the restored cursor is past these batches already:
+                    # only the numbering catches up
+                    nbatch = resume_skip
+                else:
+                    for _ in range(resume_skip):
+                        try:
+                            next(batches)
+                        except StopIteration:
+                            break
+                        nbatch += 1
+            prefetcher = None
             if use_prefetch:
                 from ..data import DevicePrefetcher
 
@@ -210,9 +281,9 @@ class BaseModule(object):
                 ctx = getattr(self, "_context", None)
                 if isinstance(ctx, (list, tuple)):
                     ctx = ctx[0]
-                batches = DevicePrefetcher(batches, mesh=ctx, src="fit")
+                batches = prefetcher = DevicePrefetcher(batches, mesh=ctx,
+                                                        src="fit")
             try:
-                nbatch = 0
                 while True:
                     t_wait = time.perf_counter()
                     try:
@@ -226,6 +297,8 @@ class BaseModule(object):
                     # next(), so StopIteration leaves no bracket open
                     telemetry.goodput.step_start(kind="fit", t0=t_wait)
                     telemetry.goodput.add("data_wait", t_step - t_wait)
+                    if monitor is not None:
+                        monitor.tic()
                     # one root span a step; the wait predates the root and
                     # is emitted as a child with its measured times
                     with telemetry.tracing.root(
@@ -248,7 +321,21 @@ class BaseModule(object):
                                                examples=examples,
                                                step=fit_updates, kind="fit")
                         telemetry.goodput.step_end(step=fit_updates)
+                    # the step-boundary fault hook: updates since this
+                    # process started
+                    resilience.maybe_inject_fault(fit_updates)
+                    if mgr is not None and resilience.preemption_requested():
+                        if prefetcher is not None:
+                            # the pipeline stops first: its threads joined,
+                            # its delivered-batch cursor final
+                            prefetcher.close()
+                        resilience.maybe_preempt_exit(
+                            emergency_save=lambda: self._emergency_save(
+                                mgr, epoch, nbatch + 1,
+                                prefetcher or train_data))
                     self.update_metric(eval_metric, data_batch.label)
+                    if monitor is not None:
+                        monitor.toc_print()
                     for cb in _as_list(batch_end_callback):
                         cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                          eval_metric=eval_metric,
@@ -256,13 +343,17 @@ class BaseModule(object):
                     nbatch += 1
                     tm_compute.inc(time.perf_counter() - t_step)
             finally:
-                if use_prefetch:
-                    batches.close()
+                if prefetcher is not None:
+                    prefetcher.close()
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                              time.time() - tic)
 
+            if mgr is not None and (epoch + 1) % checkpoint_period == 0:
+                mgr.save(epoch, save_params=self.save_params,
+                         save_states=self.save_optimizer_states,
+                         meta={"epoch": epoch})
             arg_p, aux_p = self.get_params()
             for cb in _as_list(epoch_end_callback):
                 cb(epoch, self.symbol, arg_p, aux_p)
@@ -275,6 +366,21 @@ class BaseModule(object):
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
+
+    def _emergency_save(self, mgr, epoch, batches_done, cursor):
+        """The preemption's checkpoint, mid-epoch: meta ``epoch`` is the
+        one before, so the resumed `fit` enters the interrupted epoch, and
+        ``batches_done`` the batches whose updates these weights hold;
+        ``data_state`` is the iterator's cursor where it has one."""
+        meta = {"epoch": epoch - 1, "preempt": True,
+                "batches_done": batches_done}
+        if hasattr(cursor, "state"):
+            try:
+                meta["data_state"] = cursor.state()
+            except MXNetError:
+                pass  # the inner iterator has no cursor
+        mgr.save(epoch, save_params=self.save_params,
+                 save_states=self.save_optimizer_states, meta=meta)
 
     def _fit_compute(self, arrays, data_batch):
         """One `fit` step's forward, backward and update (``arrays``, the
@@ -303,8 +409,7 @@ class BaseModule(object):
                          force_init=force_init, allow_extra=allow_extra)
 
     def install_monitor(self, mon):
-        raise MXNetError("monitor.py is not ported yet (ROADMAP queue 1 "
-                         "item 8)")
+        raise NotImplementedError()
 
     def get_input_grads(self, merge_multi_context=True):
         raise NotImplementedError()

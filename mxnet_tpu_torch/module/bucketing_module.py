@@ -162,6 +162,26 @@ class BucketingModule(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._curr_module.update_metric(eval_metric, labels)
 
+    def install_monitor(self, mon):
+        """``mon`` on every bucket made so far (as the JAX package's
+        BucketingModule installs it)."""
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
+
+    # the checkpoint payloads of `fit(checkpoint_dir=)`: the buckets share
+    # the default bucket's arrays and updater, so its files are the module's
+    def save_params(self, fname):
+        self._buckets[self._default_bucket_key].save_params(fname)
+
+    def load_params(self, fname):
+        self._buckets[self._default_bucket_key].load_params(fname)
+
+    def save_optimizer_states(self, fname):
+        self._buckets[self._default_bucket_key].save_optimizer_states(fname)
+
+    def load_optimizer_states(self, fname):
+        self._buckets[self._default_bucket_key].load_optimizer_states(fname)
+
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """The default bucket's symbol and the shared parameters (reference:
         bucketing_module.py save_checkpoint)."""

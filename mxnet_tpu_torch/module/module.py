@@ -114,9 +114,19 @@ class Module(BaseModule):
 
     @property
     def output_shapes(self):
+        """(name, shape) of each output: the last forward's, and before the
+        first forward the shapes inferred from the bound inputs, as the
+        reference's Module gives them after `bind` (`SequentialModule`
+        wires a chain from them). The JAX package's list is empty until a
+        forward."""
         assert self.binded
-        return list(zip(self._output_names,
-                        [tuple(o.shape) for o in self._exec.outputs]))
+        shapes = [tuple(o.shape) for o in self._exec.outputs or []]
+        if not shapes:
+            args = set(self._symbol.list_arguments())
+            known = {n: s for n, s in list(self._data_shapes or [])
+                     + list(self._label_shapes or []) if n in args}
+            shapes = [tuple(s) for s in self._symbol.infer_shape(**known)[1]]
+        return list(zip(self._output_names, shapes))
 
     # -- bind --------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -286,6 +296,11 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
+
+    def install_monitor(self, mon):
+        """``mon`` (a `Monitor`) on this module's executor (reference:
+        module.py install_monitor)."""
+        mon.install(self._exec)
 
     # -- checkpointing -----------------------------------------------------
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):

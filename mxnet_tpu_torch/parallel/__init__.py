@@ -17,12 +17,14 @@
   pipeline_trainer — PipelineTrainer: a model's uniform cells over pp
   (expert parallelism: gluon.contrib.moe.MoEFFN + the `ep` sharding rule)
 
+  resilience       — crash-consistent CheckpointManager (async, per-rank
+                     sharded, elastic restore), graceful preemption and
+                     MXTPU_FAULT_INJECT
+
 The distributed kvstore (`kvstore._DistKVStore`) is the reference's way
 over the same group, one process a card (`mxnet_tpu_torch.launch`). The
 JAX package's ShardedTrainer, with the fused step (ROADMAP queue 1 item
-2) and its persistent compile tier, and the sharded checkpoints are item
-13's, as is resilience but for its serving fault injection
-(`parallel.resilience`, which the replica workers fire).
+2) and its persistent compile tier (item 13), is not ported.
 """
 from .mesh import (make_mesh, default_mesh, current_mesh, use_mesh,
                    local_devices, devices, mesh_fingerprint, Mesh, Device,
@@ -38,6 +40,8 @@ from .ring_attention import (ring_attention, ring_attention_sharded,
                              local_attention_block)
 from .pipeline import pipeline_apply, pipeline_stack_params
 from .pipeline_trainer import PipelineTrainer
+from . import resilience
+from .resilience import CheckpointManager, maybe_inject_fault
 
 __all__ = [
     "make_mesh", "default_mesh", "current_mesh", "use_mesh", "local_devices",
@@ -49,4 +53,5 @@ __all__ = [
     "num_workers", "barrier", "all_reduce_arrays", "DistributedTrainer",
     "ring_attention", "ring_attention_sharded", "local_attention_block",
     "pipeline_apply", "pipeline_stack_params", "PipelineTrainer",
+    "resilience", "CheckpointManager", "maybe_inject_fault",
 ]

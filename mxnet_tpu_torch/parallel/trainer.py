@@ -45,20 +45,56 @@ batch:
 
 At world size 1 the step launches what it launched before this layer
 existed: no collective and no host sync.
+
+Checkpoints, as the JAX package's trainer takes them:
+
+* `save_states` / `load_states`: a pickle blob with the JAX keys
+  ``states`` (the optimizer states as numpy leaves, in the JAX package's
+  order: the trainable parameters sorted by their gluon names), ``step``
+  and ``num_update``, so a blob of either package loads into the other
+  where the optimizer's states have the same leaves;
+* `save_checkpoint` / `load_checkpoint`: a ``step_%08d/`` directory of
+  the port's own (the JAX package writes orbax, which the card's machine
+  does not have): ``params``, the block's parameters and buffers by their
+  module names in the ``nd.save`` container, and ``states``, the blob
+  above. These two and the blob need whole tensors on this rank: at world
+  size > 1 a parameter split over tp, fsdp or ep makes them raise;
+* `shard_snapshot` / `save_sharded_checkpoint` /
+  `restore_sharded_checkpoint`: the per-rank sharded format of
+  `resilience.CheckpointManager`. A payload holds, for every parameter,
+  buffer and state leaf, its global shape and this rank's block keyed by
+  its (start, stop) range a dimension. The same world size and topology
+  restore each rank's own blocks; another (an elastic resume) gathers each
+  whole array from every shard and cuts this rank's block for the new
+  mesh. `emergency_sharded_checkpoint` is the preemption path's solo save;
+  it refuses (`MXNetError`) where this rank's blocks do not cover the
+  model, a parameter split over ranks, so that no checkpoint that cannot
+  be restored becomes the newest;
+* `snapshot_params` / `snapshot_states`: host copies taken now, returned
+  as `CheckpointManager.save_async` writers.
+
+After each step the step-boundary fault hook runs
+(`resilience.maybe_inject_fault`, one check unless ``MXTPU_FAULT_INJECT``
+is set).
 """
 from __future__ import annotations
 
+import os
+import pickle
 import time
 
+import numpy as np
 import torch
 
+from .. import env as _env
 from .. import optimizer as opt_mod
 from .. import telemetry
-from ..base import MXNetError
+from ..base import MXNetError, atomic_writer
 from . import collectives as coll
 from .mesh import (DATA, DP, EP, FSDP, TP, Mesh, current_mesh, is_shard,
-                   step_scope)
-from .sharding import ShardingRules, gather_array, shard_array, unshard
+                   mesh_fingerprint, step_scope)
+from .sharding import (ShardingRules, _coordinate, gather_array, shard_array,
+                       unshard)
 
 __all__ = ["DistributedTrainer"]
 
@@ -221,6 +257,11 @@ class DistributedTrainer:
         return self._optimizer
 
     @property
+    def step_count(self):
+        """The steps taken (restored by the checkpoint loaders)."""
+        return self._step_count
+
+    @property
     def mesh(self):
         return self._mesh
 
@@ -322,6 +363,10 @@ class DistributedTrainer:
                                    examples=int(x.shape[0]) * self._data.size,
                                    step=self._step_count, kind="dist")
             telemetry.goodput.step_end(step=self._step_count)
+        if _env.is_set("MXTPU_FAULT_INJECT"):
+            from . import resilience
+
+            resilience.maybe_inject_fault(self._step_count)
         return NDArray(loss)
 
     def _train_step(self, x, y):
@@ -408,3 +453,312 @@ class DistributedTrainer:
             for i in self._sharded:
                 self._params[i].copy_(gather_array(
                     self._arrays[i].detach(), self._mesh, self._specs[i]))
+
+    # -- checkpoints -------------------------------------------------------
+    def _whole(self, what):
+        """Refuse ``what`` where this rank holds only a block of some
+        parameter (world size > 1, a split over tp, fsdp or ep)."""
+        if self._sharded and coll.num_workers() > 1:
+            raise MXNetError(
+                "DistributedTrainer.%s needs whole tensors on this rank; "
+                "%s is split over the mesh: use save_sharded_checkpoint / "
+                "restore_sharded_checkpoint" % (
+                    what, self._param_names[self._sharded[0]]))
+
+    def _state_order(self):
+        """Indices of the trainable parameters in the JAX package's state
+        order (sorted by gluon name)."""
+        return sorted(range(len(self._params)),
+                      key=lambda i: self._param_names[i])
+
+    def _named_tensors(self):
+        """Every parameter and floating buffer of the block by its module
+        name: the live tensors a checkpoint holds (a parameter split over
+        the mesh by this rank's block)."""
+        out = {n: self._arrays[i] for i, n in enumerate(self._names)}
+        for n, b in self._block.named_buffers():
+            if b is not None and b.is_floating_point():
+                out[n] = b
+        return out
+
+    def _states_blob(self):
+        """The `save_states` blob: host copies of the states."""
+        self._whole("save_states")
+        return {"states": [_tree_map(_host, self._states[i])
+                           for i in self._state_order()],
+                "step": self._step_count,
+                "num_update": self._optimizer.num_update}
+
+    def snapshot_states(self):
+        """Host copies of the optimizer states now, as a writer
+        ``fn(fname)`` of the `save_states` file (for
+        `CheckpointManager.save_async`)."""
+        blob = self._states_blob()
+
+        def write(fname):
+            with atomic_writer(fname, "wb") as f:
+                pickle.dump(blob, f)
+        return write
+
+    def save_states(self, fname):
+        """The optimizer states, the step count and ``num_update`` as the
+        JAX package's pickle blob, written atomically."""
+        self.snapshot_states()(fname)
+
+    def load_states(self, fname):
+        """Restore a `save_states` file (either package's): the states are
+        copied into the live ones, leaf by leaf."""
+        self._whole("load_states")
+        with open(fname, "rb") as f:
+            blob = pickle.load(f)
+        loaded = blob["states"]
+        order = self._state_order()
+        if len(loaded) != len(order):
+            raise MXNetError("states of %d parameters, this trainer has %d"
+                             % (len(loaded), len(order)))
+        with torch.no_grad():
+            for i, st in zip(order, loaded):
+                live, saved = _leaves(self._states[i]), _leaves(st)
+                if len(live) != len(saved):
+                    raise MXNetError(
+                        "the states of %s have %d leaves in the file and %d "
+                        "here (another optimizer or its multi_precision)"
+                        % (self._param_names[i], len(saved), len(live)))
+                for t, a in zip(live, saved):
+                    t.copy_(torch.as_tensor(np.asarray(a)).to(t.device))
+        self._set_cursor(blob["step"], blob["num_update"])
+
+    def _set_cursor(self, step, num_update):
+        """The step count and the optimizer's update counts of ``step``
+        steps (every parameter is updated once a step)."""
+        o = self._optimizer
+        self._step_count = int(step)
+        o.num_update = int(num_update)
+        o._index_update_count = {
+            i: o.begin_num_update + self._step_count
+            for i in range(len(self._arrays))} if self._step_count else {}
+
+    def snapshot_params(self):
+        """Host copies of the block's parameters and floating buffers now,
+        as a writer ``fn(fname)`` of the ``nd.save`` container by module
+        name (for `CheckpointManager.save_async`)."""
+        self._whole("save_params")
+        from ..ndarray import ndarray as _nd
+
+        host = {n: _host(t) for n, t in self._named_tensors().items()}
+        host = {n: _nd.NDArray(a) if torch.is_tensor(a) else a
+                for n, a in host.items()}
+        return lambda fname: _nd.save(fname, host)
+
+    def save_params(self, fname):
+        """The block's parameters and floating buffers by module name, in
+        the ``nd.save`` container."""
+        self.snapshot_params()(fname)
+
+    def load_params(self, fname):
+        """Copy a `save_params` file into the live tensors."""
+        self._whole("load_params")
+        from ..context import cpu
+        from ..ndarray import ndarray as _nd
+
+        loaded = _nd.load(fname, ctx=cpu())
+        live = self._named_tensors()
+        missing = sorted(set(live) - set(loaded))
+        if missing:
+            raise MXNetError("%s lacks %s" % (fname, missing[:5]))
+        with torch.no_grad():
+            for n, t in live.items():
+                t.copy_(loaded[n]._data.to(t.device))
+
+    def save_checkpoint(self, directory, step=0):
+        """``<directory>/step_%08d/`` with ``params`` (`save_params`) and
+        ``states`` (`save_states`): the port's own layout, where the JAX
+        package writes an orbax tree."""
+        path = os.path.join(os.path.abspath(os.fspath(directory)),
+                            "step_%08d" % step)
+        os.makedirs(path, exist_ok=True)
+        self.save_params(os.path.join(path, "params"))
+        self.save_states(os.path.join(path, "states"))
+
+    def load_checkpoint(self, directory, step=0):
+        """Restore a `save_checkpoint` directory."""
+        path = os.path.join(os.path.abspath(os.fspath(directory)),
+                            "step_%08d" % step)
+        self.load_params(os.path.join(path, "params"))
+        self.load_states(os.path.join(path, "states"))
+
+    # -- per-rank sharded checkpoints (the resilience format) --------------
+    def _block_key(self, i, shape):
+        """The (start, stop) range a dimension of this rank's block of
+        parameter ``i`` (or of a state leaf of its shape) within the whole
+        tensor, and the whole tensor's shape."""
+        spec = self._specs[i] if i in self._sharded else ()
+        key, full = [], []
+        for d, n in enumerate(shape):
+            entry = spec[d] if d < len(spec) else None
+            index, size = (0, 1) if entry is None \
+                else _coordinate(self._mesh, entry)
+            key.append((index * n, (index + 1) * n))
+            full.append(n * size)
+        return tuple(key), tuple(full)
+
+    def _entry(self, t, i=None):
+        key, full = self._block_key(i, tuple(t.shape)) if i is not None \
+            and tuple(t.shape) == tuple(self._arrays[i].shape) \
+            else (tuple((0, n) for n in t.shape), tuple(t.shape))
+        return {"shape": full, "dtype": str(t.dtype).replace("torch.", ""),
+                "pieces": [(key, _host(t))]}
+
+    def shard_snapshot(self):
+        """Host copies of this rank's blocks of every parameter, floating
+        buffer and state leaf (the async sharded checkpoint's payload; the
+        only cost the training thread pays)."""
+        index = {n: i for i, n in enumerate(self._names)}
+        return {
+            "params": {n: self._entry(t, index.get(n))
+                       for n, t in self._named_tensors().items()},
+            "states": [[self._entry(leaf, i)
+                        for leaf in _leaves(self._states[i])]
+                       for i in range(len(self._states))],
+            "step": self._step_count,
+            "num_update": self._optimizer.num_update,
+        }
+
+    def _install_shard_payloads(self, payloads, header):
+        """The `CheckpointManager.restore_sharded` loader: the parameters,
+        buffers, states and cursors from shard payloads. A block this rank
+        holds is taken as saved where a payload has it (the fast path);
+        else the whole array is put together from every shard's blocks
+        (coverage checked) and this rank's block cut from it, for the new
+        mesh."""
+        plist = [payloads[r] for r in sorted(payloads)]
+
+        def install(t, entries, i, what):
+            shape = tuple(entries[0]["shape"])
+            pieces = {}
+            for e in entries:
+                if tuple(e["shape"]) != shape:
+                    raise MXNetError(
+                        "sharded checkpoint: %s changed shape (saved %r, a "
+                        "shard says %r)" % (what, shape, tuple(e["shape"])))
+                for key, data in e["pieces"]:
+                    pieces[tuple(tuple(p) for p in key)] = data
+            want = self._block_key(i, tuple(t.shape))[0] if i is not None \
+                and tuple(t.shape) == tuple(self._arrays[i].shape) \
+                else tuple((0, n) for n in t.shape)
+            data = pieces.get(want)
+            if data is None:
+                # bf16 blocks put together in f32 (exact both ways)
+                pieces = {k: v.float().numpy() if torch.is_tensor(v) else v
+                          for k, v in pieces.items()}
+                out = np.zeros(shape, pieces[next(iter(pieces))].dtype)
+                cover = np.zeros(shape, bool)
+                for key, part in pieces.items():
+                    slc = tuple(slice(a, b) for a, b in key)
+                    out[slc] = part
+                    cover[slc] = True
+                if not cover.all():
+                    raise MXNetError(
+                        "sharded checkpoint: the shard set does not cover "
+                        "%s — an elastic resume needs every saved rank's "
+                        "shard" % what)
+                data = out[tuple(slice(a, b) for a, b in want)]
+            t.copy_(_from_host(data, t))
+
+        index = {n: i for i, n in enumerate(self._names)}
+        with torch.no_grad():
+            for n, t in self._named_tensors().items():
+                entries = [p["params"].get(n) for p in plist]
+                if any(e is None for e in entries):
+                    raise MXNetError(
+                        "sharded checkpoint: parameter %r missing from a "
+                        "shard — the checkpoint was saved for a different "
+                        "model" % n)
+                install(t, entries, index.get(n), "param %r" % n)
+            for k, st in enumerate(self._states):
+                live = _leaves(st)
+                per = [p["states"][k] for p in plist]
+                if any(len(pp) != len(live) for pp in per):
+                    raise MXNetError(
+                        "sharded checkpoint: optimizer state %d leaf count "
+                        "mismatch — saved with a different optimizer" % k)
+                for j, leaf in enumerate(live):
+                    install(leaf, [pp[j] for pp in per], k,
+                            "state[%d][%d]" % (k, j))
+        self._set_cursor(plist[0]["step"], plist[0]["num_update"])
+
+    def _shard_identity(self):
+        return coll.rank(), coll.num_workers(), mesh_fingerprint(self._mesh)
+
+    def save_sharded_checkpoint(self, manager, step=None, meta=None):
+        """This rank's shard of a sharded checkpoint through ``manager``
+        (a `resilience.CheckpointManager`): the snapshot on this thread,
+        the write and rank 0's manifest on the manager's background
+        writer (``MXTPU_CKPT_ASYNC``). Every rank calls it at the same
+        step boundary."""
+        rank, world, topology = self._shard_identity()
+        return manager.save_sharded_async(
+            self._step_count if step is None else step,
+            self.shard_snapshot(), rank=rank, world_size=world,
+            topology=topology, meta=meta)
+
+    def emergency_sharded_checkpoint(self, manager, meta=None):
+        """The preemption path's solo synchronous checkpoint: flush the
+        manager's async writer, then publish this rank's snapshot as a
+        one-shard manifest (rank 0 of world 1), with no help from the other
+        ranks (only this one was notified; the others may be waiting in a
+        collective). Raises `MXNetError`, after the flush, where this rank's
+        blocks do not cover the model (a parameter split over ranks): the
+        group then resumes from its last periodic sharded checkpoint."""
+        _, world, topology = self._shard_identity()
+        manager.flush()
+        if world > 1 and self._sharded:
+            raise MXNetError(
+                "emergency_sharded_checkpoint: %s is split over the mesh, so "
+                "this rank's shard alone cannot restore the model; resume "
+                "from the last sharded checkpoint of every rank"
+                % self._param_names[self._sharded[0]])
+        m = dict(meta or {})
+        m.setdefault("preempt", True)
+        return manager.save_sharded(
+            self._step_count, self.shard_snapshot(), rank=0, world_size=1,
+            topology=topology, meta=m)
+
+    def restore_sharded_checkpoint(self, manager, step=None):
+        """Restore the newest complete sharded checkpoint (or ``step``)
+        onto this mesh, resharding when the saved world size or topology
+        differs. Returns the manifest, or None when there is none."""
+        rank, world, topology = self._shard_identity()
+        return manager.restore_sharded(
+            self._install_shard_payloads, step=step, rank=rank,
+            world_size=world, topology=topology)
+
+
+def _host(t):
+    """A host copy of a tensor: numpy, or a CPU tensor for bf16, which
+    numpy has no type for."""
+    t = t.detach().to("cpu", copy=True)
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _from_host(a, like):
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def _leaves(st):
+    """The tensors of an optimizer state (None, a tensor, or nested
+    tuples and lists of them), in order."""
+    if st is None:
+        return []
+    if isinstance(st, (list, tuple)):
+        return [t for s in st for t in _leaves(s)]
+    return [st._data if hasattr(st, "_data") else st]
+
+
+def _tree_map(fn, st):
+    if st is None:
+        return None
+    if isinstance(st, (list, tuple)):
+        return type(st)(_tree_map(fn, s) for s in st)
+    return fn(st._data if hasattr(st, "_data") else st)

@@ -27,7 +27,9 @@ CPU; and the conv epilogue's raw mode and finishing kernels (a batch
 split over ranks) against their plain versions, attention at batch 1
 (fault F8), and a `PipelineTrainer` step at pp 1 on the card against the
 CPU; and a Parameter over ``[cpu(0), gpu(0)]`` trained through
-`gluon.Trainer` against the same run over ``[cpu(0), cpu(1)]``.
+`gluon.Trainer` against the same run over ``[cpu(0), cpu(1)]``; and a
+ResNet-50 `DistributedTrainer` checkpoint (`CheckpointManager`) restored
+into a fresh trainer, whose next step is bit-equal (``-k resilience``).
 
 Every test is marked ``cuda`` and decides inside itself whether a card is
 present; without one it skips. The file imports neither JAX nor the JAX
@@ -1966,3 +1968,49 @@ def test_parameters_over_host_and_card_train_as_over_two_host_contexts():
             scale = max(float(np.abs(want).max()), 1e-6)
             assert float(np.abs(got.asnumpy() - want).max()) \
                 <= 1e-6 * scale, name
+
+
+# ---------------------------------------------------------------------------
+# resilience: a DistributedTrainer checkpoint on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_resilience_resnet50_checkpoint_restores_bit_equal(tmp_path):
+    """ResNet-50 v1 NHWC bf16 (fused epilogue) at 32 images: two steps,
+    a `CheckpointManager` checkpoint of the parameters, buffers and
+    momentum, then a third step; a fresh trainer from another seed
+    restores the checkpoint and its third step gives the same loss and the
+    same parameters, buffers and states bit for bit (cuDNN's deterministic
+    algorithms)."""
+    _need_card()
+    from chip_smoke import deterministic, restore_flags, resilience_trainer
+    from chip_smoke import trained_arrays
+    from mxnet_tpu_torch.parallel.resilience import CheckpointManager
+
+    prev = deterministic(torch)
+    try:
+        net, tr, x, y = resilience_trainer(torch, 0, batch=32)
+        for _ in range(2):
+            tr.step(x, y)
+        mgr = CheckpointManager(str(tmp_path / "ckpt"))
+        path = mgr.save(tr.step_count, save_params=tr.save_params,
+                        save_states=tr.save_states)
+        assert mgr.latest() == (2, path)
+        want_loss = tr.step(x, y)._data.clone()
+        want = trained_arrays(net, tr, str(tmp_path))
+        del net, tr
+        net, tr = resilience_trainer(torch, 1, batch=32)[:2]
+        header = mgr.restore(load_params=tr.load_params,
+                             load_states=tr.load_states)
+        assert header["step"] == 2 and tr.step_count == 2
+        before = tpk.epi_stats.launches
+        loss = tr.step(x, y)._data
+        torch.cuda.synchronize()
+        assert tpk.epi_stats.launches == before + 53
+        assert torch.equal(loss, want_loss)
+        got = trained_arrays(net, tr, str(tmp_path))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    finally:
+        restore_flags(torch, prev)

@@ -285,8 +285,10 @@ def test_unported_parts_raise(cpu, tmp_path):
     x, y = _data(NETS["mlp"][1], seed=1)
     it = mx.io.NDArrayIter(x, y, batch_size=BATCH)
     mod = mx.mod.Module(_build(mx, "mlp"))
-    with pytest.raises(MXNetError, match="item 13"):
-        mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))
+    # checkpoints are ported (tests/test_torch_port_resilience.py); a
+    # resume without a directory raises, as in the JAX package
+    with pytest.raises(MXNetError, match="checkpoint_dir"):
+        mod.fit(it, num_epoch=1, resume="auto")
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(mx.init.Xavier())
     # every kvstore name of the JAX Module is taken (run as "device")
