@@ -545,6 +545,38 @@ Phases; each raises on failure, and the script then exits non-zero:
    share on the training thread), steps/s with and without saves, the
    phase's seconds, with the card's name and power limit; its launches
    are the ``launches_resilience`` counts.
+24. interop (after resilience; cuDNN's deterministic algorithms and no
+   TF32): (a) ResNet-50 v1 (NCHW, f32, from ``--seed``) traced with
+   ``net(mx.sym.var("data"))``, written by ``contrib.onnx.export_model``
+   at (1, 3, 224, 224) and read back by ``import_model``;
+   ``get_model_metadata`` names the input and its shape and the output;
+   the imported graph bound on ``mx.gpu(0)`` gives the gluon net's eval
+   logits on 32 images within rtol 1e-4 and atol 1e-4. (b) the custom op
+   ``softmax_rtc`` (`operator.CustomOp`): its forward launches the rtc
+   phase's ``softmax_fwd<float>`` and its backward a user kernel of its
+   own (``p - onehot(label)``), both through ``mx.rtc.CudaModule`` on the
+   op's own arrays in place, after asserting that every input lies on
+   ``cuda:0``; ``test_utils.check_symbolic_forward`` / ``_backward`` of
+   ``sym.Custom(x, label, op_type="softmax_rtc")`` at (32, 1000) equal
+   the built-in ``SoftmaxOutput``'s within 1e-5. (c) the imported graph
+   with that head, ``subgraph.partition``ed with ``"default"`` and not:
+   two `Module`s on the card take 3 SGD steps (momentum 0.9) at 32 x
+   224^2 from the same weights; their losses and final weights are equal
+   bit for bit (else within a second unpartitioned run's difference); a
+   third module with ``SoftmaxOutput`` gives the same first-step
+   gradients within 1e-4 of their scale; the launches of the four
+   epilogue kernels and of rtc are > 0 in each run and equal between the
+   partitioned and the unpartitioned. (d) ``runtime.Features()`` has
+   GPU, CUDA, CUDNN, NCCL and CUDA_RTC on and TPU and PALLAS off;
+   ``runtime.dial_devices()`` returns the card and writes the topology
+   cache with its name; ``test_utils.default_context()`` is ``gpu(0)``;
+   ``engine.wait_all()`` returns after a queued sleep kernel is done (its
+   event not done before, done after); under ``engine.naive_engine()`` the
+   stream is idle after an ``mx.nd`` op (and busy after one without).
+   Prints the ONNX file's bytes and the export and import seconds, the
+   custom op's host µs a call, ms a step of the partitioned and the
+   unpartitioned module, and the phase's seconds, with the card's name
+   and power limit; its launches are the ``launches_interop`` counts.
 
 ``--profile`` also adds a `torch.profiler` breakdown of one decode step.
 The last three lines of standard output are the card's name and power
@@ -10511,6 +10543,366 @@ def resilience_phase(torch, pk, args):
     return out
 
 
+# phase 24, interop: ONNX, the custom-op head, partitioning, the engine and
+# runtime surface
+INTEROP_BATCH = 32
+INTEROP_CLASSES = 1000
+INTEROP_STEPS = 3
+INTEROP_TOL = 1e-4
+INTEROP_HEAD_TOL = 1e-5
+INTEROP_CALLS = 200
+# the head's backward, p - onehot(label) (SoftmaxOutput's gradient): one
+# block a row
+INTEROP_CE_BWD = r"""
+extern "C" __global__ void softmax_ce_bwd(const float *y, const float *label,
+                                          float *dx, int n) {
+    size_t off = (size_t)blockIdx.x * n;
+    int l = (int)label[blockIdx.x];
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+        dx[off + i] = y[off + i] - (i == l ? 1.0f : 0.0f);
+}
+"""
+INTEROP_CE_BLOCK = 256
+
+
+def interop_register_head(mx, dev):
+    """Register the custom op ``softmax_rtc``: SoftmaxOutput's forward and
+    gradient as an `operator.CustomOp` whose calls launch NVRTC kernels on
+    the op's own NDArrays, in place (the reference's custom op with rtc).
+    Returns a dict counting the forward calls that found every input on
+    ``dev``."""
+    from mxnet_tpu_torch import rtc
+
+    soft = rtc.CudaModule(RTC_SOFTMAX, exports=RTC_SOFTMAX_EXPORTS)
+    fwd = rtc_kernels(soft, "float")["fwd"]
+    bwd = rtc.CudaModule(INTEROP_CE_BWD).get_kernel(
+        "softmax_ce_bwd", "const float *y, const float *label, float *dx, "
+        "int n")
+    seen = {"forward_on_card": 0}
+
+    class SoftmaxRTC(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            for a in in_data + out_data:
+                if a._data.device != dev:
+                    raise AssertionError("softmax_rtc: an array on %s, not "
+                                         "%s" % (a._data.device, dev))
+            seen["forward_on_card"] += 1
+            x, y = in_data[0], out_data[0]
+            rows, n = x.shape
+            fwd.launch([x, y, n], x.context, (rows,), (RTC_BLOCK,), 4 * n)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y, label, dx = out_data[0], in_data[1], in_grad[0]
+            rows, n = y.shape
+            bwd.launch([y, label, dx, n], y.context, (rows,),
+                       (INTEROP_CE_BLOCK,))
+
+    @mx.operator.register("softmax_rtc")
+    class SoftmaxRTCProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return ([in_shape[0], [in_shape[0][0]]], [in_shape[0]], [])
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return SoftmaxRTC()
+
+    return seen
+
+
+def interop_counts(pk):
+    from mxnet_tpu_torch import rtc
+
+    out = {k: getattr(pk, k).launches for k in EPI_KERNELS}
+    out["rtc"] = rtc.CudaKernel.launches
+    return out
+
+
+def interop_zero(pk):
+    from mxnet_tpu_torch import rtc
+
+    for k in EPI_KERNELS:
+        getattr(pk, k).launches = 0
+    rtc.CudaKernel.launches = 0
+
+
+def interop_fit(torch, pk, mx, sym, args, auxs, batches):
+    """A `Module` of ``sym`` on the card, from ``args`` / ``auxs``, through
+    ``len(batches)`` SGD steps (momentum 0.9); returns each step's loss
+    (mean -log p[label], from the head's output), the first step's
+    gradients, the final weights, the ms a step (the first excluded) and
+    the launch counts of the run."""
+    mod = mx.mod.Module(sym, data_names=["data"],
+                        label_names=["softmax_label"], context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", batches[0][0].shape)],
+             label_shapes=[("softmax_label", batches[0][1].shape)])
+    mod.set_params({k: v.copy() for k, v in args.items()},
+                   {k: v.copy() for k, v in auxs.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.01, "momentum": 0.9})
+    torch.cuda.synchronize()
+    interop_zero(pk)
+    losses, grads, times = [], None, []
+    for i, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        mod.forward(mx.io.DataBatch([x], [y]), is_train=True)
+        mod.backward()
+        if i == 0:
+            grads = {k: mod._exec.grad_dict[k]._data.clone() for k in args}
+        mod.update()
+        p = mod.get_outputs()[0]._data
+        picked = p.gather(1, y._data.long().view(-1, 1))
+        losses.append(float(-torch.log(picked).mean()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = interop_counts(pk)
+    weights = {k: mod._exec.arg_dict[k]._data.clone() for k in args}
+    return losses, grads, weights, 1e3 * sum(times[1:]) / (len(times) - 1), \
+        counts
+
+
+def interop_phase(torch, pk, args):
+    """Phase 24 (see the module docstring). Returns the launch counts of
+    part (c)'s partitioned and unpartitioned runs together."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine, runtime, subgraph, test_utils
+    from mxnet_tpu_torch.contrib import onnx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    t_phase = time.monotonic()
+    card = smi_line()
+    dev = torch.device("cuda", 0)
+    prev = deterministic(torch)
+    rng = np.random.RandomState(args.seed)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-interop-") as tmp:
+            # (a) the ONNX round trip at full width
+            mx.random.seed(args.seed)
+            net = vision.resnet50_v1()
+            net.initialize(mx.init.Xavier())
+            x = mx.nd.array(rng.uniform(-1, 1, (INTEROP_BATCH, 3, 224, 224))
+                            .astype(np.float32), ctx=mx.gpu(0))
+            want = net(x).asnumpy()
+            sym = net(mx.sym.var("data"))
+            params = {k: v.data() for k, v in net.collect_params().items()}
+            path = os.path.join(tmp, "resnet50_v1.onnx")
+            t0 = time.monotonic()
+            onnx.export_model(sym, params, (1, 3, 224, 224),
+                              onnx_file_path=path)
+            t_export = time.monotonic() - t0
+            t0 = time.monotonic()
+            isym, iargs, iauxs = onnx.import_model(path)
+            t_import = time.monotonic() - t0
+            meta = onnx.get_model_metadata(path)
+            if meta["input_tensor_data"] != [("data", (1, 3, 224, 224))] or \
+                    [n for n, _ in meta["output_tensor_data"]] != [sym.name]:
+                raise AssertionError("interop (a): metadata %s, graph "
+                                     "output %s" % (meta, sym.name))
+            if len(iauxs) != 2 * 53 or any(
+                    a._data.device != dev for a in iargs.values()):
+                raise AssertionError("interop (a): %d aux states (want the "
+                                     "53 BatchNorms' moving statistics)"
+                                     % len(iauxs))
+            got = isym.bind(mx.gpu(0), args={**iargs, "data": x},
+                            grad_req="null", aux_states=iauxs).forward(
+                is_train=False)[0].asnumpy()
+            err = float(np.abs(got - want).max())
+            np.testing.assert_allclose(got, want, rtol=INTEROP_TOL,
+                                       atol=INTEROP_TOL,
+                                       err_msg="interop (a): imported "
+                                       "graph vs the gluon net")
+            log("interop (a): resnet50_v1 -> ONNX %d bytes, export %.2f s, "
+                "import %.2f s; metadata input %s, output %s (the exporter "
+                "writes no output shape; the imported graph infers %s); 32 "
+                "images' eval logits on the card within %g of the gluon "
+                "net's (largest difference %.3g); %s"
+                % (os.path.getsize(path), t_export, t_import,
+                   meta["input_tensor_data"], meta["output_tensor_data"],
+                   isym.infer_shape(data=(INTEROP_BATCH, 3, 224, 224))[1],
+                   INTEROP_TOL, err, card))
+            del net, x, params, want, got
+
+            # (b) the custom-op head
+            seen = interop_register_head(mx, dev)
+            xh = rng.randn(INTEROP_BATCH, INTEROP_CLASSES).astype(
+                np.float32) * 3
+            lab = rng.randint(0, INTEROP_CLASSES, INTEROP_BATCH).astype(
+                np.float32)
+            loc = {"data": xh, "label": lab}
+            ref = mx.sym.SoftmaxOutput(mx.sym.var("data"),
+                                       mx.sym.var("label"))
+            rexe = ref.bind(mx.gpu(0), args={
+                "data": mx.nd.array(xh, ctx=mx.gpu(0)),
+                "label": mx.nd.array(lab, ctx=mx.gpu(0))},
+                grad_req={"data": "write", "label": "null"})
+            rout = rexe.forward(is_train=True)[0].asnumpy()
+            rexe.backward()
+            rgrad = rexe.grad_dict["data"].asnumpy()
+            head = mx.sym.Custom(mx.sym.var("data"), mx.sym.var("label"),
+                                 op_type="softmax_rtc")
+            test_utils.check_symbolic_forward(
+                head, loc, [rout], rtol=INTEROP_HEAD_TOL,
+                atol=INTEROP_HEAD_TOL, ctx=mx.gpu(0))
+            test_utils.check_symbolic_backward(
+                head, loc, [np.ones_like(xh)], {"data": rgrad},
+                rtol=INTEROP_HEAD_TOL, atol=INTEROP_HEAD_TOL,
+                ctx=mx.gpu(0))
+            if seen["forward_on_card"] < 2:
+                raise AssertionError("interop (b): the head's forward ran "
+                                     "%d times" % seen["forward_on_card"])
+            xn = mx.nd.array(xh, ctx=mx.gpu(0))
+            ln = mx.nd.array(lab, ctx=mx.gpu(0))
+            mx.nd.Custom(xn, ln, op_type="softmax_rtc").wait_to_read()
+            t0 = time.perf_counter()
+            for _ in range(INTEROP_CALLS):
+                out = mx.nd.Custom(xn, ln, op_type="softmax_rtc")
+            host_us = 1e6 * (time.perf_counter() - t0) / INTEROP_CALLS
+            out.wait_to_read()
+            log("interop (b): softmax_rtc (NVRTC softmax_fwd<float> / "
+                "softmax_ce_bwd on the op's arrays) = SoftmaxOutput within "
+                "%g at (%d, %d), forward and backward; every forward found "
+                "its inputs on %s; %.1f host µs a call (mean of %d "
+                "mx.nd.Custom calls); %s"
+                % (INTEROP_HEAD_TOL, INTEROP_BATCH, INTEROP_CLASSES, dev,
+                   host_us, INTEROP_CALLS, card))
+
+            # (c) training through the imported, partitioned graph
+            label = mx.sym.var("softmax_label")
+            custom = mx.sym.Custom(isym, label, op_type="softmax_rtc",
+                                   name="softmax")
+            part = subgraph.partition(custom, "default")
+            ops = [n.op for n in part._topo() if not n.is_var]
+            fused = sum(op.startswith("_subgraph_") for op in ops)
+            if "Convolution" in ops or ops.count("BatchNorm") != 53 or \
+                    ops[-1] != "Custom":
+                raise AssertionError("interop (c): partitioned ops %s"
+                                     % sorted(set(ops)))
+            builtin = mx.sym.SoftmaxOutput(isym, label, name="softmax")
+            batches = [(mx.nd.array(rng.uniform(-1, 1, (
+                INTEROP_BATCH, 3, 224, 224)).astype(np.float32),
+                ctx=mx.gpu(0)),
+                mx.nd.array(rng.randint(0, INTEROP_CLASSES, INTEROP_BATCH)
+                            .astype(np.float32), ctx=mx.gpu(0)))
+                for _ in range(INTEROP_STEPS)]
+            runs = {name: interop_fit(torch, pk, mx, s, iargs, iauxs, batches)
+                    for name, s in (("plain", custom), ("partitioned", part),
+                                    ("builtin", builtin))}
+            plain, parted = runs["plain"], runs["partitioned"]
+            same = plain[0] == parted[0] and all(
+                torch.equal(plain[2][k], parted[2][k]) for k in iargs)
+            if not same:
+                again = interop_fit(torch, pk, mx, custom, iargs, iauxs,
+                                    batches)
+                for k in iargs:
+                    room = float((again[2][k] - plain[2][k]).abs().max())
+                    gap = float((parted[2][k] - plain[2][k]).abs().max())
+                    if gap > room:
+                        raise AssertionError(
+                            "interop (c): %s differs by %g partitioned, "
+                            "two plain runs by %g" % (k, gap, room))
+            worst = (-1.0, "")
+            for k in iargs:
+                g, r = plain[1][k], runs["builtin"][1][k]
+                scale = float(r.abs().max())
+                diff = float((g - r).abs().max())
+                if diff > INTEROP_TOL * max(scale, 1e-30):
+                    raise AssertionError("interop (c): %s's gradient %g "
+                                         "from SoftmaxOutput's (scale %g)"
+                                         % (k, diff, scale))
+                worst = max(worst, (diff / max(scale, 1e-30), k))
+            for name in ("plain", "partitioned"):
+                if min(runs[name][4].values()) < 1:
+                    raise AssertionError("interop (c): %s launches %s"
+                                         % (name, runs[name][4]))
+            if plain[4] != parted[4]:
+                raise AssertionError("interop (c): launches %s unpartitioned, "
+                                     "%s partitioned" % (plain[4], parted[4]))
+            if runs["builtin"][4]["rtc"]:
+                raise AssertionError("interop (c): the built-in head "
+                                     "launched rtc kernels")
+            log("interop (c): the imported resnet50_v1 + softmax_rtc head, "
+                "%d fused subgraph nodes beside 53 BatchNorms and the head; "
+                "%d SGD steps at %d x 224^2: losses %s, %s the unpartitioned "
+                "run's (weights %s); first-step gradients within %.3g of "
+                "SoftmaxOutput's scale (largest: %s); launches a run %s; ms a "
+                "step "
+                "(steps 2-%d) unpartitioned %.2f, partitioned %.2f, "
+                "SoftmaxOutput %.2f; %s"
+                % (fused, INTEROP_STEPS, INTEROP_BATCH,
+                   ["%.6f" % v for v in parted[0]],
+                   "equal to" if same else "within a second run of",
+                   "bit for bit" if same else "within that run's spread",
+                   worst[0], worst[1], plain[4], INTEROP_STEPS, plain[3],
+                   parted[3],
+                   runs["builtin"][3], card))
+            counts = {k: plain[4][k] + parted[4][k] for k in plain[4]}
+            del runs, batches, iargs, iauxs
+            torch.cuda.empty_cache()
+
+            # (d) the runtime and engine surface on the card
+            feats = runtime.Features()
+            on = {n for n, f in feats.items() if f.enabled}
+            if not {"GPU", "CUDA", "CUDNN", "NCCL", "CUDA_RTC"} <= on or \
+                    {"TPU", "PALLAS"} & on:
+                raise AssertionError("interop (d): features %r" % feats)
+            cache = os.path.join(tmp, "topology.json")
+            old = os.environ.get("MXTPU_TOPOLOGY_CACHE")
+            os.environ["MXTPU_TOPOLOGY_CACHE"] = cache
+            try:
+                t0 = time.monotonic()
+                devs = runtime.dial_devices(timeout_s=60)
+                t_dial = time.monotonic() - t0
+                topo = runtime.cached_topology()
+            finally:
+                if old is None:
+                    os.environ.pop("MXTPU_TOPOLOGY_CACHE")
+                else:
+                    os.environ["MXTPU_TOPOLOGY_CACHE"] = old
+            if devs[0] != dev or topo["device_kind"] != \
+                    torch.cuda.get_device_name(0) or \
+                    topo["device_count"] != torch.cuda.device_count():
+                raise AssertionError("interop (d): dial %s, cache %s"
+                                     % (devs, topo))
+            if test_utils.default_context() != mx.gpu(0):
+                raise AssertionError("interop (d): default_context %s"
+                                     % test_utils.default_context())
+            ev = torch.cuda.Event()
+            torch.cuda._sleep(50 * TIMING_SLEEP_CYCLES)
+            ev.record()
+            before = ev.query()
+            engine.wait_all()
+            if before or not ev.query():
+                raise AssertionError("interop (d): wait_all: the event was "
+                                     "%s before and %s after"
+                                     % (before, ev.query()))
+            a = mx.nd.ones((1024,), ctx=mx.gpu(0))
+            idle = {}
+            for naive in (False, True):
+                with engine.naive_engine(naive):
+                    torch.cuda._sleep(50 * TIMING_SLEEP_CYCLES)
+                    (a + 1).sqrt()
+                    idle[naive] = torch.cuda.current_stream().query()
+                torch.cuda.synchronize()
+            if idle != {False: False, True: True}:
+                raise AssertionError("interop (d): the stream idle after "
+                                     "an op %s (naive: True)" % idle)
+            log("interop (d): features on %s; dial_devices %s in %.3f s, "
+                "cache %s; default_context %s; wait_all waited for a queued "
+                "sleep; under naive_engine the stream is idle after each "
+                "mx.nd op (busy without)"
+                % (sorted(on), [str(d) for d in devs], t_dial,
+                   topo["device_kind"], test_utils.default_context()))
+    finally:
+        restore_flags(torch, prev)
+    log("interop: phase %.1f s; launches (unpartitioned + partitioned) %s; "
+        "%s" % (time.monotonic() - t_phase, counts, card))
+    return counts
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -10642,7 +11034,7 @@ def main(argv=None):
              "replica_pool": {}, "autoscale": {}, "detection": {},
              "profiler": {},
              "sparse": {}, "mesh": {}, "pipeline": {}, "ranks2": {},
-             "dist_kv": {}, "resilience": {}})
+             "dist_kv": {}, "resilience": {}, "interop": {}})
     for part in ctc_ocr(torch, pk, args):
         for k, n in part.items():
             extra["ctc_ocr"][k] = extra["ctc_ocr"].get(k, 0) + n
@@ -10679,6 +11071,8 @@ def main(argv=None):
     extra["dist_kv"] = dist_kv_phase(torch, pk, args)
     torch.cuda.empty_cache()
     extra["resilience"] = resilience_phase(torch, pk, args)
+    torch.cuda.empty_cache()
+    extra["interop"] = interop_phase(torch, pk, args)
     torch.cuda.empty_cache()
     # the finishing kernels' path is the ranks2 phase's (a batch over dp)
     for k in EPI_SYNC_KERNELS:
@@ -10717,7 +11111,8 @@ def main(argv=None):
                 # dist_kv phase's ResNet-50 through the dist_sync kvstore,
                 # the resilience phase's preempted ResNet-50 (both
                 # generations), its fsdp ranks' finishing kernels and its
-                # checkpointed word LM fits
+                # checkpointed word LM fits, the interop phase's imported
+                # ResNet-50 with the custom-op head, partitioned and not
                 row["launches_" + phase] = counts[k["name"]]
         row.update(rows[k["name"]])
         kernels.append(row)

@@ -36,7 +36,7 @@ prefetcher and sharded record streams), the file iterators of ``io`` and
 and ``profiler`` (chrome traces of the ``mx.nd``, executor and autograd
 dispatch, torch.profiler traces of the card) and ``contrib`` (int8
 ``quantization`` over ``torch._int_mm``, ``text``, ``io``,
-``svrg_optimization``, the legacy ``autograd``; not ``onnx``); and sparse
+``svrg_optimization``, the legacy ``autograd``, ``onnx``); and sparse
 storage: ``nd.sparse`` (row_sparse and csr arrays, row-sparse gradients,
 the lazy updates of SGD, Adam and AdaGrad), ``kv`` (``kvstore``: the
 single-process store, with ``gradient_compression``), ``gluon.contrib.nn``
@@ -51,7 +51,14 @@ sharded checkpoints, auto-resume, graceful preemption, fault injection)
 behind ``DistributedTrainer``'s checkpoints and ``Module.fit(checkpoint_dir=,
 resume=)``; and the rest of the symbolic façade: ``monitor`` (``Monitor``),
 ``log``, ``viz`` (``visualization``), ``mod.SequentialModule``,
-``mod.PythonModule`` / ``PythonLossModule`` and ``model.FeedForward``.
+``mod.PythonModule`` / ``PythonLossModule`` and ``model.FeedForward``;
+and extension and interchange: ``operator`` (custom operators in Python,
+``mx.nd.Custom`` / ``mx.sym.Custom``, run on the inputs' device),
+``subgraph`` (partitioning into fused nodes), ``contrib.onnx`` (import and
+export over a pure-Python protobuf shim), and the small top-level modules
+``engine`` (``wait_all``, the naive engine), ``runtime`` (the feature
+list and the bounded device dial), ``registry``, ``test_utils``,
+``util``, ``misc``, ``ndarray_doc``, ``symbol_doc`` and ``notebook``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``ctx=mx.cpu()`` for ``nd``) or runs them in a ``with
 context.scope(mx.cpu()):`` (or ``with mx.cpu():``) block; without a card
@@ -94,6 +101,8 @@ from . import parallel
 from . import executor_manager
 from . import log, monitor, visualization
 from . import visualization as viz
+from . import engine, registry, runtime, util, misc, ndarray_doc, symbol_doc
+from . import operator, subgraph, test_utils, notebook
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -109,7 +118,9 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "rnn", "predict", "recordio", "image", "data", "profiler",
            "contrib", "kvstore", "kv", "kvstore_server",
            "gradient_compression", "parallel", "executor_manager", "log",
-           "monitor", "visualization", "viz"]
+           "monitor", "visualization", "viz", "engine", "registry",
+           "runtime", "util", "misc", "ndarray_doc", "symbol_doc",
+           "operator", "subgraph", "test_utils", "notebook"]
 
 # a process with telemetry output (MXTPU_TELEMETRY_DIR, as a launched
 # job has) gets the flight recorder's SIGUSR1 dump handler at import, so a

@@ -327,8 +327,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
 
 
 def get_symbol(x):
-    raise MXNetError("autograd.get_symbol: the symbolic path is not ported "
-                     "yet")
+    raise MXNetError("autograd.get_symbol: use HybridBlock.export / Symbol API")
 
 
 class _Bridge(torch.autograd.Function):

@@ -419,3 +419,20 @@ _var("MXTPU_RENDEZVOUS_TIMEOUT", "int", 300,
      "raising a diagnosable `MXNetError`.")
 _var("MXTPU_RENDEZVOUS_RETRIES", "int", 0,
      "redials (exponential backoff) of a failed rendezvous.")
+
+# -- the device dial and the test helpers (same names and defaults as
+# mxnet_tpu/env.py) ------------------------------------------------------------
+_var("MXTPU_DIAL_TIMEOUT_S", "float", 60.0,
+     "`runtime.dial_devices`: seconds the device enumeration may block "
+     "before the deadline probe raises a diagnosable MXNetError. "
+     "Flight-recorder events bracket every dial.")
+_var("MXTPU_TOPOLOGY_CACHE", "str", None,
+     "path of the device-topology cache file `runtime.dial_devices` "
+     "writes after a successful dial of the card (platform, device kind, "
+     "count, timestamp JSON). A later failed dial reports the last known "
+     "topology instead of nothing.")
+_var("MXTPU_TEST_SEED", "int", None,
+     "fixed seed for `test_utils.with_seed` (printed on failure for "
+     "replay; `MXNET_TEST_SEED` is read first).")
+_var("MXTPU_TEST_EXAMPLES_FULL", "bool", False,
+     "`1` runs the slow model families of the ONNX round-trip tests too.")

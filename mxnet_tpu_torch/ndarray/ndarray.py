@@ -55,6 +55,7 @@ import numpy as _np
 import torch
 
 from .. import autograd as _autograd
+from .. import engine as _engine
 from .. import ops as _ops
 from .. import profiler as _profiler
 from .. import random as _random
@@ -684,6 +685,7 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
             _profiler.hook_backward(opdef.name, results)
         if opdef.num_outputs > 0:
             results = results[:opdef.visible_outputs]
+        _engine.op_done(dev)
         shared = {_storage(t) for t in arrays}
         out_nd = []
         for r in results:

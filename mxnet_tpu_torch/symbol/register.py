@@ -367,6 +367,24 @@ def infer_var_shapes(sym, known):
                     out_shapes[id(node)] = (shapes[node.name],)
                     progressed = True
                 continue
+            sub = getattr(_ops.get(node.op).fn, "subgraph", None)
+            if sub is not None and id(node) not in out_shapes:
+                # a fused node (`subgraph.partition`): its captured ops'
+                # rules give the shapes of the variables it takes
+                sub_sym, sub_names = sub
+                sub_known = {n: out_shapes[id(src)][idx]
+                             for n, (src, idx) in zip(sub_names, node.inputs)
+                             if id(src) in out_shapes}
+                try:
+                    inner = infer_var_shapes(sub_sym, sub_known)
+                except Exception:  # noqa: BLE001 - shapes not known yet
+                    inner = {}
+                for n, (src, _) in zip(sub_names, node.inputs):
+                    v = src if src.is_var else resolve_var(src)
+                    if n in inner and v is not None and v.name not in shapes:
+                        shapes[v.name] = tuple(inner[n])
+                        out_shapes[id(v)] = (shapes[v.name],)
+                        progressed = True
             rule = _ARG_SHAPE_RULES.get(node.op)
             if rule is not None:
                 first_src, first_idx = node.inputs[0]

@@ -18,6 +18,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
+from .. import engine as _engine
 from .. import ops as _ops
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
@@ -327,6 +328,9 @@ class Symbol:
             else:
                 with torch.device(device):   # factories make it there
                     out = opdef.fn(**attrs)
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            if torch.is_tensor(first):
+                _engine.op_done(first.device)
             computed[id(node)] = tuple(out) if isinstance(out, (tuple, list)) \
                 else (out,)
         return [computed[id(node)][idx] for node, idx in self._outputs]

@@ -4,7 +4,7 @@ legacy autograd API, `DataLoaderIter`, the SVRG trainer on one data set
 (the losses within rtol 1e-5 of the JAX trainer's from the same weights:
 the same float32 arithmetic in another order), `text` from files written
 under ``tmp_path`` (vectors equal), the TensorRT surface, and
-``mx.contrib.onnx`` raising with the ROADMAP item it waits for.
+``mx.contrib.onnx`` exposed as the JAX package exposes it.
 """
 import collections
 
@@ -236,7 +236,13 @@ def test_tensorrt_surface_redirects():
 
 
 def test_onnx_is_not_ported_yet():
-    with pytest.raises(MXNetError, match="item 13"):
-        mx.contrib.onnx
-    with pytest.raises(MXNetError, match="item 13"):
-        from mxnet_tpu_torch.contrib import onnx  # noqa: F401
+    """ONNX is ported now (`tests/test_torch_port_interop.py` holds it to
+    the JAX package): ``mx.contrib.onnx`` is the module, as the JAX
+    package's is, and the old "not ported" error is gone."""
+    from mxnet_tpu_torch.contrib import onnx
+
+    assert mx.contrib.onnx is onnx
+    assert sorted(onnx.__all__) == ["export_model", "get_model_metadata",
+                                    "import_model"]
+    with pytest.raises(AttributeError):
+        mx.contrib.no_such_module  # noqa: B018

@@ -2014,3 +2014,70 @@ def test_resilience_resnet50_checkpoint_restores_bit_equal(tmp_path):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     finally:
         restore_flags(torch, prev)
+
+
+@pytest.mark.cuda
+def test_interop_softmax_rtc_custom_op_matches_plain():
+    """The interop phase's custom-op head (`chip_smoke.interop_register_head`:
+    NVRTC kernels launched on the op's own arrays) against its plain NDArray
+    version, forward and gradient, within 1e-5 of the output's scale; its
+    forward sees its inputs on the card and launches rtc kernels."""
+    _need_card()
+    import mxnet_tpu_torch as mx
+    from chip_smoke import interop_register_head
+
+    dev = torch.device("cuda", 0)
+    seen = interop_register_head(mx, dev)
+    rng = np.random.RandomState(0)
+    xv = rng.randn(32, 1000).astype(np.float32) * 3
+    lv = rng.randint(0, 1000, 32).astype(np.float32)
+    x = nd.array(xv, ctx=mx.gpu(0))
+    label = nd.array(lv, ctx=mx.gpu(0))
+    x.attach_grad()
+    before = rtc.CudaKernel.launches
+    with mx.autograd.record():
+        y = nd.Custom(x, label, op_type="softmax_rtc")
+    y.backward()
+    torch.cuda.synchronize()
+    assert seen["forward_on_card"] == 2          # the call and the recompute
+    assert rtc.CudaKernel.launches - before == 3  # fwd, fwd, bwd
+    want = nd.softmax(nd.array(xv, ctx=mx.gpu(0)), axis=-1).asnumpy()
+    np.testing.assert_allclose(y.asnumpy(), want, rtol=1e-5, atol=1e-5)
+    gwant = want.copy()
+    gwant[np.arange(32), lv.astype(np.int64)] -= 1.0
+    np.testing.assert_allclose(x.grad.asnumpy(), gwant, rtol=1e-5,
+                               atol=1e-5)
+    assert x.grad.context == mx.gpu(0)
+
+
+@pytest.mark.cuda
+def test_interop_onnx_resnet18_on_card_matches_gluon(tmp_path):
+    """A resnet18_v1 on the card, exported to ONNX and imported back, bound
+    on ``mx.gpu(0)``: its eval logits are the gluon net's within rtol
+    1e-4 / atol 1e-4 (the JAX ONNX test's tolerances), TF32 off."""
+    _need_card()
+    import mxnet_tpu_torch as mx
+    from chip_smoke import deterministic, restore_flags
+    from mxnet_tpu_torch.contrib import onnx
+
+    prev = deterministic(torch)
+    try:
+        mx.random.seed(3)
+        net = tresnet.resnet18_v1()
+        net.initialize(mx.init.Xavier())
+        x = nd.array(np.random.RandomState(1).uniform(
+            -1, 1, (4, 3, 64, 64)).astype(np.float32), ctx=mx.gpu(0))
+        want = net(x).asnumpy()
+        path = str(tmp_path / "r18.onnx")
+        onnx.export_model(net(mx.sym.var("data")),
+                          {k: v.data() for k, v in
+                           net.collect_params().items()},
+                          (4, 3, 64, 64), onnx_file_path=path)
+        sym, args, auxs = onnx.import_model(path)
+        assert all(a.context == mx.gpu(0) for a in args.values())
+        got = sym.bind(mx.gpu(0), args={**args, "data": x},
+                       grad_req="null", aux_states=auxs).forward(
+            is_train=False)[0].asnumpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    finally:
+        restore_flags(torch, prev)

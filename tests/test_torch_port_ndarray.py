@@ -445,8 +445,8 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     CTCLoss under 4, and ops/contrib.py's 24 ops under 50 names
     (_contrib_flash_attention and the two MoE ops among them), the 9 ops of
     ops/quantization.py under 21 names, and the 6 DGL graph ops of
-    ops/dgl.py under 12; each alias resolves to the op its JAX alias
-    names."""
+    ops/dgl.py under 12, and the custom-op bridge ``Custom`` of
+    operator.py; each alias resolves to the op its JAX alias names."""
     names, primaries = _jax_tensor_ops()
     assert (len(names), len(primaries)) == (228, 157)
     opt = sorted(n for n, o in jops._REGISTRY.items()
@@ -482,9 +482,10 @@ def test_registry_holds_every_jax_tensor_op_under_its_aliases():
     assert len(dgl) == 12
     slice17 = rand + linalg + ["CTCLoss", "ctc_loss", "_contrib_CTCLoss",
                                "_contrib_ctc_loss"] + contrib + quant + dgl
+    custom = ["Custom"]
     assert sorted(tops.list_ops()) == sorted(names + opt + layers + image + [
-        "softmax", "log_softmax"] + slice17)
-    for n in opt + layers + image + slice17:
+        "softmax", "log_softmax"] + slice17 + custom)
+    for n in opt + layers + image + slice17 + custom:
         assert tops.get(n).name == jops._REGISTRY[n].name, n
         assert callable(getattr(nd, n))
     assert sorted(SPECS) == sorted(primaries + ["softmax", "log_softmax"])
